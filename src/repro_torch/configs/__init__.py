@@ -1,0 +1,32 @@
+"""Architecture configs ported so far, by the reference's ids.
+
+Each module exposes CONFIG (the published configuration) and
+smoke_config() (a reduced same-family variant for CPU tests). The
+other architectures arrive with the slices that port their families.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+ARCH_IDS = ["internlm2_1_8b"]
+
+ALIASES = {i.replace("_", "-"): i for i in ARCH_IDS}
+ALIASES["internlm2-1.8b"] = "internlm2_1_8b"
+
+
+def _module(name: str):
+    name = ALIASES.get(name, name)
+    if name not in ARCH_IDS:
+        raise NotImplementedError(
+            f"config {name!r} is not ported yet; the port has "
+            f"{', '.join(ARCH_IDS)}")
+    return importlib.import_module(f"repro_torch.configs.{name}")
+
+
+def get(name: str):
+    return _module(name).CONFIG
+
+
+def get_smoke(name: str):
+    return _module(name).smoke_config()

@@ -1,0 +1,60 @@
+"""Executable form of the paper's latency model (Section III-A, Eq. 1-5)
+— the port's copy of the reference's `core/latency_model.py`.
+
+A decode step moves five kinds of traffic:
+
+  H_r  bytes read from HBM for inference
+  E_r  bytes read from off-package DRAM for inference
+  H_w / E_w  newly written KV entries to HBM / DRAM
+  M_i  KV bytes migrated DRAM -> HBM
+  M_o  KV bytes migrated HBM -> DRAM
+
+Eq. (3):  t_h = (H_r + H_w + M_i + M_o) / B_h
+Eq. (4):  t_e = E_r / min(B_k, B_d)
+               + max( (E_w + M_o)/B_k, M_i / B_k, (E_w + M_i + M_o)/B_d )
+Eq. (2):  t   = max(t_h, t_e)
+Eq. (1):  T   = sum over steps (the engine's `summary`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+
+from repro_torch.core.tiers import MemorySystemSpec
+
+Array = Any  # scalar or np.ndarray
+
+
+@dataclasses.dataclass
+class StepTraffic:
+    """Per-step traffic volumes in bytes. Fields broadcast together."""
+
+    h_read: Array = 0.0
+    e_read: Array = 0.0
+    h_write: Array = 0.0
+    e_write: Array = 0.0
+    m_in: Array = 0.0   # DRAM -> HBM migration
+    m_out: Array = 0.0  # HBM -> DRAM migration
+
+
+def hbm_latency(t: StepTraffic, spec: MemorySystemSpec) -> Array:
+    """Eq. (3)."""
+    return (t.h_read + t.h_write + t.m_in + t.m_out) / spec.hbm_bw
+
+
+def dram_latency(t: StepTraffic, spec: MemorySystemSpec) -> Array:
+    """Eq. (4)."""
+    read_term = t.e_read / spec.effective_dram_read_bw
+    link_out = (t.e_write + t.m_out) / spec.link_bw   # toward DRAM
+    link_in = t.m_in / spec.link_bw                   # toward HBM
+    dram_chan = (t.e_write + t.m_in + t.m_out) / spec.dram_bw
+    xfer_term = np.maximum(np.maximum(link_out, link_in), dram_chan)
+    return read_term + xfer_term
+
+
+def step_latency(t: StepTraffic, spec: MemorySystemSpec) -> Array:
+    """Eq. (2): the two tiers operate concurrently; the step waits for both."""
+    return np.maximum(hbm_latency(t, spec), dram_latency(t, spec))

@@ -1,0 +1,127 @@
+"""Plain PyTorch versions of the paged-attention kernel and its
+jnp-side companions (the port of the reference's `kernels/ref.py`).
+
+`paged_attention_ref` defines the per-tier paged decode attention:
+
+  * q:         [B, KH, G, HD]    one query token, grouped GQA layout
+  * k_pool:    [B, P, T, KH, HD] physical page pool of ONE tier
+  * v_pool:    [B, P, T, KH, HD]
+  * page_list: [B, N] int32      pool slot of the n-th resident page;
+                                 -1 = hole (nothing resident)
+  * page_valid:[B, N] int32      valid tokens in that page (0..T)
+
+  returns (out, m, l, page_lse):
+  * out:       [B, KH, G, HD]    attention output over this tier,
+                                 normalized by l (q's dtype)
+  * m:         [B, KH, G]        max score (f32); -1e30 when empty
+  * l:         [B, KH, G]        sum of exp(score - m) (f32)
+  * page_lse:  [B, KH, G, N]     per-page log-sum-exp of scores (f32);
+                                 -1e30 for invalid pages
+
+Two tiers combine exactly with `merge_partials` (associative
+log-sum-exp merge). RoPE is applied to K before it enters the cache,
+so page order carries no positional meaning and causality reduces to
+validity masking.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+NEG_INF = -1e30
+
+Partials = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def paged_attention_ref(q, k_pool, v_pool, page_list, page_valid) -> Partials:
+    B, KH, G, HD = q.shape
+    P, T = k_pool.shape[1], k_pool.shape[2]
+    scale = HD ** -0.5
+
+    slot = page_list.clamp(0, P - 1).long()                  # [B, N]
+    bidx = torch.arange(B, device=q.device)[:, None]
+    k = k_pool[bidx, slot]                                   # [B, N, T, KH, HD]
+    v = v_pool[bidx, slot]
+
+    s = torch.einsum("bkgd,bntkd->bkgnt", q.float(), k.float()) * scale
+    tok = torch.arange(T, device=q.device)[None, None, :]
+    valid = (page_list[:, :, None] >= 0) & (tok < page_valid[:, :, None])
+    vmask = valid[:, None, None]                             # [B,1,1,N,T]
+    s = torch.where(vmask, s, NEG_INF)
+
+    m = s.amax(dim=(-2, -1))                                 # [B, KH, G]
+    m_safe = torch.where(m <= NEG_INF / 2, 0.0, m)
+    p = torch.exp(s - m_safe[..., None, None])
+    p = torch.where(vmask, p, 0.0)
+    l = p.sum(dim=(-2, -1))
+    num = torch.einsum("bkgnt,bntkd->bkgd", p, v.float())
+    out = num / l.clamp_min(1e-20)[..., None]
+
+    page_lse = torch.where(
+        valid.any(-1)[:, None, None],
+        m_safe[..., None] + torch.log(p.sum(-1).clamp_min(1e-37)),
+        NEG_INF)                                             # [B, KH, G, N]
+    m = torch.where(l > 0, m_safe, NEG_INF)
+    return out.to(q.dtype), m, l, page_lse
+
+
+def pool_attention_ref(q, k_pool, v_pool, page_valid) -> Partials:
+    """Gather-free tier attention over an identity page layout: slot p
+    holds logical data iff page_valid[b, p] > 0. Same result as
+    `paged_attention_ref` with page_list = arange(P) where valid."""
+    B, KH, G, HD = q.shape
+    P, T = k_pool.shape[1], k_pool.shape[2]
+    scale = HD ** -0.5
+
+    s = torch.einsum("bkgd,bptkd->bkgpt", q, k_pool).float() * scale
+    tok = torch.arange(T, device=q.device)[None, None, :]
+    valid = tok < page_valid[:, :, None]                     # [B, P, T]
+    vmask = valid[:, None, None]
+    s = torch.where(vmask, s, NEG_INF)
+
+    m = s.amax(dim=(-2, -1))
+    m_safe = torch.where(m <= NEG_INF / 2, 0.0, m)
+    p = torch.exp(s - m_safe[..., None, None])
+    p = torch.where(vmask, p, 0.0)
+    l = p.sum(dim=(-2, -1))
+    num = torch.einsum("bkgpt,bptkd->bkgd", p.to(q.dtype), v_pool)
+    out = num.float() / l.clamp_min(1e-20)[..., None]
+
+    page_lse = torch.where(
+        valid.any(-1)[:, None, None],
+        m_safe[..., None] + torch.log(p.sum(-1).clamp_min(1e-37)),
+        NEG_INF)
+    m = torch.where(l > 0, m_safe, NEG_INF)
+    return out.to(q.dtype), m, l, page_lse
+
+
+def merge_partials(parts) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Merge per-tier partial attentions exactly.
+
+    parts: list of (out [**, HD], m [**], l [**]). Returns (out, lse)
+    with out normalized over the union of tiers (f32).
+    """
+    m = torch.stack([p[1] for p in parts]).amax(dim=0)
+    m_safe = torch.where(m <= NEG_INF / 2, 0.0, m)
+    num = 0.0
+    den = 0.0
+    for out, mi, li in parts:
+        corr = torch.exp(torch.where(li > 0, mi - m_safe, NEG_INF))
+        num = num + out.float() * (li * corr)[..., None]
+        den = den + li * corr
+    merged = num / den.clamp_min(1e-20)[..., None]
+    lse = m_safe + torch.log(den.clamp_min(1e-37))
+    return merged, lse
+
+
+def page_importance(page_lse: torch.Tensor,
+                    total_lse: torch.Tensor) -> torch.Tensor:
+    """Attention mass per page: sum over (KH, G) of exp(page_lse - lse).
+
+    page_lse: [B, KH, G, N]; total_lse: [B, KH, G] -> [B, N] in [0, H].
+    """
+    mass = torch.exp(page_lse - total_lse[..., None])
+    mass = torch.where(page_lse <= NEG_INF / 2, 0.0, mass)
+    return mass.sum(dim=(1, 2))

@@ -1,0 +1,165 @@
+"""Page migration between the HBM and host tiers (the port of the
+reference's `kvcache/migrate.py`).
+
+A `MigrationPlan` is a fixed-capacity batch of moves, -1 rows being
+no-ops. Execution is a two-phase commit: `stage_plan` gathers (copies)
+every source page before `commit_staged` scatters any of them, which
+is what makes a swap safe — a demotion whose destination is the host
+slot a promotion vacates reads the promoted page first. The reference
+routes sentinel rows to out-of-bounds indices and drops them; here the
+rows are filtered by mask before indexing. Pools are written in place,
+tables replaced (see `repro_torch.kvcache.paged`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.kvcache.paged import NO_SLOT, PagedKVCache
+
+_FIELDS = ("pro_layer", "pro_batch", "pro_src", "pro_dst", "pro_logical",
+           "dem_layer", "dem_batch", "dem_src", "dem_dst", "dem_logical")
+
+
+@dataclasses.dataclass
+class MigrationPlan:
+    """Fixed-capacity migration batch. All tensors int32 [M]; -1 rows
+    are no-ops.
+
+    promote: host slot `src` -> hbm slot `dst` (page `logical`)
+    demote:  hbm slot `src`  -> host slot `dst`
+    Every entry also names the (layer, batch) coordinate.
+    """
+    pro_layer: torch.Tensor
+    pro_batch: torch.Tensor
+    pro_src: torch.Tensor      # host slot
+    pro_dst: torch.Tensor      # hbm slot
+    pro_logical: torch.Tensor
+    dem_layer: torch.Tensor
+    dem_batch: torch.Tensor
+    dem_src: torch.Tensor      # hbm slot
+    dem_dst: torch.Tensor      # host slot
+    dem_logical: torch.Tensor
+
+    @classmethod
+    def empty(cls, capacity: int, device="cpu") -> "MigrationPlan":
+        return cls(*[torch.full((capacity,), -1, dtype=torch.int32,
+                                device=device) for _ in _FIELDS])
+
+    @classmethod
+    def build(cls, capacity: int, promotes, demotes,
+              device="cpu") -> "MigrationPlan":
+        """promotes/demotes: iterables of (layer, batch, src, dst, logical)."""
+        def pack(rows):
+            arr = np.full((capacity, 5), -1, np.int32)
+            rows = list(rows)[:capacity]
+            if rows:
+                arr[: len(rows)] = np.asarray(rows, np.int32)
+            return [torch.as_tensor(arr[:, i].copy(), device=device)
+                    for i in range(5)]
+        return cls(*pack(promotes), *pack(demotes))
+
+    @property
+    def capacity(self) -> int:
+        return self.pro_layer.shape[0]
+
+    def row_counts(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(n_promotes, n_demotes): the non-sentinel rows."""
+        return ((self.pro_layer >= 0).sum(), (self.dem_layer >= 0).sum())
+
+
+def stage_plan(cache: PagedKVCache, plan: MigrationPlan):
+    """Phase 1: gather every source page from the input pools.
+
+    Returns `(dem_k, dem_v, pro_k, pro_v)`, each [M, T, KH, HD] — copies,
+    so later scatters cannot change them. Sentinel rows gather an
+    arbitrary in-bounds page; `commit_staged` drops them.
+    """
+    L = cache.k_hbm.shape[0]
+    hbm_pages = cache.k_hbm.shape[2]
+    host_pages = cache.k_host.shape[2]
+    d = (plan.dem_layer.clamp(0, L - 1).long(),
+         plan.dem_batch.clamp_min(0).long(),
+         plan.dem_src.clamp(0, hbm_pages - 1).long())
+    p = (plan.pro_layer.clamp(0, L - 1).long(),
+         plan.pro_batch.clamp_min(0).long(),
+         plan.pro_src.clamp(0, host_pages - 1).long())
+    return (cache.k_hbm[d], cache.v_hbm[d], cache.k_host[p],
+            cache.v_host[p])
+
+
+def _in(idx, bound):
+    return (idx >= 0) & (idx < bound)
+
+
+def commit_staged(cache: PagedKVCache, plan: MigrationPlan,
+                  staged) -> PagedKVCache:
+    """Phase 2: scatter the staged pages and rewrite the maps.
+
+    `staged` is `stage_plan`'s gather of the SAME plan. A row scatters
+    only where the reference's would land in bounds. Owner clears land
+    before owner sets, so swapped slots end up owned by the arriving
+    page, not marked free.
+    """
+    dem_k, dem_v, pro_k, pro_v = staged
+    L = cache.k_hbm.shape[0]
+    B = cache.k_hbm.shape[1]
+    hbm_pages = cache.k_hbm.shape[2]
+    host_pages = cache.k_host.shape[2]
+    max_pages = cache.page_table.shape[2]
+
+    d_ok = _in(plan.dem_layer, L)
+    d_b = plan.dem_batch.clamp_min(0)
+    d_ok = d_ok & (d_b < B)
+    p_ok = _in(plan.pro_layer, L)
+    p_b = plan.pro_batch.clamp_min(0)
+    p_ok = p_ok & (p_b < B)
+
+    def rows(ok, *idx):
+        return tuple(i[ok].long() for i in idx)
+
+    # ---- data: demoted pages into the host pool, promoted into HBM -----
+    ok = d_ok & _in(plan.dem_dst, host_pages)
+    at = rows(ok, plan.dem_layer, d_b, plan.dem_dst)
+    cache.k_host[at] = dem_k[ok]
+    cache.v_host[at] = dem_v[ok]
+    ok = p_ok & _in(plan.pro_dst, hbm_pages)
+    at = rows(ok, plan.pro_layer, p_b, plan.pro_dst)
+    cache.k_hbm[at] = pro_k[ok]
+    cache.v_hbm[at] = pro_v[ok]
+
+    # ---- owner maps: clear vacated slots FIRST, then record arrivals ---
+    hbm_owner = cache.hbm_owner.clone()
+    ok = d_ok & _in(plan.dem_src, hbm_pages)
+    hbm_owner[rows(ok, plan.dem_layer, d_b, plan.dem_src)] = NO_SLOT
+    ok = p_ok & _in(plan.pro_dst, hbm_pages)
+    hbm_owner[rows(ok, plan.pro_layer, p_b, plan.pro_dst)] = \
+        plan.pro_logical[ok]
+    host_owner = cache.host_owner.clone()
+    ok = p_ok & _in(plan.pro_src, host_pages)
+    host_owner[rows(ok, plan.pro_layer, p_b, plan.pro_src)] = NO_SLOT
+    ok = d_ok & _in(plan.dem_dst, host_pages)
+    host_owner[rows(ok, plan.dem_layer, d_b, plan.dem_dst)] = \
+        plan.dem_logical[ok]
+
+    # ---- page table --------------------------------------------------------
+    page_table = cache.page_table.clone()
+    ok = d_ok & _in(plan.dem_logical, max_pages)
+    page_table[rows(ok, plan.dem_layer, d_b, plan.dem_logical)] = \
+        plan.dem_dst[ok] + hbm_pages
+    ok = p_ok & _in(plan.pro_logical, max_pages)
+    page_table[rows(ok, plan.pro_layer, p_b, plan.pro_logical)] = \
+        plan.pro_dst[ok]
+
+    return dataclasses.replace(cache, page_table=page_table,
+                               hbm_owner=hbm_owner, host_owner=host_owner)
+
+
+def apply_migrations(cache: PagedKVCache,
+                     plan: MigrationPlan) -> PagedKVCache:
+    """Execute a migration batch inline: stage, then commit."""
+    return commit_staged(cache, plan, stage_plan(cache, plan))

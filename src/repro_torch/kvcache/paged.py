@@ -1,0 +1,299 @@
+"""Two-tier paged KV cache (the port of the reference's
+`kvcache/paged.py`).
+
+Physical layout (per attention layer, per batch lane):
+
+  k_hbm/v_hbm   [L, B, hbm_pages,  page_tokens, KH, HD]   "HBM tier"
+  k_host/v_host [L, B, host_pages, page_tokens, KH, HD]   "DRAM tier"
+
+Logical pages map to physical slots through one page table:
+
+  page_table    [L, B, max_pages] int32 — physical slot of logical page p;
+                slot < hbm_pages  -> HBM slot,
+                slot >= hbm_pages -> host slot (slot - hbm_pages),
+                NO_SLOT (=-1)     -> page not allocated yet.
+
+Both pools live on the cache's device in this slice (the card, or the
+CPU in tests); the attention kernel takes each pool as a pointer plus
+strides, so moving the host pools to pinned host memory is a placement
+change, not a kernel change.
+
+Mutation convention: unlike the reference's pure functions, pool
+writes happen IN PLACE (a full-width cache is 3.4 GB and is never
+copied), while the small tensors — page table, owner maps, length,
+importance — are replaced by new tensors. A cache object taken before
+a step therefore still holds the pre-step tables, which is what
+`control.lane_merge` relies on. Scatters the reference routes to an
+out-of-bounds sentinel and drops (`mode="drop"`) are filtered by mask
+here before indexing; nothing indexes with -1, which would wrap.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import torch
+
+NO_SLOT = -1
+
+#: EMA decay of the per-page attention-mass importance statistic
+#: (`PagedKVCache.importance`), applied by the decode data plane every
+#: step.
+IMPORTANCE_EMA = 0.25
+
+
+@dataclasses.dataclass(frozen=True)
+class CacheGeometry:
+    num_layers: int          # attention layers only
+    batch: int
+    page_tokens: int
+    hbm_pages: int           # per layer per sequence
+    host_pages: int
+    kv_heads: int
+    head_dim: int
+    dtype: torch.dtype = torch.bfloat16
+
+    @property
+    def max_pages(self) -> int:
+        return self.hbm_pages + self.host_pages
+
+    @property
+    def max_tokens(self) -> int:
+        return self.max_pages * self.page_tokens
+
+    def page_bytes(self) -> int:
+        return (2 * self.page_tokens * self.kv_heads * self.head_dim
+                * self.dtype.itemsize)
+
+    @classmethod
+    def for_context(cls, *, num_layers: int, batch: int, context: int,
+                    kv_heads: int, head_dim: int, page_tokens: int = 16,
+                    hbm_fraction: float = 0.25, pad_to: int = 16,
+                    dtype=torch.bfloat16) -> "CacheGeometry":
+        """Pool sizes padded to `pad_to` pages, as in the reference."""
+        def rnd(x):
+            return -(-max(x, 1) // pad_to) * pad_to
+        pages = -(-context // page_tokens)
+        hbm = rnd(int(round(pages * hbm_fraction)))
+        host = rnd(pages - hbm + 1)
+        return cls(num_layers=num_layers, batch=batch,
+                   page_tokens=page_tokens, hbm_pages=hbm,
+                   host_pages=host, kv_heads=kv_heads,
+                   head_dim=head_dim, dtype=dtype)
+
+
+@dataclasses.dataclass
+class PagedKVCache:
+    k_hbm: torch.Tensor       # [L, B, Ph, T, KH, HD]
+    v_hbm: torch.Tensor
+    k_host: torch.Tensor      # [L, B, Pe, T, KH, HD]
+    v_host: torch.Tensor
+    page_table: torch.Tensor  # [L, B, max_pages] int32 physical slot
+    hbm_owner: torch.Tensor   # [L, B, Ph] int32 logical page at slot (-1 free)
+    host_owner: torch.Tensor  # [L, B, Pe] int32
+    length: torch.Tensor      # [B] int32 tokens currently cached
+    importance: torch.Tensor  # [L, B, max_pages] f32 EMA of attention mass
+
+    def tier_lists(self, layer=None, logical_page_mask=None):
+        """Kernel operands: per-tier (page_list, page_valid).
+
+        page_list[b, s] = s if slot s is occupied else -1; page_valid is
+        the number of cached tokens inside the owning page. Returns
+        tensors for one layer ([B, P]) or all ([L, B, P]).
+        logical_page_mask (bool, page-table shaped): pages whose mask is
+        False are excluded from attention this step (Quest-style
+        bypassing; their data stays cached).
+        """
+        T = self.k_hbm.shape[3]
+
+        def lists(owner, mask):
+            idx = torch.arange(owner.shape[-1], dtype=torch.int32,
+                               device=owner.device)
+            occupied = owner >= 0
+            if mask is not None:
+                sel = torch.gather(mask, -1, owner.clamp_min(0).long())
+                occupied = occupied & sel
+            plist = torch.where(occupied, idx, NO_SLOT).to(torch.int32)
+            valid = (self.length[:, None] - owner * T).clamp(0, T)
+            valid = torch.where(occupied, valid, 0).to(torch.int32)
+            return plist, valid
+
+        ho = self.hbm_owner if layer is None else self.hbm_owner[layer]
+        eo = self.host_owner if layer is None else self.host_owner[layer]
+        hl, hv = lists(ho, logical_page_mask)
+        el, ev = lists(eo, logical_page_mask)
+        return hl, hv, el, ev
+
+
+def init_cache(geo: CacheGeometry, device="cpu") -> PagedKVCache:
+    """A fresh all-free cache for `geo` on `device`."""
+    L, B, T = geo.num_layers, geo.batch, geo.page_tokens
+    kh, hd = geo.kv_heads, geo.head_dim
+    shape_h = (L, B, geo.hbm_pages, T, kh, hd)
+    shape_e = (L, B, geo.host_pages, T, kh, hd)
+    pool = dict(dtype=geo.dtype, device=device)
+    i32 = dict(dtype=torch.int32, device=device)
+    return PagedKVCache(
+        k_hbm=torch.zeros(shape_h, **pool),
+        v_hbm=torch.zeros(shape_h, **pool),
+        k_host=torch.zeros(shape_e, **pool),
+        v_host=torch.zeros(shape_e, **pool),
+        page_table=torch.full((L, B, geo.max_pages), NO_SLOT, **i32),
+        hbm_owner=torch.full((L, B, geo.hbm_pages), NO_SLOT, **i32),
+        host_owner=torch.full((L, B, geo.host_pages), NO_SLOT, **i32),
+        length=torch.zeros((B,), **i32),
+        importance=torch.zeros((L, B, geo.max_pages), dtype=torch.float32,
+                               device=device),
+    )
+
+
+def prefill_cache(geo: CacheGeometry, k: torch.Tensor, v: torch.Tensor,
+                  length) -> PagedKVCache:
+    """Populate a cache from prefill K/V (static placement: HBM first).
+
+    k, v: [L, B, S, KH, HD] with RoPE already applied to k.
+    length: int or [B] — prompt tokens actually valid (<= S). Logical
+    page p maps to HBM slot p while p < hbm_pages, then host slot
+    p - hbm_pages — the paper's Static Placement.
+    """
+    L, B, S = k.shape[0], k.shape[1], k.shape[2]
+    T = geo.page_tokens
+    n_pages = -(-S // T)
+    if n_pages > geo.max_pages:
+        raise ValueError(f"{n_pages} prompt pages exceed the cache's "
+                         f"{geo.max_pages}")
+    dev = k.device
+    pad = n_pages * T - S
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    kp = k.reshape(L, B, n_pages, T, geo.kv_heads, geo.head_dim)
+    vp = v.reshape(L, B, n_pages, T, geo.kv_heads, geo.head_dim)
+
+    cache = init_cache(geo, device=dev)
+    n_h = min(n_pages, geo.hbm_pages)
+    n_e = n_pages - n_h
+    cache.k_hbm[:, :, :n_h] = kp[:, :, :n_h].to(geo.dtype)
+    cache.v_hbm[:, :, :n_h] = vp[:, :, :n_h].to(geo.dtype)
+    if n_e > 0:
+        cache.k_host[:, :, :n_e] = kp[:, :, n_h:].to(geo.dtype)
+        cache.v_host[:, :, :n_e] = vp[:, :, n_h:].to(geo.dtype)
+
+    def ar(n):
+        return torch.arange(n, dtype=torch.int32, device=dev)
+
+    pages = ar(geo.max_pages)
+    table = torch.where(pages < n_pages, pages, NO_SLOT).to(torch.int32)
+    hslots = ar(geo.hbm_pages)
+    hbm_owner = torch.where(hslots < n_h, hslots, NO_SLOT).to(torch.int32)
+    eslots = ar(geo.host_pages)
+    host_owner = torch.where(eslots < n_e, eslots + n_h,
+                             NO_SLOT).to(torch.int32)
+    cache.page_table = table.expand(L, B, -1).clone()
+    cache.hbm_owner = hbm_owner.expand(L, B, -1).clone()
+    cache.host_owner = host_owner.expand(L, B, -1).clone()
+    cache.length = torch.as_tensor(length, dtype=torch.int32,
+                                   device=dev).expand(B).clone()
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# cache mutation primitives (operate on ONE layer slice; pools in place)
+# ---------------------------------------------------------------------------
+
+def write_token_layer(k_hbm_l, v_hbm_l, k_host_l, v_host_l, slot, offset,
+                      k_new, v_new, active=None):
+    """Write one token's (k, v) per lane into physical page `slot` at
+    `offset`, in place.
+
+    Shapes: pools [B, P, T, KH, HD]; slot/offset [B] int32;
+    k_new/v_new [B, KH, HD]. slot >= hbm_pages addresses the host pool.
+    `active` (bool [B], optional) leaves the other lanes' pools
+    untouched. Each lane writes only its own row, so the masked lanes
+    write back the value they read — no host sync, no collisions.
+    """
+    hbm_pages = k_hbm_l.shape[1]
+    host_pages = k_host_l.shape[1]
+    B = slot.shape[0]
+    keep = torch.ones_like(slot, dtype=torch.bool) if active is None \
+        else active
+    in_hbm = keep & (slot >= 0) & (slot < hbm_pages)
+    in_host = keep & (slot >= hbm_pages) & (slot < hbm_pages + host_pages)
+    bidx = torch.arange(B, device=slot.device)
+    off = offset.long()
+
+    def upd(pool, s, ok, val):
+        s = s.clamp(0, pool.shape[1] - 1).long()
+        old = pool[bidx, s, off]
+        pool[bidx, s, off] = torch.where(ok[:, None, None],
+                                         val.to(pool.dtype), old)
+
+    upd(k_hbm_l, slot, in_hbm, k_new)
+    upd(v_hbm_l, slot, in_hbm, v_new)
+    upd(k_host_l, slot - hbm_pages, in_host, k_new)
+    upd(v_host_l, slot - hbm_pages, in_host, v_new)
+    return k_hbm_l, v_hbm_l, k_host_l, v_host_l
+
+
+def write_tokens_layer(k_hbm_l, v_hbm_l, k_host_l, v_host_l, slot, offset,
+                       k_new, v_new, valid, lanes=None):
+    """Write a slice of tokens' (k, v) into physical pages (one layer),
+    in place — the chunked-prefill form of `write_token_layer`.
+
+    pools [B, P, T, KH, HD]; slot/offset/valid [R, C]; k_new/v_new
+    [R, C, KH, HD]; `lanes` [R] names the pool lane of each row
+    (default: row r is lane r). Rows with valid == False are dropped.
+    """
+    hbm_pages = k_hbm_l.shape[1]
+    host_pages = k_host_l.shape[1]
+    R = slot.shape[0]
+    if lanes is None:
+        lanes = torch.arange(R, device=slot.device)
+    lane = lanes.long()[:, None].expand_as(slot)
+    in_hbm = valid & (slot >= 0) & (slot < hbm_pages)
+    in_host = valid & (slot >= hbm_pages) & (slot < hbm_pages + host_pages)
+    for pool_k, pool_v, sel, base in ((k_hbm_l, v_hbm_l, in_hbm, 0),
+                                      (k_host_l, v_host_l, in_host,
+                                       hbm_pages)):
+        idx = (lane[sel], (slot[sel] - base).long(), offset[sel].long())
+        pool_k[idx] = k_new[sel].to(pool_k.dtype)
+        pool_v[idx] = v_new[sel].to(pool_v.dtype)
+    return k_hbm_l, v_hbm_l, k_host_l, v_host_l
+
+
+def allocate_prompt_pages(cache: PagedKVCache, pos: torch.Tensor,
+                          valid: torch.Tensor, n_new: torch.Tensor
+                          ) -> PagedKVCache:
+    """Register the logical pages receiving a prompt slice and bump
+    lane lengths (chunked prefill at an offset).
+
+    pos/valid: [B, C] absolute token positions and their validity;
+    n_new: [B] tokens consumed per lane. Placement is Static: logical
+    page p -> HBM slot p while p < hbm_pages, else host slot
+    p - hbm_pages, exactly what `prefill_cache` produces. Half-filled
+    pages are registered at once.
+    """
+    T = cache.k_hbm.shape[3]
+    hbm_pages = cache.k_hbm.shape[2]
+    host_pages = cache.k_host.shape[2]
+    max_pages = cache.page_table.shape[2]
+    page = (pos // T).to(torch.int32)
+    lane = torch.arange(pos.shape[0], device=pos.device)[:, None] \
+        .expand_as(pos)
+
+    def put(table, sel, col):
+        out = table.clone()
+        out[:, lane[sel], col[sel].long()] = page[sel]
+        return out
+
+    in_table = valid & (page >= 0) & (page < max_pages)
+    in_hbm = in_table & (page < hbm_pages)
+    in_host = in_table & (page >= hbm_pages) & \
+        (page - hbm_pages < host_pages)
+    return dataclasses.replace(
+        cache,
+        page_table=put(cache.page_table, in_table, page),
+        hbm_owner=put(cache.hbm_owner, in_hbm, page),
+        host_owner=put(cache.host_owner, in_host, page - hbm_pages),
+        length=cache.length + n_new.to(cache.length.dtype))

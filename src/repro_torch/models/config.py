@@ -1,0 +1,55 @@
+"""Architecture configuration (the port's copy, torch dtypes).
+
+Only the fields the dense family reads are kept; the other families'
+sub-configs arrive with their slices of the port.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                  # dense (moe | encdec | ... in later slices)
+    num_layers: int
+    d_model: int
+    num_heads: int
+    kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: Optional[int] = None
+    qk_norm: bool = False
+    rope_theta: float = 1e6
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    dtype: torch.dtype = torch.bfloat16
+    param_dtype: torch.dtype = torch.bfloat16
+    #: KV page size in tokens for the two-tier paged cache
+    kv_page_tokens: int = 16
+    #: the tokenizer's end-of-sequence id (None = budget-only stops)
+    eos_id: Optional[int] = None
+
+    def __post_init__(self):
+        if self.head_dim is None:
+            object.__setattr__(self, "head_dim",
+                               self.d_model // self.num_heads)
+        if self.num_heads % max(self.kv_heads, 1):
+            raise ValueError(
+                f"num_heads {self.num_heads} is not a multiple of "
+                f"kv_heads {self.kv_heads}")
+        if self.eos_id is not None and not 0 <= self.eos_id < self.vocab:
+            raise ValueError(
+                f"eos_id {self.eos_id} outside vocab {self.vocab}")
+
+    @property
+    def q_per_kv(self) -> int:
+        return self.num_heads // self.kv_heads
+
+    def attention_layer_ids(self) -> Tuple[int, ...]:
+        """Layers that own a KV cache (every layer of a dense model)."""
+        return tuple(range(self.num_layers))

@@ -1,0 +1,134 @@
+"""Layer ops of the dense family (the port of the reference's
+`models/layers.py`): plain functions on tensors, with the reference's
+precision choices kept — `rms_norm` casts back to the model dtype
+before the weight multiply, and attention logits are taken in the
+input dtype, then f32.
+"""
+
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    dtype = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps)).to(dtype) * w
+
+
+# --- RoPE -------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 1e6) -> torch.Tensor:
+    """x: [..., S, H, D]; positions: broadcastable to [..., S]."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)                  # [D/2]
+    angles = positions[..., None].float() * freqs           # [..., S, D/2]
+    cos = torch.cos(angles)[..., None, :]                   # [..., S, 1, D/2]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# --- activations ------------------------------------------------------------
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    g = x @ w_gate
+    u = x @ w_up
+    return (torch.nn.functional.silu(g) * u) @ w_down
+
+
+# --- attention (full-sequence paths: prefill) -------------------------------
+
+def repeat_kv(x: torch.Tensor, q_per_kv: int) -> torch.Tensor:
+    """[B, S, KH, D] -> [B, S, KH*q_per_kv, D]."""
+    if q_per_kv == 1:
+        return x
+    b, s, kh, d = x.shape
+    return x[:, :, :, None, :].expand(b, s, kh, q_per_kv, d) \
+        .reshape(b, s, kh * q_per_kv, d)
+
+
+def prefix_chunk_attention(q, k, v, q_positions) -> torch.Tensor:
+    """Causal attention of a query chunk against a prefix key buffer.
+
+    q: [B, C, H, D]; k, v: [B, S, H, D] (GQA heads repeated);
+    q_positions: [B, C] absolute position of each query. Key i is
+    visible to the query at position p iff i <= p; keys past the
+    written prefix contribute exact zeros.
+    """
+    scale = q.shape[-1] ** -0.5
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    kpos = torch.arange(k.shape[1], device=q.device)
+    mask = kpos[None, None, None, :] <= q_positions[:, None, :, None]
+    logits = torch.where(mask, logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def naive_attention(q, k, v, *, causal: bool = True,
+                    q_offset: int = 0) -> torch.Tensor:
+    """Reference attention. q: [B,Sq,H,D], k/v: [B,Sk,H,D]."""
+    scale = q.shape[-1] ** -0.5
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    if causal:
+        sq, sk = q.shape[1], k.shape[1]
+        qpos = torch.arange(sq, device=q.device) + q_offset
+        kpos = torch.arange(sk, device=q.device)
+        mask = kpos[None, :] <= qpos[:, None]
+        logits = torch.where(mask[None, None], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def flash_attention_chunked(q, k, v, *, causal: bool = True,
+                            k_chunk: int = 1024,
+                            q_offset: int = 0) -> torch.Tensor:
+    """Online-softmax attention over key chunks; never materializes the
+    full [Sq, Sk] score matrix. q: [B, Sq, H, D]; k, v: [B, Sk, H, D]."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    scale = d ** -0.5
+    qbh = q.transpose(1, 2)                                  # [B,H,Sq,D]
+    qpos = torch.arange(sq, device=q.device) + q_offset
+    m = torch.full((b, h, sq), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, h, sq, d), dtype=torch.float32, device=q.device)
+    for k0 in range(0, sk, k_chunk):
+        k_blk = k[:, k0:k0 + k_chunk].transpose(1, 2)        # [B,H,kc,D]
+        v_blk = v[:, k0:k0 + k_chunk].transpose(1, 2)
+        s = torch.einsum("bhqd,bhkd->bhqk", qbh, k_blk).float() * scale
+        if causal:
+            kpos = torch.arange(k0, k0 + k_blk.shape[2], device=q.device)
+            s = torch.where(kpos[None, :] <= qpos[:, None], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhqk,bhkd->bhqd", p.to(v_blk.dtype), v_blk).float()
+        m = m_new
+    out = (acc / l.clamp_min(1e-20)[..., None]).to(q.dtype)
+    return out.transpose(1, 2)
+
+
+def attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
+              flash_threshold: int = 2048) -> torch.Tensor:
+    """Small sequences take the naive path, long ones the chunked one."""
+    if q.shape[1] * k.shape[1] <= flash_threshold ** 2:
+        return naive_attention(q, k, v, causal=causal, q_offset=q_offset)
+    return flash_attention_chunked(q, k, v, causal=causal,
+                                   q_offset=q_offset)

@@ -1,0 +1,345 @@
+"""Dense decoder over the two-tier paged cache (the port of the dense
+part of the reference's `models/transformer.py`).
+
+Parameters are a nested dict of tensors in the reference's layout:
+per-layer weights stacked on a leading [L] dim (`params["layers"]`),
+`wq` [L, d, H, HD], `wk`/`wv` [L, d, KH, HD], `wo` [L, H, HD, d]. The
+reference's `lax.scan` over layers is a Python loop here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.kvcache.paged import (
+    IMPORTANCE_EMA, PagedKVCache, allocate_prompt_pages,
+    write_token_layer, write_tokens_layer,
+)
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import (
+    apply_rope, attention, prefix_chunk_attention, repeat_kv, rms_norm,
+    swiglu,
+)
+from repro_torch.models.params import Param
+
+
+# ---------------------------------------------------------------------------
+# Schema
+# ---------------------------------------------------------------------------
+
+def attn_schema(cfg: ModelConfig, L: int):
+    d, h, kh, hd = cfg.d_model, cfg.num_heads, cfg.kv_heads, cfg.head_dim
+    s = {
+        "attn_norm": Param((L, d), "ones"),
+        "wq": Param((L, d, h, hd), fan_in_axes=(1,)),
+        "wk": Param((L, d, kh, hd), fan_in_axes=(1,)),
+        "wv": Param((L, d, kh, hd), fan_in_axes=(1,)),
+        "wo": Param((L, h, hd, d), fan_in_axes=(1, 2)),
+    }
+    if cfg.qk_norm:
+        s["q_norm"] = Param((L, hd), "ones")
+        s["k_norm"] = Param((L, hd), "ones")
+    return s
+
+
+def mlp_schema(cfg: ModelConfig, L: int):
+    d, f = cfg.d_model, cfg.d_ff
+    return {
+        "mlp_norm": Param((L, d), "ones"),
+        "w_gate": Param((L, d, f), fan_in_axes=(1,)),
+        "w_up": Param((L, d, f), fan_in_axes=(1,)),
+        "w_down": Param((L, f, d), fan_in_axes=(1,)),
+    }
+
+
+def dense_schema(cfg: ModelConfig):
+    L = cfg.num_layers
+    s = {
+        "embed": Param((cfg.vocab, cfg.d_model), "embed"),
+        "final_norm": Param((cfg.d_model,), "ones"),
+        "layers": {**attn_schema(cfg, L), **mlp_schema(cfg, L)},
+    }
+    if not cfg.tie_embeddings:
+        s["unembed"] = Param((cfg.d_model, cfg.vocab), fan_in_axes=(0,))
+    return s
+
+
+def layer_params(params, l: int):
+    """One layer's weights out of the stacked tree."""
+    return {k: v[l] for k, v in params["layers"].items()}
+
+
+# ---------------------------------------------------------------------------
+# Forward building blocks
+# ---------------------------------------------------------------------------
+
+def attn_qkv(x, lp, cfg: ModelConfig, positions, rope: bool = True):
+    """x [B,S,d] -> q [B,S,H,HD], k/v [B,S,KH,HD] (RoPE applied)."""
+    B, S, d = x.shape
+    q = (x @ lp["wq"].reshape(d, -1)).view(B, S, cfg.num_heads, cfg.head_dim)
+    k = (x @ lp["wk"].reshape(d, -1)).view(B, S, cfg.kv_heads, cfg.head_dim)
+    v = (x @ lp["wv"].reshape(d, -1)).view(B, S, cfg.kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = rms_norm(q, lp["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, lp["k_norm"], cfg.norm_eps)
+    if rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def attn_out(o, lp):
+    """o [B,S,H,HD] -> [B,S,d] through wo [H,HD,d]."""
+    B, S = o.shape[:2]
+    wo = lp["wo"]
+    return o.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
+
+
+def full_attn_block(h, lp, cfg: ModelConfig, positions):
+    """Pre-norm attention block over a full sequence (prefill); also
+    returns the post-RoPE (k, v)."""
+    x = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
+    q, k, v = attn_qkv(x, lp, cfg, positions)
+    o = attention(q, repeat_kv(k, cfg.q_per_kv), repeat_kv(v, cfg.q_per_kv))
+    return h + attn_out(o, lp), (k, v)
+
+
+def dense_mlp_block(h, lp, cfg: ModelConfig):
+    x = rms_norm(h, lp["mlp_norm"], cfg.norm_eps)
+    return h + swiglu(x, lp["w_gate"], lp["w_up"], lp["w_down"])
+
+
+def embed_tokens(params, cfg: ModelConfig, tokens):
+    return params["embed"][tokens.long()].to(cfg.dtype)
+
+
+def unembed(params, cfg: ModelConfig, h):
+    w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    return h @ w
+
+
+def dense_forward(params, cfg: ModelConfig, tokens):
+    """tokens [B,S] -> (logits [B,S,V], the post-RoPE (k, v) stacked
+    [L,B,S,KH,HD] for prefill cache population)."""
+    h = embed_tokens(params, cfg, tokens)
+    S = h.shape[1]
+    positions = torch.arange(S, device=h.device)[None, :]
+    ks, vs = [], []
+    for l in range(cfg.num_layers):
+        lp = layer_params(params, l)
+        h, (k, v) = full_attn_block(h, lp, cfg, positions)
+        h = dense_mlp_block(h, lp, cfg)
+        ks.append(k)
+        vs.append(v)
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    return unembed(params, cfg, h), (torch.stack(ks), torch.stack(vs))
+
+
+# ---------------------------------------------------------------------------
+# Paged decode step
+# ---------------------------------------------------------------------------
+
+def allocate_token_page(cache: PagedKVCache,
+                        write_slot: torch.Tensor) -> PagedKVCache:
+    """Register the logical page receiving this step's token in the page
+    table / owner maps (before `tier_lists`, so the fresh page is
+    visible to attention). Returns new tables; pools are untouched."""
+    L, B = write_slot.shape
+    hbm_pages = cache.k_hbm.shape[2]
+    host_pages = cache.k_host.shape[2]
+    T = cache.k_hbm.shape[3]
+    max_pages = cache.page_table.shape[2]
+    dev = write_slot.device
+    logical = (cache.length // T).clamp_max(max_pages - 1)       # [B]
+    lidx = torch.arange(L, device=dev)[:, None].expand(L, B)
+    bidx = torch.arange(B, device=dev)[None, :].expand(L, B)
+    lg = logical[None, :].expand(L, B)
+    page_table = cache.page_table.clone()
+    page_table[lidx, bidx, lg.long()] = write_slot
+    in_hbm = write_slot < hbm_pages
+    hslot = write_slot.clamp(0, hbm_pages - 1).long()
+    hbm_owner = cache.hbm_owner.clone()
+    hbm_owner[lidx, bidx, hslot] = torch.where(
+        in_hbm, lg, cache.hbm_owner[lidx, bidx, hslot])
+    eslot = (write_slot - hbm_pages).clamp(0, host_pages - 1).long()
+    host_owner = cache.host_owner.clone()
+    host_owner[lidx, bidx, eslot] = torch.where(
+        ~in_hbm, lg, cache.host_owner[lidx, bidx, eslot])
+    return dataclasses.replace(cache, page_table=page_table,
+                               hbm_owner=hbm_owner, host_owner=host_owner)
+
+
+def mask_write_visible(cache: PagedKVCache, logical_page_mask):
+    """Force the page receiving this step's token visible in a Quest
+    mask (the step's own K/V lands there), or None."""
+    if logical_page_mask is None:
+        return None
+    B = cache.length.shape[0]
+    T = cache.k_hbm.shape[3]
+    logical = (cache.length // T).clamp_max(cache.page_table.shape[2] - 1)
+    mask = logical_page_mask.clone()
+    mask[..., torch.arange(B, device=mask.device), logical.long()] = True
+    return mask
+
+
+def _bump_valid(valid, slot, offset, T, *, hbm: bool, hbm_pages: int):
+    """Account for the token written this step in the tier valid counts."""
+    B = valid.shape[0]
+    in_tier = (slot < hbm_pages) if hbm else (slot >= 0)
+    s = slot.clamp(0, valid.shape[1] - 1).long()
+    bidx = torch.arange(B, device=valid.device)
+    cur = valid[bidx, s]
+    out = valid.clone()
+    out[bidx, s] = torch.where(in_tier, torch.maximum(cur, offset + 1), cur)
+    return out
+
+
+def _update_cache_after_step(cache, imp, write_slot):
+    """Fold the step's importance stats into the cache and bump length
+    (tables were already updated by allocate_token_page; pools in
+    place)."""
+    max_pages = cache.page_table.shape[2]
+    owner = torch.cat([cache.hbm_owner, cache.host_owner], dim=2)
+    owner_safe = owner.clamp(0, max_pages - 1).long()
+    mass = torch.zeros_like(cache.importance).scatter_add_(
+        2, owner_safe, torch.where(owner >= 0, imp, 0.0))
+    ema = IMPORTANCE_EMA
+    importance = (1 - ema) * cache.importance + ema * mass
+    return dataclasses.replace(cache, length=cache.length + 1,
+                               importance=importance)
+
+
+def dense_decode_step(params, cfg: ModelConfig, cache: PagedKVCache,
+                      token: torch.Tensor, write_slot: torch.Tensor,
+                      logical_page_mask: Optional[torch.Tensor] = None,
+                      active: Optional[torch.Tensor] = None,
+                      ) -> Tuple[torch.Tensor, PagedKVCache]:
+    """One decode step over the two-tier paged cache.
+
+    token: [B] int32. write_slot: [L, B] physical slot receiving this
+    token's page (slot >= hbm_pages means host pool). active (bool [B],
+    optional): only those lanes write their K/V into the pools — the
+    serve loop's inactive lanes keep their pools untouched, and
+    `control.lane_merge` then keeps their old tables. Returns
+    (logits [B, V], updated cache).
+    """
+    B = token.shape[0]
+    T = cache.k_hbm.shape[3]
+    Ph = cache.k_hbm.shape[2]
+    pos = cache.length                        # [B]
+    offset = pos % T
+    h = embed_tokens(params, cfg, token[:, None])    # [B,1,d]
+
+    cache = allocate_token_page(cache, write_slot)
+    logical_page_mask = mask_write_visible(cache, logical_page_mask)
+    hl, hv, el, ev = cache.tier_lists(logical_page_mask=logical_page_mask)
+
+    imps = []
+    for l in range(cfg.num_layers):
+        lp = layer_params(params, l)
+        slot = write_slot[l]
+        pools = (cache.k_hbm[l], cache.v_hbm[l], cache.k_host[l],
+                 cache.v_host[l])
+        x = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
+        q, k, v = attn_qkv(x, lp, cfg, pos[:, None])
+        # write this token's k/v BEFORE attending (it must see itself)
+        write_token_layer(*pools, slot, offset, k[:, 0], v[:, 0],
+                          active=active)
+        qg = q[:, 0].reshape(B, cfg.kv_heads, cfg.q_per_kv, cfg.head_dim)
+        hv_new = _bump_valid(hv[l], slot, offset, T, hbm=True, hbm_pages=Ph)
+        ev_new = _bump_valid(ev[l], slot - Ph, offset, T, hbm=False,
+                             hbm_pages=Ph)
+        o, imp = ops.tiered_paged_attention(
+            qg.contiguous(), *pools, hl[l], hv_new, el[l], ev_new)
+        o = o.reshape(B, 1, cfg.num_heads, cfg.head_dim)
+        h = h + attn_out(o, lp)
+        h = dense_mlp_block(h, lp, cfg)
+        imps.append(imp)
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    logits = unembed(params, cfg, h)[:, 0]
+    cache = _update_cache_after_step(cache, torch.stack(imps), write_slot)
+    return logits, cache
+
+
+# ---------------------------------------------------------------------------
+# Chunked prefill (Sarathi-style) into the paged cache at an offset
+# ---------------------------------------------------------------------------
+
+def prefill_chunk_attn(hcur, lp, cfg: ModelConfig, pools, pos, page,
+                       offset, valid, lanes):
+    """One layer's chunked-prefill attention block over the paged pools.
+
+    hcur: [R, C, d] residual stream of the R prefilling lanes `lanes`;
+    pools: (k_hbm_l, v_hbm_l, k_host_l, v_host_l) [B, P, ...], written
+    in place; pos/page/offset/valid: [R, C]. Writes the slice's K/V at
+    static-placement slots (slot == logical page), then attends
+    causally against the lanes' pools flattened in slot order — which
+    is logical token order while a lane is prefilling, because the
+    migration planner only touches lanes that have started decoding.
+    """
+    kh, vh, ke, ve = pools
+    R = pos.shape[0]
+    T = kh.shape[2]
+    x = rms_norm(hcur, lp["attn_norm"], cfg.norm_eps)
+    q, k, v = attn_qkv(x, lp, cfg, pos)
+    write_tokens_layer(kh, vh, ke, ve, page, offset, k, v, valid,
+                       lanes=lanes)
+    keys = torch.cat([kh[lanes], ke[lanes]], dim=1)   # [R, Ph+Pe, T, KH, HD]
+    vals = torch.cat([vh[lanes], ve[lanes]], dim=1)
+    S = keys.shape[1] * T
+    keys = keys.reshape(R, S, cfg.kv_heads, cfg.head_dim)
+    vals = vals.reshape(R, S, cfg.kv_heads, cfg.head_dim)
+    o = prefix_chunk_attention(q, repeat_kv(keys, cfg.q_per_kv),
+                               repeat_kv(vals, cfg.q_per_kv), pos)
+    return hcur + attn_out(o, lp)
+
+
+def chunk_coords(page_tokens: int, chunk: int, start: torch.Tensor,
+                 n_valid: torch.Tensor):
+    """Page coordinates for a `chunk`-token slice at lane offsets
+    `start` [B] with `n_valid` [B] real tokens: (pos, page, offset,
+    valid), all [B, C]."""
+    ar = torch.arange(chunk, dtype=start.dtype, device=start.device)
+    pos = start[:, None] + ar[None, :]
+    valid = ar[None, :] < n_valid[:, None]
+    page = (pos // page_tokens).to(torch.int32)
+    offset = (pos % page_tokens).to(torch.int32)
+    return pos, page, offset, valid
+
+
+def dense_prefill_chunk(params, cfg: ModelConfig, cache: PagedKVCache,
+                        tokens: torch.Tensor, start: torch.Tensor,
+                        n_valid: torch.Tensor
+                        ) -> Tuple[torch.Tensor, PagedKVCache]:
+    """Consume a [B, C] prompt slice directly into the paged cache.
+
+    Token j of lane b sits at absolute position start[b] + j and is
+    real while j < n_valid[b]. Only lanes with n_valid > 0 run the
+    forward (the others' rows of the reference's output are discarded
+    by every caller); their logits rows here are zeros. Returns
+    (logits [B, C, V], updated cache); the logits at slice index
+    n_valid-1 are those of the last consumed prompt position.
+    """
+    B, C = tokens.shape
+    T = cache.k_hbm.shape[3]
+    pos, page, offset, valid = chunk_coords(T, C, start, n_valid)
+    lanes = torch.nonzero(n_valid > 0).flatten()
+    logits = torch.zeros((B, C, cfg.vocab), dtype=cfg.dtype,
+                         device=tokens.device)
+    if lanes.numel():
+        h = embed_tokens(params, cfg, tokens[lanes])
+        sel = (pos[lanes], page[lanes], offset[lanes], valid[lanes])
+        for l in range(cfg.num_layers):
+            lp = layer_params(params, l)
+            pools = (cache.k_hbm[l], cache.v_hbm[l], cache.k_host[l],
+                     cache.v_host[l])
+            h = prefill_chunk_attn(h, lp, cfg, pools, *sel, lanes)
+            h = dense_mlp_block(h, lp, cfg)
+        h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+        logits[lanes] = unembed(params, cfg, h).to(cfg.dtype)
+    cache = allocate_prompt_pages(cache, pos, valid, n_valid)
+    return logits, cache

@@ -1,0 +1,668 @@
+"""Serving engine over the two-tier paged KV cache (the port of the
+reference's `serving/engine.py`, inline mode).
+
+One decode step is: the control plane (write-slot choice, optional
+Quest mask), `Model.decode_step` over the paged cache — whose attention
+runs the hand-written paged-attention kernel once per tier per layer on
+the card — then `control.lane_merge`, the placement policy's plan, and
+`apply_migrations`. Each step emits a [4] int32 telemetry row
+(resident HBM / host pages, promotes, demotes) that the host prices
+with the paper's Eq. (1)-(5) under a `MemorySystemSpec`.
+
+Drive modes:
+
+  start/step/generate   single-stream: whole-prompt prefill, then one
+                        decode step per call or a greedy loop.
+  serve(requests)       continuous batching over mixed prefill+decode
+                        steps: decoding lanes emit one sampled token
+                        while prefilling lanes consume a
+                        `prefill_chunk`-token slice of their prompt,
+                        written straight into their lane's pages. The
+                        first output token is sampled at the step
+                        prefill crosses prompt_len. Admission,
+                        completion, deadlines and page reclaim happen at
+                        boundaries every `telemetry_stride` steps.
+
+The reference runs each boundary-to-boundary chunk as one `lax.scan`;
+here it is a Python loop over the steps, and the reference's two
+`lax.cond` skips (no decoding lane, no prefill demand) are host `if`s —
+one device sync each per step.
+
+Not in this slice (each raises NotImplementedError naming its slice):
+`overlap_migrations`, `measured_payback`, `trace_telemetry`, `faults=`,
+`slo=`, `mesh`, the recency/cost_aware/quest policies.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core.latency_model import StepTraffic, step_latency
+from repro_torch.core.tiers import H100, MemorySystemSpec
+from repro_torch.kvcache.migrate import apply_migrations
+from repro_torch.kvcache.paged import PagedKVCache, init_cache
+from repro_torch.models.model import Model
+from repro_torch.serving import control
+from repro_torch.serving.policies import NOT_PORTED, make_policy, \
+    policy_names
+from repro_torch.serving.sampling import (
+    SamplingConfig, lane_generator, make_sampler,
+)
+from repro_torch.serving.scheduler import (
+    ContinuousBatcher, Request, RequestError,
+)
+
+_OVERLAP_SLICE = "the port's overlap slice (ROADMAP.md, queue 1)"
+_SERVE_SLICE = "the port's faults/SLO slice (ROADMAP.md, queue 1)"
+_TRACE_SLICE = "the port's trace-bridge slice (ROADMAP.md, queue 1)"
+_LAUNCH_SLICE = "the port's launch slice (ROADMAP.md, queue 1)"
+
+
+def _later(feature: str, where: str):
+    raise NotImplementedError(
+        f"{feature} is not ported yet; it arrives with {where}")
+
+
+@dataclasses.dataclass
+class EngineConfig:
+    """Static engine configuration (the reference's fields, so call
+    sites read the same). Selects the cache geometry split
+    (`max_context`, `hbm_fraction`), the placement policy and its
+    knobs, attention sparsity, the boundary stride, chunked-prefill
+    budgets and EOS."""
+
+    max_context: int = 512
+    hbm_fraction: float = 0.25
+    policy: str = "importance"
+    #: fraction of pages bypassed at attention (0 = dense attention)
+    attention_sparsity: float = 0.0
+    #: migration budget per step, as a fraction of HBM pages
+    migration_budget_frac: float = 0.1
+    promote_thresh: float = 0.02     # attention-mass EMA threshold
+    #: the memory system the telemetry is priced on (H100 + PCIe host)
+    spec: MemorySystemSpec = H100
+    #: steps between host boundaries (admission, completion, telemetry)
+    telemetry_stride: int = 32
+    #: prompt tokens each PREFILLING lane consumes per mixed serve step
+    prefill_chunk: int = 32
+    #: per-batch prefill token bucket refilled each step (None = uncapped)
+    prefill_budget: Optional[int] = None
+    #: stop token for `serve` (None = budget-only completion)
+    eos_id: Optional[int] = None
+    #: not in this slice (the trace-bridge slice)
+    trace_telemetry: bool = False
+    #: policy fallback knobs of the fault plane (the faults/SLO slice)
+    fallback_commit_faults: int = 3
+    fallback_tier_ratio: float = 8.0
+    #: not in this slice (the overlap slice)
+    overlap_migrations: bool = False
+    #: not in this slice (the overlap slice)
+    measured_payback: bool = False
+
+
+@dataclasses.dataclass
+class StepStats:
+    """One decode step's modeled cost under the paper's Eq. (1)-(5):
+    the latency and byte volumes the device telemetry priced for that
+    step, plus its HBM hit rate (fraction of read bytes from HBM)."""
+
+    modeled_latency_s: float
+    h_read: float
+    e_read: float
+    m_in: float
+    m_out: float
+    hbm_hit_rate: float
+
+
+@dataclasses.dataclass
+class ServeReport:
+    """`serve()`'s return value: terminal requests plus request-level
+    latency percentiles (seconds). `completed` holds every request that
+    held a lane; `rejected` those refused before admission, each with a
+    typed `Request.error`; `statuses` maps every submitted rid to its
+    terminal status."""
+
+    completed: List[Request]
+    ttft: Dict[str, float] = dataclasses.field(default_factory=dict)
+    tpot: Dict[str, float] = dataclasses.field(default_factory=dict)
+    #: TTFT decomposition percentiles: queue_wait / prefill / throttle
+    ttft_parts: Dict[str, Dict[str, float]] = \
+        dataclasses.field(default_factory=dict)
+    #: {"eos_id", "eos_stops", "budget_stops"}
+    eos: Dict[str, object] = dataclasses.field(default_factory=dict)
+    rejected: List[Request] = dataclasses.field(default_factory=list)
+    events: List[dict] = dataclasses.field(default_factory=list)
+
+    @property
+    def statuses(self) -> Dict[int, str]:
+        """rid -> terminal status over every request that entered serve."""
+        return {r.rid: r.status for r in self.completed + self.rejected}
+
+    @staticmethod
+    def build(completed: List[Request],
+              rejected: Optional[List[Request]] = None,
+              events: Optional[List[dict]] = None,
+              eos_id: Optional[int] = None) -> "ServeReport":
+        """Assemble a report: TTFT/TPOT mean/p50/p95, the TTFT
+        decomposition percentiles, and EOS-stop counts."""
+        def pct(vals):
+            if not vals:
+                return {}
+            v = np.asarray(vals, np.float64)
+            return {"mean": float(v.mean()),
+                    "p50": float(np.percentile(v, 50)),
+                    "p95": float(np.percentile(v, 95))}
+
+        ttfts = [r.first_token_at - r.submitted_at for r in completed
+                 if r.first_token_at is not None]
+        tpots = [(r.finished_at - r.first_token_at) / (len(r.output) - 1)
+                 for r in completed
+                 if r.first_token_at is not None
+                 and r.finished_at is not None and len(r.output) > 1]
+        attributed = [r for r in completed
+                      if r.first_token_at is not None
+                      and r.admitted_at is not None]
+        parts = {
+            "queue_wait": pct([r.queue_wait_s for r in attributed]),
+            "prefill": pct([r.prefill_s for r in attributed]),
+            "throttle": pct([r.throttle_s for r in attributed]),
+        }
+        eos = {
+            "eos_id": eos_id,
+            "eos_stops": sum(1 for r in completed if r.stop_reason == "eos"),
+            "budget_stops": sum(1 for r in completed
+                                if r.stop_reason == "budget"),
+        }
+        return ServeReport(completed=list(completed), ttft=pct(ttfts),
+                           tpot=pct(tpots), ttft_parts=parts, eos=eos,
+                           rejected=list(rejected or []),
+                           events=list(events or []))
+
+    def __iter__(self):
+        return iter(self.completed)
+
+    def __len__(self) -> int:
+        return len(self.completed)
+
+    def __getitem__(self, i):
+        return self.completed[i]
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+class ServingEngine:
+    """The serving engine over the two-tier paged KV cache (see the
+    module docstring). Runs on the CUDA card unless constructed with
+    `device="cpu"`; `params` are moved to that device."""
+
+    def __init__(self, model: Model, params, cfg: EngineConfig,
+                 mesh=None, device=None):
+        if cfg.policy in NOT_PORTED:
+            _later(f"policy {cfg.policy!r}", NOT_PORTED[cfg.policy])
+        if cfg.policy not in policy_names():
+            raise ValueError(
+                f"unknown EngineConfig.policy {cfg.policy!r}; registered "
+                f"device policies: {', '.join(policy_names())}")
+        if cfg.prefill_budget is not None and cfg.prefill_budget < 1:
+            raise ValueError(
+                f"EngineConfig.prefill_budget must be >= 1 tokens/step "
+                f"or None (uncapped), got {cfg.prefill_budget}")
+        if mesh is not None:
+            _later("serving across a device mesh", _LAUNCH_SLICE)
+        if cfg.overlap_migrations:
+            _later("EngineConfig.overlap_migrations", _OVERLAP_SLICE)
+        if cfg.measured_payback:
+            _later("EngineConfig.measured_payback", _OVERLAP_SLICE)
+        if cfg.trace_telemetry:
+            _later("EngineConfig.trace_telemetry", _TRACE_SLICE)
+        self.device = resolve_device(device)
+        self.model = model
+        self.params = _to_device(params, self.device)
+        self.cfg = cfg
+        self.mesh = None
+        self.stats: List[StepStats] = []
+        self._sampling = SamplingConfig()
+
+    # ------------------------------------------------------------------ #
+    def _setup(self, geo):
+        """Bind the stream's geometry: policy, its state, the budget."""
+        self.geo = geo
+        self._policy = make_policy(self.cfg.policy, cfg=self.cfg, geo=geo)
+        self._pstate = self._policy.init_state(geo)
+        self._budget = control.migration_budget(
+            geo, self.cfg.migration_budget_frac)
+
+    def start(self, prompts: torch.Tensor):
+        """Prefill `prompts` [B, S] into a fresh cache and return the
+        last-position logits; resets stats. The single-stream entry
+        point for `step`/`generate`."""
+        prompts = prompts.to(self.device)
+        geo = self.model.cache_geometry(prompts.shape[0],
+                                        self.cfg.max_context,
+                                        hbm_fraction=self.cfg.hbm_fraction)
+        logits, self.state = self.model.prefill(self.params, prompts, geo)
+        self._setup(geo)
+        self.stats = []
+        return logits
+
+    def _decode(self, cache: PagedKVCache, pstate, token, active=None):
+        """The fused step: control plane + decode + lane merge + plan +
+        migration. Returns (logits, cache, pstate, telemetry [4])."""
+        sparsity = self.cfg.attention_sparsity
+        write_slot = control.choose_write_slot(cache)
+        mask = control.quest_page_mask(cache, sparsity) \
+            if sparsity > 0 else None
+        # the read set this step's attention streams, for the policy
+        read = mask if mask is not None else cache.page_table >= 0
+        old = cache
+        logits, cache = self.model.decode_step(
+            self.params, cache, token, write_slot=write_slot,
+            logical_page_mask=mask, active=active)
+        if active is not None:
+            # inactive lanes keep their pre-step tables (their pools
+            # were never written)
+            cache = control.lane_merge(old, cache, active)
+        # read traffic is counted on post-decode, pre-migration residency
+        occ = control.occupancy(cache)
+        plan, pstate, (n_pro, n_dem) = self._policy.plan(
+            cache, pstate, active, self._budget, read_mask=read)
+        moves = torch.stack([n_pro, n_dem]).to(torch.int32)
+        cache = apply_migrations(cache, plan)
+        return logits, cache, pstate, torch.cat([occ, moves])
+
+    def step(self, token: torch.Tensor) -> torch.Tensor:
+        """One decode step + one telemetry readback."""
+        logits, self.state, self._pstate, base = self._decode(
+            self.state, self._pstate, token.to(self.device))
+        self._record(base[None].cpu().numpy())
+        return logits
+
+    def generate(self, token: torch.Tensor, steps: int) -> torch.Tensor:
+        """Greedy generation from `token` [B] -> tokens [steps, B]."""
+        token = token.to(self.device, torch.int32)
+        out, rows = [], []
+        for _ in range(steps):
+            logits, self.state, self._pstate, base = self._decode(
+                self.state, self._pstate, token)
+            token = logits.argmax(dim=-1).to(torch.int32)
+            out.append(token)
+            rows.append(base)
+        if rows:
+            self._record(torch.stack(rows).cpu().numpy())
+        return torch.stack(out) if out else \
+            torch.zeros((0,) + token.shape, dtype=torch.int32)
+
+    # ------------------------------------------------------------------ #
+    # continuous-batching serve loop (the headline API)
+    # ------------------------------------------------------------------ #
+    def serve(self, requests: Sequence[Request], *,
+              num_slots: Optional[int] = None,
+              sampling: Optional[SamplingConfig] = None,
+              seed: int = 0, total_pages: Optional[int] = None,
+              max_skips: int = 8, faults=None, slo=None) -> ServeReport:
+        """Drive a request stream end to end (see the module docstring).
+
+        A fixed batch of `num_slots` cache lanes runs MIXED
+        prefill+decode steps; every `telemetry_stride` steps the host
+        reads back emitted and first tokens, completes finished requests
+        (EOS or budget), reclaims their pages with one masked
+        `control.release_lanes`, honours deadlines and cancellation,
+        and admits queued requests. Invalid requests are rejected with
+        a typed error; the stream never raises on a per-request
+        condition. Greedy by default; sampling draws from one
+        `torch.Generator` per request, seeded from (`seed`, rid).
+        """
+        if faults is not None:
+            _later("serve(faults=...)", _SERVE_SLICE)
+        if slo is not None:
+            _later("serve(slo=...)", _SERVE_SLICE)
+        cfg = self.cfg
+        dev = self.device
+        if not requests:
+            return ServeReport(completed=[])
+        B = num_slots if num_slots is not None else min(len(requests), 4)
+        geo = self.model.cache_geometry(B, cfg.max_context,
+                                        hbm_fraction=cfg.hbm_fraction)
+        self._setup(geo)
+        self.state = init_cache(geo, device=dev)
+        self.stats = []
+        self._sampling = sampling or SamplingConfig()
+        sampler = make_sampler(self._sampling)
+        pstate = self._pstate
+        C = max(1, cfg.prefill_chunk)
+        S_cap = geo.max_tokens
+        Pb = cfg.prefill_budget
+        eos = cfg.eos_id
+        V = self.model.cfg.vocab
+        credits = torch.zeros((), dtype=torch.int32, device=dev)
+
+        pool = total_pages if total_pages is not None \
+            else B * geo.max_pages
+        batcher = ContinuousBatcher(B, pool, page_tokens=geo.page_tokens,
+                                    max_skips=max_skips)
+        self.batcher = batcher
+
+        def submit_one(r: Request) -> None:
+            if r.prompt is None:
+                batcher.reject_submit(
+                    r, "empty_prompt",
+                    f"request {r.rid}: serve() needs prompt tokens")
+            elif r.max_new_tokens < 1:
+                batcher.reject_submit(
+                    r, "zero_budget",
+                    f"request {r.rid}: max_new_tokens must be >= 1")
+            elif r.prompt_len + r.max_new_tokens > geo.max_tokens:
+                batcher.reject_submit(
+                    r, "infeasible_context",
+                    f"request {r.rid}: {r.prompt_len}+{r.max_new_tokens}"
+                    f" tokens exceed cache capacity {geo.max_tokens}")
+            else:
+                batcher.submit(r)   # may itself reject (duplicate /
+                #                     pool-infeasible footprint)
+
+        # open-loop arrivals: a request with arrival_s > 0 is submitted
+        # at the first boundary whose wall clock passes it
+        t_start = time.time()
+        pending: List[Request] = sorted(
+            (r for r in requests if r.arrival_s > 0.0),
+            key=lambda r: r.arrival_s)
+        for r in requests:
+            if r.arrival_s <= 0.0:
+                submit_one(r)
+
+        def submit_arrivals() -> bool:
+            now_rel = time.time() - t_start
+            due = False
+            while pending and pending[0].arrival_s <= now_rel:
+                submit_one(pending.pop(0))
+                due = True
+            return due
+
+        stride = max(1, cfg.telemetry_stride)
+        hs = {
+            "seed": seed,
+            "prompt_buf": np.zeros((B, geo.max_tokens), np.int32),
+            "token": np.zeros((B,), np.int32),
+            "gens": [None] * B,
+        }
+        live: Dict[int, Request] = {}          # lane -> request
+
+        def admit():
+            while True:
+                admitted = batcher.admit()
+                if not admitted:
+                    return
+                for req in admitted:
+                    self._admit_lane(req, hs)
+                    if req.lane >= 0:
+                        live[req.lane] = req
+
+        admit()
+        view = batcher.device_view()
+        ar_c = torch.arange(C, dtype=torch.int32, device=dev)
+        bidx = torch.arange(B, device=dev)
+
+        def upload(a):
+            return torch.as_tensor(a, device=dev)
+
+        while batcher.has_work or pending:
+            if submit_arrivals():
+                admit()
+                view = batcher.device_view()
+            if not view.active.any():
+                if batcher.queue:
+                    # nothing live but work queued: the head cannot be
+                    # admitted with every page free — reject it
+                    stuck = batcher.queue.popleft()
+                    batcher.reject(
+                        stuck, "admission_stalled",
+                        f"needs {stuck.pages_needed} pages, pool has "
+                        f"{batcher.free_pages}/{batcher.total_pages} free")
+                    admit()
+                    view = batcher.device_view()
+                    continue
+                if pending:
+                    wait = pending[0].arrival_s - (time.time() - t_start)
+                    if wait > 0:
+                        time.sleep(min(wait, 0.05))
+                    continue
+                break
+            t0 = time.time()
+            for req in live.values():
+                if req.admitted_at is None:
+                    req.admitted_at = t0
+
+            cache = self.state
+            tok = upload(hs["token"])
+            act = upload(view.active)
+            rem = upload(view.remaining)
+            prog = upload(view.prefilled)
+            prompt_len = upload(view.prompt_len)
+            prompt_buf = upload(hs["prompt_buf"])
+            gens = hs["gens"]
+            rows = {"emitted": [], "first": [], "failed": [], "pf": [],
+                    "base": []}
+            for _ in range(stride):
+                pf, dec = control.lane_modes(act, prog, prompt_len)
+                # decode plane: skipped on steps with no decoding lane
+                # (its stats row is filtered at the boundary anyway)
+                if bool(dec.any()):
+                    logits, cache, pstate, base = self._decode(
+                        cache, pstate, tok, dec)
+                    # non-finite sampling guard: such a lane emits
+                    # nothing, flips inactive, and completes "failed"
+                    bad = dec & ~torch.isfinite(logits).all(dim=-1)
+                else:
+                    logits = None
+                    base = torch.cat([control.occupancy(cache),
+                                      torch.zeros(2, dtype=torch.int32,
+                                                  device=dev)])
+                    bad = torch.zeros_like(dec)
+                dec_ok = dec & ~bad
+                if logits is not None:
+                    nxt = sampler(logits, gens, dec_ok)
+                else:
+                    nxt = tok
+                rem = rem - dec_ok.to(rem.dtype)
+                fin = dec_ok & (rem <= 0)
+                if eos is not None:
+                    fin = fin | (dec_ok & (nxt == eos))
+                emitted = torch.where(dec_ok, nxt, -1)
+                tok = torch.where(dec_ok, nxt, tok)
+                act = act & ~fin & ~bad
+
+                # prefill plane: a C-token slice per prefilling lane
+                n_val = torch.where(pf, (prompt_len - prog).clamp(0, C),
+                                    0).to(torch.int32)
+                if Pb is not None:
+                    # per-batch token bucket: run the prefill plane only
+                    # when the accrued budget covers the step's demand
+                    want_tot = n_val.sum().to(torch.int32)
+                    credits = torch.clamp_max(credits + Pb, B * C)
+                    run_now = credits >= want_tot
+                    n_val = torch.where(run_now, n_val, 0)
+                    credits = credits - torch.where(run_now, want_tot, 0)
+                crossed = torch.zeros_like(pf)
+                bad0 = torch.zeros_like(pf)
+                first = torch.full_like(tok, -1)
+                if bool((n_val > 0).any()):
+                    idx = (prog[:, None] + ar_c).clamp(0, S_cap - 1).long()
+                    sl_toks = torch.gather(prompt_buf, 1, idx)
+                    logits_c, cache = self.model.prefill_chunk(
+                        self.params, cache, sl_toks, prog, n_val)
+                    prog = prog + n_val
+                    crossed = pf & (prog >= prompt_len)
+                    last = (n_val - 1).clamp(0, C - 1).long()
+                    logits1 = logits_c[bidx, last]
+                    bad0 = crossed & ~torch.isfinite(logits1).all(dim=-1)
+                    crossed = crossed & ~bad0
+                    tok0 = sampler(logits1, gens, crossed)
+                    first = torch.where(crossed, tok0, -1)
+                    tok = torch.where(crossed, tok0, tok)
+                    rem = rem - crossed.to(rem.dtype)
+                    fin0 = crossed & (rem <= 0)
+                    if eos is not None:
+                        fin0 = fin0 | (crossed & (tok0 == eos))
+                    act = act & ~fin0 & ~bad0
+                rows["emitted"].append(emitted)
+                rows["first"].append(first)
+                rows["failed"].append(bad | bad0)
+                rows["pf"].append(n_val)
+                rows["base"].append(base)
+            self.state = cache
+            out = {k: torch.stack(v).cpu().numpy() for k, v in rows.items()}
+            emitted = out["emitted"]                    # [stride, B]
+            first = out["first"]
+            pf_tok = out["pf"]
+            failed_lane = out["failed"].any(axis=0)      # [B]
+            hs["token"] = tok.cpu().numpy().copy()
+            prog_np = prog.cpu().numpy()
+            done_d = ~act.cpu().numpy()
+            # telemetry: only steps where at least one lane DECODED
+            row_mask = emitted.max(axis=1) >= 0
+            self._record(out["base"][row_mask])
+            span = time.time() - t0
+
+            def stamp(row):
+                return t0 + (row + 1) / stride * span
+
+            release = np.zeros((B,), bool)
+            for lane, req in list(live.items()):
+                # a lane never emits both in one step
+                rws = np.where(first[:, lane] >= 0, first[:, lane],
+                               emitted[:, lane])
+                got = np.nonzero(rws >= 0)[0]
+                if req.first_token_at is None and \
+                        req.admitted_at is not None:
+                    # TTFT attribution up to the crossing row: prefill
+                    # rows to prefill_s, budget-throttled rows and host
+                    # gaps to throttle_s, so queue_wait + prefill +
+                    # throttle == TTFT
+                    crossed_any = first[:, lane].max() >= 0
+                    c = int(np.argmax(first[:, lane] >= 0)) \
+                        if crossed_any else stride - 1
+                    cursor = (req.admitted_at + req.prefill_s +
+                              req.throttle_s)
+                    req.throttle_s += max(0.0, t0 - cursor)
+                    ran = int((pf_tok[:c + 1, lane] > 0).sum())
+                    w = span / stride
+                    req.prefill_s += ran * w
+                    req.throttle_s += (c + 1 - ran) * w
+                if req.first_token_at is None and first[:, lane].max() >= 0:
+                    req.first_token_at = stamp(
+                        int(np.argmax(first[:, lane] >= 0)))
+                    req.phase = "decoding"
+                req.output.extend(int(rws[s]) for s in got)
+                req.generated += len(got)
+                req.prefilled = int(min(prog_np[lane], req.prompt_len))
+                if done_d[lane]:      # EOS / budget / quarantine
+                    del live[lane]
+                    release[lane] = True
+                    if failed_lane[lane]:
+                        batcher.complete(req, "failed", RequestError(
+                            "poisoned_logits",
+                            f"non-finite logits on lane {lane}"))
+                    else:
+                        req.stop_reason = "eos" if (
+                            eos is not None and req.output
+                            and req.output[-1] == eos) else "budget"
+                        batcher.complete(req)
+                    if got.size:
+                        req.finished_at = stamp(int(got[-1]))
+            # deadline + cooperative cancellation, at boundaries
+            now = time.time()
+            for lane, req in list(live.items()):
+                timed_out = req.deadline_s is not None and \
+                    now - req.submitted_at > req.deadline_s
+                if not (req.cancel_requested or timed_out):
+                    continue
+                status = "cancelled" if req.cancel_requested else "timeout"
+                del live[lane]
+                release[lane] = True
+                batcher.complete(req, status, RequestError(
+                    "cancelled" if status == "cancelled"
+                    else "deadline_exceeded",
+                    f"reaped at step {batcher.step_idx + stride}"))
+            for req in [q for q in batcher.queue
+                        if q.cancel_requested or
+                        (q.deadline_s is not None and
+                         now - q.submitted_at > q.deadline_s)]:
+                status = "cancelled" if req.cancel_requested else "timeout"
+                batcher.drop_queued(
+                    req, status,
+                    "cancelled" if status == "cancelled"
+                    else "deadline_exceeded",
+                    "reaped while queued")
+            if release.any():
+                self.state = control.release_lanes(self.state,
+                                                   upload(release))
+            batcher.step_idx += stride
+            admit()
+            view = batcher.device_view()
+        self._pstate = pstate
+        return ServeReport.build(batcher.completed, batcher.rejected, [],
+                                 eos_id=cfg.eos_id)
+
+    def _admit_lane(self, req: Request, hs: Dict) -> None:
+        """Bind an admitted request to its cache lane for chunked
+        prefill: the prompt row, the carried token, and the request's
+        sampling generator. No device compute."""
+        lane = req.lane
+        prompt = np.asarray(req.prompt).astype(np.int32).ravel()
+        hs["prompt_buf"][lane, :] = 0
+        hs["prompt_buf"][lane, :prompt.size] = prompt
+        hs["token"][lane] = 0
+        hs["gens"][lane] = lane_generator(hs["seed"], req.rid, self.device)
+
+    # ------------------------------------------------------------------ #
+    # telemetry (host side, Eq. (1)-(5) pricing)
+    # ------------------------------------------------------------------ #
+    def _record(self, stats, specs=None):
+        """Price per-step telemetry rows into `self.stats`.
+
+        stats: [n, 4] int rows of (hbm_pages, host_pages, promotes,
+        demotes); `specs` optionally prices each row with its own
+        `MemorySystemSpec` instead of `cfg.spec`."""
+        geo = self.geo
+        pb = geo.page_bytes()
+        frac = 1.0 - self.cfg.attention_sparsity
+        for i, (h_pages, e_pages, n_pro, n_dem) in enumerate(stats):
+            spec = specs[i] if specs is not None else self.cfg.spec
+            traffic = dict(
+                h_read=float(h_pages) * pb * frac,
+                e_read=float(e_pages) * pb * frac,
+                m_in=float(n_pro) * pb, m_out=float(n_dem) * pb,
+                h_write=pb / geo.page_tokens, e_write=0.0)
+            lat = float(step_latency(StepTraffic(**traffic), spec))
+            denom = traffic["h_read"] + traffic["e_read"]
+            self.stats.append(StepStats(
+                modeled_latency_s=lat,
+                h_read=traffic["h_read"], e_read=traffic["e_read"],
+                m_in=traffic["m_in"], m_out=traffic["m_out"],
+                hbm_hit_rate=traffic["h_read"] / denom if denom else 1.0))
+
+    def summary(self) -> Dict[str, float]:
+        """Aggregate the recorded StepStats: step count, modeled total
+        seconds and tokens/s, mean HBM hit rate, migrated bytes."""
+        if not self.stats:
+            return {}
+        lat = np.array([s.modeled_latency_s for s in self.stats])
+        return {
+            "steps": len(self.stats),
+            "modeled_total_s": float(lat.sum()),
+            "modeled_tokens_per_s": len(lat) / float(lat.sum()),
+            "mean_hbm_hit_rate": float(np.mean(
+                [s.hbm_hit_rate for s in self.stats])),
+            "migrated_bytes": float(sum(s.m_in + s.m_out
+                                        for s in self.stats)),
+        }

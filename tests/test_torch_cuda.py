@@ -1,0 +1,132 @@
+"""The hand-written CUDA paged-attention kernel against its plain
+version, on the card.
+
+Marked `cuda`: every test here needs an NVIDIA Hopper card and `nvcc`,
+and skips without them. On the card:
+
+    PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py -q
+
+Tolerances: in float32 the kernel sums in another order than the plain
+version (atol 2e-5 on `out`); in bfloat16 `out` is rounded to bf16 on
+both sides, one bf16 step apart at most (atol 1e-2). `m` and the
+per-page LSE agree within 1e-4, `l` within 1e-4 relative.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import paged_attention as pa  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+SHAPES = [
+    # (B, KH, G, HD, P, T, N)
+    (8, 8, 2, 128, 64, 16, 64),      # internlm2-1.8b, HBM tier
+    (8, 8, 2, 128, 208, 16, 208),    # internlm2-1.8b, host tier
+    (2, 2, 2, 16, 32, 16, 32),       # the smoke config
+    (3, 2, 5, 128, 8, 16, 5),
+    (1, 1, 1, 64, 4, 16, 4),
+    (2, 4, 2, 64, 6, 8, 6),          # 8-token pages
+]
+OUT_ATOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+
+
+@pytest.fixture(scope="module")
+def device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def inputs(shape, dtype, device, seed):
+    """Holes, a permuted page list, partial pages, a listed page with no
+    valid token, and an all-hole last lane."""
+    B, KH, G, HD, P, T, N = shape
+    rng = np.random.default_rng(seed)
+    page_list = np.full((B, N), -1, np.int32)
+    page_valid = np.zeros((B, N), np.int32)
+    for b in range(B - 1 if B > 1 else B):
+        n_res = int(rng.integers(1, min(N, P) + 1))
+        where = rng.choice(N, size=n_res, replace=False)
+        page_list[b, where] = rng.permutation(P)[:n_res]
+        page_valid[b, where] = rng.integers(1, T + 1, n_res)
+        page_valid[b, rng.choice(where)] = 0
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*s):
+        return torch.randn(s, generator=gen, device=device).to(dtype)
+    return (randn(B, KH, G, HD), randn(B, P, T, KH, HD),
+            randn(B, P, T, KH, HD),
+            torch.as_tensor(page_list, device=device),
+            torch.as_tensor(page_valid, device=device))
+
+
+def assert_close(got, want, dtype):
+    out, m, l, lse = got
+    w_out, w_m, w_l, w_lse = want
+    torch.testing.assert_close(out.float(), w_out.float(),
+                               atol=OUT_ATOL[dtype], rtol=0)
+    torch.testing.assert_close(m, w_m, atol=1e-4, rtol=0)
+    torch.testing.assert_close(l, w_l, atol=0, rtol=1e-4)
+    torch.testing.assert_close(lse, w_lse, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_kernel_matches_plain_version(device, shape, dtype):
+    args = inputs(shape, dtype, device, seed=sum(shape))
+    got = pa.paged_attention(*args)
+    torch.cuda.synchronize()
+    assert_close(got, ref.paged_attention_ref(*args), dtype)
+    if shape[0] > 1:                  # the all-hole lane is empty
+        assert bool((got[2][-1] == 0).all())
+        assert bool((got[0][-1] == 0).all())
+        assert bool((got[1][-1] == ref.NEG_INF).all())
+
+
+def test_kernel_reads_pools_through_their_strides(device):
+    """A pool stored [B, T, P, KH, HD] and viewed as [B, P, T, KH, HD]."""
+    shape = (2, 2, 2, 64, 12, 16, 12)
+    q, k, v, page_list, page_valid = inputs(shape, torch.bfloat16, device, 7)
+    k_t = k.transpose(1, 2).contiguous().transpose(1, 2)
+    v_t = v.transpose(1, 2).contiguous().transpose(1, 2)
+    assert not k_t.is_contiguous()
+    got = pa.paged_attention(q, k_t, v_t, page_list, page_valid)
+    assert_close(got, ref.paged_attention_ref(q, k, v, page_list,
+                                              page_valid), torch.bfloat16)
+
+
+def test_tiered_attention_launches_the_kernel(device):
+    """Two tiers on the card: two launches, and the same merged result
+    as the plain version on the CPU."""
+    hbm = inputs((2, 2, 2, 64, 8, 16, 8), torch.float32, device, 1)
+    host = inputs((2, 2, 2, 64, 24, 16, 24), torch.float32, device, 2)
+    q = hbm[0]
+    before = pa.COUNTS["paged_attention"]
+    out, imp = ops.tiered_paged_attention(q, hbm[1], hbm[2], host[1],
+                                          host[2], hbm[3], hbm[4], host[3],
+                                          host[4])
+    assert pa.COUNTS["paged_attention"] == before + 2
+    cpu = [t.cpu() for t in (q, hbm[1], hbm[2], host[1], host[2], hbm[3],
+                             hbm[4], host[3], host[4])]
+    w_out, w_imp = ops.tiered_paged_attention(*cpu)
+    torch.testing.assert_close(out.cpu(), w_out, atol=2e-5, rtol=0)
+    torch.testing.assert_close(imp.cpu(), w_imp, atol=1e-4, rtol=0)
+
+
+def test_wrapper_refuses_what_the_kernel_does_not_take(device):
+    q, k, v, page_list, page_valid = inputs((2, 2, 2, 64, 4, 16, 4),
+                                            torch.float32, device, 3)
+    with pytest.raises(ValueError, match="page_list"):
+        pa.paged_attention(q, k, v, page_list.cpu(), page_valid)
+    with pytest.raises(ValueError, match="dtype"):
+        pa.paged_attention(q.half(), k.half(), v.half(), page_list,
+                           page_valid)
+    with pytest.raises(ValueError, match="k_pool"):
+        pa.paged_attention(q, k.bfloat16(), v, page_list, page_valid)

@@ -1,0 +1,73 @@
+"""The port stands alone: `repro_torch` and `chip_smoke.py` import
+neither JAX nor anything of the reference package `repro`.
+
+Checked twice: by importing every module of the port (and the smoke
+script) in a fresh interpreter and looking at `sys.modules`, and by
+searching the sources for import lines, which also covers imports
+made inside functions.
+"""
+
+import json
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = re.compile(
+    r"^\s*(import\s+(jax|jaxlib|repro)\b(?!_)"
+    r"|from\s+(jax|jaxlib|repro)\b(?!_))", re.MULTILINE)
+
+PROBE = """
+import importlib, json, pkgutil, sys
+import repro_torch
+names = ["repro_torch"]
+for info in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+    importlib.import_module(info.name)
+    names.append(info.name)
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(json.dumps({"imported": names, "forbidden": bad}))
+"""
+
+
+def test_modules_import_no_jax_and_no_reference():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", PROBE, str(ROOT)],
+                          capture_output=True, text=True, env=env,
+                          cwd=ROOT, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got["forbidden"] == []
+    assert {module_name(p) for p in PORT.rglob("*.py")} == \
+        set(got["imported"])
+
+
+def module_name(path: pathlib.Path) -> str:
+    parts = path.relative_to(PORT.parent).with_suffix("").parts
+    return ".".join(parts[:-1] if parts[-1] == "__init__" else parts)
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.name)
+def test_sources_have_no_forbidden_import(path):
+    text = path.read_text()
+    assert not FORBIDDEN.findall(text), path
+
+
+def test_forbidden_pattern_catches_what_it_should():
+    for line in ("import jax", "import jax.numpy as jnp",
+                 "from jax import lax", "    from repro.kernels import ref",
+                 "import repro", "from repro import configs"):
+        assert FORBIDDEN.search(line), line
+    for line in ("import repro_torch", "from repro_torch import bridge",
+                 "# the reference imports jax", "import numpy"):
+        assert not FORBIDDEN.search(line), line
