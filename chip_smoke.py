@@ -5,11 +5,15 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-Phases, each printing a line (any failure exits non-zero):
+Phases, each printing its lines and its wall time (any failure exits
+non-zero):
 
-  1. build   compile the paged-attention kernel from
-             src/repro_torch/csrc/ with nvcc for sm_90a.
-  2. kernel  run it against the plain version (ref.paged_attention_ref)
+  1. build   compile both kernels of src/repro_torch/csrc/ (paged
+             decode attention, prefill flash attention) with nvcc for
+             sm_90a, one nvcc per source, in parallel; print ptxas'
+             register and spill report.
+  2. kernel  run the paged kernel against its plain version
+             (ref.paged_attention_ref)
              on the same CUDA tensors at the full-width decode shapes
              (B=8, KH=8, G=2, HD=128, T=16, N in {64, 208}, bf16 pools)
              with holes, a permuted page list, partial pages and an
@@ -18,14 +22,36 @@ Phases, each printing a line (any failure exits non-zero):
              Times are device times (CUDA-graph replay over input sets
              that overflow the L2); the kernel's eager per-call time,
              the host's launch cost included, is printed beside them.
+  2b. flash  run the flash kernel against its plain version
+             (ref.flash_attention_ref) on CUDA tensors: the prefill
+             shape of phase 5 (B=4, S=2304, H=16 over KH=8, D=128,
+             bf16, causal), a ragged S with KH == H, a non-causal case
+             and the smoke shape in f32; time it at the prefill shape
+             beside the plain version, one scaled_dot_product_attention
+             call (enable_gqa, on [B, H, S, D] copies made outside the
+             timed region) and its operations bound.
   3. parity  serve a small f32 request stream on the card and on the
              CPU (the plain path) with the same weights: greedy tokens,
              statuses and per-step byte counts must match exactly.
+  3b. stream the single-stream path on the card and on the CPU, f32
+             smoke config, same weights, under each of the five
+             policies with Quest sparsity 0.5 and trace capture:
+             `start` logits within 1e-4, `generate` tokens, StepStats
+             bytes and the captured trace equal, and `run` over the
+             generated tokens within 1e-4 of the CPU's logits.
   4. serve   ServingEngine.serve() at the full width of internlm2-1.8b
              (random bf16 weights from --seed): 12 greedy requests that
              spill into the host tier and reuse lanes; every status ok,
-             every output its full budget, and the kernel launched
-             2 x layers x decode-plane steps times.
+             every output its full budget, and the paged kernel
+             launched 2 x layers x decode-plane steps times.
+  5. sweep   the single-stream policy sweep at the same width, as the
+             repo's benchmarks run it: per policy a fresh `start` of 4
+             prompts of 2304 tokens (each spills ~1280 tokens to the
+             host tier), `generate(64)`, then `score_headroom` against
+             the SA, Belady and static bounds; for `importance` also
+             `start` + `run` over the generated tokens. The flash
+             kernel must launch once per layer per `start`, the paged
+             kernel twice per layer per decode step.
 
 Then a `kernels` JSON line, the card's name and power limit, and, last,
 {"ok": true, "device": {...}}. Without a CUDA card it exits non-zero
@@ -233,7 +259,94 @@ def kernel_phase(rng, device):
 
 
 # --------------------------------------------------------------------------
-# phases 3-4: serving
+# phase 2b: the flash kernel against its plain version
+# --------------------------------------------------------------------------
+
+#: (B, S, H, KH, D, dtype name, causal); the first is the prefill of
+#: phase 5 and the one timed
+FLASH_SHAPES = (
+    (4, 2304, 16, 8, 128, "bf16", True),
+    (2, 1000, 16, 16, 128, "bf16", True),
+    (2, 1000, 16, 8, 128, "bf16", False),
+    (2, 300, 4, 2, 16, "f32", True),
+)
+FLASH_TOL = {"bf16": 1e-2, "f32": 2e-5}
+
+
+def flash_work(B, S, H, KH, D, causal, itemsize):
+    """(bytes, flops) of one call: q, k, v read once and out written
+    once; 4*D flops per visible (query, key) pair per head."""
+    pairs = S * (S + 1) // 2 if causal else S * S
+    return (2 * B * S * H * D + 2 * B * S * KH * D) * itemsize, \
+        4 * B * H * D * pairs
+
+
+def flash_phase(device):
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
+    errs = []
+    timing = {}
+    for B, S, H, KH, D, dt, causal in FLASH_SHAPES:
+        dtype = dtypes[dt]
+
+        def inputs():
+            return (torch.randn((B, S, H, D), device=device, dtype=dtype),
+                    torch.randn((B, S, KH, D), device=device, dtype=dtype),
+                    torch.randn((B, S, KH, D), device=device, dtype=dtype))
+        x = inputs()
+        got = fa.flash_attention(*x, causal=causal)
+        want = ref.flash_attention_ref(*x, causal=causal)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        errs.append(err)
+        log(f"flash B={B} S={S} H={H}/{KH} D={D} {dt} causal={causal}: "
+            f"max err out {err:.3e} (tolerance {FLASH_TOL[dt]})")
+        if not err <= FLASH_TOL[dt]:
+            raise AssertionError(f"flash kernel disagrees with the plain "
+                                 f"version at {(B, S, H, KH, D, dt)}")
+        if timing:
+            continue
+        nbytes, flops = flash_work(B, S, H, KH, D, causal,
+                                   got.element_size())
+        copies = max(2, math.ceil(256e6 / nbytes))    # beat the 50 MB L2
+        sets = [x] + [inputs() for _ in range(copies - 1)]
+        # SDPA's layout, made outside the timed region
+        bhsd = [tuple(t.transpose(1, 2).contiguous() for t in s)
+                for s in sets]
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+
+        def kernel(i):
+            return fa.flash_attention(*sets[i % copies], causal=causal)
+
+        def plain(i):
+            return ref.flash_attention_ref(*sets[i % copies], causal=causal)
+
+        def library(i):
+            return sdpa(*bhsd[i % copies], is_causal=causal, enable_gqa=True)
+
+        ms = device_ms(kernel, copies)
+        plain_ms = device_ms(plain, copies, reps=2)
+        lib_ms = device_ms(library, copies)
+        kernel_eager = eager_ms(kernel, 20)
+        t_bytes, t_ops = nbytes / HBM_BW * 1e3, flops / BF16_FLOPS * 1e3
+        bound = max(t_bytes, t_ops)
+        log(f"flash B={B} S={S}: device {ms:.4f} ms  plain {plain_ms:.4f} "
+            f"ms  sdpa {lib_ms:.4f} ms  bound {bound:.4f} ms (operations "
+            f"{t_ops:.4f}, bytes {t_bytes:.4f}; {flops / 1e9:.2f} GFLOP, "
+            f"{nbytes / 1e6:.1f} MB)  eager call {kernel_eager:.4f} ms  "
+            f"{flops / ms / 1e9:.1f} TFLOP/s")
+        timing = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                  "bound_ms": bound, "eager_ms": kernel_eager,
+                  "bound_by": "bytes" if t_bytes >= t_ops
+                  else "operations", "bytes": nbytes, "flops": flops}
+        del sets, bhsd
+    return {**timing, "max_abs_err": max(errs)}
+
+
+# --------------------------------------------------------------------------
+# phases 3-5: serving
 # --------------------------------------------------------------------------
 
 def parity_phase(seed):
@@ -336,23 +449,84 @@ def breakdown(prof, wall: float, out_dir: str) -> None:
             f.write(avgs.table(sort_by=key, row_limit=40) + "\n")
 
 
-def serve_phase(seed, profile_dir=None):
+POLICY_ENGINE = dict(attention_sparsity=0.5, promote_thresh=1e-4,
+                     trace_telemetry=True)
+
+
+def stream_parity_phase(seed):
+    """start / generate / run on the card and on the CPU, f32 smoke
+    config, same weights, every policy."""
+    import dataclasses
     import torch
     from repro_torch import configs
-    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.core.tiers import H100
     from repro_torch.models.model import Model
     from repro_torch.serving.engine import EngineConfig, ServingEngine
-    from repro_torch.serving.scheduler import Request
+    from repro_torch.serving.policies import policy_names
 
+    cfg = dataclasses.replace(configs.get_smoke("internlm2-1.8b"),
+                              dtype=torch.float32, param_dtype=torch.float32)
+    model = Model(cfg)
+    params = model.init(seed, device="cpu")
+    prompt = torch.as_tensor(np.random.default_rng(seed + 2).integers(
+        0, cfg.vocab, (2, 300)), dtype=torch.int32)
+    for policy in policy_names():
+        ecfg = EngineConfig(max_context=512, policy=policy, spec=H100,
+                            telemetry_stride=8, **POLICY_ENGINE)
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            eng = ServingEngine(model, params, ecfg, device=dev)
+            logits = eng.start(prompt)
+            first = logits.argmax(-1).to(torch.int32)
+            toks = eng.generate(first, 12)
+            trace = [tuple(a.copy() for a in c) for c in eng._trace_log]
+            eng.start(prompt)
+            run = eng.run(torch.cat([first[None], toks[:-1]]))
+            runs[dev] = (logits.cpu(), toks.cpu(), run.cpu(), trace,
+                         [(s.h_read, s.e_read, s.m_in, s.m_out)
+                          for s in eng.stats])
+        card, cpu = runs["cuda"], runs["cpu"]
+        err_start = float((card[0] - cpu[0]).abs().max())
+        err_run = float((card[2] - cpu[2]).abs().max())
+        same_tokens = torch.equal(card[1], cpu[1])
+        same_trace = len(card[3]) == len(cpu[3]) and all(
+            np.array_equal(a, b) for c, d in zip(card[3], cpu[3])
+            for a, b in zip(c, d))
+        same_bytes = card[4] == cpu[4]
+        migrated = sum(r[2] + r[3] for r in card[4])
+        log(f"stream {policy}: start logits err {err_start:.3e} run "
+            f"logits err {err_run:.3e} (tolerance 1e-4), tokens "
+            f"{same_tokens} step bytes {same_bytes} trace {same_trace} "
+            f"({len(card[4])} steps, {migrated:.0f} bytes migrated)")
+        if not (err_start <= 1e-4 and err_run <= 1e-4 and same_tokens
+                and same_bytes and same_trace):
+            raise AssertionError(f"stream {policy}: the card's single "
+                                 f"stream disagrees with the CPU's")
+
+
+def full_width(seed):
+    """internlm2-1.8b at its published widths, random bf16 weights."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models.model import Model
     cfg = configs.get("internlm2-1.8b")
     model = Model(cfg)
-    t = time.time()
     params = model.init(seed, device="cuda")
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in _leaves(params))
-    log(f"serve: {cfg.name} {cfg.num_layers} layers d_model {cfg.d_model} "
+    log(f"model: {cfg.name} {cfg.num_layers} layers d_model {cfg.d_model} "
         f"heads {cfg.num_heads}/{cfg.kv_heads} vocab {cfg.vocab}, "
-        f"{n_params / 1e9:.3f} B params bf16 in {time.time() - t:.1f} s")
+        f"{n_params / 1e9:.3f} B params bf16")
+    return model, params
+
+
+def serve_phase(model, params, seed, profile_dir=None):
+    import torch
+    from repro_torch.kernels.build import COUNTS
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    from repro_torch.serving.scheduler import Request
+
+    cfg = model.cfg
     ecfg = EngineConfig(max_context=4096, hbm_fraction=0.25,
                         policy="importance", prefill_chunk=256,
                         telemetry_stride=16)
@@ -369,7 +543,7 @@ def serve_phase(seed, profile_dir=None):
         f"{[r.prompt_len for r in reqs]}, cache {geo.hbm_pages} HBM + "
         f"{geo.host_pages} host pages per lane per layer, "
         f"{2 * geo.num_layers * geo.batch * geo.max_pages * geo.page_tokens * geo.kv_heads * geo.head_dim * 2 / 1e9:.2f} GB of KV")
-    pa.COUNTS.clear()                       # the main path's run only
+    COUNTS.clear()                          # the main path's run only
     torch.cuda.synchronize()
     t0 = time.time()
     if profile_dir:
@@ -380,7 +554,7 @@ def serve_phase(seed, profile_dir=None):
     wall = time.time() - t0
     if profile_dir:
         breakdown(prof, wall, profile_dir)
-    launches = pa.COUNTS["paged_attention"]
+    launches = COUNTS["paged_attention"]
     steps = len(eng.stats)
     tokens = sum(len(r.output) for r in rep)
     summ = eng.summary()
@@ -402,6 +576,95 @@ def serve_phase(seed, profile_dir=None):
     if summ["mean_hbm_hit_rate"] >= 1.0:
         raise AssertionError("serve: the stream never read the host tier")
     return launches
+
+
+def sweep_phase(model, params, seed):
+    """The single-stream policy sweep (start, generate, score) at full
+    width; returns the kernels' launches over its main-path runs."""
+    import torch
+    from repro_torch.core.sa import SAConfig
+    from repro_torch.core.tiers import H100
+    from repro_torch.kernels.build import COUNTS
+    from repro_torch.serving import trace_bridge
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    from repro_torch.serving.policies import policy_names
+
+    cfg = model.cfg
+    L, B, S, steps = cfg.num_layers, 4, 2304, 64
+    prompts = torch.as_tensor(np.random.default_rng(seed + 1).integers(
+        0, cfg.vocab, (B, S)), dtype=torch.int32, device="cuda")
+    sa_cfg = SAConfig(max_evaluations=12, iters_per_level=4, seed=0)
+    total = collections.Counter()
+
+    def counted(fn):
+        COUNTS.clear()                      # the main path's run only
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        total.update(COUNTS)
+        return out, time.time() - t0, dict(COUNTS)
+
+    def expect(what, counts, flash, paged):
+        got = (counts.get("flash_attention", 0),
+               counts.get("paged_attention", 0))
+        if got != (flash, paged):
+            raise AssertionError(f"sweep {what}: (flash, paged) launches "
+                                 f"{got}, expected {(flash, paged)}")
+
+    for policy in policy_names():
+        ecfg = EngineConfig(max_context=4096, hbm_fraction=0.25,
+                            policy=policy, telemetry_stride=16, spec=H100,
+                            **POLICY_ENGINE)
+        eng = ServingEngine(model, params, ecfg)
+        logits, t_start, c_start = counted(lambda: eng.start(prompts))
+        first = logits.argmax(-1).to(torch.int32)
+        toks, t_dec, c_dec = counted(lambda: eng.generate(first, steps))
+        expect(f"{policy} start", c_start, L, 0)
+        expect(f"{policy} generate", c_dec, 0, 2 * L * steps)
+        if tuple(logits.shape) != (B, cfg.vocab) or \
+                not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"sweep {policy}: start logits "
+                                 f"{tuple(logits.shape)} not finite")
+        summ = eng.summary()
+        t = time.time()
+        score = trace_bridge.score_headroom(trace_bridge.collect(eng), H100,
+                                           sa_cfg=sa_cfg)
+        t_score = time.time() - t
+        log(f"sweep {policy}: start {t_start:.3f} s, decode "
+            f"{B * steps / t_dec:.1f} tokens/s ({t_dec:.2f} s for {steps} "
+            f"steps), live_hit_fraction {score['live_hit_fraction']:.4f} "
+            f"bound_fraction {score['bound_fraction']:.4f} "
+            f"headroom_vs_static {score['headroom_vs_static']:.4f}, "
+            f"migrated {summ['migrated_bytes']:.0f} bytes, launches flash "
+            f"{c_start.get('flash_attention', 0)} paged "
+            f"{c_dec.get('paged_attention', 0)}, scoring {t_score:.2f} s")
+        if not all(math.isfinite(v) for v in score.values()):
+            raise AssertionError(f"sweep {policy}: score {score}")
+        if score["live_hit_fraction"] >= 1.0 or \
+                summ["mean_hbm_hit_rate"] >= 1.0:
+            raise AssertionError(f"sweep {policy}: never read the host tier")
+        migrated = summ["migrated_bytes"]
+        if (policy == "static" and migrated != 0) or \
+                (policy == "importance" and migrated == 0):
+            raise AssertionError(f"sweep {policy}: migrated {migrated} "
+                                 f"bytes")
+        if policy == "importance":
+            # teacher-forced replay of the tokens generate fed itself
+            fed = torch.cat([first[None], toks[:-1]])
+            _, t_s2, c_s2 = counted(lambda: eng.start(prompts))
+            run, t_run, c_run = counted(lambda: eng.run(fed))
+            expect("importance start (run)", c_s2, L, 0)
+            expect("importance run", c_run, 0, 2 * L * steps)
+            same = torch.equal(run.argmax(-1).to(torch.int32), toks)
+            log(f"sweep importance run: {t_run:.2f} s for {steps} steps, "
+                f"argmax reproduces the generated tokens: {same}")
+            if not same:
+                raise AssertionError("sweep: run's argmax differs from "
+                                     "generate's tokens")
+        del eng, logits
+        torch.cuda.empty_cache()
+    return total
 
 
 def _leaves(tree):
@@ -434,29 +697,47 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
         __file__)), "src"))
-    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import build
 
     # f32 products in full f32 on both sides of every comparison
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.manual_seed(args.seed)
-    t = time.time()
-    lib, report = pa.build(force=True)
-    log(f"build: {lib.name} in {time.time() - t:.1f} s (nvcc sm_90a)")
-    for line in report.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            log(f"  {line.strip()}")
+    t_all = time.time()
+
+    def phase(name, fn):
+        t = time.time()
+        out = fn()
+        log(f"phase {name}: {time.time() - t:.1f} s wall")
+        return out
+
+    built = phase("build", lambda: build.build_all(force=True))
+    log(f"build: {', '.join(lib.name for lib, _ in built.values())} "
+        f"(nvcc sm_90a, one process per source, in parallel)")
+    for name, (_, report) in built.items():
+        for line in report.splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                log(f"  {name}: {line.strip()}")
 
     rng = np.random.default_rng(args.seed)
-    shapes = kernel_phase(rng, torch.device("cuda"))
-    parity_phase(args.seed)
-    launches = serve_phase(args.seed, args.profile)
+    device = torch.device("cuda")
+    shapes = phase("kernel", lambda: kernel_phase(rng, device))
+    flash = phase("flash", lambda: flash_phase(device))
+    phase("parity", lambda: parity_phase(args.seed))
+    phase("stream", lambda: stream_parity_phase(args.seed))
+    model, params = phase("model", lambda: full_width(args.seed))
+    serve_launches = phase("serve", lambda: serve_phase(
+        model, params, args.seed, args.profile))
+    sweep = phase("sweep", lambda: sweep_phase(model, params, args.seed))
+    log(f"all phases: {time.time() - t_all:.1f} s wall")
 
-    entry = {
+    paged = {
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/paged_attention.cu",
         "replaces": "src/repro/kernels/paged_attention.py:99",
-        "launches": launches,
+        "launches": serve_launches + sweep["paged_attention"],
+        "launches_by_path": {"serve": serve_launches,
+                             "policy_sweep": sweep["paged_attention"]},
         # one decode layer: the HBM-tier (N=64) + host-tier (N=208) launch
         "max_abs_err": max(s["max_abs_err"] for s in shapes),
         "ms": sum(s["ms"] for s in shapes),
@@ -465,9 +746,18 @@ def main(argv=None) -> int:
         "bound_by": "bytes" if all(s["bound_by"] == "bytes"
                                    for s in shapes) else "operations",
         "library_ms": sum(s["library_ms"] for s in shapes),
+        "eager_ms": sum(s["eager_ms"] for s in shapes),
         "per_shape": shapes,
     }
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    flash_entry = {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:71",
+        "launches": sweep["flash_attention"],
+        "launches_by_path": {"policy_sweep": sweep["flash_attention"]},
+        **flash,
+    }
+    print(json.dumps({"kernels": [paged, flash_entry]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

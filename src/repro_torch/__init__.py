@@ -3,8 +3,9 @@
 The JAX package `repro` is the reference; this package mirrors its
 module paths (`repro_torch.serving.engine` is the counterpart of
 `repro.serving.engine`, and so on) and imports nothing of it. The
-paged decode attention runs in a hand-written CUDA kernel for Hopper
-(`repro_torch/csrc/paged_attention.cu`); every other op is plain
+paged decode attention and the prefill attention run in hand-written
+CUDA kernels for Hopper (`repro_torch/csrc/paged_attention.cu`,
+`repro_torch/csrc/flash_attention.cu`); every other op is plain
 PyTorch.
 
 Entry points run on the card unless the caller asks for the CPU:

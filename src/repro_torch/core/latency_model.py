@@ -39,6 +39,31 @@ class StepTraffic:
     m_in: Array = 0.0   # DRAM -> HBM migration
     m_out: Array = 0.0  # HBM -> DRAM migration
 
+    def __add__(self, other: "StepTraffic") -> "StepTraffic":
+        """Elementwise sum — aggregate per-layer (or per-lane) traffic
+        into one per-step volume before pricing Eq. (2)."""
+        return StepTraffic(
+            h_read=self.h_read + other.h_read,
+            e_read=self.e_read + other.e_read,
+            h_write=self.h_write + other.h_write,
+            e_write=self.e_write + other.e_write,
+            m_in=self.m_in + other.m_in,
+            m_out=self.m_out + other.m_out,
+        )
+
+    @classmethod
+    def from_page_counts(cls, *, n_hbm_read: Array, n_dram_read: Array,
+                         n_promote: Array, n_demote: Array,
+                         page_bytes: float, h_write: Array = 0.0,
+                         e_write: Array = 0.0) -> "StepTraffic":
+        """Traffic volumes from page-granular counts — the shape the
+        live engine's telemetry and the simulator both emit."""
+        return cls(h_read=np.asarray(n_hbm_read, np.float64) * page_bytes,
+                   e_read=np.asarray(n_dram_read, np.float64) * page_bytes,
+                   h_write=h_write, e_write=e_write,
+                   m_in=np.asarray(n_promote, np.float64) * page_bytes,
+                   m_out=np.asarray(n_demote, np.float64) * page_bytes)
+
 
 def hbm_latency(t: StepTraffic, spec: MemorySystemSpec) -> Array:
     """Eq. (3)."""

@@ -1,0 +1,119 @@
+"""Build and load the hand-written CUDA kernels of `repro_torch/csrc/`.
+
+Each `csrc/<name>.cu` has a plain `extern "C"` launcher. At first use
+`nvcc` compiles it for `sm_90a` into a shared library under
+`<checkout>/build/` (or `$REPRO_TORCH_BUILD_DIR`), named by a hash of
+the source and the flags, and `ctypes` loads it; later calls and later
+processes reuse the library while the source is unchanged.
+`build_all` starts one `nvcc` per source, all at once, and waits for
+them together.
+
+`COUNTS` holds the launches per kernel name; each wrapper adds one
+where it launches its kernel, and nowhere else.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+from typing import Dict, Iterable, Tuple
+
+CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
+#: the kernels of `csrc/`, each built into its own library
+SOURCES = ("paged_attention", "flash_attention")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: launches per kernel name, counted where the kernel is launched
+COUNTS: collections.Counter = collections.Counter()
+
+
+def build_dir() -> pathlib.Path:
+    """Where built kernels go: `$REPRO_TORCH_BUILD_DIR`, else `build/`
+    at the root of the checkout (listed in .gitignore)."""
+    env = os.environ.get("REPRO_TORCH_BUILD_DIR")
+    if env:
+        return pathlib.Path(env)
+    return CSRC.parents[2] / "build"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found on PATH or under $CUDA_HOME; the CUDA "
+            "kernels are built from source at first use")
+    return path
+
+
+def library_path(name: str) -> pathlib.Path:
+    """The library `build` makes for `csrc/<name>.cu` as it is now."""
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return build_dir() / f"{name}_{digest[:16]}.so"
+
+
+def build_all(names: Iterable[str] = SOURCES, force: bool = False
+              ) -> Dict[str, Tuple[pathlib.Path, str]]:
+    """Compile the libraries that are missing (or all, with `force`),
+    one `nvcc` per source, all started together.
+
+    Returns {name: (library path, compiler output — ptxas' register,
+    shared memory and spill report — or "" when it was already
+    built)}. Raises if any compile fails."""
+    out: Dict[str, Tuple[pathlib.Path, str]] = {}
+    running = []
+    try:
+        for name in names:
+            lib = library_path(name)
+            if lib.exists() and not force:
+                out[name] = (lib, "")
+                continue
+            lib.parent.mkdir(parents=True, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=lib.parent)
+            os.close(fd)
+            proc = subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            running.append((name, lib, tmp, proc))
+        failed = []
+        for name, lib, tmp, proc in running:
+            report = proc.communicate()[0]
+            if proc.returncode != 0:
+                failed.append(f"{name}: nvcc failed ({proc.returncode}):\n"
+                              f"{report}")
+                continue
+            os.replace(tmp, lib)
+            out[name] = (lib, report)
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    finally:
+        for _, _, tmp, proc in running:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return out
+
+
+def build(name: str, force: bool = False) -> Tuple[pathlib.Path, str]:
+    """`build_all` of one source."""
+    return build_all((name,), force)[name]
+
+
+@functools.lru_cache(maxsize=None)
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of `csrc/<name>.cu`, built at first use."""
+    return ctypes.CDLL(str(build(name)[0]))

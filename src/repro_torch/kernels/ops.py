@@ -1,12 +1,18 @@
-"""Two-tier composition of the paged-attention kernel (the port of the
+"""Public attention ops over the hand-written kernels (the port of the
 reference's `kernels/ops.py`).
 
-`tier_attention` picks by device: a CUDA tensor launches the
-hand-written kernel (`paged_attention.paged_attention`) — there is no
-fallback — and a CPU tensor takes the plain version
-(`ref.paged_attention_ref`). `tiered_paged_attention` runs it once per
-tier and merges the two partials exactly (log-sum-exp), the paper's
-concurrent HBM/DRAM reads of Eq. (2).
+Each op picks by device: a CUDA tensor launches the hand-written kernel
+— there is no fallback — a CPU tensor takes the plain version in
+`ref.py`, and any other device raises.
+
+  tier_attention          paged decode attention over one tier
+                          (`paged_attention.paged_attention`).
+  tiered_paged_attention  runs it once per tier and merges the two
+                          partials exactly (log-sum-exp), the paper's
+                          concurrent HBM/DRAM reads of Eq. (2).
+  flash_attention         whole-sequence (prefill) attention, public
+                          layout [B, S, H, D], GQA K/V un-repeated
+                          (`flash_attention.flash_attention`).
 """
 
 from __future__ import annotations
@@ -15,6 +21,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ref
 from repro_torch.kernels.paged_attention import paged_attention
 
@@ -51,3 +58,13 @@ def tiered_paged_attention(
     imp_h = ref.page_importance(lse_h, total_lse)
     imp_e = ref.page_importance(lse_e, total_lse)
     return merged.to(q.dtype), torch.cat([imp_h, imp_e], dim=-1)
+
+
+def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
+    """Prefill attention, public layout: q [B, S, H, D], k/v
+    [B, S, KH, D] with KH dividing H -> out [B, S, H, D]."""
+    if q.device.type == "cuda":
+        return _flash.flash_attention(q, k, v, causal=causal)
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal)
+    raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")

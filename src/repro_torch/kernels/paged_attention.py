@@ -1,4 +1,4 @@
-"""Wrapper and build of the hand-written Hopper paged-attention kernel.
+"""Wrapper of the hand-written Hopper paged-attention kernel.
 
 `paged_attention` has the signature and semantics of
 `repro_torch.kernels.ref.paged_attention_ref` and launches the CUDA
@@ -6,91 +6,25 @@ kernel in `repro_torch/csrc/paged_attention.cu` on the current stream.
 It takes CUDA tensors only: the CPU path is the plain version, chosen
 by `ops.tier_attention` from the tensor's device.
 
-Build: at first use `nvcc` compiles the source for `sm_90a` into a
-shared library under `<checkout>/build/` (or `$REPRO_TORCH_BUILD_DIR`),
-named by a hash of the source, and `ctypes` loads it; later calls and
-later processes reuse the library while the source is unchanged.
+Build: `kernels.build` compiles the source at first use (see there).
 """
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import functools
-import hashlib
-import os
-import pathlib
-import shutil
-import subprocess
-import tempfile
 from typing import Tuple
 
 import torch
 
-SOURCE = pathlib.Path(__file__).resolve().parents[1] / "csrc" / \
-    "paged_attention.cu"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
-#: launches per kernel name, counted where the kernel is launched
-COUNTS: collections.Counter = collections.Counter()
+from repro_torch.kernels.build import COUNTS, library
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def build_dir() -> pathlib.Path:
-    """Where built kernels go: `$REPRO_TORCH_BUILD_DIR`, else `build/`
-    at the root of the checkout (listed in .gitignore)."""
-    env = os.environ.get("REPRO_TORCH_BUILD_DIR")
-    if env:
-        return pathlib.Path(env)
-    return SOURCE.parents[3] / "build"
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(cuda_home, "bin", "nvcc")
-    if not os.path.exists(path):
-        raise RuntimeError(
-            "nvcc not found on PATH or under $CUDA_HOME; the paged "
-            "attention kernel is built from source at first use")
-    return path
-
-
-def build(force: bool = False) -> Tuple[pathlib.Path, str]:
-    """Compile the kernel library if it is missing (or `force`).
-
-    Returns (library path, compiler output — ptxas register and shared
-    memory report — or "" when the library was already built)."""
-    src = SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    out_dir = build_dir()
-    lib = out_dir / f"paged_attention_{digest[:16]}.so"
-    if lib.exists() and not force:
-        return lib, ""
-    out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-            capture_output=True, text=True, check=False)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return lib, proc.stdout + proc.stderr
-
-
 @functools.lru_cache(maxsize=1)
 def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()[0]))
+    lib = library("paged_attention")
     fn = lib.paged_attention_launch
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fn.argtypes = ([ptr] * 12 + [i32] * 7 + [i64] * 8

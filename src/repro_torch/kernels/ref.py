@@ -1,5 +1,5 @@
-"""Plain PyTorch versions of the paged-attention kernel and its
-jnp-side companions (the port of the reference's `kernels/ref.py`).
+"""Plain PyTorch versions of the attention kernels and their jnp-side
+companions (the port of the reference's `kernels/ref.py`).
 
 `paged_attention_ref` defines the per-tier paged decode attention:
 
@@ -22,6 +22,9 @@ Two tiers combine exactly with `merge_partials` (associative
 log-sum-exp merge). RoPE is applied to K before it enters the cache,
 so page order carries no positional meaning and causality reduces to
 validity masking.
+
+`flash_attention_ref` defines the whole-sequence (prefill) attention
+of the flash kernel.
 """
 
 from __future__ import annotations
@@ -125,3 +128,24 @@ def page_importance(page_lse: torch.Tensor,
     mass = torch.exp(page_lse - total_lse[..., None])
     mass = torch.where(page_lse <= NEG_INF / 2, 0.0, mass)
     return mass.sum(dim=(1, 2))
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True,
+                        q_offset: int = 0) -> torch.Tensor:
+    """Plain version of the prefill flash kernel. q: [B, Sq, H, D];
+    k, v: [B, Sk, KH, D] with KH dividing H (query head h reads KV head
+    h // (H // KH); KH == H is the reference's op). f32 scores and
+    softmax, output in q's dtype."""
+    rep = q.shape[2] // k.shape[2]
+    k = k.repeat_interleave(rep, dim=2)
+    v = v.repeat_interleave(rep, dim=2)
+    scale = q.shape[-1] ** -0.5
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        sq, sk = q.shape[1], k.shape[1]
+        kpos = torch.arange(sk, device=q.device)
+        qpos = torch.arange(sq, device=q.device) + q_offset
+        s = torch.where((kpos[None, :] <= qpos[:, None])[None, None], s,
+                        NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)

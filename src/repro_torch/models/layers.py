@@ -2,12 +2,15 @@
 `models/layers.py`): plain functions on tensors, with the reference's
 precision choices kept — `rms_norm` casts back to the model dtype
 before the weight multiply, and attention logits are taken in the
-input dtype, then f32.
+input dtype, then f32. On the card, whole-sequence `attention` runs
+the hand-written flash kernel instead (f32 scores from the inputs).
 """
 
 from __future__ import annotations
 
 import torch
+
+from repro_torch.kernels import ops
 
 NEG_INF = -1e30
 
@@ -127,7 +130,21 @@ def flash_attention_chunked(q, k, v, *, causal: bool = True,
 
 def attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
               flash_threshold: int = 2048) -> torch.Tensor:
-    """Small sequences take the naive path, long ones the chunked one."""
+    """Whole-sequence attention. q: [B, Sq, H, D]; k/v: [B, Sk, KH, D]
+    with KH dividing H.
+
+    On the card every size runs the hand-written flash kernel
+    (`ops.flash_attention`, GQA K/V read un-repeated; queries aligned
+    at key 0, so `q_offset` must be 0). On the CPU the reference's
+    dispatch: K/V repeated per query head, small sequences take the
+    naive path, long ones the chunked one."""
+    if q.device.type == "cuda":
+        if q_offset:
+            raise ValueError("the flash kernel aligns queries at key 0; "
+                             f"q_offset={q_offset} is not supported")
+        return ops.flash_attention(q, k, v, causal=causal)
+    rep = q.shape[2] // k.shape[2]
+    k, v = repeat_kv(k, rep), repeat_kv(v, rep)
     if q.shape[1] * k.shape[1] <= flash_threshold ** 2:
         return naive_attention(q, k, v, causal=causal, q_offset=q_offset)
     return flash_attention_chunked(q, k, v, causal=causal,

@@ -101,10 +101,12 @@ def attn_out(o, lp):
 
 def full_attn_block(h, lp, cfg: ModelConfig, positions):
     """Pre-norm attention block over a full sequence (prefill); also
-    returns the post-RoPE (k, v)."""
+    returns the post-RoPE (k, v). `attention` takes K/V with KH heads:
+    the flash kernel reads them un-repeated on the card, the CPU path
+    repeats them per query head."""
     x = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
     q, k, v = attn_qkv(x, lp, cfg, positions)
-    o = attention(q, repeat_kv(k, cfg.q_per_kv), repeat_kv(v, cfg.q_per_kv))
+    o = attention(q, k, v)
     return h + attn_out(o, lp), (k, v)
 
 

@@ -11,8 +11,16 @@ with the paper's Eq. (1)-(5) under a `MemorySystemSpec`.
 
 Drive modes:
 
-  start/step/generate   single-stream: whole-prompt prefill, then one
-                        decode step per call or a greedy loop.
+  start/step/run/generate
+                        single-stream: whole-prompt prefill (its
+                        attention runs the hand-written flash-attention
+                        kernel on the card), then one decode step per
+                        call, a teacher-forced loop, or a greedy loop;
+                        telemetry is read back once per
+                        `telemetry_stride` steps. With
+                        `EngineConfig.trace_telemetry` each step also
+                        keeps lane 0's page read set and read-time
+                        placement for `serving.trace_bridge`.
   serve(requests)       continuous batching over mixed prefill+decode
                         steps: decoding lanes emit one sampled token
                         while prefilling lanes consume a
@@ -28,9 +36,9 @@ here it is a Python loop over the steps, and the reference's two
 `lax.cond` skips (no decoding lane, no prefill demand) are host `if`s —
 one device sync each per step.
 
-Not in this slice (each raises NotImplementedError naming its slice):
-`overlap_migrations`, `measured_payback`, `trace_telemetry`, `faults=`,
-`slo=`, `mesh`, the recency/cost_aware/quest policies.
+Not ported yet (each raises NotImplementedError naming its slice):
+`overlap_migrations`, `measured_payback`, `serve()` with
+`trace_telemetry`, `faults=`, `slo=`, `mesh`.
 """
 
 from __future__ import annotations
@@ -49,8 +57,7 @@ from repro_torch.kvcache.migrate import apply_migrations
 from repro_torch.kvcache.paged import PagedKVCache, init_cache
 from repro_torch.models.model import Model
 from repro_torch.serving import control
-from repro_torch.serving.policies import NOT_PORTED, make_policy, \
-    policy_names
+from repro_torch.serving.policies import make_policy, policy_names
 from repro_torch.serving.sampling import (
     SamplingConfig, lane_generator, make_sampler,
 )
@@ -60,7 +67,7 @@ from repro_torch.serving.scheduler import (
 
 _OVERLAP_SLICE = "the port's overlap slice (ROADMAP.md, queue 1)"
 _SERVE_SLICE = "the port's faults/SLO slice (ROADMAP.md, queue 1)"
-_TRACE_SLICE = "the port's trace-bridge slice (ROADMAP.md, queue 1)"
+_TRACE_SLICE = "the port's serve-trace slice (ROADMAP.md, queue 1)"
 _LAUNCH_SLICE = "the port's launch slice (ROADMAP.md, queue 1)"
 
 
@@ -95,7 +102,8 @@ class EngineConfig:
     prefill_budget: Optional[int] = None
     #: stop token for `serve` (None = budget-only completion)
     eos_id: Optional[int] = None
-    #: not in this slice (the trace-bridge slice)
+    #: keep lane 0's per-step page read set and read-time placement
+    #: for `trace_bridge.collect` (single-stream drive modes only)
     trace_telemetry: bool = False
     #: policy fallback knobs of the fault plane (the faults/SLO slice)
     fallback_commit_faults: int = 3
@@ -195,8 +203,11 @@ class ServeReport:
 
 
 def _to_device(tree, device):
+    """Tensors of a nested dict (or an empty tuple) moved to `device`."""
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_to_device(v, device) for v in tree)
     return tree.to(device)
 
 
@@ -207,8 +218,6 @@ class ServingEngine:
 
     def __init__(self, model: Model, params, cfg: EngineConfig,
                  mesh=None, device=None):
-        if cfg.policy in NOT_PORTED:
-            _later(f"policy {cfg.policy!r}", NOT_PORTED[cfg.policy])
         if cfg.policy not in policy_names():
             raise ValueError(
                 f"unknown EngineConfig.policy {cfg.policy!r}; registered "
@@ -223,8 +232,6 @@ class ServingEngine:
             _later("EngineConfig.overlap_migrations", _OVERLAP_SLICE)
         if cfg.measured_payback:
             _later("EngineConfig.measured_payback", _OVERLAP_SLICE)
-        if cfg.trace_telemetry:
-            _later("EngineConfig.trace_telemetry", _TRACE_SLICE)
         self.device = resolve_device(device)
         self.model = model
         self.params = _to_device(params, self.device)
@@ -232,32 +239,40 @@ class ServingEngine:
         self.mesh = None
         self.stats: List[StepStats] = []
         self._sampling = SamplingConfig()
+        #: raw (base, access, tier) chunks when cfg.trace_telemetry
+        #: (read by `trace_bridge.collect`)
+        self._trace_log: List[tuple] = []
 
     # ------------------------------------------------------------------ #
     def _setup(self, geo):
         """Bind the stream's geometry: policy, its state, the budget."""
         self.geo = geo
         self._policy = make_policy(self.cfg.policy, cfg=self.cfg, geo=geo)
-        self._pstate = self._policy.init_state(geo)
+        self._pstate = _to_device(self._policy.init_state(geo), self.device)
         self._budget = control.migration_budget(
             geo, self.cfg.migration_budget_frac)
 
     def start(self, prompts: torch.Tensor):
         """Prefill `prompts` [B, S] into a fresh cache and return the
-        last-position logits; resets stats. The single-stream entry
-        point for `step`/`generate`."""
+        last-position logits; resets the policy state and any captured
+        trace. `self.stats` is kept, as the reference's code keeps it
+        (only `serve` resets it). The single-stream entry point for
+        `step`/`run`/`generate`."""
         prompts = prompts.to(self.device)
         geo = self.model.cache_geometry(prompts.shape[0],
                                         self.cfg.max_context,
                                         hbm_fraction=self.cfg.hbm_fraction)
         logits, self.state = self.model.prefill(self.params, prompts, geo)
         self._setup(geo)
-        self.stats = []
+        self._trace_log = []
+        self._trace_prompt_len = int(prompts.shape[1])
         return logits
 
     def _decode(self, cache: PagedKVCache, pstate, token, active=None):
         """The fused step: control plane + decode + lane merge + plan +
-        migration. Returns (logits, cache, pstate, telemetry [4])."""
+        migration. Returns (logits, cache, pstate, stats): stats is
+        (telemetry [4],) or, with `cfg.trace_telemetry`, (telemetry,
+        read set bool [L, B, P], read-time placement int8 [L, B, P])."""
         sparsity = self.cfg.attention_sparsity
         write_slot = control.choose_write_slot(cache)
         mask = control.quest_page_mask(cache, sparsity) \
@@ -277,30 +292,70 @@ class ServingEngine:
         plan, pstate, (n_pro, n_dem) = self._policy.plan(
             cache, pstate, active, self._budget, read_mask=read)
         moves = torch.stack([n_pro, n_dem]).to(torch.int32)
+        base = torch.cat([occ, moves])
+        if self.cfg.trace_telemetry:
+            # post-decode (the step's fresh page included),
+            # pre-migration placement
+            stats = (base, read, control.page_tiers(cache))
+        else:
+            stats = (base,)
         cache = apply_migrations(cache, plan)
-        return logits, cache, pstate, torch.cat([occ, moves])
+        return logits, cache, pstate, stats
+
+    def _readback(self, rows: List[tuple]) -> None:
+        """One host readback of a chunk's stats tuples, then pricing."""
+        self._record(tuple(torch.stack(col).cpu().numpy()
+                           for col in zip(*rows)))
 
     def step(self, token: torch.Tensor) -> torch.Tensor:
         """One decode step + one telemetry readback."""
-        logits, self.state, self._pstate, base = self._decode(
+        logits, self.state, self._pstate, stats = self._decode(
             self.state, self._pstate, token.to(self.device))
-        self._record(base[None].cpu().numpy())
+        self._readback([stats])
         return logits
 
+    def run(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Teacher-forced decode. tokens [K, B] -> logits [K, B, V].
+
+        Chunks of `telemetry_stride` steps with one telemetry readback
+        per chunk; the same logits and StepStats as K calls of
+        `step()`."""
+        tokens = tokens.to(self.device, torch.int32)
+        K = tokens.shape[0]
+        if K == 0:
+            return torch.zeros((0, tokens.shape[1], self.model.cfg.vocab),
+                               device=self.device)
+        stride = max(1, self.cfg.telemetry_stride)
+        out = []
+        for s in range(0, K, stride):
+            rows = []
+            for tok in tokens[s:s + stride]:
+                logits, self.state, self._pstate, stats = self._decode(
+                    self.state, self._pstate, tok)
+                out.append(logits)
+                rows.append(stats)
+            self._readback(rows)
+        return torch.stack(out)
+
     def generate(self, token: torch.Tensor, steps: int) -> torch.Tensor:
-        """Greedy generation from `token` [B] -> tokens [steps, B]."""
+        """Greedy generation from `token` [B] -> tokens [steps, B], in
+        chunks of `telemetry_stride` steps with one readback each."""
         token = token.to(self.device, torch.int32)
-        out, rows = [], []
-        for _ in range(steps):
-            logits, self.state, self._pstate, base = self._decode(
-                self.state, self._pstate, token)
-            token = logits.argmax(dim=-1).to(torch.int32)
-            out.append(token)
-            rows.append(base)
-        if rows:
-            self._record(torch.stack(rows).cpu().numpy())
-        return torch.stack(out) if out else \
-            torch.zeros((0,) + token.shape, dtype=torch.int32)
+        if steps == 0:
+            return torch.zeros((0,) + token.shape, dtype=torch.int32,
+                               device=self.device)
+        stride = max(1, self.cfg.telemetry_stride)
+        out = []
+        for s in range(0, steps, stride):
+            rows = []
+            for _ in range(min(stride, steps - s)):
+                logits, self.state, self._pstate, stats = self._decode(
+                    self.state, self._pstate, token)
+                token = logits.argmax(dim=-1).to(torch.int32)
+                out.append(token)
+                rows.append(stats)
+            self._readback(rows)
+        return torch.stack(out)
 
     # ------------------------------------------------------------------ #
     # continuous-batching serve loop (the headline API)
@@ -326,6 +381,9 @@ class ServingEngine:
             _later("serve(faults=...)", _SERVE_SLICE)
         if slo is not None:
             _later("serve(slo=...)", _SERVE_SLICE)
+        if self.cfg.trace_telemetry:
+            _later("serve() with EngineConfig.trace_telemetry",
+                   _TRACE_SLICE)
         cfg = self.cfg
         dev = self.device
         if not requests:
@@ -457,7 +515,7 @@ class ServingEngine:
                 # decode plane: skipped on steps with no decoding lane
                 # (its stats row is filtered at the boundary anyway)
                 if bool(dec.any()):
-                    logits, cache, pstate, base = self._decode(
+                    logits, cache, pstate, (base,) = self._decode(
                         cache, pstate, tok, dec)
                     # non-finite sampling guard: such a lane emits
                     # nothing, flips inactive, and completes "failed"
@@ -530,7 +588,7 @@ class ServingEngine:
             done_d = ~act.cpu().numpy()
             # telemetry: only steps where at least one lane DECODED
             row_mask = emitted.max(axis=1) >= 0
-            self._record(out["base"][row_mask])
+            self._record((out["base"][row_mask],))
             span = time.time() - t0
 
             def stamp(row):
@@ -630,9 +688,17 @@ class ServingEngine:
     def _record(self, stats, specs=None):
         """Price per-step telemetry rows into `self.stats`.
 
-        stats: [n, 4] int rows of (hbm_pages, host_pages, promotes,
-        demotes); `specs` optionally prices each row with its own
-        `MemorySystemSpec` instead of `cfg.spec`."""
+        stats: a tuple off the device — `(base,)` or, with
+        `cfg.trace_telemetry`, `(base, access, tier)`: base is [n, 4]
+        int rows of (hbm_pages, host_pages, promotes, demotes),
+        access/tier the per-step [n, L, B, P] read set and placement,
+        of which lane 0 is kept raw in `_trace_log` for
+        `trace_bridge.collect`. `specs` optionally prices each row with
+        its own `MemorySystemSpec` instead of `cfg.spec`."""
+        if len(stats) == 3:
+            self._trace_log.append(
+                (stats[0], stats[1][:, :, 0], stats[2][:, :, 0]))
+        stats = stats[0]
         geo = self.geo
         pb = geo.page_bytes()
         frac = 1.0 - self.cfg.attention_sparsity

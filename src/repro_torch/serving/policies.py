@@ -1,24 +1,41 @@
-"""Pluggable placement policies — the policy plane of the serve loop
-(the port of the reference's `serving/policies.py`, first slice).
+"""Pluggable placement policies — the policy plane of the decode step
+(the port of the reference's `serving/policies.py`).
 
 Protocol (duck-typed):
 
   init_state(geo) -> state      policy state carried across steps
-                                (empty tuple for stateless policies)
+                                (empty tuple for stateless policies; a
+                                dict of tensors the engine moves to its
+                                device)
   plan(cache, state, active, budget, read_mask=None)
       -> (MigrationPlan, state, (n_promotes, n_demotes))
                                 one planning step; the plan's capacity
                                 is the geometry constant
-                                `control.plan_capacity`.
+                                `control.plan_capacity`. `read_mask`
+                                (bool [L, B, max_pages]) is the page set
+                                this step's attention read.
+  recalibrate(state, spec) -> state
+                                spec-dependent state values re-derived
+                                for another `MemorySystemSpec`.
 
-Registered in this slice (EngineConfig.policy):
+Registered policies (EngineConfig.policy):
 
   static      never migrates — an empty plan, the paper's baseline #2.
   importance  the attention-mass-EMA hysteresis planner
               (`control.plan_migrations`).
+  recency     LRU by last-access step (live mirror of the simulator's
+              `reactive`): host pages read within `window` steps are
+              promoted, the least-recently-read HBM residents make room.
+  cost_aware  importance hysteresis with thresholds derived from the
+              memory system's bandwidth ratios
+              (`core/placement/cost_aware.hysteresis_thresholds`), carried
+              as float32 0-dim tensors; warm residents are protected.
+  quest       promotes exactly the pages the Quest top-k mask reads
+              next; mask-resident HBM pages are never evicted.
 
-The reference's `recency`, `cost_aware` and `quest` policies arrive
-with the port's policy slice; asking for one raises NotImplementedError.
+The reference's plan-ahead mode (`protect_read_residents`) belongs to
+overlap mode, which the port's overlap slice brings; until then every
+policy plans inline.
 """
 
 from __future__ import annotations
@@ -27,19 +44,16 @@ from typing import Any, Callable, Dict, Tuple
 
 import torch
 
+from repro_torch.core.placement.cost_aware import hysteresis_thresholds
 from repro_torch.kvcache.migrate import MigrationPlan
-from repro_torch.kvcache.paged import PagedKVCache
+from repro_torch.kvcache.paged import IMPORTANCE_EMA, PagedKVCache
 from repro_torch.serving import control
 
 Counts = Tuple[torch.Tensor, torch.Tensor]
 PlanResult = Tuple[MigrationPlan, Any, Counts]
 
-#: reference policies not ported yet, and the slice that brings them
-NOT_PORTED = {
-    "recency": "the port's policy slice (ROADMAP.md, queue 1)",
-    "cost_aware": "the port's policy slice (ROADMAP.md, queue 1)",
-    "quest": "the port's policy slice (ROADMAP.md, queue 1)",
-}
+_NEG_INF = float("-inf")
+_POS_INF = float("inf")
 
 
 class DevicePolicy:
@@ -59,6 +73,12 @@ class DevicePolicy:
              read_mask=None) -> PlanResult:
         """One planning step -> (MigrationPlan, state, (n_pro, n_dem))."""
         raise NotImplementedError
+
+    def recalibrate(self, state: Any, spec) -> Any:
+        """Re-derive spec-dependent state values for `spec` (values
+        only, never shapes). Default: nothing depends on the spec."""
+        del spec
+        return state
 
 
 def check_read_mask(cache: PagedKVCache, read_mask) -> None:
@@ -89,10 +109,6 @@ def policy_names() -> Tuple[str, ...]:
 
 def make_policy(name: str, *, cfg, geo) -> DevicePolicy:
     """Build a registered policy for an engine config + cache geometry."""
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"policy {name!r} is not ported yet; it arrives with "
-            f"{NOT_PORTED[name]}")
     if name not in _REGISTRY:
         raise ValueError(
             f"unknown device policy {name!r}; registered policies: "
@@ -134,4 +150,148 @@ class ImportancePolicy(DevicePolicy):
         plan, n_pro, n_dem = control.plan_migrations(
             cache, budget=budget, promote_thresh=self._thresh,
             active=active)
+        return plan, state, (n_pro, n_dem)
+
+
+@register("recency")
+class RecencyPolicy(DevicePolicy):
+    """LRU by last-access step (live mirror of ReactiveLRU).
+
+    A page is accessed when this step's read set (`read_mask`, the
+    pages attention streamed) includes it. Host pages accessed within
+    `window` steps are promotion candidates, most recently read first;
+    victims are the least-recently-read HBM residents, and a candidate
+    never displaces a page read at the same step (strict inequality).
+    """
+
+    name = "recency"
+    window = 8
+
+    def __init__(self, *, cfg, geo):
+        super().__init__(cfg=cfg, geo=geo)
+        self._sparsity = cfg.attention_sparsity
+
+    def init_state(self, geo) -> Any:
+        """Per-page last-access steps (-1 = never) + the step count."""
+        shape = (geo.num_layers, geo.batch, geo.max_pages)
+        return {"last": torch.full(shape, -1, dtype=torch.int32),
+                "step": torch.zeros((), dtype=torch.int32)}
+
+    def plan(self, cache, state, active, budget,
+             read_mask=None) -> PlanResult:
+        """Promote recently read host pages, evict LRU residents."""
+        check_read_mask(cache, read_mask)
+        alive = cache.page_table >= 0
+        if read_mask is not None:
+            read = read_mask & alive
+        elif self._sparsity > 0:
+            # standalone use outside the engine: the post-step mask
+            read = control.quest_page_mask(cache, self._sparsity)
+        else:
+            read = alive
+        step = state["step"] + 1
+        # unallocated pages forget their step, so a request admitted
+        # into a released lane never inherits the last one's history
+        last = torch.where(read, step,
+                           torch.where(alive, state["last"], -1))
+        scores = last.float()
+        host_score = control.slot_scores(scores, cache.host_owner)
+        hbm_score = control.slot_scores(scores, cache.hbm_owner)
+        # clamped at 0 so never-read pages (step -1) do not qualify
+        # while the stream is younger than the window
+        thresh = (step - self.window).clamp_min(0).float()
+        plan, n_pro, n_dem = control.plan_by_score(
+            cache, host_score, hbm_score, budget=budget,
+            promote_thresh=thresh, active=active)
+        return plan, {"last": last, "step": step}, (n_pro, n_dem)
+
+
+@register("cost_aware")
+class CostAwarePolicy(DevicePolicy):
+    """Bandwidth-ratio hysteresis (live mirror of CostAwareHysteresis).
+
+    Promote threshold = `payback_threshold(spec, 1 / IMPORTANCE_EMA)`:
+    the attention-mass share at which keeping a page in HBM over the
+    EMA horizon repays one link crossing under the spec's Eq. (3)/(4)
+    constants. Residents at or above `demote_ratio` of it are protected
+    from eviction. The thresholds are float32 0-dim tensors in the
+    state, as the reference's `jnp.float32` scalars, so every
+    comparison against the f32 importance happens in float32.
+    """
+
+    name = "cost_aware"
+    demote_ratio = 0.25
+
+    def __init__(self, *, cfg, geo):
+        super().__init__(cfg=cfg, geo=geo)
+        self._base_spec = cfg.spec
+
+    def init_state(self, geo) -> Any:
+        """Payback thresholds for the engine's spec."""
+        del geo
+        return self.recalibrate(None, self._base_spec)
+
+    def recalibrate(self, state: Any, spec) -> Any:
+        """Thresholds re-derived for `spec` (same shapes, new values)."""
+        del state
+        t_pro, t_dem = hysteresis_thresholds(
+            spec, 1.0 / IMPORTANCE_EMA, self.demote_ratio)
+        return {"t_promote": torch.tensor(t_pro, dtype=torch.float32),
+                "t_demote": torch.tensor(t_dem, dtype=torch.float32)}
+
+    def plan(self, cache, state, active, budget,
+             read_mask=None) -> PlanResult:
+        """Promote pages whose attention mass repays the link cost."""
+        check_read_mask(cache, read_mask)
+        imp = cache.importance
+        host_score = control.slot_scores(imp, cache.host_owner)
+        hbm_imp = control.slot_scores(imp, cache.hbm_owner)
+        # residents warmer than the demote threshold are not victims
+        protected = (cache.hbm_owner >= 0) & (hbm_imp >= state["t_demote"])
+        hbm_score = torch.where(protected, _POS_INF, hbm_imp)
+        plan, n_pro, n_dem = control.plan_by_score(
+            cache, host_score, hbm_score, budget=budget,
+            promote_thresh=state["t_promote"], active=active)
+        return plan, state, (n_pro, n_dem)
+
+
+@register("quest")
+class QuestPolicy(DevicePolicy):
+    """Promote exactly what the Quest top-k mask reads next (live
+    mirror of QuestPages).
+
+    The mask over the post-step cache is the page set the next step's
+    attention streams: its host-resident members are promoted (hottest
+    first when over budget), its HBM residents are protected, and the
+    coldest residents outside it make room.
+    """
+
+    name = "quest"
+
+    def __init__(self, *, cfg, geo):
+        super().__init__(cfg=cfg, geo=geo)
+        self._sparsity = cfg.attention_sparsity
+
+    def plan(self, cache, state, active, budget,
+             read_mask=None) -> PlanResult:
+        """Prefetch the next step's Quest top-k read set into HBM."""
+        check_read_mask(cache, read_mask)
+        # not read_mask (this step's reads): the mask over the post-step
+        # cache is what the NEXT attention will want
+        mask = control.quest_page_mask(cache, self._sparsity)
+        imp = cache.importance
+        eo, ho = cache.host_owner, cache.hbm_owner
+        in_mask_host = torch.gather(mask, -1, eo.clamp_min(0).long()) \
+            & (eo >= 0)
+        host_imp = control.slot_scores(imp, eo)
+        # +1 keeps every member above the 0.0 threshold (importance is
+        # nonnegative)
+        host_score = torch.where(in_mask_host, 1.0 + host_imp, _NEG_INF)
+        in_mask_hbm = torch.gather(mask, -1, ho.clamp_min(0).long()) \
+            & (ho >= 0)
+        hbm_imp = control.slot_scores(imp, ho)
+        hbm_score = torch.where(in_mask_hbm, _POS_INF, hbm_imp)
+        plan, n_pro, n_dem = control.plan_by_score(
+            cache, host_score, hbm_score, budget=budget,
+            promote_thresh=0.0, active=active)
         return plan, state, (n_pro, n_dem)

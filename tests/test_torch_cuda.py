@@ -1,5 +1,5 @@
-"""The hand-written CUDA paged-attention kernel against its plain
-version, on the card.
+"""The hand-written CUDA kernels (paged decode attention, prefill
+flash attention) against their plain versions, on the card.
 
 Marked `cuda`: every test here needs an NVIDIA Hopper card and `nvcc`,
 and skips without them. On the card:
@@ -9,7 +9,8 @@ and skips without them. On the card:
 Tolerances: in float32 the kernel sums in another order than the plain
 version (atol 2e-5 on `out`); in bfloat16 `out` is rounded to bf16 on
 both sides, one bf16 step apart at most (atol 1e-2). `m` and the
-per-page LSE agree within 1e-4, `l` within 1e-4 relative.
+per-page LSE agree within 1e-4, `l` within 1e-4 relative. The flash
+kernel's `out` is held to the same 2e-5 (f32) and 1e-2 (bf16).
 """
 
 import numpy as np
@@ -17,9 +18,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.models import layers  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -130,3 +134,74 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(device):
                            page_valid)
     with pytest.raises(ValueError, match="k_pool"):
         pa.paged_attention(q, k.bfloat16(), v, page_list, page_valid)
+
+
+FLASH_SHAPES = [
+    # (B, S, H, KH, D, dtype, causal)
+    (4, 2304, 16, 8, 128, torch.bfloat16, True),   # the prefill of the path
+    (2, 1000, 4, 4, 128, torch.bfloat16, True),    # ragged S, KH == H
+    (2, 1000, 4, 2, 64, torch.bfloat16, False),    # not causal
+    (2, 300, 4, 2, 16, torch.float32, True),       # the smoke config
+    (1, 77, 2, 1, 32, torch.float32, False),
+]
+
+
+def flash_inputs(B, S, H, KH, D, dtype, device, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*s):
+        return torch.randn(s, generator=gen, device=device).to(dtype)
+    return randn(B, S, H, D), randn(B, S, KH, D), randn(B, S, KH, D)
+
+
+@pytest.mark.parametrize("shape", FLASH_SHAPES, ids=str)
+def test_flash_kernel_matches_plain_version(device, shape):
+    B, S, H, KH, D, dtype, causal = shape
+    q, k, v = flash_inputs(B, S, H, KH, D, dtype, device, seed=S + D)
+    got = fa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=OUT_ATOL[dtype], rtol=0)
+
+
+def test_flash_kernel_reads_inputs_through_their_strides(device):
+    """q, k, v as views into one packed [B, S, H + 2 KH, D] projection."""
+    B, S, H, KH, D = 2, 200, 4, 2, 64
+    qkv = torch.randn(B, S, H + 2 * KH, D, device=device,
+                      dtype=torch.bfloat16)
+    q, k, v = qkv.split([H, KH, KH], dim=2)
+    assert not q.is_contiguous()
+    got = fa.flash_attention(q, k, v)
+    want = ref.flash_attention_ref(q.contiguous(), k.contiguous(),
+                                   v.contiguous())
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-2, rtol=0)
+
+
+def test_flash_wrapper_refuses_what_the_kernel_does_not_take(device):
+    q, k, v = flash_inputs(1, 64, 4, 2, 64, torch.float32, device, 0)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention(q[..., :48], k[..., :48], v[..., :48])
+    with pytest.raises(ValueError, match="dividing"):
+        fa.flash_attention(q[:, :, :3], k, v)
+    with pytest.raises(ValueError, match="dtype"):
+        fa.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="k:"):
+        fa.flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="v:"):
+        fa.flash_attention(q, k, v[:, :32])
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q, k.transpose(1, 3).contiguous().transpose(1, 3),
+                           v)
+
+
+@pytest.mark.parametrize("S", [40, 3000], ids=["short", "long"])
+def test_layers_attention_launches_the_kernel(device, S):
+    """On the card every sequence length goes to the flash kernel, one
+    launch per call, and agrees with the CPU's dispatch."""
+    q, k, v = flash_inputs(1, S, 4, 2, 16, torch.float32, device, S)
+    before = build.COUNTS["flash_attention"]
+    got = layers.attention(q, k, v)
+    assert build.COUNTS["flash_attention"] == before + 1
+    want = layers.attention(q.cpu(), k.cpu(), v.cpu())
+    torch.testing.assert_close(got.cpu(), want, atol=2e-5, rtol=0)
