@@ -25,8 +25,9 @@ non-zero):
   2b. flash  run the flash kernel against its plain version
              (ref.flash_attention_ref) on CUDA tensors: the prefill
              shape of phase 5 (B=4, S=2304, H=16 over KH=8, D=128,
-             bf16, causal), a ragged S with KH == H, a non-causal case
-             and the smoke shape in f32; time it at the prefill shape
+             bf16, causal), a ragged S with KH == H, a non-causal case,
+             the smoke shape in f32 and a bf16 D=64 case with a ragged
+             S; time it at the prefill shape
              beside the plain version, one scaled_dot_product_attention
              call (enable_gqa, on [B, H, S, D] copies made outside the
              timed region) and its operations bound.
@@ -245,8 +246,8 @@ def kernel_phase(rng, device):
         log(f"kernel N={N}: device {ms:.4f} ms  plain {plain_ms:.4f} ms  "
             f"sdpa {lib_ms:.4f} ms  bound {bound:.4f} ms "
             f"({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)  "
-            f"eager call {kernel_eager:.4f} ms  splits "
-            f"{pa.choose_splits(B, KH, N, sms)}")
+            f"eager call {kernel_eager:.4f} ms  "
+            f"{pa.launch_plan(B, KH, G, HD, T, N, 2, sms)}")
         shapes.append({"N": N, "ms": ms, "plain_ms": plain_ms,
                        "library_ms": lib_ms, "bound_ms": bound,
                        "eager_ms": kernel_eager,
@@ -269,6 +270,7 @@ FLASH_SHAPES = (
     (2, 1000, 16, 16, 128, "bf16", True),
     (2, 1000, 16, 8, 128, "bf16", False),
     (2, 300, 4, 2, 16, "f32", True),
+    (2, 1000, 16, 8, 64, "bf16", True),    # D=64, S not a tile multiple
 )
 FLASH_TOL = {"bf16": 1e-2, "f32": 2e-5}
 
@@ -340,7 +342,8 @@ def flash_phase(device):
         timing = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                   "bound_ms": bound, "eager_ms": kernel_eager,
                   "bound_by": "bytes" if t_bytes >= t_ops
-                  else "operations", "bytes": nbytes, "flops": flops}
+                  else "operations", "bytes": nbytes, "flops": flops,
+                  "tflops": flops / ms / 1e9}
         del sets, bhsd
     return {**timing, "max_abs_err": max(errs)}
 
@@ -385,8 +388,7 @@ def parity_phase(seed):
 
 
 KERNEL_GROUPS = (   # (group, lower-case substrings of its kernel names)
-    ("paged attention (csrc/paged_attention.cu)", ("paged_split_kernel",
-                                                   "paged_merge_kernel")),
+    ("paged attention (csrc/paged_attention.cu)", ("paged_split_kernel",)),
     ("matmul", ("gemm", "gemv", "cutlass", "xmma", "nvjet", "splitk")),
     ("softmax", ("softmax",)),
     ("gather / scatter / copy", ("index", "gather", "scatter", "copy",

@@ -3,10 +3,10 @@
 //
 // Replaces the TPU kernel `flash_attention_bhsd` in
 // src/repro/kernels/flash_attention.py (Pallas body `_kernel`), and
-// computes what that kernel computes: f32 scores q.k * D^-0.5 (plain
-// FMA, no TF32), query i sees keys 0..i when causal (aligned at 0), a
-// running (m, l, acc) in f32 with the finite NEG_INF (-1e30) and its
-// guards (p = 0 where s <= NEG_INF/2, m_safe, corr = 0 while m is still
+// computes what that kernel computes: scores q.k * D^-0.5 accumulated
+// in f32, query i sees keys 0..i when causal (aligned at 0), a running
+// (m, l, acc) in f32 with the finite NEG_INF (-1e30) and its guards
+// (p = 0 where s <= NEG_INF/2, m_safe, corr = 0 while m is still
 // NEG_INF), and out = acc / max(l, 1e-20) cast to q's dtype.
 // It differs from the Pallas kernel in what does not change the
 // function: it reads q [B, Sq, H, D] and k/v [B, Sk, KH, D] through
@@ -20,35 +20,61 @@
 // 4*B*H*D*S(S+1)/2 = 87 GFLOP on 113 MB: 0.088 ms at the 989 TFLOP/s
 // of the bf16 tensor cores against 0.034 ms for the bytes.
 //
-// What this first version does about it: it is right and simple, not
-// fast. The products run on the CUDA cores in f32 (an upper bound of
-// 67 TFLOP/s, so at least ~15x the tensor-core bound):
-//  * one CTA of 256 threads per (q block of 64 rows, head, lane); the
-//    q tile and each 64-key K and V tile are widened to f32 in shared
-//    memory (16-byte vector loads, rows padded by 4 floats so the
-//    float4 reads of the inner loops are free of bank conflicts);
-//  * each thread owns a 4 x 4 block of the 64 x 64 score tile and a
-//    4 x D/16 block of the output, so every shared-memory read feeds
-//    4 FMAs; the 16 threads that share a row reduce its max and sum
-//    with warp shuffles;
-//  * causal blocks above the diagonal are skipped (half the work), and
-//    the q blocks with the most keys are launched first.
-// Not done yet: mma.sync / wgmma products in bf16, cp.async or TMA
-// double buffering of the next K/V tile.
+// Two bodies, chosen by dtype:
+//  * bf16 (the main path): both products on the tensor cores with
+//    Hopper's warpgroup `wgmma.mma_async` (bf16 in, f32 accumulate).
+//    One CTA of one warpgroup (4 warps) per (64-row q block, head,
+//    lane); S = Q.K^T is `m64n64k16` with Q and K read from shared
+//    memory by descriptor; S's accumulator stays in registers and is
+//    turned, in place, into the A operand (registers) of O += P.V,
+//    `m64nDk16` with V read by descriptor with the transpose bit. P
+//    makes no trip through shared memory, and O (64 x D) stays in
+//    registers. P enters P.V as bf16 hi + lo (lo the bf16 rounding of
+//    P - hi, a second product): P rounded once to bf16 moves out by up
+//    to 2^-9 relative, and where |out| >= 2 that flips bf16 roundings
+//    of out by one step, 0.0156, past the 1e-2 tolerance
+//    (scripts/bf16_p_rounding.py); hi + lo holds P to ~2^-17.
+//    K/V tiles of 64 keys come by TMA (thread 0, a 4-D tensor map
+//    {D, KH, S, B} over the strided tensor, so GQA and packed QKV views
+//    need no copy; rows past Sk zero-filled) into a ring of 2 stages
+//    tracked by mbarriers: the next tile is in flight while this one is
+//    computed, one block barrier per tile. Tiles use TMA's swizzle
+//    (128-byte, or 64/32-byte for D = 32/16), which is also the layout
+//    the wgmma descriptors name; Q comes once by `cp.async` into the
+//    same layout. Masking runs on the tiles that cross the diagonal or
+//    the end of the keys only; the scale folds into the exponent and
+//    the softmax uses ex2.approx. Not done yet: a producer warp with
+//    `setmaxnreg`, two consumer warpgroups, and overlapping one tile's
+//    softmax with the next tile's products.
+//    Measured by chip_smoke.py phase 2b on an NVIDIA H100 80GB HBM3
+//    (700 W) at the prefill shape above: 0.296 ms, 294 TFLOP/s — 3.4x
+//    the bound, 1.75x the 0.169 ms of scaled_dot_product_attention
+//    (PERF.md).
+//  * f32: products on the CUDA cores by FMA (no TF32): the
+//    card-vs-CPU parity of the single-stream path needs full-f32
+//    products. q/K/V tiles widened to f32 in shared memory, each thread
+//    a 4 x 4 block of the 64 x 64 score tile; causal blocks above the
+//    diagonal skipped, the q blocks with the most keys launched first.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr float kNegInf = -1e30f;
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;  // f32 body
 constexpr int kQB = 64;       // query rows per CTA
 constexpr int kKB = 64;       // keys per tile
 constexpr int kPad = 4;       // floats of padding per shared row
 constexpr int kRows = 4;      // score / output rows per thread
 constexpr int kCols = 4;      // score columns per thread (kKB / 16)
+
+// ---------------------------------------------------------------------
+// f32: FMA body
+// ---------------------------------------------------------------------
 
 template <typename E> struct Elem;
 
@@ -59,23 +85,6 @@ template <> struct Elem<float> {
     dst[0] = v.x; dst[1] = v.y; dst[2] = v.z; dst[3] = v.w;
   }
   __device__ static float from_f(float x) { return x; }
-};
-
-template <> struct Elem<__nv_bfloat16> {
-  static constexpr int kVec = 8;
-  __device__ static void load(const __nv_bfloat16* p, float* dst) {
-    uint4 raw = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float2 f = __bfloat1622float2(h[i]);
-      dst[2 * i] = f.x;
-      dst[2 * i + 1] = f.y;
-    }
-  }
-  __device__ static __nv_bfloat16 from_f(float x) {
-    return __float2bfloat16(x);
-  }
 };
 
 // `n` (1, 2 or 4) consecutive floats of shared memory.
@@ -135,7 +144,7 @@ __host__ __device__ constexpr size_t smem_bytes() {
 
 template <typename E, int D>
 __global__ void __launch_bounds__(kThreads, 1)
-flash_kernel(const E* __restrict__ q, const E* __restrict__ k,
+flash_fma_kernel(const E* __restrict__ q, const E* __restrict__ k,
              const E* __restrict__ v, E* __restrict__ out, Shape s) {
   constexpr int DS = D + kPad;          // shared row stride of q, k, v
   constexpr int PS = kKB + kPad;        // shared row stride of p
@@ -275,33 +284,541 @@ flash_kernel(const E* __restrict__ q, const E* __restrict__ k,
   }
 }
 
-template <typename E, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   const Shape& s, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        flash_kernel<E, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return e;
+// ---------------------------------------------------------------------
+// bf16: tensor-core body (wgmma, TMA ring)
+// ---------------------------------------------------------------------
+
+constexpr int kWgThreads = 128;   // one warpgroup per CTA
+constexpr int kQBM = 64;          // query rows per CTA
+constexpr int kKBM = 64;          // keys per tile
+constexpr int kStages = 2;        // K/V tiles in the ring
+constexpr float kLog2e = 1.4426950408889634f;
+
+typedef __nv_bfloat16 bf16;
+
+__device__ inline uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 2^x by the SFU (ex2.approx, relative error ~2^-22).
+__device__ inline float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// 16 bytes global -> shared; `bytes` 0 zero-fills the destination.
+__device__ inline void cp_async16(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ inline void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ inline void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Byte offset of 16-byte chunk `c` of row `r` in a tile of ROWS rows
+// of D bf16 values, laid out as TMA's swizzle modes lay it: the tile is
+// cut into column blocks of 128 bytes (all of a row when D < 64); in
+// each, chunk c of row r sits at c ^ (r % 8) (64-byte rows: c ^ (r / 2
+// % 4); 32-byte rows: c ^ (r / 4 % 2)), which is the XOR of address
+// bits 4-6 with bits 7-9 that TMA applies. Tiles start on 1024 bytes.
+template <int D, int ROWS>
+__device__ inline uint32_t swz(int r, int c) {
+  constexpr int kRowB = D * 2 < 128 ? D * 2 : 128;
+  constexpr int kCpr = kRowB / 16;
+  uint32_t a = (uint32_t)((c / kCpr) * ROWS * kRowB + r * kRowB +
+                          (c % kCpr) * 16);
+  return a ^ (((a >> 7) & (kCpr - 1)) << 4);
+}
+
+// Issue the copies of rows [row0, row0 + N) of one head of a
+// [*, S, heads, D] tensor into a swizzled tile; rows at or past `rows`
+// are zero-filled.
+template <int D, int N>
+__device__ inline void load_tile_async(const bf16* __restrict__ src,
+                                       long long ss, int row0, int rows,
+                                       uint32_t dst) {
+  constexpr int kC = D / 8;
+  for (int idx = threadIdx.x; idx < N * kC; idx += kWgThreads) {
+    const int r = idx / kC, c = idx - r * kC;
+    const bool in = row0 + r < rows;
+    const bf16* p = src + (in ? (long long)(row0 + r) * ss + c * 8 : 0);
+    cp_async16(dst + swz<D, N>(r, c), p, in ? 16 : 0);
   }
+}
+
+__device__ inline void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ inline void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+__device__ inline void mbar_wait(uint32_t bar, int parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+// One [rows][min(D, 64)] box of a [B, S, KH, D] tensor by TMA, at
+// column c0, KV head kh, row s0, lane b; completion on `bar`.
+__device__ inline void tma_load(uint32_t dst, const CUtensorMap* map, int c0,
+                                int kh, int s0, int b, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(kh), "r"(s0),
+      "r"(b), "r"(bar)
+      : "memory");
+}
+
+template <int D>
+__host__ __device__ constexpr size_t wg_smem_bytes() {
+  // q [kQBM][D] | k, v [kStages][kKBM][D], bf16 | an mbarrier per
+  // stage | slack to start the tiles on 1024 bytes
+  return sizeof(bf16) * (size_t)D * (kQBM + 2 * kStages * kKBM) +
+         8 * kStages + 1024;
+}
+
+// Two consecutive P values as bf16 hi + lo (the bf16 rounding of what
+// hi leaves), one A-fragment register each: hi + lo holds P to ~2^-17.
+__device__ inline void pack_p(float x, float y, uint32_t& hi, uint32_t& lo) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  __nv_bfloat162 r = __floats2bfloat162_rn(x - __low2float(h),
+                                           y - __high2float(h));
+  hi = *reinterpret_cast<uint32_t*>(&h);
+  lo = *reinterpret_cast<uint32_t*>(&r);
+}
+
+// Pins registers that an asynchronous wgmma reads or writes: the
+// compiler keeps their other uses on their side of this point.
+template <int N>
+__device__ inline void reg_fence(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+__device__ inline void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ inline void wg_commit_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// wgmma's shared-memory matrix descriptor: start address, leading and
+// stride byte offsets (in 16-byte units), swizzle mode (1 = 128-byte,
+// 2 = 64-byte, 3 = 32-byte).
+__device__ inline uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
+                                     uint32_t sbo, uint32_t layout) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)layout << 62);
+}
+
+// d (64 x 64, f32) = A . B (+ d where scale_d), A and B K-major
+// in shared memory, by descriptor.
+__device__ inline void wgmma_ss_n64(float* d, uint64_t da, uint64_t db,
+                                    int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x N, f32) += A . B: A (64 x 16) from registers in the
+// mma.sync A-fragment layout, B (16 x N) MN-major in shared memory
+// (the transpose bit), by descriptor.
+__device__ inline void wgmma_rs_n16(float* d, const uint32_t* a,
+                                     uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7 "
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ inline void wgmma_rs_n32(float* d, const uint32_t* a,
+                                     uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15 "
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ inline void wgmma_rs_n64(float* d, const uint32_t* a,
+                                     uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ inline void wgmma_rs_n128(float* d, const uint32_t* a,
+                                     uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int N>
+__device__ inline void wgmma_rs(float* d, const uint32_t* a, uint64_t db) {
+  if constexpr (N == 16) wgmma_rs_n16(d, a, db);
+  if constexpr (N == 32) wgmma_rs_n32(d, a, db);
+  if constexpr (N == 64) wgmma_rs_n64(d, a, db);
+  if constexpr (N == 128) wgmma_rs_n128(d, a, db);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads)
+flash_wgmma_kernel(const bf16* __restrict__ q, bf16* __restrict__ out,
+                   Shape s, const __grid_constant__ CUtensorMap tmk,
+                   const __grid_constant__ CUtensorMap tmv) {
+  constexpr int KS = D / 16;    // k-steps of Q.K^T
+  constexpr int DT = D / 8;     // 8-column tiles of O
+  constexpr int kTile = kKBM * D * (int)sizeof(bf16);
+  constexpr int kRowB = D * 2 < 128 ? D * 2 : 128;   // swizzle row bytes
+  constexpr uint32_t kLayout = kRowB == 128 ? 1 : kRowB == 64 ? 2 : 3;
+
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // tiles start on 1024 bytes, as the swizzle modes want
+  const uint32_t q_s = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t k_s = q_s + kQBM * D * (int)sizeof(bf16);
+  const uint32_t v_s = k_s + kStages * kTile;
+  const uint32_t full = v_s + kStages * kTile;   // mbarrier per stage
+
+  const int nq = (s.Sq + kQBM - 1) / kQBM;
+  // the q blocks with the most keys first (causal)
+  const int iq = s.causal ? nq - 1 - blockIdx.x : blockIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kh = h / (s.H / s.KH);
+  const int q0 = iq * kQBM;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;   // fragment row / column pair
+
+  const bf16* qb = q + b * s.q_sb + h * s.q_sh;
+
+  int k_end = s.Sk;
+  if (s.causal) k_end = min(k_end, q0 + kQBM);  // blocks above skipped
+  const int n_tiles = (k_end + kKBM - 1) / kKBM;
+
+  // the ring: tile i lives in stage i % kStages; thread 0 issues each
+  // tile's K and V boxes by TMA onto the stage's mbarrier
+  auto issue = [&](int i) {
+    if (threadIdx.x != 0) return;
+    const int st = i % kStages;
+    const uint32_t bar = full + 8 * st;
+    mbar_expect_tx(bar, 2 * kTile);
+#pragma unroll
+    for (int c0 = 0; c0 < D; c0 += 64) {
+      const uint32_t off = (c0 / 64) * kKBM * 128;   // column block
+      tma_load(k_s + st * kTile + off, &tmk, c0, kh, i * kKBM, b, bar);
+      tma_load(v_s + st * kTile + off, &tmv, c0, kh, i * kKBM, b, bar);
+    }
+  };
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int st = 0; st < kStages; ++st) mbar_init(full + 8 * st, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  load_tile_async<D, kQBM>(qb, s.q_ss, q0, s.Sq, q_s);
+  cp_async_commit();
+  __syncthreads();   // the barriers are initialized
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i)
+    if (i < n_tiles) issue(i);
+
+  const float sl2 = s.scale * kLog2e;   // exponents in log2 units
+  // this thread's rows of S and O: qi0 and qi0 + 8; its columns
+  // 8 n + 2 t and 8 n + 2 t + 1 of each 8-column block n
+  const int qi0 = q0 + warp * 16 + g;
+
+  float o[DT * 4];
+#pragma unroll
+  for (int i = 0; i < DT * 4; ++i) o[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * kKBM;
+    if (it == 0) {   // q, written by cp.async, is read by wgmma
+      cp_async_wait<0>();
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    }
+    mbar_wait(full + 8 * (it % kStages), (it / kStages) & 1);
+    __syncthreads();   // q is everyone's; stage it-1 is free again
+    if (it + kStages - 1 < n_tiles) issue(it + kStages - 1);
+    const uint32_t kt = k_s + (it % kStages) * kTile;
+    const uint32_t vt = v_s + (it % kStages) * kTile;
+
+    // S = Q K^T: A = Q and B = K, both K-major in the swizzled tiles;
+    // k-step kk starts 32 bytes further into a 128-byte row, or in the
+    // next column block
+    float sc[32];
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      const uint32_t off = kk * 32 % kRowB;
+      const uint32_t blk = (kk * 32) / kRowB;
+      const uint64_t da = gmma_desc(q_s + blk * kQBM * kRowB + off, 16,
+                                    8 * kRowB, kLayout);
+      const uint64_t db = gmma_desc(kt + blk * kKBM * kRowB + off, 16,
+                                    8 * kRowB, kLayout);
+      wgmma_ss_n64(sc, da, db, kk > 0);
+    }
+    wg_commit_wait();
+    reg_fence<32>(sc);
+
+    // mask only the tiles that cross the diagonal or the end; scores
+    // stay unscaled, the scale folds into the exponent
+    const bool edge = k0 + kKBM > s.Sk || (s.causal && k0 + kKBM - 1 > q0);
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (edge) {
+          const int kj = k0 + n * 8 + 2 * t + (e & 1);
+          const int qi = qi0 + (e >> 1) * 8;
+          if (kj >= s.Sk || (s.causal && kj > qi)) sc[4 * n + e] = kNegInf;
+        }
+        mx[e >> 1] = fmaxf(mx[e >> 1], sc[4 * n + e]);
+      }
+    }
+    float corr[2], m_sl2[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      const float m_safe = m_new <= kNegInf / 2 ? 0.f : m_new;
+      m_sl2[r] = m_safe * sl2;
+      corr[r] = m[r] <= kNegInf / 2 ? 0.f : ex2((m[r] - m_safe) * sl2);
+      m[r] = m_new;
+      l[r] *= corr[r];   // this thread's share of the row sum
+    }
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = sc[4 * n + e];
+        const float p = x <= kNegInf / 2
+                            ? 0.f : ex2(fmaf(x, sl2, -m_sl2[e >> 1]));
+        l[e >> 1] += p;
+        sc[4 * n + e] = p;
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < DT; ++n) {
+      o[4 * n] *= corr[0]; o[4 * n + 1] *= corr[0];
+      o[4 * n + 2] *= corr[1]; o[4 * n + 3] *= corr[1];
+    }
+
+    // O += P V: A = P from registers, S's accumulator fragments in
+    // place (hi, then lo), B = V, MN-major: 16-key steps of 16 rows,
+    // column blocks kKBM * 128 bytes apart
+    uint32_t ph[4][4], pl[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      pack_p(sc[8 * j], sc[8 * j + 1], ph[j][0], pl[j][0]);
+      pack_p(sc[8 * j + 2], sc[8 * j + 3], ph[j][1], pl[j][1]);
+      pack_p(sc[8 * j + 4], sc[8 * j + 5], ph[j][2], pl[j][2]);
+      pack_p(sc[8 * j + 6], sc[8 * j + 7], ph[j][3], pl[j][3]);
+    }
+    reg_fence<DT * 4>(o);
+    wg_fence();
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const uint64_t dv = gmma_desc(vt + j * 16 * kRowB, kKBM * kRowB,
+                                    8 * kRowB, kLayout);
+      wgmma_rs<D>(o, ph[j], dv);
+      wgmma_rs<D>(o, pl[j], dv);
+    }
+    wg_commit_wait();
+    reg_fence<DT * 4>(o);
+  }
+
+  // out [B, Sq, H, D], contiguous; the quad holds each row's sum
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float lr = l[r];
+    lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+    lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+    const int qi = qi0 + r * 8;
+    if (qi >= s.Sq) continue;
+    const float inv = 1.f / fmaxf(lr, 1e-20f);
+    bf16* orow = out + (((long long)b * s.Sq + qi) * s.H + h) * D;
+#pragma unroll
+    for (int n = 0; n < DT; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(orow + n * 8 + 2 * t) =
+          __floats2bfloat162_rn(o[4 * n + 2 * r] * inv,
+                                o[4 * n + 2 * r + 1] * inv);
+  }
+}
+
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <int D>
+cudaError_t launch_f32(const void* q, const void* k, const void* v,
+                       void* out, const Shape& s, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<D>();
+  cudaError_t e = allow_smem(flash_fma_kernel<float, D>, smem);
+  if (e != cudaSuccess) return e;
   dim3 grid((s.Sq + kQB - 1) / kQB, s.H, s.B);
-  flash_kernel<E, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const E*>(q), static_cast<const E*>(k),
-      static_cast<const E*>(v), static_cast<E*>(out), s);
+  flash_fma_kernel<float, D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), s);
   return cudaGetLastError();
 }
 
-template <typename E>
-cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
-                     void* out, const Shape& s, cudaStream_t stream) {
-  switch (D) {
-    case 16: return launch<E, 16>(q, k, v, out, s, stream);
-    case 32: return launch<E, 32>(q, k, v, out, s, stream);
-    case 64: return launch<E, 64>(q, k, v, out, s, stream);
-    case 128: return launch<E, 128>(q, k, v, out, s, stream);
-    default: return cudaErrorInvalidValue;
-  }
+// cuTensorMapEncodeTiled, looked up in the libcuda.so.1 that the CUDA
+// runtime has loaded (no link against libcuda).
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (!lib) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    return lib ? reinterpret_cast<EncodeTiled>(
+                     dlsym(lib, "cuTensorMapEncodeTiled"))
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The TMA map of a [B, S, KH, D] bf16 tensor with the given element
+// strides, as 4-D {D, KH, S, B}: boxes of kKBM rows by min(D, 64)
+// columns, swizzled as `swz` reads them; rows past S read as zeros.
+template <int D>
+bool kv_map(CUtensorMap* map, const void* base, int B, int S, int KH,
+            long long sb, long long ss, long long sh) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return false;
+  const CUtensorMapSwizzle sw = D >= 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : D == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                          : CU_TENSOR_MAP_SWIZZLE_32B;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)KH, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2,
+                                 (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {D < 64 ? (cuuint32_t)D : 64u, 1u,
+                             (cuuint32_t)kKBM, 1u};
+  const cuuint32_t step[4] = {1u, 1u, 1u, 1u};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(base), dims, strides, box, step,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v,
+                        void* out, const Shape& s, cudaStream_t stream) {
+  constexpr size_t smem = wg_smem_bytes<D>();
+  cudaError_t e = allow_smem(flash_wgmma_kernel<D>, smem);
+  if (e != cudaSuccess) return e;
+  CUtensorMap tmk, tmv;
+  if (!kv_map<D>(&tmk, k, s.B, s.Sk, s.KH, s.k_sb, s.k_ss, s.k_sh) ||
+      !kv_map<D>(&tmv, v, s.B, s.Sk, s.KH, s.v_sb, s.v_ss, s.v_sh))
+    return cudaErrorInvalidValue;
+  dim3 grid((s.Sq + kQBM - 1) / kQBM, s.H, s.B);
+  flash_wgmma_kernel<D><<<grid, kWgThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<bf16*>(out), s, tmk, tmv);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch(int dtype, const void* q, const void* k, const void* v,
+                   void* out, const Shape& s, cudaStream_t stream) {
+  if (dtype == 0) return launch_f32<D>(q, k, v, out, s, stream);
+  if (dtype == 1) return launch_bf16<D>(q, k, v, out, s, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -323,13 +840,11 @@ extern "C" int flash_attention_launch(
   Shape s{B, Sq, Sk, H, KH, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
           v_sb, v_ss, v_sh, causal, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (dtype == 0) {
-    e = dispatch<float>(D, q, k, v, out, s, st);
-  } else if (dtype == 1) {
-    e = dispatch<__nv_bfloat16>(D, q, k, v, out, s, st);
-  } else {
-    e = cudaErrorInvalidValue;
+  switch (D) {
+    case 16: return (int)launch<16>(dtype, q, k, v, out, s, st);
+    case 32: return (int)launch<32>(dtype, q, k, v, out, s, st);
+    case 64: return (int)launch<64>(dtype, q, k, v, out, s, st);
+    case 128: return (int)launch<128>(dtype, q, k, v, out, s, st);
+    default: return (int)cudaErrorInvalidValue;
   }
-  return (int)e;
 }

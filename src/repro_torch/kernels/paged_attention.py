@@ -13,7 +13,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+import math
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -27,8 +28,8 @@ def _library() -> ctypes.CDLL:
     lib = library("paged_attention")
     fn = lib.paged_attention_launch
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = ([ptr] * 12 + [i32] * 7 + [i64] * 8
-                   + [i32, i32, ctypes.c_float, i32, ptr])
+    fn.argtypes = ([ptr] * 13 + [i32] * 7 + [i64] * 8
+                   + [i32, i32, i32, ctypes.c_float, i32, ptr])
     fn.restype = ctypes.c_int
     return lib
 
@@ -39,14 +40,91 @@ def _sm_count(device_index: int) -> int:
         device_index).multi_processor_count
 
 
-def choose_splits(batch: int, kv_heads: int, n_pages: int,
-                  sm_count: int) -> Tuple[int, int]:
-    """(splits, pages_per_split): enough CTAs for ~4 per SM — B*KH alone
-    is 64 at full width, half the H100's SMs — without empty splits."""
-    want = max(1, -(-4 * sm_count // max(batch * kv_heads, 1)))
-    splits = min(want, n_pages)
-    per = -(-n_pages // splits)
+#: page stages in each warp's cp.async ring (`kRing` in the source)
+RING = 3
+#: shared memory one CTA may use, and one SM holds (H100), in bytes
+CTA_SMEM = 232_448
+SM_SMEM = 233_472
+
+
+def smem_bytes(warps: int, G: int, HD: int, T: int, itemsize: int,
+               per: int) -> int:
+    """Shared memory of one CTA, as `smem_bytes` in the source lays it
+    out: each warp's ring of K/V page stages in the pools' dtype, then
+    q, the warps' accumulators and (m, l) in f32, then the compacted
+    page list."""
+    return (warps * RING * 2 * T * HD * itemsize
+            + 4 * (G * HD + warps * G * HD + 2 * warps * G + 3 * per + 2))
+
+
+def choose_splits(batch: int, kv_heads: int, n_pages: int, sm_count: int,
+                  per_sm: int = 4, min_pages: int = 8) -> Tuple[int, int]:
+    """(splits, pages_per_split): at most one wave of `per_sm` CTAs per
+    SM — B*KH alone is 64 at full width, half the H100's SMs — with at
+    least `min_pages` pages per split (two per warp, so that each
+    warp's ring has a next page in flight) and no empty split."""
+    want = max(1, per_sm * sm_count // max(batch * kv_heads, 1))
+    per = max(-(-n_pages // want), min(min_pages, n_pages))
     return -(-n_pages // per), per
+
+
+class Plan(NamedTuple):
+    splits: int
+    per: int
+    warps: int
+
+
+@functools.lru_cache(maxsize=256)
+def launch_plan(B: int, KH: int, G: int, HD: int, T: int, N: int,
+                itemsize: int, sm_count: int) -> Plan:
+    """Warps per CTA (4, fewer only where four rings do not fit in a
+    CTA's shared memory) and the split of the page range. Raises if one
+    warp's ring does not fit."""
+    for warps in (4, 3, 2, 1):
+        if smem_bytes(warps, G, HD, T, itemsize, N) <= CTA_SMEM:
+            break
+    else:
+        raise ValueError(f"pages of T={T} x HD={HD} x {itemsize} bytes: "
+                         f"{RING} stages of K and V do not fit in "
+                         f"{CTA_SMEM} bytes of shared memory")
+    per_sm = max(1, min(4, SM_SMEM // (smem_bytes(
+        warps, G, HD, T, itemsize, N) + 1024)))
+    return Plan(*choose_splits(B, KH, N, sm_count, per_sm, 2 * warps),
+                warps)
+
+
+def scratch_layout(B: int, KH: int, G: int, HD: int, N: int,
+                   splits: int) -> Tuple[Tuple[str, int, Tuple[int, ...]],
+                                         ...]:
+    """(name, offset, shape) of each f32 output and partial buffer in
+    the one scratch allocation of a call, back to back."""
+    shapes = (("m", (B, KH, G)), ("l", (B, KH, G)),
+              ("lse", (B, KH, G, N)), ("part_m", (splits, B, KH, G)),
+              ("part_l", (splits, B, KH, G)),
+              ("part_acc", (splits, B, KH, G, HD)))
+    out, off = [], 0
+    for name, shape in shapes:
+        out.append((name, off, shape))
+        off += math.prod(shape)
+    return tuple(out)
+
+
+_TICKETS: Dict[torch.device, torch.Tensor] = {}
+
+
+def _tickets(device: torch.device, n: int) -> torch.Tensor:
+    """The kernel's per-(b, kh) ticket counters: zeroed once here, and
+    left zero by every launch (the last CTA of each (b, kh) resets its
+    counter), so CUDA-graph replays reuse them. Grown, never shrunk."""
+    t = _TICKETS.get(device)
+    if t is None or t.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("paged_attention: call it once outside CUDA-"
+                               "graph capture first (its ticket counters "
+                               "must outlive the graph)")
+        t = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _TICKETS[device] = t
+    return t
 
 
 def _check_pool(name, pool, B, T, KH, HD, dtype, device):
@@ -100,23 +178,25 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                              f"N={N}] on {q.device}")
     P = k_pool.shape[1]
 
-    splits, per = choose_splits(B, KH, N, _sm_count(q.device.index))
-    f32 = dict(device=q.device, dtype=torch.float32)
+    plan = launch_plan(B, KH, G, HD, T, N, q.element_size(),
+                       _sm_count(q.device.index))
+    layout = scratch_layout(B, KH, G, HD, N, plan.splits)
+    _, end, shape = layout[-1]
+    scratch = torch.empty(end + math.prod(shape), dtype=torch.float32,
+                          device=q.device)
+    m, l, lse, part_m, part_l, part_acc = (
+        scratch[o:o + math.prod(sh)].view(sh) for _, o, sh in layout)
     out = torch.empty_like(q)
-    m = torch.empty((B, KH, G), **f32)
-    l = torch.empty((B, KH, G), **f32)
-    lse = torch.empty((B, KH, G, N), **f32)
-    part_m = torch.empty((splits, B, KH, G), **f32)
-    part_l = torch.empty((splits, B, KH, G), **f32)
-    part_acc = torch.empty((splits, B, KH, G, HD), **f32)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _library().paged_attention_launch(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         page_list.data_ptr(), page_valid.data_ptr(), out.data_ptr(),
         m.data_ptr(), l.data_ptr(), lse.data_ptr(), part_m.data_ptr(),
         part_l.data_ptr(), part_acc.data_ptr(),
+        _tickets(q.device, B * KH).data_ptr(),
         B, KH, G, HD, P, T, N, *k_pool.stride()[:4], *v_pool.stride()[:4],
-        splits, per, HD ** -0.5, _DTYPE_CODE[q.dtype], stream)
+        plan.splits, plan.per, plan.warps, HD ** -0.5, _DTYPE_CODE[q.dtype],
+        stream)
     if err != 0:
         raise RuntimeError(f"paged_attention launch failed: CUDA error "
                            f"{err}")

@@ -106,6 +106,106 @@ def test_kernel_reads_pools_through_their_strides(device):
                                               page_valid), torch.bfloat16)
 
 
+def listed_inputs(shape, page_list, page_valid, dtype, device, seed):
+    """Random q and pools for the given page list and valid counts."""
+    B, KH, G, HD, P, T, N = shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*s):
+        return torch.randn(s, generator=gen, device=device).to(dtype)
+    return (randn(B, KH, G, HD), randn(B, P, T, KH, HD),
+            randn(B, P, T, KH, HD),
+            torch.as_tensor(np.asarray(page_list, np.int32), device=device),
+            torch.as_tensor(np.asarray(page_valid, np.int32), device=device))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("N", [1, 2, 3])
+def test_paged_fewer_pages_than_the_ring(device, N, dtype):
+    """N = 1, and N below the ring depth of three stages."""
+    shape = (2, 2, 2, 128, 4, 16, N)
+    page_list = [[3, 0, 2][:N], [1, -1, 0][:N]]
+    page_valid = [[16, 5, 16][:N], [7, 0, 16][:N]]
+    args = listed_inputs(shape, page_list, page_valid, dtype, device, N)
+    assert_close(pa.paged_attention(*args), ref.paged_attention_ref(*args),
+                 dtype)
+
+
+def test_paged_split_whose_pages_are_all_holes(device):
+    """At full width: one split of lane 0 is all holes (page_list -1),
+    the same split of lane 1 all listed with no valid token."""
+    B, KH, G, HD, P, T, N = 8, 8, 2, 128, 64, 16, 64
+    plan = pa.launch_plan(B, KH, G, HD, T, N, 2, pa._sm_count(
+        device.index or 0))
+    assert plan.splits > 1
+    rng = np.random.default_rng(11)
+    page_list = np.stack([rng.permutation(P) for _ in range(B)])
+    page_valid = rng.integers(1, T + 1, (B, N))
+    page_list[0, plan.per:2 * plan.per] = -1
+    page_valid[1, plan.per:2 * plan.per] = 0
+    args = listed_inputs((B, KH, G, HD, P, T, N), page_list, page_valid,
+                         torch.bfloat16, device, 11)
+    got = pa.paged_attention(*args)
+    assert_close(got, ref.paged_attention_ref(*args), torch.bfloat16)
+    assert bool((got[3][:2, :, :, plan.per:2 * plan.per]
+                 == ref.NEG_INF).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_paged_partial_pages_of_one_token(device, dtype):
+    B, KH, G, HD, P, T, N = 3, 2, 2, 128, 24, 16, 24
+    rng = np.random.default_rng(5)
+    page_list = np.stack([rng.permutation(P) for _ in range(B)])
+    page_valid = np.ones((B, N), np.int32)           # lane 0: all 1 token
+    page_valid[1] = rng.integers(1, 3, N)            # lane 1: 1 or 2
+    page_valid[2, ::3] = 1                           # lane 2: some
+    page_valid[2, 1::3] = T
+    args = listed_inputs((B, KH, G, HD, P, T, N), page_list, page_valid,
+                         dtype, device, 5)
+    assert_close(pa.paged_attention(*args), ref.paged_attention_ref(*args),
+                 dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("T", [8, 16, 32])
+def test_paged_page_sizes(device, T, dtype):
+    shape = (2, 2, 2, 64, 40, T, 40)
+    args = inputs(shape, dtype, device, seed=T)
+    assert_close(pa.paged_attention(*args), ref.paged_attention_ref(*args),
+                 dtype)
+
+
+def test_paged_graph_replays_repeat(device):
+    """One launch captured in a CUDA graph and replayed twice gives the
+    same result both times, and the plain version's: the last split of
+    each (b, kh) leaves its ticket counter at 0 for the next replay."""
+    shape = (8, 8, 2, 128, 64, 16, 64)
+    args = inputs(shape, torch.bfloat16, device, seed=3)
+    assert pa.launch_plan(8, 8, 2, 128, 16, 64, 2, pa._sm_count(
+        device.index or 0)).splits > 1
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        pa.paged_attention(*args)                    # warm up, allocate
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        res = pa.paged_attention(*args)
+    runs = []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        runs.append([t.clone() for t in res])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    assert_close(runs[1], ref.paged_attention_ref(*args), torch.bfloat16)
+    assert_close(pa.paged_attention(*args), ref.paged_attention_ref(*args),
+                 torch.bfloat16)
+
+
 def test_tiered_attention_launches_the_kernel(device):
     """Two tiers on the card: two launches, and the same merged result
     as the plain version on the CPU."""
@@ -146,12 +246,14 @@ FLASH_SHAPES = [
 ]
 
 
-def flash_inputs(B, S, H, KH, D, dtype, device, seed):
+def flash_inputs(B, S, H, KH, D, dtype, device, seed, Sk=None):
+    """q [B, S, H, D]; k, v [B, Sk, KH, D] (Sk = S unless given)."""
     gen = torch.Generator(device=device).manual_seed(seed)
+    Sk = S if Sk is None else Sk
 
     def randn(*s):
         return torch.randn(s, generator=gen, device=device).to(dtype)
-    return randn(B, S, H, D), randn(B, S, KH, D), randn(B, S, KH, D)
+    return randn(B, S, H, D), randn(B, Sk, KH, D), randn(B, Sk, KH, D)
 
 
 @pytest.mark.parametrize("shape", FLASH_SHAPES, ids=str)
@@ -163,6 +265,41 @@ def test_flash_kernel_matches_plain_version(device, shape):
     want = ref.flash_attention_ref(q, k, v, causal=causal)
     torch.testing.assert_close(got.float(), want.float(),
                                atol=OUT_ATOL[dtype], rtol=0)
+
+
+@pytest.mark.parametrize("S", [1, 63, 65, 129, 1000])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+def test_flash_bf16_head_dims_and_ragged_lengths(device, D, S):
+    """The tensor-core body at every head dim, with S not a multiple of
+    the 64-row tiles: padded rows and keys are masked, never NaN."""
+    q, k, v = flash_inputs(2, S, 4, 2, D, torch.bfloat16, device, S * D)
+    got = fa.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    want = ref.flash_attention_ref(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-2, rtol=0)
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("Sq, Sk", [(100, 300), (300, 100), (1, 129),
+                                    (65, 1), (200, 1000)])
+def test_flash_bf16_query_and_key_lengths_differ(device, Sq, Sk, causal):
+    """Sq != Sk; causal is aligned at key 0 (query i sees keys 0..i)."""
+    q, k, v = flash_inputs(2, Sq, 4, 2, 128, torch.bfloat16, device,
+                           Sq + 7 * Sk, Sk=Sk)
+    got = fa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-2, rtol=0)
+
+
+@pytest.mark.parametrize("KH", [8, 4, 1], ids=["gqa1", "gqa2", "gqa8"])
+def test_flash_bf16_gqa_ratios(device, KH):
+    q, k, v = flash_inputs(2, 200, 8, KH, 128, torch.bfloat16, device, KH)
+    got = fa.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    want = ref.flash_attention_ref(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-2, rtol=0)
 
 
 def test_flash_kernel_reads_inputs_through_their_strides(device):
