@@ -8,10 +8,10 @@ Run from the root of a checkout, with no arguments:
 Phases, each printing its lines and its wall time (any failure exits
 non-zero):
 
-  1. build   compile both kernels of src/repro_torch/csrc/ (paged
-             decode attention, prefill flash attention) with nvcc for
-             sm_90a, one nvcc per source, in parallel; print ptxas'
-             register and spill report.
+  1. build   compile the kernels of src/repro_torch/csrc/ (paged
+             decode attention, prefill flash attention, row copies
+             between pools) with nvcc for sm_90a, one nvcc per source,
+             in parallel; print ptxas' register and spill report.
   2. kernel  run the paged kernel against its plain version
              (ref.paged_attention_ref)
              on the same CUDA tensors at the full-width decode shapes
@@ -22,6 +22,22 @@ non-zero):
              Times are device times (CUDA-graph replay over input sets
              that overflow the L2); the kernel's eager per-call time,
              the host's launch cost included, is printed beside them.
+             A third shape is overlap mode's host tier: N=208 with the
+             pools in pinned host memory, read over the link, checked
+             against the plain version on device copies; its bound is
+             the K/V bytes over the link's peak (H100.link_bw, 64 GB/s
+             each way), with the time the rate of one large
+             pinned->device `copy_` (measured here) would give printed
+             beside it, and its library time is that `copy_` of the
+             pools plus SDPA (no PyTorch call reads a pinned pool inside
+             a kernel).
+  2c. copy   the row-copy kernel against its plain version at phase
+             4's plan capacity: the promote gather (pinned -> card) and
+             the demote scatter (card -> pinned) of one pool, each
+             timed against the link's peak and the measured `copy_`
+             rate; the same gather with the pool on the card (inline
+             mode) against HBM's peak and PyTorch's indexing; and one
+             decode step's token writes into a pool on the card.
   2b. flash  run the flash kernel against its plain version
              (ref.flash_attention_ref) on CUDA tensors: the prefill
              shape of phase 5 (B=4, S=2304, H=16 over KH=8, D=128,
@@ -34,6 +50,9 @@ non-zero):
   3. parity  serve a small f32 request stream on the card and on the
              CPU (the plain path) with the same weights: greedy tokens,
              statuses and per-step byte counts must match exactly.
+  3c. overlap the same stream in overlap mode (host pools pinned on
+             the card, commits on a side stream): card and CPU equal
+             again, and pages committed.
   3b. stream the single-stream path on the card and on the CPU, f32
              smoke config, same weights, under each of the five
              policies with Quest sparsity 0.5 and trace capture:
@@ -45,6 +64,10 @@ non-zero):
              spill into the host tier and reuse lanes; every status ok,
              every output its full budget, and the paged kernel
              launched 2 x layers x decode-plane steps times.
+  4b. overlap the same 12 requests with overlap_migrations and
+             measured_payback: host pools in pinned host memory, the
+             same checks, the measured link bandwidth and commit time,
+             and the rate, TTFT and TPOT beside phase 4's.
   5. sweep   the single-stream policy sweep at the same width, as the
              repo's benchmarks run it: per policy a fresh `start` of 4
              prompts of 2304 tokens (each spills ~1280 tokens to the
@@ -64,6 +87,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import gc
 import json
 import math
 import os
@@ -171,6 +195,51 @@ def work(inputs):
     return bytes_, 4 * tokens * KH * G * HD
 
 
+def kv_bytes(inputs):
+    """The valid K/V bytes a paged call reads (what crosses the link
+    when its pools are pinned host memory)."""
+    _, k, _, page_list, page_valid = inputs
+    KH, HD = k.shape[3], k.shape[4]
+    tokens = int(page_valid.clamp(0, k.shape[2])[page_list >= 0].sum())
+    return 2 * tokens * KH * HD * k.element_size()
+
+
+def link_peak() -> float:
+    """The host link's peak bytes/s each way, the bound of every copy
+    over it: H100.link_bw (PCIe Gen5 x16, 64 GB/s before its 128b/130b
+    encoding; repro_torch/core/tiers.py)."""
+    from repro_torch.core.tiers import H100
+    return H100.link_bw
+
+
+def link_bandwidth(device, nbytes: int = 1 << 30):
+    """Bytes/s of one large `copy_(non_blocking=True)` over the host
+    link, each way (pinned host -> card, card -> pinned host): best of
+    three, CUDA events."""
+    import torch
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    card = torch.empty(nbytes, dtype=torch.uint8, device=device)
+    out = {}
+    for name, dst, src in (("h2d", card, host), ("d2h", host, card)):
+        dst.copy_(src, non_blocking=True)
+        torch.cuda.synchronize()
+        best = math.inf
+        for _ in range(3):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            dst.copy_(src, non_blocking=True)
+            stop.record()
+            stop.synchronize()
+            best = min(best, start.elapsed_time(stop) / 1e3)
+        out[name] = nbytes / best
+    log(f"link: {nbytes / 1e9:.3f} GB copy_ pinned -> card "
+        f"{out['h2d'] / 1e9:.2f} GB/s, card -> pinned "
+        f"{out['d2h'] / 1e9:.2f} GB/s (peak H100.link_bw "
+        f"{link_peak() / 1e9:.0f} GB/s each way)")
+    return out
+
+
 def dense_for_sdpa(inputs):
     """The same valid keys as a dense [B, H, N*T, HD] buffer + mask, for
     the library yardstick (built outside the timed region)."""
@@ -195,6 +264,7 @@ def kernel_phase(rng, device):
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ref
     B, KH, G, HD, T = 8, 8, 2, 128, 16
+    link = link_bandwidth(device)
     shapes = []
     for N in (64, 208):
         per_copy = 2 * B * N * T * KH * HD * 2
@@ -256,7 +326,197 @@ def kernel_phase(rng, device):
                        >= flops / BF16_FLOPS else "operations",
                        "max_abs_err": err["out"], "errors": err})
         del sets, dense
-    return shapes
+    shapes.append(pinned_shape(rng, device, link))
+    return shapes, link
+
+
+def pinned_shape(rng, device, link):
+    """The host tier of overlap mode: N=208 with the pools in pinned
+    host memory, which the kernel reads in place over the link."""
+    import torch
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+    B, KH, G, HD, T, N = 8, 8, 2, 128, 16, 208
+    per_copy = 2 * B * N * T * KH * HD * 2
+    copies = max(2, math.ceil(256e6 / per_copy))
+    sets = [paged_inputs(rng, B, KH, G, HD, N, T, torch.bfloat16, device)
+            for _ in range(copies)]
+    pinned = [(q, k.cpu().pin_memory(), v.cpu().pin_memory(), pl, pv)
+              for q, k, v, pl, pv in sets]
+    got = pa.paged_attention(*pinned[0])
+    want = ref.paged_attention_ref(*sets[0])       # on a device copy
+    torch.cuda.synchronize()
+    err = {
+        "out": float((got[0].float() - want[0].float()).abs().max()),
+        "m": float((got[1] - want[1]).abs().max()),
+        "l_rel": float(((got[2] - want[2]).abs()
+                        / want[2].abs().clamp_min(1e-30)).max()),
+        "lse": float((got[3] - want[3]).abs().max()),
+    }
+    log(f"kernel N={N} pinned host pools: max err out {err['out']:.3e} m "
+        f"{err['m']:.3e} l(rel) {err['l_rel']:.3e} lse {err['lse']:.3e} "
+        f"(tolerance {TOL})")
+    bad = {k: v for k, v in err.items() if not v <= TOL[k]}
+    if bad:
+        raise AssertionError(f"kernel over pinned pools disagrees with the "
+                             f"plain version: {bad}")
+    dense = [dense_for_sdpa(s) for s in sets]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    k_card = torch.empty_like(sets[0][1])
+    v_card = torch.empty_like(sets[0][2])
+
+    def kernel(i):
+        return pa.paged_attention(*pinned[i % copies])
+
+    def plain(i):
+        return ref.paged_attention_ref(*sets[i % copies])
+
+    def library(i):
+        # no PyTorch call reads a pinned pool in a kernel: copy the
+        # pools over the link, then SDPA on the copy
+        k_card.copy_(pinned[i % copies][1], non_blocking=True)
+        v_card.copy_(pinned[i % copies][2], non_blocking=True)
+        d = dense[i % copies]
+        return sdpa(*d[:3], attn_mask=d[3])
+
+    ms = device_ms(kernel, copies)
+    plain_ms = device_ms(plain, copies)
+    lib_ms = device_ms(library, copies)
+    kernel_eager = eager_ms(kernel, 50)
+    nbytes, flops = (sum(x) / copies for x in zip(*map(work, sets)))
+    over_link = sum(map(kv_bytes, sets)) / copies
+    t_link = over_link / link_peak() * 1e3
+    t_ops = flops / BF16_FLOPS * 1e3
+    bound = max(t_link, t_ops)
+    at_copy = over_link / link["h2d"] * 1e3
+    log(f"kernel N={N} pinned host pools: device {ms:.4f} ms  plain "
+        f"{plain_ms:.4f} ms (device copies)  copy_+sdpa {lib_ms:.4f} ms  "
+        f"bound {bound:.4f} ms ({over_link / 1e6:.2f} MB over the link's "
+        f"peak {link_peak() / 1e9:.0f} GB/s; {at_copy:.4f} ms at the "
+        f"measured copy_ rate {link['h2d'] / 1e9:.2f} GB/s)  "
+        f"{over_link / ms / 1e6:.2f} GB/s  eager call {kernel_eager:.4f} ms")
+    del sets, pinned, dense
+    return {"N": N, "pools": "pinned host", "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "library": "copy_ of the pools over the "
+            "link + scaled_dot_product_attention", "bound_ms": bound,
+            "copy_rate_ms": at_copy,
+            "eager_ms": kernel_eager, "bytes": nbytes,
+            "link_bytes": over_link, "flops": flops,
+            "bound_by": "bytes" if t_link >= t_ops else "operations",
+            "max_abs_err": err["out"], "errors": err}
+
+
+# --------------------------------------------------------------------------
+# phase 2c: the row-copy kernel against its plain version
+# --------------------------------------------------------------------------
+
+def page_copy_phase(rng, device, link):
+    """One pool's pages of a full-capacity commit at phase 4's geometry:
+    gathered out of a pinned host pool onto the card (overlap mode's
+    promotes), scattered from the card into it (its demotes), and
+    gathered with the pool on the card (inline mode's migrations), each
+    against the plain version (exact); then one decode step's token
+    writes into a layer's pool on the card (exact). The kernels line's
+    ms, plain_ms and bound_ms are the pinned gather plus scatter."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import page_copy as pc
+    from repro_torch.kernels import ref
+    from repro_torch.models.model import Model
+    from repro_torch.serving import control
+    from repro_torch.serving.engine import EngineConfig
+    geo = Model(configs.get("internlm2-1.8b")).cache_geometry(8, 4096, 0.25)
+    cap = control.plan_capacity(geo, EngineConfig().migration_budget_frac)
+    L, B, Pe, T = geo.num_layers, geo.batch, geo.host_pages, geo.page_tokens
+    page = (T, geo.kv_heads, geo.head_dim)
+    flat = rng.choice(L * B * Pe, size=cap, replace=False)
+    at = tuple(torch.as_tensor(c.astype(np.int32), device=device)
+               for c in np.unravel_index(flat, (L, B, Pe)))
+    at_long = tuple(i.long() for i in at)
+    pool_card = torch.randn((L, B, Pe) + page, device=device,
+                            dtype=torch.bfloat16)
+    pool = pool_card.cpu().pin_memory()
+    staged = torch.randn((cap,) + page, device=device, dtype=torch.bfloat16)
+    nbytes = cap * math.prod(page) * 2
+    peak = link_peak()
+    parts = []
+    for name, way in (("gather", "pinned -> card"),
+                      ("scatter", "card -> pinned"),
+                      ("gather", "card -> card")):
+        lib = None
+        if way == "card -> pinned":
+            want = pool_card.clone()
+
+            def kernel(i):
+                pc.page_copy(pool, at, staged, (None,))
+
+            def plain(i):
+                ref.page_copy_ref(want, at, staged, (None,))
+        else:
+            src = pool if way == "pinned -> card" else pool_card
+            got = torch.empty_like(staged)
+            want = torch.empty_like(staged)
+
+            def kernel(i):
+                pc.page_copy(got, (None,), src, at)
+
+            def plain(i):
+                ref.page_copy_ref(want, (None,), pool_card, at)
+        kernel(0)
+        plain(0)
+        torch.cuda.synchronize()
+        same = torch.equal(pool.to(device), want) if way == "card -> pinned" \
+            else torch.equal(got, want)
+        if not same:
+            raise AssertionError(f"page_copy {name} ({way}) disagrees with "
+                                 f"the plain version")
+        plain_ms = eager_ms(plain, 20)
+        if way == "card -> card":
+            # each page read once and written once, at HBM's peak; the
+            # library call is PyTorch's indexing gather
+            ms = device_ms(kernel, 1)
+            lib = device_ms(lambda i: pool_card[at_long], 1)
+            bound = 2 * nbytes / HBM_BW * 1e3
+            yard = f"HBM peak {HBM_BW / 1e12:.2f} TB/s; indexing {lib:.4f} ms"
+        else:
+            ms = eager_ms(kernel, 20)
+            rate = link["h2d" if way == "pinned -> card" else "d2h"]
+            bound = nbytes / peak * 1e3
+            yard = (f"link peak {peak / 1e9:.0f} GB/s; "
+                    f"{nbytes / rate * 1e3:.4f} ms at the measured copy_ "
+                    f"rate {rate / 1e9:.2f} GB/s")
+        log(f"page_copy {name} ({way}, {cap} pages of "
+            f"{math.prod(page) * 2} B): exact {same}, "
+            f"{ms:.4f} ms ({nbytes / ms / 1e6:.2f} GB/s) plain "
+            f"{plain_ms:.4f} ms (device copy) bound {bound:.4f} ms ({yard})")
+        parts.append({"direction": f"{name} {way}", "ms": ms,
+                      "plain_ms": plain_ms, "bound_ms": bound,
+                      "library_ms": lib, "bytes": nbytes,
+                      "gb_per_s": nbytes / ms / 1e6})
+    # one decode step's token writes: lane b's [KH, HD] row at (b, slot,
+    # offset) of one layer's pool, a lane with slot -1 writing nothing
+    slot = torch.as_tensor(rng.integers(0, Pe, B).astype(np.int32),
+                           device=device)
+    slot[-1] = -1
+    off = torch.as_tensor(rng.integers(0, T, B).astype(np.int32),
+                          device=device)
+    tok = torch.randn((B,) + page[1:], device=device, dtype=torch.bfloat16)
+    got, want = pool_card[0].clone(), pool_card[0].clone()
+    pc.page_copy(got, (None, slot, off), tok, (None,))
+    ref.page_copy_ref(want, (None, slot, off), tok, (None,))
+    same = torch.equal(got, want)
+    log(f"page_copy token writes ({B} rows of {math.prod(page[1:]) * 2} B "
+        f"into a layer's pool on the card, one dropped): exact {same}")
+    if not same:
+        raise AssertionError("page_copy token writes disagree with the "
+                             "plain version")
+    del pool, pool_card, staged, got, want
+    pinned = parts[:2]
+    return {"ms": sum(p["ms"] for p in pinned),
+            "plain_ms": sum(p["plain_ms"] for p in pinned),
+            "bound_ms": sum(p["bound_ms"] for p in pinned),
+            "bound_by": "bytes", "library_ms": None, "max_abs_err": 0.0,
+            "per_direction": parts}
 
 
 # --------------------------------------------------------------------------
@@ -352,8 +612,10 @@ def flash_phase(device):
 # phases 3-5: serving
 # --------------------------------------------------------------------------
 
-def parity_phase(seed):
-    """A small f32 stream, on the card and on the CPU, same weights."""
+def parity_phase(seed, overlap=False):
+    """A small f32 stream, on the card and on the CPU, same weights; in
+    overlap mode (phase 3c) the card's host pools are pinned and pages
+    must be committed."""
     import dataclasses
     import torch
     from repro_torch import configs
@@ -369,26 +631,33 @@ def parity_phase(seed):
     rng = np.random.default_rng(seed)
     prompts = [rng.integers(0, cfg.vocab, (n,)) for n in (300, 40, 280, 20)]
     ecfg = EngineConfig(max_context=512, policy="importance", spec=H100,
-                        prefill_chunk=32, telemetry_stride=8)
+                        prefill_chunk=32, telemetry_stride=8,
+                        overlap_migrations=overlap)
     runs = {}
     for dev in ("cuda", "cpu"):
         eng = ServingEngine(model, params, ecfg, device=dev)
         rep = eng.serve([Request(rid=i, prompt=p, max_new_tokens=12)
                          for i, p in enumerate(prompts)], num_slots=2)
+        if overlap and dev == "cuda" and not eng.state.k_host.is_pinned():
+            raise AssertionError("overlap mode: the host pools are not "
+                                 "in pinned host memory")
         runs[dev] = ({r.rid: r.output for r in rep}, rep.statuses,
                      [(s.h_read, s.e_read, s.m_in, s.m_out)
                       for s in eng.stats])
     same = [runs["cuda"][i] == runs["cpu"][i] for i in range(3)]
     migrated = sum(r[2] + r[3] for r in runs["cuda"][2])
-    log(f"parity: tokens {same[0]} statuses {same[1]} step bytes "
-        f"{same[2]} ({len(runs['cuda'][2])} decode steps, {migrated:.0f} "
-        f"bytes migrated)")
+    log(f"parity{' overlap' if overlap else ''}: tokens {same[0]} statuses "
+        f"{same[1]} step bytes {same[2]} ({len(runs['cuda'][2])} decode "
+        f"steps, {migrated:.0f} bytes migrated)")
     if not all(same):
         raise AssertionError("the card's serve disagrees with the CPU's")
+    if overlap and migrated == 0:
+        raise AssertionError("overlap parity: no page was committed")
 
 
 KERNEL_GROUPS = (   # (group, lower-case substrings of its kernel names)
     ("paged attention (csrc/paged_attention.cu)", ("paged_split_kernel",)),
+    ("row copies (csrc/page_copy.cu)", ("page_copy_kernel",)),
     ("matmul", ("gemm", "gemv", "cutlass", "xmma", "nvjet", "splitk")),
     ("softmax", ("softmax",)),
     ("gather / scatter / copy", ("index", "gather", "scatter", "copy",
@@ -522,7 +791,11 @@ def full_width(seed):
     return model, params
 
 
-def serve_phase(model, params, seed, profile_dir=None):
+def serve_phase(model, params, seed, profile_dir=None, overlap=False,
+                inline=None):
+    """Phase 4, or with `overlap` phase 4b (overlap_migrations and
+    measured_payback, host pools pinned), printed beside phase 4's
+    numbers `inline`. Returns the launches by kernel and the numbers."""
     import torch
     from repro_torch.kernels.build import COUNTS
     from repro_torch.serving.engine import EngineConfig, ServingEngine
@@ -531,7 +804,9 @@ def serve_phase(model, params, seed, profile_dir=None):
     cfg = model.cfg
     ecfg = EngineConfig(max_context=4096, hbm_fraction=0.25,
                         policy="importance", prefill_chunk=256,
-                        telemetry_stride=16)
+                        telemetry_stride=16, overlap_migrations=overlap,
+                        measured_payback=overlap)
+    what = "serve overlap" if overlap else "serve"
     rng = np.random.default_rng(seed)
     reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, (n,)),
                     max_new_tokens=64)
@@ -541,32 +816,84 @@ def serve_phase(model, params, seed, profile_dir=None):
              for i, n in enumerate(rng.integers(64, 257, 4))]
     eng = ServingEngine(model, params, ecfg)
     geo = model.cache_geometry(8, ecfg.max_context, ecfg.hbm_fraction)
-    log(f"serve: {len(reqs)} requests, prompts "
+    log(f"{what}: {len(reqs)} requests, prompts "
         f"{[r.prompt_len for r in reqs]}, cache {geo.hbm_pages} HBM + "
         f"{geo.host_pages} host pages per lane per layer, "
         f"{2 * geo.num_layers * geo.batch * geo.max_pages * geo.page_tokens * geo.kv_heads * geo.head_dim * 2 / 1e9:.2f} GB of KV")
+    # the payback probe (measured_payback) runs inside serve(): its
+    # row copies are counted apart from the serve's own
+    probe = collections.Counter()
+    measure = eng._measure_migration_spec
+
+    def counted_probe(*args, **kwargs):
+        before = collections.Counter(COUNTS)
+        out = measure(*args, **kwargs)
+        probe.update(COUNTS - before)
+        return out
+    eng._measure_migration_spec = counted_probe
+    gc.collect()            # an earlier phase's engine is not this peak's
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     COUNTS.clear()                          # the main path's run only
     torch.cuda.synchronize()
     t0 = time.time()
-    if profile_dir:
-        rep, prof = profiled(lambda: eng.serve(reqs, num_slots=8, seed=seed))
-    else:
-        rep = eng.serve(reqs, num_slots=8, seed=seed)
-    torch.cuda.synchronize()
+    try:
+        if profile_dir:
+            rep, prof = profiled(lambda: eng.serve(reqs, num_slots=8,
+                                                   seed=seed))
+        else:
+            rep = eng.serve(reqs, num_slots=8, seed=seed)
+        torch.cuda.synchronize()
+    finally:
+        del eng._measure_migration_spec     # no cycle keeps the engine
     wall = time.time() - t0
     if profile_dir:
         breakdown(prof, wall, profile_dir)
-    launches = COUNTS["paged_attention"]
+    counts = dict(COUNTS - probe)
+    launches = counts.get("paged_attention", 0)
     steps = len(eng.stats)
     tokens = sum(len(r.output) for r in rep)
     summ = eng.summary()
-    log(f"serve: {wall:.2f} s wall, {tokens} tokens, "
+    peak = torch.cuda.max_memory_allocated()
+    log(f"{what}: {wall:.2f} s wall, {tokens} tokens, "
         f"{tokens / wall:.1f} tokens/s, TTFT p50 {rep.ttft['p50']:.3f} s, "
         f"TPOT p50 {rep.tpot['p50'] * 1e3:.2f} ms, mean HBM hit rate "
         f"{summ['mean_hbm_hit_rate']:.4f}, migrated "
         f"{summ['migrated_bytes']:.0f} bytes, {steps} decode-plane steps, "
-        f"{launches} kernel launches, peak memory "
-        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        f"{launches} paged launches, {counts.get('page_copy', 0)} row-copy "
+        f"launches, peak memory {peak / 1e9:.2f} GB")
+    numbers = {"tokens_per_s": tokens / wall, "ttft_p50": rep.ttft["p50"],
+               "tpot_p50": rep.tpot["p50"], "peak_bytes": peak,
+               "hit_rate": summ["mean_hbm_hit_rate"],
+               "migrated": summ["migrated_bytes"], "steps": steps}
+    if overlap:
+        pinned = sum(t.nbytes for t in (eng.state.k_host, eng.state.v_host))
+        if not (eng.state.k_host.is_pinned() and eng.state.v_host.is_pinned()):
+            raise AssertionError("serve overlap: host pools not pinned")
+        ev = [e for e in rep.events if e["kind"] == "payback_measured"]
+        if len(ev) != 1:
+            raise AssertionError(f"serve overlap: events {rep.events}")
+        bw = ev[0]["measured_link_bw"]
+        log(f"serve overlap: measured payback: commit of {ev[0]['rows']} "
+            f"swap rows ({ev[0]['bytes'] / 1e6:.1f} MB both ways) "
+            f"{ev[0]['delta_s'] * 1e3:.3f} ms over the empty plan -> link "
+            f"{'None' if bw is None else f'{bw / 1e9:.2f} GB/s'} (modeled "
+            f"H100.link_bw {ev[0]['modeled_link_bw'] / 1e9:.0f} GB/s)")
+        log(f"serve overlap: {pinned / 1e9:.3f} GB of host pools in pinned "
+            f"host memory; row-copy launches {counts.get('page_copy', 0)} "
+            f"in the serve, {probe['page_copy']} more in the payback probe")
+        if inline:
+            log(f"serve overlap vs inline (one process): tokens/s "
+                f"{numbers['tokens_per_s']:.1f} vs "
+                f"{inline['tokens_per_s']:.1f}, TTFT p50 "
+                f"{numbers['ttft_p50']:.3f} vs {inline['ttft_p50']:.3f} s, "
+                f"TPOT p50 {numbers['tpot_p50'] * 1e3:.2f} vs "
+                f"{inline['tpot_p50'] * 1e3:.2f} ms, peak memory "
+                f"{peak / 1e9:.2f} vs {inline['peak_bytes'] / 1e9:.2f} GB, "
+                f"hit rate {numbers['hit_rate']:.4f} vs "
+                f"{inline['hit_rate']:.4f}")
+        numbers.update(pinned_bytes=pinned, payback=ev[0],
+                       probe_launches=dict(probe))
     bad = {rid: s for rid, s in rep.statuses.items() if s != "ok"}
     short = {r.rid: len(r.output) for r in rep
              if len(r.output) != r.max_new_tokens}
@@ -577,7 +904,7 @@ def serve_phase(model, params, seed, profile_dir=None):
                              f"decode steps x {cfg.num_layers} layers x 2")
     if summ["mean_hbm_hit_rate"] >= 1.0:
         raise AssertionError("serve: the stream never read the host tier")
-    return launches
+    return counts, numbers
 
 
 def sweep_phase(model, params, seed):
@@ -723,34 +1050,68 @@ def main(argv=None) -> int:
 
     rng = np.random.default_rng(args.seed)
     device = torch.device("cuda")
-    shapes = phase("kernel", lambda: kernel_phase(rng, device))
+    shapes, link = phase("kernel", lambda: kernel_phase(rng, device))
+    copies = phase("copy", lambda: page_copy_phase(rng, device, link))
     flash = phase("flash", lambda: flash_phase(device))
     phase("parity", lambda: parity_phase(args.seed))
+    phase("overlap parity", lambda: parity_phase(args.seed, overlap=True))
     phase("stream", lambda: stream_parity_phase(args.seed))
     model, params = phase("model", lambda: full_width(args.seed))
-    serve_launches = phase("serve", lambda: serve_phase(
+    serve, inline = phase("serve", lambda: serve_phase(
         model, params, args.seed, args.profile))
+    overlap, overlap_numbers = phase("serve overlap", lambda: serve_phase(
+        model, params, args.seed, overlap=True, inline=inline))
     sweep = phase("sweep", lambda: sweep_phase(model, params, args.seed))
     log(f"all phases: {time.time() - t_all:.1f} s wall")
 
+    # one inline decode layer: the HBM-tier (N=64) + host-tier (N=208)
+    # launch; the pinned host tier of overlap mode is in per_shape
+    layer = [s for s in shapes if "pools" not in s]
+    paged_by_path = {"serve": serve["paged_attention"],
+                     "serve_overlap": overlap["paged_attention"],
+                     "policy_sweep": sweep["paged_attention"]}
     paged = {
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/paged_attention.cu",
         "replaces": "src/repro/kernels/paged_attention.py:99",
-        "launches": serve_launches + sweep["paged_attention"],
-        "launches_by_path": {"serve": serve_launches,
-                             "policy_sweep": sweep["paged_attention"]},
-        # one decode layer: the HBM-tier (N=64) + host-tier (N=208) launch
+        "launches": sum(paged_by_path.values()),
+        "launches_by_path": paged_by_path,
         "max_abs_err": max(s["max_abs_err"] for s in shapes),
-        "ms": sum(s["ms"] for s in shapes),
-        "plain_ms": sum(s["plain_ms"] for s in shapes),
-        "bound_ms": sum(s["bound_ms"] for s in shapes),
+        "ms": sum(s["ms"] for s in layer),
+        "plain_ms": sum(s["plain_ms"] for s in layer),
+        "bound_ms": sum(s["bound_ms"] for s in layer),
         "bound_by": "bytes" if all(s["bound_by"] == "bytes"
-                                   for s in shapes) else "operations",
-        "library_ms": sum(s["library_ms"] for s in shapes),
-        "eager_ms": sum(s["eager_ms"] for s in shapes),
+                                   for s in layer) else "operations",
+        "library_ms": sum(s["library_ms"] for s in layer),
+        "eager_ms": sum(s["eager_ms"] for s in layer),
         "per_shape": shapes,
+        "link_bytes_per_s": link,
     }
+    copy_by_path = {"serve": serve.get("page_copy", 0),
+                    "serve_overlap": overlap.get("page_copy", 0),
+                    "policy_sweep": sweep.get("page_copy", 0)}
+    copy_entry = {
+        "name": "page_copy", "route": "cuda",
+        "source": "src/repro_torch/csrc/page_copy.cu",
+        "replaces": None,
+        "note": "not a TPU kernel: every move of pages and tokens into, "
+                "out of and between the pools, where the reference uses XLA "
+                "gathers and scatters (src/repro/kvcache/migrate.py:106,"
+                "136); ms and bound_ms are one pool's gather (pinned -> "
+                "card) plus scatter (card -> pinned) at plan capacity, "
+                "bound by the link's peak; serve_overlap leaves out the "
+                "payback probe's launches (payback_probe_launches)",
+        "launches": sum(copy_by_path.values()),
+        "launches_by_path": copy_by_path,
+        "payback_probe_launches": overlap_numbers["probe_launches"].get(
+            "page_copy", 0),
+        **copies,
+    }
+    for entry in (paged, copy_entry):
+        dead = [k for k, n in entry["launches_by_path"].items() if n == 0]
+        if dead:
+            raise AssertionError(f"{entry['name']} never launched on "
+                                 f"{dead}")
     flash_entry = {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -759,7 +1120,8 @@ def main(argv=None) -> int:
         "launches_by_path": {"policy_sweep": sweep["flash_attention"]},
         **flash,
     }
-    print(json.dumps({"kernels": [paged, flash_entry]}), flush=True)
+    print(json.dumps({"kernels": [paged, flash_entry, copy_entry]}),
+          flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -42,9 +42,14 @@
 //    puts the ticket counter back to 0, so the next launch — or the
 //    next replay of a CUDA graph — finds it zeroed. One launch per
 //    call.
-//  * The pools are taken as a raw pointer plus element strides, so a
-//    pool that lives in pinned host memory behind a mapped pointer
-//    needs no change here.
+//  * The pools are taken as a raw pointer plus element strides. In
+//    overlap mode the host tier's pools live in pinned host memory and
+//    the wrapper passes their mapped device address
+//    (cudaHostGetDevicePointer): the same rings then read them over
+//    the link. That path is correct, not designed for the link's
+//    latency: 2.32-2.57 ms at N=208, 28-31 GB/s, 2.1-2.3x the pools'
+//    valid bytes over the link's 64 GB/s peak, where a large copy_
+//    reaches 47-55 GB/s (chip_smoke.py phase 2).
 // Measured by chip_smoke.py phase 2 on an NVIDIA H100 80GB HBM3
 // (700 W) at B=8, KH=8, G=2, HD=128, 16-token pages: 0.024 ms over
 // N=64 pages and 0.052 ms over N=208 — 3.9x and 2.5x the bytes bound,

@@ -9,27 +9,38 @@ Each op picks by device: a CUDA tensor launches the hand-written kernel
                           (`paged_attention.paged_attention`).
   tiered_paged_attention  runs it once per tier and merges the two
                           partials exactly (log-sum-exp), the paper's
-                          concurrent HBM/DRAM reads of Eq. (2).
+                          concurrent HBM/DRAM reads of Eq. (2): on the
+                          card, with the host tier in pinned host
+                          memory, its launch runs on a side stream
+                          beside the HBM-tier launch.
   flash_attention         whole-sequence (prefill) attention, public
                           layout [B, S, H, D], GQA K/V un-repeated
                           (`flash_attention.flash_attention`).
+  copy_rows               row copies into, out of and between pools,
+                          either side on the card or in pinned host
+                          memory (`page_copy.page_copy`): every pool
+                          write and gather of the port.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ref
+from repro_torch.kernels.page_copy import page_copy
 from repro_torch.kernels.paged_attention import paged_attention
 
 
-def tier_attention(q, k_pool, v_pool, page_list, page_valid):
-    """Partial attention over one tier -> (out, m, l, page_lse)."""
+def tier_attention(q, k_pool, v_pool, page_list, page_valid,
+                   ticket_set: int = 0):
+    """Partial attention over one tier -> (out, m, l, page_lse).
+    `ticket_set`: see `paged_attention` (the card only)."""
     if q.device.type == "cuda":
-        return paged_attention(q, k_pool, v_pool, page_list, page_valid)
+        return paged_attention(q, k_pool, v_pool, page_list, page_valid,
+                               ticket_set)
     if q.device.type == "cpu":
         return ref.paged_attention_ref(q, k_pool, v_pool, page_list,
                                        page_valid)
@@ -49,15 +60,59 @@ def tiered_paged_attention(
     where importance is the per-page attention mass (summed over heads),
     ordered [hbm pages..., host pages...] matching the two lists.
     """
-    out_h, m_h, l_h, lse_h = tier_attention(q, k_hbm, v_hbm, hbm_list,
-                                            hbm_valid)
-    out_e, m_e, l_e, lse_e = tier_attention(q, k_host, v_host, host_list,
-                                            host_valid)
+    if q.device.type == "cuda" and k_host.device.type == "cpu":
+        # the host tier lies in pinned host memory (overlap mode): its
+        # launch reads over the link for milliseconds, so it runs on a
+        # side stream, after everything the current stream has queued
+        # (this step's token write included); the merge waits on it.
+        # Every tensor the side stream touches is also ordered by these
+        # two waits, so none is reused early. With both tiers in HBM the
+        # two launches take tens of microseconds, less than the stream
+        # switches cost the host, and run one after the other below.
+        main = torch.cuda.current_stream(q.device)
+        side = _side_stream(q.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            out_e, m_e, l_e, lse_e = tier_attention(
+                q, k_host, v_host, host_list, host_valid, ticket_set=1)
+        out_h, m_h, l_h, lse_h = tier_attention(q, k_hbm, v_hbm, hbm_list,
+                                                hbm_valid)
+        main.wait_stream(side)
+    else:
+        out_h, m_h, l_h, lse_h = tier_attention(q, k_hbm, v_hbm, hbm_list,
+                                                hbm_valid)
+        out_e, m_e, l_e, lse_e = tier_attention(q, k_host, v_host,
+                                                host_list, host_valid)
     merged, total_lse = ref.merge_partials(
         [(out_h, m_h, l_h), (out_e, m_e, l_e)])
     imp_h = ref.page_importance(lse_h, total_lse)
     imp_e = ref.page_importance(lse_e, total_lse)
     return merged.to(q.dtype), torch.cat([imp_h, imp_e], dim=-1)
+
+
+_SIDE: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+
+def _side_stream(device: torch.device) -> "torch.cuda.Stream":
+    """The stream of `device` the host-tier launches run on."""
+    if device not in _SIDE:
+        _SIDE[device] = torch.cuda.Stream(device)
+    return _SIDE[device]
+
+
+def copy_rows(dst, dst_index, src, src_index) -> None:
+    """dst[dst_index(r)] = src[src_index(r)] for every row r whose
+    indices are in range (see `page_copy`). Index tensors on the card
+    launch the kernel — either tensor may then be pinned host memory —
+    and CPU ones take the plain version."""
+    given = [i for i in (*dst_index, *src_index) if i is not None]
+    dev = given[0].device
+    if dev.type == "cuda":
+        page_copy(dst, dst_index, src, src_index)
+    elif dev.type == "cpu":
+        ref.page_copy_ref(dst, dst_index, src, src_index)
+    else:
+        raise ValueError(f"copy_rows runs on cuda or cpu, not {dev}")
 
 
 def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:

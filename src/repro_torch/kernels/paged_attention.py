@@ -3,8 +3,13 @@
 `paged_attention` has the signature and semantics of
 `repro_torch.kernels.ref.paged_attention_ref` and launches the CUDA
 kernel in `repro_torch/csrc/paged_attention.cu` on the current stream.
-It takes CUDA tensors only: the CPU path is the plain version, chosen
-by `ops.tier_attention` from the tensor's device.
+It takes CUDA tensors only, except for the two pools, which may also
+lie in pinned host memory (the host tier of overlap mode): the kernel
+then reads them in place over the link, through the device address
+`cudaHostGetDevicePointer` gives (`host_memory.device_address`). A pool
+in pageable host memory raises; no pool is ever copied to the card.
+The CPU path is the plain version, chosen by `ops.tier_attention` from
+the tensor's device.
 
 Build: `kernels.build` compiles the source at first use (see there).
 """
@@ -19,6 +24,7 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 
 from repro_torch.kernels.build import COUNTS, library
+from repro_torch.kernels.host_memory import check_memory, device_address
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -109,28 +115,35 @@ def scratch_layout(B: int, KH: int, G: int, HD: int, N: int,
     return tuple(out)
 
 
-_TICKETS: Dict[torch.device, torch.Tensor] = {}
+_TICKETS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 
 
-def _tickets(device: torch.device, n: int) -> torch.Tensor:
-    """The kernel's per-(b, kh) ticket counters: zeroed once here, and
-    left zero by every launch (the last CTA of each (b, kh) resets its
-    counter), so CUDA-graph replays reuse them. Grown, never shrunk."""
-    t = _TICKETS.get(device)
+def _tickets(device: torch.device, ticket_set: int, n: int) -> torch.Tensor:
+    """The kernel's per-(b, kh) ticket counters, one set per
+    `ticket_set` (launches that may run at once use different sets):
+    zeroed once here, and left zero by every launch (the last CTA of
+    each (b, kh) resets its counter), so CUDA-graph replays reuse them.
+    Grown, never shrunk."""
+    key = (device, ticket_set)
+    t = _TICKETS.get(key)
     if t is None or t.numel() < n:
         if torch.cuda.is_current_stream_capturing():
             raise RuntimeError("paged_attention: call it once outside CUDA-"
                                "graph capture first (its ticket counters "
                                "must outlive the graph)")
         t = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
-        _TICKETS[device] = t
+        _TICKETS[key] = t
     return t
 
 
 def _check_pool(name, pool, B, T, KH, HD, dtype, device):
-    if pool.device != device or pool.dtype != dtype:
-        raise ValueError(f"{name}: expected {dtype} on {device}, got "
-                         f"{pool.dtype} on {pool.device}")
+    if pool.device.type == "cpu":
+        check_memory(name, pool)        # pinned host memory, or raise
+    elif pool.device != device:
+        raise ValueError(f"{name}: expected {device} or pinned host "
+                         f"memory, got {pool.device}")
+    if pool.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {pool.dtype}")
     if pool.dim() != 5 or pool.shape[0] != B or pool.shape[2:] != (T, KH, HD):
         raise ValueError(f"{name}: expected [B={B}, P, T={T}, KH={KH}, "
                          f"HD={HD}], got {tuple(pool.shape)}")
@@ -144,13 +157,18 @@ def _check_pool(name, pool, B, T, KH, HD, dtype, device):
 
 def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                     v_pool: torch.Tensor, page_list: torch.Tensor,
-                    page_valid: torch.Tensor):
+                    page_valid: torch.Tensor, ticket_set: int = 0):
     """Semantics identical to `ref.paged_attention_ref`, on the card.
 
     q: [B, KH, G, HD] contiguous (f32 or bf16); k_pool/v_pool:
-    [B, P, T, KH, HD] of q's dtype, any strides with a contiguous last
-    dim; page_list/page_valid: [B, N] int32. Returns (out, m, l,
-    page_lse) as the plain version does."""
+    [B, P, T, KH, HD] of q's dtype, on q's card or in pinned host
+    memory, any strides with a contiguous last dim; page_list/
+    page_valid: [B, N] int32. Returns (out, m, l, page_lse) as the
+    plain version does. Launches that may run concurrently (on two
+    streams) pass different `ticket_set`s."""
+    for name, pool in (("k_pool", k_pool), ("v_pool", v_pool)):
+        # before any CUDA call: a pageable host pool is refused outright
+        check_memory(name, pool)
     if q.device.type != "cuda":
         raise ValueError("paged_attention launches a CUDA kernel; CPU "
                          "tensors take ref.paged_attention_ref")
@@ -189,11 +207,11 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _library().paged_attention_launch(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        q.data_ptr(), device_address(k_pool), device_address(v_pool),
         page_list.data_ptr(), page_valid.data_ptr(), out.data_ptr(),
         m.data_ptr(), l.data_ptr(), lse.data_ptr(), part_m.data_ptr(),
         part_l.data_ptr(), part_acc.data_ptr(),
-        _tickets(q.device, B * KH).data_ptr(),
+        _tickets(q.device, ticket_set, B * KH).data_ptr(),
         B, KH, G, HD, P, T, N, *k_pool.stride()[:4], *v_pool.stride()[:4],
         plan.splits, plan.per, plan.warps, HD ** -0.5, _DTYPE_CODE[q.dtype],
         stream)

@@ -149,3 +149,25 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
                         NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+
+
+def page_copy_ref(dst, dst_index, src, src_index) -> None:
+    """Plain version of the row-copy kernel (`page_copy.page_copy`):
+    dst[dst_index(r)] = src[src_index(r)] for every row r whose indices
+    are all in range on both sides, in place. Each index is a tuple
+    with one int tensor [M] (or None: the row number) per leading dim."""
+    given = [i for i in (*dst_index, *src_index) if i is not None]
+    rows = given[0].shape[0]
+    ar = torch.arange(rows, device=given[0].device)
+
+    def cols(t, index):
+        cs = [ar if i is None else i.long() for i in index]
+        ok = torch.ones(rows, dtype=torch.bool, device=ar.device)
+        for d, c in enumerate(cs):
+            ok = ok & (c >= 0) & (c < t.shape[d])
+        return cs, ok
+
+    d_cols, d_ok = cols(dst, dst_index)
+    s_cols, s_ok = cols(src, src_index)
+    ok = d_ok & s_ok
+    dst[tuple(c[ok] for c in d_cols)] = src[tuple(c[ok] for c in s_cols)]

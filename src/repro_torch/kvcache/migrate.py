@@ -5,10 +5,17 @@ A `MigrationPlan` is a fixed-capacity batch of moves, -1 rows being
 no-ops. Execution is a two-phase commit: `stage_plan` gathers (copies)
 every source page before `commit_staged` scatters any of them, which
 is what makes a swap safe — a demotion whose destination is the host
-slot a promotion vacates reads the promoted page first. The reference
-routes sentinel rows to out-of-bounds indices and drops them; here the
-rows are filtered by mask before indexing. Pools are written in place,
-tables replaced (see `repro_torch.kvcache.paged`).
+slot a promotion vacates reads the promoted page first. Pools are
+written in place, tables replaced (see `repro_torch.kvcache.paged`).
+
+Every page moves through the row-copy kernel (`kernels.ops.copy_rows`;
+its plain version on the CPU), rows indexed by the plan's own tensors.
+The reference routes sentinel rows to out-of-bounds indices and drops
+them; here the copy skips rows whose indices are out of range, and the
+table rewrites filter them by mask. On the card that is no host sync,
+whether the host pools lie in HBM (inline mode) or in pinned host
+memory (overlap mode), and `commit_async` runs the copies on a side
+stream concurrently with the decode compute.
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from repro_torch.kernels import ops
 from repro_torch.kvcache.paged import NO_SLOT, PagedKVCache
 
 _FIELDS = ("pro_layer", "pro_batch", "pro_src", "pro_dst", "pro_logical",
@@ -82,18 +90,23 @@ def stage_plan(cache: PagedKVCache, plan: MigrationPlan):
     L = cache.k_hbm.shape[0]
     hbm_pages = cache.k_hbm.shape[2]
     host_pages = cache.k_host.shape[2]
-    d = (plan.dem_layer.clamp(0, L - 1).long(),
-         plan.dem_batch.clamp_min(0).long(),
-         plan.dem_src.clamp(0, hbm_pages - 1).long())
-    p = (plan.pro_layer.clamp(0, L - 1).long(),
-         plan.pro_batch.clamp_min(0).long(),
-         plan.pro_src.clamp(0, host_pages - 1).long())
-    return (cache.k_hbm[d], cache.v_hbm[d], cache.k_host[p],
-            cache.v_host[p])
+    d = (plan.dem_layer.clamp(0, L - 1), plan.dem_batch.clamp_min(0),
+         plan.dem_src.clamp(0, hbm_pages - 1))
+    p = (plan.pro_layer.clamp(0, L - 1), plan.pro_batch.clamp_min(0),
+         plan.pro_src.clamp(0, host_pages - 1))
+    return tuple(_gather_pages(pool, at) for pool, at in (
+        (cache.k_hbm, d), (cache.v_hbm, d), (cache.k_host, p),
+        (cache.v_host, p)))
 
 
-def _in(idx, bound):
-    return (idx >= 0) & (idx < bound)
+def _gather_pages(pool: torch.Tensor, at) -> torch.Tensor:
+    """pool[at] by the row-copy kernel, into a fresh tensor on the
+    indices' device: `at` is (layer, lane, slot) int32 [M]."""
+    out = torch.empty((at[0].shape[0],) + pool.shape[3:], dtype=pool.dtype,
+                      device=at[0].device)
+    ops.copy_rows(out, (None,), pool,
+                  tuple(i.to(torch.int32).contiguous() for i in at))
+    return out
 
 
 def commit_staged(cache: PagedKVCache, plan: MigrationPlan,
@@ -105,54 +118,71 @@ def commit_staged(cache: PagedKVCache, plan: MigrationPlan,
     before owner sets, so swapped slots end up owned by the arriving
     page, not marked free.
     """
+    scatter_staged(cache, plan, staged)
+    return commit_tables(cache, plan)
+
+
+def _in(idx, bound):
+    return (idx >= 0) & (idx < bound)
+
+
+def _rows(ok, *idx):
+    return tuple(i[ok].long() for i in idx)
+
+
+def scatter_staged(cache: PagedKVCache, plan: MigrationPlan,
+                   staged) -> None:
+    """The data half of `commit_staged`: row r of the staged pages lands
+    at (layer, batch, dst) where those are in range; the row copy skips
+    the others (the batch index is clamped at 0 first, as the reference
+    does)."""
     dem_k, dem_v, pro_k, pro_v = staged
+    d_at = tuple(i.to(torch.int32).contiguous() for i in (
+        plan.dem_layer, plan.dem_batch.clamp_min(0), plan.dem_dst))
+    p_at = tuple(i.to(torch.int32).contiguous() for i in (
+        plan.pro_layer, plan.pro_batch.clamp_min(0), plan.pro_dst))
+    for pool, at, src in ((cache.k_host, d_at, dem_k),
+                          (cache.v_host, d_at, dem_v),
+                          (cache.k_hbm, p_at, pro_k),
+                          (cache.v_hbm, p_at, pro_v)):
+        ops.copy_rows(pool, at, src, (None,))
+
+
+def commit_tables(cache: PagedKVCache, plan: MigrationPlan
+                  ) -> PagedKVCache:
+    """The table half of `commit_staged`: owner maps and page table
+    rewritten for the plan's in-range rows."""
     L = cache.k_hbm.shape[0]
     B = cache.k_hbm.shape[1]
     hbm_pages = cache.k_hbm.shape[2]
     host_pages = cache.k_host.shape[2]
     max_pages = cache.page_table.shape[2]
-
-    d_ok = _in(plan.dem_layer, L)
     d_b = plan.dem_batch.clamp_min(0)
-    d_ok = d_ok & (d_b < B)
-    p_ok = _in(plan.pro_layer, L)
+    d_ok = _in(plan.dem_layer, L) & (d_b < B)
     p_b = plan.pro_batch.clamp_min(0)
-    p_ok = p_ok & (p_b < B)
-
-    def rows(ok, *idx):
-        return tuple(i[ok].long() for i in idx)
-
-    # ---- data: demoted pages into the host pool, promoted into HBM -----
-    ok = d_ok & _in(plan.dem_dst, host_pages)
-    at = rows(ok, plan.dem_layer, d_b, plan.dem_dst)
-    cache.k_host[at] = dem_k[ok]
-    cache.v_host[at] = dem_v[ok]
-    ok = p_ok & _in(plan.pro_dst, hbm_pages)
-    at = rows(ok, plan.pro_layer, p_b, plan.pro_dst)
-    cache.k_hbm[at] = pro_k[ok]
-    cache.v_hbm[at] = pro_v[ok]
+    p_ok = _in(plan.pro_layer, L) & (p_b < B)
 
     # ---- owner maps: clear vacated slots FIRST, then record arrivals ---
     hbm_owner = cache.hbm_owner.clone()
     ok = d_ok & _in(plan.dem_src, hbm_pages)
-    hbm_owner[rows(ok, plan.dem_layer, d_b, plan.dem_src)] = NO_SLOT
+    hbm_owner[_rows(ok, plan.dem_layer, d_b, plan.dem_src)] = NO_SLOT
     ok = p_ok & _in(plan.pro_dst, hbm_pages)
-    hbm_owner[rows(ok, plan.pro_layer, p_b, plan.pro_dst)] = \
+    hbm_owner[_rows(ok, plan.pro_layer, p_b, plan.pro_dst)] = \
         plan.pro_logical[ok]
     host_owner = cache.host_owner.clone()
     ok = p_ok & _in(plan.pro_src, host_pages)
-    host_owner[rows(ok, plan.pro_layer, p_b, plan.pro_src)] = NO_SLOT
+    host_owner[_rows(ok, plan.pro_layer, p_b, plan.pro_src)] = NO_SLOT
     ok = d_ok & _in(plan.dem_dst, host_pages)
-    host_owner[rows(ok, plan.dem_layer, d_b, plan.dem_dst)] = \
+    host_owner[_rows(ok, plan.dem_layer, d_b, plan.dem_dst)] = \
         plan.dem_logical[ok]
 
     # ---- page table --------------------------------------------------------
     page_table = cache.page_table.clone()
     ok = d_ok & _in(plan.dem_logical, max_pages)
-    page_table[rows(ok, plan.dem_layer, d_b, plan.dem_logical)] = \
+    page_table[_rows(ok, plan.dem_layer, d_b, plan.dem_logical)] = \
         plan.dem_dst[ok] + hbm_pages
     ok = p_ok & _in(plan.pro_logical, max_pages)
-    page_table[rows(ok, plan.pro_layer, p_b, plan.pro_logical)] = \
+    page_table[_rows(ok, plan.pro_layer, p_b, plan.pro_logical)] = \
         plan.pro_dst[ok]
 
     return dataclasses.replace(cache, page_table=page_table,
@@ -163,3 +193,26 @@ def apply_migrations(cache: PagedKVCache,
                      plan: MigrationPlan) -> PagedKVCache:
     """Execute a migration batch inline: stage, then commit."""
     return commit_staged(cache, plan, stage_plan(cache, plan))
+
+
+def commit_async(cache: PagedKVCache, plan: MigrationPlan,
+                 stream: "torch.cuda.Stream"):
+    """`apply_migrations` with the page copies on `stream` (a CUDA
+    cache whose host pools are pinned): they start after everything
+    the current stream has queued so far — this step's token writes and
+    attention reads — and run concurrently with what it queues next;
+    the tables are rewritten on the current stream at once. Returns
+    (cache, event): work that touches the pools must wait on the event
+    (`torch.cuda.Stream.wait_event`) first."""
+    main = torch.cuda.current_stream(plan.pro_layer.device)
+    stream.wait_stream(main)
+    with torch.cuda.stream(stream):
+        # the staging buffers belong to `stream`'s pool; the plan's
+        # rows, made on the main stream, must outlive the copies
+        staged = stage_plan(cache, plan)
+        scatter_staged(cache, plan, staged)
+    for name in _FIELDS:
+        getattr(plan, name).record_stream(stream)
+    done = torch.cuda.Event()
+    done.record(stream)
+    return commit_tables(cache, plan), done

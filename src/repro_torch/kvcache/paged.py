@@ -13,10 +13,18 @@ Logical pages map to physical slots through one page table:
                 slot >= hbm_pages -> host slot (slot - hbm_pages),
                 NO_SLOT (=-1)     -> page not allocated yet.
 
-Both pools live on the cache's device in this slice (the card, or the
-CPU in tests); the attention kernel takes each pool as a pointer plus
-strides, so moving the host pools to pinned host memory is a placement
-change, not a kernel change.
+Both pools live on the cache's device, except in overlap mode
+(`init_cache(host_pinned=True)` on the card), where `k_host`/`v_host`
+are pinned CPU tensors: the "DRAM tier" is then host DRAM behind the
+card's link, as in the reference's `pinned_host` placement. The paged
+attention kernel reads them in place over the link (it takes each pool
+as a pointer plus strides). Every other touch of either tier's pools —
+token writes, migration, the prefill plane's read — goes through the
+row-copy kernel (`kernels.ops.copy_rows`), in both modes, with the row
+indices on the card: PyTorch indexing cannot address a CPU tensor with
+CUDA indices, and nothing copies a whole host pool to the card. On the
+CPU (tests) `host_pinned` gives plain CPU pools and `copy_rows` its
+plain version.
 
 Mutation convention: unlike the reference's pure functions, pool
 writes happen IN PLACE (a full-width cache is 3.4 GB and is never
@@ -24,16 +32,19 @@ copied), while the small tensors — page table, owner maps, length,
 importance — are replaced by new tensors. A cache object taken before
 a step therefore still holds the pre-step tables, which is what
 `control.lane_merge` relies on. Scatters the reference routes to an
-out-of-bounds sentinel and drops (`mode="drop"`) are filtered by mask
-here before indexing; nothing indexes with -1, which would wrap.
+out-of-bounds sentinel and drops (`mode="drop"`) carry index -1 into
+the pools, which the row copy skips, and are filtered by mask before
+indexing the tables; nothing indexes a table with -1, which would
+wrap.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
 
 import torch
+
+from repro_torch.kernels import ops
 
 NO_SLOT = -1
 
@@ -126,19 +137,26 @@ class PagedKVCache:
         return hl, hv, el, ev
 
 
-def init_cache(geo: CacheGeometry, device="cpu") -> PagedKVCache:
-    """A fresh all-free cache for `geo` on `device`."""
+def init_cache(geo: CacheGeometry, device="cpu",
+               host_pinned: bool = False) -> PagedKVCache:
+    """A fresh all-free cache for `geo` on `device`. With `host_pinned`
+    and a CUDA `device`, the host pools are zeroed pinned CPU tensors
+    (the overlap-mode placement); on the CPU they are plain CPU
+    tensors either way."""
     L, B, T = geo.num_layers, geo.batch, geo.page_tokens
     kh, hd = geo.kv_heads, geo.head_dim
     shape_h = (L, B, geo.hbm_pages, T, kh, hd)
     shape_e = (L, B, geo.host_pages, T, kh, hd)
     pool = dict(dtype=geo.dtype, device=device)
     i32 = dict(dtype=torch.int32, device=device)
+    host = pool
+    if host_pinned and torch.device(device).type == "cuda":
+        host = dict(dtype=geo.dtype, device="cpu", pin_memory=True)
     return PagedKVCache(
         k_hbm=torch.zeros(shape_h, **pool),
         v_hbm=torch.zeros(shape_h, **pool),
-        k_host=torch.zeros(shape_e, **pool),
-        v_host=torch.zeros(shape_e, **pool),
+        k_host=torch.zeros(shape_e, **host),
+        v_host=torch.zeros(shape_e, **host),
         page_table=torch.full((L, B, geo.max_pages), NO_SLOT, **i32),
         hbm_owner=torch.full((L, B, geo.hbm_pages), NO_SLOT, **i32),
         host_owner=torch.full((L, B, geo.host_pages), NO_SLOT, **i32),
@@ -210,29 +228,22 @@ def write_token_layer(k_hbm_l, v_hbm_l, k_host_l, v_host_l, slot, offset,
     Shapes: pools [B, P, T, KH, HD]; slot/offset [B] int32;
     k_new/v_new [B, KH, HD]. slot >= hbm_pages addresses the host pool.
     `active` (bool [B], optional) leaves the other lanes' pools
-    untouched. Each lane writes only its own row, so the masked lanes
-    write back the value they read — no host sync, no collisions.
+    untouched. Lane b's row goes to (b, slot, offset) of the pool its
+    slot names, or nowhere: no host sync, no collisions.
     """
     hbm_pages = k_hbm_l.shape[1]
     host_pages = k_host_l.shape[1]
-    B = slot.shape[0]
     keep = torch.ones_like(slot, dtype=torch.bool) if active is None \
         else active
     in_hbm = keep & (slot >= 0) & (slot < hbm_pages)
     in_host = keep & (slot >= hbm_pages) & (slot < hbm_pages + host_pages)
-    bidx = torch.arange(B, device=slot.device)
-    off = offset.long()
-
-    def upd(pool, s, ok, val):
-        s = s.clamp(0, pool.shape[1] - 1).long()
-        old = pool[bidx, s, off]
-        pool[bidx, s, off] = torch.where(ok[:, None, None],
-                                         val.to(pool.dtype), old)
-
-    upd(k_hbm_l, slot, in_hbm, k_new)
-    upd(v_hbm_l, slot, in_hbm, v_new)
-    upd(k_host_l, slot - hbm_pages, in_host, k_new)
-    upd(v_host_l, slot - hbm_pages, in_host, v_new)
+    off = offset.to(torch.int32).contiguous()
+    for pools, sel, base in (((k_hbm_l, v_hbm_l), in_hbm, 0),
+                             ((k_host_l, v_host_l), in_host, hbm_pages)):
+        at = (None, torch.where(sel, slot - base, -1).to(torch.int32), off)
+        for pool, val in zip(pools, (k_new, v_new)):
+            ops.copy_rows(pool, at, val.to(pool.dtype).contiguous(),
+                          (None,))
     return k_hbm_l, v_hbm_l, k_host_l, v_host_l
 
 
@@ -250,15 +261,18 @@ def write_tokens_layer(k_hbm_l, v_hbm_l, k_host_l, v_host_l, slot, offset,
     R = slot.shape[0]
     if lanes is None:
         lanes = torch.arange(R, device=slot.device)
-    lane = lanes.long()[:, None].expand_as(slot)
+    lane = lanes.to(torch.int32).repeat_interleave(slot.shape[1])
+    off = offset.to(torch.int32).reshape(-1).contiguous()
     in_hbm = valid & (slot >= 0) & (slot < hbm_pages)
     in_host = valid & (slot >= hbm_pages) & (slot < hbm_pages + host_pages)
-    for pool_k, pool_v, sel, base in ((k_hbm_l, v_hbm_l, in_hbm, 0),
-                                      (k_host_l, v_host_l, in_host,
-                                       hbm_pages)):
-        idx = (lane[sel], (slot[sel] - base).long(), offset[sel].long())
-        pool_k[idx] = k_new[sel].to(pool_k.dtype)
-        pool_v[idx] = v_new[sel].to(pool_v.dtype)
+    for pools, sel, base in (((k_hbm_l, v_hbm_l), in_hbm, 0),
+                             ((k_host_l, v_host_l), in_host, hbm_pages)):
+        # one row per token: (lane, slot, offset), or nowhere
+        at = (lane, torch.where(sel, slot - base, -1).to(torch.int32)
+              .reshape(-1).contiguous(), off)
+        for pool, val in zip(pools, (k_new, v_new)):
+            ops.copy_rows(pool, at, val.to(pool.dtype).reshape(
+                -1, *val.shape[2:]).contiguous(), (None,))
     return k_hbm_l, v_hbm_l, k_host_l, v_host_l
 
 

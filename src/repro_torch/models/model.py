@@ -68,23 +68,25 @@ class Model:
         return logits[:, -1], cache
 
     def prefill_chunk(self, params, cache: PagedKVCache, tokens, start,
-                      n_valid):
+                      n_valid, end: Optional[int] = None):
         """Consume a [B, C] prompt slice directly into the paged cache;
         see `transformer.dense_prefill_chunk`."""
         return tfm.dense_prefill_chunk(params, self.cfg, cache, tokens,
-                                       start, n_valid)
+                                       start, n_valid, end)
 
     def decode_step(self, params, state: PagedKVCache, token, *,
                     write_slot: Optional[torch.Tensor] = None,
                     logical_page_mask: Optional[torch.Tensor] = None,
-                    active: Optional[torch.Tensor] = None):
-        """One decode step; `write_slot` defaults to static placement."""
+                    active: Optional[torch.Tensor] = None,
+                    pool_ready=None):
+        """One decode step; `write_slot` defaults to static placement.
+        `pool_ready`: see `transformer.dense_decode_step`."""
         if write_slot is None:
             write_slot = default_write_slot(state)
         return tfm.dense_decode_step(params, self.cfg, state, token,
                                      write_slot,
                                      logical_page_mask=logical_page_mask,
-                                     active=active)
+                                     active=active, pool_ready=pool_ready)
 
 
 def default_write_slot(cache: PagedKVCache) -> torch.Tensor:

@@ -219,6 +219,7 @@ def dense_decode_step(params, cfg: ModelConfig, cache: PagedKVCache,
                       token: torch.Tensor, write_slot: torch.Tensor,
                       logical_page_mask: Optional[torch.Tensor] = None,
                       active: Optional[torch.Tensor] = None,
+                      pool_ready=None,
                       ) -> Tuple[torch.Tensor, PagedKVCache]:
     """One decode step over the two-tier paged cache.
 
@@ -226,8 +227,11 @@ def dense_decode_step(params, cfg: ModelConfig, cache: PagedKVCache,
     token's page (slot >= hbm_pages means host pool). active (bool [B],
     optional): only those lanes write their K/V into the pools — the
     serve loop's inactive lanes keep their pools untouched, and
-    `control.lane_merge` then keeps their old tables. Returns
-    (logits [B, V], updated cache).
+    `control.lane_merge` then keeps their old tables. pool_ready (a
+    CUDA event, optional): the current stream waits on it just before
+    the step first touches the pools (layer 0's token write), so the
+    step's embedding and first projections overlap a migration commit
+    that is still copying pages. Returns (logits [B, V], updated cache).
     """
     B = token.shape[0]
     T = cache.k_hbm.shape[3]
@@ -248,6 +252,8 @@ def dense_decode_step(params, cfg: ModelConfig, cache: PagedKVCache,
                  cache.v_host[l])
         x = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
         q, k, v = attn_qkv(x, lp, cfg, pos[:, None])
+        if l == 0 and pool_ready is not None:
+            torch.cuda.current_stream(token.device).wait_event(pool_ready)
         # write this token's k/v BEFORE attending (it must see itself)
         write_token_layer(*pools, slot, offset, k[:, 0], v[:, 0],
                           active=active)
@@ -272,7 +278,7 @@ def dense_decode_step(params, cfg: ModelConfig, cache: PagedKVCache,
 # ---------------------------------------------------------------------------
 
 def prefill_chunk_attn(hcur, lp, cfg: ModelConfig, pools, pos, page,
-                       offset, valid, lanes):
+                       offset, valid, lanes, seen):
     """One layer's chunked-prefill attention block over the paged pools.
 
     hcur: [R, C, d] residual stream of the R prefilling lanes `lanes`;
@@ -282,6 +288,9 @@ def prefill_chunk_attn(hcur, lp, cfg: ModelConfig, pools, pos, page,
     causally against the lanes' pools flattened in slot order — which
     is logical token order while a lane is prefilling, because the
     migration planner only touches lanes that have started decoding.
+    `seen` = (HBM slots, host slots) read from the front of each tier:
+    those that can hold a prefix the slice sees (the causal mask gives
+    the later ones weight zero).
     """
     kh, vh, ke, ve = pools
     R = pos.shape[0]
@@ -290,14 +299,33 @@ def prefill_chunk_attn(hcur, lp, cfg: ModelConfig, pools, pos, page,
     q, k, v = attn_qkv(x, lp, cfg, pos)
     write_tokens_layer(kh, vh, ke, ve, page, offset, k, v, valid,
                        lanes=lanes)
-    keys = torch.cat([kh[lanes], ke[lanes]], dim=1)   # [R, Ph+Pe, T, KH, HD]
-    vals = torch.cat([vh[lanes], ve[lanes]], dim=1)
+    n_h, n_e = seen
+    # [R, n_h + n_e, T, KH, HD]
+    keys = torch.cat([lane_pages(kh, lanes, n_h),
+                      lane_pages(ke, lanes, n_e)], dim=1)
+    vals = torch.cat([lane_pages(vh, lanes, n_h),
+                      lane_pages(ve, lanes, n_e)], dim=1)
     S = keys.shape[1] * T
     keys = keys.reshape(R, S, cfg.kv_heads, cfg.head_dim)
     vals = vals.reshape(R, S, cfg.kv_heads, cfg.head_dim)
     o = prefix_chunk_attention(q, repeat_kv(keys, cfg.q_per_kv),
                                repeat_kv(vals, cfg.q_per_kv), pos)
     return hcur + attn_out(o, lp)
+
+
+def lane_pages(pool: torch.Tensor, lanes: torch.Tensor,
+               n: int) -> torch.Tensor:
+    """pool[lanes, :n] ([R, n, T, KH, HD]) on the lanes' device, gathered
+    by the row-copy kernel (the pool may lie in pinned host memory)."""
+    R = lanes.shape[0]
+    row = pool.shape[2:]
+    out = torch.empty((R, n) + row, dtype=pool.dtype, device=lanes.device)
+    if n:
+        lane = lanes.to(torch.int32).repeat_interleave(n)
+        slot = torch.arange(n, dtype=torch.int32,
+                            device=lanes.device).repeat(R)
+        ops.copy_rows(out.view(R * n, *row), (None,), pool, (lane, slot))
+    return out
 
 
 def chunk_coords(page_tokens: int, chunk: int, start: torch.Tensor,
@@ -315,19 +343,25 @@ def chunk_coords(page_tokens: int, chunk: int, start: torch.Tensor,
 
 def dense_prefill_chunk(params, cfg: ModelConfig, cache: PagedKVCache,
                         tokens: torch.Tensor, start: torch.Tensor,
-                        n_valid: torch.Tensor
+                        n_valid: torch.Tensor, end: Optional[int] = None,
                         ) -> Tuple[torch.Tensor, PagedKVCache]:
     """Consume a [B, C] prompt slice directly into the paged cache.
 
     Token j of lane b sits at absolute position start[b] + j and is
     real while j < n_valid[b]. Only lanes with n_valid > 0 run the
     forward (the others' rows of the reference's output are discarded
-    by every caller); their logits rows here are zeros. Returns
-    (logits [B, C, V], updated cache); the logits at slice index
-    n_valid-1 are those of the last consumed prompt position.
+    by every caller); their logits rows here are zeros. `end` (a host
+    int, optional): a bound on every lane's start + n_valid, which
+    limits the slots the attention reads to those the slice can see —
+    the caller knows it without reading the device. Returns (logits
+    [B, C, V], updated cache); the logits at slice index n_valid-1 are
+    those of the last consumed prompt position.
     """
     B, C = tokens.shape
     T = cache.k_hbm.shape[3]
+    Ph, Pe = cache.k_hbm.shape[2], cache.k_host.shape[2]
+    pages = Ph + Pe if end is None else min(-(-end // T), Ph + Pe)
+    seen = (min(pages, Ph), max(pages - Ph, 0))
     pos, page, offset, valid = chunk_coords(T, C, start, n_valid)
     lanes = torch.nonzero(n_valid > 0).flatten()
     logits = torch.zeros((B, C, cfg.vocab), dtype=cfg.dtype,
@@ -339,7 +373,7 @@ def dense_prefill_chunk(params, cfg: ModelConfig, cache: PagedKVCache,
             lp = layer_params(params, l)
             pools = (cache.k_hbm[l], cache.v_hbm[l], cache.k_host[l],
                      cache.v_host[l])
-            h = prefill_chunk_attn(h, lp, cfg, pools, *sel, lanes)
+            h = prefill_chunk_attn(h, lp, cfg, pools, *sel, lanes, seen)
             h = dense_mlp_block(h, lp, cfg)
         h = rms_norm(h, params["final_norm"], cfg.norm_eps)
         logits[lanes] = unembed(params, cfg, h).to(cfg.dtype)

@@ -1,5 +1,5 @@
 """Decode control plane, vectorized over [L, B] (the port of the
-inline subset of the reference's `serving/control.py`).
+reference's `serving/control.py`).
 
   * write slot: the token's logical page keeps its existing mapping;
     a fresh page takes the first free HBM slot, else the first free
@@ -9,6 +9,9 @@ inline subset of the reference's `serving/control.py`).
   * migrations: per (layer, batch), promote the `budget` hottest host
     pages above `promote_thresh`; free HBM slots are consumed first
     (in slot order), then the coldest HBM residents are swapped out.
+  * overlap-mode hazards: a plan staged one step ahead is revalidated
+    against the commit-time owner maps (`revalidate_plan`), and its rows
+    of rebound lanes are dropped at chunk boundaries (`mask_plan_lanes`).
 
 Tie order follows the reference exactly: `lax.top_k` puts the lower
 index first among ties and `jnp.argsort` is stable, so both become
@@ -125,6 +128,77 @@ def plan_by_score(cache: PagedKVCache, host_score: torch.Tensor,
         *rows(demote, lidx, bidx, dst_slot, cand_slot, victim_logical),
     )
     return plan, promote.sum(), demote.sum()
+
+
+def _mask_plan_rows(plan: MigrationPlan, keep: torch.Tensor) -> MigrationPlan:
+    """Sentinel out every plan row where `keep` (bool [M]) is False —
+    both halves with the same mask (`plan_by_score` pairs demote i with
+    promote i, and a demote row is live only when its promote is), so a
+    masked plan never orphans half a swap."""
+    return MigrationPlan(*[torch.where(keep, getattr(plan, f.name), -1)
+                           .to(torch.int32)
+                           for f in dataclasses.fields(plan)])
+
+
+def revalidate_plan(plan: MigrationPlan, cache: PagedKVCache
+                    ) -> MigrationPlan:
+    """Hazard-mask a STAGED plan against the commit-time owner maps.
+
+    In overlap mode (`EngineConfig.overlap_migrations`) a plan built at
+    step N commits at step N+1, so the steps in between — the next
+    decode's fresh-page allocation, the prefill plane's page
+    registration — may have changed the placement the plan assumed. A
+    promote row survives only when the world still matches the plan:
+
+      * its source host slot still holds the planned logical page
+        (``host_owner[src] == logical`` — a release, re-admission or
+        earlier promote of that page invalidates the row);
+      * its destination is still what the plan paired it with: the
+        planned victim for swap rows (``hbm_owner[dem_src] ==
+        dem_logical``), a still-free slot for fill rows
+        (``hbm_owner[dst] < 0`` — an allocation into the slot in the
+        interim kills the row rather than letting the commit clobber a
+        page the in-flight step just wrote).
+
+    Demote rows are masked with the SAME row mask (index-paired swaps).
+    The one hazard owner maps cannot express — a released lane re-bound
+    to another request with the same deterministic static placement —
+    is `mask_plan_lanes`'s, at chunk boundaries.
+    """
+    ho, eo = cache.hbm_owner, cache.host_owner
+    Ph, Pe = ho.shape[2], eo.shape[2]
+
+    def gather(owner, l, b, s, bound):
+        # out-of-range indices clamp, as a JAX gather's do
+        return owner[l.clamp(0, owner.shape[0] - 1).long(),
+                     b.clamp(0, owner.shape[1] - 1).long(),
+                     s.clamp(0, bound - 1).long()]
+
+    live = plan.pro_layer >= 0
+    src_ok = gather(eo, plan.pro_layer, plan.pro_batch, plan.pro_src,
+                    Pe) == plan.pro_logical
+    dst_owner = gather(ho, plan.pro_layer, plan.pro_batch, plan.pro_dst, Ph)
+    victim_owner = gather(ho, plan.dem_layer, plan.dem_batch, plan.dem_src,
+                          Ph)
+    dst_ok = torch.where(plan.dem_layer >= 0,
+                         victim_owner == plan.dem_logical, dst_owner < 0)
+    return _mask_plan_rows(plan, live & src_ok & dst_ok)
+
+
+def mask_plan_lanes(plan: MigrationPlan, stale: torch.Tensor
+                    ) -> MigrationPlan:
+    """Drop every staged row targeting a `stale` lane (bool [B]).
+
+    The chunk-boundary half of overlap-mode hazard masking: a plan
+    staged in the previous chunk may name a lane the host released or
+    (re)admitted at the boundary. `revalidate_plan` cannot catch the
+    reuse case — static placement is deterministic, so a re-admitted
+    request can reproduce the exact (slot, logical) pairs of the
+    evicted one with another request's pages — so the engine masks
+    freshly (re)bound lanes out of the staged plan before the chunk
+    runs."""
+    lane = plan.pro_batch.clamp(0, stale.shape[0] - 1).long()
+    return _mask_plan_rows(plan, (plan.pro_layer >= 0) & ~stale[lane])
 
 
 def slot_scores(values: torch.Tensor, owner: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,5 @@
 """Serving engine over the two-tier paged KV cache (the port of the
-reference's `serving/engine.py`, inline mode).
+reference's `serving/engine.py`, inline and overlap modes).
 
 One decode step is: the control plane (write-slot choice, optional
 Quest mask), `Model.decode_step` over the paged cache — whose attention
@@ -31,14 +31,25 @@ Drive modes:
                         completion, deadlines and page reclaim happen at
                         boundaries every `telemetry_stride` steps.
 
+Overlap mode (`EngineConfig.overlap_migrations`, serve only, as in
+the reference): the host pools live in pinned host memory on the card,
+read in place by the paged kernel over the link, and each decode step
+commits the plan staged one step earlier — revalidated against the
+post-decode owner maps — then plans the next on the post-commit cache
+with this step's read set as a one-step-ahead oracle. On the card the
+commit's page copies run on a side stream, concurrent with the rest of
+the step; the next step waits for them before it touches the pools.
+`measured_payback` times the commit of a full swap plan on pinned host
+pools at serve start and recalibrates `cost_aware` from the measured
+link bandwidth.
+
 The reference runs each boundary-to-boundary chunk as one `lax.scan`;
 here it is a Python loop over the steps, and the reference's two
 `lax.cond` skips (no decoding lane, no prefill demand) are host `if`s —
 one device sync each per step.
 
 Not ported yet (each raises NotImplementedError naming its slice):
-`overlap_migrations`, `measured_payback`, `serve()` with
-`trace_telemetry`, `faults=`, `slo=`, `mesh`.
+`serve()` with `trace_telemetry`, `faults=`, `slo=`, `mesh`.
 """
 
 from __future__ import annotations
@@ -53,7 +64,9 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.latency_model import StepTraffic, step_latency
 from repro_torch.core.tiers import H100, MemorySystemSpec
-from repro_torch.kvcache.migrate import apply_migrations
+from repro_torch.kvcache.migrate import (
+    MigrationPlan, apply_migrations, commit_async,
+)
 from repro_torch.kvcache.paged import PagedKVCache, init_cache
 from repro_torch.models.model import Model
 from repro_torch.serving import control
@@ -65,7 +78,6 @@ from repro_torch.serving.scheduler import (
     ContinuousBatcher, Request, RequestError,
 )
 
-_OVERLAP_SLICE = "the port's overlap slice (ROADMAP.md, queue 1)"
 _SERVE_SLICE = "the port's faults/SLO slice (ROADMAP.md, queue 1)"
 _TRACE_SLICE = "the port's serve-trace slice (ROADMAP.md, queue 1)"
 _LAUNCH_SLICE = "the port's launch slice (ROADMAP.md, queue 1)"
@@ -108,9 +120,13 @@ class EngineConfig:
     #: policy fallback knobs of the fault plane (the faults/SLO slice)
     fallback_commit_faults: int = 3
     fallback_tier_ratio: float = 8.0
-    #: not in this slice (the overlap slice)
+    #: the staged plan/commit pipeline of `serve` (see the module doc);
+    #: False keeps the serial plan-then-commit step. step/run/generate
+    #: always run inline
     overlap_migrations: bool = False
-    #: not in this slice (the overlap slice)
+    #: recalibrate cost_aware's payback thresholds from a MEASURED link
+    #: bandwidth (a timed commit at serve start); telemetry pricing
+    #: stays on `spec`
     measured_payback: bool = False
 
 
@@ -211,6 +227,30 @@ def _to_device(tree, device):
     return tree.to(device)
 
 
+def measured_link_spec(base: MemorySystemSpec, delta: float, moved: int,
+                       rows: int):
+    """Invert a timed commit into a link bandwidth (the reference's
+    formula): the latency model prices a move at 1/link_bw + 1/hbm_bw
+    seconds per byte, so `delta` seconds for `moved` bytes give
+    link_bw = 1 / (delta / moved - 1 / hbm_bw). Returns (base with that
+    link_bw and its name suffixed "+measured", or None when the
+    difference is not positive or falls under the HBM floor; the
+    `payback_measured` event's payload)."""
+    detail = {"rows": int(rows), "bytes": int(moved),
+              "delta_s": float(delta),
+              "modeled_link_bw": float(base.link_bw),
+              "measured_link_bw": None}
+    if delta <= 0.0 or moved == 0:
+        return None, detail
+    inv_link = delta / moved - 1.0 / base.hbm_bw
+    if inv_link <= 0.0:
+        return None, detail
+    link_bw = 1.0 / inv_link
+    detail["measured_link_bw"] = float(link_bw)
+    return dataclasses.replace(base, name=base.name + "+measured",
+                               link_bw=link_bw), detail
+
+
 class ServingEngine:
     """The serving engine over the two-tier paged KV cache (see the
     module docstring). Runs on the CUDA card unless constructed with
@@ -228,10 +268,6 @@ class ServingEngine:
                 f"or None (uncapped), got {cfg.prefill_budget}")
         if mesh is not None:
             _later("serving across a device mesh", _LAUNCH_SLICE)
-        if cfg.overlap_migrations:
-            _later("EngineConfig.overlap_migrations", _OVERLAP_SLICE)
-        if cfg.measured_payback:
-            _later("EngineConfig.measured_payback", _OVERLAP_SLICE)
         self.device = resolve_device(device)
         self.model = model
         self.params = _to_device(params, self.device)
@@ -242,6 +278,10 @@ class ServingEngine:
         #: raw (base, access, tier) chunks when cfg.trace_telemetry
         #: (read by `trace_bridge.collect`)
         self._trace_log: List[tuple] = []
+        #: overlap mode on the card: the stream the commits' page copies
+        #: run on, and the event of the last commit's copies
+        self._copy_stream = None
+        self._commit_done = None
 
     # ------------------------------------------------------------------ #
     def _setup(self, geo):
@@ -301,6 +341,50 @@ class ServingEngine:
             stats = (base,)
         cache = apply_migrations(cache, plan)
         return logits, cache, pstate, stats
+
+    def _decode_overlap(self, cache: PagedKVCache, pstate, staged,
+                        token, active):
+        """The overlap-mode step (the reference's `step_overlap_fn`):
+        decode on the pre-commit placement, revalidate the plan staged
+        one step ago against the post-decode owner maps, commit it,
+        then plan the next on the post-commit cache with this step's
+        read set as the one-step-ahead oracle. Returns (logits, cache,
+        pstate, staged, (telemetry [4],)); the telemetry counts the
+        pre-commit occupancy and the committed moves."""
+        sparsity = self.cfg.attention_sparsity
+        write_slot = control.choose_write_slot(cache)
+        mask = control.quest_page_mask(cache, sparsity) \
+            if sparsity > 0 else None
+        read = mask if mask is not None else cache.page_table >= 0
+        old = cache
+        logits, cache = self.model.decode_step(
+            self.params, cache, token, write_slot=write_slot,
+            logical_page_mask=mask, active=active,
+            pool_ready=self._commit_done)
+        cache = control.lane_merge(old, cache, active)
+        # occupancy is pre-commit: this step's attention read it
+        occ = control.occupancy(cache)
+        commit = control.revalidate_plan(staged, cache)
+        # the fault plane's migration cap (`faults.throttle_plan`,
+        # ROADMAP.md queue 1, item 2) goes here; without it the cap is
+        # the identity
+        n_pro, n_dem = commit.row_counts()
+        if self._copy_stream is not None:
+            cache, self._commit_done = commit_async(cache, commit,
+                                                    self._copy_stream)
+        else:
+            cache = apply_migrations(cache, commit)
+        staged, pstate, _ = self._policy.plan(cache, pstate, active,
+                                              self._budget, read_mask=read)
+        moves = torch.stack([n_pro, n_dem]).to(torch.int32)
+        return logits, cache, pstate, staged, (torch.cat([occ, moves]),)
+
+    def _pools_ready(self) -> None:
+        """The current stream waits for the last commit's page copies
+        (overlap mode on the card; a no-op otherwise)."""
+        if self._commit_done is not None:
+            torch.cuda.current_stream(self.device).wait_event(
+                self._commit_done)
 
     def _readback(self, rows: List[tuple]) -> None:
         """One host readback of a chunk's stats tuples, then pricing."""
@@ -392,11 +476,33 @@ class ServingEngine:
         geo = self.model.cache_geometry(B, cfg.max_context,
                                         hbm_fraction=cfg.hbm_fraction)
         self._setup(geo)
-        self.state = init_cache(geo, device=dev)
         self.stats = []
         self._sampling = sampling or SamplingConfig()
         sampler = make_sampler(self._sampling)
         pstate = self._pstate
+        events: List[dict] = []
+        if cfg.measured_payback:
+            # the policy's thresholds go empirical; pricing stays on
+            # cfg.spec
+            measured, detail = self._measure_migration_spec(geo)
+            if measured is not None:
+                pstate = _to_device(self._policy.recalibrate(pstate,
+                                                             measured), dev)
+            events.append({"kind": "payback_measured", "step": 0,
+                           **detail})
+        # overlap mode: the host pools in pinned host memory (on the
+        # card), and the staged plan, empty at first — step 0 commits
+        # nothing; `stale` marks lanes (re)bound or released since the
+        # plan was staged, whose rows are dropped before the next chunk
+        overlap = cfg.overlap_migrations
+        self.state = init_cache(geo, device=dev, host_pinned=overlap)
+        self._copy_stream = torch.cuda.Stream(dev) \
+            if overlap and dev.type == "cuda" else None
+        self._commit_done = None
+        staged = MigrationPlan.empty(
+            control.plan_capacity(geo, cfg.migration_budget_frac),
+            device=dev) if overlap else None
+        stale = np.zeros((B,), bool)
         C = max(1, cfg.prefill_chunk)
         S_cap = geo.max_tokens
         Pb = cfg.prefill_budget
@@ -464,6 +570,7 @@ class ServingEngine:
                     self._admit_lane(req, hs)
                     if req.lane >= 0:
                         live[req.lane] = req
+                        stale[req.lane] = True
 
         admit()
         view = batcher.device_view()
@@ -510,13 +617,22 @@ class ServingEngine:
             gens = hs["gens"]
             rows = {"emitted": [], "first": [], "failed": [], "pf": [],
                     "base": []}
-            for _ in range(stride):
+            if overlap:
+                staged = control.mask_plan_lanes(staged, upload(stale))
+                stale[:] = False
+            for n_step in range(stride):
                 pf, dec = control.lane_modes(act, prog, prompt_len)
                 # decode plane: skipped on steps with no decoding lane
-                # (its stats row is filtered at the boundary anyway)
+                # (its stats row is filtered at the boundary anyway; in
+                # overlap mode the staged plan waits)
                 if bool(dec.any()):
-                    logits, cache, pstate, (base,) = self._decode(
-                        cache, pstate, tok, dec)
+                    if overlap:
+                        logits, cache, pstate, staged, (base,) = \
+                            self._decode_overlap(cache, pstate, staged,
+                                                 tok, dec)
+                    else:
+                        logits, cache, pstate, (base,) = self._decode(
+                            cache, pstate, tok, dec)
                     # non-finite sampling guard: such a lane emits
                     # nothing, flips inactive, and completes "failed"
                     bad = dec & ~torch.isfinite(logits).all(dim=-1)
@@ -556,8 +672,13 @@ class ServingEngine:
                 if bool((n_val > 0).any()):
                     idx = (prog[:, None] + ar_c).clamp(0, S_cap - 1).long()
                     sl_toks = torch.gather(prompt_buf, 1, idx)
+                    self._pools_ready()
+                    # every lane's slice ends by here (host-side bound:
+                    # a lane prefills at most C tokens a step)
+                    end = int(np.minimum(view.prefilled + (n_step + 1) * C,
+                                         view.prompt_len).max())
                     logits_c, cache = self.model.prefill_chunk(
-                        self.params, cache, sl_toks, prog, n_val)
+                        self.params, cache, sl_toks, prog, n_val, end)
                     prog = prog + n_val
                     crossed = pf & (prog >= prompt_len)
                     last = (n_val - 1).clamp(0, C - 1).long()
@@ -578,6 +699,7 @@ class ServingEngine:
                 rows["pf"].append(n_val)
                 rows["base"].append(base)
             self.state = cache
+            self._pools_ready()        # the readback drains the commits
             out = {k: torch.stack(v).cpu().numpy() for k, v in rows.items()}
             emitted = out["emitted"]                    # [stride, B]
             first = out["first"]
@@ -661,6 +783,7 @@ class ServingEngine:
                     "cancelled" if status == "cancelled"
                     else "deadline_exceeded",
                     "reaped while queued")
+            stale |= release
             if release.any():
                 self.state = control.release_lanes(self.state,
                                                    upload(release))
@@ -668,8 +791,57 @@ class ServingEngine:
             admit()
             view = batcher.device_view()
         self._pstate = pstate
-        return ServeReport.build(batcher.completed, batcher.rejected, [],
-                                 eos_id=cfg.eos_id)
+        return ServeReport.build(batcher.completed, batcher.rejected,
+                                 events, eos_id=cfg.eos_id)
+
+    def _measure_migration_spec(self, geo, *, iters: int = 5):
+        """Time the migration commit and derive a spec whose link
+        bandwidth is MEASURED rather than modeled (the reference's
+        `_measure_migration_spec`).
+
+        Times `apply_migrations` of a synthetic full-capacity swap plan
+        (every row a promote + demote pair, one page across the link
+        each way) against the all-sentinel plan over the same cache,
+        whose host pools are pinned on the card: the difference is the
+        per-page move cost without the fixed overhead. CUDA events time
+        it on the card, `time.perf_counter` on the CPU; the best of
+        `iters` runs of each. `measured_link_spec` inverts it. Returns
+        `(spec or None, detail)`, `detail` being the `payback_measured`
+        event's payload."""
+        base = self.cfg.spec
+        cap = control.plan_capacity(geo, self.cfg.migration_budget_frac)
+        L, B = geo.num_layers, geo.batch
+        r = np.arange(cap, dtype=np.int32)
+        pro_src = r % geo.host_pages
+        pro_dst = r % geo.hbm_pages
+        lay, bat = r % L, (r // L) % B
+        plan = MigrationPlan(*[
+            torch.as_tensor(c, device=self.device) for c in (
+                lay, bat, pro_src, pro_dst, r % geo.max_pages,
+                lay, bat, pro_dst, pro_src, (r + 1) % geo.max_pages)])
+        empty = MigrationPlan.empty(cap, device=self.device)
+        cache = init_cache(geo, device=self.device, host_pinned=True)
+        on_card = self.device.type == "cuda"
+
+        def seconds(p) -> float:
+            if not on_card:
+                t0 = time.perf_counter()
+                apply_migrations(cache, p)
+                return time.perf_counter() - t0
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            apply_migrations(cache, p)
+            stop.record()
+            stop.synchronize()
+            return start.elapsed_time(stop) / 1e3
+
+        seconds(plan)                       # warm both outside the timing
+        seconds(empty)
+        delta = min(seconds(plan) for _ in range(iters)) - \
+            min(seconds(empty) for _ in range(iters))
+        moved = 2 * cap * geo.page_bytes()
+        return measured_link_spec(base, delta, moved, rows=cap)
 
     def _admit_lane(self, req: Request, hs: Dict) -> None:
         """Bind an admitted request to its cache lane for chunked

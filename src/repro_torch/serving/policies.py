@@ -33,9 +33,17 @@ Registered policies (EngineConfig.policy):
   quest       promotes exactly the pages the Quest top-k mask reads
               next; mask-resident HBM pages are never evicted.
 
-The reference's plan-ahead mode (`protect_read_residents`) belongs to
-overlap mode, which the port's overlap slice brings; until then every
-policy plans inline.
+Plan-ahead (`EngineConfig.overlap_migrations`): in the overlap serve
+pipeline a plan built at step N commits at step N+1, so the policy
+plans for the step after next and `read_mask` becomes a one-step-ahead
+re-reference oracle. `importance`, `recency` and `cost_aware` then also
+protect the read set's HBM residents from eviction
+(`protect_read_residents`: score +inf), since evicting one would make
+the commit race the very read it serves. `static` plans nothing either
+way, and `quest` already ranks by the next step's mask. The oracle
+needs a sparse read set: dense attention reads every alive page, so
+protecting the read set would freeze placement; plan-ahead is on only
+with `attention_sparsity > 0`.
 """
 
 from __future__ import annotations
@@ -62,7 +70,12 @@ class DevicePolicy:
     name = "base"
 
     def __init__(self, *, cfg, geo):
-        del cfg, geo
+        #: one-step-ahead planning: protect the read set's HBM residents
+        #: (overlap mode with a sparse read set only; see the module doc)
+        self.plan_ahead = (
+            bool(getattr(cfg, "overlap_migrations", False))
+            and getattr(cfg, "attention_sparsity", 0.0) > 0.0)
+        del geo
 
     def init_state(self, geo) -> Any:
         """Fresh policy state for a stream over `geo`."""
@@ -86,6 +99,19 @@ def check_read_mask(cache: PagedKVCache, read_mask) -> None:
     if read_mask is not None and read_mask.shape != cache.page_table.shape:
         raise ValueError(f"read_mask {tuple(read_mask.shape)} does not match "
                          f"the page table {tuple(cache.page_table.shape)}")
+
+
+def protect_read_residents(cache: PagedKVCache, hbm_score: torch.Tensor,
+                           read_mask) -> torch.Tensor:
+    """Plan-ahead eviction guard: +inf the HBM score of every resident
+    whose logical page is in `read_mask` (a +inf victim score means no
+    candidate can displace the slot, `control.plan_by_score`'s
+    protection convention). No-op when the mask is absent."""
+    if read_mask is None:
+        return hbm_score
+    ho = cache.hbm_owner
+    in_read = torch.gather(read_mask, -1, ho.clamp_min(0).long()) & (ho >= 0)
+    return torch.where(in_read, _POS_INF, hbm_score)
 
 
 _REGISTRY: Dict[str, Callable[..., DevicePolicy]] = {}
@@ -145,11 +171,20 @@ class ImportancePolicy(DevicePolicy):
 
     def plan(self, cache, state, active, budget,
              read_mask=None) -> PlanResult:
-        """Promote the hottest host pages by importance EMA."""
+        """Promote the hottest host pages by importance EMA; with
+        plan-ahead the read set's residents are also protected."""
         check_read_mask(cache, read_mask)
-        plan, n_pro, n_dem = control.plan_migrations(
-            cache, budget=budget, promote_thresh=self._thresh,
-            active=active)
+        if not self.plan_ahead:
+            plan, n_pro, n_dem = control.plan_migrations(
+                cache, budget=budget, promote_thresh=self._thresh,
+                active=active)
+            return plan, state, (n_pro, n_dem)
+        imp = cache.importance
+        hbm_imp = protect_read_residents(
+            cache, control.slot_scores(imp, cache.hbm_owner), read_mask)
+        plan, n_pro, n_dem = control.plan_by_score(
+            cache, control.slot_scores(imp, cache.host_owner), hbm_imp,
+            budget=budget, promote_thresh=self._thresh, active=active)
         return plan, state, (n_pro, n_dem)
 
 
@@ -197,6 +232,11 @@ class RecencyPolicy(DevicePolicy):
         scores = last.float()
         host_score = control.slot_scores(scores, cache.host_owner)
         hbm_score = control.slot_scores(scores, cache.hbm_owner)
+        if self.plan_ahead:
+            # just-read residents are already the most recent; +inf
+            # makes their protection unconditional under the lagged
+            # commit
+            hbm_score = protect_read_residents(cache, hbm_score, read)
         # clamped at 0 so never-read pages (step -1) do not qualify
         # while the stream is younger than the window
         thresh = (step - self.window).clamp_min(0).float()
@@ -249,6 +289,10 @@ class CostAwarePolicy(DevicePolicy):
         # residents warmer than the demote threshold are not victims
         protected = (cache.hbm_owner >= 0) & (hbm_imp >= state["t_demote"])
         hbm_score = torch.where(protected, _POS_INF, hbm_imp)
+        if self.plan_ahead:
+            # the band protects warm residents; the oracle also the
+            # about-to-be-read ones, warm or not
+            hbm_score = protect_read_residents(cache, hbm_score, read_mask)
         plan, n_pro, n_dem = control.plan_by_score(
             cache, host_score, hbm_score, budget=budget,
             promote_thresh=state["t_promote"], active=active)

@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels (paged decode attention, prefill
-flash attention) against their plain versions, on the card.
+flash attention, row copies between pools) against their plain
+versions, on the card.
 
 Marked `cuda`: every test here needs an NVIDIA Hopper card and `nvcc`,
 and skips without them. On the card:
@@ -10,7 +11,9 @@ Tolerances: in float32 the kernel sums in another order than the plain
 version (atol 2e-5 on `out`); in bfloat16 `out` is rounded to bf16 on
 both sides, one bf16 step apart at most (atol 1e-2). `m` and the
 per-page LSE agree within 1e-4, `l` within 1e-4 relative. The flash
-kernel's `out` is held to the same 2e-5 (f32) and 1e-2 (bf16).
+kernel's `out` is held to the same 2e-5 (f32) and 1e-2 (bf16). Row
+copies are exact. The overlap-mode serve on the card must give the
+CPU's tokens, statuses and step bytes exactly.
 """
 
 import numpy as np
@@ -21,6 +24,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import page_copy as pc  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
@@ -342,3 +346,181 @@ def test_layers_attention_launches_the_kernel(device, S):
     assert build.COUNTS["flash_attention"] == before + 1
     want = layers.attention(q.cpu(), k.cpu(), v.cpu())
     torch.testing.assert_close(got.cpu(), want, atol=2e-5, rtol=0)
+
+
+# --------------------------------------------------------------------------
+# overlap mode: the host tier in pinned host memory
+# --------------------------------------------------------------------------
+
+def rand_pool(shape, dtype, device, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+
+def rows(device, *cols):
+    return tuple(None if c is None else
+                 torch.as_tensor(np.asarray(c, np.int32), device=device)
+                 for c in cols)
+
+
+def check_copy(device, dst, dst_index, src, src_index):
+    """The kernel on (dst, src) — either may be pinned — against the
+    plain version on device copies of both: exactly equal, and the
+    launch counted once."""
+    want = dst.to(device)
+    ref.page_copy_ref(want, dst_index, src.to(device), src_index)
+    before = build.COUNTS["page_copy"]
+    pc.page_copy(dst, dst_index, src, src_index)
+    torch.cuda.synchronize()
+    assert build.COUNTS["page_copy"] == before + 1
+    assert torch.equal(dst.to(device), want)
+
+
+# pages of [T=16, KH=2, HD=64]; -1 and out-of-range rows are skipped
+LAYER = [0, 1, -1, 1, 0, 2, 1]
+LANE = [1, 0, 0, 1, 3, 0, 0]
+SLOT = [4, 0, 2, 5, 1, 3, 6]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_page_copy_gathers_pages_out_of_pinned_memory(device, dtype):
+    pool = rand_pool((2, 2, 6, 16, 2, 64), dtype, device, 1).cpu() \
+        .pin_memory()
+    out = torch.zeros((len(LAYER), 16, 2, 64), dtype=dtype, device=device)
+    check_copy(device, out, (None,), pool, rows(device, LAYER, LANE, SLOT))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_page_copy_scatters_pages_into_pinned_memory(device, dtype):
+    pool = rand_pool((2, 2, 6, 16, 2, 64), dtype, device, 2).cpu() \
+        .pin_memory()
+    staged = rand_pool((len(LAYER), 16, 2, 64), dtype, device, 3)
+    check_copy(device, pool, rows(device, LAYER, LANE, SLOT), staged,
+               (None,))
+
+
+def test_page_copy_device_to_device(device):
+    pool = rand_pool((2, 2, 6, 16, 2, 64), torch.bfloat16, device, 4)
+    staged = rand_pool((len(LAYER), 16, 2, 64), torch.bfloat16, device, 5)
+    check_copy(device, pool, rows(device, LAYER, LANE, SLOT), staged,
+               (None,))
+
+
+def test_page_copy_scatters_tokens_into_pinned_memory(device):
+    """The decode token write: lane b's [KH, HD] row to (b, slot,
+    offset), lanes with slot -1 untouched."""
+    pool = rand_pool((4, 6, 16, 2, 64), torch.bfloat16, device, 6).cpu() \
+        .pin_memory()
+    tok = rand_pool((4, 2, 64), torch.bfloat16, device, 7)
+    check_copy(device, pool, rows(device, None, [2, -1, 5, 0],
+                                  [15, 3, 0, 7]), tok, (None,))
+
+
+def test_page_copy_refuses_pageable_memory(device):
+    pool = torch.zeros((2, 6, 16, 2, 64), dtype=torch.bfloat16)
+    tok = torch.zeros((2, 2, 64), dtype=torch.bfloat16, device=device)
+    with pytest.raises(ValueError, match="pageable"):
+        pc.page_copy(pool, rows(device, None, [0, 1], [0, 1]), tok, (None,))
+
+
+def pinned_cache(geo, seed):
+    """A cache on the card with pinned host pools, all pools random."""
+    from repro_torch.kvcache.paged import init_cache
+    cache = init_cache(geo, device="cuda", host_pinned=True)
+    for i, name in enumerate(("k_hbm", "v_hbm", "k_host", "v_host")):
+        pool = getattr(cache, name)
+        pool.copy_(rand_pool(pool.shape, pool.dtype, device=torch.device(
+            "cuda"), seed=seed + i))
+    return cache
+
+
+@pytest.mark.parametrize("asynchronous", [False, True],
+                         ids=["inline", "side_stream"])
+def test_migration_over_pinned_pools_matches_the_cpu(device, asynchronous):
+    """A plan with swaps whose demotion lands in the host slot its
+    promotion vacates (dem_dst == pro_src), fills and sentinel rows,
+    committed through the row-copy kernel (inline, or on a side stream
+    with `commit_async`): pools and tables equal the CPU's indexing
+    path on the same plan."""
+    from repro_torch.kvcache import migrate
+    from repro_torch.kvcache.paged import CacheGeometry
+    geo = CacheGeometry(num_layers=2, batch=2, page_tokens=16, hbm_pages=4,
+                        host_pages=6, kv_heads=2, head_dim=64)
+    cache = pinned_cache(geo, 10)
+    assert cache.k_host.is_pinned() and cache.k_hbm.is_cuda
+    cache.hbm_owner = torch.arange(4, dtype=torch.int32, device=device) \
+        .expand(2, 2, 4).contiguous()
+    cache.host_owner = (4 + torch.arange(6, dtype=torch.int32,
+                                         device=device)).expand(2, 2, 6) \
+        .contiguous()
+    cache.page_table = torch.arange(10, dtype=torch.int32, device=device) \
+        .expand(2, 2, 10).contiguous()
+    plan = migrate.MigrationPlan.build(
+        6, [(0, 1, 2, 3, 6), (1, 0, 5, 0, 9), (1, 1, 0, 2, 4)],
+        [(0, 1, 3, 2, 3), (1, 0, 0, 5, 0)], device=device)
+    cpu = migrate.PagedKVCache(**{f: getattr(cache, f).cpu().clone()
+                                 for f in cache.__dataclass_fields__})
+    want = migrate.apply_migrations(
+        cpu, migrate.MigrationPlan(*[getattr(plan, f).cpu()
+                                     for f in migrate._FIELDS]))
+    before = build.COUNTS["page_copy"]
+    if asynchronous:
+        got, done = migrate.commit_async(cache, plan, torch.cuda.Stream())
+        torch.cuda.current_stream().wait_event(done)
+    else:
+        got = migrate.apply_migrations(cache, plan)
+    torch.cuda.synchronize()
+    assert build.COUNTS["page_copy"] == before + 8   # 4 gathers, 4 scatters
+    for f in want.__dataclass_fields__:
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+
+
+@pytest.mark.parametrize("shape", [SHAPES[1], SHAPES[2]], ids=str)
+def test_paged_kernel_reads_pinned_pools(device, shape):
+    """The host-tier launch of overlap mode: pools in pinned host memory,
+    read in place over the link, against the plain version on device
+    copies of the same pools."""
+    dtype = torch.bfloat16 if shape[3] == 128 else torch.float32
+    q, k, v, page_list, page_valid = inputs(shape, dtype, device, 11)
+    k_h, v_h = k.cpu().pin_memory(), v.cpu().pin_memory()
+    got = pa.paged_attention(q, k_h, v_h, page_list, page_valid)
+    torch.cuda.synchronize()
+    assert_close(got, ref.paged_attention_ref(q, k_h.to(device),
+                                              v_h.to(device), page_list,
+                                              page_valid), dtype)
+
+
+def test_overlap_serve_on_the_card_matches_the_cpu(device):
+    """A small f32 overlap-mode stream under HBM pressure, lanes reused:
+    the card (pinned host pools, commits on a side stream) and the CPU
+    give the same tokens, statuses and per-step bytes, with commits."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    from repro_torch.serving.scheduler import Request
+    cfg = dataclasses.replace(configs.get_smoke("internlm2-1.8b"),
+                              dtype=torch.float32, param_dtype=torch.float32)
+    model = Model(cfg)
+    params = model.init(0, device="cpu")
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab, (272 + 16 * (i % 2),))
+               for i in range(3)]
+    ecfg = EngineConfig(max_context=512, policy="importance",
+                        attention_sparsity=0.5, promote_thresh=1e-4,
+                        telemetry_stride=8, prefill_chunk=16,
+                        overlap_migrations=True)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        eng = ServingEngine(model, params, ecfg, device=dev)
+        rep = eng.serve([Request(rid=i, prompt=p, max_new_tokens=8)
+                         for i, p in enumerate(prompts)], num_slots=2)
+        if dev == "cuda":
+            assert eng.state.k_host.is_pinned()
+        runs[dev] = ({r.rid: r.output for r in rep}, rep.statuses,
+                     [(s.h_read, s.e_read, s.m_in, s.m_out)
+                      for s in eng.stats])
+    assert runs["cuda"] == runs["cpu"]
+    assert sum(r[2] + r[3] for r in runs["cuda"][2]) > 0

@@ -127,6 +127,42 @@ def test_prefill_chunk_matches_reference(models, prompts):
     assert int(tc.host_owner.ge(0).sum()) > 0
 
 
+@pytest.mark.parametrize("slack", [0, 1, 40])
+def test_prefill_chunk_bounded_read_matches_reference(models, prompts,
+                                                      slack):
+    """The serve loop passes a host-side bound on every lane's slice
+    end (`end`), and the prefill plane reads only the slots below it —
+    exactly at the end, a token past it, and a page and more past it,
+    with the slices crossing into the host tier: the reference's logits
+    and cache, as with the unbounded read."""
+    jm, jp, tm, tp = models
+    jgeo, tgeo = jm.cache_geometry(2, 512), tm.cache_geometry(2, 512)
+    from repro.kvcache.paged import init_cache as jinit
+    from repro_torch.kvcache.paged import init_cache as tinit
+    jc, tc = jinit(jgeo), tinit(tgeo)
+    C = 48
+    prog = np.array([0, 20], np.int32)
+    for step in range(7):
+        n_val = np.minimum(PROMPT - prog, C).astype(np.int32)
+        if step == 3:
+            n_val[0] = 0
+        idx = np.clip(prog[:, None] + np.arange(C), 0, PROMPT - 1)
+        toks = np.take_along_axis(prompts, idx, axis=1).astype(np.int32)
+        jl, jc = jm.prefill_chunk(jp, jc, jnp.asarray(toks),
+                                  jnp.asarray(prog), jnp.asarray(n_val))
+        end = int((prog + n_val).max()) + slack
+        tl, tc = tm.prefill_chunk(tp, tc, torch.from_numpy(toks),
+                                  torch.from_numpy(prog),
+                                  torch.from_numpy(n_val), end)
+        for b in range(2):
+            np.testing.assert_allclose(tl[b, :n_val[b]].numpy(),
+                                       np.asarray(jl)[b, :n_val[b]],
+                                       atol=LOGIT_ATOL)
+        _assert_cache(tc, bridge_fields(jc))
+        prog = prog + n_val
+    assert int(tc.host_owner.ge(0).sum()) > 0
+
+
 @pytest.mark.parametrize("budget", [7, 32])
 def test_chunked_prefill_equals_whole_prompt(models, prompts, budget):
     """Inside the port: any chunk budget lands the same cache as the

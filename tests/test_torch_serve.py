@@ -193,15 +193,12 @@ def test_sampled_streams_are_reproducible(models, prompts):
     assert run(8) != first
 
 
-@pytest.mark.parametrize("ask", ["overlap", "payback", "trace", "faults",
-                                 "slo", "mesh"])
+@pytest.mark.parametrize("ask", ["trace", "faults", "slo", "mesh"])
 def test_later_slices_raise(models, prompts, ask):
-    """What this slice leaves out raises NotImplementedError, never runs
+    """What the port leaves out raises NotImplementedError, never runs
     something else."""
     _, _, tm, tp = models
-    knob = {"overlap": {"overlap_migrations": True},
-            "payback": {"measured_payback": True},
-            "trace": {"trace_telemetry": True}}.get(ask, {})
+    knob = {"trace": {"trace_telemetry": True}}.get(ask, {})
     cfg = EngineConfig(**{**engine_kw("importance"), **knob})
     with pytest.raises(NotImplementedError, match="not ported yet"):
         eng = ServingEngine(tm, tp, cfg, device="cpu",
