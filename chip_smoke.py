@@ -15,7 +15,9 @@ non-zero):
   2. kernel  run the paged kernel against its plain version
              (ref.paged_attention_ref)
              on the same CUDA tensors at the full-width decode shapes
-             (B=8, KH=8, G=2, HD=128, T=16, N in {64, 208}, bf16 pools)
+             of internlm2-1.8b (B=8, KH=8, G=2, HD=128) and of
+             granite-moe-3b-a800m (G=3, HD=64), T=16, N in {64, 208},
+             bf16 pools,
              with holes, a permuted page list, partial pages and an
              all-hole lane; time it beside the plain version and one
              scaled_dot_product_attention call over the same keys.
@@ -40,10 +42,11 @@ non-zero):
              decode step's token writes into a pool on the card.
   2b. flash  run the flash kernel against its plain version
              (ref.flash_attention_ref) on CUDA tensors: the prefill
-             shape of phase 5 (B=4, S=2304, H=16 over KH=8, D=128,
-             bf16, causal), a ragged S with KH == H, a non-causal case,
-             the smoke shape in f32 and a bf16 D=64 case with a ragged
-             S; time it at the prefill shape
+             shapes of phase 5 (B=4, S=2304, H=16 over KH=8, D=128,
+             bf16, causal) and phase 7 (H=24 over KH=8, D=64), a ragged
+             S with KH == H, a non-causal case, the smoke shape in f32,
+             a bf16 D=64 case with a ragged S and an f32 one with H/KH
+             = 3; time it at the two prefill shapes
              beside the plain version, one scaled_dot_product_attention
              call (enable_gqa, on [B, H, S, D] copies made outside the
              timed region) and its operations bound.
@@ -53,6 +56,14 @@ non-zero):
   3c. overlap the same stream in overlap mode (host pools pinned on
              the card, commits on a side stream): card and CPU equal
              again, and pages committed.
+  3d. faults the smoke stream under a fault plane of every kind, SLO
+             admission (TTFT targets 0 and infinity by tier) and serve
+             trace capture, inline and in overlap mode, on the card and
+             on the CPU: tokens, statuses, step bytes, events, the
+             serve trace and its scores equal.
+  3e. moe    the granite-moe and llama4 smoke configs (capacity factor
+             0.5: choices drop) served through 8 slots on the card and
+             on the CPU: tokens, statuses and step bytes equal.
   3b. stream the single-stream path on the card and on the CPU, f32
              smoke config, same weights, under each of the five
              policies with Quest sparsity 0.5 and trace capture:
@@ -73,9 +84,24 @@ non-zero):
              prompts of 2304 tokens (each spills ~1280 tokens to the
              host tier), `generate(64)`, then `score_headroom` against
              the SA, Belady and static bounds; for `importance` also
-             `start` + `run` over the generated tokens. The flash
+             `start` + `run` over the first 32 generated tokens. The flash
              kernel must launch once per layer per `start`, the paged
              kernel twice per layer per decode step.
+  6. faulted phase 4's engine with `cost_aware` and serve-trace capture
+             over phase 4's 12 requests plus 4 open-loop arrivals at
+             0.5-2 s, SLO tiers by prompt length (interactive: TTFT 2 s,
+             TPOT 0.2 s; batch: 30 s, 0.5 s; wall-clock shedding), one
+             fault of each kind (the poison on a long request while it
+             decodes); every request terminal, the poisoned one
+             "failed", the TTFT identity, the fault events; then
+             `collect_serve` and `goodput_curve` (`score_serve` inside,
+             SAConfig(12, 4, 0)), timed.
+  7. moe     granite-moe-3b-a800m at its published widths (32 layers,
+             d_model 1536, 24 heads over 8, head_dim 64, 40 experts
+             top-8; random bf16 weights), after the internlm2 model is
+             dropped: phase 4's serve with the same checks, then `start`
+             of 4 prompts of 2304 tokens (32 flash launches) and
+             `generate(32)`.
 
 Then a `kernels` JSON line, the card's name and power limit, and, last,
 {"ok": true, "device": {...}}. Without a CUDA card it exits non-zero
@@ -259,12 +285,27 @@ def dense_for_sdpa(inputs):
     return q.reshape(B, KH * G, 1, HD), kd, vd, mask
 
 
+#: the paged kernel's decode shapes, by model: (KH, G, HD) at B=8, T=16
+PAGED_MODELS = (("internlm2-1.8b", 8, 2, 128),
+                ("granite-moe-3b-a800m", 8, 3, 64))
+
+
 def kernel_phase(rng, device):
+    link = link_bandwidth(device)
+    shapes = []
+    for model, KH, G, HD in PAGED_MODELS:
+        shapes += paged_shapes(rng, device, model, KH, G, HD)
+    shapes.append(pinned_shape(rng, device, link))
+    return shapes, link
+
+
+def paged_shapes(rng, device, model, KH, G, HD):
+    """The HBM tier (N=64) and host tier (N=208) of one model's decode,
+    bf16 pools on the card: checked, then timed."""
     import torch
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ref
-    B, KH, G, HD, T = 8, 8, 2, 128, 16
-    link = link_bandwidth(device)
+    B, T = 8, 16
     shapes = []
     for N in (64, 208):
         per_copy = 2 * B * N * T * KH * HD * 2
@@ -285,11 +326,12 @@ def kernel_phase(rng, device):
         if not bool((empty == 0).all()) or not bool((got[0][B - 1] == 0).all()):
             raise AssertionError(f"N={N}: the all-hole lane is not empty")
         bad = {k: v for k, v in err.items() if not v <= TOL[k]}
-        log(f"kernel N={N}: max err out {err['out']:.3e} m {err['m']:.3e} "
+        what = f"kernel {model} G={G} HD={HD} N={N}"
+        log(f"{what}: max err out {err['out']:.3e} m {err['m']:.3e} "
             f"l(rel) {err['l_rel']:.3e} lse {err['lse']:.3e} "
             f"(tolerance {TOL})")
         if bad:
-            raise AssertionError(f"kernel N={N} disagrees with the plain "
+            raise AssertionError(f"{what} disagrees with the plain "
                                  f"version: {bad}")
 
         def kernel(i):
@@ -313,12 +355,13 @@ def kernel_phase(rng, device):
         nbytes, flops = (sum(x) / copies for x in zip(*map(work, sets)))
         bound = max(nbytes / HBM_BW, flops / BF16_FLOPS) * 1e3
         sms = torch.cuda.get_device_properties(0).multi_processor_count
-        log(f"kernel N={N}: device {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+        log(f"{what}: device {ms:.4f} ms  plain {plain_ms:.4f} ms  "
             f"sdpa {lib_ms:.4f} ms  bound {bound:.4f} ms "
             f"({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)  "
             f"eager call {kernel_eager:.4f} ms  "
             f"{pa.launch_plan(B, KH, G, HD, T, N, 2, sms)}")
-        shapes.append({"N": N, "ms": ms, "plain_ms": plain_ms,
+        shapes.append({"model": model, "G": G, "HD": HD, "N": N,
+                       "ms": ms, "plain_ms": plain_ms,
                        "library_ms": lib_ms, "bound_ms": bound,
                        "eager_ms": kernel_eager,
                        "bytes": nbytes, "flops": flops,
@@ -326,8 +369,7 @@ def kernel_phase(rng, device):
                        >= flops / BF16_FLOPS else "operations",
                        "max_abs_err": err["out"], "errors": err})
         del sets, dense
-    shapes.append(pinned_shape(rng, device, link))
-    return shapes, link
+    return shapes
 
 
 def pinned_shape(rng, device, link):
@@ -396,7 +438,8 @@ def pinned_shape(rng, device, link):
         f"measured copy_ rate {link['h2d'] / 1e9:.2f} GB/s)  "
         f"{over_link / ms / 1e6:.2f} GB/s  eager call {kernel_eager:.4f} ms")
     del sets, pinned, dense
-    return {"N": N, "pools": "pinned host", "ms": ms, "plain_ms": plain_ms,
+    return {"model": "internlm2-1.8b", "G": G, "HD": HD, "N": N,
+            "pools": "pinned host", "ms": ms, "plain_ms": plain_ms,
             "library_ms": lib_ms, "library": "copy_ of the pools over the "
             "link + scaled_dot_product_attention", "bound_ms": bound,
             "copy_rate_ms": at_copy,
@@ -523,15 +566,19 @@ def page_copy_phase(rng, device, link):
 # phase 2b: the flash kernel against its plain version
 # --------------------------------------------------------------------------
 
-#: (B, S, H, KH, D, dtype name, causal); the first is the prefill of
-#: phase 5 and the one timed
+#: (B, S, H, KH, D, dtype name, causal); the first two are the
+#: prefills of phase 5 (internlm2-1.8b) and phase 7 (granite-moe-3b-
+#: a800m, H/KH = 3) and are timed
 FLASH_SHAPES = (
     (4, 2304, 16, 8, 128, "bf16", True),
+    (4, 2304, 24, 8, 64, "bf16", True),
     (2, 1000, 16, 16, 128, "bf16", True),
     (2, 1000, 16, 8, 128, "bf16", False),
     (2, 300, 4, 2, 16, "f32", True),
     (2, 1000, 16, 8, 64, "bf16", True),    # D=64, S not a tile multiple
+    (2, 1000, 24, 8, 64, "f32", True),     # H/KH = 3 in f32
 )
+FLASH_TIMED = 2
 FLASH_TOL = {"bf16": 1e-2, "f32": 2e-5}
 
 
@@ -549,8 +596,8 @@ def flash_phase(device):
     from repro_torch.kernels import ref
     dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
     errs = []
-    timing = {}
-    for B, S, H, KH, D, dt, causal in FLASH_SHAPES:
+    timed = []
+    for n, (B, S, H, KH, D, dt, causal) in enumerate(FLASH_SHAPES):
         dtype = dtypes[dt]
 
         def inputs():
@@ -568,7 +615,7 @@ def flash_phase(device):
         if not err <= FLASH_TOL[dt]:
             raise AssertionError(f"flash kernel disagrees with the plain "
                                  f"version at {(B, S, H, KH, D, dt)}")
-        if timing:
+        if n >= FLASH_TIMED:
             continue
         nbytes, flops = flash_work(B, S, H, KH, D, causal,
                                    got.element_size())
@@ -594,56 +641,85 @@ def flash_phase(device):
         kernel_eager = eager_ms(kernel, 20)
         t_bytes, t_ops = nbytes / HBM_BW * 1e3, flops / BF16_FLOPS * 1e3
         bound = max(t_bytes, t_ops)
-        log(f"flash B={B} S={S}: device {ms:.4f} ms  plain {plain_ms:.4f} "
+        log(f"flash B={B} S={S} H={H}/{KH} D={D}: device {ms:.4f} ms  "
+            f"plain {plain_ms:.4f} "
             f"ms  sdpa {lib_ms:.4f} ms  bound {bound:.4f} ms (operations "
             f"{t_ops:.4f}, bytes {t_bytes:.4f}; {flops / 1e9:.2f} GFLOP, "
             f"{nbytes / 1e6:.1f} MB)  eager call {kernel_eager:.4f} ms  "
             f"{flops / ms / 1e9:.1f} TFLOP/s")
-        timing = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                  "bound_ms": bound, "eager_ms": kernel_eager,
-                  "bound_by": "bytes" if t_bytes >= t_ops
-                  else "operations", "bytes": nbytes, "flops": flops,
-                  "tflops": flops / ms / 1e9}
+        timed.append({"shape": [B, S, H, KH, D, dt, causal], "ms": ms,
+                      "plain_ms": plain_ms, "library_ms": lib_ms,
+                      "bound_ms": bound, "eager_ms": kernel_eager,
+                      "bound_by": "bytes" if t_bytes >= t_ops
+                      else "operations", "bytes": nbytes, "flops": flops,
+                      "tflops": flops / ms / 1e9, "max_abs_err": err})
         del sets, bhsd
-    return {**timing, "max_abs_err": max(errs)}
+    # the line's numbers are internlm2's prefill; granite's in per_shape
+    return {**{k: v for k, v in timed[0].items() if k != "shape"},
+            "max_abs_err": max(errs), "per_shape": timed}
 
 
 # --------------------------------------------------------------------------
 # phases 3-5: serving
 # --------------------------------------------------------------------------
 
+def smoke_f32(name, **moe_kw):
+    """The smoke config of `name` in float32 (moe overrides applied)."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    cfg = dataclasses.replace(configs.get_smoke(name), dtype=torch.float32,
+                              param_dtype=torch.float32)
+    if moe_kw:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                               **moe_kw))
+    return cfg
+
+
+def card_vs_cpu(cfg, ecfg, reqs_of, seed, **serve_kw):
+    """One stream served on the card and on the CPU with the same
+    weights: per device (tokens, statuses with error codes, step bytes,
+    events but an SLO shed's wall-clock reason), and the engines."""
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import ServingEngine
+    model = Model(cfg)
+    params = model.init(seed, device="cpu")
+    runs, engines = {}, {}
+    for dev in ("cuda", "cpu"):
+        eng = ServingEngine(model, params, ecfg, device=dev)
+        rep = eng.serve(reqs_of(), **serve_kw)
+        runs[dev] = ({r.rid: r.output for r in rep.completed},
+                     {r.rid: (r.status, r.error.code if r.error else None)
+                      for r in rep.completed + rep.rejected},
+                     [(s.h_read, s.e_read, s.m_in, s.m_out)
+                      for s in eng.stats],
+                     [{k: v for k, v in e.items()
+                       if not (e["kind"] == "slo_shed" and k == "reason")}
+                      for e in rep.events])
+        engines[dev] = (eng, rep)
+    return runs, engines
+
+
 def parity_phase(seed, overlap=False):
     """A small f32 stream, on the card and on the CPU, same weights; in
     overlap mode (phase 3c) the card's host pools are pinned and pages
     must be committed."""
-    import dataclasses
-    import torch
-    from repro_torch import configs
     from repro_torch.core.tiers import H100
-    from repro_torch.models.model import Model
-    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    from repro_torch.serving.engine import EngineConfig
     from repro_torch.serving.scheduler import Request
 
-    cfg = dataclasses.replace(configs.get_smoke("internlm2-1.8b"),
-                              dtype=torch.float32, param_dtype=torch.float32)
-    model = Model(cfg)
-    params = model.init(seed, device="cpu")
+    cfg = smoke_f32("internlm2-1.8b")
     rng = np.random.default_rng(seed)
     prompts = [rng.integers(0, cfg.vocab, (n,)) for n in (300, 40, 280, 20)]
     ecfg = EngineConfig(max_context=512, policy="importance", spec=H100,
                         prefill_chunk=32, telemetry_stride=8,
                         overlap_migrations=overlap)
-    runs = {}
-    for dev in ("cuda", "cpu"):
-        eng = ServingEngine(model, params, ecfg, device=dev)
-        rep = eng.serve([Request(rid=i, prompt=p, max_new_tokens=12)
-                         for i, p in enumerate(prompts)], num_slots=2)
-        if overlap and dev == "cuda" and not eng.state.k_host.is_pinned():
-            raise AssertionError("overlap mode: the host pools are not "
-                                 "in pinned host memory")
-        runs[dev] = ({r.rid: r.output for r in rep}, rep.statuses,
-                     [(s.h_read, s.e_read, s.m_in, s.m_out)
-                      for s in eng.stats])
+    runs, engines = card_vs_cpu(cfg, ecfg, lambda: [
+        Request(rid=i, prompt=p, max_new_tokens=12)
+        for i, p in enumerate(prompts)], seed, num_slots=2)
+    if overlap and not engines["cuda"][0].state.k_host.is_pinned():
+        raise AssertionError("overlap mode: the host pools are not in "
+                             "pinned host memory")
     same = [runs["cuda"][i] == runs["cpu"][i] for i in range(3)]
     migrated = sum(r[2] + r[3] for r in runs["cuda"][2])
     log(f"parity{' overlap' if overlap else ''}: tokens {same[0]} statuses "
@@ -727,16 +803,13 @@ POLICY_ENGINE = dict(attention_sparsity=0.5, promote_thresh=1e-4,
 def stream_parity_phase(seed):
     """start / generate / run on the card and on the CPU, f32 smoke
     config, same weights, every policy."""
-    import dataclasses
     import torch
-    from repro_torch import configs
     from repro_torch.core.tiers import H100
     from repro_torch.models.model import Model
     from repro_torch.serving.engine import EngineConfig, ServingEngine
     from repro_torch.serving.policies import policy_names
 
-    cfg = dataclasses.replace(configs.get_smoke("internlm2-1.8b"),
-                              dtype=torch.float32, param_dtype=torch.float32)
+    cfg = smoke_f32("internlm2-1.8b")
     model = Model(cfg)
     params = model.init(seed, device="cpu")
     prompt = torch.as_tensor(np.random.default_rng(seed + 2).integers(
@@ -775,12 +848,12 @@ def stream_parity_phase(seed):
                                  f"stream disagrees with the CPU's")
 
 
-def full_width(seed):
-    """internlm2-1.8b at its published widths, random bf16 weights."""
+def full_width(seed, name="internlm2-1.8b"):
+    """`name` at its published widths, random bf16 weights."""
     import torch
     from repro_torch import configs
     from repro_torch.models.model import Model
-    cfg = configs.get("internlm2-1.8b")
+    cfg = configs.get(name)
     model = Model(cfg)
     params = model.init(seed, device="cuda")
     torch.cuda.synchronize()
@@ -791,29 +864,37 @@ def full_width(seed):
     return model, params
 
 
+def phase4_requests(vocab, seed):
+    """Phase 4's stream: 8 requests of 1200-3000 prompt tokens and 64
+    new (every lane spills), then 4 of 64-256 and 16 (lanes reused)."""
+    from repro_torch.serving.scheduler import Request
+    rng = np.random.default_rng(seed)
+    reqs = [Request(rid=i, prompt=rng.integers(0, vocab, (n,)),
+                    max_new_tokens=64)
+            for i, n in enumerate(rng.integers(1200, 3001, 8))]
+    reqs += [Request(rid=8 + i, prompt=rng.integers(0, vocab, (n,)),
+                     max_new_tokens=16)
+             for i, n in enumerate(rng.integers(64, 257, 4))]
+    return reqs
+
+
 def serve_phase(model, params, seed, profile_dir=None, overlap=False,
-                inline=None):
+                inline=None, what=None):
     """Phase 4, or with `overlap` phase 4b (overlap_migrations and
     measured_payback, host pools pinned), printed beside phase 4's
-    numbers `inline`. Returns the launches by kernel and the numbers."""
+    numbers `inline`; phase 7 runs it on granite-moe-3b-a800m. Returns
+    the launches by kernel and the numbers."""
     import torch
     from repro_torch.kernels.build import COUNTS
     from repro_torch.serving.engine import EngineConfig, ServingEngine
-    from repro_torch.serving.scheduler import Request
 
     cfg = model.cfg
     ecfg = EngineConfig(max_context=4096, hbm_fraction=0.25,
                         policy="importance", prefill_chunk=256,
                         telemetry_stride=16, overlap_migrations=overlap,
                         measured_payback=overlap)
-    what = "serve overlap" if overlap else "serve"
-    rng = np.random.default_rng(seed)
-    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, (n,)),
-                    max_new_tokens=64)
-            for i, n in enumerate(rng.integers(1200, 3001, 8))]
-    reqs += [Request(rid=8 + i, prompt=rng.integers(0, cfg.vocab, (n,)),
-                     max_new_tokens=16)
-             for i, n in enumerate(rng.integers(64, 257, 4))]
+    what = what or ("serve overlap" if overlap else "serve")
+    reqs = phase4_requests(cfg.vocab, seed)
     eng = ServingEngine(model, params, ecfg)
     geo = model.cache_geometry(8, ecfg.max_context, ecfg.hbm_fraction)
     log(f"{what}: {len(reqs)} requests, prompts "
@@ -979,14 +1060,17 @@ def sweep_phase(model, params, seed):
             raise AssertionError(f"sweep {policy}: migrated {migrated} "
                                  f"bytes")
         if policy == "importance":
-            # teacher-forced replay of the tokens generate fed itself
-            fed = torch.cat([first[None], toks[:-1]])
+            # teacher-forced replay of the first half of the tokens
+            # generate fed itself
+            n_run = steps // 2
+            fed = torch.cat([first[None], toks[:n_run - 1]])
             _, t_s2, c_s2 = counted(lambda: eng.start(prompts))
             run, t_run, c_run = counted(lambda: eng.run(fed))
             expect("importance start (run)", c_s2, L, 0)
-            expect("importance run", c_run, 0, 2 * L * steps)
-            same = torch.equal(run.argmax(-1).to(torch.int32), toks)
-            log(f"sweep importance run: {t_run:.2f} s for {steps} steps, "
+            expect("importance run", c_run, 0, 2 * L * n_run)
+            same = torch.equal(run.argmax(-1).to(torch.int32),
+                               toks[:n_run])
+            log(f"sweep importance run: {t_run:.2f} s for {n_run} steps, "
                 f"argmax reproduces the generated tokens: {same}")
             if not same:
                 raise AssertionError("sweep: run's argmax differs from "
@@ -994,6 +1078,274 @@ def sweep_phase(model, params, seed):
         del eng, logits
         torch.cuda.empty_cache()
     return total
+
+
+def faulted_parity_phase(seed, overlap=False):
+    """Phase 3d: a fault plane of every kind, SLO admission whose
+    outcome cannot depend on the clock (TTFT targets of 0 and infinity
+    by tier) and serve-trace capture, f32 smoke config, on the card and
+    on the CPU: tokens, statuses, step bytes, events and the serve
+    trace equal, and the scores of both traces equal."""
+    from repro_torch.core.sa import SAConfig
+    from repro_torch.core.tiers import H100
+    from repro_torch.serving import trace_bridge
+    from repro_torch.serving.engine import EngineConfig
+    from repro_torch.serving.faults import (
+        FaultPlane, MigrationFault, PoisonFault, PoolFault, TierFault,
+    )
+    from repro_torch.serving.scheduler import Request
+    from repro_torch.serving.slo import SLOPolicy, SLOTarget
+
+    cfg = smoke_f32("internlm2-1.8b")
+    rng = np.random.default_rng(17)
+    prompts = [rng.integers(0, cfg.vocab, (n,))
+               for n in (272, 288, 40, 280, 24, 30)]
+    plane = FaultPlane(
+        tier=(TierFault(start=8, stop=40, link_scale=0.25),),
+        migration=(MigrationFault(start=16, stop=32, commit_frac=0.05),),
+        pool=(PoolFault(step=24, delta=-2),),
+        poison=(PoisonFault(rid=3, step=53),))
+    slo = SLOPolicy({"interactive": SLOTarget(0.0, 1.0),
+                     "batch": SLOTarget(math.inf, math.inf)})
+    ecfg = EngineConfig(max_context=512, policy="importance",
+                        attention_sparsity=0.5, promote_thresh=1e-4,
+                        telemetry_stride=8, prefill_chunk=16,
+                        trace_telemetry=True, overlap_migrations=overlap)
+    runs, engines = card_vs_cpu(cfg, ecfg, lambda: [
+        Request(rid=i, prompt=p, max_new_tokens=8,
+                tier="interactive" if i >= 4 else "batch")
+        for i, p in enumerate(prompts)], seed, num_slots=2, faults=plane,
+        slo=slo)
+    recs = {dev: trace_bridge.collect_serve(eng)
+            for dev, (eng, _) in engines.items()}
+    same_trace = all(np.array_equal(getattr(recs["cuda"], f),
+                                    getattr(recs["cpu"], f))
+                     for f in ("access", "tier", "emitted", "first", "rids",
+                               "prompt_len"))
+    sa = SAConfig(max_evaluations=8, iters_per_level=3, seed=0)
+    scores = {dev: trace_bridge.score_serve(recs[dev], H100, sa_cfg=sa)
+              ["aggregate"] for dev in recs}
+    same = [runs["cuda"][i] == runs["cpu"][i] for i in range(4)]
+    statuses = runs["cuda"][1]
+    log(f"faults{' overlap' if overlap else ''}: tokens {same[0]} statuses "
+        f"{same[1]} step bytes {same[2]} events {same[3]} trace "
+        f"{same_trace} scores {scores['cuda'] == scores['cpu']} "
+        f"({len(runs['cuda'][2])} decode steps, events "
+        f"{[e['kind'] for e in runs['cuda'][3]]}, statuses {statuses})")
+    if not (all(same) and same_trace and scores["cuda"] == scores["cpu"]):
+        raise AssertionError("the card's faulted serve disagrees with the "
+                             "CPU's")
+    if statuses[3] != ("failed", "poisoned_logits") or \
+            statuses[4] != ("rejected", "slo_shed"):
+        raise AssertionError(f"faults: statuses {statuses}")
+
+
+def moe_parity_phase(seed):
+    """Phase 3e: the moe smoke configs (capacity factor 0.5, so choices
+    drop) in f32, 10 requests through 8 slots, on the card and on the
+    CPU: tokens, statuses and step bytes equal."""
+    from repro_torch.serving.engine import EngineConfig
+    from repro_torch.serving.scheduler import Request
+    for name in ("granite-moe-3b-a800m", "llama4-maverick-400b-a17b"):
+        cfg = smoke_f32(name, capacity_factor=0.5)
+        rng = np.random.default_rng(21)
+        prompts = [rng.integers(0, cfg.vocab, (n,)) for n in
+                   (300, 40, 280, 20, 150, 64, 260, 33, 90, 17)]
+        ecfg = EngineConfig(max_context=512, policy="importance",
+                            prefill_chunk=16, telemetry_stride=8,
+                            promote_thresh=1e-4)
+        runs, _ = card_vs_cpu(cfg, ecfg, lambda: [
+            Request(rid=i, prompt=p, max_new_tokens=10)
+            for i, p in enumerate(prompts)], seed, num_slots=8)
+        same = [runs["cuda"][i] == runs["cpu"][i] for i in range(3)]
+        migrated = sum(r[2] + r[3] for r in runs["cuda"][2])
+        log(f"moe parity {cfg.name}: tokens {same[0]} statuses {same[1]} "
+            f"step bytes {same[2]} ({len(runs['cuda'][2])} decode steps, "
+            f"{migrated:.0f} bytes migrated)")
+        if not all(same) or set(s for s, _ in runs["cuda"][1].values()) \
+                != {"ok"}:
+            raise AssertionError(f"moe parity {cfg.name}: the card's serve "
+                                 f"disagrees with the CPU's")
+
+
+#: phase 6's SLO tiers, by prompt length: (max prompt, tier, TTFT, TPOT)
+PHASE6_TIERS = ((256, "interactive", 2.0, 0.2), (None, "batch", 30.0, 0.5))
+
+
+def faulted_serve_phase(model, params, seed):
+    """Phase 6: phase 4's engine with `cost_aware` and trace capture, its
+    12 requests plus 4 open-loop arrivals at 0.5-2 s, SLO tiers by prompt
+    length, and a fault plane of one fault of each kind (the poison on a
+    long request before its budget ends); then the stream is scored
+    (`collect_serve`, `goodput_curve`, which runs `score_serve`).
+    Returns the launches by kernel and the numbers."""
+    import torch
+    from repro_torch.core.sa import SAConfig
+    from repro_torch.core.tiers import H100
+    from repro_torch.kernels.build import COUNTS
+    from repro_torch.serving import slo as slo_mod
+    from repro_torch.serving import trace_bridge
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    from repro_torch.serving.faults import (
+        FaultPlane, MigrationFault, PoisonFault, PoolFault, TierFault,
+    )
+    from repro_torch.serving.scheduler import TERMINAL_STATUSES, Request
+
+    cfg = model.cfg
+    ecfg = EngineConfig(max_context=4096, hbm_fraction=0.25,
+                        policy="cost_aware", prefill_chunk=256,
+                        telemetry_stride=16, trace_telemetry=True)
+    geo = model.cache_geometry(8, ecfg.max_context, ecfg.hbm_fraction)
+    rng = np.random.default_rng(seed + 6)
+    reqs = phase4_requests(cfg.vocab, seed)
+    for i, (n, budget) in enumerate(((int(rng.integers(1200, 3001)), 64),
+                                     (int(rng.integers(64, 257)), 16),
+                                     (int(rng.integers(1200, 3001)), 64),
+                                     (int(rng.integers(64, 257)), 16))):
+        reqs.append(Request(rid=12 + i,
+                            prompt=rng.integers(0, cfg.vocab, (n,)),
+                            max_new_tokens=budget,
+                            arrival_s=float(rng.uniform(0.5, 2.0))))
+    targets = {}
+    for r in reqs:
+        for top, tier, ttft, tpot in PHASE6_TIERS:
+            if top is None or r.prompt_len <= top:
+                r.tier = tier
+                targets[tier] = slo_mod.SLOTarget(ttft, tpot)
+                break
+    slo = slo_mod.SLOPolicy(targets)
+    plane = FaultPlane(
+        tier=(TierFault(start=16, stop=64, link_scale=0.5,
+                        dram_scale=0.5),),
+        migration=(MigrationFault(start=32, stop=48, commit_frac=0.25),),
+        pool=(PoolFault(step=48, delta=-geo.max_pages),),
+        poison=(PoisonFault(rid=0, step=40),))
+    eng = ServingEngine(model, params, ecfg)
+    log(f"serve faulted: {len(reqs)} requests (4 arriving at "
+        f"{[round(r.arrival_s, 3) for r in reqs[12:]]} s), tiers "
+        f"{collections.Counter(r.tier for r in reqs)}, SLO "
+        f"{ {t: (v.ttft_s, v.tpot_s) for t, v in targets.items()} }, "
+        f"faults {plane}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    COUNTS.clear()                          # the main path's run only
+    torch.cuda.synchronize()
+    t0 = time.time()
+    rep = eng.serve(reqs, num_slots=8, seed=seed, faults=plane, slo=slo)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = dict(COUNTS)
+    steps = len(eng.stats)
+    tokens = sum(len(r.output) for r in rep.completed)
+    t = time.time()
+    rec = trace_bridge.collect_serve(eng)
+    curve = trace_bridge.goodput_curve(
+        rec, H100, rep, slo, sa_cfg=SAConfig(max_evaluations=12,
+                                             iters_per_level=4, seed=0))
+    t_score = time.time() - t
+    wall_goodput = slo_mod.score_goodput(rep, slo, latency="wall")
+    agg = curve["aggregate"]
+    modeled = {row["scale"]: row["goodput"] for row in curve["curve"]}
+    residual = slo_mod.ttft_decomposition_residual(rep)
+    statuses = collections.Counter(rep.statuses.values())
+    kinds = collections.Counter(e["kind"] for e in rep.events)
+    log(f"serve faulted: {wall:.2f} s wall, {tokens} tokens, "
+        f"{tokens / wall:.1f} tokens/s, TTFT p50 "
+        f"{rep.ttft.get('p50', math.nan):.3f} s, TPOT p50 "
+        f"{rep.tpot.get('p50', math.nan) * 1e3:.2f} ms, {steps} decode-plane "
+        f"steps, {counts.get('paged_attention', 0)} paged and "
+        f"{counts.get('page_copy', 0)} row-copy launches; statuses "
+        f"{dict(statuses)}; events {dict(kinds)}; TTFT identity residual "
+        f"max {residual.max():.3e} s")
+    log(f"serve faulted: scoring {t_score:.2f} s ({len(rec.access)} steps, "
+        f"{int(agg['requests'])} requests): live_hit_fraction "
+        f"{agg['live_hit_fraction']:.4f} bound_fraction "
+        f"{agg['bound_fraction']:.4f} headroom_vs_static "
+        f"{agg['headroom_vs_static']:.4f} fault_events "
+        f"{agg.get('fault_events', 0):.0f}; goodput wall "
+        f"{wall_goodput['goodput']:.4f} ({wall_goodput['per_tier']}), "
+        f"modeled by scale {modeled}")
+    if len(rep.statuses) != len(reqs) or \
+            not set(rep.statuses.values()) <= set(TERMINAL_STATUSES):
+        raise AssertionError(f"serve faulted: statuses {rep.statuses}")
+    poisoned = next(r for r in rep.completed if r.rid == 0)
+    if poisoned.status != "failed" or \
+            poisoned.error.code != "poisoned_logits" or \
+            not 0 < len(poisoned.output) < poisoned.max_new_tokens:
+        raise AssertionError(f"serve faulted: request 0 {poisoned.status} "
+                             f"{poisoned.error} {len(poisoned.output)}")
+    if residual.size == 0 or residual.max() > 2e-6:
+        raise AssertionError(f"serve faulted: TTFT identity {residual}")
+    want = {"tier_degradation", "payback_recalibration", "migration_fault",
+            "pool_resize", "logit_poison"}
+    if not want <= set(kinds):
+        raise AssertionError(f"serve faulted: events {dict(kinds)}")
+    if counts.get("paged_attention", 0) != 2 * cfg.num_layers * steps:
+        raise AssertionError(f"serve faulted: {counts} for {steps} steps")
+    if not all(math.isfinite(v) for v in agg.values()) or \
+            rec.access.shape[0] == 0:
+        raise AssertionError(f"serve faulted: scores {agg}")
+    numbers = {"tokens_per_s": tokens / wall, "wall_s": wall,
+               "ttft_p50": rep.ttft.get("p50"),
+               "tpot_p50": rep.tpot.get("p50"), "score_s": t_score,
+               "statuses": dict(statuses), "events": dict(kinds),
+               "aggregate": agg, "goodput_wall": wall_goodput["goodput"],
+               "goodput_modeled": modeled}
+    return counts, numbers
+
+
+def moe_phase(seed):
+    """Phase 7: granite-moe-3b-a800m at its published widths, random
+    bf16 weights: phase 4's serve, then `start` of 4 prompts of 2304
+    tokens and `generate(32)`. Returns the launches by path and the
+    numbers."""
+    import torch
+    from repro_torch.kernels.build import COUNTS
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+
+    model, params = full_width(seed, "granite-moe-3b-a800m")
+    cfg = model.cfg
+    serve, numbers = serve_phase(model, params, seed, what="serve moe")
+    L, B, S, steps = cfg.num_layers, 4, 2304, 32
+    prompts = torch.as_tensor(np.random.default_rng(seed + 1).integers(
+        0, cfg.vocab, (B, S)), dtype=torch.int32, device="cuda")
+    eng = ServingEngine(model, params, EngineConfig(
+        max_context=4096, hbm_fraction=0.25, policy="importance",
+        telemetry_stride=16))
+
+    def counted(fn):
+        COUNTS.clear()                      # the main path's run only
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.time() - t0, dict(COUNTS)
+
+    logits, t_start, c_start = counted(lambda: eng.start(prompts))
+    first = logits.argmax(-1).to(torch.int32)
+    toks, t_dec, c_dec = counted(lambda: eng.generate(first, steps))
+    summ = eng.summary()
+    log(f"moe single stream: start {t_start:.3f} s (B={B}, S={S}), decode "
+        f"{B * steps / t_dec:.1f} tokens/s ({t_dec:.2f} s for {steps} "
+        f"steps), mean HBM hit rate {summ['mean_hbm_hit_rate']:.4f}, "
+        f"migrated {summ['migrated_bytes']:.0f} bytes, launches flash "
+        f"{c_start.get('flash_attention', 0)} paged "
+        f"{c_dec.get('paged_attention', 0)}")
+    got = (c_start.get("flash_attention", 0), c_dec.get("paged_attention", 0))
+    if got != (L, 2 * L * steps):
+        raise AssertionError(f"moe single stream: (flash, paged) launches "
+                             f"{got}, expected {(L, 2 * L * steps)}")
+    if tuple(logits.shape) != (B, cfg.vocab) or \
+            not bool(torch.isfinite(logits).all()) or \
+            tuple(toks.shape) != (steps, B):
+        raise AssertionError(f"moe single stream: logits "
+                             f"{tuple(logits.shape)}, tokens "
+                             f"{tuple(toks.shape)}")
+    numbers.update(start_s=t_start, decode_tokens_per_s=B * steps / t_dec)
+    del eng, logits, params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"serve": serve, "start": c_start, "generate": c_dec}, numbers
 
 
 def _leaves(tree):
@@ -1055,6 +1407,10 @@ def main(argv=None) -> int:
     flash = phase("flash", lambda: flash_phase(device))
     phase("parity", lambda: parity_phase(args.seed))
     phase("overlap parity", lambda: parity_phase(args.seed, overlap=True))
+    phase("faults", lambda: faulted_parity_phase(args.seed))
+    phase("faults overlap", lambda: faulted_parity_phase(args.seed,
+                                                         overlap=True))
+    phase("moe parity", lambda: moe_parity_phase(args.seed))
     phase("stream", lambda: stream_parity_phase(args.seed))
     model, params = phase("model", lambda: full_width(args.seed))
     serve, inline = phase("serve", lambda: serve_phase(
@@ -1062,14 +1418,25 @@ def main(argv=None) -> int:
     overlap, overlap_numbers = phase("serve overlap", lambda: serve_phase(
         model, params, args.seed, overlap=True, inline=inline))
     sweep = phase("sweep", lambda: sweep_phase(model, params, args.seed))
+    faulted, faulted_numbers = phase("serve faulted", lambda:
+                                     faulted_serve_phase(model, params,
+                                                         args.seed))
+    del model, params               # phase 7's model takes the card next
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe, moe_numbers = phase("moe", lambda: moe_phase(args.seed))
     log(f"all phases: {time.time() - t_all:.1f} s wall")
 
-    # one inline decode layer: the HBM-tier (N=64) + host-tier (N=208)
-    # launch; the pinned host tier of overlap mode is in per_shape
-    layer = [s for s in shapes if "pools" not in s]
-    paged_by_path = {"serve": serve["paged_attention"],
-                     "serve_overlap": overlap["paged_attention"],
-                     "policy_sweep": sweep["paged_attention"]}
+    # one inline internlm2 decode layer: the HBM-tier (N=64) + host-tier
+    # (N=208) launch; granite-moe's and the pinned host tier of overlap
+    # mode are in per_shape
+    layer = [s for s in shapes if "pools" not in s
+             and s["model"] == "internlm2-1.8b"]
+    paths = {"serve": serve, "serve_overlap": overlap,
+             "policy_sweep": sweep, "serve_faulted": faulted,
+             "moe_serve": moe["serve"], "moe_generate": moe["generate"]}
+    paged_by_path = {k: c.get("paged_attention", 0)
+                     for k, c in paths.items()}
     paged = {
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/paged_attention.cu",
@@ -1087,9 +1454,7 @@ def main(argv=None) -> int:
         "per_shape": shapes,
         "link_bytes_per_s": link,
     }
-    copy_by_path = {"serve": serve.get("page_copy", 0),
-                    "serve_overlap": overlap.get("page_copy", 0),
-                    "policy_sweep": sweep.get("page_copy", 0)}
+    copy_by_path = {k: c.get("page_copy", 0) for k, c in paths.items()}
     copy_entry = {
         "name": "page_copy", "route": "cuda",
         "source": "src/repro_torch/csrc/page_copy.cu",
@@ -1116,10 +1481,16 @@ def main(argv=None) -> int:
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:71",
-        "launches": sweep["flash_attention"],
-        "launches_by_path": {"policy_sweep": sweep["flash_attention"]},
+        "launches": sweep["flash_attention"]
+        + moe["start"].get("flash_attention", 0),
+        "launches_by_path": {"policy_sweep": sweep["flash_attention"],
+                             "moe_start": moe["start"].get(
+                                 "flash_attention", 0)},
         **flash,
     }
+    dead = [k for k, n in flash_entry["launches_by_path"].items() if n == 0]
+    if dead:
+        raise AssertionError(f"flash_attention never launched on {dead}")
     print(json.dumps({"kernels": [paged, flash_entry, copy_entry]}),
           flush=True)
     print(card_line(), flush=True)

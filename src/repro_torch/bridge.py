@@ -42,9 +42,10 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
 
 def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
                     device="cpu") -> Dict[str, Any]:
-    """The reference's dense parameter tree (nested dict of numpy
-    arrays) as the port's parameters, cast to `cfg.param_dtype`. The
-    layouts are the same, so this is a per-leaf conversion."""
+    """The reference's parameter tree of a dense or moe model (nested
+    dict of numpy arrays; a moe tree of either interleave) as the
+    port's parameters, cast to `cfg.param_dtype`. The layouts are the
+    same, so this is a per-leaf conversion."""
     def conv(node):
         if isinstance(node, dict):
             return {k: conv(v) for k, v in node.items()}

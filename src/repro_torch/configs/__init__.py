@@ -9,10 +9,15 @@ from __future__ import annotations
 
 import importlib
 
-ARCH_IDS = ["internlm2_1_8b"]
+ARCH_IDS = ["internlm2_1_8b", "llama4_maverick_400b_a17b",
+            "granite_moe_3b_a800m"]
 
 ALIASES = {i.replace("_", "-"): i for i in ARCH_IDS}
-ALIASES["internlm2-1.8b"] = "internlm2_1_8b"
+ALIASES.update({
+    "internlm2-1.8b": "internlm2_1_8b",
+    "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
+    "granite-moe-3b-a800m": "granite_moe_3b_a800m",
+})
 
 
 def _module(name: str):

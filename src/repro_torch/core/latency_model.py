@@ -65,6 +65,25 @@ class StepTraffic:
                    m_out=np.asarray(n_demote, np.float64) * page_bytes)
 
 
+def degraded_spec(spec: MemorySystemSpec, *, hbm_scale: float = 1.0,
+                  link_scale: float = 1.0,
+                  dram_scale: float = 1.0) -> MemorySystemSpec:
+    """`spec` with its bandwidths scaled — the pricing view of a
+    host-tier degradation window (scale < 1 slows the tier). Capacities
+    are untouched: a degraded link still addresses the same bytes, it
+    just moves them slower. Used by the fault plane
+    (`serving.faults`) to price a degraded window and by the
+    cost_aware payback recalibration."""
+    if min(hbm_scale, link_scale, dram_scale) <= 0.0:
+        raise ValueError("bandwidth scales must be positive")
+    return dataclasses.replace(
+        spec,
+        hbm_bw=spec.hbm_bw * hbm_scale,
+        link_bw=spec.link_bw * link_scale,
+        dram_bw=spec.dram_bw * dram_scale,
+    )
+
+
 def hbm_latency(t: StepTraffic, spec: MemorySystemSpec) -> Array:
     """Eq. (3)."""
     return (t.h_read + t.h_write + t.m_in + t.m_out) / spec.hbm_bw

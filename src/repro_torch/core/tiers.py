@@ -43,6 +43,12 @@ class MemorySystemSpec:
         # the serial link; Eq. (4) charges them at min(B_k, B_d).
         return min(self.link_bw, self.dram_bw)
 
+    @property
+    def bw_ratio(self) -> float:
+        """HBM : effective-DRAM read bandwidth ratio (the fault plane's
+        fallback compares a degraded spec's ratio with the base's)."""
+        return self.hbm_bw / self.effective_dram_read_bw
+
 
 # --- Paper-faithful configuration (Table I) --------------------------------
 GH200 = MemorySystemSpec(

@@ -247,6 +247,26 @@ def write_token_layer(k_hbm_l, v_hbm_l, k_host_l, v_host_l, slot, offset,
     return k_hbm_l, v_hbm_l, k_host_l, v_host_l
 
 
+def read_token_layer(k_hbm_l, v_hbm_l, k_host_l, v_host_l, slot, offset):
+    """The (k, v) rows at (lane, `slot`, `offset`) of each lane, [B, KH,
+    HD] each: what `write_token_layer` with the same slots would
+    overwrite. A lane whose slot names neither pool reads zeros."""
+    hbm_pages = k_hbm_l.shape[1]
+    host_pages = k_host_l.shape[1]
+    B = slot.shape[0]
+    k = torch.zeros((B,) + k_hbm_l.shape[3:], dtype=k_hbm_l.dtype,
+                    device=slot.device)
+    v = torch.zeros_like(k)
+    off = offset.to(torch.int32).contiguous()
+    for pools, base, n in (((k_hbm_l, v_hbm_l), 0, hbm_pages),
+                           ((k_host_l, v_host_l), hbm_pages, host_pages)):
+        sel = (slot >= base) & (slot < base + n)
+        at = (None, torch.where(sel, slot - base, -1).to(torch.int32), off)
+        for out, pool in zip((k, v), pools):
+            ops.copy_rows(out, (None,), pool, at)
+    return k, v
+
+
 def write_tokens_layer(k_hbm_l, v_hbm_l, k_host_l, v_host_l, slot, offset,
                        k_new, v_new, valid, lanes=None):
     """Write a slice of tokens' (k, v) into physical pages (one layer),

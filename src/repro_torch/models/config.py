@@ -1,7 +1,7 @@
 """Architecture configuration (the port's copy, torch dtypes).
 
-Only the fields the dense family reads are kept; the other families'
-sub-configs arrive with their slices of the port.
+Only the fields the dense and moe families read are kept; the other
+families' sub-configs arrive with their slices of the port.
 """
 
 from __future__ import annotations
@@ -13,9 +13,34 @@ import torch
 
 
 @dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    #: MoE every `interleave`-th layer (1 = every layer); the other
+    #: layers use a dense FFN of size d_ff
+    interleave: int = 1
+    capacity_factor: float = 1.25
+    #: llama4-style always-on shared expert (the size of one expert)
+    shared_expert: bool = False
+    #: pad the physical expert count up to this multiple; the padded
+    #: experts are masked out of routing, the model is unchanged
+    pad_experts_to: int = 0
+    #: token-group size of the capacity dispatch ([G, S, E, C] grows
+    #: with group^2 / E)
+    group_size: int = 1024
+
+    @property
+    def num_experts_padded(self) -> int:
+        if self.pad_experts_to <= 0:
+            return self.num_experts
+        p = self.pad_experts_to
+        return -(-self.num_experts // p) * p
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                  # dense (moe | encdec | ... in later slices)
+    family: str                  # dense | moe (the others in later slices)
     num_layers: int
     d_model: int
     num_heads: int
@@ -29,6 +54,7 @@ class ModelConfig:
     tie_embeddings: bool = False
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.bfloat16
+    moe: Optional[MoEConfig] = None
     #: KV page size in tokens for the two-tier paged cache
     kv_page_tokens: int = 16
     #: the tokenizer's end-of-sequence id (None = budget-only stops)
@@ -51,5 +77,6 @@ class ModelConfig:
         return self.num_heads // self.kv_heads
 
     def attention_layer_ids(self) -> Tuple[int, ...]:
-        """Layers that own a KV cache (every layer of a dense model)."""
+        """Layers that own a KV cache (every layer of a dense or moe
+        model)."""
         return tuple(range(self.num_layers))

@@ -1,10 +1,14 @@
-"""Dense decoder over the two-tier paged cache (the port of the dense
-part of the reference's `models/transformer.py`).
+"""Decoder over the two-tier paged cache (the port of the dense part of
+the reference's `models/transformer.py`, shared with the moe family).
 
 Parameters are a nested dict of tensors in the reference's layout:
 per-layer weights stacked on a leading [L] dim (`params["layers"]`),
 `wq` [L, d, H, HD], `wk`/`wv` [L, d, KH, HD], `wo` [L, H, HD, d]. The
-reference's `lax.scan` over layers is a Python loop here.
+reference's `lax.scan` over layers is a Python loop here, over
+`blocks`: one (attention weights, FFN) pair per cache layer, in cache
+order (`dense_blocks` here, `Model.blocks` for the moe family). An
+FFN is called as `ffn(h, group_size)`; `group_size` is the moe routing
+group, which the dense MLP ignores.
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kvcache.paged import (
-    IMPORTANCE_EMA, PagedKVCache, allocate_prompt_pages,
+    IMPORTANCE_EMA, PagedKVCache, allocate_prompt_pages, read_token_layer,
     write_token_layer, write_tokens_layer,
 )
 from repro_torch.models.config import ModelConfig
@@ -115,6 +119,13 @@ def dense_mlp_block(h, lp, cfg: ModelConfig):
     return h + swiglu(x, lp["w_gate"], lp["w_up"], lp["w_down"])
 
 
+def dense_blocks(params, cfg: ModelConfig):
+    """(attention weights, FFN) per layer of a dense model."""
+    def block(lp):
+        return lp, lambda h, group_size=None: dense_mlp_block(h, lp, cfg)
+    return [block(layer_params(params, l)) for l in range(cfg.num_layers)]
+
+
 def embed_tokens(params, cfg: ModelConfig, tokens):
     return params["embed"][tokens.long()].to(cfg.dtype)
 
@@ -124,17 +135,16 @@ def unembed(params, cfg: ModelConfig, h):
     return h @ w
 
 
-def dense_forward(params, cfg: ModelConfig, tokens):
+def decoder_forward(params, cfg: ModelConfig, tokens, blocks):
     """tokens [B,S] -> (logits [B,S,V], the post-RoPE (k, v) stacked
     [L,B,S,KH,HD] for prefill cache population)."""
     h = embed_tokens(params, cfg, tokens)
     S = h.shape[1]
     positions = torch.arange(S, device=h.device)[None, :]
     ks, vs = [], []
-    for l in range(cfg.num_layers):
-        lp = layer_params(params, l)
+    for lp, ffn in blocks:
         h, (k, v) = full_attn_block(h, lp, cfg, positions)
-        h = dense_mlp_block(h, lp, cfg)
+        h = ffn(h)
         ks.append(k)
         vs.append(v)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
@@ -215,19 +225,23 @@ def _update_cache_after_step(cache, imp, write_slot):
                                importance=importance)
 
 
-def dense_decode_step(params, cfg: ModelConfig, cache: PagedKVCache,
-                      token: torch.Tensor, write_slot: torch.Tensor,
-                      logical_page_mask: Optional[torch.Tensor] = None,
-                      active: Optional[torch.Tensor] = None,
-                      pool_ready=None,
-                      ) -> Tuple[torch.Tensor, PagedKVCache]:
+def decoder_decode_step(params, cfg: ModelConfig, cache: PagedKVCache,
+                        token: torch.Tensor, write_slot: torch.Tensor,
+                        blocks, logical_page_mask=None, active=None,
+                        pool_ready=None, all_lanes: bool = False,
+                        ) -> Tuple[torch.Tensor, PagedKVCache]:
     """One decode step over the two-tier paged cache.
 
     token: [B] int32. write_slot: [L, B] physical slot receiving this
     token's page (slot >= hbm_pages means host pool). active (bool [B],
-    optional): only those lanes write their K/V into the pools — the
-    serve loop's inactive lanes keep their pools untouched, and
-    `control.lane_merge` then keeps their old tables. pool_ready (a
+    optional): only those lanes' K/V stay in the pools — the serve
+    loop's inactive lanes keep their pools as they were, and
+    `control.lane_merge` then keeps their old tables. Their rows feed
+    no output of an active lane unless `all_lanes` (the moe family,
+    whose routing groups all B lanes): then every lane writes its token
+    and attends over it as in the reference's step, and the rows an
+    inactive lane overwrote are put back after the layer's attention.
+    Otherwise the inactive lanes' rows are never written. pool_ready (a
     CUDA event, optional): the current stream waits on it just before
     the step first touches the pools (layer 0's token write), so the
     step's embedding and first projections overlap a migration commit
@@ -244,9 +258,9 @@ def dense_decode_step(params, cfg: ModelConfig, cache: PagedKVCache,
     logical_page_mask = mask_write_visible(cache, logical_page_mask)
     hl, hv, el, ev = cache.tier_lists(logical_page_mask=logical_page_mask)
 
+    put_back = all_lanes and active is not None
     imps = []
-    for l in range(cfg.num_layers):
-        lp = layer_params(params, l)
+    for l, (lp, ffn) in enumerate(blocks):
         slot = write_slot[l]
         pools = (cache.k_hbm[l], cache.v_hbm[l], cache.k_host[l],
                  cache.v_host[l])
@@ -255,17 +269,23 @@ def dense_decode_step(params, cfg: ModelConfig, cache: PagedKVCache,
         if l == 0 and pool_ready is not None:
             torch.cuda.current_stream(token.device).wait_event(pool_ready)
         # write this token's k/v BEFORE attending (it must see itself)
-        write_token_layer(*pools, slot, offset, k[:, 0], v[:, 0],
-                          active=active)
+        if put_back:
+            old = read_token_layer(*pools, slot, offset)
+            write_token_layer(*pools, slot, offset, k[:, 0], v[:, 0])
+        else:
+            write_token_layer(*pools, slot, offset, k[:, 0], v[:, 0],
+                              active=active)
         qg = q[:, 0].reshape(B, cfg.kv_heads, cfg.q_per_kv, cfg.head_dim)
         hv_new = _bump_valid(hv[l], slot, offset, T, hbm=True, hbm_pages=Ph)
         ev_new = _bump_valid(ev[l], slot - Ph, offset, T, hbm=False,
                              hbm_pages=Ph)
         o, imp = ops.tiered_paged_attention(
             qg.contiguous(), *pools, hl[l], hv_new, el[l], ev_new)
+        if put_back:
+            write_token_layer(*pools, slot, offset, *old, active=~active)
         o = o.reshape(B, 1, cfg.num_heads, cfg.head_dim)
         h = h + attn_out(o, lp)
-        h = dense_mlp_block(h, lp, cfg)
+        h = ffn(h, B)           # decode routes the B lanes as one group
         imps.append(imp)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     logits = unembed(params, cfg, h)[:, 0]
@@ -341,10 +361,12 @@ def chunk_coords(page_tokens: int, chunk: int, start: torch.Tensor,
     return pos, page, offset, valid
 
 
-def dense_prefill_chunk(params, cfg: ModelConfig, cache: PagedKVCache,
-                        tokens: torch.Tensor, start: torch.Tensor,
-                        n_valid: torch.Tensor, end: Optional[int] = None,
-                        ) -> Tuple[torch.Tensor, PagedKVCache]:
+def decoder_prefill_chunk(params, cfg: ModelConfig, cache: PagedKVCache,
+                          tokens: torch.Tensor, start: torch.Tensor,
+                          n_valid: torch.Tensor, blocks,
+                          end: Optional[int] = None,
+                          all_lanes: bool = False,
+                          ) -> Tuple[torch.Tensor, PagedKVCache]:
     """Consume a [B, C] prompt slice directly into the paged cache.
 
     Token j of lane b sits at absolute position start[b] + j and is
@@ -353,28 +375,32 @@ def dense_prefill_chunk(params, cfg: ModelConfig, cache: PagedKVCache,
     by every caller); their logits rows here are zeros. `end` (a host
     int, optional): a bound on every lane's start + n_valid, which
     limits the slots the attention reads to those the slice can see —
-    the caller knows it without reading the device. Returns (logits
+    the caller knows it without reading the device. With `all_lanes`
+    (the moe family, whose routing groups all B x C rows, idle lanes
+    and padding slots included) every lane runs over its whole pools,
+    as in the reference, and `end` is not used. Returns (logits
     [B, C, V], updated cache); the logits at slice index n_valid-1 are
     those of the last consumed prompt position.
     """
     B, C = tokens.shape
     T = cache.k_hbm.shape[3]
     Ph, Pe = cache.k_hbm.shape[2], cache.k_host.shape[2]
-    pages = Ph + Pe if end is None else min(-(-end // T), Ph + Pe)
+    pages = Ph + Pe if end is None or all_lanes \
+        else min(-(-end // T), Ph + Pe)
     seen = (min(pages, Ph), max(pages - Ph, 0))
     pos, page, offset, valid = chunk_coords(T, C, start, n_valid)
-    lanes = torch.nonzero(n_valid > 0).flatten()
+    lanes = torch.arange(B, device=tokens.device) if all_lanes \
+        else torch.nonzero(n_valid > 0).flatten()
     logits = torch.zeros((B, C, cfg.vocab), dtype=cfg.dtype,
                          device=tokens.device)
     if lanes.numel():
         h = embed_tokens(params, cfg, tokens[lanes])
         sel = (pos[lanes], page[lanes], offset[lanes], valid[lanes])
-        for l in range(cfg.num_layers):
-            lp = layer_params(params, l)
+        for l, (lp, ffn) in enumerate(blocks):
             pools = (cache.k_hbm[l], cache.v_hbm[l], cache.k_host[l],
                      cache.v_host[l])
             h = prefill_chunk_attn(h, lp, cfg, pools, *sel, lanes, seen)
-            h = dense_mlp_block(h, lp, cfg)
+            h = ffn(h)
         h = rms_norm(h, params["final_norm"], cfg.norm_eps)
         logits[lanes] = unembed(params, cfg, h).to(cfg.dtype)
     cache = allocate_prompt_pages(cache, pos, valid, n_valid)

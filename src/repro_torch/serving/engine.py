@@ -48,8 +48,21 @@ here it is a Python loop over the steps, and the reference's two
 `lax.cond` skips (no decoding lane, no prefill demand) are host `if`s —
 one device sync each per step.
 
-Not ported yet (each raises NotImplementedError naming its slice):
-`serve()` with `trace_telemetry`, `faults=`, `slo=`, `mesh`.
+`serve(faults=FaultPlane(...))` folds a seeded fault schedule into the
+stream at chunk boundaries (`serving.faults`): tier faults reprice the
+telemetry and recalibrate cost_aware, migration faults cap each step's
+committed rows, pool faults resize the scheduler's pool, poison faults
+NaN a lane's logits, which the non-finite guard quarantines; repeated
+commit drops or a tier ratio past `fallback_tier_ratio` fall back to
+static placement (every commit capped at 0). `serve(slo=SLOPolicy(...))`
+sheds queued requests whose projected TTFT already misses their tier's
+target (`serving.slo`). With `EngineConfig.trace_telemetry`, `serve`
+keeps every lane's decode read set and read-time placement per step,
+with the chunk's lane->request bindings, in `_serve_trace_log` for
+`trace_bridge.collect_serve`; the per-step arrays stay on the device
+until the chunk's one readback.
+
+Not ported yet (raises NotImplementedError naming its slice): `mesh`.
 """
 
 from __future__ import annotations
@@ -70,6 +83,7 @@ from repro_torch.kvcache.migrate import (
 from repro_torch.kvcache.paged import PagedKVCache, init_cache
 from repro_torch.models.model import Model
 from repro_torch.serving import control
+from repro_torch.serving.faults import FaultPlane, throttle_plan
 from repro_torch.serving.policies import make_policy, policy_names
 from repro_torch.serving.sampling import (
     SamplingConfig, lane_generator, make_sampler,
@@ -77,9 +91,8 @@ from repro_torch.serving.sampling import (
 from repro_torch.serving.scheduler import (
     ContinuousBatcher, Request, RequestError,
 )
+from repro_torch.serving.slo import SLOPolicy
 
-_SERVE_SLICE = "the port's faults/SLO slice (ROADMAP.md, queue 1)"
-_TRACE_SLICE = "the port's serve-trace slice (ROADMAP.md, queue 1)"
 _LAUNCH_SLICE = "the port's launch slice (ROADMAP.md, queue 1)"
 
 
@@ -114,10 +127,14 @@ class EngineConfig:
     prefill_budget: Optional[int] = None
     #: stop token for `serve` (None = budget-only completion)
     eos_id: Optional[int] = None
-    #: keep lane 0's per-step page read set and read-time placement
-    #: for `trace_bridge.collect` (single-stream drive modes only)
+    #: keep per-step page read sets and read-time placements for the
+    #: bridge: lane 0 of step/run/generate (`trace_bridge.collect`),
+    #: every lane of `serve` with its bindings (`collect_serve`)
     trace_telemetry: bool = False
-    #: policy fallback knobs of the fault plane (the faults/SLO slice)
+    #: policy fallback of the fault plane: static placement (all commits
+    #: capped at 0) after this many consecutive boundaries whose chunk
+    #: had a fully dropped step, or once a tier fault pushes the
+    #: HBM:DRAM bandwidth ratio past this multiple of the base spec's
     fallback_commit_faults: int = 3
     fallback_tier_ratio: float = 8.0
     #: the staged plan/commit pipeline of `serve` (see the module doc);
@@ -150,7 +167,8 @@ class ServeReport:
     latency percentiles (seconds). `completed` holds every request that
     held a lane; `rejected` those refused before admission, each with a
     typed `Request.error`; `statuses` maps every submitted rid to its
-    terminal status."""
+    terminal status. `goodput` is stamped by `slo.score_goodput`,
+    `request_scores` and `headroom` by `trace_bridge.score_serve`."""
 
     completed: List[Request]
     ttft: Dict[str, float] = dataclasses.field(default_factory=dict)
@@ -160,8 +178,18 @@ class ServeReport:
         dataclasses.field(default_factory=dict)
     #: {"eos_id", "eos_stops", "budget_stops"}
     eos: Dict[str, object] = dataclasses.field(default_factory=dict)
+    #: goodput-under-SLO row (empty until scored)
+    goodput: Dict[str, object] = dataclasses.field(default_factory=dict)
     rejected: List[Request] = dataclasses.field(default_factory=list)
+    #: chronological degradation events (fault activations, pool
+    #: resizes, payback measurement and recalibrations, SLO sheds,
+    #: policy fallback)
     events: List[dict] = dataclasses.field(default_factory=list)
+    #: rid -> per-request attribution scores (trace_bridge.score_serve)
+    request_scores: Dict[int, Dict[str, float]] = \
+        dataclasses.field(default_factory=dict)
+    #: aggregate stream headroom (live vs SA / Belady / static totals)
+    headroom: Dict[str, float] = dataclasses.field(default_factory=dict)
 
     @property
     def statuses(self) -> Dict[int, str]:
@@ -278,6 +306,9 @@ class ServingEngine:
         #: raw (base, access, tier) chunks when cfg.trace_telemetry
         #: (read by `trace_bridge.collect`)
         self._trace_log: List[tuple] = []
+        #: per-chunk (access, tier, emitted, first, rids, prompt_len) of
+        #: a serve stream when cfg.trace_telemetry (`collect_serve`)
+        self._serve_trace_log: List[tuple] = []
         #: overlap mode on the card: the stream the commits' page copies
         #: run on, and the event of the last commit's copies
         self._copy_stream = None
@@ -308,11 +339,15 @@ class ServingEngine:
         self._trace_prompt_len = int(prompts.shape[1])
         return logits
 
-    def _decode(self, cache: PagedKVCache, pstate, token, active=None):
+    def _decode(self, cache: PagedKVCache, pstate, token, active=None,
+                mig_cap=None):
         """The fused step: control plane + decode + lane merge + plan +
         migration. Returns (logits, cache, pstate, stats): stats is
         (telemetry [4],) or, with `cfg.trace_telemetry`, (telemetry,
-        read set bool [L, B, P], read-time placement int8 [L, B, P])."""
+        read set bool [L, B, P], read-time placement int8 [L, B, P]).
+        `mig_cap` (a host int, serve only): the fault plane's cap on the
+        step's committed promote rows; the telemetry counts the
+        committed moves."""
         sparsity = self.cfg.attention_sparsity
         write_slot = control.choose_write_slot(cache)
         mask = control.quest_page_mask(cache, sparsity) \
@@ -331,6 +366,9 @@ class ServingEngine:
         occ = control.occupancy(cache)
         plan, pstate, (n_pro, n_dem) = self._policy.plan(
             cache, pstate, active, self._budget, read_mask=read)
+        if mig_cap is not None and mig_cap < plan.capacity:
+            plan = throttle_plan(plan, mig_cap)
+            n_pro, n_dem = plan.row_counts()
         moves = torch.stack([n_pro, n_dem]).to(torch.int32)
         base = torch.cat([occ, moves])
         if self.cfg.trace_telemetry:
@@ -343,14 +381,16 @@ class ServingEngine:
         return logits, cache, pstate, stats
 
     def _decode_overlap(self, cache: PagedKVCache, pstate, staged,
-                        token, active):
+                        token, active, mig_cap=None):
         """The overlap-mode step (the reference's `step_overlap_fn`):
         decode on the pre-commit placement, revalidate the plan staged
-        one step ago against the post-decode owner maps, commit it,
-        then plan the next on the post-commit cache with this step's
-        read set as the one-step-ahead oracle. Returns (logits, cache,
-        pstate, staged, (telemetry [4],)); the telemetry counts the
-        pre-commit occupancy and the committed moves."""
+        one step ago against the post-decode owner maps, cap it by the
+        fault plane's `mig_cap`, commit it, then plan the next on the
+        post-commit cache with this step's read set as the one-step-ahead
+        oracle. Returns (logits, cache, pstate, staged, stats); stats is
+        (telemetry [4],) — pre-commit occupancy and the committed moves —
+        or, with `cfg.trace_telemetry`, also the read set and the
+        PRE-commit placement this step's attention read."""
         sparsity = self.cfg.attention_sparsity
         write_slot = control.choose_write_slot(cache)
         mask = control.quest_page_mask(cache, sparsity) \
@@ -362,12 +402,14 @@ class ServingEngine:
             logical_page_mask=mask, active=active,
             pool_ready=self._commit_done)
         cache = control.lane_merge(old, cache, active)
-        # occupancy is pre-commit: this step's attention read it
+        # occupancy and placement are pre-commit: this step's attention
+        # read them
         occ = control.occupancy(cache)
+        tiers = control.page_tiers(cache) if self.cfg.trace_telemetry \
+            else None
         commit = control.revalidate_plan(staged, cache)
-        # the fault plane's migration cap (`faults.throttle_plan`,
-        # ROADMAP.md queue 1, item 2) goes here; without it the cap is
-        # the identity
+        if mig_cap is not None and mig_cap < commit.capacity:
+            commit = throttle_plan(commit, mig_cap)
         n_pro, n_dem = commit.row_counts()
         if self._copy_stream is not None:
             cache, self._commit_done = commit_async(cache, commit,
@@ -377,7 +419,9 @@ class ServingEngine:
         staged, pstate, _ = self._policy.plan(cache, pstate, active,
                                               self._budget, read_mask=read)
         moves = torch.stack([n_pro, n_dem]).to(torch.int32)
-        return logits, cache, pstate, staged, (torch.cat([occ, moves]),)
+        base = torch.cat([occ, moves])
+        stats = (base, read, tiers) if tiers is not None else (base,)
+        return logits, cache, pstate, staged, stats
 
     def _pools_ready(self) -> None:
         """The current stream waits for the last commit's page copies
@@ -448,7 +492,8 @@ class ServingEngine:
               num_slots: Optional[int] = None,
               sampling: Optional[SamplingConfig] = None,
               seed: int = 0, total_pages: Optional[int] = None,
-              max_skips: int = 8, faults=None, slo=None) -> ServeReport:
+              max_skips: int = 8, faults: Optional[FaultPlane] = None,
+              slo: Optional[SLOPolicy] = None) -> ServeReport:
         """Drive a request stream end to end (see the module docstring).
 
         A fixed batch of `num_slots` cache lanes runs MIXED
@@ -456,18 +501,22 @@ class ServingEngine:
         reads back emitted and first tokens, completes finished requests
         (EOS or budget), reclaims their pages with one masked
         `control.release_lanes`, honours deadlines and cancellation,
-        and admits queued requests. Invalid requests are rejected with
-        a typed error; the stream never raises on a per-request
-        condition. Greedy by default; sampling draws from one
-        `torch.Generator` per request, seeded from (`seed`, rid).
+        applies the fault plane's pool delta, sheds queued requests
+        that miss their SLO, and admits queued requests. Invalid
+        requests are rejected with a typed error; the stream never
+        raises on a per-request condition. Greedy by default; sampling
+        draws from one `torch.Generator` per request, seeded from
+        (`seed`, rid).
+
+        `faults` (a `FaultPlane`) and `slo` (an `SLOPolicy`) follow the
+        reference's boundary logic step for step: per chunk the
+        window's events, the spec that prices it, cost_aware's
+        recalibration (from the measured link with `measured_payback`),
+        the static fallback, per-step commit caps and poison masks; SLO
+        shedding at stream start, after open-loop arrivals, and after
+        the boundary's reaping (so a request is never both "timeout"
+        and SLO-shed), projected with an EMA of the measured step time.
         """
-        if faults is not None:
-            _later("serve(faults=...)", _SERVE_SLICE)
-        if slo is not None:
-            _later("serve(slo=...)", _SERVE_SLICE)
-        if self.cfg.trace_telemetry:
-            _later("serve() with EngineConfig.trace_telemetry",
-                   _TRACE_SLICE)
         cfg = self.cfg
         dev = self.device
         if not requests:
@@ -477,19 +526,30 @@ class ServingEngine:
                                         hbm_fraction=cfg.hbm_fraction)
         self._setup(geo)
         self.stats = []
+        self._serve_trace_log = []
         self._sampling = sampling or SamplingConfig()
         sampler = make_sampler(self._sampling)
         pstate = self._pstate
+        faults = faults if faults is not None else FaultPlane()
+        base_spec = cfg.spec
+        cap_rows = control.plan_capacity(geo, cfg.migration_budget_frac)
+        capture = cfg.trace_telemetry
         events: List[dict] = []
+        # the policy's thresholds recalibrate from `calib_base` (the
+        # measured link with measured_payback) under the tier faults;
+        # pricing stays on cfg.spec under them
+        calib_base = base_spec
         if cfg.measured_payback:
-            # the policy's thresholds go empirical; pricing stays on
-            # cfg.spec
             measured, detail = self._measure_migration_spec(geo)
             if measured is not None:
+                calib_base = measured
                 pstate = _to_device(self._policy.recalibrate(pstate,
                                                              measured), dev)
             events.append({"kind": "payback_measured", "step": 0,
                            **detail})
+        last_thresh = calib_base
+        fallback = False
+        drop_streak = 0
         # overlap mode: the host pools in pinned host memory (on the
         # card), and the staged plan, empty at first — step 0 commits
         # nothing; `stale` marks lanes (re)bound or released since the
@@ -499,15 +559,13 @@ class ServingEngine:
         self._copy_stream = torch.cuda.Stream(dev) \
             if overlap and dev.type == "cuda" else None
         self._commit_done = None
-        staged = MigrationPlan.empty(
-            control.plan_capacity(geo, cfg.migration_budget_frac),
-            device=dev) if overlap else None
+        staged = MigrationPlan.empty(cap_rows, device=dev) \
+            if overlap else None
         stale = np.zeros((B,), bool)
         C = max(1, cfg.prefill_chunk)
         S_cap = geo.max_tokens
         Pb = cfg.prefill_budget
         eos = cfg.eos_id
-        V = self.model.cfg.vocab
         credits = torch.zeros((), dtype=torch.int32, device=dev)
 
         pool = total_pages if total_pages is not None \
@@ -572,7 +630,35 @@ class ServingEngine:
                         live[req.lane] = req
                         stale[req.lane] = True
 
+        #: EMA of the measured per-step wall seconds (from chunk spans),
+        #: the SLO projection's prefill cadence
+        est_step_s: Optional[float] = None
+
+        def shed_slo() -> None:
+            """Shed each QUEUED request whose projected TTFT already
+            misses its tier's target, as `rejected` / "slo_shed"; a
+            request due for the reaper (expired or cancelled) is left
+            to it."""
+            if slo is None:
+                return
+            now = time.time()
+            for req in list(batcher.queue):
+                if req.cancel_requested or (
+                        req.deadline_s is not None
+                        and now - req.submitted_at > req.deadline_s):
+                    continue
+                reason = slo.should_shed(req, now, est_step_s,
+                                         cfg.prefill_chunk)
+                if reason is not None:
+                    batcher.drop_queued(req, "rejected", "slo_shed",
+                                        reason)
+                    events.append({"kind": "slo_shed",
+                                   "step": batcher.step_idx,
+                                   "rid": req.rid, "tier": req.tier,
+                                   "reason": reason})
+
         admit()
+        shed_slo()
         view = batcher.device_view()
         ar_c = torch.arange(C, dtype=torch.int32, device=dev)
         bidx = torch.arange(B, device=dev)
@@ -583,6 +669,7 @@ class ServingEngine:
         while batcher.has_work or pending:
             if submit_arrivals():
                 admit()
+                shed_slo()
                 view = batcher.device_view()
             if not view.active.any():
                 if batcher.queue:
@@ -602,6 +689,40 @@ class ServingEngine:
                         time.sleep(min(wait, 0.05))
                     continue
                 break
+            step0 = batcher.step_idx
+            events.extend(faults.window_events(step0, stride))
+            # tier fault: the chunk's pricing spec, and the thresholds
+            # recalibrated under the same scales; past the ratio
+            # threshold migrating toward the host tier cannot pay back
+            spec_now = faults.spec_at(step0, base_spec)
+            thresh_now = faults.spec_at(step0, calib_base)
+            if thresh_now != last_thresh:
+                pstate = _to_device(self._policy.recalibrate(pstate,
+                                                             thresh_now),
+                                    dev)
+                last_thresh = thresh_now
+                events.append({"kind": "payback_recalibration",
+                               "step": step0,
+                               "bw_ratio": thresh_now.bw_ratio})
+            if not fallback and spec_now.bw_ratio >= \
+                    cfg.fallback_tier_ratio * base_spec.bw_ratio:
+                fallback = True
+                events.append({"kind": "policy_fallback", "step": step0,
+                               "reason": "tier_ratio",
+                               "bw_ratio": spec_now.bw_ratio})
+            caps = faults.commit_caps(step0, stride, cap_rows)
+            drop_streak = drop_streak + 1 if (caps == 0).any() else 0
+            if not fallback and \
+                    drop_streak >= max(1, cfg.fallback_commit_faults):
+                fallback = True
+                events.append({"kind": "policy_fallback", "step": step0,
+                               "reason": "commit_faults",
+                               "boundaries": drop_streak})
+            if fallback:
+                # static fallback: plans exist, none commit
+                caps = np.zeros_like(caps)
+            poison_np = faults.poison_steps(step0, stride, view.rids)
+            poison = upload(poison_np) if poison_np.any() else None
             t0 = time.time()
             for req in live.values():
                 if req.admitted_at is None:
@@ -617,22 +738,28 @@ class ServingEngine:
             gens = hs["gens"]
             rows = {"emitted": [], "first": [], "failed": [], "pf": [],
                     "base": []}
+            if capture:
+                rows.update(access=[], tier=[])
             if overlap:
                 staged = control.mask_plan_lanes(staged, upload(stale))
                 stale[:] = False
             for n_step in range(stride):
                 pf, dec = control.lane_modes(act, prog, prompt_len)
+                cap = int(caps[n_step])
                 # decode plane: skipped on steps with no decoding lane
                 # (its stats row is filtered at the boundary anyway; in
                 # overlap mode the staged plan waits)
                 if bool(dec.any()):
                     if overlap:
-                        logits, cache, pstate, staged, (base,) = \
+                        logits, cache, pstate, staged, stats = \
                             self._decode_overlap(cache, pstate, staged,
-                                                 tok, dec)
+                                                 tok, dec, mig_cap=cap)
                     else:
-                        logits, cache, pstate, (base,) = self._decode(
-                            cache, pstate, tok, dec)
+                        logits, cache, pstate, stats = self._decode(
+                            cache, pstate, tok, dec, mig_cap=cap)
+                    if poison is not None:
+                        logits = torch.where((dec & poison[n_step])[:, None],
+                                             float("nan"), logits)
                     # non-finite sampling guard: such a lane emits
                     # nothing, flips inactive, and completes "failed"
                     bad = dec & ~torch.isfinite(logits).all(dim=-1)
@@ -641,7 +768,16 @@ class ServingEngine:
                     base = torch.cat([control.occupancy(cache),
                                       torch.zeros(2, dtype=torch.int32,
                                                   device=dev)])
+                    stats = (base, torch.zeros_like(cache.page_table,
+                                                    dtype=torch.bool),
+                             control.page_tiers(cache)) if capture \
+                        else (base,)
                     bad = torch.zeros_like(dec)
+                if capture:
+                    # decode-plane attribution: a lane's reads count
+                    # while it decodes
+                    rows["access"].append(stats[1] & dec[None, :, None])
+                    rows["tier"].append(stats[2])
                 dec_ok = dec & ~bad
                 if logits is not None:
                     nxt = sampler(logits, gens, dec_ok)
@@ -683,6 +819,12 @@ class ServingEngine:
                     crossed = pf & (prog >= prompt_len)
                     last = (n_val - 1).clamp(0, C - 1).long()
                     logits1 = logits_c[bidx, last]
+                    if poison is not None:
+                        # a lane poisoned at its first token fails
+                        # before emitting anything
+                        logits1 = torch.where(
+                            (pf & poison[n_step])[:, None], float("nan"),
+                            logits1)
                     bad0 = crossed & ~torch.isfinite(logits1).all(dim=-1)
                     crossed = crossed & ~bad0
                     tok0 = sampler(logits1, gens, crossed)
@@ -697,7 +839,7 @@ class ServingEngine:
                 rows["first"].append(first)
                 rows["failed"].append(bad | bad0)
                 rows["pf"].append(n_val)
-                rows["base"].append(base)
+                rows["base"].append(stats[0])
             self.state = cache
             self._pools_ready()        # the readback drains the commits
             out = {k: torch.stack(v).cpu().numpy() for k, v in rows.items()}
@@ -708,10 +850,21 @@ class ServingEngine:
             hs["token"] = tok.cpu().numpy().copy()
             prog_np = prog.cpu().numpy()
             done_d = ~act.cpu().numpy()
-            # telemetry: only steps where at least one lane DECODED
+            # telemetry: only steps where at least one lane DECODED,
+            # each priced under the spec governing its step
             row_mask = emitted.max(axis=1) >= 0
-            self._record((out["base"][row_mask],))
+            specs = [faults.spec_at(step0 + i, base_spec)
+                     for i in np.nonzero(row_mask)[0]] if faults.tier \
+                else None
+            self._record((out["base"][row_mask],), specs=specs)
+            if capture:
+                self._serve_trace_log.append(
+                    (out["access"], out["tier"], emitted, first,
+                     view.rids.copy(), view.prompt_len.copy()))
             span = time.time() - t0
+            est = span / stride
+            est_step_s = est if est_step_s is None else \
+                0.5 * (est_step_s + est)
 
             def stamp(row):
                 return t0 + (row + 1) / stride * span
@@ -787,7 +940,13 @@ class ServingEngine:
             if release.any():
                 self.state = control.release_lanes(self.state,
                                                    upload(release))
+            delta = faults.pool_delta(step0, stride)
+            if delta:
+                batcher.resize_pool(delta)
             batcher.step_idx += stride
+            # after the reaping (never both "timeout" and SLO-shed),
+            # before admission refills the freed lanes
+            shed_slo()
             admit()
             view = batcher.device_view()
         self._pstate = pstate

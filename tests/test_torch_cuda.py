@@ -39,6 +39,8 @@ SHAPES = [
     (3, 2, 5, 128, 8, 16, 5),
     (1, 1, 1, 64, 4, 16, 4),
     (2, 4, 2, 64, 6, 8, 6),          # 8-token pages
+    (8, 8, 3, 64, 64, 16, 64),       # granite-moe-3b-a800m, HBM tier
+    (8, 8, 3, 64, 208, 16, 208),     # granite-moe-3b-a800m, host tier
 ]
 OUT_ATOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
 
@@ -247,6 +249,8 @@ FLASH_SHAPES = [
     (2, 1000, 4, 2, 64, torch.bfloat16, False),    # not causal
     (2, 300, 4, 2, 16, torch.float32, True),       # the smoke config
     (1, 77, 2, 1, 32, torch.float32, False),
+    (4, 2304, 24, 8, 64, torch.bfloat16, True),    # granite-moe's prefill
+    (2, 1000, 24, 8, 64, torch.float32, True),     # H/KH = 3 in f32
 ]
 
 
@@ -477,7 +481,8 @@ def test_migration_over_pinned_pools_matches_the_cpu(device, asynchronous):
         assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
 
 
-@pytest.mark.parametrize("shape", [SHAPES[1], SHAPES[2]], ids=str)
+@pytest.mark.parametrize("shape", [SHAPES[1], SHAPES[2], SHAPES[7]],
+                         ids=str)
 def test_paged_kernel_reads_pinned_pools(device, shape):
     """The host-tier launch of overlap mode: pools in pinned host memory,
     read in place over the link, against the plain version on device
@@ -492,19 +497,39 @@ def test_paged_kernel_reads_pinned_pools(device, shape):
                                               page_valid), dtype)
 
 
+def _card_and_cpu(cfg, ecfg, reqs_of, serve_kw=None):
+    """The same stream served on the card and on the CPU (same weights):
+    per device (tokens, statuses with error codes, step bytes, events),
+    and the engines."""
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import ServingEngine
+    model = Model(cfg)
+    params = model.init(0, device="cpu")
+    runs, engines = {}, {}
+    for dev in ("cuda", "cpu"):
+        eng = ServingEngine(model, params, ecfg, device=dev)
+        rep = eng.serve(reqs_of(), **(serve_kw or {}))
+        runs[dev] = ({r.rid: r.output for r in rep},
+                     {r.rid: (r.status, r.error.code if r.error else None)
+                      for r in rep.completed + rep.rejected},
+                     [(s.h_read, s.e_read, s.m_in, s.m_out)
+                      for s in eng.stats],
+                     [{k: v for k, v in e.items() if k != "reason"}
+                      for e in rep.events])
+        engines[dev] = (eng, rep)
+    return runs, engines
+
+
 def test_overlap_serve_on_the_card_matches_the_cpu(device):
     """A small f32 overlap-mode stream under HBM pressure, lanes reused:
     the card (pinned host pools, commits on a side stream) and the CPU
     give the same tokens, statuses and per-step bytes, with commits."""
     import dataclasses
     from repro_torch import configs
-    from repro_torch.models.model import Model
-    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    from repro_torch.serving.engine import EngineConfig
     from repro_torch.serving.scheduler import Request
     cfg = dataclasses.replace(configs.get_smoke("internlm2-1.8b"),
                               dtype=torch.float32, param_dtype=torch.float32)
-    model = Model(cfg)
-    params = model.init(0, device="cpu")
     rng = np.random.default_rng(5)
     prompts = [rng.integers(0, cfg.vocab, (272 + 16 * (i % 2),))
                for i in range(3)]
@@ -512,15 +537,87 @@ def test_overlap_serve_on_the_card_matches_the_cpu(device):
                         attention_sparsity=0.5, promote_thresh=1e-4,
                         telemetry_stride=8, prefill_chunk=16,
                         overlap_migrations=True)
-    runs = {}
-    for dev in ("cuda", "cpu"):
-        eng = ServingEngine(model, params, ecfg, device=dev)
-        rep = eng.serve([Request(rid=i, prompt=p, max_new_tokens=8)
-                         for i, p in enumerate(prompts)], num_slots=2)
-        if dev == "cuda":
-            assert eng.state.k_host.is_pinned()
-        runs[dev] = ({r.rid: r.output for r in rep}, rep.statuses,
-                     [(s.h_read, s.e_read, s.m_in, s.m_out)
-                      for s in eng.stats])
+    runs, engines = _card_and_cpu(cfg, ecfg, lambda: [
+        Request(rid=i, prompt=p, max_new_tokens=8)
+        for i, p in enumerate(prompts)], {"num_slots": 2})
+    assert engines["cuda"][0].state.k_host.is_pinned()
     assert runs["cuda"] == runs["cpu"]
     assert sum(r[2] + r[3] for r in runs["cuda"][2]) > 0
+
+
+@pytest.mark.parametrize("name", ["granite-moe-3b-a800m",
+                                  "llama4-maverick-400b-a17b"])
+@pytest.mark.parametrize("overlap", [False, True], ids=["inline", "overlap"])
+def test_moe_serve_on_the_card_matches_the_cpu(device, name, overlap):
+    """The moe smoke configs (capacity factor 0.5, so choices drop) in
+    f32, 10 requests through 8 slots: tokens, statuses and step bytes of
+    the card equal the CPU's."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.serving.engine import EngineConfig
+    from repro_torch.serving.scheduler import Request
+    cfg = configs.get_smoke(name)
+    cfg = dataclasses.replace(cfg, dtype=torch.float32,
+                              param_dtype=torch.float32,
+                              moe=dataclasses.replace(cfg.moe,
+                                                      capacity_factor=0.5))
+    rng = np.random.default_rng(21)
+    prompts = [rng.integers(0, cfg.vocab, (n,)) for n in
+               (300, 40, 280, 20, 150, 64, 260, 33, 90, 17)]
+    ecfg = EngineConfig(max_context=512, policy="importance",
+                        prefill_chunk=16, telemetry_stride=8,
+                        promote_thresh=1e-4, overlap_migrations=overlap)
+    runs, _ = _card_and_cpu(cfg, ecfg, lambda: [
+        Request(rid=i, prompt=p, max_new_tokens=10)
+        for i, p in enumerate(prompts)], {"num_slots": 8})
+    assert runs["cuda"] == runs["cpu"]
+    assert set(s for s, _ in runs["cuda"][1].values()) == {"ok"}
+
+
+@pytest.mark.parametrize("overlap", [False, True], ids=["inline", "overlap"])
+def test_faulted_traced_serve_on_the_card_matches_the_cpu(device, overlap):
+    """A fault plane of every kind, SLO admission with 0 / infinite
+    targets per tier, and trace capture, on the internlm2 smoke config
+    in f32: the card's tokens, statuses, step bytes, events and serve
+    trace equal the CPU's, and the scores agree."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.serving import trace_bridge
+    from repro_torch.serving.engine import EngineConfig
+    from repro_torch.serving.faults import (
+        FaultPlane, MigrationFault, PoisonFault, PoolFault, TierFault,
+    )
+    from repro_torch.serving.scheduler import Request
+    from repro_torch.serving.slo import SLOPolicy, SLOTarget
+    cfg = dataclasses.replace(configs.get_smoke("internlm2-1.8b"),
+                              dtype=torch.float32, param_dtype=torch.float32)
+    rng = np.random.default_rng(17)
+    prompts = [rng.integers(0, cfg.vocab, (n,))
+               for n in (272, 288, 40, 280, 24, 30)]
+    plane = FaultPlane(
+        tier=(TierFault(start=8, stop=40, link_scale=0.25),),
+        migration=(MigrationFault(start=16, stop=32, commit_frac=0.05),),
+        pool=(PoolFault(step=24, delta=-2),),
+        poison=(PoisonFault(rid=3, step=53),))
+    slo = SLOPolicy({"interactive": SLOTarget(0.0, 1.0),
+                     "batch": SLOTarget(float("inf"), float("inf"))})
+
+    def reqs():
+        return [Request(rid=i, prompt=p, max_new_tokens=8,
+                        tier="interactive" if i >= 4 else "batch")
+                for i, p in enumerate(prompts)]
+    ecfg = EngineConfig(max_context=512, policy="importance",
+                        attention_sparsity=0.5, promote_thresh=1e-4,
+                        telemetry_stride=8, prefill_chunk=16,
+                        trace_telemetry=True, overlap_migrations=overlap)
+    runs, engines = _card_and_cpu(cfg, ecfg, reqs, {
+        "num_slots": 2, "faults": plane, "slo": slo})
+    assert runs["cuda"] == runs["cpu"]
+    statuses = runs["cuda"][1]
+    assert statuses[3] == ("failed", "poisoned_logits")
+    assert statuses[4] == statuses[5] == ("rejected", "slo_shed")
+    recs = {dev: trace_bridge.collect_serve(eng)
+            for dev, (eng, _) in engines.items()}
+    for name in ("access", "tier", "emitted", "first", "rids"):
+        np.testing.assert_array_equal(getattr(recs["cuda"], name),
+                                      getattr(recs["cpu"], name))

@@ -69,6 +69,30 @@ def test_launch_plan_takes_fewer_warps_where_rings_do_not_fit(T, HD,
     assert pa.smem_bytes(warps, 2, HD, T, itemsize, plan.per) <= pa.CTA_SMEM
 
 
+@pytest.mark.parametrize("itemsize", [2, 4], ids=["bf16", "f32"])
+@pytest.mark.parametrize("N", [1, 5, 64, 208])
+def test_launch_plan_at_the_moe_shapes(N, itemsize):
+    """granite-moe-3b-a800m's decode: G = 3 query heads per KV head
+    (an odd G: the kernel's rows go two at a time, the last alone) and
+    head_dim 64. Four warps fit in bf16 and f32; the shared memory
+    holds three query rows and their accumulators; one wave."""
+    B, KH, G, HD, T = 8, 8, 3, 64, 16
+    plan = pa.launch_plan(B, KH, G, HD, T, N, itemsize, H100_SMS)
+    assert plan.warps == 4
+    smem = pa.smem_bytes(4, G, HD, T, itemsize, plan.per)
+    assert smem <= pa.CTA_SMEM
+    assert smem - pa.smem_bytes(4, 2, HD, T, itemsize, plan.per) == \
+        4 * (HD + 4 * HD + 2 * 4)                   # one more query row
+    assert plan.splits * plan.per >= N and \
+        (plan.splits - 1) * plan.per < N
+    per_sm = max(1, min(4, pa.SM_SMEM // (smem + 1024)))
+    assert B * KH * plan.splits <= max(per_sm * H100_SMS, B * KH) or \
+        plan.per == min(2 * plan.warps, N)
+    layout = pa.scratch_layout(B, KH, G, HD, N, plan.splits)
+    assert dict((n, sh) for n, _, sh in layout)["part_acc"] == \
+        (plan.splits, B, KH, G, HD)
+
+
 def test_launch_plan_refuses_pages_that_do_not_fit():
     with pytest.raises(ValueError, match="do not fit"):
         pa.launch_plan(1, 1, 1, 1024, 32, 4, 4, H100_SMS)

@@ -193,15 +193,24 @@ def test_sampled_streams_are_reproducible(models, prompts):
     assert run(8) != first
 
 
-@pytest.mark.parametrize("ask", ["trace", "faults", "slo", "mesh"])
+#: a config of each family the port has not ported yet, by the
+#: reference's architecture ids
+LATER_FAMILIES = {"vlm": "internvl2-2b", "encdec": "whisper-tiny",
+                  "hybrid": "zamba2-1.2b", "xlstm": "xlstm-125m"}
+
+
+@pytest.mark.parametrize("ask", [*LATER_FAMILIES, "mesh"])
 def test_later_slices_raise(models, prompts, ask):
     """What the port leaves out raises NotImplementedError, never runs
-    something else."""
+    something else: a family not ported yet (its config and its model)
+    and serving across a mesh."""
     _, _, tm, tp = models
-    knob = {"trace": {"trace_telemetry": True}}.get(ask, {})
-    cfg = EngineConfig(**{**engine_kw("importance"), **knob})
+    if ask in LATER_FAMILIES:
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            tconfigs.get(LATER_FAMILIES[ask])
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            TModel(dataclasses.replace(tm.cfg, family=ask))
+        return
+    cfg = EngineConfig(**engine_kw("importance"))
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        eng = ServingEngine(tm, tp, cfg, device="cpu",
-                            mesh=object() if ask == "mesh" else None)
-        eng.serve(stream(Request, prompts[:1]), num_slots=1,
-                  **{ask: object()} if ask in ("faults", "slo") else {})
+        ServingEngine(tm, tp, cfg, device="cpu", mesh=object())
