@@ -11,16 +11,24 @@ non-zero):
   1. build   compile the kernels of src/repro_torch/csrc/ (paged
              decode attention, prefill flash attention, row copies
              between pools) with nvcc for sm_90a, one nvcc per source,
-             in parallel; print ptxas' register and spill report.
+             in parallel; print ptxas' register and spill report; fail
+             if an instance of the flash kernel's tensor-core body
+             (`flash_wgmma_kernel<D>`, D = 160 among them) spills.
   2. kernel  run the paged kernel against its plain version
              (ref.paged_attention_ref)
              on the same CUDA tensors at the full-width decode shapes
-             of internlm2-1.8b (B=8, KH=8, G=2, HD=128) and of
-             granite-moe-3b-a800m (G=3, HD=64), T=16, N in {64, 208},
-             bf16 pools,
+             of internlm2-1.8b (B=8, KH=8, G=2, HD=128), of
+             granite-moe-3b-a800m (G=3, HD=64), llama31-8b and
+             granite-8b (G=4, HD=128), qwen3-32b (G=8, HD=128),
+             stablelm-12b (G=4, HD=160) and whisper-tiny (KH=6, G=1,
+             HD=64), T=16, N in {64, 208}, bf16 pools,
              with holes, a permuted page list, partial pages and an
              all-hole lane; time it beside the plain version and one
              scaled_dot_product_attention call over the same keys.
+             Then check (untimed) phase 10's decode shapes at B=4,
+             where the launch plan splits the pages otherwise:
+             internvl2-2b, granite-8b, stablelm-12b and whisper-tiny,
+             each line ending with the plan it ran.
              Times are device times (CUDA-graph replay over input sets
              that overflow the L2); the kernel's eager per-call time,
              the host's launch cost included, is printed beside them.
@@ -43,13 +51,20 @@ non-zero):
   2b. flash  run the flash kernel against its plain version
              (ref.flash_attention_ref) on CUDA tensors: the prefill
              shapes of phase 5 (B=4, S=2304, H=16 over KH=8, D=128,
-             bf16, causal) and phase 7 (H=24 over KH=8, D=64), a ragged
-             S with KH == H, a non-causal case, the smoke shape in f32,
-             a bf16 D=64 case with a ragged S and an f32 one with H/KH
-             = 3; time it at the two prefill shapes
+             bf16, causal; also internvl2-2b's), phase 7 (H=24 over
+             KH=8, D=64) and phase 10 (stablelm-12b: H=32 over 8,
+             D=160; granite-8b: H=32 over 8, D=128; whisper-tiny's
+             encoder: S=1500, H=KH=6, D=64, not causal), a ragged S
+             with KH == H, a non-causal case, the smoke shape in f32,
+             a bf16 D=64 case with a ragged S, f32 ones with H/KH = 3
+             and with D=160, a ragged D=160 one, whisper's decoder
+             self-attention (B=4, S=64, causal) and its cross-attention
+             (not causal, Sq = 64, 37 and 1 over Sk = 1500: keys past
+             Sk masked); time it at the prefill shapes (whisper's
+             cross-attention in prefill among them)
              beside the plain version, one scaled_dot_product_attention
              call (enable_gqa, on [B, H, S, D] copies made outside the
-             timed region) and its operations bound.
+             timed region) and its bound.
   3. parity  serve a small f32 request stream on the card and on the
              CPU (the plain path) with the same weights: greedy tokens,
              statuses and per-step byte counts must match exactly.
@@ -64,6 +79,12 @@ non-zero):
   3e. moe    the granite-moe and llama4 smoke configs (capacity factor
              0.5: choices drop) served through 8 slots on the card and
              on the CPU: tokens, statuses and step bytes equal.
+  3f. family the single stream (start + generate(16)) of the smoke
+             configs of llama31-8b, granite-8b, qwen3-32b, stablelm-12b,
+             internvl2-2b (vlm, patch embeddings from --seed) and
+             whisper-tiny (encdec, frame embeddings from --seed) in f32,
+             on the card and on the CPU: tokens and step bytes equal,
+             start logits within 1e-4.
   3b. stream the single-stream path on the card and on the CPU, f32
              smoke config, same weights, under each of the five
              policies with Quest sparsity 0.5 and trace capture:
@@ -102,6 +123,24 @@ non-zero):
              dropped: phase 4's serve with the same checks, then `start`
              of 4 prompts of 2304 tokens (32 flash launches) and
              `generate(32)`.
+  8. llama31-8b the paper's own model at its published widths (32
+             layers, d_model 4096, 32 heads over 8, head_dim 128, vocab
+             128256; random bf16 weights): phase 4's serve (4.56 GB of
+             KV), its checks and numbers.
+  9. qwen3-32b at its published widths (64 layers, d_model 5120, 64
+             heads over 8, qk RMSNorm, vocab 151936: 65.5 GB of bf16
+             weights): phase 4b's overlap serve with measured payback,
+             the KV's host tier (6.98 GB) pinned while the weights fill
+             the card; its checks, numbers, link rate and peak memory.
+  10. single streams at published widths: `start` + `generate(32)` of 4
+             prompts of stablelm-12b (2304 tokens; D = 160 in both
+             kernels), granite-8b (2304), internvl2-2b (2048 tokens +
+             256 patch embeddings) and whisper-tiny (64 tokens over 1500
+             frame embeddings); start wall, decode rate, launches
+             (flash once per attention per `start`, encdec's
+             cross-attention once per layer per step, paged twice per
+             layer per step), then `score_headroom` on the internvl2
+             and whisper streams.
 
 Then a `kernels` JSON line, the card's name and power limit, and, last,
 {"ok": true, "device": {...}}. Without a CUDA card it exits non-zero
@@ -287,16 +326,69 @@ def dense_for_sdpa(inputs):
 
 #: the paged kernel's decode shapes, by model: (KH, G, HD) at B=8, T=16
 PAGED_MODELS = (("internlm2-1.8b", 8, 2, 128),
-                ("granite-moe-3b-a800m", 8, 3, 64))
+                ("granite-moe-3b-a800m", 8, 3, 64),
+                ("llama31-8b", 8, 4, 128),          # and granite-8b
+                ("qwen3-32b", 8, 8, 128),
+                ("stablelm-12b", 8, 4, 160),
+                ("whisper-tiny", 6, 1, 64))
+
+
+#: phase 10's single streams decode at B=4, where `choose_splits` plans
+#: another split of the page range than at B=8: (model, KH, G, HD),
+#: checked at both tiers' page counts
+PAGED_STREAMS = (("internvl2-2b", 8, 2, 128), ("granite-8b", 8, 4, 128),
+                 ("stablelm-12b", 8, 4, 160), ("whisper-tiny", 6, 1, 64))
 
 
 def kernel_phase(rng, device):
+    import torch
     link = link_bandwidth(device)
     shapes = []
     for model, KH, G, HD in PAGED_MODELS:
         shapes += paged_shapes(rng, device, model, KH, G, HD)
+    for model, KH, G, HD in PAGED_STREAMS:
+        for N in (64, 208):
+            check_paged(f"kernel {model} B=4 G={G} HD={HD} N={N}",
+                        paged_inputs(rng, 4, KH, G, HD, N, 16,
+                                     torch.bfloat16, device))
     shapes.append(pinned_shape(rng, device, link))
     return shapes, link
+
+
+def check_paged(what, inputs):
+    """The kernel against its plain version on one input set, with the
+    launch plan it ran; the all-hole lane must come out empty. Returns
+    the errors by output; raises past TOL."""
+    import torch
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+    got = pa.paged_attention(*inputs)
+    want = ref.paged_attention_ref(*inputs)
+    torch.cuda.synchronize()
+    err = {
+        "out": float((got[0].float() - want[0].float()).abs().max()),
+        "m": float((got[1] - want[1]).abs().max()),
+        "l_rel": float(((got[2] - want[2]).abs()
+                        / want[2].abs().clamp_min(1e-30)).max()),
+        "lse": float((got[3] - want[3]).abs().max()),
+    }
+    q, k, _, page_list, _ = inputs
+    B, KH, G, HD = q.shape
+    if not bool((got[2][B - 1] == 0).all()) or \
+            not bool((got[0][B - 1] == 0).all()):
+        raise AssertionError(f"{what}: the all-hole lane is not empty")
+    plan = pa.launch_plan(B, KH, G, HD, k.shape[2], page_list.shape[1],
+                          k.element_size(),
+                          torch.cuda.get_device_properties(0)
+                          .multi_processor_count)
+    log(f"{what}: max err out {err['out']:.3e} m {err['m']:.3e} "
+        f"l(rel) {err['l_rel']:.3e} lse {err['lse']:.3e} "
+        f"(tolerance {TOL})  {plan}")
+    bad = {n: e for n, e in err.items() if not e <= TOL[n]}
+    if bad:
+        raise AssertionError(f"{what} disagrees with the plain version: "
+                             f"{bad}")
+    return err
 
 
 def paged_shapes(rng, device, model, KH, G, HD):
@@ -312,27 +404,8 @@ def paged_shapes(rng, device, model, KH, G, HD):
         copies = max(2, math.ceil(256e6 / per_copy))   # beat the 50 MB L2
         sets = [paged_inputs(rng, B, KH, G, HD, N, T, torch.bfloat16, device)
                 for _ in range(copies)]
-        got = pa.paged_attention(*sets[0])
-        want = ref.paged_attention_ref(*sets[0])
-        torch.cuda.synchronize()
-        err = {
-            "out": float((got[0].float() - want[0].float()).abs().max()),
-            "m": float((got[1] - want[1]).abs().max()),
-            "l_rel": float(((got[2] - want[2]).abs()
-                            / want[2].abs().clamp_min(1e-30)).max()),
-            "lse": float((got[3] - want[3]).abs().max()),
-        }
-        empty = got[2][B - 1]
-        if not bool((empty == 0).all()) or not bool((got[0][B - 1] == 0).all()):
-            raise AssertionError(f"N={N}: the all-hole lane is not empty")
-        bad = {k: v for k, v in err.items() if not v <= TOL[k]}
         what = f"kernel {model} G={G} HD={HD} N={N}"
-        log(f"{what}: max err out {err['out']:.3e} m {err['m']:.3e} "
-            f"l(rel) {err['l_rel']:.3e} lse {err['lse']:.3e} "
-            f"(tolerance {TOL})")
-        if bad:
-            raise AssertionError(f"{what} disagrees with the plain "
-                                 f"version: {bad}")
+        err = check_paged(what, sets[0])
 
         def kernel(i):
             return pa.paged_attention(*sets[i % copies])
@@ -566,27 +639,47 @@ def page_copy_phase(rng, device, link):
 # phase 2b: the flash kernel against its plain version
 # --------------------------------------------------------------------------
 
-#: (B, S, H, KH, D, dtype name, causal); the first two are the
-#: prefills of phase 5 (internlm2-1.8b) and phase 7 (granite-moe-3b-
-#: a800m, H/KH = 3) and are timed
+#: (label, B, Sq, Sk, H, KH, D, dtype name, causal, timed): the
+#: prefills of the main paths are timed — internlm2-1.8b's (phase 5)
+#: and internvl2-2b's (phase 10: 2048 tokens + 256 patches), granite-
+#: moe-3b-a800m's (phase 7, H/KH = 3), stablelm-12b's (phase 10, D =
+#: 160), granite-8b's (phase 10, H/KH = 4), whisper-tiny's encoder
+#: (phase 10: non-causal, G = 1, S = 1500) and its cross-attention in
+#: prefill (Sq = 64 over Sk = 1500); the others are checked
 FLASH_SHAPES = (
-    (4, 2304, 16, 8, 128, "bf16", True),
-    (4, 2304, 24, 8, 64, "bf16", True),
-    (2, 1000, 16, 16, 128, "bf16", True),
-    (2, 1000, 16, 8, 128, "bf16", False),
-    (2, 300, 4, 2, 16, "f32", True),
-    (2, 1000, 16, 8, 64, "bf16", True),    # D=64, S not a tile multiple
-    (2, 1000, 24, 8, 64, "f32", True),     # H/KH = 3 in f32
+    ("internlm2-1.8b", 4, 2304, 2304, 16, 8, 128, "bf16", True, True),
+    ("granite-moe-3b-a800m", 4, 2304, 2304, 24, 8, 64, "bf16", True, True),
+    ("stablelm-12b", 4, 2304, 2304, 32, 8, 160, "bf16", True, True),
+    ("granite-8b", 4, 2304, 2304, 32, 8, 128, "bf16", True, True),
+    ("whisper-tiny encoder", 4, 1500, 1500, 6, 6, 64, "bf16", False, True),
+    ("ragged S, KH == H", 2, 1000, 1000, 16, 16, 128, "bf16", True, False),
+    ("not causal", 2, 1000, 1000, 16, 8, 128, "bf16", False, False),
+    ("smoke f32", 2, 300, 300, 4, 2, 16, "f32", True, False),
+    ("D=64, ragged S", 2, 1000, 1000, 16, 8, 64, "bf16", True, False),
+    ("H/KH = 3 f32", 2, 1000, 1000, 24, 8, 64, "f32", True, False),
+    ("D=160 f32", 2, 1000, 1000, 32, 8, 160, "f32", True, False),
+    ("D=160 ragged S", 2, 999, 999, 32, 8, 160, "bf16", True, False),
+    # whisper's decoder in phase 10 (64-token prompts at B=4) and its
+    # cross-attention over 1500 frames: the prompt's queries in prefill,
+    # one query at decode; the keys past 1500 must be masked
+    ("whisper-tiny decoder self", 4, 64, 64, 6, 6, 64, "bf16", True,
+     False),
+    ("whisper-tiny cross, prefill", 4, 64, 1500, 6, 6, 64, "bf16", False,
+     True),
+    ("whisper-tiny cross, ragged Sq", 4, 37, 1500, 6, 6, 64, "bf16", False,
+     False),
+    ("whisper-tiny cross, decode", 4, 1, 1500, 6, 6, 64, "bf16", False,
+     False),
 )
-FLASH_TIMED = 2
 FLASH_TOL = {"bf16": 1e-2, "f32": 2e-5}
 
 
-def flash_work(B, S, H, KH, D, causal, itemsize):
+def flash_work(B, Sq, Sk, H, KH, D, causal, itemsize):
     """(bytes, flops) of one call: q, k, v read once and out written
-    once; 4*D flops per visible (query, key) pair per head."""
-    pairs = S * (S + 1) // 2 if causal else S * S
-    return (2 * B * S * H * D + 2 * B * S * KH * D) * itemsize, \
+    once; 4*D flops per visible (query, key) pair per head (queries
+    aligned at key 0 when causal)."""
+    pairs = sum(min(i + 1, Sk) for i in range(Sq)) if causal else Sq * Sk
+    return (2 * B * Sq * H * D + 2 * B * Sk * KH * D) * itemsize, \
         4 * B * H * D * pairs
 
 
@@ -597,27 +690,28 @@ def flash_phase(device):
     dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
     errs = []
     timed = []
-    for n, (B, S, H, KH, D, dt, causal) in enumerate(FLASH_SHAPES):
+    for label, B, Sq, Sk, H, KH, D, dt, causal, is_timed in FLASH_SHAPES:
         dtype = dtypes[dt]
 
         def inputs():
-            return (torch.randn((B, S, H, D), device=device, dtype=dtype),
-                    torch.randn((B, S, KH, D), device=device, dtype=dtype),
-                    torch.randn((B, S, KH, D), device=device, dtype=dtype))
+            return (torch.randn((B, Sq, H, D), device=device, dtype=dtype),
+                    torch.randn((B, Sk, KH, D), device=device, dtype=dtype),
+                    torch.randn((B, Sk, KH, D), device=device, dtype=dtype))
         x = inputs()
         got = fa.flash_attention(*x, causal=causal)
         want = ref.flash_attention_ref(*x, causal=causal)
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
         errs.append(err)
-        log(f"flash B={B} S={S} H={H}/{KH} D={D} {dt} causal={causal}: "
-            f"max err out {err:.3e} (tolerance {FLASH_TOL[dt]})")
+        shape = f"B={B} Sq={Sq} Sk={Sk} H={H}/{KH} D={D}"
+        log(f"flash {label}: {shape} {dt} causal={causal}: max err out "
+            f"{err:.3e} (tolerance {FLASH_TOL[dt]})")
         if not err <= FLASH_TOL[dt]:
             raise AssertionError(f"flash kernel disagrees with the plain "
-                                 f"version at {(B, S, H, KH, D, dt)}")
-        if n >= FLASH_TIMED:
+                                 f"version at {label}: {shape} {dt}")
+        if not is_timed:
             continue
-        nbytes, flops = flash_work(B, S, H, KH, D, causal,
+        nbytes, flops = flash_work(B, Sq, Sk, H, KH, D, causal,
                                    got.element_size())
         copies = max(2, math.ceil(256e6 / nbytes))    # beat the 50 MB L2
         sets = [x] + [inputs() for _ in range(copies - 1)]
@@ -641,21 +735,22 @@ def flash_phase(device):
         kernel_eager = eager_ms(kernel, 20)
         t_bytes, t_ops = nbytes / HBM_BW * 1e3, flops / BF16_FLOPS * 1e3
         bound = max(t_bytes, t_ops)
-        log(f"flash B={B} S={S} H={H}/{KH} D={D}: device {ms:.4f} ms  "
-            f"plain {plain_ms:.4f} "
-            f"ms  sdpa {lib_ms:.4f} ms  bound {bound:.4f} ms (operations "
-            f"{t_ops:.4f}, bytes {t_bytes:.4f}; {flops / 1e9:.2f} GFLOP, "
-            f"{nbytes / 1e6:.1f} MB)  eager call {kernel_eager:.4f} ms  "
-            f"{flops / ms / 1e9:.1f} TFLOP/s")
-        timed.append({"shape": [B, S, H, KH, D, dt, causal], "ms": ms,
+        log(f"flash {label}: {shape}: device {ms:.4f} ms  plain "
+            f"{plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms  bound {bound:.4f} ms "
+            f"(operations {t_ops:.4f}, bytes {t_bytes:.4f}; "
+            f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)  eager call "
+            f"{kernel_eager:.4f} ms  {flops / ms / 1e9:.1f} TFLOP/s")
+        timed.append({"model": label,
+                      "shape": [B, Sq, Sk, H, KH, D, dt, causal], "ms": ms,
                       "plain_ms": plain_ms, "library_ms": lib_ms,
                       "bound_ms": bound, "eager_ms": kernel_eager,
                       "bound_by": "bytes" if t_bytes >= t_ops
                       else "operations", "bytes": nbytes, "flops": flops,
                       "tflops": flops / ms / 1e9, "max_abs_err": err})
         del sets, bhsd
-    # the line's numbers are internlm2's prefill; granite's in per_shape
-    return {**{k: v for k, v in timed[0].items() if k != "shape"},
+    # the line's numbers are internlm2's prefill; the others in per_shape
+    return {**{k: v for k, v in timed[0].items()
+               if k not in ("shape", "model")},
             "max_abs_err": max(errs), "per_shape": timed}
 
 
@@ -1348,6 +1443,216 @@ def moe_phase(seed):
     return {"serve": serve, "start": c_start, "generate": c_dec}, numbers
 
 
+#: this slice's architectures: the dense configs besides internlm2,
+#: the vlm and the encdec family
+FAMILY_ARCHS = ("llama31-8b", "granite-8b", "qwen3-32b", "stablelm-12b",
+                "internvl2-2b", "whisper-tiny")
+
+
+def family_extra(cfg, rng, batch):
+    """`start`'s `extra` for cfg's family, from `rng`: the vlm family's
+    patch or the encdec family's frame embeddings (the stubbed
+    frontends' outputs, numpy f32, which `start` moves to its device),
+    None for a dense model."""
+    key = {"vlm": "patch_embeds", "encdec": "frame_embeds"}.get(cfg.family)
+    if key is None:
+        return None
+    return {key: rng.standard_normal((batch, cfg.frontend.num_embeddings,
+                                      cfg.d_model)).astype(np.float32)}
+
+
+def stream_card_vs_cpu(name, seed):
+    """The single stream of `name`'s smoke config in f32 on the card and
+    on the CPU, same weights (from `seed`): `start` of 2 prompts of 300
+    tokens (and the family's `extra`), then `generate(16)`. Returns
+    (start logits' max abs difference, tokens equal, step bytes equal,
+    the card's step bytes (h_read, e_read, m_in, m_out))."""
+    import torch
+    from repro_torch.core.tiers import H100
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    cfg = smoke_f32(name)
+    model = Model(cfg)
+    params = model.init(seed, device="cpu")
+    rng = np.random.default_rng(seed + 3)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 300)),
+                              dtype=torch.int32)
+    extra = family_extra(cfg, rng, 2)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        eng = ServingEngine(model, params, EngineConfig(
+            max_context=512, policy="importance", spec=H100,
+            telemetry_stride=8, promote_thresh=1e-4), device=dev)
+        logits = eng.start(prompts, extra=extra)
+        toks = eng.generate(logits.argmax(-1).to(torch.int32), 16)
+        runs[dev] = (logits.cpu(), toks.cpu(),
+                     [(s.h_read, s.e_read, s.m_in, s.m_out)
+                      for s in eng.stats])
+    card, cpu = runs["cuda"], runs["cpu"]
+    return (float((card[0] - cpu[0]).abs().max()),
+            torch.equal(card[1], cpu[1]), card[2] == cpu[2], card[2])
+
+
+def family_parity_phase(seed):
+    """Phase 3f: `stream_card_vs_cpu` for each of this slice's
+    architectures: tokens and step bytes equal, start logits within
+    1e-4."""
+    for name in FAMILY_ARCHS:
+        cfg = smoke_f32(name)
+        err, same_tokens, same_bytes, stats = stream_card_vs_cpu(name, seed)
+        migrated = sum(r[2] + r[3] for r in stats)
+        log(f"family parity {name} ({cfg.family}, head_dim {cfg.head_dim}, "
+            f"G={cfg.q_per_kv}): start logits err {err:.3e} (tolerance "
+            f"1e-4), tokens {same_tokens} step bytes {same_bytes} "
+            f"({migrated:.0f} bytes migrated)")
+        if not (err <= 1e-4 and same_tokens and same_bytes):
+            raise AssertionError(f"family parity {name}: the card's single "
+                                 f"stream disagrees with the CPU's")
+
+
+def free_card() -> None:
+    """Drop what an earlier phase left on the card."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def big_serve_phase(name, seed, overlap=False):
+    """Phases 8 and 9: phase 4's serve (or 4b's, with `overlap`) at the
+    published widths of `name`, random bf16 weights. Prints the weights'
+    and the KV's share of the card. Returns the launches by kernel and
+    the numbers."""
+    import torch
+    free_card()
+    model, params = full_width(seed, name)
+    weights = sum(p.numel() * p.element_size() for p in _leaves(params))
+    geo = model.cache_geometry(8, 4096, 0.25)
+    per_page = 2 * geo.page_tokens * geo.kv_heads * geo.head_dim * 2
+    kv_card = geo.num_layers * 8 * geo.hbm_pages * per_page
+    kv_host = geo.num_layers * 8 * geo.host_pages * per_page
+    total = torch.cuda.get_device_properties(0).total_memory
+    log(f"{name}: weights {weights / 1e9:.2f} GB of the card's "
+        f"{total / 1e9:.2f} GB; KV {kv_card / 1e9:.2f} GB on the card + "
+        f"{kv_host / 1e9:.2f} GB in the host tier")
+    what = f"serve {name}{' overlap' if overlap else ''}"
+    counts, numbers = serve_phase(model, params, seed, overlap=overlap,
+                                  what=what)
+    numbers.update(weight_bytes=weights, kv_card_bytes=kv_card,
+                   kv_host_bytes=kv_host, card_bytes=total)
+    if numbers["peak_bytes"] < weights + kv_card:
+        raise AssertionError(f"{what}: peak memory under weights + KV")
+    del model, params
+    free_card()
+    return counts, numbers
+
+
+#: phase 10: (architecture, prompt tokens) of each single stream at B=4
+SINGLE_STREAMS = (("stablelm-12b", 2304), ("granite-8b", 2304),
+                  ("internvl2-2b", 2048), ("whisper-tiny", 64))
+
+
+def single_stream_phase(seed):
+    """Phase 10: `start` + `generate(32)` of 4 prompts at the published
+    widths of each of SINGLE_STREAMS (vlm: plus 256 patch embeddings,
+    encdec: over 1500 frame embeddings, from `seed`), then
+    `score_headroom` on the internvl2 and whisper streams. Returns the
+    launches by stream and path, and the numbers."""
+    import torch
+    from repro_torch.core.sa import SAConfig
+    from repro_torch.core.tiers import H100
+    from repro_torch.kernels.build import COUNTS
+    from repro_torch.serving import trace_bridge
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    B, steps = 4, 32
+    launches, numbers = {}, {}
+
+    def counted(fn):
+        COUNTS.clear()                      # the main path's run only
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.time() - t0, dict(COUNTS)
+
+    for name, S in SINGLE_STREAMS:
+        free_card()
+        model, params = full_width(seed, name)
+        cfg = model.cfg
+        rng = np.random.default_rng(seed + 1)
+        prompts = torch.as_tensor(rng.integers(0, cfg.vocab, (B, S)),
+                                  dtype=torch.int32, device="cuda")
+        extra = family_extra(cfg, rng, B)
+        scored = cfg.family in ("vlm", "encdec")
+        eng = ServingEngine(model, params, EngineConfig(
+            max_context=4096, hbm_fraction=0.25, policy="importance",
+            telemetry_stride=16, spec=H100, trace_telemetry=scored))
+        torch.cuda.reset_peak_memory_stats()
+        logits, t_start, c_start = counted(
+            lambda: eng.start(prompts, extra=extra))
+        first = logits.argmax(-1).to(torch.int32)
+        toks, t_dec, c_dec = counted(lambda: eng.generate(first, steps))
+        peak = torch.cuda.max_memory_allocated()
+        summ = eng.summary()
+        L = cfg.num_layers
+        # whole-prompt prefill: one flash launch per attention (encdec:
+        # encoder self, decoder self and cross); decode: two paged
+        # launches per layer, and encdec's cross-attention, one flash
+        # launch per layer
+        if cfg.family == "encdec":
+            want = {"start": (cfg.encdec.enc_layers + 2 * L, 0),
+                    "generate": (L * steps, 2 * L * steps)}
+        else:
+            want = {"start": (L, 0), "generate": (0, 2 * L * steps)}
+        got = {path: (c.get("flash_attention", 0),
+                      c.get("paged_attention", 0))
+               for path, c in (("start", c_start), ("generate", c_dec))}
+        state = eng.state["kv"] if isinstance(eng.state, dict) else eng.state
+        line = (f"single stream {name} ({cfg.family}, head_dim "
+                f"{cfg.head_dim}, G={cfg.q_per_kv}): start {t_start:.3f} s "
+                f"(B={B}, {S} tokens"
+                f"{f' + {cfg.frontend.num_embeddings} patches' if cfg.family == 'vlm' else ''}"
+                f"{f' over {cfg.frontend.num_embeddings} frames' if cfg.family == 'encdec' else ''}), "
+                f"decode {B * steps / t_dec:.1f} tokens/s ({t_dec:.2f} s for "
+                f"{steps} steps), mean HBM hit rate "
+                f"{summ['mean_hbm_hit_rate']:.4f}, launches start flash "
+                f"{got['start'][0]} paged {got['start'][1]}, generate flash "
+                f"{got['generate'][0]} paged {got['generate'][1]}, peak "
+                f"memory {peak / 1e9:.2f} GB, cache length "
+                f"{state.length.tolist()}")
+        log(line)
+        if got != want:
+            raise AssertionError(f"single stream {name}: (flash, paged) "
+                                 f"launches {got}, expected {want}")
+        if tuple(logits.shape) != (B, cfg.vocab) or \
+                not bool(torch.isfinite(logits).all()) or \
+                tuple(toks.shape) != (steps, B):
+            raise AssertionError(f"single stream {name}: logits "
+                                 f"{tuple(logits.shape)}, tokens "
+                                 f"{tuple(toks.shape)}")
+        n = numbers[name] = {"start_s": t_start,
+                             "decode_tokens_per_s": B * steps / t_dec,
+                             "hit_rate": summ["mean_hbm_hit_rate"],
+                             "peak_bytes": peak}
+        if scored:
+            t = time.time()
+            score = trace_bridge.score_headroom(
+                trace_bridge.collect(eng), H100,
+                sa_cfg=SAConfig(max_evaluations=12, iters_per_level=4,
+                                seed=0))
+            n.update(score=score, score_s=time.time() - t)
+            log(f"single stream {name}: score_headroom live_hit_fraction "
+                f"{score['live_hit_fraction']:.4f} bound_fraction "
+                f"{score['bound_fraction']:.4f} headroom_vs_static "
+                f"{score['headroom_vs_static']:.4f}, scoring "
+                f"{n['score_s']:.2f} s")
+            if not all(math.isfinite(v) for v in score.values()):
+                raise AssertionError(f"single stream {name}: score {score}")
+        launches[name] = {"start": c_start, "generate": c_dec}
+        del eng, logits, params, model, state
+        free_card()
+    return launches, numbers
+
+
 def _leaves(tree):
     for v in tree.values():
         yield from (_leaves(v) if isinstance(v, dict) else [v])
@@ -1359,6 +1664,24 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def wgmma_spills(report: str):
+    """{head dim: (spill store bytes, spill load bytes)} of each
+    instance of the flash kernel's tensor-core body in ptxas' report."""
+    import re
+    out, current = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '\S*flash_wgmma_kernelILi"
+                      r"(\d+)E", line)
+        if "Compiling entry function" in line:
+            current = int(m.group(1)) if m else None
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and current is not None:
+            out[current] = (int(m.group(1)), int(m.group(2)))
+            current = None
+    return out
 
 
 def main(argv=None) -> int:
@@ -1399,6 +1722,12 @@ def main(argv=None) -> int:
         for line in report.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"  {name}: {line.strip()}")
+    spills = wgmma_spills(built["flash_attention"][1])
+    log(f"build: flash_wgmma_kernel spill bytes (stores, loads) by head "
+        f"dim: {spills}")
+    if not spills or any(any(v) for v in spills.values()):
+        raise AssertionError(f"the flash kernel's tensor-core bodies spill "
+                             f"registers: {spills}")
 
     rng = np.random.default_rng(args.seed)
     device = torch.device("cuda")
@@ -1411,6 +1740,7 @@ def main(argv=None) -> int:
     phase("faults overlap", lambda: faulted_parity_phase(args.seed,
                                                          overlap=True))
     phase("moe parity", lambda: moe_parity_phase(args.seed))
+    phase("family parity", lambda: family_parity_phase(args.seed))
     phase("stream", lambda: stream_parity_phase(args.seed))
     model, params = phase("model", lambda: full_width(args.seed))
     serve, inline = phase("serve", lambda: serve_phase(
@@ -1425,6 +1755,12 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     moe, moe_numbers = phase("moe", lambda: moe_phase(args.seed))
+    llama, _ = phase("llama31-8b", lambda: big_serve_phase(
+        "llama31-8b", args.seed))
+    qwen, _ = phase("qwen3-32b", lambda: big_serve_phase(
+        "qwen3-32b", args.seed, overlap=True))
+    streams, _ = phase("single streams", lambda: single_stream_phase(
+        args.seed))
     log(f"all phases: {time.time() - t_all:.1f} s wall")
 
     # one inline internlm2 decode layer: the HBM-tier (N=64) + host-tier
@@ -1434,7 +1770,10 @@ def main(argv=None) -> int:
              and s["model"] == "internlm2-1.8b"]
     paths = {"serve": serve, "serve_overlap": overlap,
              "policy_sweep": sweep, "serve_faulted": faulted,
-             "moe_serve": moe["serve"], "moe_generate": moe["generate"]}
+             "moe_serve": moe["serve"], "moe_generate": moe["generate"],
+             "llama31_serve": llama, "qwen3_serve_overlap": qwen,
+             **{f"{name}_generate": c["generate"]
+                for name, c in streams.items()}}
     paged_by_path = {k: c.get("paged_attention", 0)
                      for k, c in paths.items()}
     paged = {
@@ -1477,15 +1816,18 @@ def main(argv=None) -> int:
         if dead:
             raise AssertionError(f"{entry['name']} never launched on "
                                  f"{dead}")
+    flash_by_path = {"policy_sweep": sweep["flash_attention"],
+                     "moe_start": moe["start"].get("flash_attention", 0),
+                     **{f"{name}_start": c["start"].get("flash_attention", 0)
+                        for name, c in streams.items()},
+                     "whisper-tiny_generate": streams["whisper-tiny"][
+                         "generate"].get("flash_attention", 0)}
     flash_entry = {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:71",
-        "launches": sweep["flash_attention"]
-        + moe["start"].get("flash_attention", 0),
-        "launches_by_path": {"policy_sweep": sweep["flash_attention"],
-                             "moe_start": moe["start"].get(
-                                 "flash_attention", 0)},
+        "launches": sum(flash_by_path.values()),
+        "launches_by_path": flash_by_path,
         **flash,
     }
     dead = [k for k, n in flash_entry["launches_by_path"].items() if n == 0]

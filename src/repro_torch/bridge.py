@@ -4,24 +4,30 @@ Everything crosses as numpy arrays, so this module imports no JAX: a
 caller turns a reference pytree into numpy first
 (`jax.device_get(Model(cfg).init(key))`). bfloat16 arrays (numpy's
 `ml_dtypes` extension type) cross through float32, which is exact.
+Every function that makes tensors puts them on `device`, by default
+the CUDA card (`resolve_device`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Union
 
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.kvcache.paged import PagedKVCache
 from repro_torch.models.config import ModelConfig
 
 CACHE_FIELDS = tuple(f.name for f in dataclasses.fields(PagedKVCache))
+_POOLS = ("k_hbm", "v_hbm", "k_host", "v_host")
 
 
-def to_torch(a, dtype=None, device="cpu") -> torch.Tensor:
-    """A numpy array (bfloat16 included) as a torch tensor."""
+def to_torch(a, dtype=None, device=None) -> torch.Tensor:
+    """A numpy array (bfloat16 included) as a torch tensor on `device`
+    (default: the CUDA card)."""
+    device = resolve_device(device)
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
@@ -41,11 +47,16 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
-                    device="cpu") -> Dict[str, Any]:
-    """The reference's parameter tree of a dense or moe model (nested
-    dict of numpy arrays; a moe tree of either interleave) as the
-    port's parameters, cast to `cfg.param_dtype`. The layouts are the
-    same, so this is a per-leaf conversion."""
+                    device=None) -> Dict[str, Any]:
+    """The reference's parameter tree (nested dict of numpy arrays) as
+    the port's parameters on `device` (default: the CUDA card), cast to
+    `cfg.param_dtype`. The layouts are the same for every ported family
+    — dense and vlm (one layout), moe of either interleave, and encdec
+    (`enc_layers` / `dec_layers` with their layer norms' weights and
+    biases, `self_attn` / `cross_attn`, `enc_pos` / `dec_pos`) — so this
+    is a per-leaf conversion."""
+    device = resolve_device(device)
+
     def conv(node):
         if isinstance(node, dict):
             return {k: conv(v) for k, v in node.items()}
@@ -53,18 +64,28 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
     return conv(tree)
 
 
-def cache_from_numpy(arrays: Dict[str, Any], device="cpu",
-                     pool_dtype=None) -> PagedKVCache:
-    """A `PagedKVCache` from a dict of numpy arrays keyed by the field
-    names the reference's `PagedKVCache` uses."""
+def cache_from_numpy(arrays: Dict[str, Any], device=None, pool_dtype=None
+                     ) -> Union[PagedKVCache, Dict[str, Any]]:
+    """A decode state from numpy arrays on `device` (default: the CUDA
+    card): a `PagedKVCache` from a dict keyed by the field names the
+    reference's `PagedKVCache` uses, or an encdec state
+    {"kv": that dict, "enc": encoder output [B, F, d]} as
+    {"kv": PagedKVCache, "enc": tensor}."""
+    device = resolve_device(device)
+    if "kv" in arrays:
+        return {"kv": cache_from_numpy(arrays["kv"], device, pool_dtype),
+                "enc": to_torch(arrays["enc"], device=device)}
     out = {}
     for name in CACHE_FIELDS:
-        dtype = pool_dtype if name in ("k_hbm", "v_hbm", "k_host",
-                                       "v_host") else None
+        dtype = pool_dtype if name in _POOLS else None
         out[name] = to_torch(arrays[name], dtype, device)
     return PagedKVCache(**out)
 
 
-def cache_to_numpy(cache: PagedKVCache) -> Dict[str, np.ndarray]:
-    """The cache's fields as numpy arrays, keyed by field name."""
-    return {name: to_numpy(getattr(cache, name)) for name in CACHE_FIELDS}
+def cache_to_numpy(state) -> Dict[str, Any]:
+    """A decode state as numpy: a cache's fields keyed by field name, or
+    an encdec state's {"kv": those, "enc": the encoder output}."""
+    if isinstance(state, dict):
+        return {"kv": cache_to_numpy(state["kv"]),
+                "enc": to_numpy(state["enc"])}
+    return {name: to_numpy(getattr(state, name)) for name in CACHE_FIELDS}

@@ -50,6 +50,13 @@
 //    (700 W) at the prefill shape above: 0.296 ms, 294 TFLOP/s — 3.4x
 //    the bound, 1.75x the 0.169 ms of scaled_dot_product_attention
 //    (PERF.md).
+//    Head dims 16, 32, 64, 128 and 160. A head dim above 64 that is not
+//    a multiple of 64 (160: stablelm-12b) is held in a shared tile
+//    padded to the next multiple (192): TMA fills the third 64-column
+//    box's columns past D with zeros, Q's tail is never read (the
+//    products of Q.K^T step over the D real columns only), and O.V
+//    runs over all 192 columns (m64n128k16 + m64n64k16), whose last 32
+//    stay zero and are not stored.
 //  * f32: products on the CUDA cores by FMA (no TF32): the
 //    card-vs-CPU parity of the single-stream path needs full-f32
 //    products. q/K/V tiles widened to f32 in shared memory, each thread
@@ -149,7 +156,8 @@ flash_fma_kernel(const E* __restrict__ q, const E* __restrict__ k,
   constexpr int DS = D + kPad;          // shared row stride of q, k, v
   constexpr int PS = kKB + kPad;        // shared row stride of p
   constexpr int DC = D / 16;            // output columns per thread
-  constexpr int VW = DC < 4 ? DC : 4;   // their vector width
+  // their vector width: 4, or what divides DC (2 at D = 160)
+  constexpr int VW = DC % 4 == 0 ? 4 : DC % 2 == 0 ? 2 : 1;
 
   extern __shared__ __align__(16) float smem[];
   float* q_s = smem;
@@ -387,11 +395,18 @@ __device__ inline void tma_load(uint32_t dst, const CUtensorMap* map, int c0,
       : "memory");
 }
 
+// The width of the shared tiles of head dim D: D up to 64, else D
+// rounded up to whole 64-column (128-byte) swizzle blocks.
+template <int D>
+__host__ __device__ constexpr int padded() {
+  return D <= 64 ? D : (D + 63) / 64 * 64;
+}
+
 template <int D>
 __host__ __device__ constexpr size_t wg_smem_bytes() {
-  // q [kQBM][D] | k, v [kStages][kKBM][D], bf16 | an mbarrier per
+  // q [kQBM][DP] | k, v [kStages][kKBM][DP], bf16 | an mbarrier per
   // stage | slack to start the tiles on 1024 bytes
-  return sizeof(bf16) * (size_t)D * (kQBM + 2 * kStages * kKBM) +
+  return sizeof(bf16) * (size_t)padded<D>() * (kQBM + 2 * kStages * kKBM) +
          8 * kStages + 1024;
 }
 
@@ -545,21 +560,39 @@ __device__ inline void wgmma_rs(float* d, const uint32_t* a, uint64_t db) {
   if constexpr (N == 128) wgmma_rs_n128(d, a, db);
 }
 
+// d (64 x DP) += A . B over V's tile of DP columns: one product of
+// N = DP up to 128, else (DP = 192) N = 128 over the first two 64-column
+// blocks and N = 64 over the third, whose descriptor starts two column
+// blocks (`block` bytes each) further.
+template <int DP>
+__device__ inline void wgmma_rs_tile(float* d, const uint32_t* a,
+                                     uint64_t db, uint32_t block) {
+  if constexpr (DP <= 128) {
+    wgmma_rs<DP>(d, a, db);
+  } else {
+    static_assert(DP == 192, "tiles of 192 columns at most");
+    wgmma_rs<128>(d, a, db);
+    wgmma_rs<64>(d + 64, a, db + ((2 * block) >> 4));
+  }
+}
+
 template <int D>
 __global__ void __launch_bounds__(kWgThreads)
 flash_wgmma_kernel(const bf16* __restrict__ q, bf16* __restrict__ out,
                    Shape s, const __grid_constant__ CUtensorMap tmk,
                    const __grid_constant__ CUtensorMap tmv) {
-  constexpr int KS = D / 16;    // k-steps of Q.K^T
-  constexpr int DT = D / 8;     // 8-column tiles of O
-  constexpr int kTile = kKBM * D * (int)sizeof(bf16);
+  constexpr int DP = padded<D>();   // shared tile width (D, or 192)
+  constexpr int KS = D / 16;       // k-steps of Q.K^T (real columns)
+  constexpr int DT = D / 8;        // 8-column tiles of O that are stored
+  constexpr int DTP = DP / 8;      // ... and that are computed
+  constexpr int kTile = kKBM * DP * (int)sizeof(bf16);
   constexpr int kRowB = D * 2 < 128 ? D * 2 : 128;   // swizzle row bytes
   constexpr uint32_t kLayout = kRowB == 128 ? 1 : kRowB == 64 ? 2 : 3;
 
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   // tiles start on 1024 bytes, as the swizzle modes want
   const uint32_t q_s = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t k_s = q_s + kQBM * D * (int)sizeof(bf16);
+  const uint32_t k_s = q_s + kQBM * DP * (int)sizeof(bf16);
   const uint32_t v_s = k_s + kStages * kTile;
   const uint32_t full = v_s + kStages * kTile;   // mbarrier per stage
 
@@ -580,7 +613,8 @@ flash_wgmma_kernel(const bf16* __restrict__ q, bf16* __restrict__ out,
   const int n_tiles = (k_end + kKBM - 1) / kKBM;
 
   // the ring: tile i lives in stage i % kStages; thread 0 issues each
-  // tile's K and V boxes by TMA onto the stage's mbarrier
+  // tile's K and V boxes by TMA onto the stage's mbarrier (DP / 64
+  // boxes each: a box past D arrives zero-filled, and counts in full)
   auto issue = [&](int i) {
     if (threadIdx.x != 0) return;
     const int st = i % kStages;
@@ -610,9 +644,9 @@ flash_wgmma_kernel(const bf16* __restrict__ q, bf16* __restrict__ out,
   // 8 n + 2 t and 8 n + 2 t + 1 of each 8-column block n
   const int qi0 = q0 + warp * 16 + g;
 
-  float o[DT * 4];
+  float o[DTP * 4];
 #pragma unroll
-  for (int i = 0; i < DT * 4; ++i) o[i] = 0.f;
+  for (int i = 0; i < DTP * 4; ++i) o[i] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 
   for (int it = 0; it < n_tiles; ++it) {
@@ -685,7 +719,7 @@ flash_wgmma_kernel(const bf16* __restrict__ q, bf16* __restrict__ out,
       }
     }
 #pragma unroll
-    for (int n = 0; n < DT; ++n) {
+    for (int n = 0; n < DTP; ++n) {
       o[4 * n] *= corr[0]; o[4 * n + 1] *= corr[0];
       o[4 * n + 2] *= corr[1]; o[4 * n + 3] *= corr[1];
     }
@@ -701,17 +735,17 @@ flash_wgmma_kernel(const bf16* __restrict__ q, bf16* __restrict__ out,
       pack_p(sc[8 * j + 4], sc[8 * j + 5], ph[j][2], pl[j][2]);
       pack_p(sc[8 * j + 6], sc[8 * j + 7], ph[j][3], pl[j][3]);
     }
-    reg_fence<DT * 4>(o);
+    reg_fence<DTP * 4>(o);
     wg_fence();
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const uint64_t dv = gmma_desc(vt + j * 16 * kRowB, kKBM * kRowB,
                                     8 * kRowB, kLayout);
-      wgmma_rs<D>(o, ph[j], dv);
-      wgmma_rs<D>(o, pl[j], dv);
+      wgmma_rs_tile<DP>(o, ph[j], dv, kKBM * kRowB);
+      wgmma_rs_tile<DP>(o, pl[j], dv, kKBM * kRowB);
     }
     wg_commit_wait();
-    reg_fence<DT * 4>(o);
+    reg_fence<DTP * 4>(o);
   }
 
   // out [B, Sq, H, D], contiguous; the quad holds each row's sum
@@ -774,7 +808,8 @@ EncodeTiled encode_tiled() {
 
 // The TMA map of a [B, S, KH, D] bf16 tensor with the given element
 // strides, as 4-D {D, KH, S, B}: boxes of kKBM rows by min(D, 64)
-// columns, swizzled as `swz` reads them; rows past S read as zeros.
+// columns, swizzled as `swz` reads them; rows past S, and columns past
+// D of a box that crosses it (D = 160), read as zeros.
 template <int D>
 bool kv_map(CUtensorMap* map, const void* base, int B, int S, int KH,
             long long sb, long long ss, long long sh) {
@@ -827,7 +862,7 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v,
 // 1 = bfloat16 (q, k, v and out share it). q is [B, Sq, H, D], k and v
 // [B, Sk, KH, D], each with the given element strides of its first
 // three dims and a contiguous last dim; out is a contiguous
-// [B, Sq, H, D]. KH divides H; D is 16, 32, 64 or 128. Returns a
+// [B, Sq, H, D]. KH divides H; D is 16, 32, 64, 128 or 160. Returns a
 // cudaError_t.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* out, int B, int Sq,
@@ -845,6 +880,7 @@ extern "C" int flash_attention_launch(
     case 32: return (int)launch<32>(dtype, q, k, v, out, s, st);
     case 64: return (int)launch<64>(dtype, q, k, v, out, s, st);
     case 128: return (int)launch<128>(dtype, q, k, v, out, s, st);
+    case 160: return (int)launch<160>(dtype, q, k, v, out, s, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

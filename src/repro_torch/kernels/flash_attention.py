@@ -19,8 +19,8 @@ import torch
 from repro_torch.kernels.build import COUNTS, library
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-#: head dims the kernel is instantiated for
-HEAD_DIMS = (16, 32, 64, 128)
+#: head dims the kernel is instantiated for (160 in a tile padded to 192)
+HEAD_DIMS = (16, 32, 64, 128, 160)
 
 
 @functools.lru_cache(maxsize=1)
@@ -69,7 +69,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"k must be [B, Sk, KH, D], got {tuple(k.shape)}")
     Sk, KH = k.shape[1], k.shape[2]
     if D not in HEAD_DIMS:
-        raise ValueError(f"head_dim {D} not in {HEAD_DIMS}")
+        raise ValueError(f"head_dim {D} not in {HEAD_DIMS}: the kernel is "
+                         f"not instantiated for it")
     if min(B, Sq, Sk, KH) < 1 or H % KH:
         raise ValueError(f"need B, Sq, Sk >= 1 and KH ({KH}) dividing H "
                          f"({H}), got q {tuple(q.shape)} k "

@@ -26,6 +26,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kvcache.paged import NO_SLOT, PagedKVCache
 
@@ -54,14 +55,19 @@ class MigrationPlan:
     dem_logical: torch.Tensor
 
     @classmethod
-    def empty(cls, capacity: int, device="cpu") -> "MigrationPlan":
+    def empty(cls, capacity: int, device=None) -> "MigrationPlan":
+        """An all-sentinel plan on `device` (default: the CUDA card)."""
+        device = resolve_device(device)
         return cls(*[torch.full((capacity,), -1, dtype=torch.int32,
                                 device=device) for _ in _FIELDS])
 
     @classmethod
     def build(cls, capacity: int, promotes, demotes,
-              device="cpu") -> "MigrationPlan":
-        """promotes/demotes: iterables of (layer, batch, src, dst, logical)."""
+              device=None) -> "MigrationPlan":
+        """promotes/demotes: iterables of (layer, batch, src, dst,
+        logical); the plan on `device` (default: the CUDA card)."""
+        device = resolve_device(device)
+
         def pack(rows):
             arr = np.full((capacity, 5), -1, np.int32)
             rows = list(rows)[:capacity]

@@ -44,6 +44,7 @@ import dataclasses
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.kernels import ops
 
 NO_SLOT = -1
@@ -137,12 +138,13 @@ class PagedKVCache:
         return hl, hv, el, ev
 
 
-def init_cache(geo: CacheGeometry, device="cpu",
+def init_cache(geo: CacheGeometry, device=None,
                host_pinned: bool = False) -> PagedKVCache:
-    """A fresh all-free cache for `geo` on `device`. With `host_pinned`
-    and a CUDA `device`, the host pools are zeroed pinned CPU tensors
-    (the overlap-mode placement); on the CPU they are plain CPU
-    tensors either way."""
+    """A fresh all-free cache for `geo` on `device` (default: the CUDA
+    card). With `host_pinned` and a CUDA `device`, the host pools are
+    zeroed pinned CPU tensors (the overlap-mode placement); on the CPU
+    they are plain CPU tensors either way."""
+    device = resolve_device(device)
     L, B, T = geo.num_layers, geo.batch, geo.page_tokens
     kh, hd = geo.kv_heads, geo.head_dim
     shape_h = (L, B, geo.hbm_pages, T, kh, hd)
@@ -150,7 +152,7 @@ def init_cache(geo: CacheGeometry, device="cpu",
     pool = dict(dtype=geo.dtype, device=device)
     i32 = dict(dtype=torch.int32, device=device)
     host = pool
-    if host_pinned and torch.device(device).type == "cuda":
+    if host_pinned and device.type == "cuda":
         host = dict(dtype=geo.dtype, device="cpu", pin_memory=True)
     return PagedKVCache(
         k_hbm=torch.zeros(shape_h, **pool),

@@ -1,7 +1,8 @@
 """Architecture configuration (the port's copy, torch dtypes).
 
-Only the fields the dense and moe families read are kept; the other
-families' sub-configs arrive with their slices of the port.
+The fields the dense, moe, vlm and encdec families read are kept; the
+recurrent families' sub-configs (ssm, xlstm) arrive with their slices
+of the port.
 """
 
 from __future__ import annotations
@@ -38,9 +39,26 @@ class MoEConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class EncDecConfig:
+    enc_layers: int
+    #: encoder input length (frames after the stubbed conv frontend)
+    enc_positions: int = 1500
+    #: learned decoder position table size (>= longest decode shape)
+    dec_positions: int = 40960
+
+
+@dataclasses.dataclass(frozen=True)
+class FrontendStub:
+    """Modality frontend stub: the caller provides precomputed frame or
+    patch embeddings of shape [batch, num_embeddings, d_model]."""
+    kind: str                    # "audio" | "vision"
+    num_embeddings: int          # frames or patches
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                  # dense | moe (the others in later slices)
+    family: str                  # dense | moe | vlm | encdec (others later)
     num_layers: int
     d_model: int
     num_heads: int
@@ -55,6 +73,8 @@ class ModelConfig:
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.bfloat16
     moe: Optional[MoEConfig] = None
+    encdec: Optional[EncDecConfig] = None
+    frontend: Optional[FrontendStub] = None
     #: KV page size in tokens for the two-tier paged cache
     kv_page_tokens: int = 16
     #: the tokenizer's end-of-sequence id (None = budget-only stops)
@@ -77,6 +97,6 @@ class ModelConfig:
         return self.num_heads // self.kv_heads
 
     def attention_layer_ids(self) -> Tuple[int, ...]:
-        """Layers that own a KV cache (every layer of a dense or moe
-        model)."""
+        """Layers that own a KV cache (every layer of a dense, moe or vlm
+        model; every decoder layer of an encdec one)."""
         return tuple(range(self.num_layers))

@@ -1,5 +1,5 @@
-"""Layer ops of the dense family (the port of the reference's
-`models/layers.py`): plain functions on tensors, with the reference's
+"""Layer ops of the dense, vlm and encdec families (the port of the
+reference's `models/layers.py`): plain functions on tensors, with the reference's
 precision choices kept — `rms_norm` casts back to the model dtype
 before the weight multiply, and attention logits are taken in the
 input dtype, then f32. On the card, whole-sequence `attention` runs
@@ -21,6 +21,18 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor,
     x = x.float()
     var = x.square().mean(dim=-1, keepdim=True)
     return (x * torch.rsqrt(var + eps)).to(dtype) * w
+
+
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm with the reference's precision: statistics in f32
+    (population variance), cast back before the affine."""
+    dtype = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = x.var(dim=-1, keepdim=True, unbiased=False)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return y.to(dtype) * w + b
 
 
 # --- RoPE -------------------------------------------------------------------
@@ -51,6 +63,16 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     g = x @ w_gate
     u = x @ w_up
     return (torch.nn.functional.silu(g) * u) @ w_down
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """`jax.nn.gelu`'s default: the tanh approximation."""
+    return torch.nn.functional.gelu(x, approximate="tanh")
+
+
+def gelu_mlp(x: torch.Tensor, w_in: torch.Tensor,
+             w_out: torch.Tensor) -> torch.Tensor:
+    return gelu(x @ w_in) @ w_out
 
 
 # --- attention (full-sequence paths: prefill) -------------------------------

@@ -1,21 +1,29 @@
-"""Model facade (the port of the reference's `models/model.py`, dense and
-moe families).
+"""Model facade (the port of the reference's `models/model.py`: the
+dense, moe, vlm and encdec families).
 
 `Model(cfg)` exposes:
   schema() / init(seed_or_generator, device)   parameters
   cache_geometry(batch, max_context, ...)       paged-cache geometry
-  prefill(params, tokens, geo)                  logits + PagedKVCache
-  prefill_chunk(params, cache, tokens, start, n_valid)
-  decode_step(params, cache, token, write_slot=..., ...)
+  prefill(params, tokens, geo, extra=None)      logits + decode state
+  prefill_chunk(params, cache, tokens, start, n_valid)   dense, moe
+  decode_step(params, state, token, write_slot=..., ...)
 
-Both families run one decoder (`transformer.decoder_*`) over a list of
-(attention weights, FFN) blocks, one per cache layer. A moe model's
+The decode state is a `PagedKVCache`, or for encdec {"kv": the
+decoder's self-attention cache, "enc": the encoder output [B, F, d]}.
+The dense, moe and vlm families run one decoder
+(`transformer.decoder_*`) over a list of (attention weights, FFN)
+blocks, one per cache layer; vlm is the dense decoder over the patch
+embeddings (`extra["patch_embeds"]` [B, num_embeddings, d]) followed by
+the token embeddings, so its prompt length counts the patches. encdec
+is whisper's encoder over `extra["frame_embeds"]` [B, F, d] and a
+decoder whose self-attention is paged and whose cross-attention is
+dense over the encoder output (`transformer.encdec_*`). A moe model's
 FFN is `moe.moe_block` on every layer (interleave 1) or a dense MLP and
 a moe block alternating (interleave 2: the reference's superblocks,
 cache layers ordered [dense0, moe0, dense1, moe1, ...]). Because its
 routing groups every row it is given, a moe model runs every lane
 through each decode step and prefill chunk (`all_lanes`), as the
-reference does. The other families arrive with their slices of the
+reference does. The recurrent families arrive with their slices of the
 port.
 """
 
@@ -34,11 +42,11 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import Param, init_params
 
-FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "moe", "vlm", "encdec")
 
-_LATER = ("family {fam!r} is not ported yet; the port covers 'dense' and "
-          "'moe' (the other families follow in later slices, ROADMAP.md "
-          "queue 1)")
+_LATER = ("family {fam!r} is not ported yet; the port covers 'dense', "
+          "'moe', 'vlm' and 'encdec' (the other families follow in later "
+          "slices, ROADMAP.md queue 1)")
 
 
 class Model:
@@ -51,8 +59,11 @@ class Model:
         self.cfg = cfg
 
     def schema(self):
-        if self.cfg.family == "dense":
+        fam = self.cfg.family
+        if fam in ("dense", "vlm"):
             return tfm.dense_schema(self.cfg)
+        if fam == "encdec":
+            return tfm.encdec_schema(self.cfg)
         return self._moe_schema()
 
     def _moe_schema(self):
@@ -78,9 +89,10 @@ class Model:
         return s
 
     def blocks(self, params):
-        """(attention weights, FFN) per cache layer, in cache order."""
+        """(attention weights, FFN) per cache layer, in cache order (the
+        dense, vlm and moe families)."""
         cfg = self.cfg
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "vlm"):
             return tfm.dense_blocks(params, cfg)
         layers = params["layers"]
 
@@ -128,29 +140,57 @@ class Model:
             head_dim=cfg.head_dim, page_tokens=cfg.kv_page_tokens,
             hbm_fraction=hbm_fraction, pad_to=pad_to, dtype=cfg.dtype)
 
-    def prefill(self, params, tokens, geo: CacheGeometry):
-        """Whole-prompt prefill: (last-position logits [B, V], cache)."""
-        logits, (k, v) = tfm.decoder_forward(params, self.cfg, tokens,
-                                             self.blocks(params))
-        cache = prefill_cache(geo, k, v, tokens.shape[1])
+    def prefill(self, params, tokens, geo: CacheGeometry, extra=None):
+        """Whole-prompt prefill: (last-position logits [B, V], decode
+        state). `extra`: {"patch_embeds"} (vlm) or {"frame_embeds"}
+        (encdec), tensors on the tokens' device."""
+        cfg = self.cfg
+        if cfg.family == "encdec":
+            logits, (k, v), enc = tfm.encdec_forward(
+                params, cfg, tokens, extra["frame_embeds"])
+            cache = prefill_cache(geo, k, v, tokens.shape[1])
+            return logits[:, -1], {"kv": cache, "enc": enc}
+        embeds, prompt = None, tokens.shape[1]
+        if cfg.family == "vlm":
+            patches = extra["patch_embeds"].to(cfg.dtype)
+            embeds = torch.cat(
+                [patches, tfm.embed_tokens(params, cfg, tokens)], dim=1)
+            prompt += cfg.frontend.num_embeddings
+        logits, (k, v) = tfm.decoder_forward(params, cfg, tokens,
+                                             self.blocks(params),
+                                             input_embeds=embeds)
+        cache = prefill_cache(geo, k, v, prompt)
         return logits[:, -1], cache
 
     def prefill_chunk(self, params, cache: PagedKVCache, tokens, start,
                       n_valid, end: Optional[int] = None):
         """Consume a [B, C] prompt slice directly into the paged cache;
-        see `transformer.decoder_prefill_chunk`."""
+        see `transformer.decoder_prefill_chunk`. Dense and moe only, as
+        in the reference."""
+        fam = self.cfg.family
+        if fam not in ("dense", "moe"):
+            raise NotImplementedError(
+                f"chunked prefill covers cache-backed families "
+                f"(dense/moe); family {fam!r} needs prefill extras or "
+                f"recurrent state")
         return tfm.decoder_prefill_chunk(
             params, self.cfg, cache, tokens, start, n_valid,
             self.blocks(params), end,
             all_lanes=self.cfg.family == "moe")
 
-    def decode_step(self, params, state: PagedKVCache, token, *,
+    def decode_step(self, params, state, token, *,
                     write_slot: Optional[torch.Tensor] = None,
                     logical_page_mask: Optional[torch.Tensor] = None,
                     active: Optional[torch.Tensor] = None,
                     pool_ready=None):
-        """One decode step; `write_slot` defaults to static placement.
-        `active`, `pool_ready`: see `transformer.decoder_decode_step`."""
+        """One decode step over `state` (a `PagedKVCache`, or encdec's
+        {"kv", "enc"}); `write_slot` defaults to static placement.
+        `active`, `pool_ready`: see `transformer.decoder_decode_step`
+        (encdec, which `serve` does not drive, takes `active` only).
+        Returns (logits [B, V], the new state)."""
+        if self.cfg.family == "encdec":
+            return self._encdec_decode_step(params, state, token, write_slot,
+                                            logical_page_mask, active)
         if write_slot is None:
             write_slot = default_write_slot(state)
         return tfm.decoder_decode_step(
@@ -158,6 +198,19 @@ class Model:
             self.blocks(params), logical_page_mask=logical_page_mask,
             active=active, pool_ready=pool_ready,
             all_lanes=self.cfg.family == "moe")
+
+    def _encdec_decode_step(self, params, state, token, write_slot,
+                            logical_page_mask=None, active=None):
+        """Decoder step: paged self-attention + dense cross-attention
+        over the encoder output. state: {"kv": PagedKVCache, "enc":
+        [B, F, d]}."""
+        cache = state["kv"]
+        if write_slot is None:
+            write_slot = default_write_slot(cache)
+        logits, cache = tfm.encdec_decode_step(
+            params, self.cfg, cache, state["enc"], token, write_slot,
+            logical_page_mask=logical_page_mask, active=active)
+        return logits, {"kv": cache, "enc": state["enc"]}
 
 
 def default_write_slot(cache: PagedKVCache) -> torch.Tensor:

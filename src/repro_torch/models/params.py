@@ -15,6 +15,8 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from repro_torch import resolve_device
+
 
 @dataclasses.dataclass(frozen=True)
 class Param:
@@ -25,12 +27,30 @@ class Param:
 
 Schema = Dict[str, Any]  # nested dict with Param leaves
 
+#: f32 bytes of a stacked leaf's draw past which `init_params` draws it
+#: one slice at a time: 8 GiB, a tenth of the card, so that every model
+#: up to granite-8b keeps its whole-leaf draws (stablelm-12b's and
+#: qwen3-32b's MLP leaves are sliced)
+SLICED_DRAW_BYTES = 8 << 30
+
 
 def init_params(schema: Schema, generator: torch.Generator,
-                dtype=torch.bfloat16, device="cpu") -> Dict[str, Any]:
-    """Concrete parameters for `schema`: ones/zeros as named, else
-    normal * scale with scale 0.02 for embeddings and 1/sqrt(fan_in)
-    otherwise (fan_in = the product of `fan_in_axes`, else dim 0)."""
+                dtype=torch.bfloat16, device=None) -> Dict[str, Any]:
+    """Concrete parameters for `schema` on `device` (default: the CUDA
+    card): ones/zeros as named, else normal * scale with scale 0.02 for
+    embeddings and 1/sqrt(fan_in) otherwise (fan_in = the product of
+    `fan_in_axes`, else dim 0).
+
+    A stacked leaf (3 or more dims) whose f32 draw would pass
+    `SLICED_DRAW_BYTES` is drawn one slice of its leading axis at a
+    time, in order, so the f32 temporary is one slice (0.5 GB for
+    qwen3-32b's `w_gate`, not its 33.5 GB). On the CPU this gives the
+    numbers of one whole draw: the generator fills 16 values at a time,
+    and each slice is a whole number of 16 (else the leaf is drawn
+    whole). On the card a sliced leaf's numbers differ from a whole
+    draw's (they are as fixed by the seed); every leaf under the limit
+    is drawn whole, with the numbers it always had."""
+    device = resolve_device(device)
     out = {}
     for key in sorted(schema):
         p = schema[key]
@@ -45,7 +65,19 @@ def init_params(schema: Schema, generator: torch.Generator,
                       if p.fan_in_axes else p.shape[0] if p.shape else 1)
             scale = 0.02 if p.init == "embed" else \
                 1.0 / math.sqrt(max(fan_in, 1))
-            w = torch.randn(p.shape, generator=generator,
-                            dtype=torch.float32, device=device)
-            out[key] = (w * scale).to(dtype)
+            if len(p.shape) >= 3 and math.prod(p.shape[1:]) % 16 == 0 \
+                    and 4 * math.prod(p.shape) > SLICED_DRAW_BYTES:
+                w = torch.empty(p.shape, dtype=dtype, device=device)
+                for i in range(p.shape[0]):
+                    w[i] = _normal(p.shape[1:], generator, scale, device)
+                out[key] = w
+            else:
+                out[key] = _normal(p.shape, generator, scale,
+                                   device).to(dtype)
     return out
+
+
+def _normal(shape, generator, scale, device) -> torch.Tensor:
+    """f32 normal draws of `shape`, times `scale`."""
+    return torch.randn(shape, generator=generator, dtype=torch.float32,
+                       device=device).mul_(scale)

@@ -1,5 +1,6 @@
-"""Decoder over the two-tier paged cache (the port of the dense part of
-the reference's `models/transformer.py`, shared with the moe family).
+"""Decoder over the two-tier paged cache (the port of the reference's
+`models/transformer.py`: the dense decoder, shared with the moe and vlm
+families, and whisper's encoder-decoder).
 
 Parameters are a nested dict of tensors in the reference's layout:
 per-layer weights stacked on a leading [L] dim (`params["layers"]`),
@@ -25,8 +26,8 @@ from repro_torch.kvcache.paged import (
 )
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
-    apply_rope, attention, prefix_chunk_attention, repeat_kv, rms_norm,
-    swiglu,
+    apply_rope, attention, gelu, layer_norm, prefix_chunk_attention,
+    repeat_kv, rms_norm, swiglu,
 )
 from repro_torch.models.params import Param
 
@@ -72,9 +73,47 @@ def dense_schema(cfg: ModelConfig):
     return s
 
 
-def layer_params(params, l: int):
-    """One layer's weights out of the stacked tree."""
-    return {k: v[l] for k, v in params["layers"].items()}
+def encdec_schema(cfg: ModelConfig):
+    """Whisper-style: LN with bias, GELU MLP, learned positions,
+    cross-attention."""
+    d, f = cfg.d_model, cfg.d_ff
+    Le = cfg.encdec.enc_layers
+    Ld = cfg.num_layers
+
+    def ln(L):
+        return {"w": Param((L, d), "ones"), "b": Param((L, d), "zeros")}
+
+    def attn(L):
+        base = attn_schema(cfg, L)
+        del base["attn_norm"]
+        return base
+
+    def mlp(L):
+        return {
+            "w_in": Param((L, d, f), fan_in_axes=(1,)),
+            "b_in": Param((L, f), "zeros"),
+            "w_out": Param((L, f, d), fan_in_axes=(1,)),
+            "b_out": Param((L, d), "zeros"),
+        }
+
+    return {
+        "embed": Param((cfg.vocab, d), "embed"),
+        "dec_pos": Param((cfg.encdec.dec_positions, d), "embed"),
+        "enc_pos": Param((cfg.encdec.enc_positions, d), "embed"),
+        "enc_layers": {"ln1": ln(Le), "attn": attn(Le), "ln2": ln(Le),
+                       "mlp": mlp(Le)},
+        "enc_final": {"w": Param((d,), "ones"), "b": Param((d,), "zeros")},
+        "dec_layers": {"ln1": ln(Ld), "self_attn": attn(Ld),
+                       "ln2": ln(Ld), "cross_attn": attn(Ld),
+                       "ln3": ln(Ld), "mlp": mlp(Ld)},
+        "dec_final": {"w": Param((d,), "ones"), "b": Param((d,), "zeros")},
+    }
+
+
+def layer_params(tree, l: int):
+    """Layer l's weights out of a stacked (nested) tree."""
+    return {k: layer_params(v, l) if isinstance(v, dict) else v[l]
+            for k, v in tree.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -123,7 +162,8 @@ def dense_blocks(params, cfg: ModelConfig):
     """(attention weights, FFN) per layer of a dense model."""
     def block(lp):
         return lp, lambda h, group_size=None: dense_mlp_block(h, lp, cfg)
-    return [block(layer_params(params, l)) for l in range(cfg.num_layers)]
+    return [block(layer_params(params["layers"], l))
+            for l in range(cfg.num_layers)]
 
 
 def embed_tokens(params, cfg: ModelConfig, tokens):
@@ -135,10 +175,14 @@ def unembed(params, cfg: ModelConfig, h):
     return h @ w
 
 
-def decoder_forward(params, cfg: ModelConfig, tokens, blocks):
-    """tokens [B,S] -> (logits [B,S,V], the post-RoPE (k, v) stacked
-    [L,B,S,KH,HD] for prefill cache population)."""
-    h = embed_tokens(params, cfg, tokens)
+def decoder_forward(params, cfg: ModelConfig, tokens, blocks,
+                    input_embeds: Optional[torch.Tensor] = None):
+    """tokens [B,S] (or `input_embeds` [B,S,d], which the vlm family
+    builds from patch and token embeddings) -> (logits [B,S,V], the
+    post-RoPE (k, v) stacked [L,B,S,KH,HD] for prefill cache
+    population)."""
+    h = embed_tokens(params, cfg, tokens) if input_embeds is None \
+        else input_embeds
     S = h.shape[1]
     positions = torch.arange(S, device=h.device)[None, :]
     ks, vs = [], []
@@ -210,6 +254,22 @@ def _bump_valid(valid, slot, offset, T, *, hbm: bool, hbm_pages: int):
     return out
 
 
+def paged_attend(q, pools, lists, slot, offset, cfg: ModelConfig):
+    """This step's query q [B, 1, H, HD] against one layer's two tiers,
+    the token just written at (slot, offset) counted valid: (o
+    [B, 1, H, HD], per-page importance) from the paged kernel on the
+    card."""
+    B = q.shape[0]
+    Ph, T = pools[0].shape[1], pools[0].shape[2]
+    hl, hv, el, ev = lists
+    qg = q[:, 0].reshape(B, cfg.kv_heads, cfg.q_per_kv, cfg.head_dim)
+    hv_new = _bump_valid(hv, slot, offset, T, hbm=True, hbm_pages=Ph)
+    ev_new = _bump_valid(ev, slot - Ph, offset, T, hbm=False, hbm_pages=Ph)
+    o, imp = ops.tiered_paged_attention(qg.contiguous(), *pools, hl, hv_new,
+                                        el, ev_new)
+    return o.reshape(B, 1, cfg.num_heads, cfg.head_dim), imp
+
+
 def _update_cache_after_step(cache, imp, write_slot):
     """Fold the step's importance stats into the cache and bump length
     (tables were already updated by allocate_token_page; pools in
@@ -249,7 +309,6 @@ def decoder_decode_step(params, cfg: ModelConfig, cache: PagedKVCache,
     """
     B = token.shape[0]
     T = cache.k_hbm.shape[3]
-    Ph = cache.k_hbm.shape[2]
     pos = cache.length                        # [B]
     offset = pos % T
     h = embed_tokens(params, cfg, token[:, None])    # [B,1,d]
@@ -275,15 +334,10 @@ def decoder_decode_step(params, cfg: ModelConfig, cache: PagedKVCache,
         else:
             write_token_layer(*pools, slot, offset, k[:, 0], v[:, 0],
                               active=active)
-        qg = q[:, 0].reshape(B, cfg.kv_heads, cfg.q_per_kv, cfg.head_dim)
-        hv_new = _bump_valid(hv[l], slot, offset, T, hbm=True, hbm_pages=Ph)
-        ev_new = _bump_valid(ev[l], slot - Ph, offset, T, hbm=False,
-                             hbm_pages=Ph)
-        o, imp = ops.tiered_paged_attention(
-            qg.contiguous(), *pools, hl[l], hv_new, el[l], ev_new)
+        o, imp = paged_attend(q, pools, (hl[l], hv[l], el[l], ev[l]), slot,
+                              offset, cfg)
         if put_back:
             write_token_layer(*pools, slot, offset, *old, active=~active)
-        o = o.reshape(B, 1, cfg.num_heads, cfg.head_dim)
         h = h + attn_out(o, lp)
         h = ffn(h, B)           # decode routes the B lanes as one group
         imps.append(imp)
@@ -404,4 +458,117 @@ def decoder_prefill_chunk(params, cfg: ModelConfig, cache: PagedKVCache,
         h = rms_norm(h, params["final_norm"], cfg.norm_eps)
         logits[lanes] = unembed(params, cfg, h).to(cfg.dtype)
     cache = allocate_prompt_pages(cache, pos, valid, n_valid)
+    return logits, cache
+
+
+# ---------------------------------------------------------------------------
+# Encoder-decoder (whisper)
+# ---------------------------------------------------------------------------
+
+def _ln(x, p, eps):
+    return layer_norm(x, p["w"], p["b"], eps)
+
+
+def _proj(x, w):
+    """x [B,S,d] through w [d,H,HD] -> [B,S,H,HD]."""
+    B, S, d = x.shape
+    return (x @ w.reshape(d, -1)).view(B, S, w.shape[1], w.shape[2])
+
+
+def _mlp(x, mp):
+    """The encdec MLP: GELU (tanh) between two biased projections."""
+    return gelu(x @ mp["w_in"] + mp["b_in"]) @ mp["w_out"] + mp["b_out"]
+
+
+def _encdec_attn(x_q, x_kv, lp, cfg: ModelConfig, *, causal: bool):
+    """Attention with no RoPE and no norm inside (the caller's LN):
+    whole-sequence `attention`, which runs the flash kernel on the card
+    (K/V with KH heads, read un-repeated)."""
+    q, k, v = _proj(x_q, lp["wq"]), _proj(x_kv, lp["wk"]), \
+        _proj(x_kv, lp["wv"])
+    return attn_out(attention(q, k, v, causal=causal), lp)
+
+
+def encoder_forward(params, cfg: ModelConfig, frames: torch.Tensor):
+    """frames: [B, F, d] precomputed frame embeddings (conv stub) ->
+    encoder output [B, F, d]."""
+    F = frames.shape[1]
+    h = frames.to(cfg.dtype) + params["enc_pos"][:F][None].to(cfg.dtype)
+    for l in range(cfg.encdec.enc_layers):
+        lp = layer_params(params["enc_layers"], l)
+        x = _ln(h, lp["ln1"], cfg.norm_eps)
+        h = h + _encdec_attn(x, x, lp["attn"], cfg, causal=False)
+        x = _ln(h, lp["ln2"], cfg.norm_eps)
+        h = h + _mlp(x, lp["mlp"])
+    return _ln(h, params["enc_final"], cfg.norm_eps)
+
+
+def encdec_cross_mlp(h, lp, enc, cfg: ModelConfig):
+    """A decoder layer after its self-attention: cross-attention over
+    the static encoder output (its K/V recomputed from `enc`, as the
+    reference does), then the MLP."""
+    x = _ln(h, lp["ln2"], cfg.norm_eps)
+    h = h + _encdec_attn(x, enc, lp["cross_attn"], cfg, causal=False)
+    x = _ln(h, lp["ln3"], cfg.norm_eps)
+    return h + _mlp(x, lp["mlp"])
+
+
+def encdec_forward(params, cfg: ModelConfig, tokens, enc_embeds):
+    """Teacher-forced decode over the encoder output. tokens [B,S] ->
+    (logits [B,S,V], the decoder's self-attention (k, v) stacked
+    [L,B,S,KH,HD], encoder output [B,F,d])."""
+    enc = encoder_forward(params, cfg, enc_embeds)
+    S = tokens.shape[1]
+    h = (params["embed"][tokens.long()]
+         + params["dec_pos"][:S][None]).to(cfg.dtype)
+    ks, vs = [], []
+    for l in range(cfg.num_layers):
+        lp = layer_params(params["dec_layers"], l)
+        sa = lp["self_attn"]
+        x = _ln(h, lp["ln1"], cfg.norm_eps)
+        q, k, v = _proj(x, sa["wq"]), _proj(x, sa["wk"]), _proj(x, sa["wv"])
+        h = h + attn_out(attention(q, k, v, causal=True), sa)
+        h = encdec_cross_mlp(h, lp, enc, cfg)
+        ks.append(k)
+        vs.append(v)
+    h = _ln(h, params["dec_final"], cfg.norm_eps)
+    return unembed(params, cfg, h), (torch.stack(ks), torch.stack(vs)), enc
+
+
+def encdec_decode_step(params, cfg: ModelConfig, cache: PagedKVCache,
+                       enc: torch.Tensor, token: torch.Tensor,
+                       write_slot: torch.Tensor, logical_page_mask=None,
+                       active=None) -> Tuple[torch.Tensor, PagedKVCache]:
+    """One decoder step: self-attention over the paged cache (the paged
+    kernel on the card, one launch per tier per layer, G = H / KH), then
+    dense cross-attention over the static encoder output `enc` and the
+    MLP. Arguments as `decoder_decode_step`'s. Returns (logits [B, V],
+    updated cache)."""
+    T = cache.k_hbm.shape[3]
+    pos = cache.length
+    offset = pos % T
+    cache = allocate_token_page(cache, write_slot)
+    logical_page_mask = mask_write_visible(cache, logical_page_mask)
+    hl, hv, el, ev = cache.tier_lists(logical_page_mask=logical_page_mask)
+    h = (params["embed"][token.long()]
+         + params["dec_pos"][pos.long()]).to(cfg.dtype)[:, None]
+    imps = []
+    for l in range(cfg.num_layers):
+        lp = layer_params(params["dec_layers"], l)
+        sa = lp["self_attn"]
+        slot = write_slot[l]
+        pools = (cache.k_hbm[l], cache.v_hbm[l], cache.k_host[l],
+                 cache.v_host[l])
+        x = _ln(h, lp["ln1"], cfg.norm_eps)
+        q, k, v = _proj(x, sa["wq"]), _proj(x, sa["wk"]), _proj(x, sa["wv"])
+        write_token_layer(*pools, slot, offset, k[:, 0], v[:, 0],
+                          active=active)
+        o, imp = paged_attend(q, pools, (hl[l], hv[l], el[l], ev[l]), slot,
+                              offset, cfg)
+        h = h + attn_out(o, sa)
+        h = encdec_cross_mlp(h, lp, enc, cfg)
+        imps.append(imp)
+    h = _ln(h, params["dec_final"], cfg.norm_eps)
+    logits = (h @ params["embed"].T)[:, 0]
+    cache = _update_cache_after_step(cache, torch.stack(imps), write_slot)
     return logits, cache

@@ -14,7 +14,9 @@ Drive modes:
   start/step/run/generate
                         single-stream: whole-prompt prefill (its
                         attention runs the hand-written flash-attention
-                        kernel on the card), then one decode step per
+                        kernel on the card; `extra` carries the vlm
+                        family's patch and the encdec family's frame
+                        embeddings), then one decode step per
                         call, a teacher-forced loop, or a greedy loop;
                         telemetry is read back once per
                         `telemetry_stride` steps. With
@@ -30,6 +32,8 @@ Drive modes:
                         prefill crosses prompt_len. Admission,
                         completion, deadlines and page reclaim happen at
                         boundaries every `telemetry_stride` steps.
+                        The dense and moe families only, as in the
+                        reference (vlm and encdec need prefill extras).
 
 Overlap mode (`EngineConfig.overlap_migrations`, serve only, as in
 the reference): the host pools live in pinned host memory on the card,
@@ -94,6 +98,18 @@ from repro_torch.serving.scheduler import (
 from repro_torch.serving.slo import SLOPolicy
 
 _LAUNCH_SLICE = "the port's launch slice (ROADMAP.md, queue 1)"
+
+
+def _get_cache(state) -> PagedKVCache:
+    """The paged cache of a decode state (encdec: its "kv")."""
+    return state if isinstance(state, PagedKVCache) else state["kv"]
+
+
+def _set_cache(state, cache):
+    """`state` with its paged cache replaced."""
+    if isinstance(state, PagedKVCache):
+        return cache
+    return {**state, "kv": cache}
 
 
 def _later(feature: str, where: str):
@@ -323,31 +339,38 @@ class ServingEngine:
         self._budget = control.migration_budget(
             geo, self.cfg.migration_budget_frac)
 
-    def start(self, prompts: torch.Tensor):
+    def start(self, prompts: torch.Tensor, extra=None):
         """Prefill `prompts` [B, S] into a fresh cache and return the
         last-position logits; resets the policy state and any captured
         trace. `self.stats` is kept, as the reference's code keeps it
-        (only `serve` resets it). The single-stream entry point for
+        (only `serve` resets it). `extra` (vlm: {"patch_embeds"},
+        encdec: {"frame_embeds"}, [B, n, d] each, tensors or numpy) is
+        moved to the engine's device. The single-stream entry point for
         `step`/`run`/`generate`."""
         prompts = prompts.to(self.device)
+        if extra is not None:
+            extra = {k: torch.as_tensor(v).to(self.device)
+                     for k, v in extra.items()}
         geo = self.model.cache_geometry(prompts.shape[0],
                                         self.cfg.max_context,
                                         hbm_fraction=self.cfg.hbm_fraction)
-        logits, self.state = self.model.prefill(self.params, prompts, geo)
+        logits, self.state = self.model.prefill(self.params, prompts, geo,
+                                                extra=extra)
         self._setup(geo)
         self._trace_log = []
         self._trace_prompt_len = int(prompts.shape[1])
         return logits
 
-    def _decode(self, cache: PagedKVCache, pstate, token, active=None,
-                mig_cap=None):
+    def _decode(self, state, pstate, token, active=None, mig_cap=None):
         """The fused step: control plane + decode + lane merge + plan +
-        migration. Returns (logits, cache, pstate, stats): stats is
+        migration, on `state`'s paged cache (the state itself, or
+        encdec's "kv"). Returns (logits, state, pstate, stats): stats is
         (telemetry [4],) or, with `cfg.trace_telemetry`, (telemetry,
         read set bool [L, B, P], read-time placement int8 [L, B, P]).
         `mig_cap` (a host int, serve only): the fault plane's cap on the
         step's committed promote rows; the telemetry counts the
         committed moves."""
+        cache = _get_cache(state)
         sparsity = self.cfg.attention_sparsity
         write_slot = control.choose_write_slot(cache)
         mask = control.quest_page_mask(cache, sparsity) \
@@ -355,9 +378,10 @@ class ServingEngine:
         # the read set this step's attention streams, for the policy
         read = mask if mask is not None else cache.page_table >= 0
         old = cache
-        logits, cache = self.model.decode_step(
-            self.params, cache, token, write_slot=write_slot,
+        logits, state = self.model.decode_step(
+            self.params, state, token, write_slot=write_slot,
             logical_page_mask=mask, active=active)
+        cache = _get_cache(state)
         if active is not None:
             # inactive lanes keep their pre-step tables (their pools
             # were never written)
@@ -378,7 +402,7 @@ class ServingEngine:
         else:
             stats = (base,)
         cache = apply_migrations(cache, plan)
-        return logits, cache, pstate, stats
+        return logits, _set_cache(state, cache), pstate, stats
 
     def _decode_overlap(self, cache: PagedKVCache, pstate, staged,
                         token, active, mig_cap=None):
@@ -519,6 +543,12 @@ class ServingEngine:
         """
         cfg = self.cfg
         dev = self.device
+        fam = self.model.cfg.family
+        if fam not in ("dense", "moe"):
+            raise NotImplementedError(
+                f"serve() drives cache-backed decode states (dense/moe); "
+                f"family {fam!r} needs prefill extras or recurrent-state "
+                f"lane insertion")
         if not requests:
             return ServeReport(completed=[])
         B = num_slots if num_slots is not None else min(len(requests), 4)

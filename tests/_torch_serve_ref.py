@@ -35,7 +35,8 @@ def smoke_pair(name="internlm2-1.8b", **overrides):
                                param_dtype=torch.float32, **overrides)
     jm = JModel(jcfg)
     jp = jm.init(jax.random.key(0))
-    tp = bridge.params_from_jax(jax.device_get(jp), tcfg)
+    tp = bridge.params_from_jax(jax.device_get(jp), tcfg,
+                                device="cpu")
     return jm, jp, TModel(tcfg), tp
 
 
@@ -85,3 +86,138 @@ def assert_same(got, want):
     assert got["events"] == want["events"]
     assert got["bytes"] == want["bytes"]
     np.testing.assert_allclose(got["latency"], want["latency"], rtol=1e-12)
+
+
+# --- the single-stream path and the model's steps, both sides ------------
+
+INT_FIELDS = ("page_table", "hbm_owner", "host_owner", "length")
+POOL_FIELDS = ("k_hbm", "v_hbm", "k_host", "v_host")
+
+
+def state_numpy(state):
+    """A reference decode state (a cache, or encdec's {"kv", "enc"}) as
+    the numpy dicts `bridge.cache_to_numpy` gives for the port's."""
+    if isinstance(state, dict):
+        return {"kv": state_numpy(state["kv"]),
+                "enc": np.asarray(state["enc"])}
+    return {f.name: np.asarray(getattr(state, f.name))
+            for f in dataclasses.fields(state)}
+
+
+def assert_state(got, want, atol=1e-5):
+    """A port decode state against a reference one (`state_numpy`):
+    integer fields exact, pools, importance and the encoder output
+    within `atol`."""
+    got = bridge.cache_to_numpy(got)
+    if "kv" in want:
+        np.testing.assert_allclose(got["enc"], want["enc"], atol=atol,
+                                   err_msg="enc")
+        got, want = got["kv"], want["kv"]
+    for name in INT_FIELDS:
+        np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+    for name in POOL_FIELDS + ("importance",):
+        np.testing.assert_allclose(got[name], want[name], atol=atol,
+                                   err_msg=name)
+
+
+def model_steps(models, prompts, steps, extra=None, max_context=512,
+                atol=2e-5, pool_atol=1e-5):
+    """Whole-prompt prefill then `steps` decode steps of the port and the
+    reference on the same inputs (`extra`: numpy arrays), each step fed
+    the reference's greedy token: logits within `atol`, greedy tokens
+    equal, integer state exact, pools within `pool_atol`. Returns the
+    port's last state."""
+    jm, jp, tm, tp = models
+    jx = None if extra is None else {k: jnp.asarray(v)
+                                     for k, v in extra.items()}
+    tx = None if extra is None else {k: torch.from_numpy(v)
+                                     for k, v in extra.items()}
+    jl, js = jm.prefill(jp, jnp.asarray(prompts),
+                        jm.cache_geometry(prompts.shape[0], max_context),
+                        extra=jx)
+    tl, ts = tm.prefill(tp, torch.from_numpy(prompts),
+                        tm.cache_geometry(prompts.shape[0], max_context),
+                        extra=tx)
+    for step in range(steps + 1):
+        want = np.asarray(jl)
+        np.testing.assert_allclose(tl.numpy(), want, atol=atol,
+                                   err_msg=f"step {step}")
+        np.testing.assert_array_equal(tl.numpy().argmax(-1),
+                                      want.argmax(-1))
+        assert_state(ts, state_numpy(js), pool_atol)
+        if step == steps:
+            return ts
+        tok = want.argmax(-1).astype(np.int32)
+        jl, js = jm.decode_step(jp, js, jnp.asarray(tok), use_pallas=False)
+        tl, ts = tm.decode_step(tp, ts, torch.from_numpy(tok))
+
+
+def stream_pair(models, prompts, steps, extra=None, **kw):
+    """`start` + `generate(steps)` of one prompt batch on both sides with
+    the same engine config (`extra`: numpy arrays). Returns (port
+    engine, reference engine, {"tokens", "bytes", "logits"} of each)."""
+    jeng, teng = engines(models, **kw)
+    jx = None if extra is None else {k: jnp.asarray(v)
+                                     for k, v in extra.items()}
+    jl = jeng.start(jnp.asarray(prompts), extra=jx)
+    jt = jeng.generate(jnp.argmax(jl, -1).astype(jnp.int32), steps)
+    tl = teng.start(torch.from_numpy(prompts), extra=extra)
+    tt = teng.generate(tl.argmax(-1).to(torch.int32), steps)
+
+    def run(eng, logits, toks):
+        return {"tokens": np.asarray(toks).tolist(),
+                "logits": np.asarray(logits),
+                "bytes": [(s.h_read, s.e_read, s.m_in, s.m_out)
+                          for s in eng.stats]}
+    return teng, jeng, run(teng, tl.numpy(), tt.numpy()), \
+        run(jeng, jl, jt)
+
+
+def assert_stream_matches(models, prompts, extra, policy):
+    """`start(extra=...)` + `generate(8)` with trace capture, 512-token
+    context, on both sides: start logits within 2e-5, tokens and
+    StepStats bytes equal, the host tier read, and `score_headroom`
+    over the captured traces (the cache's pages) within 1e-12."""
+    from repro.core import sa as jsa
+    from repro.serving import trace_bridge as jtb
+    from repro_torch.core import sa as tsa
+    from repro_torch.serving import trace_bridge as ttb
+    teng, jeng, got, want = stream_pair(
+        models, prompts, 8, extra=extra, max_context=512, policy=policy,
+        telemetry_stride=4, trace_telemetry=True)
+    np.testing.assert_allclose(got["logits"], want["logits"], atol=2e-5)
+    assert got["tokens"] == want["tokens"]
+    assert got["bytes"] == want["bytes"]
+    assert any(b[1] > 0 for b in got["bytes"])            # host tier read
+    sa = dict(max_evaluations=12, iters_per_level=4, seed=0)
+    score = ttb.score_headroom(ttb.collect(teng), H100,
+                               sa_cfg=tsa.SAConfig(**sa))
+    ref = jtb.score_headroom(jtb.collect(jeng), JAX_H100,
+                             sa_cfg=jsa.SAConfig(**sa))
+    assert score.keys() == ref.keys()
+    for key in ref:
+        np.testing.assert_allclose(score[key], ref[key], rtol=1e-12,
+                                   atol=1e-12, err_msg=key)
+
+
+def assert_refuses_serve(models, prompts):
+    """`serve()` and chunked prefill raise NotImplementedError with the
+    reference's messages (the vlm and encdec families)."""
+    import pytest
+    from repro.serving.scheduler import Request as JRequest
+    from repro_torch.serving.scheduler import Request
+    jeng, teng = engines(models, max_context=512)
+    with pytest.raises(NotImplementedError) as want:
+        jeng.serve([JRequest(rid=0, prompt=prompts[0], max_new_tokens=4)])
+    with pytest.raises(NotImplementedError) as got:
+        teng.serve([Request(rid=0, prompt=prompts[0], max_new_tokens=4)])
+    assert str(got.value) == str(want.value)
+    jm, jp, tm, tp = models
+    z = np.zeros(2, np.int32)
+    with pytest.raises(NotImplementedError) as want:
+        jm.prefill_chunk(jp, None, jnp.asarray(prompts[:, :8]),
+                         jnp.asarray(z), jnp.asarray(z))
+    with pytest.raises(NotImplementedError) as got:
+        tm.prefill_chunk(tp, None, torch.from_numpy(prompts[:, :8]),
+                         torch.from_numpy(z), torch.from_numpy(z))
+    assert str(got.value) == str(want.value)

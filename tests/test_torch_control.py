@@ -33,8 +33,8 @@ def models():
                                dtype=torch.float32, param_dtype=torch.float32)
     jm = JModel(jcfg)
     jp = jm.init(jax.random.key(1))
-    return jm, jp, TModel(tcfg), bridge.params_from_jax(jax.device_get(jp),
-                                                        tcfg)
+    return jm, jp, TModel(tcfg), bridge.params_from_jax(
+        jax.device_get(jp), tcfg, device="cpu")
 
 
 def _state(jm, jp, lengths, seed, levels=4):
@@ -67,7 +67,7 @@ def state(models):
 
 
 def _port(fields):
-    return bridge.cache_from_numpy(fields)
+    return bridge.cache_from_numpy(fields, device="cpu")
 
 
 def test_choose_write_slot(state, models):

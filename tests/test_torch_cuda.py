@@ -16,10 +16,16 @@ copies are exact. The overlap-mode serve on the card must give the
 CPU's tokens, statuses and step bytes exactly.
 """
 
+import pathlib
+import sys
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402
 
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -41,6 +47,12 @@ SHAPES = [
     (2, 4, 2, 64, 6, 8, 6),          # 8-token pages
     (8, 8, 3, 64, 64, 16, 64),       # granite-moe-3b-a800m, HBM tier
     (8, 8, 3, 64, 208, 16, 208),     # granite-moe-3b-a800m, host tier
+    (8, 8, 4, 128, 64, 16, 64),      # llama31-8b, granite-8b: G = 4
+    (8, 8, 8, 128, 208, 16, 208),    # qwen3-32b: G = 8
+    (8, 8, 4, 160, 64, 16, 64),      # stablelm-12b: HD = 160
+    (8, 8, 4, 160, 208, 16, 208),
+    (4, 6, 1, 64, 32, 16, 32),       # whisper-tiny: G = 1
+    (2, 16, 1, 64, 9, 16, 9),
 ]
 OUT_ATOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
 
@@ -251,6 +263,11 @@ FLASH_SHAPES = [
     (1, 77, 2, 1, 32, torch.float32, False),
     (4, 2304, 24, 8, 64, torch.bfloat16, True),    # granite-moe's prefill
     (2, 1000, 24, 8, 64, torch.float32, True),     # H/KH = 3 in f32
+    (4, 2304, 32, 8, 160, torch.bfloat16, True),   # stablelm-12b's prefill
+    (2, 1000, 32, 8, 160, torch.float32, True),    # D = 160 in f32
+    (2, 300, 4, 1, 160, torch.bfloat16, False),
+    (4, 1500, 6, 6, 64, torch.bfloat16, False),    # whisper's encoder
+    (4, 2304, 64, 8, 128, torch.bfloat16, True),   # qwen3-32b: H/KH = 8
 ]
 
 
@@ -276,7 +293,7 @@ def test_flash_kernel_matches_plain_version(device, shape):
 
 
 @pytest.mark.parametrize("S", [1, 63, 65, 129, 1000])
-@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("D", [16, 32, 64, 128, 160])
 def test_flash_bf16_head_dims_and_ragged_lengths(device, D, S):
     """The tensor-core body at every head dim, with S not a multiple of
     the 64-row tiles: padded rows and keys are masked, never NaN."""
@@ -298,6 +315,31 @@ def test_flash_bf16_query_and_key_lengths_differ(device, Sq, Sk, causal):
     got = fa.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     want = ref.flash_attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-2, rtol=0)
+
+
+@pytest.mark.parametrize("D", [64, 160])
+@pytest.mark.parametrize("Sq, Sk", [(37, 1500), (1, 1500), (64, 1500),
+                                    (200, 1473)])
+def test_flash_non_causal_keys_past_the_end(device, Sq, Sk, D):
+    """Non-causal with Sk not a multiple of the 64-key tiles (whisper's
+    cross-attention over 1500 frames, in prefill and at decode): the
+    keys past Sk are masked to -inf in the last tile, not read as the
+    zeros TMA fills there."""
+    q, k, v = flash_inputs(4, Sq, 6, 6, D, torch.bfloat16, device, Sq + D,
+                           Sk=Sk)
+    got = fa.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    want = ref.flash_attention_ref(q, k, v, causal=False)
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-2, rtol=0)
+    # every real key's score far below 0 and V near 1: keys past Sk
+    # read as zeros (score 0) would take nearly all the weight and pull
+    # out to ~0
+    q, k, v = q.abs(), -(k.abs() + 1), 1 + 0.1 * v
+    got = fa.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    want = ref.flash_attention_ref(q, k, v, causal=False)
+    assert float(want.float().min()) > 0.5
     torch.testing.assert_close(got.float(), want.float(), atol=1e-2, rtol=0)
 
 
@@ -325,8 +367,12 @@ def test_flash_kernel_reads_inputs_through_their_strides(device):
 
 def test_flash_wrapper_refuses_what_the_kernel_does_not_take(device):
     q, k, v = flash_inputs(1, 64, 4, 2, 64, torch.float32, device, 0)
-    with pytest.raises(ValueError, match="head_dim"):
-        fa.flash_attention(q[..., :48], k[..., :48], v[..., :48])
+    for D in (48, 96, 256):       # not instantiated: raises, no fallback
+        x = flash_inputs(1, 64, 4, 2, D, torch.bfloat16, device, D)
+        with pytest.raises(ValueError, match="not instantiated"):
+            fa.flash_attention(*x)
+        with pytest.raises(ValueError, match="not instantiated"):
+            layers.attention(*x)
     with pytest.raises(ValueError, match="dividing"):
         fa.flash_attention(q[:, :, :3], k, v)
     with pytest.raises(ValueError, match="dtype"):
@@ -621,3 +667,16 @@ def test_faulted_traced_serve_on_the_card_matches_the_cpu(device, overlap):
     for name in ("access", "tier", "emitted", "first", "rids"):
         np.testing.assert_array_equal(getattr(recs["cuda"], name),
                                       getattr(recs["cpu"], name))
+
+
+@pytest.mark.parametrize("name", chip_smoke.FAMILY_ARCHS)
+def test_single_stream_on_the_card_matches_the_cpu(device, name):
+    """start + generate(16) of each new architecture's smoke config in
+    f32 on the card and on the CPU, same weights (the smoke's phase 3f):
+    tokens and step bytes equal, start logits within 1e-4, and the host
+    tier read."""
+    err, same_tokens, same_bytes, stats = chip_smoke.stream_card_vs_cpu(
+        name, 5)
+    assert err <= 1e-4
+    assert same_tokens and same_bytes
+    assert any(r[1] > 0 for r in stats)                # host tier read

@@ -180,7 +180,7 @@ def test_apply_migrations_with_swaps_and_sentinels():
     promotes, demotes = _plans()
     cap = 8
     jplan = jmig.MigrationPlan.build(cap, promotes, demotes)
-    tplan = tmig.MigrationPlan.build(cap, promotes, demotes)
+    tplan = tmig.MigrationPlan.build(cap, promotes, demotes, device="cpu")
     # the staged copies are the same pages, read before any scatter
     for g, w in zip(tmig.stage_plan(tc, tplan), jmig.stage_plan(jc, jplan)):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
@@ -193,7 +193,7 @@ def test_apply_migrations_with_swaps_and_sentinels():
 def test_empty_plan_is_identity():
     jc, tc = _prefilled(30)
     before = bridge.cache_to_numpy(tc)
-    got = tmig.apply_migrations(tc, tmig.MigrationPlan.empty(6))
+    got = tmig.apply_migrations(tc, tmig.MigrationPlan.empty(6, "cpu"))
     for name, arr in bridge.cache_to_numpy(got).items():
         np.testing.assert_array_equal(arr, before[name], err_msg=name)
     _assert_same(jmig.apply_migrations(jc, jmig.MigrationPlan.empty(6)), got)
@@ -202,7 +202,7 @@ def test_empty_plan_is_identity():
 def test_bridge_roundtrip_keeps_bf16_exact():
     rng = np.random.default_rng(9)
     a = jnp.asarray(rng.standard_normal((3, 5)), jnp.bfloat16)
-    t = bridge.to_torch(np.asarray(a))
+    t = bridge.to_torch(np.asarray(a), device="cpu")
     assert t.dtype == torch.bfloat16
     np.testing.assert_array_equal(bridge.to_numpy(t),
                                   np.asarray(a, np.float32))

@@ -37,7 +37,8 @@ def models():
                                dtype=torch.float32, param_dtype=torch.float32)
     jm = JModel(jcfg)
     jp = jm.init(jax.random.key(0))
-    tp = bridge.params_from_jax(jax.device_get(jp), tcfg)
+    tp = bridge.params_from_jax(jax.device_get(jp), tcfg,
+                                device="cpu")
     return jm, jp, TModel(tcfg), tp
 
 
@@ -104,7 +105,7 @@ def test_prefill_chunk_matches_reference(models, prompts):
     jgeo, tgeo = jm.cache_geometry(2, 512), tm.cache_geometry(2, 512)
     from repro.kvcache.paged import init_cache as jinit
     from repro_torch.kvcache.paged import init_cache as tinit
-    jc, tc = jinit(jgeo), tinit(tgeo)
+    jc, tc = jinit(jgeo), tinit(tgeo, device="cpu")
     C = 64
     prog = np.zeros(2, np.int32)
     for step in range(6):
@@ -139,7 +140,7 @@ def test_prefill_chunk_bounded_read_matches_reference(models, prompts,
     jgeo, tgeo = jm.cache_geometry(2, 512), tm.cache_geometry(2, 512)
     from repro.kvcache.paged import init_cache as jinit
     from repro_torch.kvcache.paged import init_cache as tinit
-    jc, tc = jinit(jgeo), tinit(tgeo)
+    jc, tc = jinit(jgeo), tinit(tgeo, device="cpu")
     C = 48
     prog = np.array([0, 20], np.int32)
     for step in range(7):
@@ -172,7 +173,7 @@ def test_chunked_prefill_equals_whole_prompt(models, prompts, budget):
     geo = tm.cache_geometry(2, 512)
     want_logits, want = tm.prefill(tp, torch.from_numpy(prompts), geo)
     from repro_torch.kvcache.paged import init_cache
-    cache = init_cache(geo)
+    cache = init_cache(geo, device="cpu")
     prog = torch.zeros(2, dtype=torch.int32)
     toks = torch.from_numpy(prompts)
     last = None
@@ -254,8 +255,51 @@ def test_init_params_is_seeded_and_shaped(models):
 
 
 def test_entry_points_refuse_a_silent_cpu_fallback(models):
-    _, _, tm, _ = models
+    """Every entry point that makes tensors runs on the card unless told
+    otherwise: without a card, leaving the device out raises."""
+    _, jp, tm, tp = models
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        tm.init(0)
+    from repro_torch.kvcache.migrate import MigrationPlan
+    from repro_torch.kvcache.paged import init_cache
+    from repro_torch.models.params import init_params
+    geo = tm.cache_geometry(2, 64)
+    fields = bridge.cache_to_numpy(init_cache(geo, device="cpu"))
+    calls = {
+        "Model.init": lambda: tm.init(0),
+        "init_params": lambda: init_params(tm.schema(), torch.Generator()),
+        "init_cache": lambda: init_cache(geo),
+        "to_torch": lambda: bridge.to_torch(np.zeros(3, np.float32)),
+        "params_from_jax": lambda: bridge.params_from_jax(
+            jax.device_get(jp), tm.cfg),
+        "cache_from_numpy": lambda: bridge.cache_from_numpy(fields),
+        "MigrationPlan.empty": lambda: MigrationPlan.empty(4),
+        "MigrationPlan.build": lambda: MigrationPlan.build(4, [], []),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+            pytest.fail(f"{name} ran without a card")
+
+
+@pytest.mark.parametrize("limit", [0, None], ids=["sliced", "whole"])
+@pytest.mark.parametrize("shape", [(3, 8, 16), (4, 5, 3, 16), (3, 5, 3)])
+def test_init_params_sliced_draw_is_the_whole_draw(shape, limit,
+                                                   monkeypatch):
+    """A stacked leaf past the size limit (here 0 bytes) is drawn one
+    slice of its leading axis at a time (a slice of 16k values; else
+    whole): on the CPU the same tensor as one draw of the whole leaf
+    from the same generator, as under the limit."""
+    from repro_torch.models import params
+    from repro_torch.models.params import Param, init_params
+    if limit is not None:
+        monkeypatch.setattr(params, "SLICED_DRAW_BYTES", limit)
+    gen = torch.Generator()
+    gen.manual_seed(11)
+    got = init_params({"a": Param(shape, fan_in_axes=(1,)),
+                       "b": Param((6, 16))}, gen, torch.float32, "cpu")
+    gen.manual_seed(11)
+    want_a = torch.randn(shape, generator=gen) * (1.0 / shape[1] ** 0.5)
+    want_b = torch.randn((6, 16), generator=gen) * (1.0 / 6 ** 0.5)
+    assert torch.equal(got["a"], want_a)
+    assert torch.equal(got["b"], want_b)       # the draw order is kept

@@ -208,7 +208,7 @@ def test_decode_step_with_inactive_lanes(moe_models):
             np.testing.assert_array_equal(after[name][:, ~active],
                                           before[name][:, ~active])
         # the engine merges the inactive lanes' tables back
-        tc = tctl.lane_merge(bridge.cache_from_numpy(before), tc2,
+        tc = tctl.lane_merge(bridge.cache_from_numpy(before, device="cpu"), tc2,
                              torch.from_numpy(active))
         assert_cache(tc, fields(jc))
         tok = np.where(active, np.asarray(jnp.argmax(jl2, -1)), tok) \
@@ -222,8 +222,8 @@ def test_prefill_chunk_with_idle_lanes(moe_models):
     jm, jp, tm, tp = moe_models
     B, C, P = 8, 32, 300
     prompts = np.random.default_rng(9).integers(0, 256, (B, P))
-    jc, tc = jinit(jm.cache_geometry(B, 512)), tinit(tm.cache_geometry(B,
-                                                                       512))
+    jc = jinit(jm.cache_geometry(B, 512))
+    tc = tinit(tm.cache_geometry(B, 512), device="cpu")
     prog = np.zeros(B, np.int32)
     plen = np.array([300, 40, 280, 0, 120, 300, 13, 200], np.int32)
     for step in range(11):

@@ -67,7 +67,8 @@ def models():
                                dtype=torch.float32, param_dtype=torch.float32)
     jm = JModel(jcfg)
     jp = jm.init(jax.random.key(0))
-    tp = bridge.params_from_jax(jax.device_get(jp), tcfg)
+    tp = bridge.params_from_jax(jax.device_get(jp), tcfg,
+                                device="cpu")
     return jm, jp, TModel(tcfg), tp
 
 
@@ -227,7 +228,7 @@ def owners(ho, eo):
     geo = paged.CacheGeometry(num_layers=L_, batch=B_, page_tokens=4,
                               hbm_pages=PH, host_pages=PE, kv_heads=2,
                               head_dim=8, dtype=torch.float32)
-    cache = paged.init_cache(geo)
+    cache = paged.init_cache(geo, device="cpu")
     cache.hbm_owner = torch.as_tensor(ho)
     cache.host_owner = torch.as_tensor(eo)
     jcache = bridge.cache_to_numpy(cache)
@@ -279,7 +280,8 @@ def test_revalidate_masks_a_swap_whose_victim_moved():
     eo[0, 0, 2] = 5
     ho[0, 0, 1] = 3                      # the plan expects 7 there
     tc, jc = owners(ho, eo)
-    tp = MigrationPlan.build(4, [(0, 0, 2, 1, 5)], [(0, 0, 1, 2, 7)])
+    tp = MigrationPlan.build(4, [(0, 0, 2, 1, 5)], [(0, 0, 1, 2, 7)],
+                             device="cpu")
     jp = JPlan.build(4, [(0, 0, 2, 1, 5)], [(0, 0, 1, 2, 7)])
     got = tctl.revalidate_plan(tp, tc)
     assert_same_plan(got, jctl.revalidate_plan(jp, jc))
@@ -332,7 +334,7 @@ def cache_state(models):
         np.where(alive, imp, 0.0), jnp.float32))
     fields = {f.name: np.asarray(getattr(jc, f.name))
               for f in dataclasses.fields(jc)}
-    return geo, jc, bridge.cache_from_numpy(fields)
+    return geo, jc, bridge.cache_from_numpy(fields, device="cpu")
 
 
 def test_protect_read_residents(cache_state):

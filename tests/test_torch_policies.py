@@ -50,7 +50,8 @@ def models():
                                dtype=torch.float32, param_dtype=torch.float32)
     jm = JModel(jcfg)
     jp = jm.init(jax.random.key(0))
-    tp = bridge.params_from_jax(jax.device_get(jp), tcfg)
+    tp = bridge.params_from_jax(jax.device_get(jp), tcfg,
+                                device="cpu")
     return jm, jp, TModel(tcfg), tp
 
 

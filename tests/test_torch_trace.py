@@ -59,7 +59,8 @@ def streams():
                                dtype=torch.float32, param_dtype=torch.float32)
     jm = JModel(jcfg)
     jp = jm.init(jax.random.key(0))
-    tm, tp = TModel(tcfg), bridge.params_from_jax(jax.device_get(jp), tcfg)
+    tm = TModel(tcfg)
+    tp = bridge.params_from_jax(jax.device_get(jp), tcfg, device="cpu")
     prompt = np.random.default_rng(2).integers(0, 256, (2, 300)).astype(
         np.int32)
     runs = {}
