@@ -20,15 +20,16 @@ non-zero):
              of internlm2-1.8b (B=8, KH=8, G=2, HD=128), of
              granite-moe-3b-a800m (G=3, HD=64), llama31-8b and
              granite-8b (G=4, HD=128), qwen3-32b (G=8, HD=128),
-             stablelm-12b (G=4, HD=160) and whisper-tiny (KH=6, G=1,
+             stablelm-12b (G=4, HD=160), whisper-tiny (KH=6, G=1,
+             HD=64) and zamba2-1.2b's attention sites (KH=32, G=1,
              HD=64), T=16, N in {64, 208}, bf16 pools,
              with holes, a permuted page list, partial pages and an
              all-hole lane; time it beside the plain version and one
              scaled_dot_product_attention call over the same keys.
              Then check (untimed) phase 10's decode shapes at B=4,
              where the launch plan splits the pages otherwise:
-             internvl2-2b, granite-8b, stablelm-12b and whisper-tiny,
-             each line ending with the plan it ran.
+             internvl2-2b, granite-8b, stablelm-12b, whisper-tiny and
+             zamba2-1.2b, each line ending with the plan it ran.
              Times are device times (CUDA-graph replay over input sets
              that overflow the L2); the kernel's eager per-call time,
              the host's launch cost included, is printed beside them.
@@ -54,8 +55,9 @@ non-zero):
              bf16, causal; also internvl2-2b's), phase 7 (H=24 over
              KH=8, D=64) and phase 10 (stablelm-12b: H=32 over 8,
              D=160; granite-8b: H=32 over 8, D=128; whisper-tiny's
-             encoder: S=1500, H=KH=6, D=64, not causal), a ragged S
-             with KH == H, a non-causal case, the smoke shape in f32,
+             encoder: S=1500, H=KH=6, D=64, not causal; zamba2-1.2b's
+             attention sites: H=KH=32, D=64, causal), a ragged S
+             with KH == H (and one at H=KH=32, D=64), a non-causal case, the smoke shape in f32,
              a bf16 D=64 case with a ragged S, f32 ones with H/KH = 3
              and with D=160, a ragged D=160 one, whisper's decoder
              self-attention (B=4, S=64, causal) and its cross-attention
@@ -81,10 +83,15 @@ non-zero):
              on the CPU: tokens, statuses and step bytes equal.
   3f. family the single stream (start + generate(16)) of the smoke
              configs of llama31-8b, granite-8b, qwen3-32b, stablelm-12b,
-             internvl2-2b (vlm, patch embeddings from --seed) and
-             whisper-tiny (encdec, frame embeddings from --seed) in f32,
-             on the card and on the CPU: tokens and step bytes equal,
-             start logits within 1e-4.
+             internvl2-2b (vlm, patch embeddings from --seed),
+             whisper-tiny (encdec, frame embeddings from --seed) and
+             zamba2-1.2b (hybrid: Mamba2 state beside the sites' cache)
+             in f32, on the card and on the CPU: tokens and step bytes
+             equal, start logits within 1e-4, the host tier read. Then
+             xlstm-125m's smoke config in f32: `Model.prefill` of 2
+             prompts of 24 tokens and 16 greedy `decode_step`s on the
+             card and on the CPU: tokens equal, logits and the
+             recurrent state within 1e-4.
   3b. stream the single-stream path on the card and on the CPU, f32
              smoke config, same weights, under each of the five
              policies with Quest sparsity 0.5 and trace capture:
@@ -135,12 +142,25 @@ non-zero):
   10. single streams at published widths: `start` + `generate(32)` of 4
              prompts of stablelm-12b (2304 tokens; D = 160 in both
              kernels), granite-8b (2304), internvl2-2b (2048 tokens +
-             256 patch embeddings) and whisper-tiny (64 tokens over 1500
-             frame embeddings); start wall, decode rate, launches
-             (flash once per attention per `start`, encdec's
-             cross-attention once per layer per step, paged twice per
-             layer per step), then `score_headroom` on the internvl2
-             and whisper streams.
+             256 patch embeddings), whisper-tiny (64 tokens over 1500
+             frame embeddings) and zamba2-1.2b (2304 tokens; 38 Mamba2
+             blocks, 2 attention sites at KH = 32, G = 1, HD = 64);
+             start wall, decode rate, launches per KV layer (flash once
+             per attention per `start`, encdec's cross-attention once
+             per layer per step, paged twice per KV layer per step:
+             zamba2 2 flash and 2 x 2 x 32 = 128 paged), the cache's
+             and (zamba2) the Mamba2 state's bytes beside the peak
+             memory, then `score_headroom` on the internvl2, whisper
+             and zamba2 streams.
+  11. xlstm  xlstm-125m at its published widths (12 blocks, 3 of them
+             sLSTM, d_model 768, 4 heads, mLSTM head 384; random bf16
+             weights): `Model.prefill` of 4 prompts of XLSTM_PROMPT
+             tokens (one replayed decode step each, as the reference
+             runs it), then 32 greedy `decode_step`s; prefill wall,
+             decode rate, the recurrent state's bytes, peak memory,
+             finite logits, and no kernel launched (the family has no
+             attention and no cache). `ServingEngine.generate` on it
+             must raise ValueError.
 
 Then a `kernels` JSON line, the card's name and power limit, and, last,
 {"ok": true, "device": {...}}. Without a CUDA card it exits non-zero
@@ -330,14 +350,16 @@ PAGED_MODELS = (("internlm2-1.8b", 8, 2, 128),
                 ("llama31-8b", 8, 4, 128),          # and granite-8b
                 ("qwen3-32b", 8, 8, 128),
                 ("stablelm-12b", 8, 4, 160),
-                ("whisper-tiny", 6, 1, 64))
+                ("whisper-tiny", 6, 1, 64),
+                ("zamba2-1.2b", 32, 1, 64))
 
 
 #: phase 10's single streams decode at B=4, where `choose_splits` plans
 #: another split of the page range than at B=8: (model, KH, G, HD),
 #: checked at both tiers' page counts
 PAGED_STREAMS = (("internvl2-2b", 8, 2, 128), ("granite-8b", 8, 4, 128),
-                 ("stablelm-12b", 8, 4, 160), ("whisper-tiny", 6, 1, 64))
+                 ("stablelm-12b", 8, 4, 160), ("whisper-tiny", 6, 1, 64),
+                 ("zamba2-1.2b", 32, 1, 64))
 
 
 def kernel_phase(rng, device):
@@ -645,13 +667,16 @@ def page_copy_phase(rng, device, link):
 #: moe-3b-a800m's (phase 7, H/KH = 3), stablelm-12b's (phase 10, D =
 #: 160), granite-8b's (phase 10, H/KH = 4), whisper-tiny's encoder
 #: (phase 10: non-causal, G = 1, S = 1500) and its cross-attention in
-#: prefill (Sq = 64 over Sk = 1500); the others are checked
+#: prefill (Sq = 64 over Sk = 1500), zamba2-1.2b's attention sites
+#: (phase 10: H = KH = 32, D = 64); the others are checked
 FLASH_SHAPES = (
     ("internlm2-1.8b", 4, 2304, 2304, 16, 8, 128, "bf16", True, True),
     ("granite-moe-3b-a800m", 4, 2304, 2304, 24, 8, 64, "bf16", True, True),
     ("stablelm-12b", 4, 2304, 2304, 32, 8, 160, "bf16", True, True),
     ("granite-8b", 4, 2304, 2304, 32, 8, 128, "bf16", True, True),
     ("whisper-tiny encoder", 4, 1500, 1500, 6, 6, 64, "bf16", False, True),
+    ("zamba2-1.2b", 4, 2304, 2304, 32, 32, 64, "bf16", True, True),
+    ("ragged S, H = KH = 32", 2, 999, 999, 32, 32, 64, "bf16", True, False),
     ("ragged S, KH == H", 2, 1000, 1000, 16, 16, 128, "bf16", True, False),
     ("not causal", 2, 1000, 1000, 16, 8, 128, "bf16", False, False),
     ("smoke f32", 2, 300, 300, 4, 2, 16, "f32", True, False),
@@ -1443,10 +1468,10 @@ def moe_phase(seed):
     return {"serve": serve, "start": c_start, "generate": c_dec}, numbers
 
 
-#: this slice's architectures: the dense configs besides internlm2,
-#: the vlm and the encdec family
+#: the architectures of phase 3f's single streams: the dense configs
+#: besides internlm2, the vlm, the encdec and the hybrid family
 FAMILY_ARCHS = ("llama31-8b", "granite-8b", "qwen3-32b", "stablelm-12b",
-                "internvl2-2b", "whisper-tiny")
+                "internvl2-2b", "whisper-tiny", "zamba2-1.2b")
 
 
 def family_extra(cfg, rng, batch):
@@ -1494,20 +1519,87 @@ def stream_card_vs_cpu(name, seed):
 
 
 def family_parity_phase(seed):
-    """Phase 3f: `stream_card_vs_cpu` for each of this slice's
-    architectures: tokens and step bytes equal, start logits within
-    1e-4."""
+    """Phase 3f: `stream_card_vs_cpu` for each of FAMILY_ARCHS: tokens
+    and step bytes equal, start logits within 1e-4, the host tier read;
+    then `xlstm_card_vs_cpu`."""
     for name in FAMILY_ARCHS:
         cfg = smoke_f32(name)
         err, same_tokens, same_bytes, stats = stream_card_vs_cpu(name, seed)
         migrated = sum(r[2] + r[3] for r in stats)
+        host_read = any(r[1] > 0 for r in stats)
         log(f"family parity {name} ({cfg.family}, head_dim {cfg.head_dim}, "
-            f"G={cfg.q_per_kv}): start logits err {err:.3e} (tolerance "
-            f"1e-4), tokens {same_tokens} step bytes {same_bytes} "
-            f"({migrated:.0f} bytes migrated)")
-        if not (err <= 1e-4 and same_tokens and same_bytes):
+            f"G={cfg.q_per_kv}, {len(cfg.attention_layer_ids())} KV of "
+            f"{cfg.num_layers} layers): start logits err {err:.3e} "
+            f"(tolerance 1e-4), tokens {same_tokens} step bytes "
+            f"{same_bytes} host tier read {host_read} ({migrated:.0f} "
+            f"bytes migrated)")
+        if not (err <= 1e-4 and same_tokens and same_bytes and host_read):
             raise AssertionError(f"family parity {name}: the card's single "
                                  f"stream disagrees with the CPU's")
+    errs, same_tokens = xlstm_card_vs_cpu(seed)
+    log(f"family parity xlstm-125m (xlstm, no KV layers): prefill + 16 "
+        f"decode steps, logits err {errs['logits']:.3e} state err "
+        f"{errs['state']:.3e} (tolerance 1e-4), tokens {same_tokens}")
+    if not (errs["logits"] <= 1e-4 and errs["state"] <= 1e-4
+            and same_tokens):
+        raise AssertionError("family parity xlstm-125m: the card's prefill "
+                             "and decode disagree with the CPU's")
+
+
+def xlstm_steps(model, params, prompts, steps):
+    """`Model.prefill` of `prompts` (one replayed decode step per token,
+    as the reference runs it), then `steps` greedy `decode_step`s: the
+    xlstm family's whole serving path (the engine has no cache of it to
+    place). Returns (logits of each step [steps + 1, B, V], greedy
+    tokens [steps, B], the final state, prefill seconds, decode
+    seconds); times are wall clock around synchronised work on the
+    card."""
+    import torch
+
+    def sync():
+        if prompts.device.type == "cuda":
+            torch.cuda.synchronize()
+    sync()
+    t0 = time.time()
+    logits, state = model.prefill(params, prompts, None)
+    sync()
+    t1 = time.time()
+    out, toks = [logits], []
+    for _ in range(steps):
+        tok = out[-1].argmax(-1).to(torch.int32)
+        toks.append(tok)
+        logits, state = model.decode_step(params, state, tok)
+        out.append(logits)
+    sync()
+    return (torch.stack(out), torch.stack(toks), state, t1 - t0,
+            time.time() - t1)
+
+
+def xlstm_card_vs_cpu(seed, steps=16):
+    """xlstm-125m's smoke config in f32 through `xlstm_steps` on the card
+    and on the CPU, same weights (from `seed`), 2 prompts of 24 tokens.
+    Returns ({"logits", "state"}: max abs differences, tokens equal)."""
+    import torch
+    from repro_torch.models.model import Model
+    cfg = smoke_f32("xlstm-125m")
+    model = Model(cfg)
+    params = model.init(seed, device="cpu")
+    rng = np.random.default_rng(seed + 4)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 24)),
+                              dtype=torch.int32)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        p = {k: {n: t.to(dev) for n, t in v.items()}
+             if isinstance(v, dict) else v.to(dev) for k, v in params.items()}
+        logits, toks, state, _, _ = xlstm_steps(model, p, prompts.to(dev),
+                                                steps)
+        runs[dev] = (logits.cpu(), toks.cpu(),
+                     {k: t.cpu() for k, t in state.items()})
+    card, cpu = runs["cuda"], runs["cpu"]
+    return ({"logits": float((card[0] - cpu[0]).abs().max()),
+             "state": max(float((card[2][k] - cpu[2][k]).abs().max())
+                          for k in cpu[2])},
+            torch.equal(card[1], cpu[1]))
 
 
 def free_card() -> None:
@@ -1548,15 +1640,17 @@ def big_serve_phase(name, seed, overlap=False):
 
 #: phase 10: (architecture, prompt tokens) of each single stream at B=4
 SINGLE_STREAMS = (("stablelm-12b", 2304), ("granite-8b", 2304),
-                  ("internvl2-2b", 2048), ("whisper-tiny", 64))
+                  ("internvl2-2b", 2048), ("whisper-tiny", 64),
+                  ("zamba2-1.2b", 2304))
 
 
 def single_stream_phase(seed):
     """Phase 10: `start` + `generate(32)` of 4 prompts at the published
     widths of each of SINGLE_STREAMS (vlm: plus 256 patch embeddings,
     encdec: over 1500 frame embeddings, from `seed`), then
-    `score_headroom` on the internvl2 and whisper streams. Returns the
-    launches by stream and path, and the numbers."""
+    `score_headroom` on the internvl2, whisper and zamba2 streams.
+    Launches are counted per KV layer (zamba2: its 2 attention sites).
+    Returns the launches by stream and path, and the numbers."""
     import torch
     from repro_torch.core.sa import SAConfig
     from repro_torch.core.tiers import H100
@@ -1582,7 +1676,7 @@ def single_stream_phase(seed):
         prompts = torch.as_tensor(rng.integers(0, cfg.vocab, (B, S)),
                                   dtype=torch.int32, device="cuda")
         extra = family_extra(cfg, rng, B)
-        scored = cfg.family in ("vlm", "encdec")
+        scored = cfg.family in ("vlm", "encdec", "hybrid")
         eng = ServingEngine(model, params, EngineConfig(
             max_context=4096, hbm_fraction=0.25, policy="importance",
             telemetry_stride=16, spec=H100, trace_telemetry=scored))
@@ -1593,11 +1687,11 @@ def single_stream_phase(seed):
         toks, t_dec, c_dec = counted(lambda: eng.generate(first, steps))
         peak = torch.cuda.max_memory_allocated()
         summ = eng.summary()
-        L = cfg.num_layers
+        L = len(cfg.attention_layer_ids())          # the KV layers
         # whole-prompt prefill: one flash launch per attention (encdec:
-        # encoder self, decoder self and cross); decode: two paged
-        # launches per layer, and encdec's cross-attention, one flash
-        # launch per layer
+        # encoder self, decoder self and cross; hybrid: each site);
+        # decode: two paged launches per KV layer, and encdec's
+        # cross-attention, one flash launch per layer
         if cfg.family == "encdec":
             want = {"start": (cfg.encdec.enc_layers + 2 * L, 0),
                     "generate": (L * steps, 2 * L * steps)}
@@ -1607,6 +1701,11 @@ def single_stream_phase(seed):
                       c.get("paged_attention", 0))
                for path, c in (("start", c_start), ("generate", c_dec))}
         state = eng.state["kv"] if isinstance(eng.state, dict) else eng.state
+        kv_bytes = sum(t.numel() * t.element_size() for t in (
+            state.k_hbm, state.v_hbm, state.k_host, state.v_host))
+        ssm = eng.state.get("ssm") if isinstance(eng.state, dict) else None
+        ssm_bytes = sum(t.numel() * t.element_size()
+                        for t in ssm.values()) if ssm else 0
         line = (f"single stream {name} ({cfg.family}, head_dim "
                 f"{cfg.head_dim}, G={cfg.q_per_kv}): start {t_start:.3f} s "
                 f"(B={B}, {S} tokens"
@@ -1616,8 +1715,11 @@ def single_stream_phase(seed):
                 f"{steps} steps), mean HBM hit rate "
                 f"{summ['mean_hbm_hit_rate']:.4f}, launches start flash "
                 f"{got['start'][0]} paged {got['start'][1]}, generate flash "
-                f"{got['generate'][0]} paged {got['generate'][1]}, peak "
-                f"memory {peak / 1e9:.2f} GB, cache length "
+                f"{got['generate'][0]} paged {got['generate'][1]} "
+                f"({L} KV of {cfg.num_layers} layers), KV pools "
+                f"{kv_bytes / 1e9:.3f} GB"
+                f"{f', Mamba2 state {ssm_bytes / 1e9:.3f} GB' if ssm else ''}"
+                f", peak memory {peak / 1e9:.2f} GB, cache length "
                 f"{state.length.tolist()}")
         log(line)
         if got != want:
@@ -1632,7 +1734,8 @@ def single_stream_phase(seed):
         n = numbers[name] = {"start_s": t_start,
                              "decode_tokens_per_s": B * steps / t_dec,
                              "hit_rate": summ["mean_hbm_hit_rate"],
-                             "peak_bytes": peak}
+                             "peak_bytes": peak, "kv_bytes": kv_bytes,
+                             "ssm_bytes": ssm_bytes}
         if scored:
             t = time.time()
             score = trace_bridge.score_headroom(
@@ -1648,9 +1751,72 @@ def single_stream_phase(seed):
             if not all(math.isfinite(v) for v in score.values()):
                 raise AssertionError(f"single stream {name}: score {score}")
         launches[name] = {"start": c_start, "generate": c_dec}
-        del eng, logits, params, model, state
+        del eng, logits, params, model, state, ssm
         free_card()
     return launches, numbers
+
+
+#: phase 11's prompt length: the replayed prefill is one host-bound
+#: decode step per token, so this sets the phase's wall time
+XLSTM_PROMPT = 448
+
+
+def xlstm_phase(seed):
+    """Phase 11: xlstm-125m at its published widths (random bf16
+    weights from `seed`) through `xlstm_steps`: prefill of 4 prompts of
+    XLSTM_PROMPT tokens, 32 greedy decode steps. No kernel may launch.
+    Then `ServingEngine.generate` on it must raise ValueError. Returns
+    the numbers."""
+    import torch
+    from repro_torch.core.tiers import H100
+    from repro_torch.kernels.build import COUNTS
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    free_card()
+    model, params = full_width(seed, "xlstm-125m")
+    cfg = model.cfg
+    B, steps = 4, 32
+    rng = np.random.default_rng(seed + 2)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab, (B, XLSTM_PROMPT)),
+                              dtype=torch.int32, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    COUNTS.clear()                          # the main path's run only
+    logits, toks, state, t_pre, t_dec = xlstm_steps(model, params, prompts,
+                                                    steps)
+    launched = dict(COUNTS)
+    peak = torch.cuda.max_memory_allocated()
+    state_bytes = sum(t.numel() * t.element_size() for t in state.values())
+    log(f"xlstm {cfg.name} ({cfg.num_layers} blocks, "
+        f"{len(model._slstm_ids())} sLSTM, d_model {cfg.d_model}, mLSTM "
+        f"head {cfg.xlstm.expand * cfg.d_model // cfg.num_heads}): prefill "
+        f"{t_pre:.3f} s (B={B}, {XLSTM_PROMPT} tokens, "
+        f"{B * XLSTM_PROMPT / t_pre:.1f} tokens/s replayed), decode "
+        f"{B * steps / t_dec:.1f} tokens/s ({t_dec:.3f} s for {steps} "
+        f"steps), recurrent state {state_bytes / 1e6:.2f} MB "
+        f"({', '.join(f'{k} {list(t.shape)}' for k, t in state.items())}), "
+        f"peak memory {peak / 1e9:.3f} GB, kernel launches {launched}")
+    if any(launched.values()):
+        raise AssertionError(f"xlstm launched kernels: {launched}")
+    if tuple(logits.shape) != (steps + 1, B, cfg.vocab) or \
+            not bool(torch.isfinite(logits).all()) or \
+            tuple(toks.shape) != (steps, B) or \
+            not all(bool(torch.isfinite(t).all()) for t in state.values()):
+        raise AssertionError(f"xlstm: logits {tuple(logits.shape)}, tokens "
+                             f"{tuple(toks.shape)}, or a non-finite value")
+    eng = ServingEngine(model, params, EngineConfig(max_context=4096,
+                                                    spec=H100))
+    eng.start(prompts[:, :8])
+    try:
+        eng.generate(toks[-1], 2)
+    except ValueError as e:
+        log(f"xlstm: ServingEngine.generate refuses the family: {e}")
+    else:
+        raise AssertionError("xlstm: ServingEngine.generate did not raise")
+    numbers = {"prompt": XLSTM_PROMPT, "prefill_s": t_pre,
+               "decode_tokens_per_s": B * steps / t_dec,
+               "state_bytes": state_bytes, "peak_bytes": peak}
+    del eng, model, params, state, logits
+    free_card()
+    return numbers
 
 
 def _leaves(tree):
@@ -1761,6 +1927,7 @@ def main(argv=None) -> int:
         "qwen3-32b", args.seed, overlap=True))
     streams, _ = phase("single streams", lambda: single_stream_phase(
         args.seed))
+    phase("xlstm", lambda: xlstm_phase(args.seed))
     log(f"all phases: {time.time() - t_all:.1f} s wall")
 
     # one inline internlm2 decode layer: the HBM-tier (N=64) + host-tier

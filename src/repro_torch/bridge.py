@@ -53,8 +53,9 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
     `cfg.param_dtype`. The layouts are the same for every ported family
     — dense and vlm (one layout), moe of either interleave, and encdec
     (`enc_layers` / `dec_layers` with their layer norms' weights and
-    biases, `self_attn` / `cross_attn`, `enc_pos` / `dec_pos`) — so this
-    is a per-leaf conversion."""
+    biases, `self_attn` / `cross_attn`, `enc_pos` / `dec_pos`), hybrid
+    and ssm (`mamba`, `shared_attn`) and xlstm (`mlstm`, `slstm`) — so
+    this is a per-leaf conversion."""
     device = resolve_device(device)
 
     def conv(node):
@@ -68,24 +69,28 @@ def cache_from_numpy(arrays: Dict[str, Any], device=None, pool_dtype=None
                      ) -> Union[PagedKVCache, Dict[str, Any]]:
     """A decode state from numpy arrays on `device` (default: the CUDA
     card): a `PagedKVCache` from a dict keyed by the field names the
-    reference's `PagedKVCache` uses, or an encdec state
-    {"kv": that dict, "enc": encoder output [B, F, d]} as
-    {"kv": PagedKVCache, "enc": tensor}."""
+    reference's `PagedKVCache` uses (`pool_dtype` casts its pools), or
+    a dict state of any family with its cache converted so and every
+    other array kept in its dtype — encdec's {"kv", "enc"}, hybrid's
+    {"ssm": {"s", "conv"}, "kv"}, xlstm's flat dict of recurrent
+    tensors (the recurrent state stays f32)."""
     device = resolve_device(device)
-    if "kv" in arrays:
-        return {"kv": cache_from_numpy(arrays["kv"], device, pool_dtype),
-                "enc": to_torch(arrays["enc"], device=device)}
-    out = {}
-    for name in CACHE_FIELDS:
-        dtype = pool_dtype if name in _POOLS else None
-        out[name] = to_torch(arrays[name], dtype, device)
-    return PagedKVCache(**out)
+    if "page_table" in arrays:
+        return PagedKVCache(**{
+            name: to_torch(arrays[name],
+                           pool_dtype if name in _POOLS else None, device)
+            for name in CACHE_FIELDS})
+    return {k: cache_from_numpy(v, device, pool_dtype)
+            if isinstance(v, dict) else to_torch(v, device=device)
+            for k, v in arrays.items()}
 
 
 def cache_to_numpy(state) -> Dict[str, Any]:
-    """A decode state as numpy: a cache's fields keyed by field name, or
-    an encdec state's {"kv": those, "enc": the encoder output}."""
-    if isinstance(state, dict):
-        return {"kv": cache_to_numpy(state["kv"]),
-                "enc": to_numpy(state["enc"])}
-    return {name: to_numpy(getattr(state, name)) for name in CACHE_FIELDS}
+    """A decode state as numpy, the inverse of `cache_from_numpy`: a
+    cache's fields keyed by field name, a dict state with the same keys
+    and nesting."""
+    if isinstance(state, PagedKVCache):
+        return {name: to_numpy(getattr(state, name))
+                for name in CACHE_FIELDS}
+    return {k: cache_to_numpy(v) if isinstance(v, (dict, PagedKVCache))
+            else to_numpy(v) for k, v in state.items()}

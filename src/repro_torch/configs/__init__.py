@@ -3,10 +3,7 @@
 `ALIASES` only, `all_arch_names()`).
 
 Each module exposes CONFIG (the published configuration) and
-smoke_config() (a reduced same-family variant for CPU tests). The
-families not ported yet (hybrid: zamba2-1.2b; xlstm: xlstm-125m) keep
-their ids here and raise NotImplementedError when asked for; they
-arrive with their slices of the port.
+smoke_config() (a reduced same-family variant for CPU tests).
 """
 
 from __future__ import annotations
@@ -25,9 +22,6 @@ ARCH_IDS = [
     "xlstm_125m",
     "zamba2_1_2b",
 ]
-
-#: the ids whose families the port does not have yet
-NOT_PORTED = ("xlstm_125m", "zamba2_1_2b")
 
 # canonical ids as published (dashes) -> module names
 ALIASES = {i.replace("_", "-"): i for i in ARCH_IDS}
@@ -48,10 +42,6 @@ ALIASES.update({
 
 def _module(name: str):
     name = ALIASES.get(name, name)
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"config {name!r} is not ported yet; its family arrives with "
-            f"a later slice of the port (ROADMAP.md queue 1)")
     return importlib.import_module(f"repro_torch.configs.{name}")
 
 

@@ -1,8 +1,7 @@
 """Architecture configuration (the port's copy, torch dtypes).
 
-The fields the dense, moe, vlm and encdec families read are kept; the
-recurrent families' sub-configs (ssm, xlstm) arrive with their slices
-of the port.
+The fields the six families (dense, moe, vlm, encdec, and the
+recurrent hybrid/ssm and xlstm) read are kept.
 """
 
 from __future__ import annotations
@@ -39,6 +38,26 @@ class MoEConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    state_dim: int = 64          # N: per-channel state size (Mamba2)
+    conv_width: int = 4
+    expand: int = 2              # inner dim = expand * d_model
+    chunk: int = 128             # chunked-scan block length
+    #: hybrid (zamba2): a weight-shared attention block after every
+    #: `attn_every`-th SSM block; 0 disables attention entirely
+    attn_every: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class XLSTMConfig:
+    #: every `slstm_every`-th block is an sLSTM block, the rest mLSTM
+    slstm_every: int = 4
+    expand: int = 2
+    conv_width: int = 4
+    chunk: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
 class EncDecConfig:
     enc_layers: int
     #: encoder input length (frames after the stubbed conv frontend)
@@ -58,7 +77,7 @@ class FrontendStub:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                  # dense | moe | vlm | encdec (others later)
+    family: str                  # dense | moe | vlm | encdec | ssm | xlstm | hybrid
     num_layers: int
     d_model: int
     num_heads: int
@@ -73,6 +92,8 @@ class ModelConfig:
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.bfloat16
     moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    xlstm: Optional[XLSTMConfig] = None
     encdec: Optional[EncDecConfig] = None
     frontend: Optional[FrontendStub] = None
     #: KV page size in tokens for the two-tier paged cache
@@ -97,6 +118,14 @@ class ModelConfig:
         return self.num_heads // self.kv_heads
 
     def attention_layer_ids(self) -> Tuple[int, ...]:
-        """Layers that own a KV cache (every layer of a dense, moe or vlm
-        model; every decoder layer of an encdec one)."""
+        """Layers that own a KV cache: none of an ssm or xlstm model,
+        the shared-attention sites of a hybrid one (after every
+        `attn_every`-th block), every (decoder) layer otherwise."""
+        if self.family in ("ssm", "xlstm"):
+            return ()
+        if self.family == "hybrid":
+            if self.ssm is None or self.ssm.attn_every <= 0:
+                raise ValueError("a hybrid model needs ssm.attn_every > 0")
+            return tuple(range(self.ssm.attn_every - 1, self.num_layers,
+                               self.ssm.attn_every))
         return tuple(range(self.num_layers))

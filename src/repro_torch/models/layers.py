@@ -1,5 +1,6 @@
-"""Layer ops of the dense, vlm and encdec families (the port of the
-reference's `models/layers.py`): plain functions on tensors, with the reference's
+"""Layer ops of every family (the port of the reference's
+`models/layers.py`, and the depthwise causal conv its `ssm.py` and
+`xlstm.py` each define): plain functions on tensors, with the reference's
 precision choices kept — `rms_norm` casts back to the model dtype
 before the weight multiply, and attention logits are taken in the
 input dtype, then f32. On the card, whole-sequence `attention` runs
@@ -57,6 +58,18 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 # --- activations ------------------------------------------------------------
+
+def causal_conv(x: torch.Tensor, w: torch.Tensor,
+                b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv of the recurrent families' blocks.
+    x [B,S,C]; w [W,C]; left-pad W-1."""
+    W, S = w.shape[0], x.shape[1]
+    xp = torch.nn.functional.pad(x, (0, 0, W - 1, 0))
+    out = xp[:, 0:S] * w[0]
+    for i in range(1, W):
+        out = out + xp[:, i:i + S] * w[i]
+    return out + b
+
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:

@@ -1,30 +1,50 @@
-"""Model facade (the port of the reference's `models/model.py`: the
-dense, moe, vlm and encdec families).
+"""Model facade (the port of the reference's `models/model.py`: every
+family — dense, moe, vlm, encdec, and the recurrent hybrid/ssm and
+xlstm).
 
 `Model(cfg)` exposes:
   schema() / init(seed_or_generator, device)   parameters
+  forward(params, tokens, extra=None)           logits at every position
   cache_geometry(batch, max_context, ...)       paged-cache geometry
   prefill(params, tokens, geo, extra=None)      logits + decode state
   prefill_chunk(params, cache, tokens, start, n_valid)   dense, moe
+  init_decode_state(batch, geo=None, device=None)
   decode_step(params, state, token, write_slot=..., ...)
 
-The decode state is a `PagedKVCache`, or for encdec {"kv": the
-decoder's self-attention cache, "enc": the encoder output [B, F, d]}.
-The dense, moe and vlm families run one decoder
-(`transformer.decoder_*`) over a list of (attention weights, FFN)
-blocks, one per cache layer; vlm is the dense decoder over the patch
-embeddings (`extra["patch_embeds"]` [B, num_embeddings, d]) followed by
-the token embeddings, so its prompt length counts the patches. encdec
-is whisper's encoder over `extra["frame_embeds"]` [B, F, d] and a
-decoder whose self-attention is paged and whose cross-attention is
-dense over the encoder output (`transformer.encdec_*`). A moe model's
-FFN is `moe.moe_block` on every layer (interleave 1) or a dense MLP and
-a moe block alternating (interleave 2: the reference's superblocks,
-cache layers ordered [dense0, moe0, dense1, moe1, ...]). Because its
-routing groups every row it is given, a moe model runs every lane
-through each decode step and prefill chunk (`all_lanes`), as the
-reference does. The recurrent families arrive with their slices of the
-port.
+Decode states:
+  dense, moe, vlm   a `PagedKVCache`
+  encdec            {"kv": the decoder's self-attention cache,
+                     "enc": the encoder output [B, F, d]}
+  hybrid            {"ssm": {"s": [L, B, H, N, P], "conv": [L, B, W-1, C]},
+                     "kv": a cache over the shared-attention sites}
+  ssm               {"ssm": ...} (no attention layers)
+  xlstm             the stacked recurrent tensors (m_C, m_n, m_m, m_conv
+                    of the mLSTM blocks, s_c, s_n, s_m, s_h of the sLSTM
+                    blocks); no cache
+Recurrent state is f32 in every model dtype.
+
+The dense, moe and vlm families run one decoder (`transformer.decoder_*`)
+over a list of (attention weights, FFN) blocks, one per cache layer;
+vlm is the dense decoder over the patch embeddings
+(`extra["patch_embeds"]` [B, num_embeddings, d]) followed by the token
+embeddings, so its prompt length counts the patches. encdec is
+whisper's encoder over `extra["frame_embeds"]` [B, F, d] and a decoder
+whose self-attention is paged and whose cross-attention is dense over
+the encoder output (`transformer.encdec_*`). A moe model's FFN is
+`moe.moe_block` on every layer (interleave 1) or a dense MLP and a moe
+block alternating (interleave 2: the reference's superblocks, cache
+layers ordered [dense0, moe0, dense1, moe1, ...]). Because its routing
+groups every row it is given, a moe model runs every lane through each
+decode step and prefill chunk (`all_lanes`), as the reference does.
+
+hybrid (zamba2) is a stack of Mamba2 blocks (`models.ssm`) with ONE
+weight-shared attention + MLP block after every `attn_every`-th of
+them; those sites are the cache's only layers. Its whole-prompt
+attention is the flash kernel on the card, its decode attention the
+paged kernel, per site. ssm is the same stack with no site. xlstm
+(`models.xlstm`) stacks mLSTM blocks with an sLSTM block every
+`slstm_every`-th; its prefill replays one decode step per prompt token,
+as the reference's does, and it launches no kernel.
 """
 
 from __future__ import annotations
@@ -35,24 +55,29 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.kvcache.paged import (
-    CacheGeometry, PagedKVCache, prefill_cache,
+    CacheGeometry, PagedKVCache, init_cache, prefill_cache,
+    write_token_layer,
 )
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tfm
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import rms_norm
 from repro_torch.models.params import Param, init_params
 
-FAMILIES = ("dense", "moe", "vlm", "encdec")
+FAMILIES = ("dense", "moe", "vlm", "encdec", "hybrid", "ssm", "xlstm")
 
-_LATER = ("family {fam!r} is not ported yet; the port covers 'dense', "
-          "'moe', 'vlm' and 'encdec' (the other families follow in later "
-          "slices, ROADMAP.md queue 1)")
+#: the xlstm decode state's keys, by block kind, in layer-state order
+XLSTM_KEYS = {"mlstm": ("m_C", "m_n", "m_m", "m_conv"),
+              "slstm": ("s_c", "s_n", "s_m", "s_h")}
 
 
 class Model:
     def __init__(self, cfg: ModelConfig):
         if cfg.family not in FAMILIES:
-            raise NotImplementedError(_LATER.format(fam=cfg.family))
+            raise ValueError(f"unknown family {cfg.family!r}; the "
+                             f"families are {', '.join(FAMILIES)}")
         if cfg.family == "moe" and cfg.moe.interleave not in (1, 2):
             raise ValueError("moe interleave 1 or 2 supported, got "
                              f"{cfg.moe.interleave}")
@@ -64,7 +89,52 @@ class Model:
             return tfm.dense_schema(self.cfg)
         if fam == "encdec":
             return tfm.encdec_schema(self.cfg)
+        if fam == "xlstm":
+            return self._xlstm_schema()
+        if fam in ("ssm", "hybrid"):
+            return self._hybrid_schema()
         return self._moe_schema()
+
+    def _head(self, s):
+        """`s` with the embedding, final norm and (untied) unembedding."""
+        cfg = self.cfg
+        s = {"embed": Param((cfg.vocab, cfg.d_model), "embed"),
+             "final_norm": Param((cfg.d_model,), "ones"), **s}
+        if not cfg.tie_embeddings:
+            s["unembed"] = Param((cfg.d_model, cfg.vocab), fan_in_axes=(0,))
+        return s
+
+    def _xlstm_schema(self):
+        cfg = self.cfg
+        n_s = len(self._slstm_ids())
+        return self._head({
+            "mlstm": xlstm_mod.mlstm_schema(cfg, cfg.num_layers - n_s),
+            "slstm": xlstm_mod.slstm_schema(cfg, n_s)})
+
+    def _hybrid_schema(self):
+        cfg = self.cfg
+        s = {"mamba": ssm_mod.mamba2_schema(cfg, cfg.num_layers)}
+        if cfg.attention_layer_ids():
+            # ONE weight-shared attention block (zamba2) and its MLP
+            s["shared_attn"] = {
+                k: Param(p.shape[1:], p.init,
+                         tuple(a - 1 for a in p.fan_in_axes))
+                for k, p in {**tfm.attn_schema(cfg, 1),
+                             **tfm.mlp_schema(cfg, 1)}.items()}
+        return self._head(s)
+
+    def _slstm_ids(self):
+        k = self.cfg.xlstm.slstm_every
+        return tuple(range(k - 1, self.cfg.num_layers, k)) if k else ()
+
+    def _xlstm_layers(self):
+        """(block kind, index in its stack) of each layer, in order."""
+        slstm = set(self._slstm_ids())
+        count = {"mlstm": 0, "slstm": 0}
+        for l in range(self.cfg.num_layers):
+            kind = "slstm" if l in slstm else "mlstm"
+            yield kind, count[kind]
+            count[kind] += 1
 
     def _moe_schema(self):
         cfg = self.cfg
@@ -79,14 +149,7 @@ class Model:
                 "moe_attn": tfm.attn_schema(cfg, nb),
                 "moe": moe_mod.moe_schema(cfg, nb),
             }
-        s = {
-            "embed": Param((cfg.vocab, cfg.d_model), "embed"),
-            "final_norm": Param((cfg.d_model,), "ones"),
-            "layers": layers,
-        }
-        if not cfg.tie_embeddings:
-            s["unembed"] = Param((cfg.d_model, cfg.vocab), fan_in_axes=(0,))
-        return s
+        return self._head({"layers": layers})
 
     def blocks(self, params):
         """(attention weights, FFN) per cache layer, in cache order (the
@@ -130,12 +193,82 @@ class Model:
         return init_params(self.schema(), gen, self.cfg.param_dtype,
                            device=dev)
 
+    def forward(self, params, tokens, extra=None):
+        """Logits [B, S, V] at every position of `tokens` [B, S] (vlm:
+        [B, num_embeddings + S, V], over `extra["patch_embeds"]` first;
+        encdec: over `extra["frame_embeds"]`)."""
+        cfg = self.cfg
+        fam = cfg.family
+        if fam == "encdec":
+            return tfm.encdec_forward(params, cfg, tokens,
+                                      extra["frame_embeds"].to(cfg.dtype))[0]
+        if fam == "xlstm":
+            return self._xlstm_forward(params, tokens)
+        if fam in ("ssm", "hybrid"):
+            return self._hybrid_forward(params, tokens)[0]
+        return tfm.decoder_forward(params, cfg, tokens, self.blocks(params),
+                                   input_embeds=self._vlm_embeds(
+                                       params, tokens, extra))[0]
+
+    def _vlm_embeds(self, params, tokens, extra):
+        """The vlm family's input: patch embeddings, then the tokens'
+        (None for the other decoder families)."""
+        cfg = self.cfg
+        if cfg.family != "vlm":
+            return None
+        return torch.cat([extra["patch_embeds"].to(cfg.dtype),
+                          tfm.embed_tokens(params, cfg, tokens)], dim=1)
+
+    def _xlstm_forward(self, params, tokens):
+        cfg = self.cfg
+        h = tfm.embed_tokens(params, cfg, tokens)
+        for kind, i in self._xlstm_layers():
+            fn = xlstm_mod.slstm_forward_layer if kind == "slstm" \
+                else xlstm_mod.mlstm_forward_layer
+            h = h + fn(h, tfm.layer_params(params[kind], i), cfg)
+        h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+        return tfm.unembed(params, cfg, h)
+
+    def _hybrid_forward(self, params, tokens, collect_state: bool = False):
+        """(logits [B, S, V], the sites' post-RoPE (k, v) stacked
+        [n_sites, B, S, KH, HD] (None without sites), and with
+        `collect_state` the Mamba2 state (s [L, B, H, N, P], conv
+        [L, B, W-1, C]) after the sequence). The shared attention block
+        runs after the Mamba2 block at each site."""
+        cfg = self.cfg
+        h = tfm.embed_tokens(params, cfg, tokens)
+        positions = torch.arange(h.shape[1], device=h.device)[None, :]
+        sites = set(cfg.attention_layer_ids())
+        ks, vs, ss, convs = [], [], [], []
+        for l in range(cfg.num_layers):
+            out = ssm_mod.mamba2_forward_layer(
+                h, tfm.layer_params(params["mamba"], l), cfg,
+                return_state=collect_state)
+            if collect_state:
+                out, (s, conv) = out
+                ss.append(s)
+                convs.append(conv)
+            h = h + out
+            if l in sites:
+                sp = params["shared_attn"]
+                h, (k, v) = tfm.full_attn_block(h, sp, cfg, positions)
+                h = tfm.dense_mlp_block(h, sp, cfg)
+                ks.append(k)
+                vs.append(v)
+        h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+        kv = (torch.stack(ks), torch.stack(vs)) if ks else None
+        state = (torch.stack(ss), torch.stack(convs)) if ss else None
+        return tfm.unembed(params, cfg, h), kv, state
+
     def cache_geometry(self, batch: int, max_context: int,
                        hbm_fraction: float = 0.25,
                        pad_to: int = 16) -> CacheGeometry:
+        """The paged cache of the attention layers (one layer per hybrid
+        site; a family with none gets a one-layer geometry, as the
+        reference's, which only the policy state reads)."""
         cfg = self.cfg
         return CacheGeometry.for_context(
-            num_layers=len(cfg.attention_layer_ids()), batch=batch,
+            num_layers=max(len(cfg.attention_layer_ids()), 1), batch=batch,
             context=max_context, kv_heads=cfg.kv_heads,
             head_dim=cfg.head_dim, page_tokens=cfg.kv_page_tokens,
             hbm_fraction=hbm_fraction, pad_to=pad_to, dtype=cfg.dtype)
@@ -143,19 +276,35 @@ class Model:
     def prefill(self, params, tokens, geo: CacheGeometry, extra=None):
         """Whole-prompt prefill: (last-position logits [B, V], decode
         state). `extra`: {"patch_embeds"} (vlm) or {"frame_embeds"}
-        (encdec), tensors on the tokens' device."""
+        (encdec), tensors on the tokens' device. hybrid needs prompts of
+        at least conv_width - 1 tokens; xlstm replays one decode step
+        per token; ssm (no attention sites) has no prefill, as in the
+        reference."""
         cfg = self.cfg
-        if cfg.family == "encdec":
+        fam = cfg.family
+        if fam == "encdec":
             logits, (k, v), enc = tfm.encdec_forward(
                 params, cfg, tokens, extra["frame_embeds"])
             cache = prefill_cache(geo, k, v, tokens.shape[1])
             return logits[:, -1], {"kv": cache, "enc": enc}
-        embeds, prompt = None, tokens.shape[1]
-        if cfg.family == "vlm":
-            patches = extra["patch_embeds"].to(cfg.dtype)
-            embeds = torch.cat(
-                [patches, tfm.embed_tokens(params, cfg, tokens)], dim=1)
-            prompt += cfg.frontend.num_embeddings
+        if fam == "hybrid":
+            logits, (k, v), (s, conv) = self._hybrid_forward(
+                params, tokens, collect_state=True)
+            cache = prefill_cache(geo, k, v, tokens.shape[1])
+            return logits[:, -1], {"ssm": {"s": s, "conv": conv},
+                                   "kv": cache}
+        if fam == "xlstm":
+            state = self.init_decode_state(tokens.shape[0],
+                                           device=tokens.device)
+            logits = None
+            for t in range(tokens.shape[1]):
+                logits, state = self.decode_step(params, state, tokens[:, t])
+            return logits, state
+        if fam == "ssm":
+            raise ValueError(f"prefill not supported for {fam}")
+        embeds = self._vlm_embeds(params, tokens, extra)
+        prompt = tokens.shape[1] + (
+            cfg.frontend.num_embeddings if fam == "vlm" else 0)
         logits, (k, v) = tfm.decoder_forward(params, cfg, tokens,
                                              self.blocks(params),
                                              input_embeds=embeds)
@@ -178,17 +327,88 @@ class Model:
             self.blocks(params), end,
             all_lanes=self.cfg.family == "moe")
 
+    def init_decode_state(self, batch: int,
+                          geo: Optional[CacheGeometry] = None, device=None):
+        """A fresh decode state for `batch` lanes on `device` (default:
+        the CUDA card): an empty cache of `geo` (the cache-backed
+        families; hybrid also the zero Mamba2 state, and that state alone
+        without `geo`), or the xlstm family's initial recurrent state."""
+        fam = self.cfg.family
+        device = resolve_device(device)
+        if fam == "xlstm":
+            return self._xlstm_state(batch, device)
+        if fam in ("ssm", "hybrid"):
+            state = {"ssm": self._mamba_state(batch, device)}
+            if geo is not None and self.cfg.attention_layer_ids():
+                state["kv"] = init_cache(geo, device)
+            return state
+        if geo is None:
+            raise ValueError(f"family {fam!r} decodes over a paged cache; "
+                             f"pass its geometry")
+        return init_cache(geo, device)
+
+    def _mamba_state(self, batch, device):
+        cfg = self.cfg
+        inner = cfg.ssm.expand * cfg.d_model
+        H, N = cfg.num_heads, cfg.ssm.state_dim
+        f32 = dict(dtype=torch.float32, device=device)
+        return {
+            "s": torch.zeros((cfg.num_layers, batch, H, N, inner // H),
+                             **f32),
+            "conv": torch.zeros((cfg.num_layers, batch,
+                                 cfg.ssm.conv_width - 1, inner + 2 * N),
+                                **f32),
+        }
+
+    def _xlstm_state(self, batch, device):
+        cfg = self.cfg
+        inner = cfg.xlstm.expand * cfg.d_model
+        H = cfg.num_heads
+        P, Ps = inner // H, cfg.d_model // H
+        n_s = len(self._slstm_ids())
+        n_m = cfg.num_layers - n_s
+        f32 = dict(dtype=torch.float32, device=device)
+        neg = xlstm_mod.NEG
+        return {
+            "m_C": torch.zeros((n_m, batch, H, P, P), **f32),
+            "m_n": torch.zeros((n_m, batch, H, P), **f32),
+            "m_m": torch.full((n_m, batch, H), neg, **f32),
+            "m_conv": torch.zeros((n_m, batch, cfg.xlstm.conv_width - 1,
+                                   inner), **f32),
+            "s_c": torch.zeros((n_s, batch, H, Ps), **f32),
+            "s_n": torch.zeros((n_s, batch, H, Ps), **f32),
+            "s_m": torch.full((n_s, batch, H, Ps), neg, **f32),
+            "s_h": torch.zeros((n_s, batch, H, Ps), **f32),
+        }
+
     def decode_step(self, params, state, token, *,
                     write_slot: Optional[torch.Tensor] = None,
                     logical_page_mask: Optional[torch.Tensor] = None,
                     active: Optional[torch.Tensor] = None,
                     pool_ready=None):
-        """One decode step over `state` (a `PagedKVCache`, or encdec's
-        {"kv", "enc"}); `write_slot` defaults to static placement.
-        `active`, `pool_ready`: see `transformer.decoder_decode_step`
-        (encdec, which `serve` does not drive, takes `active` only).
-        Returns (logits [B, V], the new state)."""
-        if self.cfg.family == "encdec":
+        """One decode step over `state` (see the module docstring);
+        `write_slot` defaults to static placement. `active`,
+        `pool_ready`: see `transformer.decoder_decode_step` (encdec,
+        which `serve` does not drive, takes `active` only; the recurrent
+        families, which it does not drive either, take neither). A
+        `logical_page_mask` on a family without attention layers raises
+        ValueError, as in the reference. Returns (logits [B, V], the new
+        state)."""
+        fam = self.cfg.family
+        if logical_page_mask is not None and \
+                not self.cfg.attention_layer_ids():
+            raise ValueError(
+                f"logical_page_mask needs a paged KV cache; family {fam} "
+                f"has no attention layers")
+        if fam in ("ssm", "hybrid", "xlstm") and active is not None:
+            raise ValueError(f"lane masking (`active`) is the serve loop's, "
+                             f"and serve() does not drive family {fam!r}")
+        if fam == "xlstm":
+            return self._xlstm_decode_step(params, state, token)
+        if fam in ("ssm", "hybrid"):
+            return self._hybrid_decode_step(params, state, token, write_slot,
+                                            logical_page_mask)
+        if fam == "encdec":
             return self._encdec_decode_step(params, state, token, write_slot,
                                             logical_page_mask, active)
         if write_slot is None:
@@ -211,6 +431,81 @@ class Model:
             params, self.cfg, cache, state["enc"], token, write_slot,
             logical_page_mask=logical_page_mask, active=active)
         return logits, {"kv": cache, "enc": state["enc"]}
+
+    def _xlstm_decode_step(self, params, state, token):
+        """One token through every block's recurrent update; the state's
+        stacks are rebuilt, the old ones left as they were."""
+        cfg = self.cfg
+        h = tfm.embed_tokens(params, cfg, token[:, None])[:, 0]
+        new = {k: [] for k in state}
+        for kind, i in self._xlstm_layers():
+            keys = XLSTM_KEYS[kind]
+            fn = xlstm_mod.slstm_decode_layer if kind == "slstm" \
+                else xlstm_mod.mlstm_decode_layer
+            y, st = fn(h, tfm.layer_params(params[kind], i), cfg,
+                       tuple(state[k][i] for k in keys))
+            for k, t in zip(keys, st):
+                new[k].append(t)
+            h = h + y
+        h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+        logits = tfm.unembed(params, cfg, h)
+        return logits, {k: torch.stack(v) if v else state[k]
+                        for k, v in new.items()}
+
+    def _hybrid_decode_step(self, params, state, token, write_slot,
+                            logical_page_mask=None):
+        """Each Mamba2 block's recurrent update, and at each site the
+        shared attention block over that site's layer of the paged cache
+        (the paged kernel on the card, one launch per tier) and its MLP.
+        state: {"ssm": {"s", "conv"}, "kv": PagedKVCache} ("kv" absent
+        for the ssm family)."""
+        cfg = self.cfg
+        h = tfm.embed_tokens(params, cfg, token[:, None])[:, 0]
+        ssm_state = state["ssm"]
+        cache: Optional[PagedKVCache] = state.get("kv")
+        sites = cfg.attention_layer_ids() if cache is not None else ()
+        if cache is not None:
+            T = cache.k_hbm.shape[3]
+            pos = cache.length
+            offset = pos % T
+            if write_slot is None:
+                write_slot = default_write_slot(cache)
+            cache = tfm.allocate_token_page(cache, write_slot)
+            logical_page_mask = tfm.mask_write_visible(cache,
+                                                       logical_page_mask)
+            lists = cache.tier_lists(logical_page_mask=logical_page_mask)
+        ss, convs, imps = [], [], []
+        for l in range(cfg.num_layers):
+            y, s, conv = ssm_mod.mamba2_decode_layer(
+                h, tfm.layer_params(params["mamba"], l), cfg,
+                ssm_state["s"][l], ssm_state["conv"][l])
+            ss.append(s)
+            convs.append(conv)
+            h = h + y
+            if l in sites:
+                i = len(imps)
+                sp = params["shared_attn"]
+                hs = h[:, None]
+                x = rms_norm(hs, sp["attn_norm"], cfg.norm_eps)
+                q, k, v = tfm.attn_qkv(x, sp, cfg, pos[:, None])
+                pools = (cache.k_hbm[i], cache.v_hbm[i], cache.k_host[i],
+                         cache.v_host[i])
+                # write this token's k/v BEFORE attending (it sees itself)
+                write_token_layer(*pools, write_slot[i], offset, k[:, 0],
+                                  v[:, 0])
+                o, imp = tfm.paged_attend(q, pools,
+                                          tuple(t[i] for t in lists),
+                                          write_slot[i], offset, cfg)
+                hs = tfm.dense_mlp_block(hs + tfm.attn_out(o, sp), sp, cfg)
+                h = hs[:, 0]
+                imps.append(imp)
+        h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+        logits = tfm.unembed(params, cfg, h)
+        new = {"ssm": {"s": torch.stack(ss), "conv": torch.stack(convs)}}
+        if cache is not None:
+            new["kv"] = tfm._update_cache_after_step(
+                cache, torch.stack(imps), write_slot)
+        return logits, new
 
 
 def default_write_slot(cache: PagedKVCache) -> torch.Tensor:

@@ -1,0 +1,292 @@
+"""xLSTM blocks of the xlstm family (the port of the reference's
+`models/xlstm.py`): mLSTM (matrix memory, chunk-parallel) and sLSTM
+(scalar memory, sequential by construction), in plain PyTorch — the
+reference computes them outside any Pallas kernel.
+
+mLSTM uses exponential gating with the stabiliser recurrence
+  m_t = max(logsig(f_t) + m_{t-1}, i_t),
+which is max-plus associative, so the chunked form computes the same
+m_t in parallel: m_i = max(m_prev + lf_i, max_{j<=i} w_ij) with
+w_ij = lf_i - lf_j + i_j. Masked entries take the finite `NEG`, never
+-inf: a difference of two masked values must stay finite (-inf - -inf
+is NaN).
+
+Precision follows the reference's JAX promotion: gates, memories and
+the decode state are f32, the projections run in the model dtype, and
+where an f32 tensor meets a model-dtype weight (the decode conv over
+the f32 conv state, the gates' projections of its f32 output, the
+sLSTM's recurrent products over its f32 hidden state) the weight is
+widened to f32.
+
+The family has no KV cache: its decode state is a fixed-size set of
+recurrent tensors that every step reads whole, so the paper's
+placement does not apply to it.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import causal_conv, rms_norm
+from repro_torch.models.params import Param
+
+NEG = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Schemas
+# ---------------------------------------------------------------------------
+
+def mlstm_schema(cfg: ModelConfig, L: int):
+    d = cfg.d_model
+    inner = cfg.xlstm.expand * d
+    H = cfg.num_heads
+    W = cfg.xlstm.conv_width
+    return {
+        "norm": Param((L, d), "ones"),
+        "w_up": Param((L, d, 2 * inner), fan_in_axes=(1,)),
+        "conv_w": Param((L, W, inner), fan_in_axes=(1,)),
+        "conv_b": Param((L, inner), "zeros"),
+        "wq": Param((L, inner, inner), fan_in_axes=(1,)),
+        "wk": Param((L, inner, inner), fan_in_axes=(1,)),
+        "wv": Param((L, inner, inner), fan_in_axes=(1,)),
+        "wi": Param((L, inner, H), fan_in_axes=(1,)),
+        "wf": Param((L, inner, H), fan_in_axes=(1,)),
+        "bi": Param((L, H), "zeros"),
+        "bf": Param((L, H), "ones"),
+        "y_norm": Param((L, inner), "ones"),
+        "w_out": Param((L, inner, d), fan_in_axes=(1,)),
+    }
+
+
+def slstm_schema(cfg: ModelConfig, L: int):
+    d = cfg.d_model
+    H = cfg.num_heads
+    P = d // H
+    gates = {}
+    for g in ("z", "i", "f", "o"):
+        gates[f"w{g}"] = Param((L, d, d), fan_in_axes=(1,))
+        gates[f"r{g}"] = Param((L, H, P, P), fan_in_axes=(2,))
+        gates[f"b{g}"] = Param((L, d), "ones" if g == "f" else "zeros")
+    return {
+        "norm": Param((L, d), "ones"),
+        **gates,
+        "y_norm": Param((L, d), "ones"),
+        "w_out": Param((L, d, d), fan_in_axes=(1,)),
+    }
+
+
+def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w in the promoted dtype of the two (JAX's rule: bf16 with
+    f32 gives f32)."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt) @ w.to(dt)
+
+
+# ---------------------------------------------------------------------------
+# mLSTM: chunk-parallel forward / recurrent decode / sequential ref
+# ---------------------------------------------------------------------------
+
+def _mlstm_inputs(h, lp, cfg: ModelConfig):
+    d = cfg.d_model
+    inner = cfg.xlstm.expand * d
+    H = cfg.num_heads
+    P = inner // H
+    x = rms_norm(h, lp["norm"], cfg.norm_eps)
+    xpath, z = torch.chunk(x @ lp["w_up"], 2, dim=-1)
+    return xpath, z, inner, H, P
+
+
+def _qkv_gates(xconv, xpath, lp, H, P):
+    """(q, k scaled by P^-1/2, v, input gate, log forget gate), all f32:
+    q, k and the gates from the conv path, v from the plain path."""
+    B_, S, _ = xconv.shape
+    q = _mm(xconv, lp["wq"]).reshape(B_, S, H, P)
+    k = _mm(xconv, lp["wk"]).reshape(B_, S, H, P)
+    v = _mm(xpath, lp["wv"]).reshape(B_, S, H, P)
+    k = k.float() * (P ** -0.5)
+    ig = (_mm(xconv, lp["wi"]) + lp["bi"]).float()
+    fg = (_mm(xconv, lp["wf"]) + lp["bf"]).float()
+    return q.float(), k, v.float(), ig, F.logsigmoid(fg)
+
+
+def _mlstm_out(y, z, lp, cfg: ModelConfig):
+    """y [..., inner] f32 gated by silu(z), normed in the model dtype,
+    projected out to d."""
+    y = y * F.silu(z.float())
+    y = rms_norm(y.to(cfg.dtype), lp["y_norm"], cfg.norm_eps)
+    return y @ lp["w_out"]
+
+
+def mlstm_forward_layer(h, lp, cfg: ModelConfig):
+    """h [B,S,d] -> [B,S,d] (residual added by the caller)."""
+    B_, S, d = h.shape
+    xpath, z, inner, H, P = _mlstm_inputs(h, lp, cfg)
+    xconv = F.silu(causal_conv(xpath, lp["conv_w"], lp["conv_b"]))
+    q, k, v, ig, lf = _qkv_gates(xconv, xpath, lp, H, P)
+
+    Q = min(cfg.xlstm.chunk, S)
+    S_real = S
+    pad = (-S) % Q
+    if pad:
+        # padded steps: lf=0 (no decay), i=NEG (no input) -> state fixed
+        q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
+        lf = F.pad(lf, (0, 0, 0, pad))
+        ig = F.pad(ig, (0, 0, 0, pad), value=NEG)
+        z = F.pad(z, (0, 0, 0, pad))
+        S = S + pad
+    nc = S // Q
+    # per chunk, heads ahead of positions: [B,nc,H,Q,P] and [B,nc,H,Q]
+    qc, kc, vc = (t.reshape(B_, nc, Q, H, P).permute(0, 1, 3, 2, 4)
+                  for t in (q, k, v))
+    igc = ig.reshape(B_, nc, Q, H).permute(0, 1, 3, 2)
+    lfc = torch.cumsum(lf.reshape(B_, nc, Q, H), dim=2) \
+        .permute(0, 1, 3, 2)                                # within-chunk
+
+    ar = torch.arange(Q, device=h.device)
+    tri = ar[:, None] >= ar[None, :]
+    C = torch.zeros((B_, H, P, P), dtype=torch.float32, device=h.device)
+    n = torch.zeros((B_, H, P), dtype=torch.float32, device=h.device)
+    m = torch.full((B_, H), NEG, dtype=torch.float32, device=h.device)
+    ys = []
+    for c in range(nc):
+        qb, kb, vb = qc[:, c], kc[:, c], vc[:, c]           # [B,H,Q,P]
+        ib, lfb = igc[:, c], lfc[:, c]                      # [B,H,Q]
+        # log weights w_ij = lf_i - lf_j + i_j  (i >= j)
+        w = lfb[..., :, None] - lfb[..., None, :] + ib[..., None, :]
+        w = torch.where(tri, w, NEG)                        # [B,H,Qi,Qj]
+        c_i = m[..., None] + lfb                            # [B,H,Q]
+        m_i = torch.maximum(w.amax(dim=-1), c_i)            # exact m_t
+        p = torch.exp(w - m_i[..., None])
+        carry_w = torch.exp(c_i - m_i)                      # [B,H,Q]
+
+        qkp = (qb @ kb.transpose(-1, -2)) * p               # [B,H,Qi,Qj]
+        num = qkp @ vb + (qb @ C) * carry_w[..., None]      # [B,H,Q,P]
+        den = qkp.sum(-1) + (qb @ n[..., None])[..., 0] * carry_w
+        ys.append(num / torch.maximum(den.abs(),
+                                      torch.exp(-m_i))[..., None])
+
+        # chunk-end state update
+        lf_end = lfb[..., -1]                               # [B,H]
+        a_j = lf_end[..., None] - lfb + ib                  # [B,H,Q]
+        m_new = torch.maximum(m + lf_end, a_j.amax(dim=-1))
+        scale_old = torch.exp(m + lf_end - m_new)
+        pw = torch.exp(a_j - m_new[..., None])              # [B,H,Q]
+        C = C * scale_old[..., None, None] \
+            + (kb * pw[..., None]).transpose(-1, -2) @ vb
+        n = n * scale_old[..., None] + (pw[..., None] * kb).sum(-2)
+        m = m_new
+    y = torch.stack(ys, dim=1)                              # [B,nc,H,Q,P]
+    y = y.permute(0, 1, 3, 2, 4).reshape(B_, S, inner)
+    return _mlstm_out(y, z, lp, cfg)[:, :S_real]
+
+
+def _mlstm_cell(C, n, m, qt, kt, vt, it, lft):
+    """One step of the stabilised recurrence: (C, n, m, y [B,H,P])."""
+    m_new = torch.maximum(lft + m, it)
+    f_ = torch.exp(lft + m - m_new)
+    i_ = torch.exp(it - m_new)
+    C = C * f_[..., None, None] + i_[..., None, None] \
+        * (kt[..., :, None] * vt[..., None, :])
+    n = n * f_[..., None] + i_[..., None] * kt
+    num = (qt[..., None, :] @ C)[..., 0, :]                 # [B,H,P]
+    den = (n * qt).sum(-1)
+    y = num / torch.maximum(den.abs(), torch.exp(-m_new))[..., None]
+    return C, n, m_new, y
+
+
+def mlstm_forward_layer_ref(h, lp, cfg: ModelConfig):
+    """Sequential oracle."""
+    B_, S, d = h.shape
+    xpath, z, inner, H, P = _mlstm_inputs(h, lp, cfg)
+    xconv = F.silu(causal_conv(xpath, lp["conv_w"], lp["conv_b"]))
+    q, k, v, ig, lf = _qkv_gates(xconv, xpath, lp, H, P)
+    C = torch.zeros((B_, H, P, P), dtype=torch.float32, device=h.device)
+    n = torch.zeros((B_, H, P), dtype=torch.float32, device=h.device)
+    m = torch.full((B_, H), NEG, dtype=torch.float32, device=h.device)
+    ys = []
+    for t in range(S):
+        C, n, m, y = _mlstm_cell(C, n, m, q[:, t], k[:, t], v[:, t],
+                                 ig[:, t], lf[:, t])
+        ys.append(y)
+    y = torch.stack(ys, dim=1).reshape(B_, S, inner)
+    return _mlstm_out(y, z, lp, cfg)
+
+
+def mlstm_decode_layer(h, lp, cfg: ModelConfig, state):
+    """h [B,d]; state = (C [B,H,P,P], n [B,H,P], m [B,H],
+    conv [B,W-1,inner]), all f32. Returns (out [B,d], new state)."""
+    C, n, m, conv_state = state
+    xpath, z, inner, H, P = _mlstm_inputs(h[:, None], lp, cfg)
+    # causal conv over [conv_state ; xpath], in f32 (the state's dtype)
+    hist = torch.cat([conv_state, xpath.float()], dim=1)
+    xconv = F.silu(torch.einsum("bwc,wc->bc", hist, lp["conv_w"].float())
+                   + lp["conv_b"].float())
+    q, k, v, ig, lf = _qkv_gates(xconv[:, None], xpath, lp, H, P)
+    C, n, m, y = _mlstm_cell(C, n, m, q[:, 0], k[:, 0], v[:, 0], ig[:, 0],
+                             lf[:, 0])
+    out = _mlstm_out(y.reshape(h.shape[0], inner), z[:, 0], lp, cfg)
+    return out, (C, n, m, hist[:, 1:])
+
+
+# ---------------------------------------------------------------------------
+# sLSTM (sequential by construction)
+# ---------------------------------------------------------------------------
+
+def _slstm_step(lp, cfg: ModelConfig, carry, xt):
+    """carry: (c, n, m, hprev) each [B,H,P] f32; xt: [B,d] normed input.
+    Returns (the new carry, h [B,H,P])."""
+    c, n, m, hprev = carry
+    H = cfg.num_heads
+    P = cfg.d_model // H
+    B_ = xt.shape[0]
+
+    def gate(name):
+        wx = xt @ lp[f"w{name}"]
+        # [H, B, P] @ [H, P, P]: each head's recurrent product
+        rh = _mm(hprev.transpose(0, 1), lp[f"r{name}"]).transpose(0, 1)
+        return (wx + rh.reshape(B_, H * P) + lp[f"b{name}"]).float() \
+            .reshape(B_, H, P)
+
+    zt = torch.tanh(gate("z"))
+    it = gate("i")
+    ft = F.logsigmoid(gate("f"))
+    ot = torch.sigmoid(gate("o"))
+    m_new = torch.maximum(ft + m, it)
+    i_ = torch.exp(it - m_new)
+    f_ = torch.exp(ft + m - m_new)
+    c = f_ * c + i_ * zt
+    n = f_ * n + i_
+    hnew = ot * c / torch.clamp_min(n, 1.0)
+    return (c, n, m_new, hnew), hnew
+
+
+def _slstm_out(y, lp, cfg: ModelConfig):
+    y = rms_norm(y.to(cfg.dtype), lp["y_norm"], cfg.norm_eps)
+    return y @ lp["w_out"]
+
+
+def slstm_forward_layer(h, lp, cfg: ModelConfig):
+    """h [B,S,d] -> [B,S,d]: the recurrence over time (the reference's
+    `lax.scan`) as a Python loop."""
+    B_, S, d = h.shape
+    H, P = cfg.num_heads, d // cfg.num_heads
+    x = rms_norm(h, lp["norm"], cfg.norm_eps)
+    z0 = torch.zeros((B_, H, P), dtype=torch.float32, device=h.device)
+    carry = (z0, z0, torch.full_like(z0, NEG), z0)
+    ys = []
+    for t in range(S):
+        carry, y = _slstm_step(lp, cfg, carry, x[:, t])
+        ys.append(y)
+    y = torch.stack(ys, dim=1).reshape(B_, S, d)
+    return _slstm_out(y, lp, cfg)
+
+
+def slstm_decode_layer(h, lp, cfg: ModelConfig, state):
+    """h [B,d]; state = (c, n, m, h) [B,H,P] f32 each. Returns (out
+    [B,d], new state)."""
+    x = rms_norm(h, lp["norm"], cfg.norm_eps)
+    state, y = _slstm_step(lp, cfg, state, x)
+    return _slstm_out(y.reshape(h.shape[0], cfg.d_model), lp, cfg), state

@@ -17,7 +17,13 @@ Drive modes:
                         kernel on the card; `extra` carries the vlm
                         family's patch and the encdec family's frame
                         embeddings), then one decode step per
-                        call, a teacher-forced loop, or a greedy loop;
+                        call, a teacher-forced loop, or a greedy loop
+                        (a hybrid model's steps carry its Mamba2 state
+                        beside the cache of its attention sites; an
+                        xlstm model, which has no cache to place, runs
+                        `start` only and steps with
+                        `Model.decode_step`, and `step`/`run`/
+                        `generate` raise ValueError for it);
                         telemetry is read back once per
                         `telemetry_stride` steps. With
                         `EngineConfig.trace_telemetry` each step also
@@ -110,6 +116,16 @@ def _set_cache(state, cache):
     if isinstance(state, PagedKVCache):
         return cache
     return {**state, "kv": cache}
+
+
+def _require_cache(state, family: str) -> None:
+    """Raise ValueError for a decode state with no paged cache (the
+    xlstm family's), which the placement loop cannot drive."""
+    if isinstance(state, dict) and "kv" not in state:
+        raise ValueError(
+            f"family {family!r} keeps a recurrent decode state and no paged "
+            f"KV cache, so there is nothing to place: step it with "
+            f"Model.decode_step")
 
 
 def _later(feature: str, where: str):
@@ -461,6 +477,7 @@ class ServingEngine:
 
     def step(self, token: torch.Tensor) -> torch.Tensor:
         """One decode step + one telemetry readback."""
+        _require_cache(self.state, self.model.cfg.family)
         logits, self.state, self._pstate, stats = self._decode(
             self.state, self._pstate, token.to(self.device))
         self._readback([stats])
@@ -472,6 +489,7 @@ class ServingEngine:
         Chunks of `telemetry_stride` steps with one telemetry readback
         per chunk; the same logits and StepStats as K calls of
         `step()`."""
+        _require_cache(self.state, self.model.cfg.family)
         tokens = tokens.to(self.device, torch.int32)
         K = tokens.shape[0]
         if K == 0:
@@ -492,6 +510,7 @@ class ServingEngine:
     def generate(self, token: torch.Tensor, steps: int) -> torch.Tensor:
         """Greedy generation from `token` [B] -> tokens [steps, B], in
         chunks of `telemetry_stride` steps with one readback each."""
+        _require_cache(self.state, self.model.cfg.family)
         token = token.to(self.device, torch.int32)
         if steps == 0:
             return torch.zeros((0,) + token.shape, dtype=torch.int32,

@@ -95,38 +95,52 @@ POOL_FIELDS = ("k_hbm", "v_hbm", "k_host", "v_host")
 
 
 def state_numpy(state):
-    """A reference decode state (a cache, or encdec's {"kv", "enc"}) as
-    the numpy dicts `bridge.cache_to_numpy` gives for the port's."""
+    """A reference decode state (a cache, or a dict state: encdec's
+    {"kv", "enc"}, hybrid's {"ssm": {"s", "conv"}, "kv"}, xlstm's
+    recurrent tensors) as the numpy dicts `bridge.cache_to_numpy` gives
+    for the port's."""
     if isinstance(state, dict):
-        return {"kv": state_numpy(state["kv"]),
-                "enc": np.asarray(state["enc"])}
+        return {k: state_numpy(v) if isinstance(v, dict)
+                or dataclasses.is_dataclass(v) else np.asarray(v)
+                for k, v in state.items()}
     return {f.name: np.asarray(getattr(state, f.name))
             for f in dataclasses.fields(state)}
 
 
-def assert_state(got, want, atol=1e-5):
-    """A port decode state against a reference one (`state_numpy`):
-    integer fields exact, pools, importance and the encoder output
-    within `atol`."""
-    got = bridge.cache_to_numpy(got)
-    if "kv" in want:
-        np.testing.assert_allclose(got["enc"], want["enc"], atol=atol,
-                                   err_msg="enc")
-        got, want = got["kv"], want["kv"]
-    for name in INT_FIELDS:
-        np.testing.assert_array_equal(got[name], want[name], err_msg=name)
-    for name in POOL_FIELDS + ("importance",):
-        np.testing.assert_allclose(got[name], want[name], atol=atol,
-                                   err_msg=name)
+def assert_state(got, want, atol=1e-5, state_rtol=1e-7):
+    """A port decode state against a reference one (`state_numpy`): the
+    same keys; a cache's integer fields exact, its pools and importance
+    within `atol`; every other array (the encoder output, recurrent
+    state) within `atol` plus `state_rtol` of its magnitude."""
+    assert_numpy_state(bridge.cache_to_numpy(got), want, atol, state_rtol)
+
+
+def assert_numpy_state(got, want, atol, rtol, where=""):
+    assert got.keys() == want.keys(), where
+    if "page_table" in want:
+        for name in INT_FIELDS:
+            np.testing.assert_array_equal(got[name], want[name],
+                                          err_msg=where + name)
+        for name in POOL_FIELDS + ("importance",):
+            np.testing.assert_allclose(got[name], want[name], atol=atol,
+                                       err_msg=where + name)
+        return
+    for k, w in want.items():
+        if isinstance(w, dict):
+            assert_numpy_state(got[k], w, atol, rtol, f"{where}{k}.")
+        else:
+            np.testing.assert_allclose(got[k], w, atol=atol, rtol=rtol,
+                                       err_msg=where + k)
 
 
 def model_steps(models, prompts, steps, extra=None, max_context=512,
-                atol=2e-5, pool_atol=1e-5):
+                atol=2e-5, pool_atol=1e-5, state_rtol=1e-7):
     """Whole-prompt prefill then `steps` decode steps of the port and the
     reference on the same inputs (`extra`: numpy arrays), each step fed
     the reference's greedy token: logits within `atol`, greedy tokens
-    equal, integer state exact, pools within `pool_atol`. Returns the
-    port's last state."""
+    equal, integer state exact, pools within `pool_atol`, the other
+    state arrays within `pool_atol` plus `state_rtol` of their
+    magnitude. Returns the port's last state."""
     jm, jp, tm, tp = models
     jx = None if extra is None else {k: jnp.asarray(v)
                                      for k, v in extra.items()}
@@ -144,7 +158,7 @@ def model_steps(models, prompts, steps, extra=None, max_context=512,
                                    err_msg=f"step {step}")
         np.testing.assert_array_equal(tl.numpy().argmax(-1),
                                       want.argmax(-1))
-        assert_state(ts, state_numpy(js), pool_atol)
+        assert_state(ts, state_numpy(js), pool_atol, state_rtol)
         if step == steps:
             return ts
         tok = want.argmax(-1).astype(np.int32)
@@ -173,18 +187,19 @@ def stream_pair(models, prompts, steps, extra=None, **kw):
         run(jeng, jl, jt)
 
 
-def assert_stream_matches(models, prompts, extra, policy):
+def assert_stream_matches(models, prompts, extra, policy, **kw):
     """`start(extra=...)` + `generate(8)` with trace capture, 512-token
-    context, on both sides: start logits within 2e-5, tokens and
-    StepStats bytes equal, the host tier read, and `score_headroom`
-    over the captured traces (the cache's pages) within 1e-12."""
+    context, on both sides (`kw`: more of the engine config, the same
+    on both): start logits within 2e-5, tokens and StepStats bytes
+    equal, the host tier read, and `score_headroom` over the captured
+    traces (the cache's pages) within 1e-12."""
     from repro.core import sa as jsa
     from repro.serving import trace_bridge as jtb
     from repro_torch.core import sa as tsa
     from repro_torch.serving import trace_bridge as ttb
     teng, jeng, got, want = stream_pair(
         models, prompts, 8, extra=extra, max_context=512, policy=policy,
-        telemetry_stride=4, trace_telemetry=True)
+        telemetry_stride=4, trace_telemetry=True, **kw)
     np.testing.assert_allclose(got["logits"], want["logits"], atol=2e-5)
     assert got["tokens"] == want["tokens"]
     assert got["bytes"] == want["bytes"]

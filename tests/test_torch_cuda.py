@@ -680,3 +680,14 @@ def test_single_stream_on_the_card_matches_the_cpu(device, name):
     assert err <= 1e-4
     assert same_tokens and same_bytes
     assert any(r[1] > 0 for r in stats)                # host tier read
+
+
+def test_xlstm_prefill_and_decode_on_the_card_match_the_cpu(device):
+    """xlstm-125m's smoke config in f32: `Model.prefill` + 16 greedy
+    `decode_step`s on the card and on the CPU through the smoke's
+    `xlstm_steps` (the helper of its phases 3f and 11): tokens equal,
+    logits and the recurrent state within 1e-4."""
+    errs, same_tokens = chip_smoke.xlstm_card_vs_cpu(5)
+    assert errs["logits"] <= 1e-4 and errs["state"] <= 1e-4
+    assert same_tokens
+

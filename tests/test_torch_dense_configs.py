@@ -69,13 +69,9 @@ def test_registry_mirrors_reference():
     assert tconfigs.all_arch_names() == jconfigs.all_arch_names()
     assert "llama31_8b" not in tconfigs.ARCH_IDS
     assert tconfigs.get("llama31-8b").name == "llama31-8b"
-    for name in ("zamba2-1.2b", "xlstm-125m"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            tconfigs.get(name)
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            tconfigs.get_smoke(name)
-    ported = [i for i in tconfigs.ARCH_IDS
-              if i not in ("zamba2_1_2b", "xlstm_125m")] + ["llama31-8b"]
-    for name in ported:
-        TModel(tconfigs.get(name))
-        TModel(tconfigs.get_smoke(name))
+    # every architecture is ported, the recurrent ones with their family
+    for name in tconfigs.ARCH_IDS + ["llama31-8b"]:
+        for get in ("get", "get_smoke"):
+            cfg = getattr(tconfigs, get)(name)
+            assert cfg.family == getattr(jconfigs, get)(name).family
+            TModel(cfg)

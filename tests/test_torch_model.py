@@ -269,6 +269,7 @@ def test_entry_points_refuse_a_silent_cpu_fallback(models):
         "Model.init": lambda: tm.init(0),
         "init_params": lambda: init_params(tm.schema(), torch.Generator()),
         "init_cache": lambda: init_cache(geo),
+        "Model.init_decode_state": lambda: tm.init_decode_state(2, geo),
         "to_torch": lambda: bridge.to_torch(np.zeros(3, np.float32)),
         "params_from_jax": lambda: bridge.params_from_jax(
             jax.device_get(jp), tm.cfg),

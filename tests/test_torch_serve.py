@@ -194,23 +194,11 @@ def test_sampled_streams_are_reproducible(models, prompts):
     assert run(8) != first
 
 
-#: a config of each family the port has not ported yet, by the
-#: reference's architecture ids
-LATER_FAMILIES = {"hybrid": "zamba2-1.2b", "xlstm": "xlstm-125m"}
-
-
-@pytest.mark.parametrize("ask", [*LATER_FAMILIES, "mesh"])
+@pytest.mark.parametrize("ask", ["mesh"])
 def test_later_slices_raise(models, prompts, ask):
     """What the port leaves out raises NotImplementedError, never runs
-    something else: a family not ported yet (its config and its model)
-    and serving across a mesh."""
+    something else: serving across a mesh."""
     _, _, tm, tp = models
-    if ask in LATER_FAMILIES:
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            tconfigs.get(LATER_FAMILIES[ask])
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            TModel(dataclasses.replace(tm.cfg, family=ask))
-        return
     cfg = EngineConfig(**engine_kw("importance"))
     with pytest.raises(NotImplementedError, match="not ported yet"):
         ServingEngine(tm, tp, cfg, device="cpu", mesh=object())
