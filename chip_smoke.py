@@ -9,8 +9,9 @@ Phases, each printing its lines and its wall time (any failure exits
 non-zero):
 
   1. build   compile the kernels of src/repro_torch/csrc/ (paged
-             decode attention, prefill flash attention, row copies
-             between pools) with nvcc for sm_90a, one nvcc per source,
+             decode attention, prefill flash attention and its
+             backward, row copies between pools) with nvcc for sm_90a,
+             one nvcc per source,
              in parallel; print ptxas' register and spill report; fail
              if an instance of the flash kernel's tensor-core body
              (`flash_wgmma_kernel<D>`, D = 160 among them) spills.
@@ -67,6 +68,22 @@ non-zero):
              beside the plain version, one scaled_dot_product_attention
              call (enable_gqa, on [B, H, S, D] copies made outside the
              timed region) and its bound.
+  2d. flash bwd the backward kernel (csrc/flash_attention_bwd.cu)
+             against its plain version (ref.flash_attention_bwd_ref) on
+             the forward kernel's own out and LSE (the LSE checked
+             against the plain forward's): dq, dk, dv within 1e-2 (bf16)
+             / 1e-4 (f32) of each gradient's max |value|, two runs
+             bitwise equal, at phase 12's training shape (B=8, S=512,
+             H=16 over KH=8, D=128, bf16, causal), the smoke shape in
+             f32 with a ragged S, H/KH = 3 at D=64, H = KH = 32 at D=64,
+             D=160 with a ragged S and whisper's cross-attention (not
+             causal, Sq = 64 over Sk = 1500); the training shape timed
+             by CUDA-graph replay beside the plain version, the backward
+             of one scaled_dot_product_attention (its forward outside
+             the timed region; each call timed alone behind a spin
+             kernel, the kernel's own time so printed beside it) and the
+             bound (the larger of its bytes and 2.5x the forward's
+             flops).
   3. parity  serve a small f32 request stream on the card and on the
              CPU (the plain path) with the same weights: greedy tokens,
              statuses and per-step byte counts must match exactly.
@@ -161,6 +178,28 @@ non-zero):
              finite logits, and no kernel launched (the family has no
              attention and no cache). `ServingEngine.generate` on it
              must raise ValueError.
+  12a. train parity three `make_train_step` steps (lr 1e-3, the last
+             with accum_steps=2) of the f32 smoke configs of
+             internlm2-1.8b, granite-moe-3b-a800m, whisper-tiny
+             (encdec: the cross-attention's backward, Sq != Sk) and
+             zamba2-1.2b (hybrid) on the card and on the CPU from one
+             `init_train_state`: losses, grad norms and parameters
+             within TRAIN_TOL, the flash backward launched on the card.
+  12. train  internlm2-1.8b at full width and depth (24 layers, random
+             bf16 weights from --seed), B=8 x S=512 tokens from
+             `SyntheticCorpus`, remat on, 6 steps at lr 1e-4: loss,
+             grad norm and ms per step, peak memory, flash 48 and its
+             backward 24 launches a step; the loss at step 6 below step
+             1's. Then `save_pytree` of the parameters (bytes, seconds),
+             `restore_pytree` into fresh tensors (bitwise equal,
+             seconds), the optimizer state freed, and phase 4's stream
+             served from the restored weights with phase 4's checks.
+  12b. resume internlm2-1.8b at full width but 2 layers (a ~5 GB train
+             state, not ~23 GB, so the phase stays short): 4 steps
+             straight against 2 steps, an async
+             `CheckpointManager.save` of the whole TrainState, a restore
+             into fresh tensors and 2 more steps; losses, parameters and
+             optimizer state bitwise equal.
 
 Then a `kernels` JSON line, the card's name and power limit, and, last,
 {"ok": true, "device": {...}}. Without a CUDA card it exits non-zero
@@ -778,6 +817,157 @@ def flash_phase(device):
                if k not in ("shape", "model")},
             "max_abs_err": max(errs), "per_shape": timed}
 
+# --------------------------------------------------------------------------
+# phase 2d: the flash backward kernel against its plain version
+# --------------------------------------------------------------------------
+
+#: (label, B, Sq, Sk, H, KH, D, dtype name, causal, timed): phase 12's
+#: training shape is timed (internlm2-1.8b, S = 512 after the shift by
+#: one); the others are checked
+BWD_SHAPES = (
+    ("internlm2-1.8b train", 8, 512, 512, 16, 8, 128, "bf16", True, True),
+    ("smoke f32, ragged S", 2, 300, 300, 4, 2, 16, "f32", True, False),
+    ("H/KH = 3", 2, 1000, 1000, 24, 8, 64, "bf16", True, False),
+    ("H = KH = 32", 2, 700, 700, 32, 32, 64, "bf16", True, False),
+    ("D=160 ragged S", 2, 300, 300, 32, 8, 160, "bf16", True, False),
+    ("whisper-tiny cross", 4, 64, 1500, 6, 6, 64, "bf16", False, False),
+)
+#: max abs error of each of dq, dk, dv over that gradient's max |value|:
+#: bf16 gradients are rounded once (one bf16 step is 2^-8 relative),
+#: f32 ones sum in another order than the plain version
+BWD_TOL = {"bf16": 1e-2, "f32": 1e-4}
+
+
+def flash_bwd_work(B, Sq, Sk, H, KH, D, causal, itemsize):
+    """(bytes, flops) of one backward: q, k, v, out, dout and the f32
+    LSE read once, dq, dk, dv written once; 2.5x the forward's flops
+    (the forward's two products and the backward's five, one of them
+    the recomputed S: 10 against 4 flops per visible pair and dim)."""
+    _, fwd = flash_work(B, Sq, Sk, H, KH, D, causal, itemsize)
+    return ((4 * B * Sq * H * D + 4 * B * Sk * KH * D) * itemsize
+            + 4 * B * H * Sq), 2.5 * fwd
+
+
+def spun_ms(setup, fn, reps: int) -> float:
+    """Mean device milliseconds of fn(setup(i)) over `reps` calls, each
+    timed alone by CUDA events with `setup` outside the timed region: a
+    spin kernel keeps the card busy while the host queues fn, so the
+    host's cost of issuing it is not in the time."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    fn(setup(0))
+    total = 0.0
+    for i in range(reps):
+        args = setup(i)
+        torch.cuda._sleep(2_000_000)
+        start.record()
+        fn(args)
+        stop.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(stop)
+    return total / reps
+
+
+def flash_bwd_phase(device):
+    """Phase 2d: the backward kernel against `ref.flash_attention_bwd_ref`
+    on the forward kernel's own `out` and LSE (the LSE checked against
+    the plain forward's), twice for determinism (bitwise); the training
+    shape timed beside the plain version, one SDPA backward and the
+    bound."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
+    errs, rels, timed = [], [], []
+    for label, B, Sq, Sk, H, KH, D, dt, causal, is_timed in BWD_SHAPES:
+        dtype = dtypes[dt]
+
+        def inputs():
+            q = torch.randn((B, Sq, H, D), device=device, dtype=dtype)
+            k = torch.randn((B, Sk, KH, D), device=device, dtype=dtype)
+            v = torch.randn((B, Sk, KH, D), device=device, dtype=dtype)
+            out, lse = fa.flash_attention(q, k, v, causal=causal,
+                                          return_lse=True)
+            return q, k, v, out, torch.randn_like(out), lse
+        x = inputs()
+        _, want_lse = ref.flash_attention_ref(*x[:3], causal=causal,
+                                              return_lse=True)
+        err_lse = float((x[5] - want_lse).abs().max())
+        got = fa.flash_attention_bwd(*x, causal=causal)
+        again = fa.flash_attention_bwd(*x, causal=causal)
+        want = ref.flash_attention_bwd_ref(*x, causal)
+        torch.cuda.synchronize()
+        err = [float((a.float() - b.float()).abs().max())
+               for a, b in zip(got, want)]
+        rel = [e / float(b.float().abs().max()) for e, b in zip(err, want)]
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        errs.append(max(err))
+        rels.append(max(rel))
+        shape = f"B={B} Sq={Sq} Sk={Sk} H={H}/{KH} D={D}"
+        log(f"flash bwd {label}: {shape} {dt} causal={causal}: dq dk dv "
+            f"max abs err {err[0]:.3e} {err[1]:.3e} {err[2]:.3e}, "
+            f"{rel[0]:.3e} {rel[1]:.3e} {rel[2]:.3e} of max |grad| "
+            f"(tolerance {BWD_TOL[dt]}), lse err {err_lse:.3e} (tolerance "
+            f"{TOL['lse']}), two runs bitwise equal {same}")
+        if not (max(rel) <= BWD_TOL[dt] and err_lse <= TOL["lse"] and same):
+            raise AssertionError(f"flash backward disagrees with the plain "
+                                 f"version or is not deterministic at "
+                                 f"{label}: {shape} {dt}")
+        if not is_timed:
+            continue
+        nbytes, flops = flash_bwd_work(B, Sq, Sk, H, KH, D, causal,
+                                       got[0].element_size())
+        copies = max(2, math.ceil(256e6 / nbytes))    # beat the 50 MB L2
+        sets = [x] + [inputs() for _ in range(copies - 1)]
+
+        def kernel(i):
+            return fa.flash_attention_bwd(*sets[i % copies], causal=causal)
+
+        def plain(i):
+            return ref.flash_attention_bwd_ref(*sets[i % copies], causal)
+
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+
+        def sdpa_forward(i):
+            """SDPA's forward on [B, H, S, D] copies (not timed): its
+            output, inputs and the incoming gradient."""
+            q, k, v, _, g, _ = sets[i % copies]
+            leaves = [t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v)]
+            out = sdpa(*leaves, is_causal=causal, enable_gqa=True)
+            return out, leaves, g.transpose(1, 2).contiguous()
+
+        def library(args):
+            out, leaves, g = args
+            return torch.autograd.grad(out, leaves, g)
+
+        ms = device_ms(kernel, copies)
+        plain_ms = device_ms(plain, copies, reps=2)
+        lib_ms = spun_ms(sdpa_forward, library, 20)
+        kernel_spun = spun_ms(lambda i: i, kernel, 20)
+        t_bytes, t_ops = nbytes / HBM_BW * 1e3, flops / BF16_FLOPS * 1e3
+        bound = max(t_bytes, t_ops)
+        log(f"flash bwd {label}: {shape}: device {ms:.4f} ms  plain "
+            f"{plain_ms:.4f} ms  sdpa backward {lib_ms:.4f} ms  bound "
+            f"{bound:.4f} ms (operations {t_ops:.4f}, bytes {t_bytes:.4f}; "
+            f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)  timed alone "
+            f"as sdpa {kernel_spun:.4f} ms  {flops / ms / 1e9:.1f} TFLOP/s")
+        timed.append({"model": label,
+                      "shape": [B, Sq, Sk, H, KH, D, dt, causal], "ms": ms,
+                      "plain_ms": plain_ms, "library_ms": lib_ms,
+                      "bound_ms": bound, "spun_ms": kernel_spun,
+                      "bound_by": "bytes" if t_bytes >= t_ops
+                      else "operations", "bytes": nbytes, "flops": flops,
+                      "tflops": flops / ms / 1e9, "max_abs_err": max(err),
+                      "max_rel_err": max(rel)})
+        del sets
+    return {**{k: v for k, v in timed[0].items()
+               if k not in ("shape", "model")},
+            "max_abs_err": max(errs), "max_rel_err": max(rels),
+            "per_shape": timed}
+
+
 
 # --------------------------------------------------------------------------
 # phases 3-5: serving
@@ -854,6 +1044,11 @@ def parity_phase(seed, overlap=False):
 KERNEL_GROUPS = (   # (group, lower-case substrings of its kernel names)
     ("paged attention (csrc/paged_attention.cu)", ("paged_split_kernel",)),
     ("row copies (csrc/page_copy.cu)", ("page_copy_kernel",)),
+    ("flash attention (csrc/flash_attention.cu)", ("flash_wgmma_kernel",
+                                                    "flash_fma_kernel")),
+    ("flash backward (csrc/flash_attention_bwd.cu)", ("dkdv_kernel",
+                                                      "dq_kernel",
+                                                      "delta_kernel")),
     ("matmul", ("gemm", "gemv", "cutlass", "xmma", "nvjet", "splitk")),
     ("softmax", ("softmax",)),
     ("gather / scatter / copy", ("index", "gather", "scatter", "copy",
@@ -1818,6 +2013,258 @@ def xlstm_phase(seed):
     free_card()
     return numbers
 
+# --------------------------------------------------------------------------
+# phases 12a, 12, 12b: training, checkpoints, serving the trained weights
+# --------------------------------------------------------------------------
+
+#: phase 12a: one smoke config of each family whose attention trains
+#: through the flash backward differently: dense, moe, encdec (the
+#: cross-attention's Sq != Sk) and hybrid (the weight-shared sites)
+TRAIN_PARITY_ARCHS = ("internlm2-1.8b", "granite-moe-3b-a800m",
+                      "whisper-tiny", "zamba2-1.2b")
+#: card against CPU after three f32 steps: the loss and the grad norm to
+#: 1e-4 relative (f32 sums in other orders, the flash kernel against
+#: the plain attention); the parameters to 2e-4, a fifth of one step at
+#: lr = 1e-3 (AdamW's m / sqrt(v) turns f32 noise in near-zero
+#: gradients into differences of part of a step)
+TRAIN_TOL = {"loss": 1e-4, "grad_norm": 1e-4, "params": 2e-4}
+#: phase 12: internlm2-1.8b at full width and depth, B x S tokens a step
+#: (AdamW without warm-up moves every weight by ~lr on its first step;
+#: 1e-4 keeps 24 layers of random bf16 weights from the loss spikes
+#: larger rates give)
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = 8, 512, 6, 1e-4
+
+
+def train_card_vs_cpu(name, seed):
+    """Three `make_train_step` steps of `name`'s smoke config in f32 on
+    the card and on the CPU from one `init_train_state` (the last step
+    with accum_steps=2), lr 1e-3. Returns ({"loss", "grad_norm",
+    "params": the largest difference, relative for the first two},
+    flash backward launches on the card)."""
+    import torch
+    from repro_torch.kernels.build import COUNTS
+    from repro_torch.models.model import Model
+    from repro_torch.training.train_step import (
+        init_train_state, make_train_step)
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = smoke_f32(name)
+    model = Model(cfg)
+    init = init_train_state(model, seed, "cpu")
+    rng = np.random.default_rng(seed + 7)
+    batches = []
+    for _ in range(3):
+        b = {"tokens": rng.integers(0, cfg.vocab, (4, 33)).astype(np.int32)}
+        b.update(family_extra(cfg, rng, 4) or {})
+        batches.append(b)
+    keys = tuple(k for k in batches[0] if k != "tokens")
+    steps = [make_train_step(model, lr=1e-3, extra_keys=keys)] * 2 + \
+        [make_train_step(model, lr=1e-3, extra_keys=keys, accum_steps=2)]
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        state = tree_map(lambda t: t.to(dev), init)
+        before = COUNTS["flash_attention_bwd"]
+        metrics = []
+        for step, b in zip(steps, batches):
+            state, m = step(state, {k: torch.as_tensor(v, device=dev)
+                                    for k, v in b.items()})
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        runs[dev] = (metrics, [t.cpu() for t in tree_leaves(state.params)],
+                     COUNTS["flash_attention_bwd"] - before)
+    card, cpu = runs["cuda"], runs["cpu"]
+    errs = {"loss": max(abs(a[0] - b[0]) / abs(b[0])
+                        for a, b in zip(card[0], cpu[0])),
+            "grad_norm": max(abs(a[1] - b[1]) / abs(b[1])
+                             for a, b in zip(card[0], cpu[0])),
+            "params": max(float((a - b).abs().max())
+                          for a, b in zip(card[1], cpu[1]))}
+    return errs, card[2], card[0]
+
+
+def train_parity_phase(seed):
+    """Phase 12a: `train_card_vs_cpu` of each of TRAIN_PARITY_ARCHS."""
+    for name in TRAIN_PARITY_ARCHS:
+        errs, launches, metrics = train_card_vs_cpu(name, seed)
+        log(f"train parity {name}: 3 steps (accum 2 on the last), losses "
+            f"{[round(m[0], 4) for m in metrics]}, errors loss "
+            f"{errs['loss']:.3e} grad norm {errs['grad_norm']:.3e} params "
+            f"{errs['params']:.3e} (tolerances {TRAIN_TOL}), flash "
+            f"backward launches {launches}")
+        if not (all(errs[k] <= TRAIN_TOL[k] for k in TRAIN_TOL)
+                and launches > 0):
+            raise AssertionError(f"train parity {name}: the card's steps "
+                                 f"disagree with the CPU's, or the flash "
+                                 f"backward never launched")
+
+
+def train_batches(vocab, seed, steps, B=TRAIN_B, S=TRAIN_S):
+    """`steps` batches of B x (S + 1) tokens (S positions after the
+    shift by one) from `SyntheticCorpus`, on the card."""
+    import torch
+    from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
+    corpus = SyntheticCorpus(DataConfig(vocab=vocab, seq_len=S + 1,
+                                        global_batch=B, seed=seed))
+    return [torch.as_tensor(corpus.batch(0, i)["tokens"], device="cuda")
+            for i in range(steps)]
+
+
+def train_phase(seed):
+    """Phase 12: internlm2-1.8b at full width and depth (random bf16
+    weights from `seed`) takes TRAIN_STEPS steps of TRAIN_B x TRAIN_S
+    tokens at a fixed lr with remat; the loss must fall. Then its
+    parameters are saved (`save_pytree`), restored into fresh tensors
+    (bitwise equal), the optimizer state is freed and phase 4's stream
+    is served from the restored weights. Returns (launches by kernel in
+    the training steps, the serve's launches, numbers)."""
+    import tempfile
+    import torch
+    from repro_torch import configs
+    from repro_torch.checkpoint.ckpt import restore_pytree, save_pytree
+    from repro_torch.kernels.build import COUNTS
+    from repro_torch.models.model import Model
+    from repro_torch.training.train_step import (
+        init_train_state, make_train_step)
+    from repro_torch.tree import tree_leaves, tree_map
+    free_card()
+    cfg = configs.get("internlm2-1.8b")
+    model = Model(cfg)
+    state = init_train_state(model, seed, "cuda")
+    n_params = sum(p.numel() for p in tree_leaves(state.params))
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(state))
+    batches = train_batches(cfg.vocab, seed, TRAIN_STEPS)
+    step_fn = make_train_step(model, lr=TRAIN_LR)
+    log(f"train: {cfg.name} {cfg.num_layers} layers, {n_params / 1e9:.3f} "
+        f"B params bf16, train state {state_bytes / 1e9:.2f} GB (bf16 "
+        f"params, f32 m and v), B={TRAIN_B} S={TRAIN_S}, lr {TRAIN_LR}, "
+        f"remat on")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    COUNTS.clear()                          # the main path's run only
+    losses, times = [], []
+    for i, tokens in enumerate(batches):
+        t = time.time()
+        state, m = step_fn(state, {"tokens": tokens})
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        times.append(time.time() - t)
+        losses.append(loss)
+        log(f"train step {i + 1}: loss {loss:.4f} grad norm {gnorm:.4f} "
+            f"{times[-1] * 1e3:.1f} ms")
+    counts = dict(COUNTS)
+    peak = torch.cuda.max_memory_allocated()
+    tokens_per_s = TRAIN_B * TRAIN_S * (TRAIN_STEPS - 1) / sum(times[1:])
+    log(f"train: {TRAIN_STEPS} steps, steady {sum(times[1:]) / (TRAIN_STEPS - 1) * 1e3:.1f} "
+        f"ms/step ({tokens_per_s:.0f} tokens/s; the first step "
+        f"{times[0] * 1e3:.1f} ms), peak memory {peak / 1e9:.2f} GB, "
+        f"launches {counts}")
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"train: the loss did not fall: {losses}")
+    per_step = 2 * cfg.num_layers * TRAIN_STEPS     # forward + recompute
+    if counts.get("flash_attention") != per_step or \
+            counts.get("flash_attention_bwd") != per_step // 2:
+        raise AssertionError(f"train: launches {counts}, expected flash "
+                             f"{per_step} and its backward {per_step // 2}")
+    params = state.params
+    with tempfile.TemporaryDirectory() as d:
+        t = time.time()
+        nbytes = save_pytree(params, d)
+        save_s = time.time() - t
+        t = time.time()
+        restored = restore_pytree(tree_map(lambda x: x.to("meta"), params),
+                                  d, device="cuda")
+        torch.cuda.synchronize()
+        restore_s = time.time() - t
+    raw = sum(p.numel() * p.element_size() for p in tree_leaves(params))
+    same = all(torch.equal(a, b) for a, b in
+               zip(tree_leaves(restored), tree_leaves(params)))
+    log(f"train checkpoint: params {raw / 1e9:.3f} GB -> {nbytes / 1e9:.3f} "
+        f"GB of chunks, save {save_s:.2f} s, restore {restore_s:.2f} s, "
+        f"restored bitwise equal {same}")
+    if not same:
+        raise AssertionError("train: the restored parameters differ")
+    del state, params, m
+    free_card()                              # the optimizer state goes
+    serve, numbers = serve_phase(model, restored, seed,
+                                 what="serve trained")
+    numbers.update(losses=losses, step_s=times, train_peak_bytes=peak,
+                   tokens_per_s_train=tokens_per_s, save_s=save_s,
+                   restore_s=restore_s, ckpt_bytes=nbytes)
+    del restored
+    free_card()
+    return counts, serve, numbers
+
+
+def resume_phase(seed):
+    """Phase 12b: internlm2-1.8b at full width but 2 layers (a ~5 GB
+    train state, not ~23 GB, so the phase stays short): 4 steps
+    straight, against 2 steps, an async `CheckpointManager.save` of the
+    whole TrainState, a restore into fresh tensors and 2 more steps.
+    Losses, parameters and optimizer state must be bitwise equal.
+    Returns (launches by kernel, numbers)."""
+    import dataclasses
+    import tempfile
+    import torch
+    from repro_torch import configs
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.kernels.build import COUNTS
+    from repro_torch.models.model import Model
+    from repro_torch.training.train_step import (
+        init_train_state, make_train_step)
+    from repro_torch.tree import tree_leaves, tree_map
+    free_card()
+    cfg = dataclasses.replace(configs.get("internlm2-1.8b"), num_layers=2)
+    model = Model(cfg)
+    batches = train_batches(cfg.vocab, seed + 1, 4)
+    step_fn = make_train_step(model, lr=TRAIN_LR)
+
+    def run(state, steps):
+        losses = []
+        for i in steps:
+            state, m = step_fn(state, {"tokens": batches[i]})
+            losses.append(m["loss"])
+        return state, losses
+
+    COUNTS.clear()
+    straight, l_straight = run(init_train_state(model, seed, "cuda"),
+                               range(4))
+    half, l_resumed = run(init_train_state(model, seed, "cuda"), range(2))
+    state_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(half))
+    with tempfile.TemporaryDirectory() as root:
+        mgr = CheckpointManager(root)
+        t = time.time()
+        mgr.save(2, half)                   # async after the snapshot
+        snapshot_s = time.time() - t
+        mgr.wait()
+        write_s = time.time() - t
+        del half
+        t = time.time()
+        resumed = mgr.restore(tree_map(lambda x: x.to("meta"), straight),
+                              step=2, device="cuda")
+        torch.cuda.synchronize()
+        restore_s = time.time() - t
+    resumed, more = run(resumed, range(2, 4))
+    l_resumed += more
+    counts = dict(COUNTS)
+    same_loss = torch.equal(torch.stack(l_straight), torch.stack(l_resumed))
+    same_state = all(torch.equal(a, b) for a, b in
+                     zip(tree_leaves(straight), tree_leaves(resumed)))
+    log(f"train resume: {cfg.name} at 2 layers, train state "
+        f"{state_bytes / 1e9:.2f} GB: async save {snapshot_s:.2f} s to "
+        f"the host snapshot, {write_s:.2f} s to COMMIT, restore "
+        f"{restore_s:.2f} s; losses straight "
+        f"{[round(float(x), 4) for x in l_straight]} resumed "
+        f"{[round(float(x), 4) for x in l_resumed]}; losses bitwise equal "
+        f"{same_loss}, params and optimizer state bitwise equal "
+        f"{same_state}")
+    if not (same_loss and same_state):
+        raise AssertionError("train resume: the resumed run differs from "
+                             "the straight one")
+    del straight, resumed
+    free_card()
+    return counts, {"state_bytes": state_bytes, "snapshot_s": snapshot_s,
+                    "write_s": write_s, "restore_s": restore_s}
+
+
 
 def _leaves(tree):
     for v in tree.values():
@@ -1900,6 +2347,7 @@ def main(argv=None) -> int:
     shapes, link = phase("kernel", lambda: kernel_phase(rng, device))
     copies = phase("copy", lambda: page_copy_phase(rng, device, link))
     flash = phase("flash", lambda: flash_phase(device))
+    flash_bwd = phase("flash bwd", lambda: flash_bwd_phase(device))
     phase("parity", lambda: parity_phase(args.seed))
     phase("overlap parity", lambda: parity_phase(args.seed, overlap=True))
     phase("faults", lambda: faulted_parity_phase(args.seed))
@@ -1928,6 +2376,9 @@ def main(argv=None) -> int:
     streams, _ = phase("single streams", lambda: single_stream_phase(
         args.seed))
     phase("xlstm", lambda: xlstm_phase(args.seed))
+    phase("train parity", lambda: train_parity_phase(args.seed))
+    train, trained_serve, _ = phase("train", lambda: train_phase(args.seed))
+    resume, _ = phase("train resume", lambda: resume_phase(args.seed))
     log(f"all phases: {time.time() - t_all:.1f} s wall")
 
     # one inline internlm2 decode layer: the HBM-tier (N=64) + host-tier
@@ -1939,6 +2390,7 @@ def main(argv=None) -> int:
              "policy_sweep": sweep, "serve_faulted": faulted,
              "moe_serve": moe["serve"], "moe_generate": moe["generate"],
              "llama31_serve": llama, "qwen3_serve_overlap": qwen,
+             "trained_serve": trained_serve,
              **{f"{name}_generate": c["generate"]
                 for name, c in streams.items()}}
     paged_by_path = {k: c.get("paged_attention", 0)
@@ -1984,6 +2436,7 @@ def main(argv=None) -> int:
             raise AssertionError(f"{entry['name']} never launched on "
                                  f"{dead}")
     flash_by_path = {"policy_sweep": sweep["flash_attention"],
+                     "train": train.get("flash_attention", 0),
                      "moe_start": moe["start"].get("flash_attention", 0),
                      **{f"{name}_start": c["start"].get("flash_attention", 0)
                         for name, c in streams.items()},
@@ -1997,11 +2450,31 @@ def main(argv=None) -> int:
         "launches_by_path": flash_by_path,
         **flash,
     }
-    dead = [k for k, n in flash_entry["launches_by_path"].items() if n == 0]
-    if dead:
-        raise AssertionError(f"flash_attention never launched on {dead}")
-    print(json.dumps({"kernels": [paged, flash_entry, copy_entry]}),
-          flush=True)
+    bwd_by_path = {"train": train.get("flash_attention_bwd", 0),
+                   "train_resume": resume.get("flash_attention_bwd", 0)}
+    bwd_entry = {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "replaces": None,
+        "note": "not a TPU kernel: the gradient of the flash kernel "
+                "(torch.autograd.Function), where the reference "
+                "differentiates plain jnp attention by autodiff "
+                "(src/repro/models/layers.py:131-217); one launch counts "
+                "its three kernels (delta, dK/dV, dQ); library_ms is the "
+                "backward of one scaled_dot_product_attention (enable_gqa) "
+                "with its forward outside the timed region; max_rel_err is "
+                "the largest error over its gradient's max |value|, which "
+                "the tolerance bounds",
+        "launches": sum(bwd_by_path.values()),
+        "launches_by_path": bwd_by_path,
+        **flash_bwd,
+    }
+    for entry in (flash_entry, bwd_entry):
+        dead = [k for k, n in entry["launches_by_path"].items() if n == 0]
+        if dead:
+            raise AssertionError(f"{entry['name']} never launched on {dead}")
+    print(json.dumps({"kernels": [paged, flash_entry, copy_entry,
+                                  bwd_entry]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

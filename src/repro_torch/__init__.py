@@ -3,10 +3,10 @@
 The JAX package `repro` is the reference; this package mirrors its
 module paths (`repro_torch.serving.engine` is the counterpart of
 `repro.serving.engine`, and so on) and imports nothing of it. The
-paged decode attention and the prefill attention run in hand-written
-CUDA kernels for Hopper (`repro_torch/csrc/paged_attention.cu`,
-`repro_torch/csrc/flash_attention.cu`); every other op is plain
-PyTorch.
+paged decode attention and the prefill attention, forward and backward,
+run in hand-written CUDA kernels for Hopper
+(`repro_torch/csrc/paged_attention.cu`, `flash_attention.cu`,
+`flash_attention_bwd.cu`); every other op is plain PyTorch.
 
 Entry points run on the card unless the caller asks for the CPU:
 `resolve_device(None)` is "cuda", and raises when no card is present,

@@ -19,6 +19,9 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.kvcache.paged import PagedKVCache
 from repro_torch.models.config import ModelConfig
+from repro_torch.training.optimizer import AdamWState
+from repro_torch.training.train_step import TrainState
+from repro_torch.tree import tree_map
 
 CACHE_FIELDS = tuple(f.name for f in dataclasses.fields(PagedKVCache))
 _POOLS = ("k_hbm", "v_hbm", "k_host", "v_host")
@@ -63,6 +66,37 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
             return {k: conv(v) for k, v in node.items()}
         return to_torch(node, cfg.param_dtype, device)
     return conv(tree)
+
+
+def train_state_from_jax(params_np, opt_np, cfg: ModelConfig,
+                         device=None) -> TrainState:
+    """A `TrainState` on `device` (default: the CUDA card) from the
+    reference's, turned into numpy (`jax.device_get(state.params)`,
+    `jax.device_get(state.opt)`): the parameters cast to
+    `cfg.param_dtype`, the AdamW step int32 and m, v f32. `opt_np` is
+    the reference's `AdamWState` of numpy arrays or a dict with the keys
+    step, m and v."""
+    device = resolve_device(device)
+
+    def get(name):
+        return opt_np[name] if isinstance(opt_np, dict) \
+            else getattr(opt_np, name)
+
+    def f32(tree):
+        return tree_map(lambda a: to_torch(a, torch.float32, device), tree)
+    return TrainState(
+        params=params_from_jax(params_np, cfg, device),
+        opt=AdamWState(step=to_torch(get("step"), torch.int32, device),
+                       m=f32(get("m")), v=f32(get("v"))))
+
+
+def train_state_to_numpy(state: TrainState):
+    """(params, {"step", "m", "v"}) as numpy, the inverse of
+    `train_state_from_jax` (bf16 widened to f32, exactly)."""
+    return (tree_map(to_numpy, state.params),
+            {"step": to_numpy(state.opt.step),
+             "m": tree_map(to_numpy, state.opt.m),
+             "v": tree_map(to_numpy, state.opt.v)})
 
 
 def cache_from_numpy(arrays: Dict[str, Any], device=None, pool_dtype=None

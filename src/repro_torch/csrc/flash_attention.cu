@@ -7,7 +7,10 @@
 // in f32, query i sees keys 0..i when causal (aligned at 0), a running
 // (m, l, acc) in f32 with the finite NEG_INF (-1e30) and its guards
 // (p = 0 where s <= NEG_INF/2, m_safe, corr = 0 while m is still
-// NEG_INF), and out = acc / max(l, 1e-20) cast to q's dtype.
+// NEG_INF), and out = acc / max(l, 1e-20) cast to q's dtype. When
+// training asks for it (a non-null `lse`), the epilogue also writes
+// each row's log-sum-exp m + log(l) in f32, which the backward kernel
+// (flash_attention_bwd.cu) recomputes the probabilities from.
 // It differs from the Pallas kernel in what does not change the
 // function: it reads q [B, Sq, H, D] and k/v [B, Sk, KH, D] through
 // their strides (no transpose), takes GQA K/V un-repeated (query head
@@ -152,7 +155,8 @@ __host__ __device__ constexpr size_t smem_bytes() {
 template <typename E, int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fma_kernel(const E* __restrict__ q, const E* __restrict__ k,
-             const E* __restrict__ v, E* __restrict__ out, Shape s) {
+             const E* __restrict__ v, E* __restrict__ out,
+             float* __restrict__ lse, Shape s) {
   constexpr int DS = D + kPad;          // shared row stride of q, k, v
   constexpr int PS = kKB + kPad;        // shared row stride of p
   constexpr int DC = D / 16;            // output columns per thread
@@ -282,6 +286,9 @@ flash_fma_kernel(const E* __restrict__ q, const E* __restrict__ k,
     const int qi = q0 + ty * 4 + i;
     if (qi >= s.Sq) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-20f);
+    if (lse != nullptr && tx == 0)   // m is in scaled units here
+      lse[((long long)b * s.H + h) * s.Sq + qi] =
+          (m[i] <= kNegInf / 2 ? 0.f : m[i]) + logf(fmaxf(l[i], 1e-20f));
     E* orow = out + (((long long)b * s.Sq + qi) * s.H + h) * D;
 #pragma unroll
     for (int g = 0; g < DC / VW; ++g)
@@ -579,6 +586,7 @@ __device__ inline void wgmma_rs_tile(float* d, const uint32_t* a,
 template <int D>
 __global__ void __launch_bounds__(kWgThreads)
 flash_wgmma_kernel(const bf16* __restrict__ q, bf16* __restrict__ out,
+                   float* __restrict__ lse,
                    Shape s, const __grid_constant__ CUtensorMap tmk,
                    const __grid_constant__ CUtensorMap tmv) {
   constexpr int DP = padded<D>();   // shared tile width (D, or 192)
@@ -757,6 +765,10 @@ flash_wgmma_kernel(const bf16* __restrict__ q, bf16* __restrict__ out,
     const int qi = qi0 + r * 8;
     if (qi >= s.Sq) continue;
     const float inv = 1.f / fmaxf(lr, 1e-20f);
+    if (lse != nullptr && t == 0)    // m is in unscaled units here
+      lse[((long long)b * s.H + h) * s.Sq + qi] =
+          (m[r] <= kNegInf / 2 ? 0.f : m[r] * s.scale) +
+          logf(fmaxf(lr, 1e-20f));
     bf16* orow = out + (((long long)b * s.Sq + qi) * s.H + h) * D;
 #pragma unroll
     for (int n = 0; n < DT; ++n)
@@ -775,14 +787,15 @@ cudaError_t allow_smem(K kernel, size_t smem) {
 
 template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v,
-                       void* out, const Shape& s, cudaStream_t stream) {
+                       void* out, float* lse, const Shape& s,
+                       cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t e = allow_smem(flash_fma_kernel<float, D>, smem);
   if (e != cudaSuccess) return e;
   dim3 grid((s.Sq + kQB - 1) / kQB, s.H, s.B);
   flash_fma_kernel<float, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), s);
+      static_cast<const float*>(v), static_cast<float*>(out), lse, s);
   return cudaGetLastError();
 }
 
@@ -834,7 +847,8 @@ bool kv_map(CUtensorMap* map, const void* base, int B, int S, int KH,
 
 template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
-                        void* out, const Shape& s, cudaStream_t stream) {
+                        void* out, float* lse, const Shape& s,
+                        cudaStream_t stream) {
   constexpr size_t smem = wg_smem_bytes<D>();
   cudaError_t e = allow_smem(flash_wgmma_kernel<D>, smem);
   if (e != cudaSuccess) return e;
@@ -844,15 +858,17 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
     return cudaErrorInvalidValue;
   dim3 grid((s.Sq + kQBM - 1) / kQBM, s.H, s.B);
   flash_wgmma_kernel<D><<<grid, kWgThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<bf16*>(out), s, tmk, tmv);
+      static_cast<const bf16*>(q), static_cast<bf16*>(out), lse, s, tmk,
+      tmv);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch(int dtype, const void* q, const void* k, const void* v,
-                   void* out, const Shape& s, cudaStream_t stream) {
-  if (dtype == 0) return launch_f32<D>(q, k, v, out, s, stream);
-  if (dtype == 1) return launch_bf16<D>(q, k, v, out, s, stream);
+                   void* out, float* lse, const Shape& s,
+                   cudaStream_t stream) {
+  if (dtype == 0) return launch_f32<D>(q, k, v, out, lse, s, stream);
+  if (dtype == 1) return launch_bf16<D>(q, k, v, out, lse, s, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -862,10 +878,14 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v,
 // 1 = bfloat16 (q, k, v and out share it). q is [B, Sq, H, D], k and v
 // [B, Sk, KH, D], each with the given element strides of its first
 // three dims and a contiguous last dim; out is a contiguous
-// [B, Sq, H, D]. KH divides H; D is 16, 32, 64, 128 or 160. Returns a
-// cudaError_t.
+// [B, Sq, H, D]. KH divides H; D is 16, 32, 64, 128 or 160. `lse`,
+// when not null, receives each row's log-sum-exp of its scaled scores,
+// m + log(l), f32 [B, H, Sq] (what the backward kernel of
+// flash_attention_bwd.cu recomputes P from); null costs nothing but the
+// test in the epilogue. Returns a cudaError_t.
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* out, int B, int Sq,
+    const void* q, const void* k, const void* v, void* out, void* lse_out,
+    int B, int Sq,
     int Sk, int H, int KH, int D, long long q_sb, long long q_ss,
     long long q_sh, long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh, int causal, float scale,
@@ -875,12 +895,13 @@ extern "C" int flash_attention_launch(
   Shape s{B, Sq, Sk, H, KH, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
           v_sb, v_ss, v_sh, causal, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* lse = static_cast<float*>(lse_out);
   switch (D) {
-    case 16: return (int)launch<16>(dtype, q, k, v, out, s, st);
-    case 32: return (int)launch<32>(dtype, q, k, v, out, s, st);
-    case 64: return (int)launch<64>(dtype, q, k, v, out, s, st);
-    case 128: return (int)launch<128>(dtype, q, k, v, out, s, st);
-    case 160: return (int)launch<160>(dtype, q, k, v, out, s, st);
+    case 16: return (int)launch<16>(dtype, q, k, v, out, lse, s, st);
+    case 32: return (int)launch<32>(dtype, q, k, v, out, lse, s, st);
+    case 64: return (int)launch<64>(dtype, q, k, v, out, lse, s, st);
+    case 128: return (int)launch<128>(dtype, q, k, v, out, lse, s, st);
+    case 160: return (int)launch<160>(dtype, q, k, v, out, lse, s, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -26,9 +26,10 @@ import tempfile
 from typing import Dict, Iterable, Tuple
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
-#: the sources of `csrc/`, each built into its own library: three
+#: the sources of `csrc/`, each built into its own library: four
 #: kernels and `host_memory`, the pinned-memory shim they share
-SOURCES = ("paged_attention", "flash_attention", "page_copy", "host_memory")
+SOURCES = ("paged_attention", "flash_attention", "flash_attention_bwd",
+           "page_copy", "host_memory")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

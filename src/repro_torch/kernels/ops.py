@@ -15,7 +15,10 @@ Each op picks by device: a CUDA tensor launches the hand-written kernel
                           beside the HBM-tier launch.
   flash_attention         whole-sequence (prefill) attention, public
                           layout [B, S, H, D], GQA K/V un-repeated
-                          (`flash_attention.flash_attention`).
+                          (`flash_attention.flash_attention`); when a
+                          gradient is asked for, through
+                          `flash_attention.FlashAttention`, whose
+                          backward is the hand-written backward kernel.
   copy_rows               row copies into, out of and between pools,
                           either side on the card or in pinned host
                           memory (`page_copy.page_copy`): every pool
@@ -117,8 +120,15 @@ def copy_rows(dst, dst_index, src, src_index) -> None:
 
 def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
     """Prefill attention, public layout: q [B, S, H, D], k/v
-    [B, S, KH, D] with KH dividing H -> out [B, S, H, D]."""
+    [B, S, KH, D] with KH dividing H -> out [B, S, H, D]. On the card,
+    with grad mode on and an input that requires grad, the kernel also
+    keeps its LSE and its gradient is the backward kernel; otherwise it
+    launches the forward alone. On the CPU autograd differentiates the
+    plain version."""
     if q.device.type == "cuda":
+        if torch.is_grad_enabled() and (
+                q.requires_grad or k.requires_grad or v.requires_grad):
+            return _flash.FlashAttention.apply(q, k, v, causal)
         return _flash.flash_attention(q, k, v, causal=causal)
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal)

@@ -24,7 +24,7 @@ so page order carries no positional meaning and causality reduces to
 validity masking.
 
 `flash_attention_ref` defines the whole-sequence (prefill) attention
-of the flash kernel.
+of the flash kernel, `flash_attention_bwd_ref` its gradient.
 """
 
 from __future__ import annotations
@@ -130,15 +130,12 @@ def page_importance(page_lse: torch.Tensor,
     return mass.sum(dim=(1, 2))
 
 
-def flash_attention_ref(q, k, v, *, causal: bool = True,
-                        q_offset: int = 0) -> torch.Tensor:
-    """Plain version of the prefill flash kernel. q: [B, Sq, H, D];
-    k, v: [B, Sk, KH, D] with KH dividing H (query head h reads KV head
-    h // (H // KH); KH == H is the reference's op). f32 scores and
-    softmax, output in q's dtype."""
+def _flash_scores(q, k, causal, q_offset=0):
+    """f32 scaled scores [B, H, Sq, Sk] of q against k/v's KH heads
+    repeated per query head (query head h reads KV head h // (H // KH)),
+    NEG_INF above the diagonal when causal; and k's repeat factor."""
     rep = q.shape[2] // k.shape[2]
     k = k.repeat_interleave(rep, dim=2)
-    v = v.repeat_interleave(rep, dim=2)
     scale = q.shape[-1] ** -0.5
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     if causal:
@@ -147,8 +144,49 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
         qpos = torch.arange(sq, device=q.device) + q_offset
         s = torch.where((kpos[None, :] <= qpos[:, None])[None, None], s,
                         NEG_INF)
+    return s, rep
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True,
+                        q_offset: int = 0, return_lse: bool = False):
+    """Plain version of the prefill flash kernel. q: [B, Sq, H, D];
+    k, v: [B, Sk, KH, D] with KH dividing H (query head h reads KV head
+    h // (H // KH); KH == H is the reference's op). f32 scores and
+    softmax, output in q's dtype; with `return_lse` also each row's
+    log-sum-exp of its scaled scores, f32 [B, H, Sq]."""
+    s, rep = _flash_scores(q, k, causal, q_offset)
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v.repeat_interleave(
+        rep, dim=2).float()).to(q.dtype)
+    return (out, torch.logsumexp(s, dim=-1)) if return_lse else out
+
+
+def flash_attention_bwd_ref(q, k, v, out, dout, lse, causal: bool = True):
+    """Plain version of the flash backward kernel: (dq, dk, dv) of
+    `flash_attention_ref` by the closed formulas, in f32 from the given
+    `out` and `lse` (f32 [B, H, Sq]), cast to q's dtype:
+    P = exp(S - lse) (0 where masked), dV = P^T dout,
+    dS = P (dout V^T - rowsum(dout * out)), dQ = dS K scale,
+    dK = dS^T Q scale; dK and dV summed over each KV head's G query
+    heads."""
+    B, Sq, H, D = q.shape
+    KH = k.shape[2]
+    s, rep = _flash_scores(q, k, causal)
+    p = torch.where(s <= NEG_INF / 2, 0.0, torch.exp(s - lse[..., None]))
+    g = dout.float()
+    vr = v.repeat_interleave(rep, dim=2).float()
+    kr = k.repeat_interleave(rep, dim=2).float()
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, g)
+    dp = torch.einsum("bqhd,bkhd->bhqk", g, vr)
+    delta = (g * out.float()).sum(-1).transpose(1, 2)        # [B, H, Sq]
+    ds = p * (dp - delta[..., None])
+    scale = D ** -0.5
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kr) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
+
+    def group(t):       # [B, Sk, H, D] -> [B, Sk, KH, D], summed over G
+        return t.reshape(B, t.shape[1], KH, rep, D).sum(3)
+    return dq.to(q.dtype), group(dk).to(q.dtype), group(dv).to(q.dtype)
 
 
 def page_copy_ref(dst, dst_index, src, src_index) -> None:

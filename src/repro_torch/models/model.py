@@ -5,6 +5,9 @@ xlstm).
 `Model(cfg)` exposes:
   schema() / init(seed_or_generator, device)   parameters
   forward(params, tokens, extra=None)           logits at every position
+  forward_hidden(params, tokens, extra=None, remat=True)
+                                                final-norm hidden states
+                                                (training's loss)
   cache_geometry(batch, max_context, ...)       paged-cache geometry
   prefill(params, tokens, geo, extra=None)      logits + decode state
   prefill_chunk(params, cache, tokens, start, n_valid)   dense, moe
@@ -164,20 +167,13 @@ class Model:
                 h, lp, cfg, group_size=group_size)
 
         if cfg.moe.interleave == 1:
-            out = []
-            for l in range(cfg.num_layers):
-                lp = {k: v[l] for k, v in layers.items()}
-                out.append((lp, moe_ffn(lp)))
-            return out
+            return [(lp, moe_ffn(lp)) for lp in tfm.layers_of(layers)]
         out = []
-        for i in range(cfg.num_layers // 2):
-            def at(tree):
-                return {k: v[i] for k, v in tree.items()}
-            dense_mlp = at(layers["dense_mlp"])
-            out.append((at(layers["dense_attn"]),
-                        lambda h, group_size=None, lp=dense_mlp:
+        for da, dm, ma, mo in zip(*(tfm.layers_of(layers[k]) for k in (
+                "dense_attn", "dense_mlp", "moe_attn", "moe"))):
+            out.append((da, lambda h, group_size=None, lp=dm:
                         tfm.dense_mlp_block(h, lp, cfg)))
-            out.append((at(layers["moe_attn"]), moe_ffn(at(layers["moe"]))))
+            out.append((ma, moe_ffn(mo)))
         return out
 
     def init(self, seed=0, device=None):
@@ -210,6 +206,30 @@ class Model:
                                    input_embeds=self._vlm_embeds(
                                        params, tokens, extra))[0]
 
+    def forward_hidden(self, params, tokens, extra=None, remat: bool = True):
+        """The final-norm hidden states [B, S, d] before the unembedding
+        (vlm: [B, num_embeddings + S, d], the patches first, as the
+        reference), which the chunked loss unembeds a slice at a time.
+        `remat` checkpoints each block (`transformer.remat_call`), as the
+        reference's `jax.checkpoint`; the values are the same with it on
+        or off."""
+        cfg = self.cfg
+        fam = cfg.family
+        if fam == "encdec":
+            return tfm.encdec_forward(
+                params, cfg, tokens, extra["frame_embeds"].to(cfg.dtype),
+                return_hidden=True, remat=remat)
+        if fam == "xlstm":
+            return self._xlstm_forward(params, tokens, return_hidden=True,
+                                       remat=remat)
+        if fam in ("ssm", "hybrid"):
+            return self._hybrid_forward(params, tokens, return_hidden=True,
+                                        remat=remat)
+        return tfm.decoder_forward(params, cfg, tokens, self.blocks(params),
+                                   input_embeds=self._vlm_embeds(
+                                       params, tokens, extra),
+                                   return_hidden=True, remat=remat)
+
     def _vlm_embeds(self, params, tokens, extra):
         """The vlm family's input: patch embeddings, then the tokens'
         (None for the other decoder families)."""
@@ -219,43 +239,61 @@ class Model:
         return torch.cat([extra["patch_embeds"].to(cfg.dtype),
                           tfm.embed_tokens(params, cfg, tokens)], dim=1)
 
-    def _xlstm_forward(self, params, tokens):
+    def _xlstm_forward(self, params, tokens, return_hidden: bool = False,
+                       remat: bool = False):
+        """Logits [B, S, V], or with `return_hidden` the final-norm
+        hidden states (`remat` checkpoints each block)."""
         cfg = self.cfg
         h = tfm.embed_tokens(params, cfg, tokens)
+        stacks = {kind: tfm.layers_of(params[kind])
+                  for kind in ("mlstm", "slstm")}
         for kind, i in self._xlstm_layers():
             fn = xlstm_mod.slstm_forward_layer if kind == "slstm" \
                 else xlstm_mod.mlstm_forward_layer
-            h = h + fn(h, tfm.layer_params(params[kind], i), cfg)
+            h = h + tfm.remat_call(remat, fn, h, stacks[kind][i], cfg)
         h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-        return tfm.unembed(params, cfg, h)
+        return h if return_hidden else tfm.unembed(params, cfg, h)
 
-    def _hybrid_forward(self, params, tokens, collect_state: bool = False):
+    def _hybrid_forward(self, params, tokens, collect_state: bool = False,
+                        return_hidden: bool = False, remat: bool = False):
         """(logits [B, S, V], the sites' post-RoPE (k, v) stacked
         [n_sites, B, S, KH, HD] (None without sites), and with
         `collect_state` the Mamba2 state (s [L, B, H, N, P], conv
         [L, B, W-1, C]) after the sequence). The shared attention block
-        runs after the Mamba2 block at each site."""
+        runs after the Mamba2 block at each site. With `return_hidden`:
+        the final-norm hidden states alone (`remat` checkpoints each
+        Mamba2 block and each site)."""
         cfg = self.cfg
         h = tfm.embed_tokens(params, cfg, tokens)
         positions = torch.arange(h.shape[1], device=h.device)[None, :]
         sites = set(cfg.attention_layer_ids())
         ks, vs, ss, convs = [], [], [], []
-        for l in range(cfg.num_layers):
-            out = ssm_mod.mamba2_forward_layer(
-                h, tfm.layer_params(params["mamba"], l), cfg,
-                return_state=collect_state)
+
+        def site(h, sp):
+            h, _ = tfm.full_attn_block(h, sp, cfg, positions)
+            return tfm.dense_mlp_block(h, sp, cfg)
+        for l, lp in enumerate(tfm.layers_of(params["mamba"])):
             if collect_state:
-                out, (s, conv) = out
+                out, (s, conv) = ssm_mod.mamba2_forward_layer(
+                    h, lp, cfg, return_state=True)
                 ss.append(s)
                 convs.append(conv)
+            else:
+                out = tfm.remat_call(remat, ssm_mod.mamba2_forward_layer, h,
+                                     lp, cfg)
             h = h + out
             if l in sites:
                 sp = params["shared_attn"]
+                if return_hidden:
+                    h = tfm.remat_call(remat, site, h, sp)
+                    continue
                 h, (k, v) = tfm.full_attn_block(h, sp, cfg, positions)
                 h = tfm.dense_mlp_block(h, sp, cfg)
                 ks.append(k)
                 vs.append(v)
         h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+        if return_hidden:
+            return h
         kv = (torch.stack(ks), torch.stack(vs)) if ks else None
         state = (torch.stack(ss), torch.stack(convs)) if ss else None
         return tfm.unembed(params, cfg, h), kv, state

@@ -18,6 +18,7 @@ import dataclasses
 from typing import Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.kvcache.paged import (
@@ -116,6 +117,17 @@ def layer_params(tree, l: int):
             for k, v in tree.items()}
 
 
+def layers_of(tree):
+    """Every layer's weights out of a stacked (nested) tree, as a list:
+    one `unbind` per leaf. Under autograd its backward stacks the L
+    layers' gradients in one pass, where indexing each layer
+    (`layer_params`) would add L zero-padded full-size gradients."""
+    flat = {k: layers_of(v) if isinstance(v, dict) else v.unbind(0)
+            for k, v in tree.items()}
+    n = len(next(iter(flat.values()))) if flat else 0
+    return [{k: v[l] for k, v in flat.items()} for l in range(n)]
+
+
 # ---------------------------------------------------------------------------
 # Forward building blocks
 # ---------------------------------------------------------------------------
@@ -162,8 +174,19 @@ def dense_blocks(params, cfg: ModelConfig):
     """(attention weights, FFN) per layer of a dense model."""
     def block(lp):
         return lp, lambda h, group_size=None: dense_mlp_block(h, lp, cfg)
-    return [block(layer_params(params["layers"], l))
-            for l in range(cfg.num_layers)]
+    return [block(lp) for lp in layers_of(params["layers"])]
+
+
+def remat_call(remat: bool, fn, *args):
+    """fn(*args); with `remat`, under activation checkpointing
+    (`torch.utils.checkpoint`, non-reentrant): the block keeps only its
+    inputs and recomputes its activations in the backward, where the
+    reference wraps its scan bodies in `jax.checkpoint`. The values are
+    the same either way."""
+    if remat:
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return fn(*args)
 
 
 def embed_tokens(params, cfg: ModelConfig, tokens):
@@ -176,15 +199,23 @@ def unembed(params, cfg: ModelConfig, h):
 
 
 def decoder_forward(params, cfg: ModelConfig, tokens, blocks,
-                    input_embeds: Optional[torch.Tensor] = None):
+                    input_embeds: Optional[torch.Tensor] = None, *,
+                    return_hidden: bool = False, remat: bool = False):
     """tokens [B,S] (or `input_embeds` [B,S,d], which the vlm family
     builds from patch and token embeddings) -> (logits [B,S,V], the
     post-RoPE (k, v) stacked [L,B,S,KH,HD] for prefill cache
-    population)."""
+    population). With `return_hidden`: the final-norm hidden states
+    [B,S,d] alone (training's path; `remat` checkpoints each layer)."""
     h = embed_tokens(params, cfg, tokens) if input_embeds is None \
         else input_embeds
     S = h.shape[1]
     positions = torch.arange(S, device=h.device)[None, :]
+    if return_hidden:
+        def layer(h, lp, ffn):
+            return ffn(full_attn_block(h, lp, cfg, positions)[0])
+        for lp, ffn in blocks:
+            h = remat_call(remat, layer, h, lp, ffn)
+        return rms_norm(h, params["final_norm"], cfg.norm_eps)
     ks, vs = [], []
     for lp, ffn in blocks:
         h, (k, v) = full_attn_block(h, lp, cfg, positions)
@@ -489,17 +520,20 @@ def _encdec_attn(x_q, x_kv, lp, cfg: ModelConfig, *, causal: bool):
     return attn_out(attention(q, k, v, causal=causal), lp)
 
 
-def encoder_forward(params, cfg: ModelConfig, frames: torch.Tensor):
+def encoder_forward(params, cfg: ModelConfig, frames: torch.Tensor,
+                    remat: bool = False):
     """frames: [B, F, d] precomputed frame embeddings (conv stub) ->
-    encoder output [B, F, d]."""
+    encoder output [B, F, d]; `remat` checkpoints each layer."""
     F = frames.shape[1]
     h = frames.to(cfg.dtype) + params["enc_pos"][:F][None].to(cfg.dtype)
-    for l in range(cfg.encdec.enc_layers):
-        lp = layer_params(params["enc_layers"], l)
+
+    def layer(h, lp):
         x = _ln(h, lp["ln1"], cfg.norm_eps)
         h = h + _encdec_attn(x, x, lp["attn"], cfg, causal=False)
         x = _ln(h, lp["ln2"], cfg.norm_eps)
-        h = h + _mlp(x, lp["mlp"])
+        return h + _mlp(x, lp["mlp"])
+    for lp in layers_of(params["enc_layers"]):
+        h = remat_call(remat, layer, h, lp)
     return _ln(h, params["enc_final"], cfg.norm_eps)
 
 
@@ -513,17 +547,28 @@ def encdec_cross_mlp(h, lp, enc, cfg: ModelConfig):
     return h + _mlp(x, lp["mlp"])
 
 
-def encdec_forward(params, cfg: ModelConfig, tokens, enc_embeds):
+def encdec_forward(params, cfg: ModelConfig, tokens, enc_embeds, *,
+                   return_hidden: bool = False, remat: bool = False):
     """Teacher-forced decode over the encoder output. tokens [B,S] ->
     (logits [B,S,V], the decoder's self-attention (k, v) stacked
-    [L,B,S,KH,HD], encoder output [B,F,d])."""
-    enc = encoder_forward(params, cfg, enc_embeds)
+    [L,B,S,KH,HD], encoder output [B,F,d]). With `return_hidden`: the
+    decoder's final-norm hidden states [B,S,d] alone (`remat`
+    checkpoints each encoder and decoder layer)."""
+    enc = encoder_forward(params, cfg, enc_embeds, remat=remat)
     S = tokens.shape[1]
     h = (params["embed"][tokens.long()]
          + params["dec_pos"][:S][None]).to(cfg.dtype)
+    if return_hidden:
+        def layer(h, lp, enc):
+            sa = lp["self_attn"]
+            x = _ln(h, lp["ln1"], cfg.norm_eps)
+            h = h + _encdec_attn(x, x, sa, cfg, causal=True)
+            return encdec_cross_mlp(h, lp, enc, cfg)
+        for lp in layers_of(params["dec_layers"]):
+            h = remat_call(remat, layer, h, lp, enc)
+        return _ln(h, params["dec_final"], cfg.norm_eps)
     ks, vs = [], []
-    for l in range(cfg.num_layers):
-        lp = layer_params(params["dec_layers"], l)
+    for lp in layers_of(params["dec_layers"]):
         sa = lp["self_attn"]
         x = _ln(h, lp["ln1"], cfg.norm_eps)
         q, k, v = _proj(x, sa["wq"]), _proj(x, sa["wk"]), _proj(x, sa["wv"])

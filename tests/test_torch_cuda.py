@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels (paged decode attention, prefill
-flash attention, row copies between pools) against their plain
-versions, on the card.
+flash attention and its backward, row copies between pools) against
+their plain versions, on the card, and training steps on the card
+against the CPU's.
 
 Marked `cuda`: every test here needs an NVIDIA Hopper card and `nvcc`,
 and skips without them. On the card:
@@ -13,7 +14,10 @@ both sides, one bf16 step apart at most (atol 1e-2). `m` and the
 per-page LSE agree within 1e-4, `l` within 1e-4 relative. The flash
 kernel's `out` is held to the same 2e-5 (f32) and 1e-2 (bf16). Row
 copies are exact. The overlap-mode serve on the card must give the
-CPU's tokens, statuses and step bytes exactly.
+CPU's tokens, statuses and step bytes exactly. The flash backward's
+dq, dk, dv agree within 1e-2 (bf16) / 1e-4 (f32) of each gradient's
+largest entry and are bitwise reproducible; train steps hold to
+`chip_smoke.TRAIN_TOL`.
 """
 
 import pathlib
@@ -691,3 +695,67 @@ def test_xlstm_prefill_and_decode_on_the_card_match_the_cpu(device):
     assert errs["logits"] <= 1e-4 and errs["state"] <= 1e-4
     assert same_tokens
 
+
+
+@pytest.mark.parametrize("shape", chip_smoke.BWD_SHAPES, ids=lambda s: s[0])
+def test_flash_backward_matches_plain_version(device, shape):
+    """The backward kernel against `ref.flash_attention_bwd_ref` on the
+    forward kernel's own out and LSE (the smoke's phase 2d shapes):
+    dq, dk, dv within 1e-2 (bf16) / 1e-4 (f32) of each gradient's max
+    |value|, and two runs bitwise equal (no atomics)."""
+    _, B, Sq, Sk, H, KH, D, dt, causal, _ = shape
+    dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[dt]
+    q, k, v = flash_inputs(B, Sq, H, KH, D, dtype, device, seed=Sq + D,
+                           Sk=Sk)
+    out, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
+    _, want_lse = ref.flash_attention_ref(q, k, v, causal=causal,
+                                          return_lse=True)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=0)
+    g = torch.randn_like(out)
+    got = fa.flash_attention_bwd(q, k, v, out, g, lse, causal=causal)
+    again = fa.flash_attention_bwd(q, k, v, out, g, lse, causal=causal)
+    want = ref.flash_attention_bwd_ref(q, k, v, out, g, lse, causal)
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, again, want):
+        assert a.dtype == dtype and a.shape == c.shape
+        assert torch.equal(a, b)
+        err = (a.float() - c.float()).abs().max() / c.float().abs().max()
+        assert err <= chip_smoke.BWD_TOL[dt]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_autograd_function_on_the_card(device, dtype):
+    """`ops.flash_attention` with inputs that require grad goes through
+    `FlashAttention`: one forward and one backward launch, gradients as
+    autograd's through the plain version (strided q, k, v views of a
+    packed projection); under no_grad the forward launches alone."""
+    B, S, H, KH, D = 2, 200, 4, 2, 64
+    qkv = torch.randn(B, S, H + 2 * KH, D, device=device, dtype=dtype,
+                      requires_grad=True)
+    q, k, v = qkv.split([H, KH, KH], dim=2)
+    g = torch.randn(B, S, H, D, device=device, dtype=dtype)
+    before = dict(build.COUNTS)
+    out = ops.flash_attention(q, k, v)
+    (got,) = torch.autograd.grad(out, qkv, g)
+    assert build.COUNTS["flash_attention"] == before.get(
+        "flash_attention", 0) + 1
+    assert build.COUNTS["flash_attention_bwd"] == before.get(
+        "flash_attention_bwd", 0) + 1
+    (want,) = torch.autograd.grad(ref.flash_attention_ref(q, k, v), qkv, g)
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    assert (got.float() - want.float()).abs().max() <= \
+        tol * want.float().abs().max()
+    with torch.no_grad():
+        ops.flash_attention(q, k, v)
+    assert build.COUNTS["flash_attention_bwd"] == before.get(
+        "flash_attention_bwd", 0) + 1
+
+
+@pytest.mark.parametrize("name", chip_smoke.TRAIN_PARITY_ARCHS)
+def test_train_steps_on_the_card_match_the_cpu(device, name):
+    """Three f32 train steps of each smoke config on the card and on the
+    CPU from one init (the smoke's phase 12a), the flash backward
+    launched on the card."""
+    errs, launches, _ = chip_smoke.train_card_vs_cpu(name, 5)
+    assert all(errs[k] <= chip_smoke.TRAIN_TOL[k] for k in errs), errs
+    assert launches > 0
