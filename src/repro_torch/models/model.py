@@ -270,27 +270,22 @@ class Model:
         ks, vs, ss, convs = [], [], [], []
 
         def site(h, sp):
-            h, _ = tfm.full_attn_block(h, sp, cfg, positions)
-            return tfm.dense_mlp_block(h, sp, cfg)
+            h, kv = tfm.full_attn_block(h, sp, cfg, positions)
+            return tfm.dense_mlp_block(h, sp, cfg), kv
         for l, lp in enumerate(tfm.layers_of(params["mamba"])):
+            out = tfm.remat_call(remat, ssm_mod.mamba2_forward_layer, h, lp,
+                                 cfg, collect_state)
             if collect_state:
-                out, (s, conv) = ssm_mod.mamba2_forward_layer(
-                    h, lp, cfg, return_state=True)
+                out, (s, conv) = out
                 ss.append(s)
                 convs.append(conv)
-            else:
-                out = tfm.remat_call(remat, ssm_mod.mamba2_forward_layer, h,
-                                     lp, cfg)
             h = h + out
             if l in sites:
-                sp = params["shared_attn"]
-                if return_hidden:
-                    h = tfm.remat_call(remat, site, h, sp)
-                    continue
-                h, (k, v) = tfm.full_attn_block(h, sp, cfg, positions)
-                h = tfm.dense_mlp_block(h, sp, cfg)
-                ks.append(k)
-                vs.append(v)
+                h, (k, v) = tfm.remat_call(remat, site, h,
+                                           params["shared_attn"])
+                if not return_hidden:
+                    ks.append(k)
+                    vs.append(v)
         h = rms_norm(h, params["final_norm"], cfg.norm_eps)
         if return_hidden:
             return h
@@ -476,11 +471,13 @@ class Model:
         cfg = self.cfg
         h = tfm.embed_tokens(params, cfg, token[:, None])[:, 0]
         new = {k: [] for k in state}
+        stacks = {kind: tfm.layers_of(params[kind])
+                  for kind in ("mlstm", "slstm")}
         for kind, i in self._xlstm_layers():
             keys = XLSTM_KEYS[kind]
             fn = xlstm_mod.slstm_decode_layer if kind == "slstm" \
                 else xlstm_mod.mlstm_decode_layer
-            y, st = fn(h, tfm.layer_params(params[kind], i), cfg,
+            y, st = fn(h, stacks[kind][i], cfg,
                        tuple(state[k][i] for k in keys))
             for k, t in zip(keys, st):
                 new[k].append(t)
@@ -513,10 +510,9 @@ class Model:
                                                        logical_page_mask)
             lists = cache.tier_lists(logical_page_mask=logical_page_mask)
         ss, convs, imps = [], [], []
-        for l in range(cfg.num_layers):
+        for l, lp in enumerate(tfm.layers_of(params["mamba"])):
             y, s, conv = ssm_mod.mamba2_decode_layer(
-                h, tfm.layer_params(params["mamba"], l), cfg,
-                ssm_state["s"][l], ssm_state["conv"][l])
+                h, lp, cfg, ssm_state["s"][l], ssm_state["conv"][l])
             ss.append(s)
             convs.append(conv)
             h = h + y

@@ -111,17 +111,11 @@ def encdec_schema(cfg: ModelConfig):
     }
 
 
-def layer_params(tree, l: int):
-    """Layer l's weights out of a stacked (nested) tree."""
-    return {k: layer_params(v, l) if isinstance(v, dict) else v[l]
-            for k, v in tree.items()}
-
-
 def layers_of(tree):
     """Every layer's weights out of a stacked (nested) tree, as a list:
     one `unbind` per leaf. Under autograd its backward stacks the L
-    layers' gradients in one pass, where indexing each layer
-    (`layer_params`) would add L zero-padded full-size gradients."""
+    layers' gradients in one pass, where indexing each layer would add
+    L zero-padded full-size gradients."""
     flat = {k: layers_of(v) if isinstance(v, dict) else v.unbind(0)
             for k, v in tree.items()}
     n = len(next(iter(flat.values()))) if flat else 0
@@ -210,19 +204,19 @@ def decoder_forward(params, cfg: ModelConfig, tokens, blocks,
         else input_embeds
     S = h.shape[1]
     positions = torch.arange(S, device=h.device)[None, :]
-    if return_hidden:
-        def layer(h, lp, ffn):
-            return ffn(full_attn_block(h, lp, cfg, positions)[0])
-        for lp, ffn in blocks:
-            h = remat_call(remat, layer, h, lp, ffn)
-        return rms_norm(h, params["final_norm"], cfg.norm_eps)
+
+    def layer(h, lp, ffn):
+        h, kv = full_attn_block(h, lp, cfg, positions)
+        return ffn(h), kv
     ks, vs = [], []
     for lp, ffn in blocks:
-        h, (k, v) = full_attn_block(h, lp, cfg, positions)
-        h = ffn(h)
-        ks.append(k)
-        vs.append(v)
+        h, (k, v) = remat_call(remat, layer, h, lp, ffn)
+        if not return_hidden:
+            ks.append(k)
+            vs.append(v)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    if return_hidden:
+        return h
     return unembed(params, cfg, h), (torch.stack(ks), torch.stack(vs))
 
 
@@ -558,25 +552,22 @@ def encdec_forward(params, cfg: ModelConfig, tokens, enc_embeds, *,
     S = tokens.shape[1]
     h = (params["embed"][tokens.long()]
          + params["dec_pos"][:S][None]).to(cfg.dtype)
-    if return_hidden:
-        def layer(h, lp, enc):
-            sa = lp["self_attn"]
-            x = _ln(h, lp["ln1"], cfg.norm_eps)
-            h = h + _encdec_attn(x, x, sa, cfg, causal=True)
-            return encdec_cross_mlp(h, lp, enc, cfg)
-        for lp in layers_of(params["dec_layers"]):
-            h = remat_call(remat, layer, h, lp, enc)
-        return _ln(h, params["dec_final"], cfg.norm_eps)
-    ks, vs = [], []
-    for lp in layers_of(params["dec_layers"]):
+
+    def layer(h, lp, enc):
         sa = lp["self_attn"]
         x = _ln(h, lp["ln1"], cfg.norm_eps)
         q, k, v = _proj(x, sa["wq"]), _proj(x, sa["wk"]), _proj(x, sa["wv"])
         h = h + attn_out(attention(q, k, v, causal=True), sa)
-        h = encdec_cross_mlp(h, lp, enc, cfg)
-        ks.append(k)
-        vs.append(v)
+        return encdec_cross_mlp(h, lp, enc, cfg), (k, v)
+    ks, vs = [], []
+    for lp in layers_of(params["dec_layers"]):
+        h, (k, v) = remat_call(remat, layer, h, lp, enc)
+        if not return_hidden:
+            ks.append(k)
+            vs.append(v)
     h = _ln(h, params["dec_final"], cfg.norm_eps)
+    if return_hidden:
+        return h
     return unembed(params, cfg, h), (torch.stack(ks), torch.stack(vs)), enc
 
 
@@ -598,8 +589,7 @@ def encdec_decode_step(params, cfg: ModelConfig, cache: PagedKVCache,
     h = (params["embed"][token.long()]
          + params["dec_pos"][pos.long()]).to(cfg.dtype)[:, None]
     imps = []
-    for l in range(cfg.num_layers):
-        lp = layer_params(params["dec_layers"], l)
+    for l, lp in enumerate(layers_of(params["dec_layers"])):
         sa = lp["self_attn"]
         slot = write_slot[l]
         pools = (cache.k_hbm[l], cache.v_hbm[l], cache.k_host[l],

@@ -60,11 +60,14 @@ def global_norm(grads) -> torch.Tensor:
 def adamw_update(grads, state: AdamWState, params, *, lr=None,
                  b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
                  grad_clip=1.0) -> Tuple[Any, AdamWState]:
-    """One AdamW step: (new params, new state). `lr` a float or a
-    tensor; None takes `cosine_schedule` of the new step."""
+    """One AdamW step: (new params, new state). `lr` a float, a tensor
+    or a function of the new step (e.g. a `cosine_schedule` with its
+    own warm-up); None takes `cosine_schedule` of the new step."""
     step = state.step + 1
     if lr is None:
         lr = cosine_schedule(step)
+    elif callable(lr):
+        lr = lr(step)
 
     # global-norm clip
     gnorm = global_norm(grads)

@@ -70,7 +70,7 @@ def layer_pair(models, l=1):
     """Mamba2 layer l's weights on both sides."""
     jm, jp, tm, tp = models
     return (jax.tree.map(lambda a: a[l], jp["mamba"]),
-            tfm.layer_params(tp["mamba"], l))
+            tfm.layers_of(tp["mamba"])[l])
 
 
 def hidden(S, d, seed):

@@ -213,6 +213,28 @@ def test_adamw_update_matches_reference(scale):
         assert abs(got - want) <= 1e-6 * want
 
 
+def test_adamw_update_takes_a_schedule():
+    """An `lr` function of the new step matches the reference given that
+    function's value at each step."""
+    rng = np.random.default_rng(12)
+    params = random_tree(rng, 1.0)
+    kw = dict(peak_lr=1e-2, warmup=2, total=6)
+    jstate = jopt.adamw_init(jax.tree.map(jnp.asarray, params))
+    tstate = topt.adamw_init(jax.tree.map(torch.from_numpy, params))
+    jp = jax.tree.map(jnp.asarray, params)
+    tp = jax.tree.map(torch.from_numpy, params)
+    for _ in range(4):
+        g = random_tree(rng, 1.0)
+        jp, jstate = jopt.adamw_update(
+            jax.tree.map(jnp.asarray, g), jstate, jp,
+            lr=jopt.cosine_schedule(jstate.step + 1, **kw))
+        tp, tstate = topt.adamw_update(
+            jax.tree.map(torch.from_numpy, g), tstate, tp,
+            lr=lambda step: topt.cosine_schedule(step, **kw))
+        assert max_err(jp, tp) <= 1e-6
+        assert max_err(jstate.m, tstate.m) <= 1e-7
+
+
 def test_cosine_schedule_matches_reference():
     steps = np.array([0, 1, 50, 99, 100, 101, 5000, 9999, 10_000, 20_000],
                      np.int32)

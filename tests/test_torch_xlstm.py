@@ -54,7 +54,7 @@ def block(models, kind):
     """Block 0 of `kind` ("mlstm" or "slstm") on both sides."""
     jm, jp, tm, tp = models
     return (jax.tree.map(lambda a: a[0], jp[kind]),
-            tfm.layer_params(tp[kind], 0))
+            tfm.layers_of(tp[kind])[0])
 
 
 def hidden(shape, seed):
