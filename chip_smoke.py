@@ -46,10 +46,14 @@ non-zero):
   2c. copy   the row-copy kernel against its plain version at phase
              4's plan capacity: the promote gather (pinned -> card) and
              the demote scatter (card -> pinned) of one pool, each
-             timed against the link's peak and the measured `copy_`
-             rate; the same gather with the pool on the card (inline
-             mode) against HBM's peak and PyTorch's indexing; and one
-             decode step's token writes into a pool on the card.
+             timed against the link's peak, the measured `copy_`
+             rate and the nearest PyTorch composition (a host
+             index_select / index_copy_ through a pinned buffer, and
+             copy_: no one call does it); the same gather with the pool
+             on the card (inline mode) against HBM's peak and
+             PyTorch's indexing; each also timed eagerly (20 calls
+             issued from Python); and one decode step's token writes
+             into a pool on the card.
   2b. flash  run the flash kernel against its plain version
              (ref.flash_attention_ref) on CUDA tensors: the prefill
              shapes of phase 5 (B=4, S=2304, H=16 over KH=8, D=128,
@@ -68,7 +72,11 @@ non-zero):
              beside the plain version, one scaled_dot_product_attention
              call (enable_gqa, on [B, H, S, D] copies made outside the
              timed region) and its bound.
-  2d. flash bwd the backward kernel (csrc/flash_attention_bwd.cu)
+  2d. flash bwd print ptxas' registers and spills of the backward's
+             delta, dkdv and dq kernels and fail if `cuobjdump -sass`
+             finds no HGMMA in an instance of the bf16 dkdv or dq body
+             (or if one spills); then the backward kernel
+             (csrc/flash_attention_bwd.cu)
              against its plain version (ref.flash_attention_bwd_ref) on
              the forward kernel's own out and LSE (the LSE checked
              against the plain forward's): dq, dk, dv within 1e-2 (bf16)
@@ -592,6 +600,37 @@ def pinned_shape(rng, device, link):
 # phase 2c: the row-copy kernel against its plain version
 # --------------------------------------------------------------------------
 
+def host_composition_ms(pool, flat, staged, gather: bool,
+                        reps: int = 5) -> float:
+    """Mean wall milliseconds of the nearest PyTorch composition of a
+    pinned pool's row copy: gather = `index_select` of the pool's pages
+    on the host into a pinned buffer, then `copy_` onto the card (into a
+    buffer of its own: `staged` is left as it is); scatter = `copy_` of
+    `staged`'s rows into a pinned buffer, then `index_copy_` into the
+    pool on the host (which it changes)."""
+    import torch
+    rows = pool.view(math.prod(pool.shape[:3]), -1)
+    idx = torch.as_tensor(flat, dtype=torch.long)
+    buf = torch.empty((len(flat), rows.shape[1]), dtype=rows.dtype,
+                      pin_memory=True)
+    card = staged.view(len(flat), -1)
+    dst = torch.empty_like(card) if gather else None
+
+    def once():
+        if gather:
+            torch.index_select(rows, 0, idx, out=buf)
+            dst.copy_(buf, non_blocking=True)
+        else:
+            buf.copy_(card)
+            rows.index_copy_(0, idx, buf)
+        torch.cuda.synchronize()
+    once()
+    t = time.perf_counter()
+    for _ in range(reps):
+        once()
+    return (time.perf_counter() - t) / reps * 1e3
+
+
 def page_copy_phase(rng, device, link):
     """One pool's pages of a full-capacity commit at phase 4's geometry:
     gathered out of a pinned host pool onto the card (overlap mode's
@@ -653,6 +692,7 @@ def page_copy_phase(rng, device, link):
             raise AssertionError(f"page_copy {name} ({way}) disagrees with "
                                  f"the plain version")
         plain_ms = eager_ms(plain, 20)
+        eager = eager_ms(kernel, 20)
         if way == "card -> card":
             # each page read once and written once, at HBM's peak; the
             # library call is PyTorch's indexing gather
@@ -661,20 +701,30 @@ def page_copy_phase(rng, device, link):
             bound = 2 * nbytes / HBM_BW * 1e3
             yard = f"HBM peak {HBM_BW / 1e12:.2f} TB/s; indexing {lib:.4f} ms"
         else:
-            ms = eager_ms(kernel, 20)
+            ms = eager
             rate = link["h2d" if way == "pinned -> card" else "d2h"]
             bound = nbytes / peak * 1e3
+            # no one PyTorch call moves rows between a pinned pool and
+            # the card by index: the nearest composition gathers (or
+            # scatters) on the host through a pinned staging buffer and
+            # crosses the link with copy_
+            composed = host_composition_ms(pool, flat, staged,
+                                           way == "pinned -> card")
             yard = (f"link peak {peak / 1e9:.0f} GB/s; "
                     f"{nbytes / rate * 1e3:.4f} ms at the measured copy_ "
-                    f"rate {rate / 1e9:.2f} GB/s")
+                    f"rate {rate / 1e9:.2f} GB/s; host index_select/"
+                    f"index_copy_ + copy_ {composed:.4f} ms")
         log(f"page_copy {name} ({way}, {cap} pages of "
             f"{math.prod(page) * 2} B): exact {same}, "
-            f"{ms:.4f} ms ({nbytes / ms / 1e6:.2f} GB/s) plain "
-            f"{plain_ms:.4f} ms (device copy) bound {bound:.4f} ms ({yard})")
+            f"{ms:.4f} ms ({nbytes / ms / 1e6:.2f} GB/s) eager {eager:.4f} "
+            f"ms plain {plain_ms:.4f} ms (device copy) bound {bound:.4f} ms "
+            f"({yard})")
         parts.append({"direction": f"{name} {way}", "ms": ms,
-                      "plain_ms": plain_ms, "bound_ms": bound,
-                      "library_ms": lib, "bytes": nbytes,
-                      "gb_per_s": nbytes / ms / 1e6})
+                      "eager_ms": eager, "plain_ms": plain_ms,
+                      "bound_ms": bound, "library_ms": lib,
+                      "bytes": nbytes, "gb_per_s": nbytes / ms / 1e6})
+        if way != "card -> card":
+            parts[-1]["host_composition_ms"] = composed
     # one decode step's token writes: lane b's [KH, HD] row at (b, slot,
     # offset) of one layer's pool, a lane with slot -1 writing nothing
     slot = torch.as_tensor(rng.integers(0, Pe, B).astype(np.int32),
@@ -874,15 +924,104 @@ def spun_ms(setup, fn, reps: int) -> float:
     return total / reps
 
 
-def flash_bwd_phase(device):
-    """Phase 2d: the backward kernel against `ref.flash_attention_bwd_ref`
-    on the forward kernel's own `out` and LSE (the LSE checked against
-    the plain forward's), twice for determinism (bitwise); the training
-    shape timed beside the plain version, one SDPA backward and the
-    bound."""
+def demangled(mangled: str) -> str:
+    """`base<template ints>` of a kernel's mangled name (its last
+    length-prefixed part), with `bf16` or `f32` first where the kernel
+    takes an element type; the name as given if it is not nested."""
+    import re
+    i, parts = mangled.find("_ZN") + 3, []
+    while 2 < i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        parts.append(mangled[j:j + n])
+        i = j + n
+    args = re.match(r"I(.*?E)E", mangled[i:]) if parts else None
+    if not args:
+        return parts[-1] if parts else mangled
+    ints = re.findall(r"Li(\d+)E", args.group(1))
+    kind = ("bf16," if "bfloat16" in args.group(1) else
+            "f32," if args.group(1).startswith("f") else "")
+    return f"{parts[-1]}<{kind}{','.join(ints)}>"
+
+
+def ptxas_usage(report: str):
+    """{kernel: (registers, spill store bytes, spill load bytes)} of each
+    entry function in ptxas' report, named as `demangled` names it."""
+    import re
+    out, current = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+?)'", line)
+        if m:
+            current = [demangled(m.group(1)), 0, 0, 0]
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            current[2:4] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            current[1] = int(m.group(1))
+            out[current[0]] = tuple(current[1:])
+            current = None
+    return out
+
+
+def sass_hgmma(lib) -> dict:
+    """{function: whether its SASS holds an HGMMA instruction} of every
+    function `cuobjdump -sass` finds in the built library."""
+    import shutil
+    from repro_torch.kernels import build
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(build._nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    out = {}
+    for part in text.split("Function : ")[1:]:
+        out[part.split()[0]] = "HGMMA" in part
+    return out
+
+
+def bwd_build_check(lib, report):
+    """Phase 2d's build check: ptxas' registers and spills of the
+    backward's delta, dkdv and dq kernels, and HGMMA in the SASS of
+    every instance of the bf16 `dkdv` and `dq` bodies (failing if one
+    has none, or if one of them spills)."""
+    usage = ptxas_usage(report)
+    for name, (regs, st, ld) in sorted(usage.items()):
+        log(f"flash bwd ptxas {name}: {regs} registers, spill stores {st} "
+            f"bytes, spill loads {ld} bytes")
+    hgmma = {f: ok for f, ok in sass_hgmma(lib).items()
+             if "wgmma_kernel" in f}
+    bodies = {f for f in hgmma if "dkdv_wgmma" in f}, \
+        {f for f in hgmma if "dq_wgmma" in f}
+    log(f"flash bwd sass: HGMMA in {sum(hgmma.values())} of {len(hgmma)} "
+        f"tensor-core bodies ({len(bodies[0])} dkdv, {len(bodies[1])} dq)")
+    if not all(bodies) or not all(hgmma.values()):
+        raise AssertionError(f"a tensor-core body of the backward has no "
+                             f"HGMMA: {hgmma}")
+    spilled = {n: u for n, u in usage.items()
+               if "wgmma" in n and (u[1] or u[2])}
+    if spilled:
+        raise AssertionError(f"the backward's tensor-core bodies spill "
+                             f"registers: {spilled}")
+    return {n: u for n, u in usage.items() if "<f32" not in n}
+
+
+def flash_bwd_phase(device, built):
+    """Phase 2d: the build check (`bwd_build_check`, on `built`: the
+    library and ptxas' report from `build.build_all`), then the backward
+    kernel against `ref.flash_attention_bwd_ref` on the forward kernel's
+    own `out` and LSE (the LSE checked against the plain forward's),
+    twice for determinism (bitwise); the training shape timed beside the
+    plain version, one SDPA backward and the bound."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
+    registers = bwd_build_check(*built)
     dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
     errs, rels, timed = [], [], []
     for label, B, Sq, Sk, H, KH, D, dt, causal, is_timed in BWD_SHAPES:
@@ -970,7 +1109,7 @@ def flash_bwd_phase(device):
     return {**{k: v for k, v in timed[0].items()
                if k not in ("shape", "model")},
             "max_abs_err": max(errs), "max_rel_err": max(rels),
-            "per_shape": timed}
+            "per_shape": timed, "ptxas": registers}
 
 
 
@@ -1051,9 +1190,9 @@ KERNEL_GROUPS = (   # (group, lower-case substrings of its kernel names)
     ("row copies (csrc/page_copy.cu)", ("page_copy_kernel",)),
     ("flash attention (csrc/flash_attention.cu)", ("flash_wgmma_kernel",
                                                     "flash_fma_kernel")),
-    ("flash backward (csrc/flash_attention_bwd.cu)", ("dkdv_kernel",
-                                                      "dq_kernel",
-                                                      "delta_kernel")),
+    ("flash backward (csrc/flash_attention_bwd.cu)", (
+        "dkdv_wgmma_kernel", "dq_wgmma_kernel", "dkdv_kernel", "dq_kernel",
+        "delta_kernel")),
     ("matmul", ("gemm", "gemv", "cutlass", "xmma", "nvjet", "splitk")),
     ("softmax", ("softmax",)),
     ("gather / scatter / copy", ("index", "gather", "scatter", "copy",
@@ -2347,19 +2486,10 @@ def card_line() -> str:
 def wgmma_spills(report: str):
     """{head dim: (spill store bytes, spill load bytes)} of each
     instance of the flash kernel's tensor-core body in ptxas' report."""
-    import re
-    out, current = {}, None
-    for line in report.splitlines():
-        m = re.search(r"Compiling entry function '\S*flash_wgmma_kernelILi"
-                      r"(\d+)E", line)
-        if "Compiling entry function" in line:
-            current = int(m.group(1)) if m else None
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m and current is not None:
-            out[current] = (int(m.group(1)), int(m.group(2)))
-            current = None
-    return out
+    body = "flash_wgmma_kernel<"
+    return {int(name[len(body):-1]): usage[1:]
+            for name, usage in ptxas_usage(report).items()
+            if name.startswith(body)}
 
 
 def main(argv=None) -> int:
@@ -2412,7 +2542,8 @@ def main(argv=None) -> int:
     shapes, link = phase("kernel", lambda: kernel_phase(rng, device))
     copies = phase("copy", lambda: page_copy_phase(rng, device, link))
     flash = phase("flash", lambda: flash_phase(device))
-    flash_bwd = phase("flash bwd", lambda: flash_bwd_phase(device))
+    flash_bwd = phase("flash bwd", lambda: flash_bwd_phase(
+        device, built["flash_attention_bwd"]))
     phase("parity", lambda: parity_phase(args.seed))
     phase("overlap parity", lambda: parity_phase(args.seed, overlap=True))
     phase("faults", lambda: faulted_parity_phase(args.seed))

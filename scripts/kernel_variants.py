@@ -3,6 +3,8 @@
 CUDA card, beside the committed choice.
 
     python3 scripts/kernel_variants.py [--flash-stages N ...]
+                                       [--bwd KEYWGS,STAGES,SPLIT ...]
+                                       [--bwd-file PATH ...]
                                        [--paged-per-sm N ...]
 
 Flash: each variant is `csrc/flash_attention.cu` with `kStages` (the
@@ -11,6 +13,18 @@ flags of `kernels/build.py` into `build/variants/`, checked against
 the plain version (bf16 tolerance 1e-2) and timed at the prefill shape
 of `chip_smoke.py` phase 5 (B=4, S=2304, H=16/8, D=128, causal) by
 CUDA-graph replay; each runs in its own process under a time limit.
+Backward: each variant is `csrc/flash_attention_bwd.cu` with
+`kKeyWgs` (64-key blocks of a dkdv CTA: key block 64 or 128),
+`kBwdStages` (the depth of its TMA rings) and `kSplitAbove` (padded
+head dims past it give dK its own warpgroup; 0 splits at every D)
+replaced, checked against the plain version (1e-2 of each gradient's
+max |value|, two runs bitwise equal) and timed at phase 12's training
+shape (B=8, S=512, H=16/8, D=128, bf16, causal), in the same way, with
+each of its three kernels' mean time under torch.profiler. A
+`--bwd-file` (another checkout's `flash_attention_bwd.cu`, with the
+same C entry point) is built as it is and timed before the variants
+and again after them. Each variant's directory gets a copy of the
+`csrc/` headers its source includes.
 Paged: the kernel as committed, at `chip_smoke.py` phase 2's shapes
 (N=64 and 208), with its page range split for each given number of
 CTAs per SM. Prints one line per variant and the
@@ -23,6 +37,7 @@ import argparse
 import ctypes
 import os
 import re
+import shutil
 import subprocess
 import sys
 
@@ -30,19 +45,24 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path[:0] = [ROOT, os.path.join(ROOT, "src")]
 
 
-def build_flash(stage_counts):
-    """One nvcc per variant, all at once; returns {tag: library path}."""
+def build_variants(source, variants):
+    """`csrc/<source>.cu` with constants replaced, one nvcc per variant,
+    all at once; variants {tag: {constant: value}}. Returns {tag:
+    (library path, ptxas' report)}."""
     from repro_torch.kernels import build
-    src = (build.CSRC / "flash_attention.cu").read_text()
+    src = (build.CSRC / f"{source}.cu").read_text()
     out_dir = os.path.join(build.build_dir(), "variants")
     os.makedirs(out_dir, exist_ok=True)
+    for header in build.headers(source):
+        shutil.copyfile(header, os.path.join(out_dir, header.name))
     procs = {}
-    for stages in stage_counts:
-        text, n = re.subn(r"constexpr int kStages = \d+;",
-                          f"constexpr int kStages = {stages};", src)
-        assert n == 1
-        tag = f"stages{stages}"
-        cu = os.path.join(out_dir, f"flash_{tag}.cu")
+    for tag, consts in variants.items():
+        text = src
+        for name, value in consts.items():
+            text, n = re.subn(rf"constexpr int {name} = \d+;",
+                              f"constexpr int {name} = {value};", text)
+            assert n == 1, name
+        cu = os.path.join(out_dir, f"{source}_{tag}.cu")
         with open(cu, "w") as f:
             f.write(text)
         lib = cu[:-3] + ".so"
@@ -53,15 +73,68 @@ def build_flash(stage_counts):
     for tag, (lib, proc) in procs.items():
         report = proc.communicate()[0]
         if proc.returncode:
-            print(f"flash {tag}: nvcc failed\n{report[-2000:]}", flush=True)
+            print(f"{source} {tag}: nvcc failed\n{report[-2000:]}",
+                  flush=True)
             continue
-        lines = report.splitlines()
-        for i, line in enumerate(lines):    # the D=128 bf16 body
-            if "Function properties" in line and "wgmma_kernelILi128" in line:
-                print(f"flash {tag}: ptxas {lines[i + 1].strip()} | "
-                      f"{lines[i + 2].strip()}", flush=True)
+        libs[tag] = (lib, report)
+    return libs
+
+
+def build_flash(stage_counts):
+    """The forward's ring depths; returns {tag: library path}."""
+    import chip_smoke as cs
+    libs = build_variants("flash_attention", {
+        f"stages{n}": {"kStages": n} for n in stage_counts})
+    for tag, (_, report) in libs.items():    # the D=128 bf16 body
+        for name, (regs, st, ld) in cs.ptxas_usage(report).items():
+            if name == "flash_wgmma_kernel<128>":
+                print(f"flash {tag}: ptxas {regs} registers, spill stores "
+                      f"{st} bytes, spill loads {ld} bytes", flush=True)
+    return {tag: lib for tag, (lib, _) in libs.items()}
+
+
+def build_bwd_files(paths):
+    """Backward sources as they are (another checkout's), one nvcc each,
+    all at once; returns {tag: library path}."""
+    from repro_torch.kernels import build
+    out_dir = os.path.join(build.build_dir(), "variants")
+    os.makedirs(out_dir, exist_ok=True)
+    procs = {}
+    for i, path in enumerate(paths):
+        lib = os.path.join(out_dir, f"flash_attention_bwd_file{i}.so")
+        procs[f"file{i}"] = (path, lib, subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-o", lib, path],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for tag, (path, lib, proc) in procs.items():
+        report = proc.communicate()[0]
+        if proc.returncode:
+            print(f"bwd {tag} ({path}): nvcc failed\n{report[-2000:]}",
+                  flush=True)
+            continue
+        print(f"bwd {tag}: {path}", flush=True)
         libs[tag] = lib
     return libs
+
+
+def build_bwd(specs):
+    """The backward's (kKeyWgs, kBwdStages, kSplitAbove) variants;
+    returns {tag: library path}."""
+    import chip_smoke as cs
+    variants = {}
+    for spec in specs:
+        key_wgs, stages, split = (int(x) for x in spec.split(","))
+        variants[f"kb{64 * key_wgs}_st{stages}_split{split}"] = {
+            "kKeyWgs": key_wgs, "kBwdStages": stages,
+            "kSplitAbove": split}
+    libs = build_variants("flash_attention_bwd", variants)
+    for tag, (_, report) in libs.items():    # the D=128 bodies
+        for name, (regs, st, ld) in cs.ptxas_usage(report).items():
+            if "wgmma" in name and "<128" in name:
+                print(f"bwd {tag}: ptxas {name} {regs} registers, spill "
+                      f"stores {st} bytes, spill loads {ld} bytes",
+                      flush=True)
+    return {tag: lib for tag, (lib, _) in libs.items()}
 
 
 def time_flash(tag, lib_path):
@@ -73,7 +146,7 @@ def time_flash(tag, lib_path):
     lib = ctypes.CDLL(lib_path)
     fn = lib.flash_attention_launch
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = ([ptr] * 4 + [i32] * 6 + [i64] * 9
+    fn.argtypes = ([ptr] * 5 + [i32] * 6 + [i64] * 9
                    + [i32, ctypes.c_float, i32, ptr])
     fn.restype = ctypes.c_int
     fa._library = lambda: lib
@@ -87,11 +160,76 @@ def time_flash(tag, lib_path):
     want = ref.flash_attention_ref(*sets[0])
     err = float((got.float() - want.float()).abs().max())
     ms = cs.device_ms(lambda i: fa.flash_attention(*sets[i % 3]), 3)
-    flops = cs.flash_work(B, S, H, KH, D, True, 2)[1]
+    flops = cs.flash_work(B, S, S, H, KH, D, True, 2)[1]
     print(f"flash {tag}: device {ms:.4f} ms  {flops / ms / 1e9:.1f} "
           f"TFLOP/s  max err {err:.3e} (tolerance 1e-2)", flush=True)
     if not err <= 1e-2:
         raise SystemExit(f"flash {tag} disagrees with the plain version")
+
+
+def time_bwd(tag, lib_path):
+    """Check and time one built backward variant (own process)."""
+    import torch
+    import chip_smoke as cs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    lib = ctypes.CDLL(lib_path)
+    fn = lib.flash_attention_bwd_launch
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = ([ptr] * 10 + [i32] * 6 + [i64] * 9
+                   + [i32, ctypes.c_float, i32, ptr])
+    fn.restype = ctypes.c_int
+    fa._bwd_library = lambda: lib
+    torch.manual_seed(0)
+    dev = torch.device("cuda")
+    B, S, H, KH, D = 8, 512, 16, 8, 128
+
+    def inputs():
+        q = torch.randn((B, S, H, D), device=dev, dtype=torch.bfloat16)
+        k = torch.randn((B, S, KH, D), device=dev, dtype=torch.bfloat16)
+        v = torch.randn((B, S, KH, D), device=dev, dtype=torch.bfloat16)
+        out, lse = fa.flash_attention(q, k, v, return_lse=True)
+        return q, k, v, out, torch.randn_like(out), lse
+    sets = [inputs() for _ in range(3)]      # 3 x 101 MB beat the L2
+    got = fa.flash_attention_bwd(*sets[0])
+    again = fa.flash_attention_bwd(*sets[0])
+    want = ref.flash_attention_bwd_ref(*sets[0])
+    rel = max(float((a.float() - b.float()).abs().max()
+                    / b.float().abs().max()) for a, b in zip(got, want))
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    ms = cs.device_ms(lambda i: fa.flash_attention_bwd(*sets[i % 3]), 3)
+    flops = cs.flash_bwd_work(B, S, S, H, KH, D, True, 2)[1]
+    print(f"bwd {tag}: device {ms:.4f} ms  {flops / ms / 1e9:.1f} "
+          f"TFLOP/s (2.5x the forward's flops)  max err {rel:.3e} of max "
+          f"|grad| (tolerance 1e-2), bitwise {same}", flush=True)
+    split = kernel_split(lambda i: fa.flash_attention_bwd(*sets[i % 3]))
+    print(f"bwd {tag}: {split}", flush=True)
+    if not (rel <= 1e-2 and same):
+        raise SystemExit(f"bwd {tag} disagrees with the plain version")
+
+
+def kernel_split(fn, calls: int = 30) -> str:
+    """Mean device microseconds a call of each kernel of fn(i) takes
+    under torch.profiler, over `calls` calls: the Δ pre-pass, dkdv and
+    dq of a backward."""
+    import torch
+    import chip_smoke as cs
+    fn(0)
+    torch.cuda.synchronize()
+    _, prof = cs.profiled(lambda: [fn(i) for i in range(calls)]
+                          + [torch.cuda.synchronize()])
+    times = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        part = next((k for k in ("delta", "dkdv", "dq") if f"{k}_" in e.name),
+                    "other")
+        times[part] = times.get(part, 0.0) + e.time_range.elapsed_us()
+    if not times:
+        return "profile: no device time (not measured)"
+    return "profile: " + "  ".join(
+        f"{k} {v / calls:.1f} us" for k, v in times.items()) + \
+        f" (mean of {calls} calls)"
 
 
 def time_paged(per_sm_values):
@@ -132,28 +270,45 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--flash-stages", nargs="*", type=int, default=[2, 3],
                     help="TMA ring depths (2 is committed)")
+    ap.add_argument("--bwd", nargs="*",
+                    default=["1,2,128", "2,2,128", "1,3,128", "1,2,0"],
+                    help="backward variants kKeyWgs,kBwdStages,kSplitAbove "
+                    "(1,2,128 is committed)")
+    ap.add_argument("--bwd-file", nargs="*", default=[],
+                    help="backward sources timed as they are, before and "
+                    "after the variants")
     ap.add_argument("--paged-per-sm", nargs="*", type=int,
                     default=[1, 2, 4])
-    ap.add_argument("--one", nargs=2, help=argparse.SUPPRESS)
+    ap.add_argument("--one", nargs=3, help=argparse.SUPPRESS)
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("kernel_variants: needs a CUDA card", file=sys.stderr)
         return 2
     if args.one:
-        time_flash(*args.one)
+        kind, tag, lib = args.one
+        (time_flash if kind == "flash" else time_bwd)(tag, lib)
         return 0
     failed = 0
-    for tag, lib in build_flash(args.flash_stages).items():
+    runs = [("flash", tag, lib)
+            for tag, lib in build_flash(args.flash_stages).items()]
+    files = [("bwd", tag, lib)
+             for tag, lib in build_bwd_files(args.bwd_file).items()]
+    runs += files
+    runs += [("bwd", tag, lib) for tag, lib in build_bwd(args.bwd).items()]
+    runs += files
+    for kind, tag, lib in runs:
         try:
             rc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                                 "--one", tag, lib], timeout=180).returncode
+                                 "--one", kind, tag, lib],
+                                timeout=180).returncode
         except subprocess.TimeoutExpired:
             rc = "timeout"
         failed += rc != 0
         if rc != 0:
-            print(f"flash {tag}: exit {rc}", flush=True)
-    time_paged(args.paged_per_sm)
+            print(f"{kind} {tag}: exit {rc}", flush=True)
+    if args.paged_per_sm:
+        time_paged(args.paged_per_sm)
     import chip_smoke as cs
     print(cs.card_line(), flush=True)
     return 1 if failed else 0

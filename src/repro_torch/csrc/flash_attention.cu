@@ -66,11 +66,7 @@
 //    a 4 x 4 block of the 64 x 64 score tile; causal blocks above the
 //    diagonal skipped, the q blocks with the most keys launched first.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <dlfcn.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
@@ -307,20 +303,6 @@ constexpr int kWgThreads = 128;   // one warpgroup per CTA
 constexpr int kQBM = 64;          // query rows per CTA
 constexpr int kKBM = 64;          // keys per tile
 constexpr int kStages = 2;        // K/V tiles in the ring
-constexpr float kLog2e = 1.4426950408889634f;
-
-typedef __nv_bfloat16 bf16;
-
-__device__ inline uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 2^x by the SFU (ex2.approx, relative error ~2^-22).
-__device__ inline float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // 16 bytes global -> shared; `bytes` 0 zero-fills the destination.
 __device__ inline void cp_async16(uint32_t dst, const void* src, int bytes) {
@@ -366,49 +348,6 @@ __device__ inline void load_tile_async(const bf16* __restrict__ src,
   }
 }
 
-__device__ inline void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-__device__ inline void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-__device__ inline void mbar_wait(uint32_t bar, int parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(bar),
-      "r"(parity)
-      : "memory");
-}
-// One [rows][min(D, 64)] box of a [B, S, KH, D] tensor by TMA, at
-// column c0, KV head kh, row s0, lane b; completion on `bar`.
-__device__ inline void tma_load(uint32_t dst, const CUtensorMap* map, int c0,
-                                int kh, int s0, int b, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(kh), "r"(s0),
-      "r"(b), "r"(bar)
-      : "memory");
-}
-
-// The width of the shared tiles of head dim D: D up to 64, else D
-// rounded up to whole 64-column (128-byte) swizzle blocks.
-template <int D>
-__host__ __device__ constexpr int padded() {
-  return D <= 64 ? D : (D + 63) / 64 * 64;
-}
-
 template <int D>
 __host__ __device__ constexpr size_t wg_smem_bytes() {
   // q [kQBM][DP] | k, v [kStages][kKBM][DP], bf16 | an mbarrier per
@@ -427,160 +366,9 @@ __device__ inline void pack_p(float x, float y, uint32_t& hi, uint32_t& lo) {
   lo = *reinterpret_cast<uint32_t*>(&r);
 }
 
-// Pins registers that an asynchronous wgmma reads or writes: the
-// compiler keeps their other uses on their side of this point.
-template <int N>
-__device__ inline void reg_fence(float* d) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-__device__ inline void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
 __device__ inline void wg_commit_wait() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// wgmma's shared-memory matrix descriptor: start address, leading and
-// stride byte offsets (in 16-byte units), swizzle mode (1 = 128-byte,
-// 2 = 64-byte, 3 = 32-byte).
-__device__ inline uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
-                                     uint32_t sbo, uint32_t layout) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)layout << 62);
-}
-
-// d (64 x 64, f32) = A . B (+ d where scale_d), A and B K-major
-// in shared memory, by descriptor.
-__device__ inline void wgmma_ss_n64(float* d, uint64_t da, uint64_t db,
-                                    int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31 "
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// d (64 x N, f32) += A . B: A (64 x 16) from registers in the
-// mma.sync A-fragment layout, B (16 x N) MN-major in shared memory
-// (the transpose bit), by descriptor.
-__device__ inline void wgmma_rs_n16(float* d, const uint32_t* a,
-                                     uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7 "
-      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ inline void wgmma_rs_n32(float* d, const uint32_t* a,
-                                     uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15 "
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ inline void wgmma_rs_n64(float* d, const uint32_t* a,
-                                     uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31 "
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ inline void wgmma_rs_n128(float* d, const uint32_t* a,
-                                     uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63 "
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <int N>
-__device__ inline void wgmma_rs(float* d, const uint32_t* a, uint64_t db) {
-  if constexpr (N == 16) wgmma_rs_n16(d, a, db);
-  if constexpr (N == 32) wgmma_rs_n32(d, a, db);
-  if constexpr (N == 64) wgmma_rs_n64(d, a, db);
-  if constexpr (N == 128) wgmma_rs_n128(d, a, db);
-}
-
-// d (64 x DP) += A . B over V's tile of DP columns: one product of
-// N = DP up to 128, else (DP = 192) N = 128 over the first two 64-column
-// blocks and N = 64 over the third, whose descriptor starts two column
-// blocks (`block` bytes each) further.
-template <int DP>
-__device__ inline void wgmma_rs_tile(float* d, const uint32_t* a,
-                                     uint64_t db, uint32_t block) {
-  if constexpr (DP <= 128) {
-    wgmma_rs<DP>(d, a, db);
-  } else {
-    static_assert(DP == 192, "tiles of 192 columns at most");
-    wgmma_rs<128>(d, a, db);
-    wgmma_rs<64>(d + 64, a, db + ((2 * block) >> 4));
-  }
 }
 
 template <int D>
@@ -799,52 +587,6 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// cuTensorMapEncodeTiled, looked up in the libcuda.so.1 that the CUDA
-// runtime has loaded (no link against libcuda).
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
-                                cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (!lib) lib = dlopen("libcuda.so.1", RTLD_NOW);
-    return lib ? reinterpret_cast<EncodeTiled>(
-                     dlsym(lib, "cuTensorMapEncodeTiled"))
-               : nullptr;
-  }();
-  return fn;
-}
-
-// The TMA map of a [B, S, KH, D] bf16 tensor with the given element
-// strides, as 4-D {D, KH, S, B}: boxes of kKBM rows by min(D, 64)
-// columns, swizzled as `swz` reads them; rows past S, and columns past
-// D of a box that crosses it (D = 160), read as zeros.
-template <int D>
-bool kv_map(CUtensorMap* map, const void* base, int B, int S, int KH,
-            long long sb, long long ss, long long sh) {
-  const EncodeTiled encode = encode_tiled();
-  if (!encode) return false;
-  const CUtensorMapSwizzle sw = D >= 64   ? CU_TENSOR_MAP_SWIZZLE_128B
-                                : D == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                          : CU_TENSOR_MAP_SWIZZLE_32B;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)KH, (cuuint64_t)S,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2,
-                                 (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {D < 64 ? (cuuint32_t)D : 64u, 1u,
-                             (cuuint32_t)kKBM, 1u};
-  const cuuint32_t step[4] = {1u, 1u, 1u, 1u};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(base), dims, strides, box, step,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         void* out, float* lse, const Shape& s,
@@ -853,8 +595,8 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
   cudaError_t e = allow_smem(flash_wgmma_kernel<D>, smem);
   if (e != cudaSuccess) return e;
   CUtensorMap tmk, tmv;
-  if (!kv_map<D>(&tmk, k, s.B, s.Sk, s.KH, s.k_sb, s.k_ss, s.k_sh) ||
-      !kv_map<D>(&tmv, v, s.B, s.Sk, s.KH, s.v_sb, s.v_ss, s.v_sh))
+  if (!tile_map<D>(&tmk, k, s.B, s.Sk, s.KH, s.k_sb, s.k_ss, s.k_sh) ||
+      !tile_map<D>(&tmv, v, s.B, s.Sk, s.KH, s.v_sb, s.v_ss, s.v_sh))
     return cudaErrorInvalidValue;
   dim3 grid((s.Sq + kQBM - 1) / kQBM, s.H, s.B);
   flash_wgmma_kernel<D><<<grid, kWgThreads, smem, stream>>>(

@@ -3,8 +3,9 @@
 Each `csrc/<name>.cu` has a plain `extern "C"` launcher. At first use
 `nvcc` compiles it for `sm_90a` into a shared library under
 `<checkout>/build/` (or `$REPRO_TORCH_BUILD_DIR`), named by a hash of
-the source and the flags, and `ctypes` loads it; later calls and later
-processes reuse the library while the source is unchanged.
+the source, the `csrc/` headers it includes and the flags, and `ctypes`
+loads it; later calls and later processes reuse the library while
+those are unchanged.
 `build_all` starts one `nvcc` per source, all at once, and waits for
 them together.
 
@@ -20,6 +21,7 @@ import functools
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import tempfile
@@ -59,11 +61,30 @@ def _nvcc() -> str:
     return path
 
 
+_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
+
+
+def headers(name: str) -> Tuple[pathlib.Path, ...]:
+    """The headers of `csrc/` that `csrc/<name>.cu` includes (`#include
+    "..."`), directly or through one another, in the order first met."""
+    found, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        for inc in _INCLUDE.findall(todo.pop(0).read_text()):
+            path = CSRC / inc
+            if path not in found:
+                found.append(path)
+                todo.append(path)
+    return tuple(found)
+
+
 def library_path(name: str) -> pathlib.Path:
-    """The library `build` makes for `csrc/<name>.cu` as it is now."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return build_dir() / f"{name}_{digest[:16]}.so"
+    """The library `build` makes for `csrc/<name>.cu` and its headers as
+    they are now."""
+    h = hashlib.sha256()
+    for path in (CSRC / f"{name}.cu", *headers(name)):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return build_dir() / f"{name}_{h.hexdigest()[:16]}.so"
 
 
 def build_all(names: Iterable[str] = SOURCES, force: bool = False

@@ -697,12 +697,27 @@ def test_xlstm_prefill_and_decode_on_the_card_match_the_cpu(device):
 
 
 
-@pytest.mark.parametrize("shape", chip_smoke.BWD_SHAPES, ids=lambda s: s[0])
+#: bf16 backward cases beside phase 2d's, in its format: head dims 16
+#: and 32 (TMA's 32- and 64-byte swizzles), causal with Sq != Sk both
+#: ways (queries aligned at key 0; past Sq no query sees the last keys)
+#: and KH = 1 (G = H = 8)
+BWD_CARD_CASES = (
+    ("bf16 D=16", 2, 200, 200, 4, 2, 16, "bf16", True, False),
+    ("bf16 D=32 not causal", 2, 130, 130, 6, 3, 32, "bf16", False, False),
+    ("causal Sq > Sk", 2, 300, 170, 8, 2, 128, "bf16", True, False),
+    ("causal Sq < Sk", 1, 100, 260, 4, 4, 64, "bf16", True, False),
+    ("KH = 1", 2, 256, 256, 8, 1, 128, "bf16", True, False),
+)
+
+
+@pytest.mark.parametrize("shape", chip_smoke.BWD_SHAPES + BWD_CARD_CASES,
+                         ids=lambda s: s[0])
 def test_flash_backward_matches_plain_version(device, shape):
     """The backward kernel against `ref.flash_attention_bwd_ref` on the
-    forward kernel's own out and LSE (the smoke's phase 2d shapes):
-    dq, dk, dv within 1e-2 (bf16) / 1e-4 (f32) of each gradient's max
-    |value|, and two runs bitwise equal (no atomics)."""
+    forward kernel's own out and LSE (the smoke's phase 2d shapes and
+    `BWD_CARD_CASES`): dq, dk, dv within 1e-2 (bf16) / 1e-4 (f32) of
+    each gradient's max |value|, and two runs bitwise equal (no
+    atomics)."""
     _, B, Sq, Sk, H, KH, D, dt, causal, _ = shape
     dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[dt]
     q, k, v = flash_inputs(B, Sq, H, KH, D, dtype, device, seed=Sq + D,

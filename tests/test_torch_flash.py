@@ -13,6 +13,8 @@ The kernel itself is held to the plain version on the card
 (`tests/test_torch_cuda.py`).
 """
 
+import re
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -155,3 +157,43 @@ def test_every_kernel_source_is_built(tmp_path, monkeypatch):
     paths = {build.library_path(n) for n in build.SOURCES}
     assert len(paths) == len(build.SOURCES)
     assert all(p.parent == tmp_path and p.suffix == ".so" for p in paths)
+
+
+def test_library_path_covers_the_included_headers(tmp_path, monkeypatch):
+    """A library's name changes with every `csrc/` header its source
+    includes, directly or through another header, and with no other."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text('#include <cuda.h>\n#include "a.cuh"\n'
+                               'int k;\n')
+    (csrc / "a.cuh").write_text('#pragma once\n  #  include "b.cuh"\n')
+    (csrc / "b.cuh").write_text("// b\n")
+    (csrc / "c.cuh").write_text("// not included\n")
+    monkeypatch.setattr(build, "CSRC", csrc)
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path / "out"))
+    assert build.headers("k") == (csrc / "a.cuh", csrc / "b.cuh")
+    seen = {build.library_path("k")}
+    for header, text in (("b.cuh", "// b, changed\n"),
+                         ("a.cuh", '#pragma once\n#include "b.cuh"\n')):
+        (csrc / header).write_text(text)
+        seen.add(build.library_path("k"))
+    assert len(seen) == 3
+    (csrc / "c.cuh").write_text("// changed, not included\n")
+    assert build.library_path("k") in seen
+
+
+def test_flash_sources_share_the_hopper_header():
+    """Both flash sources take their `wgmma`, TMA and mbarrier helpers
+    from one header; the other sources include none."""
+    hopper = build.CSRC / "hopper.cuh"
+    assert build.headers("flash_attention") == (hopper,)
+    assert build.headers("flash_attention_bwd") == (hopper,)
+    for name in ("paged_attention", "page_copy", "host_memory"):
+        assert build.headers(name) == ()
+    sources = [(build.CSRC / f"{name}.cu").read_text()
+               for name in ("flash_attention", "flash_attention_bwd")]
+    for helper in ("gmma_desc", "wgmma_ss_n64", "wgmma_rs_tile", "mbar_wait",
+                   "tma_load", "encode_tiled", "tile_map"):
+        defined = re.compile(rf"^\w[\w ]*\s{helper}\(", re.M)
+        assert defined.search(hopper.read_text()), helper
+        assert not any(defined.search(src) for src in sources), helper

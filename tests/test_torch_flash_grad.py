@@ -10,7 +10,11 @@ to 160, f32 and bf16.
 Tolerances: f32, 1e-5 of each gradient's largest entry (sums in other
 orders); bf16 inputs, 1e-2 (one bf16 rounding of the result: the
 closed formulas sum in f32 and round once, autograd rounds P and
-intermediate products to bf16 on the way).
+intermediate products to bf16 on the way). The bf16 tensor-core body
+of the kernel feeds P and dS to its products rounded once to bf16;
+`test_bf16_products_within_the_backward_tolerance` holds that model to
+the kernel's tolerance (`chip_smoke.BWD_TOL["bf16"]`, 1e-2 of each
+gradient's largest entry).
 """
 
 import pytest
@@ -99,6 +103,58 @@ def test_bf16_closed_form_within_one_rounding(case):
     got = ref.flash_attention_bwd_ref(*bf[:3], out, bf[3], lse, causal)
     for a, b in zip(got, want):
         assert a.dtype == torch.bfloat16
+        assert rel_err(a.float(), b) <= 1e-2
+
+
+#: (B, Sq, Sk, H, KH, D, causal) of the bf16-product model: the causal
+#: D=64 G=2 shape, a ragged D=160 one with Sq != Sk (not causal), and
+#: a causal Sq > Sk one at G=4 with D=16
+ROUNDED_CASES = [
+    (2, 128, 128, 4, 2, 64, True),
+    (2, 100, 70, 4, 1, 160, False),
+    (1, 90, 40, 8, 2, 16, True),
+]
+
+
+def rounded_closed_form(q, k, v, out, g, lse, causal):
+    """The closed form as the kernel's bf16 body computes it: P and dS
+    (from f32 P) rounded once to bf16 before they enter their products,
+    f32 sums, dq, dk, dv rounded to bf16."""
+    B, Sq, H, D = q.shape
+    KH = k.shape[2]
+    s, rep = ref._flash_scores(q, k, causal)
+    p = torch.where(s <= ref.NEG_INF / 2, 0.0, torch.exp(s - lse[..., None]))
+    gf = g.float()
+    vr = v.repeat_interleave(rep, dim=2).float()
+    kr = k.repeat_interleave(rep, dim=2).float()
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.bfloat16().float(), gf)
+    dp = torch.einsum("bqhd,bkhd->bhqk", gf, vr)
+    delta = (gf * out.float()).sum(-1).transpose(1, 2)
+    ds = (p * (dp - delta[..., None])).bfloat16().float()
+    scale = D ** -0.5
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kr) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
+
+    def group(t):
+        return t.reshape(B, t.shape[1], KH, rep, D).sum(3)
+    return (dq.bfloat16(), group(dk).bfloat16(), group(dv).bfloat16())
+
+
+@pytest.mark.parametrize("case", ROUNDED_CASES, ids=str)
+def test_bf16_products_within_the_backward_tolerance(case):
+    """P and dS rounded once to bf16 before the products (no hi + lo
+    split) stay within the card's bf16 tolerance of the f32 closed form
+    on the same bf16 inputs (2.2e-3 to 4.0e-3 at these shapes)."""
+    causal = case[-1]
+    q, k, v, g = (torch.from_numpy(a).to(torch.bfloat16)
+                  for a in inputs(case, seed=4))
+    out, lse = ref.flash_attention_ref(q, k, v, causal=causal,
+                                       return_lse=True)
+    got = rounded_closed_form(q, k, v, out, g, lse, causal)
+    f32 = [t.float() for t in (q, k, v, out, g)]
+    want = ref.flash_attention_bwd_ref(*f32, lse, causal)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape
         assert rel_err(a.float(), b) <= 1e-2
 
 

@@ -121,7 +121,9 @@ def test_scratch_layout_is_one_buffer_of_disjoint_views(splits):
 
 
 def _source(name):
-    return (pathlib.Path(build.CSRC) / f"{name}.cu").read_text()
+    """`csrc/<name>.cu` and the `csrc/` headers it includes."""
+    paths = (pathlib.Path(build.CSRC) / f"{name}.cu", *build.headers(name))
+    return "".join(p.read_text() for p in paths)
 
 
 def test_paged_plan_mirrors_the_source():
