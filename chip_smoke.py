@@ -52,8 +52,13 @@ non-zero):
              copy_: no one call does it); the same gather with the pool
              on the card (inline mode) against HBM's peak and
              PyTorch's indexing; each also timed eagerly (20 calls
-             issued from Python); and one decode step's token writes
-             into a pool on the card.
+             issued from Python); one layer's decode token write (K and
+             V of 8 lanes into both tiers, lane 3 inactive) as one
+             launch, exact with the host tier pinned and on the card,
+             timed on the card beside its bytes bound and PyTorch's
+             index assignments; and overlap prefill's gather of two
+             lanes' HBM and pinned host slots (`lane_pages`, one
+             launch), exact, timed beside the link's peak.
   2b. flash  run the flash kernel against its plain version
              (ref.flash_attention_ref) on CUDA tensors: the prefill
              shapes of phase 5 (B=4, S=2304, H=16 over KH=8, D=128,
@@ -126,8 +131,10 @@ non-zero):
   4. serve   ServingEngine.serve() at the full width of internlm2-1.8b
              (random bf16 weights from --seed): 12 greedy requests that
              spill into the host tier and reuse lanes; every status ok,
-             every output its full budget, and the paged kernel
-             launched 2 x layers x decode-plane steps times.
+             every output its full budget, the paged kernel
+             launched 2 x layers x decode-plane steps times, and each
+             token write one row-copy launch (layers x steps of them);
+             row-copy launches per decode-plane step printed.
   4b. overlap the same 12 requests with overlap_migrations and
              measured_payback: host pools in pinned host memory, the
              same checks, the measured link bandwidth and commit time,
@@ -631,14 +638,14 @@ def host_composition_ms(pool, flat, staged, gather: bool,
     return (time.perf_counter() - t) / reps * 1e3
 
 
-def page_copy_phase(rng, device, link):
-    """One pool's pages of a full-capacity commit at phase 4's geometry:
-    gathered out of a pinned host pool onto the card (overlap mode's
-    promotes), scattered from the card into it (its demotes), and
-    gathered with the pool on the card (inline mode's migrations), each
-    against the plain version (exact); then one decode step's token
-    writes into a layer's pool on the card (exact). The kernels line's
-    ms, plain_ms and bound_ms are the pinned gather plus scatter."""
+def page_moves(rng, device):
+    """Phase 2c's page moves: one pool's pages of a full-capacity commit
+    at phase 4's geometry, gathered out of a pinned host pool onto the
+    card (overlap mode's promotes), scattered from the card into it
+    (its demotes), and gathered with the pool on the card (inline
+    mode's migrations). Returns (the moves, in that order: dicts of
+    name, way, `kernel(i)` and `plain(i)` — the row copy and its plain
+    version on device copies — and `exact()`; the shared tensors)."""
     import torch
     from repro_torch import configs
     from repro_torch.kernels import page_copy as pc
@@ -653,51 +660,129 @@ def page_copy_phase(rng, device, link):
     flat = rng.choice(L * B * Pe, size=cap, replace=False)
     at = tuple(torch.as_tensor(c.astype(np.int32), device=device)
                for c in np.unravel_index(flat, (L, B, Pe)))
-    at_long = tuple(i.long() for i in at)
     pool_card = torch.randn((L, B, Pe) + page, device=device,
                             dtype=torch.bfloat16)
     pool = pool_card.cpu().pin_memory()
     staged = torch.randn((cap,) + page, device=device, dtype=torch.bfloat16)
-    nbytes = cap * math.prod(page) * 2
-    peak = link_peak()
-    parts = []
+    moves = []
     for name, way in (("gather", "pinned -> card"),
                       ("scatter", "card -> pinned"),
                       ("gather", "card -> card")):
-        lib = None
         if way == "card -> pinned":
             want = pool_card.clone()
 
             def kernel(i):
-                pc.page_copy(pool, at, staged, (None,))
+                pc.page_copy((pool, at, staged, (None,)))
 
-            def plain(i):
-                ref.page_copy_ref(want, at, staged, (None,))
+            def plain(i, want=want):
+                ref.page_copy_ref((want, at, staged, (None,)))
+
+            def exact(want=want):
+                return torch.equal(pool.to(device), want)
         else:
             src = pool if way == "pinned -> card" else pool_card
             got = torch.empty_like(staged)
             want = torch.empty_like(staged)
 
-            def kernel(i):
-                pc.page_copy(got, (None,), src, at)
+            def kernel(i, src=src, got=got):
+                pc.page_copy((got, (None,), src, at))
 
-            def plain(i):
-                ref.page_copy_ref(want, (None,), pool_card, at)
-        kernel(0)
-        plain(0)
+            def plain(i, want=want):
+                ref.page_copy_ref((want, (None,), pool_card, at))
+
+            def exact(got=got, want=want):
+                return torch.equal(got, want)
+        moves.append({"name": name, "way": way, "kernel": kernel,
+                      "plain": plain, "exact": exact})
+    shared = {"geo": geo, "cap": cap, "page": page, "flat": flat, "at": at,
+              "pool_card": pool_card, "pool": pool, "staged": staged,
+              "bytes": cap * math.prod(page) * 2}
+    return moves, shared
+
+
+def token_write_case(rng, device, geo, pinned: bool):
+    """One layer's decode token write at phase 4's geometry: K and V of
+    the 8 lanes, half of them into the HBM tier and half into the host
+    tier (pinned host memory with `pinned`), lane 3 inactive, through
+    `paged.write_token_layer`. Returns (write(i), check() -> (exact,
+    launches of one write), args)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.build import COUNTS
+    from repro_torch.kernels.page_copy import Split
+    from repro_torch.kvcache import paged
+    B, Ph, Pe, T = geo.batch, geo.hbm_pages, geo.host_pages, geo.page_tokens
+    row = (geo.kv_heads, geo.head_dim)
+
+    def randn(*shape):
+        return torch.randn(shape, device=device, dtype=torch.bfloat16)
+    kh, vh = randn(B, Ph, T, *row), randn(B, Ph, T, *row)
+    ke, ve = randn(B, Pe, T, *row), randn(B, Pe, T, *row)
+    if pinned:
+        ke, ve = ke.cpu().pin_memory(), ve.cpu().pin_memory()
+    slot = np.where(np.arange(B) % 2 == 0, rng.integers(0, Ph, B),
+                    Ph + rng.integers(0, Pe, B)).astype(np.int32)
+    slot = torch.as_tensor(slot, device=device)
+    off = torch.as_tensor(rng.integers(0, T, B).astype(np.int32),
+                          device=device)
+    active = torch.ones(B, dtype=torch.bool, device=device)
+    active[3] = False
+    k_new, v_new = randn(B, *row), randn(B, *row)
+    args = (kh, vh, ke, ve, slot, off, k_new, v_new)
+
+    def write(i):
+        paged.write_token_layer(*args, active=active)
+
+    def check():
+        want = [t.to(device) for t in (kh, vh, ke, ve)]
+        at = (None, slot, off)
+        ref.page_copy_ref((Split(want[0], want[2], 1), at, k_new, (None,)),
+                          (Split(want[1], want[3], 1), at, v_new, (None,)),
+                          keep=active)
+        before = COUNTS["page_copy"]
+        write(0)
         torch.cuda.synchronize()
-        same = torch.equal(pool.to(device), want) if way == "card -> pinned" \
-            else torch.equal(got, want)
+        launches = COUNTS["page_copy"] - before
+        return (all(torch.equal(t.to(device), w)
+                    for t, w in zip((kh, vh, ke, ve), want)), launches)
+    return write, check, {"slot": slot, "off": off, "active": active,
+                          "args": args}
+
+
+def page_copy_phase(rng, device, link):
+    """The page moves of `page_moves`, each against the plain version
+    (exact) and timed beside the link's peak (HBM's for the card's),
+    the measured `copy_` rate and the nearest PyTorch composition; one
+    layer's decode token write (K and V, both tiers, one lane inactive)
+    as one launch, exact with the host tier on the card and pinned,
+    timed on the card beside its bytes bound and PyTorch's indexing; and
+    overlap prefill's gather of two lanes' HBM and pinned host slots
+    (`transformer.lane_pages`), exact, timed beside the link's peak. The
+    kernels line's ms, plain_ms and bound_ms are the pinned gather plus
+    scatter."""
+    import torch
+    moves, x = page_moves(rng, device)
+    nbytes, cap, page = x["bytes"], x["cap"], x["page"]
+    at_long = tuple(i.long() for i in x["at"])
+    peak = link_peak()
+    parts = []
+    for mv in moves:
+        name, way = mv["name"], mv["way"]
+        lib = None
+        mv["kernel"](0)
+        mv["plain"](0)
+        torch.cuda.synchronize()
+        same = mv["exact"]()
         if not same:
             raise AssertionError(f"page_copy {name} ({way}) disagrees with "
                                  f"the plain version")
-        plain_ms = eager_ms(plain, 20)
-        eager = eager_ms(kernel, 20)
+        plain_ms = eager_ms(mv["plain"], 20)
+        eager = eager_ms(mv["kernel"], 20)
         if way == "card -> card":
             # each page read once and written once, at HBM's peak; the
             # library call is PyTorch's indexing gather
-            ms = device_ms(kernel, 1)
-            lib = device_ms(lambda i: pool_card[at_long], 1)
+            ms = device_ms(mv["kernel"], 1)
+            lib = device_ms(lambda i: x["pool_card"][at_long], 1)
             bound = 2 * nbytes / HBM_BW * 1e3
             yard = f"HBM peak {HBM_BW / 1e12:.2f} TB/s; indexing {lib:.4f} ms"
         else:
@@ -708,7 +793,7 @@ def page_copy_phase(rng, device, link):
             # the card by index: the nearest composition gathers (or
             # scatters) on the host through a pinned staging buffer and
             # crosses the link with copy_
-            composed = host_composition_ms(pool, flat, staged,
+            composed = host_composition_ms(x["pool"], x["flat"], x["staged"],
                                            way == "pinned -> card")
             yard = (f"link peak {peak / 1e9:.0f} GB/s; "
                     f"{nbytes / rate * 1e3:.4f} ms at the measured copy_ "
@@ -725,30 +810,135 @@ def page_copy_phase(rng, device, link):
                       "bytes": nbytes, "gb_per_s": nbytes / ms / 1e6})
         if way != "card -> card":
             parts[-1]["host_composition_ms"] = composed
-    # one decode step's token writes: lane b's [KH, HD] row at (b, slot,
-    # offset) of one layer's pool, a lane with slot -1 writing nothing
-    slot = torch.as_tensor(rng.integers(0, Pe, B).astype(np.int32),
-                           device=device)
-    slot[-1] = -1
-    off = torch.as_tensor(rng.integers(0, T, B).astype(np.int32),
-                          device=device)
-    tok = torch.randn((B,) + page[1:], device=device, dtype=torch.bfloat16)
-    got, want = pool_card[0].clone(), pool_card[0].clone()
-    pc.page_copy(got, (None, slot, off), tok, (None,))
-    ref.page_copy_ref(want, (None, slot, off), tok, (None,))
-    same = torch.equal(got, want)
-    log(f"page_copy token writes ({B} rows of {math.prod(page[1:]) * 2} B "
-        f"into a layer's pool on the card, one dropped): exact {same}")
-    if not same:
-        raise AssertionError("page_copy token writes disagree with the "
-                             "plain version")
-    del pool, pool_card, staged, got, want
+    geo = x["geo"]
+    del moves, x
+    parts.append(token_write_part(rng, device, geo))
+    parts.append(lane_pages_part(rng, device, geo))
     pinned = parts[:2]
     return {"ms": sum(p["ms"] for p in pinned),
             "plain_ms": sum(p["plain_ms"] for p in pinned),
             "bound_ms": sum(p["bound_ms"] for p in pinned),
             "bound_by": "bytes", "library_ms": None, "max_abs_err": 0.0,
             "per_direction": parts}
+
+
+def token_write_part(rng, device, geo):
+    """Phase 2c's token write: exact and one launch with the host tier
+    pinned and on the card; timed with both tiers on the card (inline
+    mode, phase 4's path)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.page_copy import Split
+    for pinned in (True, False):
+        write, check, a = token_write_case(rng, device, geo, pinned)
+        same, launches = check()
+        where = "pinned" if pinned else "on the card"
+        log(f"page_copy token write ({geo.batch} lanes x K and V of "
+            f"{geo.kv_heads * geo.head_dim * 2} B, both tiers, host tier "
+            f"{where}, lane 3 inactive): exact {same}, {launches} launch")
+        if not same or launches != 1:
+            raise AssertionError(f"page_copy token write ({where}): exact "
+                                 f"{same}, {launches} launches (one "
+                                 f"expected)")
+    kh, vh, ke, ve, slot, off, k_new, v_new = a["args"]
+    Ph = geo.hbm_pages
+    keep = a["active"]
+    lanes = torch.arange(geo.batch, device=device)
+    # PyTorch's indexing, the tiers' lanes and slots found beforehand
+    hb, eb = lanes[keep & (slot < Ph)], lanes[keep & (slot >= Ph)]
+    hs, es = slot[hb].long(), slot[eb].long() - Ph
+    ho, eo = off[hb].long(), off[eb].long()
+
+    def library(i):
+        kh[hb, hs, ho] = k_new[hb]
+        vh[hb, hs, ho] = v_new[hb]
+        ke[eb, es, eo] = k_new[eb]
+        ve[eb, es, eo] = v_new[eb]
+
+    def plain(i):
+        at = (None, slot, off)
+        ref.page_copy_ref((Split(kh, ke, 1), at, k_new, (None,)),
+                          (Split(vh, ve, 1), at, v_new, (None,)), keep=keep)
+    ms = device_ms(write, 1)
+    eager = eager_ms(write, 200)
+    lib = device_ms(library, 1)
+    plain_ms = eager_ms(plain, 20)
+    rows = int(keep.sum())
+    row_bytes = geo.kv_heads * geo.head_dim * 2
+    # each kept row read once and written once, K and V; slot, offset
+    # and keep read once
+    nbytes = 2 * 2 * rows * row_bytes + geo.batch * (4 + 4 + 1)
+    bound = nbytes / HBM_BW * 1e3
+    log(f"page_copy token write (one launch, both tiers on the card): "
+        f"device {ms:.4f} ms eager {eager:.4f} ms plain {plain_ms:.4f} ms "
+        f"indexing {lib:.4f} ms (4 index assignments) bound {bound:.6f} ms "
+        f"({nbytes} B at HBM's peak)")
+    return {"direction": "token write card -> card (K and V, both tiers, "
+            "lane 3 inactive)", "ms": ms, "eager_ms": eager,
+            "plain_ms": plain_ms, "bound_ms": bound, "library_ms": lib,
+            "library": "4 index assignments pool[b, slot, off] = val",
+            "bytes": nbytes, "launches": 1}
+
+
+def lane_pages_part(rng, device, geo, lanes=(1, 6), seen=(64, 100)):
+    """Overlap prefill's gather of `lanes`' first seen[0] HBM slots and
+    seen[1] pinned host slots (`transformer.lane_pages`, K and V in one
+    launch) at phase 4's geometry: exact against the tiers' slots
+    concatenated on the card, timed eagerly beside the link's peak for
+    the host bytes."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.build import COUNTS
+    from repro_torch.kernels.page_copy import Split
+    from repro_torch.models import transformer
+    B, Ph, Pe, T = geo.batch, geo.hbm_pages, geo.host_pages, geo.page_tokens
+    row = (geo.kv_heads, geo.head_dim)
+
+    def randn(*shape):
+        return torch.randn(shape, device=device, dtype=torch.bfloat16)
+    card = [randn(B, Ph, T, *row), randn(B, Ph, T, *row),
+            randn(B, Pe, T, *row), randn(B, Pe, T, *row)]
+    pools = card[:2] + [p.cpu().pin_memory() for p in card[2:]]
+    lane_t = torch.as_tensor(lanes, device=device)
+    n_h, n_e = seen
+    before = COUNTS["page_copy"]
+    keys, vals = transformer.lane_pages(pools, lane_t, seen)
+    torch.cuda.synchronize()
+    launches = COUNTS["page_copy"] - before
+    li = lane_t.long()
+    same = all(torch.equal(got, torch.cat([h[li, :n_h], e[li, :n_e]], 1))
+               for got, h, e in ((keys, card[0], card[2]),
+                                 (vals, card[1], card[3])))
+    eager = eager_ms(lambda i: transformer.lane_pages(pools, lane_t, seen),
+                     20)
+    n = n_h + n_e
+    at = (lane_t.to(torch.int32).repeat_interleave(n),
+          torch.arange(n, dtype=torch.int32, device=device).repeat(len(lanes)))
+    out = [torch.empty((len(lanes) * n, T) + row, dtype=torch.bfloat16,
+                       device=device) for _ in range(2)]
+
+    def plain(i):                   # on the card copies of the pools
+        ref.page_copy_ref(
+            (out[0], (None,), Split(card[0], card[2], 1, n_h), at),
+            (out[1], (None,), Split(card[1], card[3], 1, n_h), at))
+    plain_ms = eager_ms(plain, 20)
+    page_bytes = T * math.prod(row) * 2
+    host = 2 * len(lanes) * n_e * page_bytes
+    total = 2 * len(lanes) * (n_h + n_e) * page_bytes
+    bound = max(host / link_peak(), 2 * (total - host) / HBM_BW) * 1e3
+    log(f"page_copy prefill gather ({len(lanes)} lanes x ({n_h} HBM + {n_e} "
+        f"pinned host) pages, K and V): exact {same}, {launches} launch, "
+        f"{eager:.4f} ms eager ({host / eager / 1e6:.2f} GB/s over the "
+        f"link) plain {plain_ms:.4f} ms (device copies) bound "
+        f"{bound:.4f} ms ({host / 1e6:.2f} MB at the link's peak)")
+    if not same or launches != 1:
+        raise AssertionError(f"page_copy prefill gather: exact {same}, "
+                             f"{launches} launches (one expected)")
+    return {"direction": "prefill gather pinned + card -> card (lane_pages)",
+            "ms": eager, "eager_ms": eager, "plain_ms": plain_ms,
+            "bound_ms": bound, "library_ms": None, "bytes": total,
+            "link_bytes": host,
+            "launches": launches}
 
 
 # --------------------------------------------------------------------------
@@ -1345,6 +1535,7 @@ def serve_phase(model, params, seed, profile_dir=None, overlap=False,
     the launches by kernel and the numbers."""
     import torch
     from repro_torch.kernels.build import COUNTS
+    from repro_torch.models import transformer
     from repro_torch.serving.engine import EngineConfig, ServingEngine
 
     cfg = model.cfg
@@ -1371,6 +1562,17 @@ def serve_phase(model, params, seed, profile_dir=None, overlap=False,
         probe.update(COUNTS - before)
         return out
     eng._measure_migration_spec = counted_probe
+    # each token write's row-copy launches (one expected: K and V, both
+    # tiers, one launch)
+    writes = []
+    real_write = transformer.write_token_layer
+
+    def counted_write(*args, **kwargs):
+        before = COUNTS["page_copy"]
+        out = real_write(*args, **kwargs)
+        writes.append(COUNTS["page_copy"] - before)
+        return out
+    transformer.write_token_layer = counted_write
     gc.collect()            # an earlier phase's engine is not this peak's
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1386,6 +1588,7 @@ def serve_phase(model, params, seed, profile_dir=None, overlap=False,
         torch.cuda.synchronize()
     finally:
         del eng._measure_migration_spec     # no cycle keeps the engine
+        transformer.write_token_layer = real_write
     wall = time.time() - t0
     if profile_dir:
         breakdown(prof, wall, profile_dir)
@@ -1402,10 +1605,23 @@ def serve_phase(model, params, seed, profile_dir=None, overlap=False,
         f"{summ['migrated_bytes']:.0f} bytes, {steps} decode-plane steps, "
         f"{launches} paged launches, {counts.get('page_copy', 0)} row-copy "
         f"launches, peak memory {peak / 1e9:.2f} GB")
+    copies = counts.get("page_copy", 0)
+    log(f"{what}: row-copy launches {copies / max(steps, 1):.2f} a "
+        f"decode-plane step; {len(writes)} token writes "
+        f"({cfg.num_layers} layers x {steps} steps"
+        f"{' x 2, put back' if cfg.family == 'moe' else ''}), launches "
+        f"each {sorted(collections.Counter(writes).items())}")
+    if any(w != 1 for w in writes) or (
+            cfg.family != "moe" and len(writes) != cfg.num_layers * steps):
+        raise AssertionError(f"{what}: token writes {len(writes)} with "
+                             f"launches {collections.Counter(writes)}, not "
+                             f"one launch a layer a step")
     numbers = {"tokens_per_s": tokens / wall, "ttft_p50": rep.ttft["p50"],
                "tpot_p50": rep.tpot["p50"], "peak_bytes": peak,
                "hit_rate": summ["mean_hbm_hit_rate"],
-               "migrated": summ["migrated_bytes"], "steps": steps}
+               "migrated": summ["migrated_bytes"], "steps": steps,
+               "row_copies_per_step": copies / max(steps, 1),
+               "token_writes": len(writes)}
     if overlap:
         pinned = sum(t.nbytes for t in (eng.state.k_host, eng.state.v_host))
         if not (eng.state.k_host.is_pinned() and eng.state.v_host.is_pinned()):
@@ -2619,12 +2835,18 @@ def main(argv=None) -> int:
                 "gathers and scatters (src/repro/kvcache/migrate.py:106,"
                 "136); ms and bound_ms are one pool's gather (pinned -> "
                 "card) plus scatter (card -> pinned) at plan capacity, "
-                "bound by the link's peak; serve_overlap leaves out the "
-                "payback probe's launches (payback_probe_launches)",
+                "bound by the link's peak; per_direction also holds the "
+                "card gather, one layer's decode token write (one launch) "
+                "and overlap prefill's gather (lane_pages, one launch); "
+                "serve_overlap leaves out the payback probe's launches "
+                "(payback_probe_launches)",
         "launches": sum(copy_by_path.values()),
         "launches_by_path": copy_by_path,
         "payback_probe_launches": overlap_numbers["probe_launches"].get(
             "page_copy", 0),
+        "launches_per_step": {
+            "serve": inline["row_copies_per_step"],
+            "serve_overlap": overlap_numbers["row_copies_per_step"]},
         **copies,
     }
     for entry in (paged, copy_entry):

@@ -6,6 +6,7 @@ CUDA card, beside the committed choice.
                                        [--bwd KEYWGS,STAGES,SPLIT ...]
                                        [--bwd-file PATH ...]
                                        [--paged-per-sm N ...]
+                                       [--copy TAG ...]
 
 Flash: each variant is `csrc/flash_attention.cu` with `kStages` (the
 depth of its TMA ring of K/V tiles) replaced, built with the nvcc
@@ -27,8 +28,19 @@ and again after them. Each variant's directory gets a copy of the
 `csrc/` headers its source includes.
 Paged: the kernel as committed, at `chip_smoke.py` phase 2's shapes
 (N=64 and 208), with its page range split for each given number of
-CTAs per SM. Prints one line per variant and the
-card's name and power limit.
+CTAs per SM.
+Row copy (`--copy`, tags of COPY_VARIANTS): each design of
+`csrc/page_copy.cu` (`kDesign` 1, bulk copies through a shared ring,
+by chunk bytes, ring depth and CTAs per SM; `kDesign` 0, 16-byte
+vector loads, by threads, vectors per thread and the load's cache
+qualifiers), checked exact against the plain version and timed at
+`chip_smoke.py` phase 2c's shapes (a commit's 1,152 pages of 32 KB
+gathered out of a pinned pool, scattered into it, gathered on the
+card, and in the pool's order; one layer's decode token write), each
+in its own process; then
+one contiguous `copy_` of the same bytes each way (the copy engine's
+rate). Prints one line per variant and the card's name and power
+limit.
 """
 
 from __future__ import annotations
@@ -135,6 +147,129 @@ def build_bwd(specs):
                       f"stores {st} bytes, spill loads {ld} bytes",
                       flush=True)
     return {tag: lib for tag, (lib, _) in libs.items()}
+
+
+#: the row copy's designs by tag: the constants of csrc/page_copy.cu
+COPY_VARIANTS = {
+    # design 1, bulk copies: chunk bytes, ring depth, CTAs per SM
+    "bulk_c32k_s2_p3": {"kDesign": 1, "kChunk": 32768, "kStages": 2,
+                        "kCtasPerSm": 3},                  # committed
+    "bulk_c8k_s4_p4": {"kDesign": 1, "kChunk": 8192, "kStages": 4,
+                       "kCtasPerSm": 4},
+    "bulk_c16k_s4_p3": {"kDesign": 1, "kChunk": 16384, "kStages": 4,
+                        "kCtasPerSm": 3},
+    "bulk_c4k_s8_p4": {"kDesign": 1, "kChunk": 4096, "kStages": 8,
+                       "kCtasPerSm": 4},
+    "bulk_c32k_s3_p2": {"kDesign": 1, "kChunk": 32768, "kStages": 3,
+                        "kCtasPerSm": 2},
+    "bulk_c32k_s2_p1": {"kDesign": 1, "kChunk": 32768, "kStages": 2,
+                        "kCtasPerSm": 1},
+    "bulk_c32k_s3_p1": {"kDesign": 1, "kChunk": 32768, "kStages": 3,
+                        "kCtasPerSm": 1},
+    "bulk_c32k_s6_p1": {"kDesign": 1, "kChunk": 32768, "kStages": 6,
+                        "kCtasPerSm": 1},
+    "bulk_c32k_s2_p2": {"kDesign": 1, "kChunk": 32768, "kStages": 2,
+                        "kCtasPerSm": 2},
+    "bulk_c16k_s4_p1": {"kDesign": 1, "kChunk": 16384, "kStages": 4,
+                        "kCtasPerSm": 1},
+    "bulk_c8k_s4_p1": {"kDesign": 1, "kChunk": 8192, "kStages": 4,
+                       "kCtasPerSm": 1},
+    # design 0, vector loads: threads, vectors a thread, no-allocate
+    "vector_t256_u4": {"kDesign": 0, "kThreads": 256, "kUnroll": 4,
+                       "kLoad": 0},                  # the earlier design
+    "vector_t128_u8_nc": {"kDesign": 0, "kThreads": 128, "kUnroll": 8,
+                          "kLoad": 1},
+    "vector_t64_u16_nc": {"kDesign": 0, "kThreads": 64, "kUnroll": 16,
+                          "kLoad": 1},
+    # ... with an L2 fetch of 256 bytes a miss (.L2::256B)
+    "vector_t256_u4_nc256": {"kDesign": 0, "kThreads": 256, "kUnroll": 4,
+                             "kLoad": 2},
+    "vector_t256_u4_l2_256": {"kDesign": 0, "kThreads": 256, "kUnroll": 4,
+                              "kLoad": 3},
+    "vector_t128_u8_nc256": {"kDesign": 0, "kThreads": 128, "kUnroll": 8,
+                             "kLoad": 2},
+}
+
+
+def build_copy(tags):
+    """The row copy's designs; returns {tag: library path}."""
+    import chip_smoke as cs
+    libs = build_variants("page_copy", {t: COPY_VARIANTS[t] for t in tags})
+    for tag, (_, report) in libs.items():
+        for name, (regs, st, ld) in cs.ptxas_usage(report).items():
+            print(f"copy {tag}: ptxas {name} {regs} registers, spill "
+                  f"stores {st} bytes, spill loads {ld} bytes", flush=True)
+    return {tag: lib for tag, (lib, _) in libs.items()}
+
+
+def time_copy(tag, lib_path):
+    """Check and time one built row-copy design (own process) at phase
+    2c's shapes."""
+    import numpy as np
+    import torch
+    import chip_smoke as cs
+    from repro_torch.kernels import page_copy as pc
+    lib = ctypes.CDLL(lib_path)
+    lib.page_copy_launch.argtypes = [ctypes.c_char_p, ctypes.c_void_p]
+    lib.page_copy_launch.restype = ctypes.c_int
+    pc._library = lambda: lib
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    moves, x = cs.page_moves(rng, dev)
+    ok = True
+    for mv in moves:
+        mv["kernel"](0)
+        mv["plain"](0)
+        torch.cuda.synchronize()
+        same = mv["exact"]()
+        ok &= same
+        card = mv["way"] == "card -> card"
+        ms = cs.device_ms(mv["kernel"], 1) if card \
+            else cs.eager_ms(mv["kernel"], 20)
+        print(f"copy {tag} {mv['name']} ({mv['way']}): exact {same}  "
+              f"{'device' if card else 'eager (20 calls)'} {ms:.4f} ms  "
+              f"{x['bytes'] / ms / 1e6:.2f} GB/s", flush=True)
+    # the same bytes out of the pinned pool's first pages, in order: what
+    # the gather reads when its pages lie together
+    pool, staged = x["pool"], x["staged"]
+    first = tuple(torch.as_tensor(c.astype(np.int32), device=dev)
+                  for c in np.unravel_index(np.arange(x["cap"]),
+                                            pool.shape[:3]))
+    got = torch.empty_like(staged)
+    ms = cs.eager_ms(lambda i: pc.page_copy((got, (None,), pool, first)), 20)
+    same = torch.equal(got, pool.view(-1, *staged.shape[1:])[
+        :x["cap"]].to(dev))
+    ok &= same
+    print(f"copy {tag} gather (pinned -> card, the pool's first pages in "
+          f"order): exact {same}  eager (20 calls) {ms:.4f} ms  "
+          f"{x['bytes'] / ms / 1e6:.2f} GB/s", flush=True)
+    write, check, _ = cs.token_write_case(rng, dev, x["geo"], False)
+    same, launches = check()
+    ok &= same and launches == 1
+    print(f"copy {tag} token write (K and V, both tiers, one lane "
+          f"inactive): exact {same}, {launches} launch, device "
+          f"{cs.device_ms(write, 1):.4f} ms  eager "
+          f"{cs.eager_ms(write, 200):.4f} ms", flush=True)
+    if not ok:
+        raise SystemExit(f"copy {tag} disagrees with the plain version")
+
+
+#: the bytes of phase 2c's page moves: 1,152 pages of 16 x 8 x 128 bf16
+COPY_BYTES = 1152 * 16 * 8 * 128 * 2
+
+
+def copy_engine(nbytes):
+    """One contiguous `copy_` of `nbytes` each way between pinned host
+    memory and the card (20 calls, CUDA events)."""
+    import torch
+    import chip_smoke as cs
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    card = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    for way, dst, src in (("pinned -> card", card, host),
+                          ("card -> pinned", host, card)):
+        ms = cs.eager_ms(lambda i: dst.copy_(src, non_blocking=True), 20)
+        print(f"copy_ {way}: {nbytes / 1e6:.2f} MB contiguous  {ms:.4f} ms  "
+              f"{nbytes / ms / 1e6:.2f} GB/s", flush=True)
 
 
 def time_flash(tag, lib_path):
@@ -279,6 +414,9 @@ def main() -> int:
                     "after the variants")
     ap.add_argument("--paged-per-sm", nargs="*", type=int,
                     default=[1, 2, 4])
+    ap.add_argument("--copy", nargs="*", default=list(COPY_VARIANTS),
+                    choices=list(COPY_VARIANTS),
+                    help="row-copy designs (bulk_c32k_s2_p3 is committed)")
     ap.add_argument("--one", nargs=3, help=argparse.SUPPRESS)
     args = ap.parse_args()
     import torch
@@ -287,7 +425,8 @@ def main() -> int:
         return 2
     if args.one:
         kind, tag, lib = args.one
-        (time_flash if kind == "flash" else time_bwd)(tag, lib)
+        {"flash": time_flash, "bwd": time_bwd,
+         "copy": time_copy}[kind](tag, lib)
         return 0
     failed = 0
     runs = [("flash", tag, lib)
@@ -297,6 +436,7 @@ def main() -> int:
     runs += files
     runs += [("bwd", tag, lib) for tag, lib in build_bwd(args.bwd).items()]
     runs += files
+    runs += [("copy", tag, lib) for tag, lib in build_copy(args.copy).items()]
     for kind, tag, lib in runs:
         try:
             rc = subprocess.run([sys.executable, os.path.abspath(__file__),
@@ -309,6 +449,8 @@ def main() -> int:
             print(f"{kind} {tag}: exit {rc}", flush=True)
     if args.paged_per_sm:
         time_paged(args.paged_per_sm)
+    if args.copy:
+        copy_engine(COPY_BYTES)
     import chip_smoke as cs
     print(cs.card_line(), flush=True)
     return 1 if failed else 0

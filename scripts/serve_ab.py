@@ -3,11 +3,14 @@
 in alternating processes on one CUDA card.
 
     python3 scripts/serve_ab.py PARENT_DIR CHANGE_DIR [--rounds 5]
+                                [--overlap]
 
 Each process imports one checkout's `chip_smoke.py` and `src/`, builds
 its kernels, makes the full-width model and runs the serve twice (the
 first run pays first-use costs); it prints one line per serve,
-`<label> <run> serve: ... tokens/s ...`. The processes go P C C P
+`<label> <run> serve: ... tokens/s ...`; with `--overlap` it then
+runs phase 4b (overlap mode, pinned host pools) twice as well,
+`<label> <run> serve overlap: ...`. The processes go P C C P
 (P = parent, C = change), repeated for `--rounds` pairs, so neither
 side always runs first. It reads checkouts whose `serve_phase` makes
 its own model (`serve_phase(seed)`) or takes one
@@ -24,8 +27,9 @@ import subprocess
 import sys
 
 
-def one(tree: str, label: str) -> None:
-    """Two serves of `tree`'s phase 4 in this process."""
+def one(tree: str, label: str, overlap: bool = False) -> None:
+    """Two serves of `tree`'s phase 4 in this process (then two of 4b
+    with `overlap`)."""
     os.chdir(tree)
     sys.path[:0] = [tree, os.path.join(tree, "src")]
     import torch
@@ -37,20 +41,22 @@ def one(tree: str, label: str) -> None:
         build.build_all()
         model = cs.full_width(0)
 
-        def serve():
-            cs.serve_phase(*model, 0)
+        def serve(**kw):
+            cs.serve_phase(*model, 0, **kw)
     else:
         from repro_torch.kernels import paged_attention as pa
         pa.build()
 
-        def serve():
-            cs.serve_phase(0)
-    for run in range(2):
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            serve()
-        line = next(x for x in buf.getvalue().splitlines() if " s wall" in x)
-        print(label, run, line, flush=True)
+        def serve(**kw):
+            cs.serve_phase(0, **kw)
+    for kw in ({}, {"overlap": True}) if overlap else ({},):
+        for run in range(2):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                serve(**kw)
+            line = next(x for x in buf.getvalue().splitlines()
+                        if " s wall" in x)
+            print(label, run, line, flush=True)
 
 
 def main() -> int:
@@ -58,11 +64,13 @@ def main() -> int:
     ap.add_argument("parent", nargs="?")
     ap.add_argument("change", nargs="?")
     ap.add_argument("--rounds", type=int, default=5)
+    ap.add_argument("--overlap", action="store_true",
+                    help="also serve phase 4b (overlap mode) twice a process")
     ap.add_argument("--one", nargs=2, metavar=("TREE", "LABEL"),
                     help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.one:
-        one(os.path.abspath(args.one[0]), args.one[1])
+        one(os.path.abspath(args.one[0]), args.one[1], args.overlap)
         return 0
     if not (args.parent and args.change):
         ap.error("PARENT_DIR and CHANGE_DIR are required")
@@ -72,7 +80,8 @@ def main() -> int:
     for label in order[:2 * args.rounds]:
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--one",
-             trees[label], label], check=False)
+             trees[label], label] + ["--overlap"] * args.overlap,
+            check=False)
         if proc.returncode != 0:
             return proc.returncode
     return 0

@@ -20,7 +20,9 @@ Each op picks by device: a CUDA tensor launches the hand-written kernel
                           `flash_attention.FlashAttention`, whose
                           backward is the hand-written backward kernel.
   copy_rows               row copies into, out of and between pools,
-                          either side on the card or in pinned host
+                          up to four (dst, src) pairs in one launch,
+                          either side one pool or a `Split` of two (the
+                          two tiers), on the card or in pinned host
                           memory (`page_copy.page_copy`): every pool
                           write and gather of the port.
 """
@@ -33,7 +35,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ref
-from repro_torch.kernels.page_copy import page_copy
+from repro_torch.kernels.page_copy import index_device, page_copy
 from repro_torch.kernels.paged_attention import paged_attention
 
 
@@ -103,17 +105,17 @@ def _side_stream(device: torch.device) -> "torch.cuda.Stream":
     return _SIDE[device]
 
 
-def copy_rows(dst, dst_index, src, src_index) -> None:
-    """dst[dst_index(r)] = src[src_index(r)] for every row r whose
+def copy_rows(*pairs, keep=None) -> None:
+    """For each pair (dst, dst_index, src, src_index), dst[dst_index(r)]
+    = src[src_index(r)] for every row r that `keep` keeps and whose
     indices are in range (see `page_copy`). Index tensors on the card
-    launch the kernel — either tensor may then be pinned host memory —
-    and CPU ones take the plain version."""
-    given = [i for i in (*dst_index, *src_index) if i is not None]
-    dev = given[0].device
+    launch the kernel once for all pairs — a pool may then be pinned
+    host memory — and CPU ones take the plain version."""
+    dev = index_device(pairs, keep)[0]
     if dev.type == "cuda":
-        page_copy(dst, dst_index, src, src_index)
+        page_copy(*pairs, keep=keep)
     elif dev.type == "cpu":
-        ref.page_copy_ref(dst, dst_index, src, src_index)
+        ref.page_copy_ref(*pairs, keep=keep)
     else:
         raise ValueError(f"copy_rows runs on cuda or cpu, not {dev}")
 

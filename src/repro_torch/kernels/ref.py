@@ -33,6 +33,8 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.kernels.page_copy import Split
+
 NEG_INF = -1e30
 
 Partials = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
@@ -189,23 +191,55 @@ def flash_attention_bwd_ref(q, k, v, out, dout, lse, causal: bool = True):
     return dq.to(q.dtype), group(dk).to(q.dtype), group(dv).to(q.dtype)
 
 
-def page_copy_ref(dst, dst_index, src, src_index) -> None:
-    """Plain version of the row-copy kernel (`page_copy.page_copy`):
-    dst[dst_index(r)] = src[src_index(r)] for every row r whose indices
-    are all in range on both sides, in place. Each index is a tuple
-    with one int tensor [M] (or None: the row number) per leading dim."""
-    given = [i for i in (*dst_index, *src_index) if i is not None]
+def page_copy_ref(*pairs, keep=None) -> None:
+    """Plain version of the row-copy kernel (`page_copy.page_copy`), in
+    place: for each pair (dst, dst_index, src, src_index),
+    dst[dst_index(r)] = src[src_index(r)] for every row r that `keep`
+    (bool [M], optional) keeps and whose indices are all in range on
+    both sides. Each index is a tuple with one int tensor [M] (or None:
+    the row number) per leading dim; a side is a tensor or a `Split` of
+    two pools."""
+    given = [i for p in pairs for i in (*p[1], *p[3]) if i is not None]
+    if keep is not None:
+        given.append(keep)
     rows = given[0].shape[0]
     ar = torch.arange(rows, device=given[0].device)
+    kept = torch.ones(rows, dtype=torch.bool, device=ar.device) \
+        if keep is None else keep.bool()
+    for dst, dst_index, src, src_index in pairs:
+        d_parts = _ref_pools(dst, dst_index, ar)
+        s_parts = _ref_pools(src, src_index, ar)
+        ok = kept & torch.stack([part[2] for part in d_parts]).any(0) \
+            & torch.stack([part[2] for part in s_parts]).any(0)
+        vals = None
+        for pool, cols, in_pool in s_parts:
+            sel = ok & in_pool
+            got = pool[tuple(c[sel] for c in cols)]
+            if vals is None:
+                vals = got.new_empty((rows,) + got.shape[1:])
+            vals[sel] = got
+        for pool, cols, in_pool in d_parts:
+            sel = ok & in_pool
+            nd = len(cols)
+            pool[tuple(c[sel] for c in cols)] = \
+                vals[sel].reshape((-1,) + pool.shape[nd:])
 
-    def cols(t, index):
-        cs = [ar if i is None else i.long() for i in index]
-        ok = torch.ones(rows, dtype=torch.bool, device=ar.device)
+
+def _ref_pools(side, index, ar):
+    """[(pool, per-dim row indices (long), rows in range of it)]: one
+    entry for a tensor, two for a `Split`, whose rows fall in one pool
+    or in neither."""
+    cols = [ar if i is None else i.long() for i in index]
+
+    def in_range(t, cs):
+        ok = torch.ones_like(ar, dtype=torch.bool)
         for d, c in enumerate(cs):
             ok = ok & (c >= 0) & (c < t.shape[d])
-        return cs, ok
-
-    d_cols, d_ok = cols(dst, dst_index)
-    s_cols, s_ok = cols(src, src_index)
-    ok = d_ok & s_ok
-    dst[tuple(c[ok] for c in d_cols)] = src[tuple(c[ok] for c in s_cols)]
+        return ok
+    if not isinstance(side, Split):
+        return [(side, cols, in_range(side, cols))]
+    low = cols[side.dim] < side.split
+    high = list(cols)
+    high[side.dim] = cols[side.dim] - side.split
+    return [(side.a, cols, low & in_range(side.a, cols)),
+            (side.b, high, ~low & in_range(side.b, high))]

@@ -9,7 +9,8 @@ slot a promotion vacates reads the promoted page first. Pools are
 written in place, tables replaced (see `repro_torch.kvcache.paged`).
 
 Every page moves through the row-copy kernel (`kernels.ops.copy_rows`;
-its plain version on the CPU), rows indexed by the plan's own tensors.
+its plain version on the CPU), rows indexed by the plan's own tensors:
+one launch gathers a plan's four page lists, one scatters them.
 The reference routes sentinel rows to out-of-bounds indices and drops
 them; here the copy skips rows whose indices are out of range, and the
 table rewrites filter them by mask. On the card that is no host sync,
@@ -96,23 +97,22 @@ def stage_plan(cache: PagedKVCache, plan: MigrationPlan):
     L = cache.k_hbm.shape[0]
     hbm_pages = cache.k_hbm.shape[2]
     host_pages = cache.k_host.shape[2]
-    d = (plan.dem_layer.clamp(0, L - 1), plan.dem_batch.clamp_min(0),
-         plan.dem_src.clamp(0, hbm_pages - 1))
-    p = (plan.pro_layer.clamp(0, L - 1), plan.pro_batch.clamp_min(0),
-         plan.pro_src.clamp(0, host_pages - 1))
-    return tuple(_gather_pages(pool, at) for pool, at in (
-        (cache.k_hbm, d), (cache.v_hbm, d), (cache.k_host, p),
-        (cache.v_host, p)))
+    d = _rows_of(plan.dem_layer.clamp(0, L - 1), plan.dem_batch.clamp_min(0),
+                 plan.dem_src.clamp(0, hbm_pages - 1))
+    p = _rows_of(plan.pro_layer.clamp(0, L - 1), plan.pro_batch.clamp_min(0),
+                 plan.pro_src.clamp(0, host_pages - 1))
+    pairs = [(torch.empty((plan.capacity,) + pool.shape[3:],
+                          dtype=pool.dtype, device=plan.pro_layer.device),
+              (None,), pool, at)
+             for pool, at in ((cache.k_hbm, d), (cache.v_hbm, d),
+                              (cache.k_host, p), (cache.v_host, p))]
+    ops.copy_rows(*pairs)
+    return tuple(pair[0] for pair in pairs)
 
 
-def _gather_pages(pool: torch.Tensor, at) -> torch.Tensor:
-    """pool[at] by the row-copy kernel, into a fresh tensor on the
-    indices' device: `at` is (layer, lane, slot) int32 [M]."""
-    out = torch.empty((at[0].shape[0],) + pool.shape[3:], dtype=pool.dtype,
-                      device=at[0].device)
-    ops.copy_rows(out, (None,), pool,
-                  tuple(i.to(torch.int32).contiguous() for i in at))
-    return out
+def _rows_of(*idx):
+    """(layer, lane, slot) row indices as the row copy takes them."""
+    return tuple(i.to(torch.int32).contiguous() for i in idx)
 
 
 def commit_staged(cache: PagedKVCache, plan: MigrationPlan,
@@ -143,15 +143,14 @@ def scatter_staged(cache: PagedKVCache, plan: MigrationPlan,
     the others (the batch index is clamped at 0 first, as the reference
     does)."""
     dem_k, dem_v, pro_k, pro_v = staged
-    d_at = tuple(i.to(torch.int32).contiguous() for i in (
-        plan.dem_layer, plan.dem_batch.clamp_min(0), plan.dem_dst))
-    p_at = tuple(i.to(torch.int32).contiguous() for i in (
-        plan.pro_layer, plan.pro_batch.clamp_min(0), plan.pro_dst))
-    for pool, at, src in ((cache.k_host, d_at, dem_k),
-                          (cache.v_host, d_at, dem_v),
-                          (cache.k_hbm, p_at, pro_k),
-                          (cache.v_hbm, p_at, pro_v)):
-        ops.copy_rows(pool, at, src, (None,))
+    d_at = _rows_of(plan.dem_layer, plan.dem_batch.clamp_min(0),
+                    plan.dem_dst)
+    p_at = _rows_of(plan.pro_layer, plan.pro_batch.clamp_min(0),
+                    plan.pro_dst)
+    ops.copy_rows((cache.k_host, d_at, dem_k, (None,)),
+                  (cache.v_host, d_at, dem_v, (None,)),
+                  (cache.k_hbm, p_at, pro_k, (None,)),
+                  (cache.v_hbm, p_at, pro_v, (None,)))
 
 
 def commit_tables(cache: PagedKVCache, plan: MigrationPlan

@@ -46,6 +46,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.kernels.page_copy import Split
 
 NO_SLOT = -1
 
@@ -231,21 +232,17 @@ def write_token_layer(k_hbm_l, v_hbm_l, k_host_l, v_host_l, slot, offset,
     k_new/v_new [B, KH, HD]. slot >= hbm_pages addresses the host pool.
     `active` (bool [B], optional) leaves the other lanes' pools
     untouched. Lane b's row goes to (b, slot, offset) of the pool its
-    slot names, or nowhere: no host sync, no collisions.
+    slot names, or nowhere: no host sync, no collisions, and one row
+    copy for K and V in both tiers.
     """
-    hbm_pages = k_hbm_l.shape[1]
-    host_pages = k_host_l.shape[1]
-    keep = torch.ones_like(slot, dtype=torch.bool) if active is None \
-        else active
-    in_hbm = keep & (slot >= 0) & (slot < hbm_pages)
-    in_host = keep & (slot >= hbm_pages) & (slot < hbm_pages + host_pages)
-    off = offset.to(torch.int32).contiguous()
-    for pools, sel, base in (((k_hbm_l, v_hbm_l), in_hbm, 0),
-                             ((k_host_l, v_host_l), in_host, hbm_pages)):
-        at = (None, torch.where(sel, slot - base, -1).to(torch.int32), off)
-        for pool, val in zip(pools, (k_new, v_new)):
-            ops.copy_rows(pool, at, val.to(pool.dtype).contiguous(),
-                          (None,))
+    at = (None, slot.to(torch.int32).contiguous(),
+          offset.to(torch.int32).contiguous())
+    ops.copy_rows(
+        (Split(k_hbm_l, k_host_l, 1), at,
+         k_new.to(k_hbm_l.dtype).contiguous(), (None,)),
+        (Split(v_hbm_l, v_host_l, 1), at,
+         v_new.to(v_hbm_l.dtype).contiguous(), (None,)),
+        keep=active)
     return k_hbm_l, v_hbm_l, k_host_l, v_host_l
 
 
@@ -253,19 +250,14 @@ def read_token_layer(k_hbm_l, v_hbm_l, k_host_l, v_host_l, slot, offset):
     """The (k, v) rows at (lane, `slot`, `offset`) of each lane, [B, KH,
     HD] each: what `write_token_layer` with the same slots would
     overwrite. A lane whose slot names neither pool reads zeros."""
-    hbm_pages = k_hbm_l.shape[1]
-    host_pages = k_host_l.shape[1]
     B = slot.shape[0]
     k = torch.zeros((B,) + k_hbm_l.shape[3:], dtype=k_hbm_l.dtype,
                     device=slot.device)
     v = torch.zeros_like(k)
-    off = offset.to(torch.int32).contiguous()
-    for pools, base, n in (((k_hbm_l, v_hbm_l), 0, hbm_pages),
-                           ((k_host_l, v_host_l), hbm_pages, host_pages)):
-        sel = (slot >= base) & (slot < base + n)
-        at = (None, torch.where(sel, slot - base, -1).to(torch.int32), off)
-        for out, pool in zip((k, v), pools):
-            ops.copy_rows(out, (None,), pool, at)
+    at = (None, slot.to(torch.int32).contiguous(),
+          offset.to(torch.int32).contiguous())
+    ops.copy_rows((k, (None,), Split(k_hbm_l, k_host_l, 1), at),
+                  (v, (None,), Split(v_hbm_l, v_host_l, 1), at))
     return k, v
 
 
@@ -277,24 +269,22 @@ def write_tokens_layer(k_hbm_l, v_hbm_l, k_host_l, v_host_l, slot, offset,
     pools [B, P, T, KH, HD]; slot/offset/valid [R, C]; k_new/v_new
     [R, C, KH, HD]; `lanes` [R] names the pool lane of each row
     (default: row r is lane r). Rows with valid == False are dropped.
+    One row per token: (lane, slot, offset) of the pool its slot names,
+    or nowhere.
     """
-    hbm_pages = k_hbm_l.shape[1]
-    host_pages = k_host_l.shape[1]
-    R = slot.shape[0]
+    R, C = slot.shape
     if lanes is None:
         lanes = torch.arange(R, device=slot.device)
-    lane = lanes.to(torch.int32).repeat_interleave(slot.shape[1])
-    off = offset.to(torch.int32).reshape(-1).contiguous()
-    in_hbm = valid & (slot >= 0) & (slot < hbm_pages)
-    in_host = valid & (slot >= hbm_pages) & (slot < hbm_pages + host_pages)
-    for pools, sel, base in (((k_hbm_l, v_hbm_l), in_hbm, 0),
-                             ((k_host_l, v_host_l), in_host, hbm_pages)):
-        # one row per token: (lane, slot, offset), or nowhere
-        at = (lane, torch.where(sel, slot - base, -1).to(torch.int32)
-              .reshape(-1).contiguous(), off)
-        for pool, val in zip(pools, (k_new, v_new)):
-            ops.copy_rows(pool, at, val.to(pool.dtype).reshape(
-                -1, *val.shape[2:]).contiguous(), (None,))
+    at = (lanes.to(torch.int32).repeat_interleave(C),
+          slot.to(torch.int32).reshape(-1).contiguous(),
+          offset.to(torch.int32).reshape(-1).contiguous())
+
+    def rows(val, pool):
+        return val.to(pool.dtype).reshape(-1, *val.shape[2:]).contiguous()
+    ops.copy_rows(
+        (Split(k_hbm_l, k_host_l, 1), at, rows(k_new, k_hbm_l), (None,)),
+        (Split(v_hbm_l, v_host_l, 1), at, rows(v_new, v_hbm_l), (None,)),
+        keep=valid.reshape(-1).contiguous())
     return k_hbm_l, v_hbm_l, k_host_l, v_host_l
 
 

@@ -21,6 +21,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.page_copy import Split
 from repro_torch.kvcache.paged import (
     IMPORTANCE_EMA, PagedKVCache, allocate_prompt_pages, read_token_layer,
     write_token_layer, write_tokens_layer,
@@ -391,19 +392,12 @@ def prefill_chunk_attn(hcur, lp, cfg: ModelConfig, pools, pos, page,
     those that can hold a prefix the slice sees (the causal mask gives
     the later ones weight zero).
     """
-    kh, vh, ke, ve = pools
     R = pos.shape[0]
-    T = kh.shape[2]
+    T = pools[0].shape[2]
     x = rms_norm(hcur, lp["attn_norm"], cfg.norm_eps)
     q, k, v = attn_qkv(x, lp, cfg, pos)
-    write_tokens_layer(kh, vh, ke, ve, page, offset, k, v, valid,
-                       lanes=lanes)
-    n_h, n_e = seen
-    # [R, n_h + n_e, T, KH, HD]
-    keys = torch.cat([lane_pages(kh, lanes, n_h),
-                      lane_pages(ke, lanes, n_e)], dim=1)
-    vals = torch.cat([lane_pages(vh, lanes, n_h),
-                      lane_pages(ve, lanes, n_e)], dim=1)
+    write_tokens_layer(*pools, page, offset, k, v, valid, lanes=lanes)
+    keys, vals = lane_pages(pools, lanes, seen)   # [R, n_h + n_e, ...]
     S = keys.shape[1] * T
     keys = keys.reshape(R, S, cfg.kv_heads, cfg.head_dim)
     vals = vals.reshape(R, S, cfg.kv_heads, cfg.head_dim)
@@ -412,19 +406,26 @@ def prefill_chunk_attn(hcur, lp, cfg: ModelConfig, pools, pos, page,
     return hcur + attn_out(o, lp)
 
 
-def lane_pages(pool: torch.Tensor, lanes: torch.Tensor,
-               n: int) -> torch.Tensor:
-    """pool[lanes, :n] ([R, n, T, KH, HD]) on the lanes' device, gathered
-    by the row-copy kernel (the pool may lie in pinned host memory)."""
-    R = lanes.shape[0]
-    row = pool.shape[2:]
-    out = torch.empty((R, n) + row, dtype=pool.dtype, device=lanes.device)
+def lane_pages(pools, lanes: torch.Tensor, seen):
+    """(keys, vals), each [R, n_h + n_e, T, KH, HD] on the lanes' device:
+    lane r's first n_h HBM slots, then its first n_e host slots, of the
+    pools (k_hbm_l, v_hbm_l, k_host_l, v_host_l) — the tiers
+    concatenated in slot order, as the reference does — gathered by one
+    row copy (a host pool may lie in pinned host memory)."""
+    kh, vh, ke, ve = pools
+    n_h, n_e = seen
+    R, n = lanes.shape[0], n_h + n_e
+    row = kh.shape[2:]
+    keys = torch.empty((R, n) + row, dtype=kh.dtype, device=lanes.device)
+    vals = torch.empty_like(keys)
     if n:
-        lane = lanes.to(torch.int32).repeat_interleave(n)
-        slot = torch.arange(n, dtype=torch.int32,
-                            device=lanes.device).repeat(R)
-        ops.copy_rows(out.view(R * n, *row), (None,), pool, (lane, slot))
-    return out
+        at = (lanes.to(torch.int32).repeat_interleave(n),
+              torch.arange(n, dtype=torch.int32,
+                           device=lanes.device).repeat(R))
+        ops.copy_rows(
+            (keys.view(R * n, *row), (None,), Split(kh, ke, 1, n_h), at),
+            (vals.view(R * n, *row), (None,), Split(vh, ve, 1, n_h), at))
+    return keys, vals
 
 
 def chunk_coords(page_tokens: int, chunk: int, start: torch.Tensor,

@@ -20,6 +20,7 @@ largest entry and are bitwise reproducible; train steps hold to
 `chip_smoke.TRAIN_TOL`.
 """
 
+import dataclasses
 import pathlib
 import sys
 
@@ -35,6 +36,7 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import page_copy as pc  # noqa: E402
+from repro_torch.kernels.page_copy import Split  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
@@ -417,17 +419,34 @@ def rows(device, *cols):
                  for c in cols)
 
 
-def check_copy(device, dst, dst_index, src, src_index):
-    """The kernel on (dst, src) — either may be pinned — against the
-    plain version on device copies of both: exactly equal, and the
-    launch counted once."""
-    want = dst.to(device)
-    ref.page_copy_ref(want, dst_index, src.to(device), src_index)
+def card_copy(side, device):
+    """A copy on the card of a side (a tensor, or both pools of a
+    Split)."""
+    if isinstance(side, Split):
+        return Split(card_copy(side.a, device), card_copy(side.b, device),
+                     side.dim, side.at)
+    return side.to(device).clone()
+
+
+def tensors(side):
+    return [side.a, side.b] if isinstance(side, Split) else [side]
+
+
+def check_copy(device, *pairs, keep=None):
+    """The kernel on `pairs` (any pool may be pinned) against the plain
+    version on card copies of every pool: exactly equal, and one launch
+    counted for all the pairs."""
+    want = [card_copy(p[0], device) for p in pairs]
+    ref.page_copy_ref(*[(w, di, card_copy(src, device), si)
+                        for w, (_, di, src, si) in zip(want, pairs)],
+                      keep=keep)
     before = build.COUNTS["page_copy"]
-    pc.page_copy(dst, dst_index, src, src_index)
+    pc.page_copy(*pairs, keep=keep)
     torch.cuda.synchronize()
     assert build.COUNTS["page_copy"] == before + 1
-    assert torch.equal(dst.to(device), want)
+    for w, p in zip(want, pairs):
+        for got, exp in zip(tensors(p[0]), tensors(w)):
+            assert torch.equal(got.to(device), exp)
 
 
 # pages of [T=16, KH=2, HD=64]; -1 and out-of-range rows are skipped
@@ -442,7 +461,7 @@ def test_page_copy_gathers_pages_out_of_pinned_memory(device, dtype):
     pool = rand_pool((2, 2, 6, 16, 2, 64), dtype, device, 1).cpu() \
         .pin_memory()
     out = torch.zeros((len(LAYER), 16, 2, 64), dtype=dtype, device=device)
-    check_copy(device, out, (None,), pool, rows(device, LAYER, LANE, SLOT))
+    check_copy(device, (out, (None,), pool, rows(device, LAYER, LANE, SLOT)))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -451,15 +470,15 @@ def test_page_copy_scatters_pages_into_pinned_memory(device, dtype):
     pool = rand_pool((2, 2, 6, 16, 2, 64), dtype, device, 2).cpu() \
         .pin_memory()
     staged = rand_pool((len(LAYER), 16, 2, 64), dtype, device, 3)
-    check_copy(device, pool, rows(device, LAYER, LANE, SLOT), staged,
-               (None,))
+    check_copy(device, (pool, rows(device, LAYER, LANE, SLOT), staged,
+                        (None,)))
 
 
 def test_page_copy_device_to_device(device):
     pool = rand_pool((2, 2, 6, 16, 2, 64), torch.bfloat16, device, 4)
     staged = rand_pool((len(LAYER), 16, 2, 64), torch.bfloat16, device, 5)
-    check_copy(device, pool, rows(device, LAYER, LANE, SLOT), staged,
-               (None,))
+    check_copy(device, (pool, rows(device, LAYER, LANE, SLOT), staged,
+                        (None,)))
 
 
 def test_page_copy_scatters_tokens_into_pinned_memory(device):
@@ -468,15 +487,164 @@ def test_page_copy_scatters_tokens_into_pinned_memory(device):
     pool = rand_pool((4, 6, 16, 2, 64), torch.bfloat16, device, 6).cpu() \
         .pin_memory()
     tok = rand_pool((4, 2, 64), torch.bfloat16, device, 7)
-    check_copy(device, pool, rows(device, None, [2, -1, 5, 0],
-                                  [15, 3, 0, 7]), tok, (None,))
+    check_copy(device, (pool, rows(device, None, [2, -1, 5, 0],
+                                   [15, 3, 0, 7]), tok, (None,)))
 
 
 def test_page_copy_refuses_pageable_memory(device):
     pool = torch.zeros((2, 6, 16, 2, 64), dtype=torch.bfloat16)
     tok = torch.zeros((2, 2, 64), dtype=torch.bfloat16, device=device)
     with pytest.raises(ValueError, match="pageable"):
-        pc.page_copy(pool, rows(device, None, [0, 1], [0, 1]), tok, (None,))
+        pc.page_copy((pool, rows(device, None, [0, 1], [0, 1]), tok,
+                      (None,)))
+
+
+def test_page_copy_split_side_into_pinned_memory(device):
+    """One launch writes K and V tokens into two tiers split on the slot
+    dim, the HBM pool on the card and the host pool pinned: slots below
+    4 land in the first, 4..9 in the second at slot - 4, the rest (and
+    -1) nowhere."""
+    k = [rand_pool((4, 4, 16, 2, 64), torch.bfloat16, device, 8),
+         rand_pool((4, 6, 16, 2, 64), torch.bfloat16, device, 9).cpu()
+         .pin_memory()]
+    v = [rand_pool((4, 4, 16, 2, 64), torch.bfloat16, device, 10),
+         rand_pool((4, 6, 16, 2, 64), torch.bfloat16, device, 11).cpu()
+         .pin_memory()]
+    at = rows(device, None, [3, 4, 9, 10], [-1, 7, 0, 15])
+    tok_k = rand_pool((4, 2, 64), torch.bfloat16, device, 12)
+    tok_v = rand_pool((4, 2, 64), torch.bfloat16, device, 13)
+    check_copy(device, (Split(*k, 1), at, tok_k, (None,)),
+               (Split(*v, 1), at, tok_v, (None,)))
+
+
+def test_page_copy_keep_mask(device):
+    """`keep` drops its False rows from every pair (the decode step's
+    inactive lanes), split sides and plain ones alike."""
+    pool = [rand_pool((4, 6, 16, 2, 64), torch.float32, device, 14),
+            rand_pool((4, 5, 16, 2, 64), torch.float32, device, 15).cpu()
+            .pin_memory()]
+    tok = rand_pool((4, 2, 64), torch.float32, device, 16)
+    out = torch.zeros_like(tok)
+    keep = torch.tensor([True, False, True, False], device=device)
+    at = rows(device, None, [1, 7, 8, 0], [0, 1, 2, 3])
+    check_copy(device, (Split(*pool, 1, 6), at, tok, (None,)),
+               (out, (None,), pool[0], at), keep=keep)
+
+
+def test_page_copy_four_pairs_in_one_launch(device):
+    """A commit's four page lists in one launch: two gathers out of a
+    pinned pool and two scatters into pools on the card, each pair with
+    its own index lists (sentinel rows among them)."""
+    pinned = [rand_pool((2, 2, 6, 16, 2, 64), torch.bfloat16, device, s)
+              .cpu().pin_memory() for s in (17, 18)]
+    card = [rand_pool((2, 2, 6, 16, 2, 64), torch.bfloat16, device, s)
+            for s in (19, 20)]
+    staged = [rand_pool((7, 16, 2, 64), torch.bfloat16, device, s)
+              for s in (21, 22)]
+    outs = [torch.zeros((7, 16, 2, 64), dtype=torch.bfloat16,
+                        device=device) for _ in range(2)]
+    gather = rows(device, LAYER, LANE, SLOT)
+    scatter = rows(device, LANE, LAYER, [5, 4, 3, 2, 1, 0, -1])
+    check_copy(device, (outs[0], (None,), pinned[0], gather),
+               (outs[1], (None,), pinned[1], gather),
+               (card[0], scatter, staged[0], (None,)),
+               (card[1], scatter, staged[1], (None,)))
+
+
+@pytest.mark.parametrize("pinned", [False, True], ids=["card", "pinned"])
+def test_page_copy_one_row(device, pinned):
+    pool = rand_pool((3, 16, 8, 128), torch.bfloat16, device, 23)
+    if pinned:
+        pool = pool.cpu().pin_memory()
+    out = torch.zeros((1, 16, 8, 128), dtype=torch.bfloat16, device=device)
+    check_copy(device, (out, (None,), pool, rows(device, [2])))
+
+
+@pytest.mark.parametrize("pinned", [False, True], ids=["card", "pinned"])
+def test_page_copy_ragged_rows(device, pinned):
+    """Row counts and row bytes that fill neither the persistent grid nor
+    whole bulk chunks: 1,153 rows of 8,208 bytes (a chunk and 16 bytes)
+    gathered out of 2,000, 137 of them dropped."""
+    rng = np.random.default_rng(24)
+    pool = rand_pool((2000, 2052), torch.float32, device, 25)
+    if pinned:
+        pool = pool.cpu().pin_memory()
+    idx = rng.choice(2000, size=1153, replace=False)
+    idx[rng.choice(1153, size=137, replace=False)] = -1
+    out = torch.zeros((1153, 2052), dtype=torch.float32, device=device)
+    check_copy(device, (out, (None,), pool, rows(device, idx)))
+
+
+def call_site(name, cache, device):
+    """One call site of the row copy on `cache` (pools written in place);
+    returns its outputs. The same seeds on the card and on the CPU."""
+    from repro_torch.kvcache import migrate, paged
+    from repro_torch.models import transformer
+    layer = tuple(getattr(cache, n)[1] for n in
+                  ("k_hbm", "v_hbm", "k_host", "v_host"))
+    gen = torch.Generator().manual_seed(30)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen).to(device)
+
+    def ints(values):
+        return torch.tensor(values, dtype=torch.int32, device=device)
+    if name == "write_token_layer":
+        paged.write_token_layer(*layer, ints([1, 5, 9]), ints([0, 7, 15]),
+                                randn(3, 2, 64), randn(3, 2, 64),
+                                active=torch.tensor([True, False, True],
+                                                    device=device))
+        return ()
+    if name == "read_token_layer":
+        return paged.read_token_layer(*layer, ints([1, 5, 9]),
+                                      ints([0, 7, 15]))
+    if name == "write_tokens_layer":
+        slot = ints([[1, 3, 4, 9, 0], [5, 5, 2, 2, 8]])
+        off = ints([[0, 15, 3, 8, 1], [1, 2, 3, 4, 5]])
+        valid = torch.tensor([[True] * 5, [True, True, False, True, True]],
+                             device=device)
+        paged.write_tokens_layer(*layer, slot, off, randn(2, 5, 2, 64),
+                                 randn(2, 5, 2, 64), valid,
+                                 lanes=torch.tensor([2, 0], device=device))
+        return ()
+    if name == "lane_pages":
+        return transformer.lane_pages(layer, torch.tensor([0, 2],
+                                                          device=device),
+                                      (3, 4))
+    plan = migrate.MigrationPlan.build(
+        6, [(0, 1, 2, 3, 6), (1, 0, 5, 0, 9), (1, 1, 0, 2, 4)],
+        [(0, 1, 3, 2, 3), (1, 0, 0, 5, 0)], device=device)
+    if name == "stage_plan":
+        return migrate.stage_plan(cache, plan)
+    staged = tuple(randn(6, 16, 2, 64) for _ in range(4))
+    migrate.scatter_staged(cache, plan, staged)
+    return ()
+
+
+@pytest.mark.parametrize("name", ["write_token_layer", "read_token_layer",
+                                  "write_tokens_layer", "lane_pages",
+                                  "stage_plan", "scatter_staged"])
+def test_call_site_is_one_launch(device, name):
+    """Each call site moves K and V (a commit: four page lists) of both
+    tiers, the host tier pinned, in one row-copy launch; pools and
+    outputs equal the CPU's plain path on the same inputs."""
+    from repro_torch.kvcache.paged import CacheGeometry
+    geo = CacheGeometry(num_layers=2, batch=3, page_tokens=16, hbm_pages=4,
+                        host_pages=6, kv_heads=2, head_dim=64,
+                        dtype=torch.float32)
+    cache = pinned_cache(geo, 40)
+    cpu = dataclasses.replace(cache, **{
+        n: getattr(cache, n).cpu().clone()
+        for n in ("k_hbm", "v_hbm", "k_host", "v_host")})
+    before = build.COUNTS["page_copy"]
+    got = call_site(name, cache, device)
+    torch.cuda.synchronize()
+    assert build.COUNTS["page_copy"] == before + 1
+    want = call_site(name, cpu, torch.device("cpu"))
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    for n in ("k_hbm", "v_hbm", "k_host", "v_host"):
+        assert torch.equal(getattr(cache, n).cpu(), getattr(cpu, n)), n
 
 
 def pinned_cache(geo, seed):
@@ -526,7 +694,8 @@ def test_migration_over_pinned_pools_matches_the_cpu(device, asynchronous):
     else:
         got = migrate.apply_migrations(cache, plan)
     torch.cuda.synchronize()
-    assert build.COUNTS["page_copy"] == before + 8   # 4 gathers, 4 scatters
+    # one launch gathers the plan's four page lists, one scatters them
+    assert build.COUNTS["page_copy"] == before + 2
     for f in want.__dataclass_fields__:
         assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
 

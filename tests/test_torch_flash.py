@@ -184,14 +184,17 @@ def test_library_path_covers_the_included_headers(tmp_path, monkeypatch):
 
 def test_flash_sources_share_the_hopper_header():
     """Both flash sources take their `wgmma`, TMA and mbarrier helpers
-    from one header; the other sources include none."""
+    from one header, and the row copy its mbarrier helpers; the other
+    sources include none."""
     hopper = build.CSRC / "hopper.cuh"
     assert build.headers("flash_attention") == (hopper,)
     assert build.headers("flash_attention_bwd") == (hopper,)
-    for name in ("paged_attention", "page_copy", "host_memory"):
+    assert build.headers("page_copy") == (hopper,)
+    for name in ("paged_attention", "host_memory"):
         assert build.headers(name) == ()
     sources = [(build.CSRC / f"{name}.cu").read_text()
-               for name in ("flash_attention", "flash_attention_bwd")]
+               for name in ("flash_attention", "flash_attention_bwd",
+                            "page_copy")]
     for helper in ("gmma_desc", "wgmma_ss_n64", "wgmma_rs_tile", "mbar_wait",
                    "tma_load", "encode_tiled", "tile_map"):
         defined = re.compile(rf"^\w[\w ]*\s{helper}\(", re.M)

@@ -183,18 +183,23 @@ def test_pinned_routes_match_reference(models, reference, monkeypatch,
     `ops.copy_rows` — on CPU tensors (its plain version): the same
     stream as the reference, the copies really ran, and every index
     they were given is what the card's kernel accepts (a contiguous
-    int32 [rows] tensor)."""
+    int32 [rows] tensor, a contiguous bool [rows] keep mask, at most
+    four pairs)."""
     calls = []
     real = ref.page_copy_ref
 
-    def counted(dst, dst_index, src, src_index):
-        given = [i for i in (*dst_index, *src_index) if i is not None]
+    def counted(*pairs, keep=None):
+        given = [i for p in pairs for i in (*p[1], *p[3]) if i is not None]
         rows = given[0].shape[0]
         for i in given:
             assert i.dtype == torch.int32 and i.dim() == 1
             assert i.shape[0] == rows and i.is_contiguous()
+        if keep is not None:
+            assert keep.dtype == torch.bool and keep.dim() == 1
+            assert keep.shape[0] == rows and keep.is_contiguous()
+        assert 1 <= len(pairs) <= 4
         calls.append(1)
-        return real(dst, dst_index, src, src_index)
+        return real(*pairs, keep=keep)
     monkeypatch.setattr(ref, "page_copy_ref", counted)
     eng, rep = port_run(models, "pressure", policy)
     assert outcome(eng, rep) == reference("pressure", policy)
@@ -496,15 +501,15 @@ def test_copy_rows_plain_version_drops_out_of_range_rows():
     lane = torch.tensor([2, 0, 1, 0, 1], dtype=torch.int32)
     slot = torch.tensor([4, 0, 3, 1, 5], dtype=torch.int32)
     out = torch.zeros((5, 4, 8))
-    ops.copy_rows(out, (None,), pool, (lay, lane, slot))
+    ops.copy_rows((out, (None,), pool, (lay, lane, slot)))
     for r in range(5):
         ok = 0 <= lay[r] < 2 and 0 <= slot[r] < 5
         want = pool[lay[r], lane[r], slot[r]] if ok else torch.zeros(4, 8)
         assert torch.equal(out[r], want), r
     tok = torch.ones((3, 4, 8))
     dst = pool[0].clone()
-    ops.copy_rows(dst, (None, torch.tensor([1, -1, 4], dtype=torch.int32)),
-                  tok, (None,))
+    ops.copy_rows((dst, (None, torch.tensor([1, -1, 4], dtype=torch.int32)),
+                   tok, (None,)))
     want = pool[0].clone()
     want[0, 1] = 1.0
     want[2, 4] = 1.0
