@@ -58,7 +58,13 @@ non-zero):
              timed on the card beside its bytes bound and PyTorch's
              index assignments; and overlap prefill's gather of two
              lanes' HBM and pinned host slots (`lane_pages`, one
-             launch), exact, timed beside the link's peak.
+             launch), exact, timed beside the link's peak. Then the
+             payback probe's link rate (what `measured_payback` hands
+             cost_aware) at phase 4b's geometry four ways — the swap
+             plan repeated over the same host pages, over pages no
+             earlier repeat touched, its promotes alone, its demotes
+             alone — each through the engine's plan, timer and
+             baseline, with its spread over the repeats.
   2b. flash  run the flash kernel against its plain version
              (ref.flash_attention_ref) on CUDA tensors: the prefill
              shapes of phase 5 (B=4, S=2304, H=16 over KH=8, D=128,
@@ -139,6 +145,22 @@ non-zero):
              measured_payback: host pools in pinned host memory, the
              same checks, the measured link bandwidth and commit time,
              and the rate, TTFT and TPOT beside phase 4's.
+  4c. serve cli (run after phase 6 frees its model) the one-card
+             serve CLI, `repro_torch.launch.serve.main`, in this
+             process at the same width (its own random weights): 8
+             requests of 1024-1056 prompt tokens and 32-36 new through
+             8 lanes at hbm_fraction 0.25 (~1 GB of KV, every lane
+             spills), priced on the H100 spec; its summary lines
+             (tokens/s, TTFT, TPOT, modeled rate, hit rate), the paged
+             kernel and the row copy launched; then `--smoke --parity`
+             (the f32 smoke stream of 272-304-token prompts, past its
+             16-page HBM pool, on the card and on the CPU: tokens and
+             statuses identical, hit and bound fractions close) must
+             exit 0 with a hit fraction under 1.
+  4d. example examples/torch_serve_two_tier.py's `main` on the card: 30
+             training steps of the smoke config, the five-policy sweep
+             scored against the SA bound, and a sampled serve with
+             per-request scores; all four kernels must launch.
   5. sweep   the single-stream policy sweep at the same width, as the
              repo's benchmarks run it: per policy a fresh `start` of 4
              prompts of 2304 tokens (each spills ~1280 tokens to the
@@ -235,6 +257,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -819,7 +842,97 @@ def page_copy_phase(rng, device, link):
             "plain_ms": sum(p["plain_ms"] for p in pinned),
             "bound_ms": sum(p["bound_ms"] for p in pinned),
             "bound_by": "bytes", "library_ms": None, "max_abs_err": 0.0,
-            "per_direction": parts}
+            "per_direction": parts,
+            "payback_probe": payback_probe_part(device)}
+
+
+def payback_probe_part(device, iters: int = 8):
+    """Phase 2c's payback probe: the link rate that `measured_payback`
+    hands `cost_aware`, at phase 4b's geometry with pinned host pools,
+    four ways, each through the engine's own plan (`swap_plan`), timer
+    (`commit_seconds`) and baseline (the empty plan over the same
+    cache): the full swap plan committed `iters` times over the same
+    pages, as the engine's probe does (its demotes rewrite, as
+    dem_dst = pro_src, the host pages the next repeat reads); the same
+    commit over pages no earlier repeat touched (a disjoint range of
+    host slots each repeat); its promotes alone and its demotes alone,
+    each over untouched pages too.
+    Each case: the best repeat's time over the empty plan's as bytes/s
+    both ways summed, the link rate the engine's formula inverts it to,
+    and the spread of the per-repeat bytes/s. The empty plan is also
+    timed over one-page host pools on the card: its sentinel rows each
+    stage a clamped host page, which every commit reads over the link."""
+    import dataclasses
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.kvcache.migrate import MigrationPlan
+    from repro_torch.kvcache.paged import init_cache
+    from repro_torch.models.model import Model
+    from repro_torch.serving import control
+    from repro_torch.serving.engine import (
+        EngineConfig, commit_seconds, measured_link_spec, swap_plan,
+    )
+    ecfg = EngineConfig()
+    geo = Model(configs.get("internlm2-1.8b")).cache_geometry(8, 4096, 0.25)
+    cap = control.plan_capacity(geo, ecfg.migration_budget_frac)
+    per = cap // (geo.num_layers * geo.batch)       # rows per (layer, lane)
+    if 3 * (iters + 1) * per > geo.host_pages:
+        raise ValueError("payback probe: too few host slots for the ranges")
+    cache = init_cache(geo, device=device, host_pinned=True)
+    empty = MigrationPlan.empty(cap, device=device)
+    page = cache.k_hbm.new_zeros((1, 1, 1) + cache.k_hbm.shape[3:])
+    bare = dataclasses.replace(cache, k_host=page, v_host=page.clone())
+    commit_seconds(cache, empty)
+    t_empty = min(commit_seconds(cache, empty) for _ in range(iters))
+    commit_seconds(bare, empty)
+    t_bare = min(commit_seconds(bare, empty) for _ in range(iters))
+    sentinel = cap * geo.page_bytes()
+    log(f"payback probe empty plan: {t_empty * 1e3:.3f} ms over the pinned "
+        f"pools, {t_bare * 1e3:.3f} ms over one-page host pools on the "
+        f"card (its {cap} sentinel rows stage a clamped host page each: "
+        f"{sentinel / 1e6:.1f} MB read over the link, "
+        f"{sentinel / max(t_empty - t_bare, 1e-9) / 1e9:.2f} GB/s)")
+    r = np.arange(cap)
+
+    def fresh(case, **kw):
+        """One plan a repeat, each over its own range of `per` host
+        slots of every (layer, lane), the ranges of `case` apart from
+        every other case's."""
+        return [swap_plan(geo, cap, device, (case * (iters + 1) + i) * per
+                          + r // (geo.num_layers * geo.batch), **kw)
+                for i in range(iters + 1)]
+    cases = {
+        "rewritten pages": ([swap_plan(geo, cap, device)] * (iters + 1), 2),
+        "untouched pages": (fresh(0), 2),
+        "promotes alone, untouched": (fresh(1, demotes=False), 1),
+        "demotes alone, untouched": (fresh(2, promotes=False), 1),
+    }
+    out = {"empty plan": {"ms": t_empty * 1e3,
+                          "one_page_host_ms": t_bare * 1e3}}
+
+    def gb_per_s(nbytes, seconds):
+        """Negative where the case took less than the empty plan."""
+        return nbytes / seconds / 1e9 if seconds else math.inf
+    for name, (plans, ways) in cases.items():
+        commit_seconds(cache, plans[0])            # warm (its own pages)
+        times = [commit_seconds(cache, p) for p in plans[1:]]
+        moved = ways * cap * geo.page_bytes()
+        delta = min(times) - t_empty
+        rates = [gb_per_s(moved, t - t_empty) for t in times]
+        link = measured_link_spec(ecfg.spec, delta, moved, cap)[1][
+            "measured_link_bw"]
+        out[name] = {"gb_per_s": gb_per_s(moved, delta),
+                     "link_gb_per_s": None if link is None else link / 1e9,
+                     "spread": [min(rates), max(rates)], "bytes": moved,
+                     "delta_ms": delta * 1e3}
+        log(f"payback probe {name}: {cap} rows, {moved / 1e6:.1f} MB, "
+            f"{delta * 1e3:.3f} ms over the empty plan -> "
+            f"{out[name]['gb_per_s']:.2f} GB/s (repeats {min(rates):.2f}-"
+            f"{max(rates):.2f}), engine formula link "
+            f"{'None' if link is None else f'{link / 1e9:.2f} GB/s'} "
+            f"(modeled {ecfg.spec.link_bw / 1e9:.0f} GB/s each way)")
+    return out
 
 
 def token_write_part(rng, device, geo):
@@ -1118,7 +1231,6 @@ def demangled(mangled: str) -> str:
     """`base<template ints>` of a kernel's mangled name (its last
     length-prefixed part), with `bf16` or `f32` first where the kernel
     takes an element type; the name as given if it is not nested."""
-    import re
     i, parts = mangled.find("_ZN") + 3, []
     while 2 < i < len(mangled) and mangled[i].isdigit():
         j = i
@@ -1139,7 +1251,6 @@ def demangled(mangled: str) -> str:
 def ptxas_usage(report: str):
     """{kernel: (registers, spill store bytes, spill load bytes)} of each
     entry function in ptxas' report, named as `demangled` names it."""
-    import re
     out, current = {}, None
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '(\S+?)'", line)
@@ -1661,6 +1772,97 @@ def serve_phase(model, params, seed, profile_dir=None, overlap=False,
     if summ["mean_hbm_hit_rate"] >= 1.0:
         raise AssertionError("serve: the stream never read the host tier")
     return counts, numbers
+
+
+def serve_cli_phase(seed):
+    """Phase 4c: the one-card serve CLI (`repro_torch.launch.serve.main`)
+    in this process at internlm2-1.8b's full width: 8 requests of
+    1024-1056 prompt tokens (every lane spills past its HBM pages) and
+    32-36 new, its three summary lines; then `--smoke --parity` over
+    prompts past the smoke config's HBM pool, which must exit 0 with a
+    hit fraction under 1. Returns the full-width run's launches by kernel and its
+    summary lines."""
+    import contextlib
+    import io
+
+    import torch
+    from repro_torch.kernels.build import COUNTS
+    from repro_torch.launch import serve
+
+    argv = ["--arch", "internlm2-1.8b", "--requests", "8", "--prompt-len",
+            "1024", "--new-tokens", "32", "--batch-slots", "8",
+            "--hbm-fraction", "0.25", "--spec", "h100", "--seed", str(seed)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    COUNTS.clear()                          # the main path's run only
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = serve.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = dict(COUNTS)
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        log(f"serve cli: {line}")
+    log(f"serve cli: {' '.join(argv)}: exit {rc}, {wall:.2f} s wall (the "
+        f"weights' init included), launches {counts}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    if rc != 0 or len(lines) != 3 or not lines[0].startswith(
+            "served 8 requests"):
+        raise AssertionError(f"serve cli: exit {rc}, output {lines}")
+    if not counts.get("paged_attention") or not counts.get("page_copy"):
+        raise AssertionError(f"serve cli: launches {counts}")
+    # 272-304-token prompts pass the smoke config's 16-page (256-token)
+    # HBM pool, so the streams compared read and migrate host-tier pages
+    out = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(out):
+        rc = serve.main(["--smoke", "--parity", "--prompt-len", "272",
+                         "--seed", str(seed)])
+    for line in out.getvalue().splitlines():
+        log(f"serve cli --smoke --parity: {line}")
+    log(f"serve cli --smoke --parity: exit {rc}, {time.time() - t0:.2f} s "
+        f"wall")
+    hit = re.search(r"PARITY OK: .*, hit ([0-9.]+) ", out.getvalue())
+    if rc != 0 or hit is None or not float(hit.group(1)) < 1.0:
+        raise AssertionError("serve cli: --smoke --parity failed or read "
+                             "no host-tier page")
+    return counts, lines
+
+
+def example_phase():
+    """Phase 4d: examples/torch_serve_two_tier.py's `main` on the card:
+    training (flash forward and backward), the policy sweep and a
+    sampled serve (paged attention, row copies). Returns its launches
+    by kernel; each of the four kernels must have launched."""
+    import importlib.util
+
+    import torch
+    from repro_torch.kernels.build import COUNTS
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples", "torch_serve_two_tier.py")
+    spec = importlib.util.spec_from_file_location("torch_serve_two_tier",
+                                                  path)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    COUNTS.clear()                          # the main path's run only
+    torch.cuda.synchronize()
+    t0 = time.time()
+    rc = example.main([])
+    torch.cuda.synchronize()
+    counts = dict(COUNTS)
+    log(f"example: examples/torch_serve_two_tier.py exit {rc}, "
+        f"{time.time() - t0:.2f} s wall, launches {counts}")
+    missing = [k for k in ("paged_attention", "flash_attention",
+                           "flash_attention_bwd", "page_copy")
+               if not counts.get(k)]
+    if rc != 0 or missing:
+        raise AssertionError(f"example: exit {rc}, never launched {missing}")
+    return counts
 
 
 def sweep_phase(model, params, seed):
@@ -2777,9 +2979,11 @@ def main(argv=None) -> int:
     faulted, faulted_numbers = phase("serve faulted", lambda:
                                      faulted_serve_phase(model, params,
                                                          args.seed))
-    del model, params               # phase 7's model takes the card next
+    del model, params               # the CLI's model takes the card next
     gc.collect()
     torch.cuda.empty_cache()
+    cli, _ = phase("serve cli", lambda: serve_cli_phase(args.seed))
+    example = phase("example", example_phase)
     moe, moe_numbers = phase("moe", lambda: moe_phase(args.seed))
     llama, _ = phase("llama31-8b", lambda: big_serve_phase(
         "llama31-8b", args.seed))
@@ -2803,7 +3007,8 @@ def main(argv=None) -> int:
              "policy_sweep": sweep, "serve_faulted": faulted,
              "moe_serve": moe["serve"], "moe_generate": moe["generate"],
              "llama31_serve": llama, "qwen3_serve_overlap": qwen,
-             "trained_serve": trained_serve,
+             "trained_serve": trained_serve, "serve_cli": cli,
+             "example": example,
              **{f"{name}_generate": c["generate"]
                 for name, c in streams.items()}}
     paged_by_path = {k: c.get("paged_attention", 0)
@@ -2856,6 +3061,7 @@ def main(argv=None) -> int:
                                  f"{dead}")
     flash_by_path = {"policy_sweep": sweep["flash_attention"],
                      "train": train.get("flash_attention", 0),
+                     "example": example.get("flash_attention", 0),
                      "moe_start": moe["start"].get("flash_attention", 0),
                      **{f"{name}_start": c["start"].get("flash_attention", 0)
                         for name, c in streams.items()},
@@ -2870,7 +3076,8 @@ def main(argv=None) -> int:
         **flash,
     }
     bwd_by_path = {"train": train.get("flash_attention_bwd", 0),
-                   "train_resume": resume.get("flash_attention_bwd", 0)}
+                   "train_resume": resume.get("flash_attention_bwd", 0),
+                   "example": example.get("flash_attention_bwd", 0)}
     bwd_entry = {
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention_bwd.cu",

@@ -3,14 +3,18 @@
 in alternating processes on one CUDA card.
 
     python3 scripts/serve_ab.py PARENT_DIR CHANGE_DIR [--rounds 5]
-                                [--overlap]
+                                [--overlap] [--big NAME]
 
 Each process imports one checkout's `chip_smoke.py` and `src/`, builds
 its kernels, makes the full-width model and runs the serve twice (the
 first run pays first-use costs); it prints one line per serve,
 `<label> <run> serve: ... tokens/s ...`; with `--overlap` it then
 runs phase 4b (overlap mode, pinned host pools) twice as well,
-`<label> <run> serve overlap: ...`. The processes go P C C P
+`<label> <run> serve overlap: ...`, and its measured payback line;
+with `--big NAME` then once phase 9's overlap serve of the config
+NAME (`big_serve_phase`), its line and its payback line. The
+serve lines carry the migrated bytes and the hit rate. The processes
+go P C C P
 (P = parent, C = change), repeated for `--rounds` pairs, so neither
 side always runs first. It reads checkouts whose `serve_phase` makes
 its own model (`serve_phase(seed)`) or takes one
@@ -27,9 +31,10 @@ import subprocess
 import sys
 
 
-def one(tree: str, label: str, overlap: bool = False) -> None:
+def one(tree: str, label: str, overlap: bool = False,
+        big: str = "") -> None:
     """Two serves of `tree`'s phase 4 in this process (then two of 4b
-    with `overlap`)."""
+    with `overlap`, then one of phase 9's overlap serve of `big`)."""
     os.chdir(tree)
     sys.path[:0] = [tree, os.path.join(tree, "src")]
     import torch
@@ -49,14 +54,20 @@ def one(tree: str, label: str, overlap: bool = False) -> None:
 
         def serve(**kw):
             cs.serve_phase(0, **kw)
+
+    def show(run, fn):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            fn()
+        for line in buf.getvalue().splitlines():
+            if " s wall" in line or "measured payback" in line:
+                print(label, run, line, flush=True)
     for kw in ({}, {"overlap": True}) if overlap else ({},):
         for run in range(2):
-            buf = io.StringIO()
-            with contextlib.redirect_stdout(buf):
-                serve(**kw)
-            line = next(x for x in buf.getvalue().splitlines()
-                        if " s wall" in x)
-            print(label, run, line, flush=True)
+            show(run, lambda: serve(**kw))
+    if big:
+        model = None                # the big config takes the card
+        show(0, lambda: cs.big_serve_phase(big, 0, overlap=True))
 
 
 def main() -> int:
@@ -66,11 +77,15 @@ def main() -> int:
     ap.add_argument("--rounds", type=int, default=5)
     ap.add_argument("--overlap", action="store_true",
                     help="also serve phase 4b (overlap mode) twice a process")
+    ap.add_argument("--big", default="",
+                    help="then serve phase 9's overlap serve of this "
+                         "config once a process")
     ap.add_argument("--one", nargs=2, metavar=("TREE", "LABEL"),
                     help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.one:
-        one(os.path.abspath(args.one[0]), args.one[1], args.overlap)
+        one(os.path.abspath(args.one[0]), args.one[1], args.overlap,
+            args.big)
         return 0
     if not (args.parent and args.change):
         ap.error("PARENT_DIR and CHANGE_DIR are required")
@@ -80,7 +95,8 @@ def main() -> int:
     for label in order[:2 * args.rounds]:
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--one",
-             trees[label], label] + ["--overlap"] * args.overlap,
+             trees[label], label] + ["--overlap"] * args.overlap
+            + ["--big", args.big] * bool(args.big),
             check=False)
         if proc.returncode != 0:
             return proc.returncode

@@ -102,3 +102,49 @@ def dram_latency(t: StepTraffic, spec: MemorySystemSpec) -> Array:
 def step_latency(t: StepTraffic, spec: MemorySystemSpec) -> Array:
     """Eq. (2): the two tiers operate concurrently; the step waits for both."""
     return np.maximum(hbm_latency(t, spec), dram_latency(t, spec))
+
+
+def total_latency(t: StepTraffic, spec: MemorySystemSpec) -> float:
+    """Eq. (1)."""
+    return float(np.sum(step_latency(t, spec)))
+
+
+def tokens_per_second(t: StepTraffic, spec: MemorySystemSpec,
+                      num_tokens: int) -> float:
+    T = total_latency(t, spec)
+    return num_tokens / T if T > 0 else float("inf")
+
+
+# ---------------------------------------------------------------------------
+# Workload byte-accounting helpers
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class KVWorkload:
+    """Static byte-accounting for a decode workload on a given model.
+
+    bytes_per_token_layer: KV bytes appended per generated token per layer
+                           (2 * kv_heads * head_dim * dtype_bytes).
+    weight_bytes_per_layer_step: weight bytes streamed from HBM per layer
+                           per decode step (weights are pinned in HBM).
+    num_layers, prompt_len, decode_len: trace dimensions.
+    """
+
+    bytes_per_token_layer: int
+    weight_bytes_per_layer_step: int
+    num_layers: int
+    prompt_len: int
+    decode_len: int
+
+    @property
+    def page_bytes(self) -> int:
+        raise AttributeError("page size lives in the placement policy")
+
+    def kv_bytes_total(self) -> int:
+        return (self.prompt_len + self.decode_len) * self.num_layers \
+            * self.bytes_per_token_layer
+
+
+def gqa_kv_bytes_per_token_layer(kv_heads: int, head_dim: int,
+                                 dtype_bytes: int = 2) -> int:
+    return 2 * kv_heads * head_dim * dtype_bytes

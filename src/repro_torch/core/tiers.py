@@ -1,5 +1,6 @@
 """Memory-system specifications for heterogeneous KV-cache placement
-(the port's own copy of the reference's spec table, plus the H100).
+(the port's own copy of the reference's spec table, plus the H100),
+and the compute-roofline constants of one H100 (`H100_CHIP`).
 
 The paper (Table I) models an NVIDIA GH200: HBM3 + NVLink-C2C attached
 LPDDR5X. The spec is data, so the same latency model prices the
@@ -49,6 +50,10 @@ class MemorySystemSpec:
         fallback compares a degraded spec's ratio with the base's)."""
         return self.hbm_bw / self.effective_dram_read_bw
 
+    def with_kv_budget(self, kv_bytes: float) -> "MemorySystemSpec":
+        """Spec with HBM capacity replaced by an explicit KV budget."""
+        return dataclasses.replace(self, hbm_capacity=kv_bytes)
+
 
 # --- Paper-faithful configuration (Table I) --------------------------------
 GH200 = MemorySystemSpec(
@@ -76,4 +81,32 @@ H100 = MemorySystemSpec(
     link_bw=64 * GBps,
     dram_bw=307.2 * GBps,
     dram_capacity=2048 * GB,
+)
+
+SPECS = {s.name: s for s in (GH200, H100)}
+
+
+# --- Compute-roofline constants of the dry-run target (one H100) -------------
+@dataclasses.dataclass(frozen=True)
+class ChipSpec:
+    name: str
+    peak_flops_bf16: float   # FLOP/s
+    hbm_bw: float            # bytes/s
+    ici_bw: float            # bytes/s per link (uni-directional)
+    hbm_capacity: float
+
+
+# NVIDIA H100 Tensor Core GPU datasheet, SXM form factor: 989 TFLOP/s
+# dense bf16 (without sparsity), 80 GB of HBM3 at 3.35 TB/s, NVLink at
+# 900 GB/s total, i.e. 450 GB/s each way (the chip-to-chip term; a
+# one-card run has no collective to put on it). hbm_capacity is what a
+# program can have of the 80 GB: `torch.cuda.get_device_properties(0)
+# .total_memory` on an NVIDIA H100 80GB HBM3, 85,017,493,504 bytes
+# (`chip_smoke.py` phases 8 and 9 print it), less than 80 * 2**30.
+H100_CHIP = ChipSpec(
+    name="h100",
+    peak_flops_bf16=989e12,
+    hbm_bw=3.35 * TBps,
+    ici_bw=450 * GBps,
+    hbm_capacity=85_017_493_504,
 )

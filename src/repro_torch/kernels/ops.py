@@ -3,7 +3,8 @@ reference's `kernels/ops.py`).
 
 Each op picks by device: a CUDA tensor launches the hand-written kernel
 — there is no fallback — a CPU tensor takes the plain version in
-`ref.py`, and any other device raises.
+`ref.py`, a meta tensor (the dry run's) the kernel's opaque operator in
+`meta.py`, and any other device raises.
 
   tier_attention          paged decode attention over one tier
                           (`paged_attention.paged_attention`).
@@ -29,13 +30,14 @@ Each op picks by device: a CUDA tensor launches the hand-written kernel
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Tuple
 
 import torch
 
 from repro_torch.kernels import flash_attention as _flash
-from repro_torch.kernels import ref
-from repro_torch.kernels.page_copy import index_device, page_copy
+from repro_torch.kernels import meta, ref
+from repro_torch.kernels.page_copy import Split, index_device, page_copy
 from repro_torch.kernels.paged_attention import paged_attention
 
 
@@ -49,6 +51,9 @@ def tier_attention(q, k_pool, v_pool, page_list, page_valid,
     if q.device.type == "cpu":
         return ref.paged_attention_ref(q, k_pool, v_pool, page_list,
                                        page_valid)
+    if q.device.type == "meta":
+        return meta.paged_attention(q, k_pool, v_pool, page_list,
+                                    page_valid)
     raise ValueError(f"tier_attention runs on cuda or cpu, not {q.device}")
 
 
@@ -110,12 +115,20 @@ def copy_rows(*pairs, keep=None) -> None:
     = src[src_index(r)] for every row r that `keep` keeps and whose
     indices are in range (see `page_copy`). Index tensors on the card
     launch the kernel once for all pairs — a pool may then be pinned
-    host memory — and CPU ones take the plain version."""
+    host memory — CPU ones take the plain version and meta ones one
+    opaque operator that prices the pairs' rows."""
     dev = index_device(pairs, keep)[0]
     if dev.type == "cuda":
         page_copy(*pairs, keep=keep)
     elif dev.type == "cpu":
         ref.page_copy_ref(*pairs, keep=keep)
+    elif dev.type == "meta":
+        dst, dst_index = pairs[0][:2]
+        pool = dst.a if isinstance(dst, Split) else dst
+        row = math.prod(pool.shape[len(dst_index):]) * pool.element_size()
+        index = next(i for p in pairs for i in (*p[1], *p[3])
+                     if i is not None)
+        meta.page_copy(index, len(pairs), row)
     else:
         raise ValueError(f"copy_rows runs on cuda or cpu, not {dev}")
 
@@ -134,4 +147,6 @@ def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
         return _flash.flash_attention(q, k, v, causal=causal)
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal)
+    if q.device.type == "meta":
+        return meta.flash_attention(q, k, v, causal)
     raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")

@@ -221,3 +221,11 @@ def commit_async(cache: PagedKVCache, plan: MigrationPlan,
     done = torch.cuda.Event()
     done.record(stream)
     return commit_tables(cache, plan), done
+
+
+def migration_bytes(plan: MigrationPlan, page_bytes: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(M_i, M_o) bytes for Eq. (3)/(4) telemetry: the plan's promote
+    and demote rows, a page each, as tensors on the plan's device."""
+    n_pro, n_dem = plan.row_counts()
+    return n_pro * page_bytes, n_dem * page_bytes

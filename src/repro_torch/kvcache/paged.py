@@ -24,7 +24,9 @@ row-copy kernel (`kernels.ops.copy_rows`), in both modes, with the row
 indices on the card: PyTorch indexing cannot address a CPU tensor with
 CUDA indices, and nothing copies a whole host pool to the card. On the
 CPU (tests) `host_pinned` gives plain CPU pools and `copy_rows` its
-plain version.
+plain version. The reference's `host_memory_kind()` probes JAX for a
+pinned memory kind to place its host pools in; the port pins them
+(`host_pinned`) and needs no probe, so it has no counterpart.
 
 Mutation convention: unlike the reference's pure functions, pool
 writes happen IN PLACE (a full-width cache is 3.4 GB and is never
@@ -167,6 +169,17 @@ def init_cache(geo: CacheGeometry, device=None,
         importance=torch.zeros((L, B, geo.max_pages), dtype=torch.float32,
                                device=device),
     )
+
+
+def abstract_cache(geo: CacheGeometry) -> PagedKVCache:
+    """`init_cache`'s shapes and dtypes as tensors on the meta device:
+    nothing is allocated (the dry run's decode state)."""
+    return init_cache(geo, torch.device("meta"))
+
+
+def page_of_token(token_idx, page_tokens: int):
+    """(logical page, offset within it) of a token position."""
+    return token_idx // page_tokens, token_idx % page_tokens
 
 
 def prefill_cache(geo: CacheGeometry, k: torch.Tensor, v: torch.Tensor,
@@ -323,3 +336,36 @@ def allocate_prompt_pages(cache: PagedKVCache, pos: torch.Tensor,
         hbm_owner=put(cache.hbm_owner, in_hbm, page),
         host_owner=put(cache.host_owner, in_host, page - hbm_pages),
         length=cache.length + n_new.to(cache.length.dtype))
+
+
+def append_token(cache: PagedKVCache, k_new: torch.Tensor,
+                 v_new: torch.Tensor, write_slot: torch.Tensor,
+                 write_offset: torch.Tensor) -> PagedKVCache:
+    """Append one token's KV across all layers: the pools written in
+    place, `length` replaced by length + 1.
+
+    k_new/v_new: [L, B, KH, HD]; write_slot: [L, B] physical page slot
+    chosen by the control plane; write_offset: [B] offset within page.
+    Row (l, b) lands at (l, b, slot, offset) of the pool its slot names,
+    or nowhere when the slot is past both pools (the reference's
+    dropped scatter): on the card one row-copy launch for K and V of
+    every layer and both tiers, with no host sync.
+    """
+    L, B = write_slot.shape
+    dev = write_slot.device
+
+    def flat(i):
+        return i.to(torch.int32).reshape(-1).contiguous()
+    at = (flat(torch.arange(L, device=dev)[:, None].expand(L, B)),
+          flat(torch.arange(B, device=dev)[None, :].expand(L, B)),
+          flat(write_slot),
+          flat(write_offset[None, :].expand(L, B)))
+
+    def rows(val, pool):
+        return val.to(pool.dtype).reshape(L * B, *val.shape[2:]).contiguous()
+    ops.copy_rows(
+        (Split(cache.k_hbm, cache.k_host, 2), at, rows(k_new, cache.k_hbm),
+         (None,)),
+        (Split(cache.v_hbm, cache.v_host, 2), at, rows(v_new, cache.v_hbm),
+         (None,)))
+    return dataclasses.replace(cache, length=cache.length + 1)

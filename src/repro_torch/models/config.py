@@ -129,3 +129,48 @@ class ModelConfig:
             return tuple(range(self.ssm.attn_every - 1, self.num_layers,
                                self.ssm.attn_every))
         return tuple(range(self.num_layers))
+
+    def param_count(self) -> int:
+        """Approximate parameter count (the reference's formula, used
+        for the 6ND roofline maths)."""
+        d, f, v, L = self.d_model, self.d_ff, self.vocab, self.num_layers
+        h, kh, hd = self.num_heads, self.kv_heads, self.head_dim
+        attn = d * h * hd + 2 * d * kh * hd + h * hd * d
+        emb = v * d * (1 if self.tie_embeddings else 2)
+        if self.family in ("ssm", "xlstm"):
+            inner = (self.ssm.expand if self.ssm else
+                     self.xlstm.expand) * d
+            blk = 2 * d * inner + inner * d + inner * 8  # rough
+            return L * blk + emb
+        mlp = 3 * d * f
+        if self.moe:
+            moe_layers = len(range(self.moe.interleave - 1, L,
+                                   self.moe.interleave))
+            dense_layers = L - moe_layers
+            moe_mlp = moe_layers * (self.moe.num_experts * 3 * d * f
+                                    + d * self.moe.num_experts
+                                    + (3 * d * f if self.moe.shared_expert
+                                       else 0))
+            body = L * attn + dense_layers * mlp + moe_mlp
+        elif self.family == "hybrid":
+            inner = self.ssm.expand * d
+            ssm_blk = 2 * d * inner + inner * d
+            # the shared attention block and its MLP count once
+            body = L * ssm_blk + attn + mlp
+        else:
+            body = L * (attn + mlp)
+        if self.encdec:
+            body += self.encdec.enc_layers * (attn + mlp) + L * attn  # cross
+        return body + emb
+
+    def active_param_count(self) -> int:
+        """Active params per token (moe: only the routed experts)."""
+        if not self.moe:
+            return self.param_count()
+        d, f, L = self.d_model, self.d_ff, self.num_layers
+        full = self.param_count()
+        moe_layers = len(range(self.moe.interleave - 1, L,
+                               self.moe.interleave))
+        all_experts = moe_layers * self.moe.num_experts * 3 * d * f
+        active_experts = moe_layers * self.moe.top_k * 3 * d * f
+        return full - all_experts + active_experts

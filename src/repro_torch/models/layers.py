@@ -170,10 +170,11 @@ def attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
 
     On the card every size runs the hand-written flash kernel
     (`ops.flash_attention`, GQA K/V read un-repeated; queries aligned
-    at key 0, so `q_offset` must be 0). On the CPU the reference's
+    at key 0, so `q_offset` must be 0), and on the meta device (the dry
+    run) its opaque operator. On the CPU the reference's
     dispatch: K/V repeated per query head, small sequences take the
     naive path, long ones the chunked one."""
-    if q.device.type == "cuda":
+    if q.device.type in ("cuda", "meta"):
         if q_offset:
             raise ValueError("the flash kernel aligns queries at key 0; "
                              f"q_offset={q_offset} is not supported")

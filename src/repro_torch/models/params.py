@@ -1,10 +1,15 @@
-"""Parameter schema: one declaration drives init (the port of the
-reference's `models/params.py`, same init rules).
+"""Parameter schema: one declaration drives init, abstract shapes (the
+allocation-free dry run) and the counts (the port of the reference's
+`models/params.py`, same init rules).
 
 A schema is a nested dict of `Param` leaves; `init_params` draws every
 leaf from one explicit `torch.Generator` in sorted-key order, so a seed
 fixes the whole tree. The reference's JAX keys give other numbers from
 the same seed; weights cross between the two through `repro_torch.bridge`.
+`abstract_params` gives tensors on `torch.device("meta")`, PyTorch's
+counterpart of the reference's `ShapeDtypeStruct`s. The reference's
+`logical_axes` names each leaf's mesh axes for its sharding rules; the
+port serves on one card and has none, so it has no counterpart.
 """
 
 from __future__ import annotations
@@ -81,3 +86,25 @@ def _normal(shape, generator, scale, device) -> torch.Tensor:
     """f32 normal draws of `shape`, times `scale`."""
     return torch.randn(shape, generator=generator, dtype=torch.float32,
                        device=device).mul_(scale)
+
+
+def _leaves(schema: Schema):
+    for key in sorted(schema):
+        p = schema[key]
+        yield from (_leaves(p) if isinstance(p, dict) else [p])
+
+
+def abstract_params(schema: Schema, dtype=torch.bfloat16) -> Dict[str, Any]:
+    """The parameters' shapes and dtype as tensors on the meta device:
+    nothing is allocated."""
+    return {k: abstract_params(p, dtype) if isinstance(p, dict)
+            else torch.empty(p.shape, dtype=dtype, device="meta")
+            for k, p in schema.items()}
+
+
+def param_bytes(schema: Schema, dtype_bytes: int = 2) -> int:
+    return sum(math.prod(p.shape) for p in _leaves(schema)) * dtype_bytes
+
+
+def count_params(schema: Schema) -> int:
+    return sum(math.prod(p.shape) for p in _leaves(schema))

@@ -27,6 +27,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import ops
+from repro_torch.kernels.page_copy import Split
 from repro_torch.kvcache.migrate import MigrationPlan
 from repro_torch.kvcache.paged import NO_SLOT, PagedKVCache
 
@@ -269,6 +271,44 @@ def release_lanes(cache: PagedKVCache, lanes: torch.Tensor) -> PagedKVCache:
         host_owner=clr(cache.host_owner, NO_SLOT),
         length=torch.where(lanes, 0, cache.length).to(torch.int32),
         importance=clr(cache.importance, 0.0))
+
+
+def insert_lane(cache: PagedKVCache, lane_cache: PagedKVCache,
+                lane: torch.Tensor) -> PagedKVCache:
+    """Bind a prefilled batch-1 cache to lane `lane` (an int scalar
+    tensor) of the batched cache: the lane's pool pages take
+    `lane_cache`'s, in place, and its tables, length and importance
+    theirs, in new tensors. The lane index stays data: on the card this
+    is one row-copy launch (K and V, every layer, both tiers) and the
+    table writes, with no host sync on `lane`."""
+    L, B, P = cache.page_table.shape
+    dev = cache.page_table.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    lane = torch.as_tensor(lane, device=dev)
+    layer = torch.arange(L, **i32).repeat_interleave(P)
+    slot = torch.arange(P, **i32).repeat(L)
+    dst = (layer, lane.to(torch.int32).reshape(1).expand(L * P).contiguous(),
+           slot)
+    src = (layer, torch.zeros(L * P, **i32), slot)
+    ops.copy_rows(
+        (Split(cache.k_hbm, cache.k_host, 2), dst,
+         Split(lane_cache.k_hbm, lane_cache.k_host, 2), src),
+        (Split(cache.v_hbm, cache.v_host, 2), dst,
+         Split(lane_cache.v_hbm, lane_cache.v_host, 2), src))
+    onehot = torch.arange(B, device=dev) == lane
+
+    def ins(dst_t, src_t):
+        shape = [1] * dst_t.dim()
+        shape[1] = B
+        return torch.where(onehot.reshape(shape), src_t, dst_t)
+
+    return dataclasses.replace(
+        cache,
+        page_table=ins(cache.page_table, lane_cache.page_table),
+        hbm_owner=ins(cache.hbm_owner, lane_cache.hbm_owner),
+        host_owner=ins(cache.host_owner, lane_cache.host_owner),
+        length=torch.where(onehot, lane_cache.length[0], cache.length),
+        importance=ins(cache.importance, lane_cache.importance))
 
 
 def page_tiers(cache: PagedKVCache) -> torch.Tensor:

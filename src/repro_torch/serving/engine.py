@@ -72,7 +72,8 @@ with the chunk's lane->request bindings, in `_serve_trace_log` for
 `trace_bridge.collect_serve`; the per-step arrays stay on the device
 until the chunk's one readback.
 
-Not ported yet (raises NotImplementedError naming its slice): `mesh`.
+Not ported (raises NotImplementedError, `refuse_mesh`): `mesh`, which
+spans more than one card.
 """
 
 from __future__ import annotations
@@ -103,9 +104,6 @@ from repro_torch.serving.scheduler import (
 )
 from repro_torch.serving.slo import SLOPolicy
 
-_LAUNCH_SLICE = "the port's launch slice (ROADMAP.md, queue 1)"
-
-
 def _get_cache(state) -> PagedKVCache:
     """The paged cache of a decode state (encdec: its "kv")."""
     return state if isinstance(state, PagedKVCache) else state["kv"]
@@ -128,9 +126,12 @@ def _require_cache(state, family: str) -> None:
             f"Model.decode_step")
 
 
-def _later(feature: str, where: str):
+def refuse_mesh():
+    """Raise the port's refusal of a device mesh: the engine, the serve
+    CLI's `--mesh` and the dry run's `--mesh multi` share it."""
     raise NotImplementedError(
-        f"{feature} is not ported yet; it arrives with {where}")
+        "serving across a device mesh spans more than one card and is not "
+        "ported yet: the port runs on one card")
 
 
 @dataclasses.dataclass
@@ -311,6 +312,43 @@ def measured_link_spec(base: MemorySystemSpec, delta: float, moved: int,
                                link_bw=link_bw), detail
 
 
+def swap_plan(geo, cap: int, device, host_slots=None, *,
+              promotes: bool = True, demotes: bool = True) -> MigrationPlan:
+    """The payback probe's synthetic plan of `cap` rows: row r promotes
+    host slot `host_slots[r]` (default r % host_pages) of layer
+    r % L, lane (r // L) % B into HBM slot r % hbm_pages and demotes
+    that slot's page to the same host slot (dem_dst = pro_src).
+    `promotes` / `demotes` False leaves that half's columns at the
+    sentinel -1."""
+    r = np.arange(cap, dtype=np.int32)
+    host = r % geo.host_pages if host_slots is None else \
+        np.asarray(host_slots, dtype=np.int32)
+    hbm = r % geo.hbm_pages
+    lay, bat = r % geo.num_layers, (r // geo.num_layers) % geo.batch
+    none = [np.full(cap, -1, np.int32)] * 5
+    cols = [*((lay, bat, host, hbm, r % geo.max_pages) if promotes
+              else none),
+            *((lay, bat, hbm, host, (r + 1) % geo.max_pages) if demotes
+              else none)]
+    return MigrationPlan(*[torch.as_tensor(c, device=device) for c in cols])
+
+
+def commit_seconds(cache: PagedKVCache, plan: MigrationPlan) -> float:
+    """Seconds of one `apply_migrations(cache, plan)`: CUDA events on
+    the card, `time.perf_counter` on the CPU."""
+    if cache.k_hbm.device.type != "cuda":
+        t0 = time.perf_counter()
+        apply_migrations(cache, plan)
+        return time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    apply_migrations(cache, plan)
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / 1e3
+
+
 class ServingEngine:
     """The serving engine over the two-tier paged KV cache (see the
     module docstring). Runs on the CUDA card unless constructed with
@@ -327,7 +365,7 @@ class ServingEngine:
                 f"EngineConfig.prefill_budget must be >= 1 tokens/step "
                 f"or None (uncapped), got {cfg.prefill_budget}")
         if mesh is not None:
-            _later("serving across a device mesh", _LAUNCH_SLICE)
+            refuse_mesh()
         self.device = resolve_device(device)
         self.model = model
         self.params = _to_device(params, self.device)
@@ -1008,48 +1046,28 @@ class ServingEngine:
         `_measure_migration_spec`).
 
         Times `apply_migrations` of a synthetic full-capacity swap plan
-        (every row a promote + demote pair, one page across the link
-        each way) against the all-sentinel plan over the same cache,
-        whose host pools are pinned on the card: the difference is the
-        per-page move cost without the fixed overhead. CUDA events time
-        it on the card, `time.perf_counter` on the CPU; the best of
-        `iters` runs of each. `measured_link_spec` inverts it. Returns
-        `(spec or None, detail)`, `detail` being the `payback_measured`
-        event's payload."""
-        base = self.cfg.spec
+        (`swap_plan`: every row a promote + demote pair, one page across
+        the link each way) against the all-sentinel plan over the same
+        cache, whose host pools are pinned on the card: the difference
+        is the per-page move cost without the fixed overhead, the best
+        of `iters` runs of each (`commit_seconds`). Every commit, the
+        serve's too, stages a clamped host page for each sentinel row
+        (`stage_plan`, as the reference's), so the baseline already
+        reads as many host pages as the swap's promotes: the difference
+        is the commit's marginal cost, its demotes' writes, while
+        `moved` counts both directions. `measured_link_spec` inverts
+        it. Returns `(spec or None, detail)`, `detail` being the
+        `payback_measured` event's payload."""
         cap = control.plan_capacity(geo, self.cfg.migration_budget_frac)
-        L, B = geo.num_layers, geo.batch
-        r = np.arange(cap, dtype=np.int32)
-        pro_src = r % geo.host_pages
-        pro_dst = r % geo.hbm_pages
-        lay, bat = r % L, (r // L) % B
-        plan = MigrationPlan(*[
-            torch.as_tensor(c, device=self.device) for c in (
-                lay, bat, pro_src, pro_dst, r % geo.max_pages,
-                lay, bat, pro_dst, pro_src, (r + 1) % geo.max_pages)])
+        plan = swap_plan(geo, cap, self.device)
         empty = MigrationPlan.empty(cap, device=self.device)
         cache = init_cache(geo, device=self.device, host_pinned=True)
-        on_card = self.device.type == "cuda"
-
-        def seconds(p) -> float:
-            if not on_card:
-                t0 = time.perf_counter()
-                apply_migrations(cache, p)
-                return time.perf_counter() - t0
-            start = torch.cuda.Event(enable_timing=True)
-            stop = torch.cuda.Event(enable_timing=True)
-            start.record()
-            apply_migrations(cache, p)
-            stop.record()
-            stop.synchronize()
-            return start.elapsed_time(stop) / 1e3
-
-        seconds(plan)                       # warm both outside the timing
-        seconds(empty)
-        delta = min(seconds(plan) for _ in range(iters)) - \
-            min(seconds(empty) for _ in range(iters))
+        commit_seconds(cache, plan)         # warm both outside the timing
+        commit_seconds(cache, empty)
+        delta = min(commit_seconds(cache, plan) for _ in range(iters)) - \
+            min(commit_seconds(cache, empty) for _ in range(iters))
         moved = 2 * cap * geo.page_bytes()
-        return measured_link_spec(base, delta, moved, rows=cap)
+        return measured_link_spec(self.cfg.spec, delta, moved, rows=cap)
 
     def _admit_lane(self, req: Request, hs: Dict) -> None:
         """Bind an admitted request to its cache lane for chunked

@@ -580,6 +580,7 @@ def call_site(name, cache, device):
     returns its outputs. The same seeds on the card and on the CPU."""
     from repro_torch.kvcache import migrate, paged
     from repro_torch.models import transformer
+    from repro_torch.serving import control as tctl
     layer = tuple(getattr(cache, n)[1] for n in
                   ("k_hbm", "v_hbm", "k_host", "v_host"))
     gen = torch.Generator().manual_seed(30)
@@ -611,6 +612,24 @@ def call_site(name, cache, device):
         return transformer.lane_pages(layer, torch.tensor([0, 2],
                                                           device=device),
                                       (3, 4))
+    if name == "append_token":
+        # every layer's token: slots in both tiers, 10 past both pools
+        out = paged.append_token(
+            on(cache, device), randn(2, 3, 2, 64), randn(2, 3, 2, 64),
+            ints([[1, 5, 9], [3, 10, 0]]), ints([0, 7, 15]))
+        return (out.length.cpu(),)
+    if name == "insert_lane":
+        lane = pinned_cache(paged.CacheGeometry(
+            num_layers=2, batch=1, page_tokens=16, hbm_pages=4,
+            host_pages=6, kv_heads=2, head_dim=64, dtype=torch.float32), 50)
+        lane.page_table = torch.arange(10, dtype=torch.int32, device="cuda") \
+            .expand(2, 1, 10).contiguous()
+        lane.length = torch.tensor([77], dtype=torch.int32, device="cuda")
+        out = tctl.insert_lane(on(cache, device), on(lane, device),
+                               torch.tensor(2, dtype=torch.int32,
+                                            device=device))
+        return tuple(getattr(out, n).cpu() for n in (
+            "page_table", "hbm_owner", "host_owner", "length", "importance"))
     plan = migrate.MigrationPlan.build(
         6, [(0, 1, 2, 3, 6), (1, 0, 5, 0, 9), (1, 1, 0, 2, 4)],
         [(0, 1, 3, 2, 3), (1, 0, 0, 5, 0)], device=device)
@@ -623,11 +642,13 @@ def call_site(name, cache, device):
 
 @pytest.mark.parametrize("name", ["write_token_layer", "read_token_layer",
                                   "write_tokens_layer", "lane_pages",
-                                  "stage_plan", "scatter_staged"])
+                                  "stage_plan", "scatter_staged",
+                                  "append_token", "insert_lane"])
 def test_call_site_is_one_launch(device, name):
-    """Each call site moves K and V (a commit: four page lists) of both
-    tiers, the host tier pinned, in one row-copy launch; pools and
-    outputs equal the CPU's plain path on the same inputs."""
+    """Each call site moves K and V (a commit: four page lists;
+    `append_token` and `insert_lane`: every layer) of both tiers, the
+    host tier pinned, in one row-copy launch; pools and outputs equal
+    the CPU's plain path on the same inputs."""
     from repro_torch.kvcache.paged import CacheGeometry
     geo = CacheGeometry(num_layers=2, batch=3, page_tokens=16, hbm_pages=4,
                         host_pages=6, kv_heads=2, head_dim=64,
@@ -645,6 +666,16 @@ def test_call_site_is_one_launch(device, name):
         assert torch.equal(g.cpu(), w)
     for n in ("k_hbm", "v_hbm", "k_host", "v_host"):
         assert torch.equal(getattr(cache, n).cpu(), getattr(cpu, n)), n
+
+
+def on(cache, device):
+    """`cache` as it is for the card (host pools pinned), or with every
+    tensor on the CPU (pools already there kept, so writes land in
+    them)."""
+    if device.type == "cuda":
+        return cache
+    return dataclasses.replace(cache, **{
+        f: getattr(cache, f).cpu() for f in cache.__dataclass_fields__})
 
 
 def pinned_cache(geo, seed):

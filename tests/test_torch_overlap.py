@@ -443,6 +443,37 @@ def test_measured_link_spec_inverts_as_the_reference():
         assert spec is None and detail["measured_link_bw"] is None
 
 
+def test_payback_probe_times_the_swap_over_the_empty_plan(models,
+                                                          monkeypatch):
+    """The probe commits the swap plan and the all-sentinel plan over
+    one cache (the pages every commit stages for its sentinel rows are
+    in both); the swap pairs each promote with a demote back to its
+    host slot, and a direction left out is all sentinels."""
+    _, _, tm, tp = models
+    eng = ServingEngine(tm, tp, EngineConfig(spec=H100), device="cpu")
+    geo = tm.cache_geometry(2, 128)
+    seen = []
+    real = tengine.apply_migrations
+
+    def spy(cache, plan):
+        seen.append((int((plan.pro_layer >= 0).sum()), id(cache)))
+        return real(cache, plan)
+    monkeypatch.setattr(tengine, "apply_migrations", spy)
+    _, detail = eng._measure_migration_spec(geo, iters=2)
+    cap = tctl.plan_capacity(geo, eng.cfg.migration_budget_frac)
+    assert sorted({n for n, _ in seen}) == [0, cap]
+    assert len({c for _, c in seen}) == 1 and len(seen) == 2 * (1 + 2)
+    assert detail["rows"] == cap
+    assert detail["bytes"] == 2 * cap * geo.page_bytes()
+    plan = tengine.swap_plan(geo, cap, "cpu")
+    assert torch.equal(plan.dem_dst, plan.pro_src)
+    assert torch.equal(plan.dem_src, plan.pro_dst)
+    slots = np.arange(cap) % 3 + 1
+    alone = tengine.swap_plan(geo, cap, "cpu", slots, demotes=False)
+    assert alone.pro_src.tolist() == slots.tolist()
+    assert (alone.dem_layer == -1).all() and (alone.dem_dst == -1).all()
+
+
 @pytest.mark.parametrize("measured", [False, True])
 def test_payback_recalibrates_cost_aware(models, monkeypatch, measured):
     """A measurement recalibrates cost_aware's thresholds from the
