@@ -1455,35 +1455,143 @@ def card_vs_cpu(cfg, ecfg, reqs_of, seed, **serve_kw):
     return runs, engines
 
 
-def parity_phase(seed, overlap=False):
-    """A small f32 stream, on the card and on the CPU, same weights; in
-    overlap mode (phase 3c) the card's host pools are pinned and pages
-    must be committed."""
+def parity_requests(seed, vocab):
+    """Phase 3's stream: four f32-smoke requests, two of them spilling."""
+    from repro_torch.serving.scheduler import Request
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, vocab, (n,)) for n in (300, 40, 280, 20)]
+    return [Request(rid=i, prompt=p, max_new_tokens=12)
+            for i, p in enumerate(prompts)]
+
+
+def parity_runs(seed, overlap=False):
+    """Phase 3's stream on the card and on the CPU (`card_vs_cpu`)."""
     from repro_torch.core.tiers import H100
     from repro_torch.serving.engine import EngineConfig
-    from repro_torch.serving.scheduler import Request
-
     cfg = smoke_f32("internlm2-1.8b")
-    rng = np.random.default_rng(seed)
-    prompts = [rng.integers(0, cfg.vocab, (n,)) for n in (300, 40, 280, 20)]
     ecfg = EngineConfig(max_context=512, policy="importance", spec=H100,
                         prefill_chunk=32, telemetry_stride=8,
                         overlap_migrations=overlap)
-    runs, engines = card_vs_cpu(cfg, ecfg, lambda: [
-        Request(rid=i, prompt=p, max_new_tokens=12)
-        for i, p in enumerate(prompts)], seed, num_slots=2)
-    if overlap and not engines["cuda"][0].state.k_host.is_pinned():
+    return card_vs_cpu(cfg, ecfg, lambda: parity_requests(seed, cfg.vocab),
+                       seed, num_slots=2)
+
+
+def serve_again(eng, seed):
+    """Phase 3's stream served again on `eng`: `card_vs_cpu`'s tuple."""
+    rep = eng.serve(parity_requests(seed, eng.model.cfg.vocab), num_slots=2)
+    return ({r.rid: r.output for r in rep.completed},
+            {r.rid: (r.status, r.error.code if r.error else None)
+             for r in rep.completed + rep.rejected},
+            [(s.h_read, s.e_read, s.m_in, s.m_out) for s in eng.stats],
+            [dict(e) for e in rep.events])
+
+
+def graph_label(key) -> str:
+    """A graph's key as printed: a serve key by its prefill plane,
+    `serve/<pages>x<steps>`; a run/generate key by its mode and steps."""
+    if key[0] == "serve":
+        return f"serve/{key[-2]}x{key[-1]}"
+    return f"{key[0]}/{key[-1]}"
+
+
+def captures_line(eng) -> str:
+    """The engine's graph captures and replays, one entry per key (the
+    serve keys' last entry is the prefill bucket in pages)."""
+    caps = {graph_label(k): n for k, n in eng.captures.items()}
+    reps = {graph_label(k): n for k, n in eng._graphs.replays.items()}
+    return f"captures {caps} replays {reps}"
+
+
+def parity_phase(seed, overlap=False):
+    """A small f32 stream, on the card and on the CPU, same weights; in
+    overlap mode (phase 3c) the card's host pools are pinned and pages
+    must be committed. The card serves through captured chunks; served
+    again on the same engine it captures nothing."""
+    runs, engines = parity_runs(seed, overlap)
+    eng = engines["cuda"][0]
+    if overlap and not eng.state.k_host.is_pinned():
         raise AssertionError("overlap mode: the host pools are not in "
                              "pinned host memory")
     same = [runs["cuda"][i] == runs["cpu"][i] for i in range(3)]
     migrated = sum(r[2] + r[3] for r in runs["cuda"][2])
     log(f"parity{' overlap' if overlap else ''}: tokens {same[0]} statuses "
         f"{same[1]} step bytes {same[2]} ({len(runs['cuda'][2])} decode "
-        f"steps, {migrated:.0f} bytes migrated)")
+        f"steps, {migrated:.0f} bytes migrated); {captures_line(eng)}")
     if not all(same):
         raise AssertionError("the card's serve disagrees with the CPU's")
     if overlap and migrated == 0:
         raise AssertionError("overlap parity: no page was committed")
+    first = dict(eng.captures)
+    again = serve_again(eng, seed)
+    if again[:3] != runs["cuda"][:3] or dict(eng.captures) != first \
+            or not eng._graphs.replays:
+        raise AssertionError(f"parity: served again, the stream changed or "
+                             f"captured: {captures_line(eng)}")
+
+
+#: fused `run` against `step()` on the card: the logits' largest
+#: difference allowed (see `fused_vs_eager`)
+FUSED_TOL = 0.0
+
+
+def fused_vs_eager(model, params, seed, *, batch, prompt_len, stride,
+                   max_context, policy="importance"):
+    """`run` over two strides (one eager chunk that is then captured,
+    one replay) against as many `step()` calls from the same `start`,
+    on the card. Returns {"logits_err", "int_state", "step_bytes",
+    "captures", "replays", "steps"}."""
+    import torch
+    from repro_torch.core.tiers import H100
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    ecfg = EngineConfig(max_context=max_context, policy=policy, spec=H100,
+                        telemetry_stride=stride, promote_thresh=1e-4,
+                        attention_sparsity=0.5 if policy == "quest" else 0.0)
+    prompt = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, model.cfg.vocab, (batch, prompt_len)), dtype=torch.int32)
+    eng = ServingEngine(model, params, ecfg)
+    K = 2 * stride
+
+    def ints():
+        c = eng.state
+        return [getattr(c, f).clone() for f in (
+            "page_table", "hbm_owner", "host_owner", "length")]
+
+    tok = eng.start(prompt).argmax(-1).to(torch.int32)
+    feed, steps = [], []
+    for _ in range(K):
+        feed.append(tok)
+        logits = eng.step(tok)
+        steps.append(logits)
+        tok = logits.argmax(-1).to(torch.int32)
+    want_state = ints()
+    want_bytes = [(s.h_read, s.e_read, s.m_in, s.m_out) for s in eng.stats]
+    eng.stats = []
+    eng.start(prompt)
+    got = eng.run(torch.stack(feed))
+    torch.cuda.synchronize()
+    return {"logits_err": float((got - torch.stack(steps)).abs().max()),
+            "int_state": all(torch.equal(a, b)
+                             for a, b in zip(ints(), want_state)),
+            "step_bytes": [(s.h_read, s.e_read, s.m_in, s.m_out)
+                           for s in eng.stats] == want_bytes,
+            "captures": dict(eng.captures),
+            "replays": sum(eng._graphs.replays.values()), "steps": K}
+
+
+def fused_phase(model, params, seed):
+    """Fused against eager at full width: phase 4's geometry (8 lanes,
+    4096-token context), 1024-token prompts, 2 x 16 steps."""
+    res = fused_vs_eager(model, params, seed, batch=8, prompt_len=1024,
+                         stride=16, max_context=4096)
+    log(f"fused vs eager: run of {res['steps']} steps through "
+        f"{res['captures']} captures and {res['replays']} replays against "
+        f"{res['steps']} step() calls: logits max |diff| "
+        f"{res['logits_err']:.3e} (tolerance {FUSED_TOL}), integer state "
+        f"{res['int_state']}, step bytes {res['step_bytes']}")
+    if not (res["int_state"] and res["step_bytes"] and res["replays"]
+            and res["logits_err"] <= FUSED_TOL):
+        raise AssertionError(f"fused vs eager: {res}")
+    return res
 
 
 KERNEL_GROUPS = (   # (group, lower-case substrings of its kernel names)
@@ -1638,8 +1746,90 @@ def phase4_requests(vocab, seed):
     return reqs
 
 
+def chunk_list(chunks) -> str:
+    """Each serve chunk as (prefill pages x steps, C captured and
+    replayed / R replayed / E eager, host issue ms, span ms, device
+    ms)."""
+    return ", ".join(
+        f"({c['prefill_pages']}x{c['prefill_steps']} "
+        f"{'C' if c['captured'] else 'R' if c['replayed'] else 'E'} "
+        f"{c['issue_s'] * 1e3:.1f} {c['span_s'] * 1e3:.1f} "
+        f"{c['device_s'] * 1e3:.1f})" for c in chunks)
+
+
+def p50_ms(values) -> float:
+    return float(np.percentile(values, 50)) * 1e3 if values \
+        else float("nan")
+
+
+def graph_report(eng, what, chunks, numbers, serve_again=None,
+                 profile_dir=None):
+    """Print a serve's captures, each graph's kernel nodes and replays,
+    and its per-chunk host time beside its TPOT p50 and the card; with
+    `serve_again`, serve the stream once more on the engine (under
+    torch.profiler with `profile_dir`), print its numbers and fail if
+    that captures anything. A dense serve must replay its graphs."""
+    nodes = {graph_label(k): dict(g[2])
+             for k, g in eng._graphs._graphs.items()}
+    log(f"{what}: {captures_line(eng)}; kernel nodes per graph {nodes}")
+    replayed = [c["issue_s"] for c in chunks
+                if c["replayed"] and not c["captured"]]
+    captured = [c["issue_s"] for c in chunks if c["captured"]]
+    eager = [c["issue_s"] for c in chunks if not c["replayed"]]
+    span = [c["span_s"] for c in chunks]
+    log(f"{what}: per-chunk host time p50 {p50_ms(replayed):.3f} ms to "
+        f"enqueue a replay ({len(replayed)} chunks), "
+        f"{p50_ms(captured):.1f} ms to capture and enqueue one "
+        f"({len(captured)}), {p50_ms(eager):.1f} ms to run one eagerly "
+        f"({len(eager)}); chunk span p50 {p50_ms(span):.1f} ms; TPOT p50 "
+        f"{numbers['tpot_p50'] * 1e3:.2f} ms; card {card_line()}")
+    log(f"{what}: chunks (prefill pages x steps, C captured and "
+        f"replayed / R replayed / E eager, host issue ms, span ms, device "
+        f"ms): "
+        + chunk_list(chunks))
+    out = {"captures": sum(eng.captures.values()),
+           "replays": sum(eng._graphs.replays.values()),
+           "chunk_issue_p50_ms": p50_ms(replayed),
+           "capture_chunk_p50_ms": p50_ms(captured),
+           "eager_chunk_p50_ms": p50_ms(eager),
+           "chunk_span_p50_ms": p50_ms(span)}
+    if eng.model.cfg.family == "dense" and not (replayed or captured):
+        raise AssertionError(f"{what}: no chunk replayed a graph")
+    if serve_again:
+        import torch
+        before = dict(eng.captures)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        if profile_dir:
+            rep, prof = profiled(serve_again)
+        else:
+            rep = serve_again()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        if profile_dir:
+            breakdown(prof, wall, profile_dir)
+        tokens = sum(len(r.output) for r in rep)
+        span = [c["span_s"] for c in eng.chunk_log]
+        log(f"{what}: served again, chunks: " + chunk_list(eng.chunk_log))
+        log(f"{what}: served again on the same engine: {wall:.2f} s wall, "
+            f"{tokens} tokens, {tokens / wall:.1f} tokens/s, TTFT p50 "
+            f"{rep.ttft['p50']:.3f} s, TPOT p50 "
+            f"{rep.tpot['p50'] * 1e3:.2f} ms, chunk span p50 "
+            f"{p50_ms(span):.1f} ms over {len(span)} chunks "
+            f"({sum(c['replayed'] for c in eng.chunk_log)} replayed); "
+            f"{captures_line(eng)}; card {card_line()}")
+        out.update(again_tokens_per_s=tokens / wall,
+                   again_ttft_p50=rep.ttft["p50"],
+                   again_tpot_p50=rep.tpot["p50"],
+                   again_span_p50_ms=p50_ms(span))
+        if dict(eng.captures) != before:
+            raise AssertionError(f"{what}: the second serve captured "
+                                 f"{dict(eng.captures)} after {before}")
+    return out
+
+
 def serve_phase(model, params, seed, profile_dir=None, overlap=False,
-                inline=None, what=None):
+                inline=None, what=None, again=False, n_requests=12):
     """Phase 4, or with `overlap` phase 4b (overlap_migrations and
     measured_payback, host pools pinned), printed beside phase 4's
     numbers `inline`; phase 7 runs it on granite-moe-3b-a800m. Returns
@@ -1655,7 +1845,7 @@ def serve_phase(model, params, seed, profile_dir=None, overlap=False,
                         telemetry_stride=16, overlap_migrations=overlap,
                         measured_payback=overlap)
     what = what or ("serve overlap" if overlap else "serve")
-    reqs = phase4_requests(cfg.vocab, seed)
+    reqs = phase4_requests(cfg.vocab, seed)[:n_requests]
     eng = ServingEngine(model, params, ecfg)
     geo = model.cache_geometry(8, ecfg.max_context, ecfg.hbm_fraction)
     log(f"{what}: {len(reqs)} requests, prompts "
@@ -1684,6 +1874,15 @@ def serve_phase(model, params, seed, profile_dir=None, overlap=False,
         writes.append(COUNTS["page_copy"] - before)
         return out
     transformer.write_token_layer = counted_write
+    # the serve chunks the host runs in Python (eagerly, or to capture
+    # them): each writes a token per layer per step
+    traced = []
+    real_chunk = eng._serve_chunk
+
+    def counted_chunk(a, stride, *args):
+        traced.append(stride)
+        return real_chunk(a, stride, *args)
+    eng._serve_chunk = counted_chunk
     gc.collect()            # an earlier phase's engine is not this peak's
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1691,7 +1890,7 @@ def serve_phase(model, params, seed, profile_dir=None, overlap=False,
     torch.cuda.synchronize()
     t0 = time.time()
     try:
-        if profile_dir:
+        if profile_dir and not again:
             rep, prof = profiled(lambda: eng.serve(reqs, num_slots=8,
                                                    seed=seed))
         else:
@@ -1701,7 +1900,9 @@ def serve_phase(model, params, seed, profile_dir=None, overlap=False,
         del eng._measure_migration_spec     # no cycle keeps the engine
         transformer.write_token_layer = real_write
     wall = time.time() - t0
-    if profile_dir:
+    chunks = list(eng.chunk_log)
+    steps_run = eng.steps_run
+    if profile_dir and not again:
         breakdown(prof, wall, profile_dir)
     counts = dict(COUNTS - probe)
     launches = counts.get("paged_attention", 0)
@@ -1718,21 +1919,27 @@ def serve_phase(model, params, seed, profile_dir=None, overlap=False,
         f"launches, peak memory {peak / 1e9:.2f} GB")
     copies = counts.get("page_copy", 0)
     log(f"{what}: row-copy launches {copies / max(steps, 1):.2f} a "
-        f"decode-plane step; {len(writes)} token writes "
-        f"({cfg.num_layers} layers x {steps} steps"
+        f"decode-plane step, {copies / max(steps_run, 1):.2f} a step run; "
+        f"{len(writes)} token writes issued from Python ({cfg.num_layers} "
+        f"layers x {sum(traced)} steps run eagerly or captured"
         f"{' x 2, put back' if cfg.family == 'moe' else ''}), launches "
         f"each {sorted(collections.Counter(writes).items())}")
     if any(w != 1 for w in writes) or (
-            cfg.family != "moe" and len(writes) != cfg.num_layers * steps):
+            cfg.family != "moe" and
+            len(writes) != cfg.num_layers * sum(traced)):
         raise AssertionError(f"{what}: token writes {len(writes)} with "
                              f"launches {collections.Counter(writes)}, not "
-                             f"one launch a layer a step")
+                             f"one launch a layer a step of the "
+                             f"{sum(traced)} steps run in Python")
     numbers = {"tokens_per_s": tokens / wall, "ttft_p50": rep.ttft["p50"],
                "tpot_p50": rep.tpot["p50"], "peak_bytes": peak,
                "hit_rate": summ["mean_hbm_hit_rate"],
                "migrated": summ["migrated_bytes"], "steps": steps,
                "row_copies_per_step": copies / max(steps, 1),
                "token_writes": len(writes)}
+    numbers.update(graph_report(eng, what, chunks, numbers, again and (
+        lambda: eng.serve(phase4_requests(cfg.vocab, seed), num_slots=8,
+                          seed=seed)), again and profile_dir))
     if overlap:
         pinned = sum(t.nbytes for t in (eng.state.k_host, eng.state.v_host))
         if not (eng.state.k_host.is_pinned() and eng.state.v_host.is_pinned()):
@@ -1766,9 +1973,11 @@ def serve_phase(model, params, seed, profile_dir=None, overlap=False,
              if len(r.output) != r.max_new_tokens}
     if bad or short or len(rep.statuses) != len(reqs):
         raise AssertionError(f"serve: statuses {bad}, short outputs {short}")
-    if launches != 2 * cfg.num_layers * steps or steps == 0:
-        raise AssertionError(f"serve: {launches} launches for {steps} "
-                             f"decode steps x {cfg.num_layers} layers x 2")
+    if launches != 2 * cfg.num_layers * steps_run or steps == 0:
+        raise AssertionError(f"serve: {launches} launches for "
+                             f"{steps_run} steps x {cfg.num_layers} "
+                             f"layers x 2 (the decode plane runs every "
+                             f"step)")
     if summ["mean_hbm_hit_rate"] >= 1.0:
         raise AssertionError("serve: the stream never read the host tier")
     return counts, numbers
@@ -2157,8 +2366,10 @@ def faulted_serve_phase(model, params, seed):
             "pool_resize", "logit_poison"}
     if not want <= set(kinds):
         raise AssertionError(f"serve faulted: events {dict(kinds)}")
-    if counts.get("paged_attention", 0) != 2 * cfg.num_layers * steps:
-        raise AssertionError(f"serve faulted: {counts} for {steps} steps")
+    if counts.get("paged_attention", 0) != 2 * cfg.num_layers * \
+            eng.steps_run:
+        raise AssertionError(f"serve faulted: {counts} for "
+                             f"{eng.steps_run} steps")
     if not all(math.isfinite(v) for v in agg.values()) or \
             rec.access.shape[0] == 0:
         raise AssertionError(f"serve faulted: scores {agg}")
@@ -2173,7 +2384,8 @@ def faulted_serve_phase(model, params, seed):
 
 def moe_phase(seed):
     """Phase 7: granite-moe-3b-a800m at its published widths, random
-    bf16 weights: phase 4's serve, then `start` of 4 prompts of 2304
+    bf16 weights: phase 4's serve of its 8 long requests (eager chunks:
+    `engine.EAGER_SERVE_FAMILIES`), then `start` of 4 prompts of 2304
     tokens and `generate(32)`. Returns the launches by path and the
     numbers."""
     import torch
@@ -2182,7 +2394,8 @@ def moe_phase(seed):
 
     model, params = full_width(seed, "granite-moe-3b-a800m")
     cfg = model.cfg
-    serve, numbers = serve_phase(model, params, seed, what="serve moe")
+    serve, numbers = serve_phase(model, params, seed, what="serve moe",
+                                 n_requests=8)
     L, B, S, steps = cfg.num_layers, 4, 2304, 32
     prompts = torch.as_tensor(np.random.default_rng(seed + 1).integers(
         0, cfg.vocab, (B, S)), dtype=torch.int32, device="cuda")
@@ -2367,10 +2580,11 @@ def free_card() -> None:
 
 
 def big_serve_phase(name, seed, overlap=False):
-    """Phases 8 and 9: phase 4's serve (or 4b's, with `overlap`) at the
-    published widths of `name`, random bf16 weights. Prints the weights'
-    and the KV's share of the card. Returns the launches by kernel and
-    the numbers."""
+    """Phases 8 and 9: phase 4's serve (or 4b's, with `overlap`) of its
+    8 long requests (the 4 short ones, which reuse lanes, are phase 4's
+    alone) at the published widths of `name`, random bf16 weights.
+    Prints the weights' and the KV's share of the card. Returns the
+    launches by kernel and the numbers."""
     import torch
     free_card()
     model, params = full_width(seed, name)
@@ -2385,7 +2599,7 @@ def big_serve_phase(name, seed, overlap=False):
         f"{kv_host / 1e9:.2f} GB in the host tier")
     what = f"serve {name}{' overlap' if overlap else ''}"
     counts, numbers = serve_phase(model, params, seed, overlap=overlap,
-                                  what=what)
+                                  what=what, n_requests=8)
     numbers.update(weight_bytes=weights, kv_card_bytes=kv_card,
                    kv_host_bytes=kv_host, card_bytes=total)
     if numbers["peak_bytes"] < weights + kv_card:
@@ -2914,10 +3128,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", metavar="DIR",
-                    help="run the full-width serve under torch.profiler, "
-                    "print where the device time goes and write the "
-                    "profiler's table to DIR (the serve's wall time then "
-                    "includes the profiler's cost)")
+                    help="run the full-width serve's second pass (every "
+                    "chunk captured) under torch.profiler, print where the "
+                    "device time goes and write the profiler's table to "
+                    "DIR (that serve's wall time then includes the "
+                    "profiler's cost)")
     args = ap.parse_args(argv)
 
     import torch
@@ -2971,10 +3186,11 @@ def main(argv=None) -> int:
     phase("family parity", lambda: family_parity_phase(args.seed))
     phase("stream", lambda: stream_parity_phase(args.seed))
     model, params = phase("model", lambda: full_width(args.seed))
+    phase("fused vs eager", lambda: fused_phase(model, params, args.seed))
     serve, inline = phase("serve", lambda: serve_phase(
-        model, params, args.seed, args.profile))
+        model, params, args.seed, args.profile, again=True))
     overlap, overlap_numbers = phase("serve overlap", lambda: serve_phase(
-        model, params, args.seed, overlap=True, inline=inline))
+        model, params, args.seed, overlap=True, inline=inline, again=True))
     sweep = phase("sweep", lambda: sweep_phase(model, params, args.seed))
     faulted, faulted_numbers = phase("serve faulted", lambda:
                                      faulted_serve_phase(model, params,

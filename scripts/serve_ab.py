@@ -8,7 +8,12 @@ in alternating processes on one CUDA card.
 Each process imports one checkout's `chip_smoke.py` and `src/`, builds
 its kernels, makes the full-width model and runs the serve twice (the
 first run pays first-use costs); it prints one line per serve,
-`<label> <run> serve: ... tokens/s ...`; with `--overlap` it then
+`<label> <run> serve: ... tokens/s ...`, and, for a checkout whose
+`serve_phase` takes `again` (the fused drive mode: a new engine's first
+serve captures its chunks as CUDA graphs), the same stream served again
+on the same engine, every chunk a replay,
+`<label> <run> serve: served again on the same engine: ...`; with
+`--overlap` it then
 runs phase 4b (overlap mode, pinned host pools) twice as well,
 `<label> <run> serve overlap: ...`, and its measured payback line;
 with `--big NAME` then once phase 9's overlap serve of the config
@@ -37,6 +42,7 @@ def one(tree: str, label: str, overlap: bool = False,
     with `overlap`, then one of phase 9's overlap serve of `big`)."""
     os.chdir(tree)
     sys.path[:0] = [tree, os.path.join(tree, "src")]
+    import inspect
     import torch
     import chip_smoke as cs
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -46,8 +52,13 @@ def one(tree: str, label: str, overlap: bool = False,
         build.build_all()
         model = cs.full_width(0)
 
+        if "again" in inspect.signature(cs.serve_phase).parameters:
+            kw_again = {"again": True}
+        else:
+            kw_again = {}
+
         def serve(**kw):
-            cs.serve_phase(*model, 0, **kw)
+            cs.serve_phase(*model, 0, **kw, **kw_again)
     else:
         from repro_torch.kernels import paged_attention as pa
         pa.build()
@@ -61,6 +72,7 @@ def one(tree: str, label: str, overlap: bool = False,
             fn()
         for line in buf.getvalue().splitlines():
             if " s wall" in line or "measured payback" in line:
+                line = line.split("; captures")[0]
                 print(label, run, line, flush=True)
     for kw in ({}, {"overlap": True}) if overlap else ({},):
         for run in range(2):

@@ -80,7 +80,7 @@ def tiered_paged_attention(
         # two launches take tens of microseconds, less than the stream
         # switches cost the host, and run one after the other below.
         main = torch.cuda.current_stream(q.device)
-        side = _side_stream(q.device)
+        side = side_stream(q.device)
         side.wait_stream(main)
         with torch.cuda.stream(side):
             out_e, m_e, l_e, lse_e = tier_attention(
@@ -103,8 +103,10 @@ def tiered_paged_attention(
 _SIDE: Dict[torch.device, "torch.cuda.Stream"] = {}
 
 
-def _side_stream(device: torch.device) -> "torch.cuda.Stream":
-    """The stream of `device` the host-tier launches run on."""
+def side_stream(device: torch.device) -> "torch.cuda.Stream":
+    """The stream of `device` the host-tier launches run on (made at
+    first use; the serve engine makes it before any CUDA-graph
+    capture)."""
     if device not in _SIDE:
         _SIDE[device] = torch.cuda.Stream(device)
     return _SIDE[device]

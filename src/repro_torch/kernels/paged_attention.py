@@ -118,21 +118,30 @@ def scratch_layout(B: int, KH: int, G: int, HD: int, N: int,
 _TICKETS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 
 
+#: ticket sets made at once on a card: one per launch that may run
+#: concurrently (`ops.tiered_paged_attention`'s two tiers)
+TICKET_SETS = 2
+
+
 def _tickets(device: torch.device, ticket_set: int, n: int) -> torch.Tensor:
     """The kernel's per-(b, kh) ticket counters, one set per
     `ticket_set` (launches that may run at once use different sets):
     zeroed once here, and left zero by every launch (the last CTA of
     each (b, kh) resets its counter), so CUDA-graph replays reuse them.
-    Grown, never shrunk."""
-    key = (device, ticket_set)
-    t = _TICKETS.get(key)
+    Every set of a card is made at its first launch, so a graph
+    captured later finds them all. Grown, never shrunk."""
+    t = _TICKETS.get((device, ticket_set))
     if t is None or t.numel() < n:
         if torch.cuda.is_current_stream_capturing():
             raise RuntimeError("paged_attention: call it once outside CUDA-"
                                "graph capture first (its ticket counters "
                                "must outlive the graph)")
-        t = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
-        _TICKETS[key] = t
+        for s in range(max(TICKET_SETS, ticket_set + 1)):
+            old = _TICKETS.get((device, s))
+            if old is None or old.numel() < n:
+                _TICKETS[(device, s)] = torch.zeros(
+                    max(n, 4096), dtype=torch.int32, device=device)
+        t = _TICKETS[(device, ticket_set)]
     return t
 
 

@@ -13,7 +13,7 @@ its plain version on the CPU), rows indexed by the plan's own tensors:
 one launch gathers a plan's four page lists, one scatters them.
 The reference routes sentinel rows to out-of-bounds indices and drops
 them; here the copy skips rows whose indices are out of range, and the
-table rewrites filter them by mask. On the card that is no host sync,
+table rewrites send them to a spare element. On the card that is no host sync,
 whether the host pools lie in HBM (inline mode) or in pinned host
 memory (overlap mode), and `commit_async` runs the copies on a side
 stream concurrently with the decode compute.
@@ -132,8 +132,20 @@ def _in(idx, bound):
     return (idx >= 0) & (idx < bound)
 
 
-def _rows(ok, *idx):
-    return tuple(i[ok].long() for i in idx)
+def _scatter(table: torch.Tensor, ok: torch.Tensor, at, values
+             ) -> torch.Tensor:
+    """`table` [L, B, P] with table[at] = values at the rows `ok` keeps,
+    in fixed shapes: every row computes its flat target, and the rows
+    `ok` drops write a spare element past the end instead (no boolean
+    indexing, so no host sync)."""
+    L, B, P = table.shape
+    layer, lane, slot = (i.long() for i in at)
+    flat = torch.cat([table.reshape(-1), table.new_zeros(1)])
+    target = torch.where(ok, (layer * B + lane) * P + slot, L * B * P)
+    values = values.to(table.dtype) if torch.is_tensor(values) else \
+        torch.full(target.shape, values, dtype=table.dtype,
+                   device=table.device)
+    return flat.index_put((target,), values)[:-1].view(L, B, P)
 
 
 def scatter_staged(cache: PagedKVCache, plan: MigrationPlan,
@@ -156,7 +168,8 @@ def scatter_staged(cache: PagedKVCache, plan: MigrationPlan,
 def commit_tables(cache: PagedKVCache, plan: MigrationPlan
                   ) -> PagedKVCache:
     """The table half of `commit_staged`: owner maps and page table
-    rewritten for the plan's in-range rows."""
+    rewritten for the plan's in-range rows, in fixed shapes (`_scatter`),
+    so a CUDA graph can hold it."""
     L = cache.k_hbm.shape[0]
     B = cache.k_hbm.shape[1]
     hbm_pages = cache.k_hbm.shape[2]
@@ -168,27 +181,27 @@ def commit_tables(cache: PagedKVCache, plan: MigrationPlan
     p_ok = _in(plan.pro_layer, L) & (p_b < B)
 
     # ---- owner maps: clear vacated slots FIRST, then record arrivals ---
-    hbm_owner = cache.hbm_owner.clone()
-    ok = d_ok & _in(plan.dem_src, hbm_pages)
-    hbm_owner[_rows(ok, plan.dem_layer, d_b, plan.dem_src)] = NO_SLOT
-    ok = p_ok & _in(plan.pro_dst, hbm_pages)
-    hbm_owner[_rows(ok, plan.pro_layer, p_b, plan.pro_dst)] = \
-        plan.pro_logical[ok]
-    host_owner = cache.host_owner.clone()
-    ok = p_ok & _in(plan.pro_src, host_pages)
-    host_owner[_rows(ok, plan.pro_layer, p_b, plan.pro_src)] = NO_SLOT
-    ok = d_ok & _in(plan.dem_dst, host_pages)
-    host_owner[_rows(ok, plan.dem_layer, d_b, plan.dem_dst)] = \
-        plan.dem_logical[ok]
+    hbm_owner = _scatter(cache.hbm_owner,
+                         d_ok & _in(plan.dem_src, hbm_pages),
+                         (plan.dem_layer, d_b, plan.dem_src), NO_SLOT)
+    hbm_owner = _scatter(hbm_owner, p_ok & _in(plan.pro_dst, hbm_pages),
+                         (plan.pro_layer, p_b, plan.pro_dst),
+                         plan.pro_logical)
+    host_owner = _scatter(cache.host_owner,
+                          p_ok & _in(plan.pro_src, host_pages),
+                          (plan.pro_layer, p_b, plan.pro_src), NO_SLOT)
+    host_owner = _scatter(host_owner, d_ok & _in(plan.dem_dst, host_pages),
+                          (plan.dem_layer, d_b, plan.dem_dst),
+                          plan.dem_logical)
 
     # ---- page table --------------------------------------------------------
-    page_table = cache.page_table.clone()
-    ok = d_ok & _in(plan.dem_logical, max_pages)
-    page_table[_rows(ok, plan.dem_layer, d_b, plan.dem_logical)] = \
-        plan.dem_dst[ok] + hbm_pages
-    ok = p_ok & _in(plan.pro_logical, max_pages)
-    page_table[_rows(ok, plan.pro_layer, p_b, plan.pro_logical)] = \
-        plan.pro_dst[ok]
+    page_table = _scatter(cache.page_table,
+                          d_ok & _in(plan.dem_logical, max_pages),
+                          (plan.dem_layer, d_b, plan.dem_logical),
+                          plan.dem_dst + hbm_pages)
+    page_table = _scatter(page_table, p_ok & _in(plan.pro_logical, max_pages),
+                          (plan.pro_layer, p_b, plan.pro_logical),
+                          plan.pro_dst)
 
     return dataclasses.replace(cache, page_table=page_table,
                                hbm_owner=hbm_owner, host_owner=host_owner)

@@ -35,9 +35,10 @@ importance — are replaced by new tensors. A cache object taken before
 a step therefore still holds the pre-step tables, which is what
 `control.lane_merge` relies on. Scatters the reference routes to an
 out-of-bounds sentinel and drops (`mode="drop"`) carry index -1 into
-the pools, which the row copy skips, and are filtered by mask before
-indexing the tables; nothing indexes a table with -1, which would
-wrap.
+the pools, which the row copy skips, and write a spare element past
+the end of the tables; nothing indexes a table with -1, which would
+wrap, and nothing indexes one by a boolean mask, which would read the
+mask back to the host.
 """
 
 from __future__ import annotations
@@ -322,9 +323,12 @@ def allocate_prompt_pages(cache: PagedKVCache, pos: torch.Tensor,
         .expand_as(pos)
 
     def put(table, sel, col):
-        out = table.clone()
-        out[:, lane[sel], col[sel].long()] = page[sel]
-        return out
+        # fixed shapes: the rows `sel` drops write a spare column
+        P = table.shape[2]
+        out = torch.cat([table, table.new_zeros(table.shape[:2] + (1,))],
+                        dim=2)
+        out[:, lane, torch.where(sel, col, P).long()] = page
+        return out[..., :P].contiguous()
 
     in_table = valid & (page >= 0) & (page < max_pages)
     in_hbm = in_table & (page < hbm_pages)

@@ -260,12 +260,10 @@ def mask_write_visible(cache: PagedKVCache, logical_page_mask):
     mask (the step's own K/V lands there), or None."""
     if logical_page_mask is None:
         return None
-    B = cache.length.shape[0]
     T = cache.k_hbm.shape[3]
     logical = (cache.length // T).clamp_max(cache.page_table.shape[2] - 1)
-    mask = logical_page_mask.clone()
-    mask[..., torch.arange(B, device=mask.device), logical.long()] = True
-    return mask
+    pages = torch.arange(logical_page_mask.shape[-1], device=logical.device)
+    return logical_page_mask | (pages[None, None, :] == logical[None, :, None])
 
 
 def _bump_valid(valid, slot, offset, T, *, hbm: bool, hbm_pages: int):
@@ -450,17 +448,18 @@ def decoder_prefill_chunk(params, cfg: ModelConfig, cache: PagedKVCache,
     """Consume a [B, C] prompt slice directly into the paged cache.
 
     Token j of lane b sits at absolute position start[b] + j and is
-    real while j < n_valid[b]. Only lanes with n_valid > 0 run the
-    forward (the others' rows of the reference's output are discarded
-    by every caller); their logits rows here are zeros. `end` (a host
+    real while j < n_valid[b]. All B lanes run the forward at fixed
+    shapes, as in the reference: a lane with n_valid 0 writes nothing,
+    and its logits rows are discarded by every caller. So the host never
+    reads `n_valid`, and a CUDA graph can hold the call. `end` (a host
     int, optional): a bound on every lane's start + n_valid, which
     limits the slots the attention reads to those the slice can see —
     the caller knows it without reading the device. With `all_lanes`
     (the moe family, whose routing groups all B x C rows, idle lanes
-    and padding slots included) every lane runs over its whole pools,
-    as in the reference, and `end` is not used. Returns (logits
-    [B, C, V], updated cache); the logits at slice index n_valid-1 are
-    those of the last consumed prompt position.
+    and padding slots included) every lane reads its whole pools, as in
+    the reference, and `end` is not used. Returns (logits [B, C, V],
+    updated cache); the logits at slice index n_valid-1 are those of
+    the last consumed prompt position.
     """
     B, C = tokens.shape
     T = cache.k_hbm.shape[3]
@@ -469,20 +468,16 @@ def decoder_prefill_chunk(params, cfg: ModelConfig, cache: PagedKVCache,
         else min(-(-end // T), Ph + Pe)
     seen = (min(pages, Ph), max(pages - Ph, 0))
     pos, page, offset, valid = chunk_coords(T, C, start, n_valid)
-    lanes = torch.arange(B, device=tokens.device) if all_lanes \
-        else torch.nonzero(n_valid > 0).flatten()
-    logits = torch.zeros((B, C, cfg.vocab), dtype=cfg.dtype,
-                         device=tokens.device)
-    if lanes.numel():
-        h = embed_tokens(params, cfg, tokens[lanes])
-        sel = (pos[lanes], page[lanes], offset[lanes], valid[lanes])
-        for l, (lp, ffn) in enumerate(blocks):
-            pools = (cache.k_hbm[l], cache.v_hbm[l], cache.k_host[l],
-                     cache.v_host[l])
-            h = prefill_chunk_attn(h, lp, cfg, pools, *sel, lanes, seen)
-            h = ffn(h)
-        h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-        logits[lanes] = unembed(params, cfg, h).to(cfg.dtype)
+    lanes = torch.arange(B, device=tokens.device)
+    h = embed_tokens(params, cfg, tokens)
+    for l, (lp, ffn) in enumerate(blocks):
+        pools = (cache.k_hbm[l], cache.v_hbm[l], cache.k_host[l],
+                 cache.v_host[l])
+        h = prefill_chunk_attn(h, lp, cfg, pools, pos, page, offset, valid,
+                               lanes, seen)
+        h = ffn(h)
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    logits = unembed(params, cfg, h).to(cfg.dtype)
     cache = allocate_prompt_pages(cache, pos, valid, n_valid)
     return logits, cache
 

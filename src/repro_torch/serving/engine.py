@@ -53,16 +53,47 @@ the step; the next step waits for them before it touches the pools.
 pools at serve start and recalibrates `cost_aware` from the measured
 link bandwidth.
 
-The reference runs each boundary-to-boundary chunk as one `lax.scan`;
-here it is a Python loop over the steps, and the reference's two
-`lax.cond` skips (no decoding lane, no prefill demand) are host `if`s —
-one device sync each per step.
+Fused chunks (the reference's `lax.scan` executables): `run`,
+`generate` and each boundary-to-boundary chunk of `serve` are one chunk
+function of `telemetry_stride` steps that reads its inputs from tensors
+at fixed addresses (the arena: cache pools and tables, policy state,
+per-lane carries, the fault plane's per-step caps and poison rows),
+makes no decision on a device value, writes its final state back into
+the arena in place and returns its per-step rows, read back once per
+chunk. On the card `serving.graphs.ChunkGraphs` captures it as one CUDA
+graph per key and replays it (`ServingEngine.captures` counts the
+captures, the reference's executable cache). A serve key is
+(drive mode, policy, overlap, trace capture, sampling, EOS, prefill
+budget, prefill plane); the prefill plane is (pages, steps): the pages
+it reads, rounded up to a power of two and capped at the lane's
+`max_pages` (`prefill_buckets`), and the chunk's leading steps it runs
+on — those the slowest prefilling lane needs, rounded up to a multiple
+of a quarter of the stride (`step_buckets`), all of them under a
+prefill budget — or (0, 0) when no lane prefills at the chunk's start,
+which leaves the plane out of the chunk (`prefill_plane`). So a serve
+holds at most `serve_graph_bound(geo, stride)` = 1 +
+`len(step_buckets(stride))` (at most 4) x
+`len(prefill_buckets(geo.max_pages))` graphs per (policy, overlap), 41
+at phase 4's geometry, and a `run`/`generate` one per chunk length.
+The reference's two `lax.cond` skips are masked planes here: both run
+every step, and a 0-dim device flag makes a plane with no lane in it
+an exact no-op — a decode plane with no decoding lane commits nothing
+(its migration cap is 0), keeps the policy state and the staged plan,
+and writes no pool row; a prefill lane of n_valid 0 writes nothing.
+Both are also left out where the host knows them empty: the prefill
+plane after its steps.
+`step()` stays eager, as the reference's. `run`/`generate` capture
+for every family they drive (those with a paged cache); `serve`
+captures for the dense family, and the moe family's serve runs the same
+chunk function eagerly (`EAGER_SERVE_FAMILIES`).
 
 `serve(faults=FaultPlane(...))` folds a seeded fault schedule into the
 stream at chunk boundaries (`serving.faults`): tier faults reprice the
-telemetry and recalibrate cost_aware, migration faults cap each step's
-committed rows, pool faults resize the scheduler's pool, poison faults
-NaN a lane's logits, which the non-finite guard quarantines; repeated
+telemetry and recalibrate cost_aware (in place, so a graph reads the
+new thresholds), migration faults cap each step's committed rows (a
+[stride] int32 row of the arena), pool faults resize the scheduler's
+pool, poison faults (a [stride, B] bool row, all False without a
+fault) NaN a lane's logits, which the non-finite guard quarantines; repeated
 commit drops or a tier ratio past `fallback_tier_ratio` fall back to
 static placement (every commit capped at 0). `serve(slo=SLOPolicy(...))`
 sheds queued requests whose projected TTFT already misses their tier's
@@ -88,21 +119,105 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.latency_model import StepTraffic, step_latency
 from repro_torch.core.tiers import H100, MemorySystemSpec
+from repro_torch.kernels import ops
 from repro_torch.kvcache.migrate import (
     MigrationPlan, apply_migrations, commit_async,
 )
-from repro_torch.kvcache.paged import PagedKVCache, init_cache
+from repro_torch.kvcache.paged import NO_SLOT, PagedKVCache, init_cache
 from repro_torch.models.model import Model
 from repro_torch.serving import control
 from repro_torch.serving.faults import FaultPlane, throttle_plan
+from repro_torch.serving.graphs import ChunkGraphs
 from repro_torch.serving.policies import make_policy, policy_names
 from repro_torch.serving.sampling import (
-    SamplingConfig, lane_generator, make_sampler,
+    SamplingConfig, lane_key, make_sampler,
 )
 from repro_torch.serving.scheduler import (
     ContinuousBatcher, Request, RequestError,
 )
 from repro_torch.serving.slo import SLOPolicy
+from repro_torch.tree import tree_leaves, tree_map
+
+#: families whose serve chunks run eagerly on the card, not captured:
+#: moe's prefill plane routes every lane over its whole pools and its
+#: expert dispatch is materialized (ROADMAP queue 1)
+EAGER_SERVE_FAMILIES = ("moe",)
+
+
+def prefill_buckets(max_pages: int) -> tuple:
+    """The page counts a serve chunk's prefill plane may read: powers of
+    two below `max_pages`, then `max_pages`."""
+    out, b = [], 1
+    while b < max_pages:
+        out.append(b)
+        b *= 2
+    return tuple(out) + (max_pages,)
+
+
+def step_buckets(stride: int) -> tuple:
+    """The step counts a serve chunk's prefill plane may run: multiples
+    of a quarter of `stride` (rounded up) below it, then `stride`."""
+    q = -(-stride // 4)
+    return tuple(range(q, stride, q)) + (stride,)
+
+
+def prefill_plane(view, stride: int, chunk: int, page_tokens: int,
+                  max_pages: int, budgeted: bool):
+    """(pages, steps) of the prefill plane of a serve chunk that starts
+    at `view`: (0, 0) when no lane is prefilling (none can start inside
+    the chunk); else the plane runs on the chunk's first `steps` steps —
+    the steps the slowest prefilling lane needs at `chunk` tokens a step,
+    rounded up to a step bucket, or all `stride` under a prefill budget,
+    which may delay any of them — over the smallest page bucket that
+    holds every prefilling lane's last slice. After the steps a lane
+    needs it has no prompt left, so the plane is a no-op for it."""
+    pf = view.active & (view.prefilled < view.prompt_len)
+    if not pf.any():
+        return 0, 0
+    left = view.prompt_len[pf] - view.prefilled[pf]
+    need = stride if budgeted else int((-(-left // chunk)).max())
+    steps = next((b for b in step_buckets(stride) if b >= need), stride)
+    end = int(np.minimum(view.prefilled[pf] + steps * chunk,
+                         view.prompt_len[pf]).max())
+    pages = -(-end // page_tokens)
+    return next(b for b in prefill_buckets(max_pages) if b >= pages), steps
+
+
+def serve_graph_bound(geo, stride: int) -> int:
+    """The most graphs a serve captures per (policy, overlap, trace
+    capture, sampling, EOS, prefill budget): one with no prefill plane,
+    and one per (page bucket, step bucket)."""
+    return 1 + len(step_buckets(stride)) * len(prefill_buckets(geo.max_pages))
+
+
+def _keep_unless(flag: torch.Tensor, new, old):
+    """`new` where the 0-dim bool `flag` is set, else `old`, leaf by
+    leaf (a skipped plane's state, on the device)."""
+    return tree_map(lambda n, o: n if n is None else torch.where(flag, n, o),
+                    new, old)
+
+
+def _write_back(arena, tree) -> None:
+    """Copy `tree`'s leaves into the arena's, in place, where they are
+    other tensors (pools written in place already are the same)."""
+    for dst, src in zip(tree_leaves(arena), tree_leaves(tree)):
+        if dst is not None and dst is not src:
+            dst.copy_(src)
+
+
+def _same_layout(a, b) -> bool:
+    """Whether two trees have the same structure and leaf shapes,
+    dtypes and devices."""
+    la, lb = tree_leaves(a), tree_leaves(b)
+    if len(la) != len(lb):
+        return False
+    for x, y in zip(la, lb):
+        if (x is None) != (y is None):
+            return False
+        if x is not None and (x.shape != y.shape or x.dtype != y.dtype
+                              or x.device != y.device):
+            return False
+    return True
 
 def _get_cache(state) -> PagedKVCache:
     """The paged cache of a decode state (encdec: its "kv")."""
@@ -383,6 +498,29 @@ class ServingEngine:
         #: run on, and the event of the last commit's copies
         self._copy_stream = None
         self._commit_done = None
+        #: the fused chunks' graphs (see the module docstring) and the
+        #: arenas they read: serve's, and run/generate's
+        self._graphs = ChunkGraphs(self.device)
+        self._serve_arena = None
+        self._serve_arena_key = None
+        self._stream_arena = None
+        #: steps the fused chunks ran, eagerly or replayed
+        self.steps_run = 0
+        #: per serve chunk of the last `serve`: {"prefill_pages",
+        #: "prefill_steps": its prefill plane, "replayed": whether a
+        #: graph ran it, "captured": whether it captured that graph
+        #: first, "issue_s": host seconds to run (or capture) and
+        #: enqueue it, "span_s": the same up to its rows read back,
+        #: "device_s": CUDA-event seconds on the current stream (None
+        #: off the card)}
+        self.chunk_log: List[dict] = []
+
+    @property
+    def captures(self):
+        """Graph captures by key (a Counter; empty off the card): the
+        counterpart of the reference's `_serve_jit._cache_size()`. A
+        stream served again on the same engine captures nothing."""
+        return self._graphs.captures
 
     # ------------------------------------------------------------------ #
     def _setup(self, geo):
@@ -421,9 +559,10 @@ class ServingEngine:
         encdec's "kv"). Returns (logits, state, pstate, stats): stats is
         (telemetry [4],) or, with `cfg.trace_telemetry`, (telemetry,
         read set bool [L, B, P], read-time placement int8 [L, B, P]).
-        `mig_cap` (a host int, serve only): the fault plane's cap on the
-        step's committed promote rows; the telemetry counts the
-        committed moves."""
+        `mig_cap` (a 0-dim int32 device tensor, serve only): the fault
+        plane's cap on the step's committed promote rows, applied every
+        step (`throttle_plan`; the plan's capacity leaves it whole); the
+        telemetry counts the committed moves."""
         cache = _get_cache(state)
         sparsity = self.cfg.attention_sparsity
         write_slot = control.choose_write_slot(cache)
@@ -444,7 +583,7 @@ class ServingEngine:
         occ = control.occupancy(cache)
         plan, pstate, (n_pro, n_dem) = self._policy.plan(
             cache, pstate, active, self._budget, read_mask=read)
-        if mig_cap is not None and mig_cap < plan.capacity:
+        if mig_cap is not None:
             plan = throttle_plan(plan, mig_cap)
             n_pro, n_dem = plan.row_counts()
         moves = torch.stack([n_pro, n_dem]).to(torch.int32)
@@ -465,10 +604,11 @@ class ServingEngine:
         one step ago against the post-decode owner maps, cap it by the
         fault plane's `mig_cap`, commit it, then plan the next on the
         post-commit cache with this step's read set as the one-step-ahead
-        oracle. Returns (logits, cache, pstate, staged, stats); stats is
-        (telemetry [4],) — pre-commit occupancy and the committed moves —
-        or, with `cfg.trace_telemetry`, also the read set and the
-        PRE-commit placement this step's attention read."""
+        oracle. `mig_cap` is a 0-dim int32 device tensor, as
+        `_decode`'s. Returns (logits, cache, pstate, staged, stats);
+        stats is (telemetry [4],) — pre-commit occupancy and the
+        committed moves — or, with `cfg.trace_telemetry`, also the read
+        set and the PRE-commit placement this step's attention read."""
         sparsity = self.cfg.attention_sparsity
         write_slot = control.choose_write_slot(cache)
         mask = control.quest_page_mask(cache, sparsity) \
@@ -486,7 +626,7 @@ class ServingEngine:
         tiers = control.page_tiers(cache) if self.cfg.trace_telemetry \
             else None
         commit = control.revalidate_plan(staged, cache)
-        if mig_cap is not None and mig_cap < commit.capacity:
+        if mig_cap is not None:
             commit = throttle_plan(commit, mig_cap)
         n_pro, n_dem = commit.row_counts()
         if self._copy_stream is not None:
@@ -514,18 +654,93 @@ class ServingEngine:
                            for col in zip(*rows)))
 
     def step(self, token: torch.Tensor) -> torch.Tensor:
-        """One decode step + one telemetry readback."""
+        """One decode step + one telemetry readback (eager, as the
+        reference's `step`)."""
         _require_cache(self.state, self.model.cfg.family)
         logits, self.state, self._pstate, stats = self._decode(
             self.state, self._pstate, token.to(self.device))
         self._readback([stats])
         return logits
 
+    def _bind_stream_arena(self, batch: int):
+        """The run/generate arena holding the current decode state and
+        policy state: the one already there, with the states copied in
+        place, when its layout matches (graphs captured over it stay
+        valid); else the states themselves become the arena, and the
+        old one's graphs are dropped."""
+        a = self._stream_arena
+        state, pstate = self.state, self._pstate
+        if a is None or not _same_layout(a["state"], state) or \
+                not _same_layout(a["pstate"], pstate) or \
+                a["token"].shape[0] != batch or \
+                a["tokens"].shape[0] != max(1, self.cfg.telemetry_stride):
+            self._graphs.drop(lambda key: key[0] in ("run", "generate"))
+            i32 = dict(dtype=torch.int32, device=self.device)
+            a = self._stream_arena = {
+                "state": state, "pstate": pstate,
+                "tokens": torch.zeros(
+                    (max(1, self.cfg.telemetry_stride), batch), **i32),
+                "token": torch.zeros((batch,), **i32)}
+        _write_back(a["state"], state)
+        _write_back(a["pstate"], pstate)
+        self.state, self._pstate = a["state"], a["pstate"]
+        return a
+
+    def _stream_chunk(self, a, n: int, mode: str):
+        """`n` fused decode steps over the arena `a` (the reference's
+        `chunk_fn` for mode "run": teacher-forced from a["tokens"][:n];
+        `gen_fn` for "generate": greedy from a["token"]). Writes the
+        final states (and the last token) back into the arena and
+        returns (logits [n, B, V] or tokens [n, B], stats rows stacked
+        [n, ...])."""
+        state, pstate, token = a["state"], a["pstate"], a["token"]
+        outs, rows = [], []
+        for i in range(n):
+            tok = a["tokens"][i] if mode == "run" else token
+            logits, state, pstate, stats = self._decode(state, pstate, tok)
+            if mode == "run":
+                outs.append(logits)
+            else:
+                token = logits.argmax(dim=-1).to(torch.int32)
+                outs.append(token)
+            rows.append(stats)
+        _write_back(a["state"], state)
+        _write_back(a["pstate"], pstate)
+        if mode == "generate":
+            a["token"].copy_(token)
+        return torch.stack(outs), tuple(torch.stack(col)
+                                        for col in zip(*rows))
+
+    def _stream_chunks(self, mode: str, steps: int, tokens=None,
+                       token=None) -> torch.Tensor:
+        """Drive `steps` fused steps in chunks of `telemetry_stride`,
+        one readback each, through graphs on the card."""
+        stride = max(1, self.cfg.telemetry_stride)
+        batch = (tokens if tokens is not None else token).shape[-1]
+        a = self._bind_stream_arena(batch)
+        if token is not None:
+            a["token"].copy_(token)
+        out = []
+        for s in range(0, steps, stride):
+            n = min(stride, steps - s)
+            if tokens is not None:
+                a["tokens"][:n].copy_(tokens[s:s + n])
+
+            def chunk():
+                return self._stream_chunk(a, n, mode)
+            key = (mode, self.cfg.policy, self.cfg.trace_telemetry, n)
+            res, stats = self._graphs.run(key, chunk)
+            self.steps_run += n
+            # a replay overwrites the graph's outputs: keep a copy
+            out.append(res.clone())
+            self._record(tuple(col.cpu().numpy() for col in stats))
+        return torch.cat(out)
+
     def run(self, tokens: torch.Tensor) -> torch.Tensor:
         """Teacher-forced decode. tokens [K, B] -> logits [K, B, V].
 
-        Chunks of `telemetry_stride` steps with one telemetry readback
-        per chunk; the same logits and StepStats as K calls of
+        Fused chunks of `telemetry_stride` steps with one telemetry
+        readback per chunk; the same logits and StepStats as K calls of
         `step()`."""
         _require_cache(self.state, self.model.cfg.family)
         tokens = tokens.to(self.device, torch.int32)
@@ -533,38 +748,18 @@ class ServingEngine:
         if K == 0:
             return torch.zeros((0, tokens.shape[1], self.model.cfg.vocab),
                                device=self.device)
-        stride = max(1, self.cfg.telemetry_stride)
-        out = []
-        for s in range(0, K, stride):
-            rows = []
-            for tok in tokens[s:s + stride]:
-                logits, self.state, self._pstate, stats = self._decode(
-                    self.state, self._pstate, tok)
-                out.append(logits)
-                rows.append(stats)
-            self._readback(rows)
-        return torch.stack(out)
+        return self._stream_chunks("run", K, tokens=tokens)
 
     def generate(self, token: torch.Tensor, steps: int) -> torch.Tensor:
         """Greedy generation from `token` [B] -> tokens [steps, B], in
-        chunks of `telemetry_stride` steps with one readback each."""
+        fused chunks of `telemetry_stride` steps with one readback
+        each."""
         _require_cache(self.state, self.model.cfg.family)
         token = token.to(self.device, torch.int32)
         if steps == 0:
             return torch.zeros((0,) + token.shape, dtype=torch.int32,
                                device=self.device)
-        stride = max(1, self.cfg.telemetry_stride)
-        out = []
-        for s in range(0, steps, stride):
-            rows = []
-            for _ in range(min(stride, steps - s)):
-                logits, self.state, self._pstate, stats = self._decode(
-                    self.state, self._pstate, token)
-                token = logits.argmax(dim=-1).to(torch.int32)
-                out.append(token)
-                rows.append(stats)
-            self._readback(rows)
-        return torch.stack(out)
+        return self._stream_chunks("generate", steps, token=token)
 
     # ------------------------------------------------------------------ #
     # continuous-batching serve loop (the headline API)
@@ -586,8 +781,9 @@ class ServingEngine:
         that miss their SLO, and admits queued requests. Invalid
         requests are rejected with a typed error; the stream never
         raises on a per-request condition. Greedy by default; sampling
-        draws from one `torch.Generator` per request, seeded from
-        (`seed`, rid).
+        draws from a per-lane key derived from (`seed`, rid)
+        (`sampling.lane_key`) and the request's token count, so a
+        request's tokens do not depend on its batch company.
 
         `faults` (a `FaultPlane`) and `slo` (an `SLOPolicy`) follow the
         reference's boundary logic step for step: per chunk the
@@ -614,9 +810,12 @@ class ServingEngine:
         self._setup(geo)
         self.stats = []
         self._serve_trace_log = []
+        self.chunk_log = []
         self._sampling = sampling or SamplingConfig()
         sampler = make_sampler(self._sampling)
-        pstate = self._pstate
+        overlap = cfg.overlap_migrations
+        stride = max(1, cfg.telemetry_stride)
+        a = self._bind_serve_arena(geo, stride)
         faults = faults if faults is not None else FaultPlane()
         base_spec = cfg.spec
         cap_rows = control.plan_capacity(geo, cfg.migration_budget_frac)
@@ -630,8 +829,7 @@ class ServingEngine:
             measured, detail = self._measure_migration_spec(geo)
             if measured is not None:
                 calib_base = measured
-                pstate = _to_device(self._policy.recalibrate(pstate,
-                                                             measured), dev)
+                self._recalibrate(a, measured)
             events.append({"kind": "payback_measured", "step": 0,
                            **detail})
         last_thresh = calib_base
@@ -641,19 +839,17 @@ class ServingEngine:
         # card), and the staged plan, empty at first — step 0 commits
         # nothing; `stale` marks lanes (re)bound or released since the
         # plan was staged, whose rows are dropped before the next chunk
-        overlap = cfg.overlap_migrations
-        self.state = init_cache(geo, device=dev, host_pinned=overlap)
-        self._copy_stream = torch.cuda.Stream(dev) \
-            if overlap and dev.type == "cuda" else None
+        if overlap and dev.type == "cuda" and self._copy_stream is None:
+            # both side streams exist before any chunk is captured
+            self._copy_stream = torch.cuda.Stream(dev)
+            ops.side_stream(dev)
         self._commit_done = None
-        staged = MigrationPlan.empty(cap_rows, device=dev) \
-            if overlap else None
         stale = np.zeros((B,), bool)
         C = max(1, cfg.prefill_chunk)
-        S_cap = geo.max_tokens
-        Pb = cfg.prefill_budget
         eos = cfg.eos_id
-        credits = torch.zeros((), dtype=torch.int32, device=dev)
+        graphed = fam not in EAGER_SERVE_FAMILIES
+        key = ("serve", cfg.policy, overlap, cfg.trace_telemetry,
+               self._sampling, eos, cfg.prefill_budget, C, stride)
 
         pool = total_pages if total_pages is not None \
             else B * geo.max_pages
@@ -697,12 +893,11 @@ class ServingEngine:
                 due = True
             return due
 
-        stride = max(1, cfg.telemetry_stride)
         hs = {
             "seed": seed,
             "prompt_buf": np.zeros((B, geo.max_tokens), np.int32),
             "token": np.zeros((B,), np.int32),
-            "gens": [None] * B,
+            "keys": np.zeros((B, 2), np.int64),
         }
         live: Dict[int, Request] = {}          # lane -> request
 
@@ -747,11 +942,9 @@ class ServingEngine:
         admit()
         shed_slo()
         view = batcher.device_view()
-        ar_c = torch.arange(C, dtype=torch.int32, device=dev)
-        bidx = torch.arange(B, device=dev)
 
-        def upload(a):
-            return torch.as_tensor(a, device=dev)
+        def upload(x):
+            return torch.as_tensor(x, device=dev)
 
         while batcher.has_work or pending:
             if submit_arrivals():
@@ -784,9 +977,7 @@ class ServingEngine:
             spec_now = faults.spec_at(step0, base_spec)
             thresh_now = faults.spec_at(step0, calib_base)
             if thresh_now != last_thresh:
-                pstate = _to_device(self._policy.recalibrate(pstate,
-                                                             thresh_now),
-                                    dev)
+                self._recalibrate(a, thresh_now)
                 last_thresh = thresh_now
                 events.append({"kind": "payback_recalibration",
                                "step": step0,
@@ -808,135 +999,54 @@ class ServingEngine:
             if fallback:
                 # static fallback: plans exist, none commit
                 caps = np.zeros_like(caps)
-            poison_np = faults.poison_steps(step0, stride, view.rids)
-            poison = upload(poison_np) if poison_np.any() else None
+            poison = faults.poison_steps(step0, stride, view.rids)
             t0 = time.time()
             for req in live.values():
                 if req.admitted_at is None:
                     req.admitted_at = t0
+            # the chunk's inputs, into the arena in place
+            for name, value in (
+                    ("tok", hs["token"]), ("act", view.active),
+                    ("rem", view.remaining), ("prog", view.prefilled),
+                    ("prompt_len", view.prompt_len),
+                    ("prompt_buf", hs["prompt_buf"]), ("keys", hs["keys"]),
+                    ("caps", caps), ("poison", poison), ("stale", stale)):
+                a[name].copy_(torch.as_tensor(value))
+            stale[:] = False
+            plane = prefill_plane(view, stride, C, geo.page_tokens,
+                                  geo.max_pages,
+                                  cfg.prefill_budget is not None)
 
-            cache = self.state
-            tok = upload(hs["token"])
-            act = upload(view.active)
-            rem = upload(view.remaining)
-            prog = upload(view.prefilled)
-            prompt_len = upload(view.prompt_len)
-            prompt_buf = upload(hs["prompt_buf"])
-            gens = hs["gens"]
-            rows = {"emitted": [], "first": [], "failed": [], "pf": [],
-                    "base": []}
-            if capture:
-                rows.update(access=[], tier=[])
-            if overlap:
-                staged = control.mask_plan_lanes(staged, upload(stale))
-                stale[:] = False
-            for n_step in range(stride):
-                pf, dec = control.lane_modes(act, prog, prompt_len)
-                cap = int(caps[n_step])
-                # decode plane: skipped on steps with no decoding lane
-                # (its stats row is filtered at the boundary anyway; in
-                # overlap mode the staged plan waits)
-                if bool(dec.any()):
-                    if overlap:
-                        logits, cache, pstate, staged, stats = \
-                            self._decode_overlap(cache, pstate, staged,
-                                                 tok, dec, mig_cap=cap)
-                    else:
-                        logits, cache, pstate, stats = self._decode(
-                            cache, pstate, tok, dec, mig_cap=cap)
-                    if poison is not None:
-                        logits = torch.where((dec & poison[n_step])[:, None],
-                                             float("nan"), logits)
-                    # non-finite sampling guard: such a lane emits
-                    # nothing, flips inactive, and completes "failed"
-                    bad = dec & ~torch.isfinite(logits).all(dim=-1)
-                else:
-                    logits = None
-                    base = torch.cat([control.occupancy(cache),
-                                      torch.zeros(2, dtype=torch.int32,
-                                                  device=dev)])
-                    stats = (base, torch.zeros_like(cache.page_table,
-                                                    dtype=torch.bool),
-                             control.page_tiers(cache)) if capture \
-                        else (base,)
-                    bad = torch.zeros_like(dec)
-                if capture:
-                    # decode-plane attribution: a lane's reads count
-                    # while it decodes
-                    rows["access"].append(stats[1] & dec[None, :, None])
-                    rows["tier"].append(stats[2])
-                dec_ok = dec & ~bad
-                if logits is not None:
-                    nxt = sampler(logits, gens, dec_ok)
-                else:
-                    nxt = tok
-                rem = rem - dec_ok.to(rem.dtype)
-                fin = dec_ok & (rem <= 0)
-                if eos is not None:
-                    fin = fin | (dec_ok & (nxt == eos))
-                emitted = torch.where(dec_ok, nxt, -1)
-                tok = torch.where(dec_ok, nxt, tok)
-                act = act & ~fin & ~bad
-
-                # prefill plane: a C-token slice per prefilling lane
-                n_val = torch.where(pf, (prompt_len - prog).clamp(0, C),
-                                    0).to(torch.int32)
-                if Pb is not None:
-                    # per-batch token bucket: run the prefill plane only
-                    # when the accrued budget covers the step's demand
-                    want_tot = n_val.sum().to(torch.int32)
-                    credits = torch.clamp_max(credits + Pb, B * C)
-                    run_now = credits >= want_tot
-                    n_val = torch.where(run_now, n_val, 0)
-                    credits = credits - torch.where(run_now, want_tot, 0)
-                crossed = torch.zeros_like(pf)
-                bad0 = torch.zeros_like(pf)
-                first = torch.full_like(tok, -1)
-                if bool((n_val > 0).any()):
-                    idx = (prog[:, None] + ar_c).clamp(0, S_cap - 1).long()
-                    sl_toks = torch.gather(prompt_buf, 1, idx)
-                    self._pools_ready()
-                    # every lane's slice ends by here (host-side bound:
-                    # a lane prefills at most C tokens a step)
-                    end = int(np.minimum(view.prefilled + (n_step + 1) * C,
-                                         view.prompt_len).max())
-                    logits_c, cache = self.model.prefill_chunk(
-                        self.params, cache, sl_toks, prog, n_val, end)
-                    prog = prog + n_val
-                    crossed = pf & (prog >= prompt_len)
-                    last = (n_val - 1).clamp(0, C - 1).long()
-                    logits1 = logits_c[bidx, last]
-                    if poison is not None:
-                        # a lane poisoned at its first token fails
-                        # before emitting anything
-                        logits1 = torch.where(
-                            (pf & poison[n_step])[:, None], float("nan"),
-                            logits1)
-                    bad0 = crossed & ~torch.isfinite(logits1).all(dim=-1)
-                    crossed = crossed & ~bad0
-                    tok0 = sampler(logits1, gens, crossed)
-                    first = torch.where(crossed, tok0, -1)
-                    tok = torch.where(crossed, tok0, tok)
-                    rem = rem - crossed.to(rem.dtype)
-                    fin0 = crossed & (rem <= 0)
-                    if eos is not None:
-                        fin0 = fin0 | (crossed & (tok0 == eos))
-                    act = act & ~fin0 & ~bad0
-                rows["emitted"].append(emitted)
-                rows["first"].append(first)
-                rows["failed"].append(bad | bad0)
-                rows["pf"].append(n_val)
-                rows["base"].append(stats[0])
-            self.state = cache
-            self._pools_ready()        # the readback drains the commits
-            out = {k: torch.stack(v).cpu().numpy() for k, v in rows.items()}
+            def chunk():
+                return self._serve_chunk(a, stride, plane, sampler)
+            t_issue = time.perf_counter()
+            replays = sum(self._graphs.replays.values())
+            captures = sum(self._graphs.captures.values())
+            timers = [torch.cuda.Event(enable_timing=True)
+                      for _ in range(2)] if dev.type == "cuda" else None
+            if timers:
+                timers[0].record()
+            rows = self._graphs.run(key + plane, chunk) if graphed \
+                else chunk()
+            if timers:
+                timers[1].record()
+            issued = time.perf_counter() - t_issue
+            self.steps_run += stride
+            out = {k: v.cpu().numpy() for k, v in rows.items()}
+            self.chunk_log.append({
+                "prefill_pages": plane[0], "prefill_steps": plane[1],
+                "replayed": sum(self._graphs.replays.values()) > replays,
+                "captured": sum(self._graphs.captures.values()) > captures,
+                "issue_s": issued, "span_s": time.perf_counter() - t_issue,
+                "device_s": timers[0].elapsed_time(timers[1]) / 1e3
+                if timers else None})
             emitted = out["emitted"]                    # [stride, B]
             first = out["first"]
             pf_tok = out["pf"]
             failed_lane = out["failed"].any(axis=0)      # [B]
-            hs["token"] = tok.cpu().numpy().copy()
-            prog_np = prog.cpu().numpy()
-            done_d = ~act.cpu().numpy()
+            hs["token"] = a["tok"].cpu().numpy().copy()
+            prog_np = a["prog"].cpu().numpy()
+            done_d = ~a["act"].cpu().numpy()
             # telemetry: only steps where at least one lane DECODED,
             # each priced under the spec governing its step
             row_mask = emitted.max(axis=1) >= 0
@@ -1025,8 +1135,8 @@ class ServingEngine:
                     "reaped while queued")
             stale |= release
             if release.any():
-                self.state = control.release_lanes(self.state,
-                                                   upload(release))
+                _write_back(a["cache"], control.release_lanes(
+                    a["cache"], upload(release)))
             delta = faults.pool_delta(step0, stride)
             if delta:
                 batcher.resize_pool(delta)
@@ -1036,9 +1146,202 @@ class ServingEngine:
             shed_slo()
             admit()
             view = batcher.device_view()
-        self._pstate = pstate
         return ServeReport.build(batcher.completed, batcher.rejected,
                                  events, eos_id=cfg.eos_id)
+
+    def _bind_serve_arena(self, geo, stride: int):
+        """The serve arena for `geo`, reset in place for a new stream:
+        the one already there when the geometry, stride and mode match
+        (graphs captured over it stay valid), else a new one, which
+        drops the old one's graphs. Also makes its cache `self.state`.
+
+        Holds the cache, the policy state, the staged plan (overlap
+        mode), the per-lane carries (tok, act, rem, prog, prompt_len,
+        prompt_buf [B, max_tokens], keys [B, 2]), the prefill credits,
+        the fault plane's rows (caps [stride] int32, poison [stride, B]
+        bool) and the lanes gone stale at the boundary."""
+        dev = self.device
+        overlap = self.cfg.overlap_migrations
+        B = geo.batch
+        cap = control.plan_capacity(geo, self.cfg.migration_budget_frac)
+        pstate = _to_device(self._policy.init_state(geo), dev)
+        arena_key = (geo, stride, overlap, self.cfg.policy)
+        a = self._serve_arena
+        if a is None or self._serve_arena_key != arena_key:
+            self._graphs.drop(lambda key: key[0] == "serve")
+            self._serve_arena = None        # free the old pools first
+            i32 = dict(dtype=torch.int32, device=dev)
+            flags = dict(dtype=torch.bool, device=dev)
+            a = {"cache": init_cache(geo, device=dev, host_pinned=overlap),
+                 "pstate": pstate,
+                 "staged": MigrationPlan.empty(cap, device=dev)
+                 if overlap else None,
+                 "tok": torch.zeros((B,), **i32),
+                 "act": torch.zeros((B,), **flags),
+                 "rem": torch.zeros((B,), **i32),
+                 "prog": torch.zeros((B,), **i32),
+                 "prompt_len": torch.zeros((B,), **i32),
+                 "prompt_buf": torch.zeros((B, geo.max_tokens), **i32),
+                 "keys": torch.zeros((B, 2), dtype=torch.int64, device=dev),
+                 "credits": torch.zeros((), **i32),
+                 "caps": torch.zeros((stride,), **i32),
+                 "poison": torch.zeros((stride, B), **flags),
+                 "stale": torch.zeros((B,), **flags)}
+            self._serve_arena, self._serve_arena_key = a, arena_key
+        else:
+            cache = a["cache"]
+            cache.page_table.fill_(NO_SLOT)
+            cache.hbm_owner.fill_(NO_SLOT)
+            cache.host_owner.fill_(NO_SLOT)
+            cache.length.zero_()
+            cache.importance.zero_()
+            _write_back(a["pstate"], pstate)
+            if overlap:
+                _write_back(a["staged"], MigrationPlan.empty(cap, device=dev))
+            a["credits"].zero_()
+        self._pstate = a["pstate"]
+        self.state = a["cache"]
+        return a
+
+    def _recalibrate(self, a, spec) -> None:
+        """The policy state's spec-dependent values re-derived for
+        `spec`, written into the arena in place (a graph reads them)."""
+        _write_back(a["pstate"], _to_device(
+            self._policy.recalibrate(a["pstate"], spec), self.device))
+
+    def _serve_chunk(self, a, stride: int, plane, sampler):
+        """One fused chunk of `stride` MIXED prefill+decode steps over
+        the arena `a` (the reference's `_serve_chunk_impl`).
+
+        Per step the lane modes come from the device carries; the decode
+        plane runs with `dec` as its lanes, and with no decoding lane it
+        is an exact no-op through the 0-dim flag `dec.any()`: its
+        migration cap becomes 0, and the policy state and the staged
+        plan keep their values (`_keep_unless`); `lane_merge` keeps every
+        lane's tables and no pool row is written. The poison row NaNs
+        the logits of its lanes; the non-finite guard quarantines them.
+        The prefill plane (`plane` = (pages, steps), `prefill_plane`'s)
+        runs on the chunk's first `steps` steps, every lane at fixed
+        shapes over the first `pages` pages of each tier's slot space; a
+        lane with n_valid 0 writes nothing. The step a lane's prefill
+        crosses its prompt samples its first token. Writes the carries,
+        tables and policy state back into the arena and returns the
+        per-step rows stacked [stride, ...]: emitted, first, failed, pf
+        (prompt tokens consumed), base (telemetry [4]) and, with trace
+        capture, access and tier."""
+        cfg = self.cfg
+        overlap = cfg.overlap_migrations
+        capture = cfg.trace_telemetry
+        C = max(1, cfg.prefill_chunk)
+        Pb = cfg.prefill_budget
+        eos = cfg.eos_id
+        cache, pstate = a["cache"], a["pstate"]
+        tok, act, rem, prog, credits = (a[k] for k in (
+            "tok", "act", "rem", "prog", "credits"))
+        prompt_len, prompt_buf, keys = (a[k] for k in (
+            "prompt_len", "prompt_buf", "keys"))
+        B, S_cap = prompt_buf.shape
+        dev = prompt_buf.device
+        T = cache.k_hbm.shape[3]
+        pf_pages, pf_steps = plane
+        staged = control.mask_plan_lanes(a["staged"], a["stale"]) \
+            if overlap else None
+        ar_c = torch.arange(C, dtype=torch.int32, device=dev)
+        bidx = torch.arange(B, device=dev)
+        nan = torch.full((), float("nan"), device=dev)
+        rows = {"emitted": [], "first": [], "failed": [], "pf": [],
+                "base": []}
+        if capture:
+            rows.update(access=[], tier=[])
+        self._commit_done = None
+        for n_step in range(stride):
+            pf, dec = control.lane_modes(act, prog, prompt_len)
+            # decode plane: an exact no-op on steps with no decoding
+            # lane (its stats row is filtered at the boundary; in
+            # overlap mode the staged plan waits)
+            live = dec.any()
+            cap = torch.where(live, a["caps"][n_step], 0)
+            if overlap:
+                logits, cache, new_ps, new_staged, stats = \
+                    self._decode_overlap(cache, pstate, staged, tok, dec,
+                                         mig_cap=cap)
+                staged = _keep_unless(live, new_staged, staged)
+            else:
+                logits, cache, new_ps, stats = self._decode(
+                    cache, pstate, tok, dec, mig_cap=cap)
+            pstate = _keep_unless(live, new_ps, pstate)
+            logits = torch.where((dec & a["poison"][n_step])[:, None],
+                                 nan.to(logits.dtype), logits)
+            # non-finite sampling guard: such a lane emits nothing,
+            # flips inactive, and completes "failed"
+            bad = dec & ~torch.isfinite(logits).all(dim=-1)
+            if capture:
+                # decode-plane attribution: a lane's reads count while
+                # it decodes
+                rows["access"].append(stats[1] & dec[None, :, None])
+                rows["tier"].append(stats[2])
+            dec_ok = dec & ~bad
+            nxt = sampler(logits, keys, rem)
+            rem = rem - dec_ok.to(rem.dtype)
+            fin = dec_ok & (rem <= 0)
+            if eos is not None:
+                fin = fin | (dec_ok & (nxt == eos))
+            emitted = torch.where(dec_ok, nxt, -1)
+            tok = torch.where(dec_ok, nxt, tok)
+            act = act & ~fin & ~bad
+
+            # prefill plane: a C-token slice per prefilling lane
+            n_val = torch.where(pf, (prompt_len - prog).clamp(0, C),
+                                0).to(torch.int32)
+            if Pb is not None:
+                # per-batch token bucket: run the prefill plane only
+                # when the accrued budget covers the step's demand
+                want_tot = n_val.sum().to(torch.int32)
+                credits = torch.clamp_max(credits + Pb, B * C)
+                run_now = credits >= want_tot
+                n_val = torch.where(run_now, n_val, 0)
+                credits = credits - torch.where(run_now, want_tot, 0)
+            first = torch.full_like(tok, -1)
+            bad0 = torch.zeros_like(pf)
+            if n_step < pf_steps:
+                idx = (prog[:, None] + ar_c).clamp(0, S_cap - 1).long()
+                sl_toks = torch.gather(prompt_buf, 1, idx)
+                self._pools_ready()
+                logits_c, cache = self.model.prefill_chunk(
+                    self.params, cache, sl_toks, prog, n_val, pf_pages * T)
+                prog = prog + n_val
+                crossed = pf & (prog >= prompt_len)
+                last = (n_val - 1).clamp(0, C - 1).long()
+                # a lane poisoned at its first token fails before
+                # emitting anything
+                logits1 = torch.where(
+                    (pf & a["poison"][n_step])[:, None],
+                    nan.to(logits_c.dtype), logits_c[bidx, last])
+                bad0 = crossed & ~torch.isfinite(logits1).all(dim=-1)
+                crossed = crossed & ~bad0
+                tok0 = sampler(logits1, keys, rem)
+                first = torch.where(crossed, tok0, -1)
+                tok = torch.where(crossed, tok0, tok)
+                rem = rem - crossed.to(rem.dtype)
+                fin0 = crossed & (rem <= 0)
+                if eos is not None:
+                    fin0 = fin0 | (crossed & (tok0 == eos))
+                act = act & ~fin0 & ~bad0
+            rows["emitted"].append(emitted)
+            rows["first"].append(first)
+            rows["failed"].append(bad | bad0)
+            rows["pf"].append(n_val)
+            rows["base"].append(stats[0])
+        self._pools_ready()        # the chunk ends with the commits done
+        self._commit_done = None
+        _write_back(a["cache"], cache)
+        _write_back(a["pstate"], pstate)
+        if overlap:
+            _write_back(a["staged"], staged)
+        for name, value in (("tok", tok), ("act", act), ("rem", rem),
+                            ("prog", prog), ("credits", credits)):
+            a[name].copy_(value)
+        return {k: torch.stack(v) for k, v in rows.items()}
 
     def _measure_migration_spec(self, geo, *, iters: int = 5):
         """Time the migration commit and derive a spec whose link
@@ -1072,13 +1375,13 @@ class ServingEngine:
     def _admit_lane(self, req: Request, hs: Dict) -> None:
         """Bind an admitted request to its cache lane for chunked
         prefill: the prompt row, the carried token, and the request's
-        sampling generator. No device compute."""
+        sampling key, on the host (the next chunk uploads them)."""
         lane = req.lane
         prompt = np.asarray(req.prompt).astype(np.int32).ravel()
         hs["prompt_buf"][lane, :] = 0
         hs["prompt_buf"][lane, :prompt.size] = prompt
         hs["token"][lane] = 0
-        hs["gens"][lane] = lane_generator(hs["seed"], req.rid, self.device)
+        hs["keys"][lane] = lane_key(hs["seed"], req.rid)
 
     # ------------------------------------------------------------------ #
     # telemetry (host side, Eq. (1)-(5) pricing)

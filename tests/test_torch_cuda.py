@@ -897,6 +897,43 @@ def test_xlstm_prefill_and_decode_on_the_card_match_the_cpu(device):
 
 
 
+@pytest.mark.parametrize("overlap", [False, True], ids=["inline", "overlap"])
+def test_fused_serve_replays_its_graphs(device, overlap):
+    """A small f32 stream (phase 3's) through captured chunks: the
+    card's tokens, statuses and step bytes equal the CPU's, the graphs
+    replay, and serving the stream again on the same engine captures
+    nothing, within the bound the cache geometry fixes."""
+    from repro_torch.serving.engine import serve_graph_bound
+    runs, engines = chip_smoke.parity_runs(5, overlap)
+    assert runs["cuda"] == runs["cpu"]
+    eng, _ = engines["cuda"]
+    first = dict(eng.captures)
+    assert first and eng._graphs.replays
+    again = chip_smoke.serve_again(eng, 5)
+    assert again == runs["cuda"]
+    assert dict(eng.captures) == first
+    bound = serve_graph_bound(eng.geo, eng.cfg.telemetry_stride)
+    assert sum(first.values()) <= bound
+
+
+@pytest.mark.parametrize("policy", ["importance", "quest"])
+def test_fused_run_equals_steps_on_the_card(device, policy):
+    """`run` over two strides through captured graphs against as many
+    `step()` calls from the same state (f32 smoke config): integer
+    state and step bytes equal, logits within chip_smoke.FUSED_TOL."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models.model import Model
+    cfg = dataclasses.replace(configs.get_smoke("internlm2-1.8b"),
+                              dtype=torch.float32, param_dtype=torch.float32)
+    model = Model(cfg)
+    res = chip_smoke.fused_vs_eager(model, model.init(0, device=device), 5,
+                                    batch=2, prompt_len=300, stride=8,
+                                    max_context=512, policy=policy)
+    assert res["int_state"] and res["step_bytes"] and res["replays"]
+    assert res["logits_err"] <= chip_smoke.FUSED_TOL
+
+
 #: bf16 backward cases beside phase 2d's, in its format: head dims 16
 #: and 32 (TMA's 32- and 64-byte swizzles), causal with Sq != Sk both
 #: ways (queries aligned at key 0; past Sq no query sees the last keys)

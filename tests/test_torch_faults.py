@@ -276,7 +276,8 @@ def test_chaos_serve_matches_reference(models, scenario, overlap,
         assert sum(b[2] + b[3] for b in got["bytes"]) > 0
         assert max(dropped) > 0
     if scenario in ("poison", "pool_shrink"):
-        assert dropped == []            # no cap, no throttle call
+        # no cap: the throttle runs every decode step and drops nothing
+        assert dropped and max(dropped) == 0
 
 
 @MODES
