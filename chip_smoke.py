@@ -243,6 +243,28 @@ non-zero):
              f32 on the card: loss, grad norm and each parameter's
              gradient (relative L2) within WITNESS_TOL.
 
+  13a. mesh serve phase 4's stream, then phase 4b's (overlap mode:
+             the commits' side stream beside the in-graph collectives),
+             each on a new `ServingEngine(..., mesh=)` over a
+             world-size-1 NCCL group (a `file://` store in a temporary
+             directory) and `make_test_mesh(1, 1)`, at full width, after
+             phase 6, on phase 4's model: every collective of the meshed
+             path runs, inside the captured chunks; greedy tokens,
+             statuses and step bytes equal phase 4's (4b's), captures
+             within `serve_graph_bound` and none served again; tokens/s,
+             TTFT and TPOT p50 beside the unmeshed serve's (the price of
+             the collectives and the per-rank bookkeeping at world size
+             1). The engines are freed, then the group is torn down.
+  13b. tp split one full-width decode layer (B=8, 64 HBM + 208 host
+             pages) split over a model axis of 2 and 4 (internlm2-1.8b)
+             and 4 (qwen3-32b: 64/8 heads -> 16/2 a rank), rank after
+             rank on one card: the ranks' partial attention and MLP
+             outputs summed in bf16 against the unsplit layer within
+             TP_TOL, the importance summed over ranks within 1e-4, and
+             the paged kernel at each rank's KH against its plain
+             version. The multi-rank path on cards is a four-card
+             cell's.
+
 Then a `kernels` JSON line, the card's name and power limit, and, last,
 {"ok": true, "device": {...}}. Without a CUDA card it exits non-zero
 and prints no result. `--profile DIR` runs phase 4 under torch.profiler
@@ -1936,7 +1958,7 @@ def serve_phase(model, params, seed, profile_dir=None, overlap=False,
                "hit_rate": summ["mean_hbm_hit_rate"],
                "migrated": summ["migrated_bytes"], "steps": steps,
                "row_copies_per_step": copies / max(steps, 1),
-               "token_writes": len(writes)}
+               "token_writes": len(writes), "stream": stream_outcome(eng, rep)}
     numbers.update(graph_report(eng, what, chunks, numbers, again and (
         lambda: eng.serve(phase4_requests(cfg.vocab, seed), num_slots=8,
                           seed=seed)), again and profile_dir))
@@ -3102,6 +3124,280 @@ def resume_phase(seed):
 
 
 
+def stream_outcome(eng, rep) -> dict:
+    """What two serves of one stream must agree on: greedy tokens,
+    statuses and every priced step's bytes."""
+    return {"outputs": {r.rid: list(r.output) for r in rep},
+            "statuses": rep.statuses,
+            "bytes": [(s.h_read, s.e_read, s.m_in, s.m_out)
+                      for s in eng.stats]}
+
+
+def mesh_serve_phase(model, params, seed, inline, overlap):
+    """Phase 13a: phase 4's stream, then phase 4b's (overlap mode: the
+    commits' side stream beside the in-graph collectives, pinned host
+    pools, the measured payback agreed over the mesh), each on a new
+    `ServingEngine(..., mesh=)` over a world-size-1 NCCL group (a
+    `file://` store in a temporary directory: no network) and
+    `make_test_mesh(1, 1)`, at full width: every collective of the
+    meshed path runs on the card, inside the captured chunks. Greedy
+    tokens, statuses and step bytes must equal the unmeshed serve's
+    (`inline["stream"]`, `overlap["stream"]`), the captures stay within
+    `serve_graph_bound` and serving again captures nothing. The engines
+    are freed, then the group is torn down. Returns the launches by
+    kernel by path ("mesh_serve", "mesh_serve_overlap": the latter with
+    its payback probe's) and the numbers by mode."""
+    import shutil
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_test_mesh
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                            rank=0, world_size=1)
+    counts, numbers = {}, {}
+    try:
+        mesh = make_test_mesh(1, 1)
+        for path, mode, want in (("mesh_serve", "inline", inline),
+                                 ("mesh_serve_overlap", "overlap", overlap)):
+            counts[path], numbers[mode] = mesh_serve_mode(
+                model, params, seed, mesh, mode, want)
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        gc.collect()
+        torch.cuda.synchronize()
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return counts, numbers
+
+
+def mesh_serve_mode(model, params, seed, mesh, mode, want):
+    """One of phase 13a's serves (`mode` "inline" or "overlap") on a new
+    meshed engine, against the unmeshed serve's numbers `want`."""
+    import torch
+    from repro_torch.kernels.build import COUNTS
+    from repro_torch.serving.engine import (
+        EngineConfig, ServingEngine, serve_graph_bound,
+    )
+    cfg = model.cfg
+    overlap = mode == "overlap"
+    what = f"mesh serve {mode}"
+    ecfg = EngineConfig(max_context=4096, hbm_fraction=0.25,
+                        policy="importance", prefill_chunk=256,
+                        telemetry_stride=16, overlap_migrations=overlap,
+                        measured_payback=overlap)
+    eng = ServingEngine(model, params, ecfg, mesh=mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    COUNTS.clear()                      # the main path's run only
+    torch.cuda.synchronize()
+    t0 = time.time()
+    rep = eng.serve(phase4_requests(cfg.vocab, seed), num_slots=8,
+                    seed=seed)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = dict(COUNTS)
+    steps_run = eng.steps_run
+    got = stream_outcome(eng, rep)
+    same = {k: got[k] == want["stream"][k] for k in want["stream"]}
+    bound = serve_graph_bound(eng.geo, ecfg.telemetry_stride)
+    captures = sum(eng.captures.values())
+    tokens = sum(len(r.output) for r in rep)
+    peak = torch.cuda.max_memory_allocated()
+    pinned = overlap and eng.state.k_host.is_pinned() and \
+        eng.state.v_host.is_pinned()
+    log(f"{what}: {wall:.2f} s wall, {tokens} tokens, "
+        f"{tokens / wall:.1f} tokens/s (unmeshed: "
+        f"{want['tokens_per_s']:.1f}), TTFT p50 "
+        f"{rep.ttft['p50']:.3f} s ({want['ttft_p50']:.3f}), TPOT p50 "
+        f"{rep.tpot['p50'] * 1e3:.2f} ms "
+        f"({want['tpot_p50'] * 1e3:.2f}); data=1 model=1 over NCCL; "
+        f"equal to the unmeshed serve: tokens {same['outputs']} statuses "
+        f"{same['statuses']} step bytes {same['bytes']}; "
+        f"{captures} captures of a bound of {bound}; "
+        f"{counts.get('paged_attention', 0)} paged and "
+        f"{counts.get('page_copy', 0)} row-copy launches, "
+        f"{steps_run} steps run, peak memory {peak / 1e9:.2f} GB"
+        f"{f', host pools pinned {pinned}' if overlap else ''}; "
+        f"card {card_line()}")
+    numbers = {"tokens_per_s": tokens / wall,
+               "ttft_p50": rep.ttft["p50"], "tpot_p50": rep.tpot["p50"],
+               "captures": captures, "bound": bound}
+    numbers.update(graph_report(eng, what, list(eng.chunk_log), numbers,
+                                lambda: eng.serve(
+                                    phase4_requests(cfg.vocab, seed),
+                                    num_slots=8, seed=seed)))
+    log(f"{what} vs unmeshed, served again (one process): tokens/s "
+        f"{numbers['again_tokens_per_s']:.1f} vs "
+        f"{want['again_tokens_per_s']:.1f}, TTFT p50 "
+        f"{numbers['again_ttft_p50']:.3f} vs "
+        f"{want['again_ttft_p50']:.3f} s, TPOT p50 "
+        f"{numbers['again_tpot_p50'] * 1e3:.2f} vs "
+        f"{want['again_tpot_p50'] * 1e3:.2f} ms")
+    if not all(same.values()):
+        raise AssertionError(f"{what} differs from the unmeshed serve: "
+                             f"{same}")
+    if not 0 < captures <= bound:
+        raise AssertionError(f"{what}: {captures} captures, bound {bound}")
+    if counts.get("paged_attention", 0) != 2 * cfg.num_layers * steps_run:
+        raise AssertionError(f"{what}: {counts} for {steps_run} steps")
+    if overlap and not pinned:
+        raise AssertionError(f"{what}: host pools not pinned")
+    return counts, numbers
+
+
+#: phase 13b's splits: (model, size of the model axis)
+TP_SPLITS = (("internlm2-1.8b", 2), ("internlm2-1.8b", 4),
+             ("qwen3-32b", 4))
+#: a split decode layer against the unsplit one (bf16): max |split -
+#: unsplit| over max |unsplit| of the attention block's and the MLP's
+#: outputs, about twice the largest seen on an H100 (attention 7.7e-3,
+#: MLP 6.8e-3: the ranks' partial products each rounded to bf16, then
+#: summed in bf16); the importance summed over shards, absolute
+TP_TOL = {"attn": 1.5e-2, "mlp": 1.5e-2, "importance": 1e-4}
+
+
+def tp_pools(rng, B, Ph, Pe, T, KH, HD, device):
+    """One layer's two tiers with a page list each (every lane's HBM
+    pages full but its last, which takes this step's token; host pages
+    full), and the write slot and offset of each lane's token."""
+    import torch
+    hl = np.full((B, Ph), -1, np.int32)
+    hv = np.zeros((B, Ph), np.int32)
+    el = np.full((B, Pe), -1, np.int32)
+    ev = np.zeros((B, Pe), np.int32)
+    slot = np.zeros((B,), np.int32)
+    offset = np.zeros((B,), np.int32)
+    for b in range(B):
+        n_h = int(rng.integers(2, Ph + 1))
+        n_e = int(rng.integers(0, Pe + 1))
+        hl[b, :n_h] = np.arange(n_h)
+        hv[b, :n_h] = T
+        offset[b] = rng.integers(0, T)
+        hv[b, n_h - 1] = offset[b]
+        slot[b] = n_h - 1
+        el[b, :n_e] = np.arange(n_e)
+        ev[b, :n_e] = T
+    pools = [torch.randn((B, P, T, KH, HD), dtype=torch.bfloat16,
+                         device=device) for P in (Ph, Ph, Pe, Pe)]
+    lists = [torch.as_tensor(x, device=device) for x in (hl, hv, el, ev)]
+    return pools, lists, torch.as_tensor(slot, device=device), \
+        torch.as_tensor(offset, device=device)
+
+
+def tp_layer(lp, cfg, h, pos, pools, lists, slot, offset):
+    """One decode layer's attention block (token write included, the
+    paged kernel on the card) and the function giving its MLP block's
+    output: a rank's partial sums under a rank-local `cfg`, the whole
+    layer's under the whole one. Returns (attention output [B, 1, d],
+    importance [B, Ph + Pe], mlp(h2) -> [B, 1, d])."""
+    from repro_torch.kvcache.paged import write_token_layer
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import rms_norm, swiglu
+    x = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
+    q, k, v = tfm.attn_qkv(x, lp, cfg, pos[:, None])
+    write_token_layer(*pools, slot, offset, k[:, 0], v[:, 0])
+    o, imp = tfm.paged_attend(q, pools, lists, slot, offset, cfg)
+
+    def mlp(h2):
+        return swiglu(rms_norm(h2, lp["mlp_norm"], cfg.norm_eps),
+                      lp["w_gate"], lp["w_up"], lp["w_down"])
+    return tfm.attn_out(o, lp), imp, mlp
+
+
+def tp_split_phase(seed):
+    """Phase 13b: the tensor-parallel split of one full-width decode
+    layer on one card, rank after rank. For each of `TP_SPLITS`: one
+    layer of the config at its published widths (random bf16 weights),
+    B=8 lanes over 64 HBM and 208 host pages; every rank's shard
+    (`bridge.shard_params` over a mesh of names and sizes,
+    `ModelConfig.rank_local`) runs the attention block, its partial
+    outputs summed in bf16 in rank order as `all_reduce_sum` sums them;
+    then the MLP likewise on the summed residual. Against the unsplit
+    layer within `TP_TOL`; the importance summed over shards against
+    the unsplit importance; the paged kernel at each shard's KH against
+    its plain version on the shard's inputs (`check_paged`, untimed)."""
+    import dataclasses
+    import torch
+    from repro_torch import bridge, configs
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.models.model import Model
+    from repro_torch.models.transformer import layers_of
+    device = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    out = []
+    for name, m in TP_SPLITS:
+        cfg = dataclasses.replace(configs.get(name), num_layers=1)
+        params = Model(cfg).init(seed, device=device)
+        B, Ph, Pe, T = 8, 64, 208, cfg.kv_page_tokens
+        pools, lists, slot, offset = tp_pools(rng, B, Ph, Pe, T,
+                                              cfg.kv_heads, cfg.head_dim,
+                                              device)
+        kh = cfg.kv_heads // m
+        shard_pools = [[p[..., r * kh:(r + 1) * kh, :].contiguous()
+                        for p in pools] for r in range(m)]
+        h = torch.randn((B, 1, cfg.d_model), dtype=torch.bfloat16,
+                        device=device)
+        pos = (lists[1] > 0).sum(-1) * T        # any position will do
+        attn, imp, mlp = tp_layer(layers_of(params["layers"])[0], cfg, h,
+                                  pos, pools, lists, slot, offset)
+        mesh = AbstractMesh(("data", "model"), (1, m))
+        parts, imps, mlps = [], [], []
+        for r in range(m):
+            local = cfg.rank_local(m)
+            lp = layers_of(bridge.shard_params(
+                params, cfg, mesh, {"data": 0, "model": r})["layers"])[0]
+            a, i, f = tp_layer(lp, local, h, pos, shard_pools[r], lists,
+                               slot, offset)
+            parts.append(a)
+            imps.append(i)
+            mlps.append(f)
+            q = torch.randn((B, kh, local.q_per_kv, cfg.head_dim),
+                            dtype=torch.bfloat16, device=device)
+            for tier, (k, v, pl, pv) in enumerate((
+                    (*shard_pools[r][:2], *lists[:2]),
+                    (*shard_pools[r][2:], *lists[2:]))):
+                pl, pv = pl.clone(), pv.clone()
+                pl[B - 1], pv[B - 1] = -1, 0     # check_paged's empty lane
+                check_paged(f"tp {name} model={m} rank {r} KH={kh} "
+                            f"G={local.q_per_kv} HD={cfg.head_dim} "
+                            f"{'host' if tier else 'HBM'} tier N="
+                            f"{pl.shape[1]}", (q, k, v, pl, pv))
+        summed = parts[0]
+        for a in parts[1:]:
+            summed = summed + a
+        h2 = h + attn
+        y = mlp(h2)
+        y_split = mlps[0](h2)
+        for f in mlps[1:]:
+            y_split = y_split + f(h2)
+        err = {
+            "attn": float((summed.float() - attn.float()).abs().max()
+                          / attn.float().abs().max()),
+            "mlp": float((y_split.float() - y.float()).abs().max()
+                         / y.float().abs().max()),
+            "importance": float((sum(imps) - imp).abs().max()),
+        }
+        torch.cuda.synchronize()
+        log(f"tp {name} model={m}: heads {cfg.num_heads}/{cfg.kv_heads} -> "
+            f"{cfg.num_heads // m}/{kh} a rank, d_ff {cfg.d_ff} -> "
+            f"{cfg.d_ff // m}, vocab rows {cfg.vocab // m}; split against "
+            f"unsplit (max |diff| / max |value|): attention "
+            f"{err['attn']:.3e} mlp {err['mlp']:.3e}, importance summed "
+            f"over ranks {err['importance']:.3e} absolute (tolerance "
+            f"{TP_TOL})")
+        bad = {k: e for k, e in err.items() if not e <= TP_TOL[k]}
+        if bad:
+            raise AssertionError(f"tp {name} model={m}: {bad}")
+        out.append({"model": name, "split": m, **err})
+        del params, pools, shard_pools
+        free_card()
+    return out
+
+
 def _leaves(tree):
     for v in tree.values():
         yield from (_leaves(v) if isinstance(v, dict) else [v])
@@ -3195,6 +3491,9 @@ def main(argv=None) -> int:
     faulted, faulted_numbers = phase("serve faulted", lambda:
                                      faulted_serve_phase(model, params,
                                                          args.seed))
+    mesh_serve, _ = phase("mesh serve", lambda: mesh_serve_phase(
+        model, params, args.seed, inline, overlap_numbers))
+    phase("tp split", lambda: tp_split_phase(args.seed))
     del model, params               # the CLI's model takes the card next
     gc.collect()
     torch.cuda.empty_cache()
@@ -3224,7 +3523,7 @@ def main(argv=None) -> int:
              "moe_serve": moe["serve"], "moe_generate": moe["generate"],
              "llama31_serve": llama, "qwen3_serve_overlap": qwen,
              "trained_serve": trained_serve, "serve_cli": cli,
-             "example": example,
+             "example": example, **mesh_serve,
              **{f"{name}_generate": c["generate"]
                 for name, c in streams.items()}}
     paged_by_path = {k: c.get("paged_attention", 0)
@@ -3260,7 +3559,8 @@ def main(argv=None) -> int:
                 "card gather, one layer's decode token write (one launch) "
                 "and overlap prefill's gather (lane_pages, one launch); "
                 "serve_overlap leaves out the payback probe's launches "
-                "(payback_probe_launches)",
+                "(payback_probe_launches), mesh_serve_overlap holds its "
+                "own probe's",
         "launches": sum(copy_by_path.values()),
         "launches_by_path": copy_by_path,
         "payback_probe_launches": overlap_numbers["probe_launches"].get(

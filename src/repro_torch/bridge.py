@@ -68,6 +68,65 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
     return conv(tree)
 
 
+#: the logical dims a rank holds its shard of under the serve rules
+SPLIT_NAMES = ("heads", "kv_heads", "mlp", "vocab")
+
+
+def shard_leaf(tensor: torch.Tensor, param, mesh,
+               coord: Dict[str, int]) -> torch.Tensor:
+    """What the rank at `coord` holds of the leaf `param` (a schema
+    `Param`) for the meshed serve: `tensor` at the leaf's whole shape is
+    cut (`shard_params` states the rule); a tensor already at the
+    shard's shape is kept as it is."""
+    from repro_torch.launch.shardings import local_shape, param_pspec, shard
+    spec = param_pspec(param.axes, param.shape, mesh, "serve")
+    spec = tuple(s if a in SPLIT_NAMES else None
+                 for s, a in zip(spec, param.axes))
+    if tuple(tensor.shape) == tuple(param.shape):
+        return shard(tensor, spec, mesh, coord)
+    if tuple(tensor.shape) == local_shape(param.shape, spec, mesh):
+        return tensor
+    raise ValueError(f"a leaf of shape {tuple(tensor.shape)} is neither "
+                     f"the whole {tuple(param.shape)} nor its shard")
+
+
+def shard_params(params: Dict[str, Any], cfg: ModelConfig, mesh,
+                 coord: Dict[str, int]) -> Dict[str, Any]:
+    """One rank's parameters for the meshed serve, cut from the whole
+    ones (`params_from_jax`, `Model.init`, wherever they lie) by the
+    serve-mode rules (`launch.shardings.param_pspec(..., "serve")`) at
+    mesh coordinate `coord` ({axis: index}). Leaves already at their
+    shard's shape (`init_shards`) are kept as they are.
+
+    The rule: a leaf whose spec puts `model` on a `heads`, `kv_heads`,
+    `mlp` or `vocab` dim is held as its shard (`shard`, a contiguous
+    copy); a leaf whose spec puts `model` on `embed` or `head_dim` (the
+    norm weights, which those rules shard at the tail of their priority,
+    or an MLP or vocabulary the axis does not divide) is held whole, as
+    GSPMD's all-gather would give it. So what the port splits is
+    exactly what `ModelConfig.rank_local` counts. Every other leaf is
+    whole too (serve mode replicates over `data`). A leaf that is held
+    whole is the same tensor, not a copy."""
+    from repro_torch.models.model import Model
+
+    def cut(node, schema):
+        if isinstance(node, dict):
+            return {k: cut(v, schema[k]) for k, v in node.items()}
+        return shard_leaf(node, schema, mesh, coord)
+    return cut(params, Model(cfg).schema())
+
+
+def init_shards(cfg: ModelConfig, seed, mesh, coord: Dict[str, int],
+                device=None) -> Dict[str, Any]:
+    """`shard_params(Model(cfg).init(seed, device), ...)` without the
+    whole model: each leaf is cut as soon as it is drawn, so the device
+    holds the rank's shards and at most one whole leaf beside them. The
+    same draws, so on the CPU the same numbers."""
+    from repro_torch.models.model import Model
+    return Model(cfg).init(seed, device, keep=lambda p, t: shard_leaf(
+        t, p, mesh, coord))
+
+
 def train_state_from_jax(params_np, opt_np, cfg: ModelConfig,
                          device=None) -> TrainState:
     """A `TrainState` on `device` (default: the CUDA card) from the

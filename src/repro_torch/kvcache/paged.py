@@ -28,6 +28,16 @@ plain version. The reference's `host_memory_kind()` probes JAX for a
 pinned memory kind to place its host pools in; the port pins them
 (`host_pinned`) and needs no probe, so it has no counterpart.
 
+Under a serving mesh (`ServingEngine(..., mesh=)`) each rank holds its
+block of the cache, as `launch.shardings.cache_shardings` lays it out:
+pools [L, B/data, P, T, KH/model, HD], the tables and owner maps of its
+B/data lanes (the same on every `model` rank). A rank's cache is an
+ordinary cache of a rank-local geometry, built by `init_cache`. In
+overlap mode each rank keeps its host tier where the unmeshed port
+keeps it, in pinned host memory; the reference's GSPMD puts a meshed
+cache in device memory (its `serve` drops the pinned kind under a
+mesh), and the values are the same either way.
+
 Mutation convention: unlike the reference's pure functions, pool
 writes happen IN PLACE (a full-width cache is 3.4 GB and is never
 copied), while the small tensors — page table, owner maps, length,

@@ -31,8 +31,9 @@ Usage:
 
 The sweep runs each cell in a fresh subprocess, so a failure never
 poisons it; results append to build/dryrun_results.jsonl. `--mesh
-multi` (the reference's twin-pod mesh) is refused: it spans more than
-one card.
+multi` (the reference's twin-pod mesh: per-card shard bytes) is
+refused, NotImplementedError naming it (`refuse_mesh("dryrun")`): it
+spans more than one card.
 """
 
 from __future__ import annotations
@@ -137,7 +138,7 @@ def _host_tier_bytes(state) -> int:
 def run_cell(arch: str, shape: str, mesh_kind: str = "single") -> dict:
     """Count one cell's step on the meta device; returns its record."""
     if mesh_kind != "single":
-        refuse_mesh()
+        refuse_mesh("dryrun")
     t0 = time.time()
     cfg = configs.get(arch)
     model = Model(cfg)
@@ -213,7 +214,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     if args.mesh != "single":
-        refuse_mesh()
+        refuse_mesh("dryrun")
     todo = cells([args.arch] if args.arch else None,
                  [args.shape] if args.shape else None)
     if args.list:

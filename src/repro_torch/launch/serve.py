@@ -1,39 +1,145 @@
-"""Serving entry point for one card (the port of the reference's
-`launch/serve.py`): the two-tier serving engine over a mixed request
-stream, on the CUDA card unless `--device cpu` is given.
+"""Serving entry point (the port of the reference's `launch/serve.py`):
+the two-tier serving engine over a mixed request stream, on the CUDA
+card unless `--device cpu` is given, optionally across a device mesh.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke \\
       --requests 6 --new-tokens 8 [--device cpu]
 
-`--parity` runs the stream twice with the same weights, on the card and
-on the CPU, and checks the reference's contract between the two
-placements: identical tokens and terminal statuses, hit and bound
-fractions within 0.02 and 0.05. It runs the chosen config in float32 on
-both sides (bf16 greedy tokens of random weights differ between the
-card's and the CPU's arithmetic), so it is meant for `--smoke`; the
-stream served without it is unchanged. Exit status is the check's
-result; without a card it exits non-zero. `--mesh` is refused: serving
-across a device mesh spans more than one card.
+`--mesh data=N,model=M` serves across a (`data`, `model`) mesh of N x M
+ranks, one process each (`ServingEngine(..., mesh=)`): under `torchrun
+--nproc-per-node N*M` (RANK, WORLD_SIZE, LOCAL_RANK from it; rank r on
+`cuda:LOCAL_RANK` over NCCL, or the CPU over gloo with `--device cpu`),
+or, with no RANK in the environment, the CLI spawns the N x M ranks
+itself over a `file://` store in a temporary directory, so one command
+serves:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke \\
+      --mesh data=2,model=2 --device cpu
+
+Rank 0 prints the summary; the exit status is the worst rank's.
+
+`--parity` without `--mesh` runs the stream twice with the same weights,
+on the card and on the CPU; with `--mesh` it runs the reference's mesh
+check: every rank serves the stream on the mesh, and rank 0 also serves
+it unmeshed on its own device and compares (`MESH PARITY OK`). Either
+way the contract is the reference's: identical tokens and terminal
+statuses, hit and bound fractions within 0.02 and 0.05. Both run the
+chosen config in float32 (bf16 greedy tokens of random weights differ
+between the card's and the CPU's arithmetic, and between a sum split
+over ranks and one matmul), so they are meant for `--smoke`; the stream
+served without them is unchanged. Exit status is the check's result;
+the card-against-CPU check exits non-zero without a card.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import datetime
+import gc
+import multiprocessing
+import os
+import shutil
 import sys
+import tempfile
 import time
+from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import configs, resolve_device
 from repro_torch.core.sa import SAConfig
 from repro_torch.core.tiers import SPECS
+from repro_torch.bridge import init_shards
+from repro_torch.launch.mesh import make_test_mesh, mesh_coordinate
 from repro_torch.models.model import Model
+from repro_torch.models.params import param_bytes
 from repro_torch.serving import trace_bridge
 from repro_torch.serving.engine import EngineConfig, ServingEngine, refuse_mesh
 from repro_torch.serving.policies import policy_names
 from repro_torch.serving.scheduler import Request
+from repro_torch.tree import tree_leaves
+
+#: seconds a collective of a CLI mesh may wait before it fails
+MESH_TIMEOUT_S = 300
+#: seconds the spawning process waits for its ranks
+SPAWN_TIMEOUT_S = 3600
+
+
+def parse_mesh(spec: str) -> Optional[Dict[str, int]]:
+    """'data=2,model=2' -> {"data": 2, "model": 2}; '' -> None."""
+    if not spec:
+        return None
+    sizes = {"data": 1, "model": 1}
+    for part in spec.split(","):
+        name, _, val = part.partition("=")
+        if name.strip() not in sizes or not val.strip().isdigit() \
+                or int(val) < 1:
+            raise SystemExit(f"--mesh wants 'data=N,model=M', got {spec!r}")
+        sizes[name.strip()] = int(val)
+    return sizes
+
+
+def join_mesh(sizes: Dict[str, int], device_arg):
+    """This process's rank of the mesh: joins the process group from
+    RANK, WORLD_SIZE and LOCAL_RANK (torchrun's variables; the group's
+    address is torchrun's, or the `file://` store of the CLI's own
+    spawn in REPRO_TORCH_MESH_STORE) and builds the (`data`, `model`)
+    mesh. Returns (mesh, device): `cuda:LOCAL_RANK` over NCCL, or the
+    CPU over gloo when `device_arg` is "cpu"."""
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    if str(device_arg) == "cpu":
+        device, backend = torch.device("cpu"), "gloo"
+    else:
+        local = int(os.environ.get("LOCAL_RANK", rank))
+        device = resolve_device(f"cuda:{local}")
+        torch.cuda.set_device(device)
+        backend = "nccl"
+    store = os.environ.get("REPRO_TORCH_MESH_STORE")
+    dist.init_process_group(
+        backend, init_method=f"file://{store}" if store else "env://",
+        rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    return make_test_mesh(sizes["data"], sizes["model"]), device
+
+
+def _rank_entry(rank: int, world: int, store: str, argv) -> None:
+    """A spawned rank: the CLI's `main` with the rank's variables set."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), REPRO_TORCH_MESH_STORE=store)
+    sys.exit(main(argv))
+
+
+def spawn_ranks(world: int, argv) -> int:
+    """Run `main(argv)` in `world` spawned processes over a `file://`
+    store in a temporary directory; the worst exit status."""
+    tmp = tempfile.mkdtemp(prefix="repro_torch_mesh_")
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_rank_entry,
+                         args=(r, world, os.path.join(tmp, "store"), argv))
+             for r in range(world)]
+    try:
+        for proc in procs:
+            proc.start()
+        deadline = time.monotonic() + SPAWN_TIMEOUT_S
+        for proc in procs:
+            proc.join(max(0.0, deadline - time.monotonic()))
+        codes = []
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+                codes.append(124)
+            else:
+                codes.append(proc.exitcode)
+    finally:
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return max(abs(c) for c in codes)
 
 
 def build_requests(vocab: int, n: int, prompt_len: int,
@@ -48,16 +154,17 @@ def build_requests(vocab: int, n: int, prompt_len: int,
             for i in range(n)]
 
 
-def run_stream(model, params, args, device=None, *, trace: bool = False):
-    """Serve one stream on `device` (default: the card); returns
-    (engine, ServeReport, wall seconds)."""
+def run_stream(model, params, args, device=None, *, trace: bool = False,
+               mesh=None):
+    """Serve one stream on `device` (default: the card), across `mesh`
+    when given; returns (engine, ServeReport, wall seconds)."""
     cfg = EngineConfig(
         max_context=args.prompt_len + 32 + args.new_tokens + 16,
         hbm_fraction=args.hbm_fraction, policy=args.policy,
         attention_sparsity=args.sparsity, spec=SPECS[args.spec],
         telemetry_stride=args.stride, prefill_chunk=16,
         trace_telemetry=trace)
-    eng = ServingEngine(model, params, cfg, device=device)
+    eng = ServingEngine(model, params, cfg, device=device, mesh=mesh)
     reqs = build_requests(model.cfg.vocab, args.requests,
                           args.prompt_len, args.new_tokens)
     t0 = time.perf_counter()
@@ -82,42 +189,89 @@ def check_parity(model, params, args) -> bool:
     telemetry without touching tokens)."""
     ref_eng, ref, _ = run_stream(model, params, args, "cpu", trace=True)
     card_eng, got, _ = run_stream(model, params, args, "cuda", trace=True)
+    frac, ok = compare_streams(args, ("cpu", ref_eng, ref),
+                               ("card", card_eng, got))
+    if ok:
+        print(f"CARD PARITY OK: {len(ref.completed)} requests, tokens + "
+              f"statuses identical on {device_name(card_eng.device)} and "
+              f"the cpu, hit {frac['card'][0]:.3f} (d={frac['d'][0]:.4f}), "
+              f"bound {frac['card'][1]:.3f} (d={frac['d'][1]:.4f})")
+    return ok
 
+
+def check_mesh_parity(model, params, args, mesh, device) -> bool:
+    """Unmeshed against meshed serve of one stream (the reference's
+    mesh check), run by every rank of `mesh`: every rank serves the
+    meshed stream; rank 0 also serves it unmeshed on `device` and
+    compares as `compare_streams` does; on cards, also that the meshed
+    engine captures no new graph serving the stream again (the
+    reference's one executable). Returns rank 0's verdict (True on the
+    other ranks)."""
+    mesh_eng, got, _ = run_stream(model, params, args, device, trace=True,
+                                  mesh=mesh)
+    again = 0
+    if device.type == "cuda":           # graphs exist on the card only
+        before = sum(mesh_eng.captures.values())
+        mesh_eng.serve(build_requests(model.cfg.vocab, args.requests,
+                                      args.prompt_len, args.new_tokens),
+                       num_slots=args.batch_slots, seed=args.seed)
+        again = sum(mesh_eng.captures.values()) - before
+    if dist.get_rank() != 0:
+        return True
+    ref_eng, ref, _ = run_stream(model, params, args, device, trace=True)
+    frac, ok = compare_streams(args, ("1dev", ref_eng, ref),
+                               ("mesh", mesh_eng, got))
+    if again:
+        print(f"PARITY FAIL: {again} graphs captured serving again")
+        ok = False
+    if ok:
+        print(f"MESH PARITY OK: {len(ref.completed)} requests, tokens + "
+              f"statuses identical, hit {frac['mesh'][0]:.3f} "
+              f"(d={frac['d'][0]:.4f}), bound {frac['mesh'][1]:.3f} "
+              f"(d={frac['d'][1]:.4f}), {dist.get_world_size()} ranks "
+              f"on {device_name(device)}, "
+              f"{sum(mesh_eng.captures.values())} graphs captured")
+    return ok
+
+
+def compare_streams(args, want, got):
+    """Two served streams, each (tag, engine, report) with trace
+    capture: tokens and statuses identical, aggregate hit and bound
+    fractions within 0.02 and 0.05 (migration choices may flip on
+    ulp-level importance-EMA differences, which moves telemetry without
+    touching tokens). Returns ({tag: (hit, bound), "d": differences},
+    ok), printing each failure."""
+    (wtag, _, ref), (gtag, _, rep) = want, got
     ok = True
-    if ref.statuses != got.statuses:
-        print(f"PARITY FAIL: statuses {ref.statuses} != {got.statuses}")
+    if ref.statuses != rep.statuses:
+        print(f"PARITY FAIL: statuses {ref.statuses} != {rep.statuses}")
         ok = False
     ref_out = {r.rid: list(r.output) for r in ref}
-    got_out = {r.rid: list(r.output) for r in got}
+    got_out = {r.rid: list(r.output) for r in rep}
     for rid in sorted(ref_out):
         if ref_out[rid] != got_out.get(rid):
             print(f"PARITY FAIL: request {rid} tokens diverge\n"
-                  f"  cpu:  {ref_out[rid]}\n"
-                  f"  card: {got_out.get(rid)}")
+                  f"  {wtag}: {ref_out[rid]}\n"
+                  f"  {gtag}: {got_out.get(rid)}")
             ok = False
     sa_cfg = SAConfig(max_evaluations=6, iters_per_level=2, seed=0)
     spec = SPECS[args.spec]
     frac = {}
-    for tag, eng, rep in (("cpu", ref_eng, ref), ("card", card_eng, got)):
+    for tag, eng, report in (want, got):
         score = trace_bridge.score_serve(
             trace_bridge.collect_serve(eng), spec, sa_cfg=sa_cfg,
-            report=rep)
+            report=report)
         agg = score["aggregate"]
         frac[tag] = (agg["live_hit_fraction"],
                      agg.get("bound_fraction", 0.0))
-    d_hit = abs(frac["cpu"][0] - frac["card"][0])
-    d_bound = abs(frac["cpu"][1] - frac["card"][1])
-    if d_hit > 0.02 or d_bound > 0.05:
-        print(f"PARITY FAIL: fractions drift hit={frac['cpu'][0]:.3f}"
-              f"/{frac['card'][0]:.3f} bound={frac['cpu'][1]:.3f}"
-              f"/{frac['card'][1]:.3f}")
+    frac["d"] = (abs(frac[wtag][0] - frac[gtag][0]),
+                 abs(frac[wtag][1] - frac[gtag][1]))
+    if frac["d"][0] > 0.02 or frac["d"][1] > 0.05:
+        print(f"PARITY FAIL: fractions drift hit={frac[wtag][0]:.3f}"
+              f"/{frac[gtag][0]:.3f} bound={frac[wtag][1]:.3f}"
+              f"/{frac[gtag][1]:.3f}")
         ok = False
-    if ok:
-        print(f"CARD PARITY OK: {len(ref_out)} requests, tokens + "
-              f"statuses identical on {device_name(card_eng.device)} and "
-              f"the cpu, hit {frac['card'][0]:.3f} (d={d_hit:.4f}), bound "
-              f"{frac['card'][1]:.3f} (d={d_bound:.4f})")
-    return ok
+    return frac, ok
 
 
 def main(argv=None) -> int:
@@ -143,19 +297,28 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     ap.add_argument("--mesh", default="",
-                    help="'data=N,model=M' serves across a device mesh: "
-                         "refused, it spans more than one card")
+                    help="'data=N,model=M' serves across a mesh of N x M "
+                         "ranks (under torchrun, or spawned here)")
     ap.add_argument("--parity", action="store_true",
-                    help="serve the stream on the card AND on the CPU in "
-                         "float32 with the same weights and check tokens/"
+                    help="serve the stream on the card AND on the CPU "
+                         "(with --mesh: unmeshed AND meshed) in float32 "
+                         "with the same weights and check tokens/"
                          "statuses/fractions match; exit 1 on divergence "
-                         "(meant for --smoke; needs a card)")
+                         "(meant for --smoke; without --mesh it needs a "
+                         "card)")
     args = ap.parse_args(argv)
 
-    if args.mesh:
-        refuse_mesh()
     cfg = (configs.get_smoke(args.arch) if args.smoke
            else configs.get(args.arch))
+    sizes = parse_mesh(args.mesh)
+    if sizes is not None:
+        if cfg.family == "moe":
+            refuse_mesh("moe")
+        if "RANK" not in os.environ:
+            return spawn_ranks(sizes["data"] * sizes["model"],
+                               list(argv if argv is not None
+                                    else sys.argv[1:]))
+        return mesh_main(cfg, sizes, args)
 
     if args.parity:
         if not torch.cuda.is_available():
@@ -183,6 +346,64 @@ def main(argv=None) -> int:
           f"hbm hit rate {s.get('mean_hbm_hit_rate', 0.0):.2f}  "
           f"device {device_name(eng.device)}")
     return 0
+
+
+def mesh_main(cfg, sizes: Dict[str, int], args) -> int:
+    """One rank of `--mesh` (RANK in the environment): serve the stream
+    across the mesh, or `--parity`'s check in float32; rank 0 prints.
+    The serve draws only the rank's weight shards onto its device
+    (`bridge.init_shards`), so a rank holds about 1/model of the
+    weights; the parity check starts from the whole model on the CPU,
+    which its unmeshed serve needs. The engine and its graphs, which
+    hold the group's communicators, are freed before the process group
+    is torn down."""
+    mesh, device = join_mesh(sizes, args.device)
+    try:
+        if args.parity:
+            cfg = dataclasses.replace(cfg, dtype=torch.float32,
+                                      param_dtype=torch.float32)
+            model = Model(cfg)
+            params = model.init(0, device="cpu")
+            return 0 if check_mesh_parity(model, params, args, mesh,
+                                          device) else 1
+        mesh_serve(cfg, sizes, args, mesh, device)
+        return 0
+    finally:
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        dist.destroy_process_group()
+
+
+def mesh_serve(cfg, sizes: Dict[str, int], args, mesh, device) -> None:
+    """The stream served across `mesh` from the rank's weight shards;
+    rank 0 prints the summary and the rank's weight bytes beside the
+    whole model's."""
+    model = Model(cfg)
+    params = init_shards(cfg, 0, mesh, mesh_coordinate(mesh), device)
+    eng, report, wall = run_stream(model, params, args, device, mesh=mesh)
+    if dist.get_rank() == 0:
+        total = sum(len(r.output) for r in report)
+        print(f"served {len(report)} requests / {total} tokens on "
+              f"{dist.get_world_size()} devices (data={sizes['data']}"
+              f", model={sizes['model']}) in {wall:.2f}s "
+              f"({total / wall:.1f} tok/s wall)")
+        if report.ttft:
+            print(f"ttft p50 {report.ttft['p50'] * 1e3:.1f} ms  "
+                  f"tpot p50 {report.tpot.get('p50', 0.0) * 1e3:.2f} "
+                  f"ms")
+        s = eng.summary()
+        print(f"modeled tokens/s "
+              f"{s.get('modeled_tokens_per_s', 0.0):.0f}  hbm hit "
+              f"rate {s.get('mean_hbm_hit_rate', 0.0):.2f}  device "
+              f"{device_name(device)}")
+        whole = param_bytes(model.schema(), cfg.param_dtype.itemsize)
+        peak = torch.cuda.max_memory_allocated(device) \
+            if device.type == "cuda" else 0
+        print(f"rank 0 weights "
+              f"{sum(t.nbytes for t in tree_leaves(eng.params)) / 1e6:.1f}"
+              f" MB of the whole model's {whole / 1e6:.1f} MB"
+              + (f", peak memory {peak / 1e9:.2f} GB" if peak else ""))
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
 """Training entry point for one card (the port of the reference's
 `launch/train.py`): data pipeline, train step, checkpoint manager
-(async save, auto-resume). The mesh options (`--data`, `--model`) wait
-for the port's mesh.
+(async save, auto-resume). The reference's mesh options (`--data`,
+`--model`) are accepted at 1; above 1 (FSDP over data and TP in the
+train step) they raise NotImplementedError (`refuse_mesh("train")`).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b \\
       --smoke --steps 50 --ckpt-dir CKPT_DIR [--device cpu]
@@ -18,6 +19,7 @@ from repro_torch import configs, resolve_device
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
 from repro_torch.models.model import Model
+from repro_torch.serving.engine import refuse_mesh
 from repro_torch.training.train_step import init_train_state, make_train_step
 
 
@@ -35,8 +37,16 @@ def main(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
+    ap.add_argument("--data", type=int, default=1,
+                    help="data-parallel (FSDP) mesh axis: 1 (above 1 is "
+                         "not ported)")
+    ap.add_argument("--model", type=int, default=1,
+                    help="tensor-parallel mesh axis: 1 (above 1 is not "
+                         "ported)")
     args = ap.parse_args(argv)
 
+    if args.data > 1 or args.model > 1:
+        refuse_mesh("train")
     device = resolve_device(args.device)
     cfg = (configs.get_smoke(args.arch) if args.smoke
            else configs.get(args.arch))

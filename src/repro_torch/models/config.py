@@ -1,7 +1,10 @@
 """Architecture configuration (the port's copy, torch dtypes).
 
 The fields the six families (dense, moe, vlm, encdec, and the
-recurrent hybrid/ssm and xlstm) read are kept.
+recurrent hybrid/ssm and xlstm) read are kept. `ModelConfig.rank_local`
+gives the counts one rank of a serving mesh's `model` axis holds (what
+else the rank needs, its vocabulary slice and the axis's collectives,
+is `transformer.TensorParallel`, held by the rank's `Model`).
 """
 
 from __future__ import annotations
@@ -74,6 +77,12 @@ class FrontendStub:
     num_embeddings: int          # frames or patches
 
 
+def splits(n: int, size: int) -> bool:
+    """Whether a dim of `n` splits over an axis of `size` (the sharding
+    rules' test: divisible, and at least one element a rank)."""
+    return n % size == 0 and n >= size
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
@@ -112,6 +121,22 @@ class ModelConfig:
         if self.eos_id is not None and not 0 <= self.eos_id < self.vocab:
             raise ValueError(
                 f"eos_id {self.eos_id} outside vocab {self.vocab}")
+
+    def rank_local(self, size: int) -> "ModelConfig":
+        """The config one rank of a `model` axis of `size` runs: local
+        counts of heads, KV heads and, when the axis divides it, MLP
+        hidden units (else the MLP is held whole), so the transformer
+        code reads them as it reads a whole model's. `head_dim` and
+        `vocab` are unchanged."""
+        if not (splits(self.num_heads, size) and
+                splits(self.kv_heads, size)):
+            raise ValueError(f"a model axis of {size} does not split "
+                             f"{self.num_heads} heads over "
+                             f"{self.kv_heads} KV heads")
+        return dataclasses.replace(
+            self, num_heads=self.num_heads // size,
+            kv_heads=self.kv_heads // size,
+            d_ff=self.d_ff // size if splits(self.d_ff, size) else self.d_ff)
 
     @property
     def q_per_kv(self) -> int:

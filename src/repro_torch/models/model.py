@@ -67,7 +67,7 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import rms_norm
-from repro_torch.models.params import Param, init_params
+from repro_torch.models.params import Param, init_params, logical_axes
 
 FAMILIES = ("dense", "moe", "vlm", "encdec", "hybrid", "ssm", "xlstm")
 
@@ -77,7 +77,7 @@ XLSTM_KEYS = {"mlstm": ("m_C", "m_n", "m_m", "m_conv"),
 
 
 class Model:
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, tp=None):
         if cfg.family not in FAMILIES:
             raise ValueError(f"unknown family {cfg.family!r}; the "
                              f"families are {', '.join(FAMILIES)}")
@@ -85,6 +85,10 @@ class Model:
             raise ValueError("moe interleave 1 or 2 supported, got "
                              f"{cfg.moe.interleave}")
         self.cfg = cfg
+        #: a meshed serve's rank: its `transformer.TensorParallel` over
+        #: the rank-local `cfg` and the rank's weight shards (dense
+        #: family only); None: the whole model
+        self.tp = tp
 
     def schema(self):
         fam = self.cfg.family
@@ -98,14 +102,13 @@ class Model:
             return self._hybrid_schema()
         return self._moe_schema()
 
+    def logical_axes(self):
+        """Each parameter's logical axis names, in the schema's tree."""
+        return logical_axes(self.schema())
+
     def _head(self, s):
         """`s` with the embedding, final norm and (untied) unembedding."""
-        cfg = self.cfg
-        s = {"embed": Param((cfg.vocab, cfg.d_model), "embed"),
-             "final_norm": Param((cfg.d_model,), "ones"), **s}
-        if not cfg.tie_embeddings:
-            s["unembed"] = Param((cfg.d_model, cfg.vocab), fan_in_axes=(0,))
-        return s
+        return {**tfm.head_schema(self.cfg), **s}
 
     def _xlstm_schema(self):
         cfg = self.cfg
@@ -120,7 +123,7 @@ class Model:
         if cfg.attention_layer_ids():
             # ONE weight-shared attention block (zamba2) and its MLP
             s["shared_attn"] = {
-                k: Param(p.shape[1:], p.init,
+                k: Param(p.shape[1:], p.axes[1:], p.init,
                          tuple(a - 1 for a in p.fan_in_axes))
                 for k, p in {**tfm.attn_schema(cfg, 1),
                              **tfm.mlp_schema(cfg, 1)}.items()}
@@ -159,7 +162,7 @@ class Model:
         dense, vlm and moe families)."""
         cfg = self.cfg
         if cfg.family in ("dense", "vlm"):
-            return tfm.dense_blocks(params, cfg)
+            return tfm.dense_blocks(params, cfg, self.tp)
         layers = params["layers"]
 
         def moe_ffn(lp):
@@ -176,10 +179,10 @@ class Model:
             out.append((ma, moe_ffn(mo)))
         return out
 
-    def init(self, seed=0, device=None):
+    def init(self, seed=0, device=None, keep=None):
         """Random parameters on `device` (default: the CUDA card), drawn
         from a `torch.Generator` seeded with `seed` (or the generator
-        itself)."""
+        itself); `keep`: see `init_params`."""
         dev = resolve_device(device)
         if isinstance(seed, torch.Generator):
             gen = seed
@@ -187,7 +190,7 @@ class Model:
             gen = torch.Generator(device=dev)
             gen.manual_seed(int(seed))
         return init_params(self.schema(), gen, self.cfg.param_dtype,
-                           device=dev)
+                           device=dev, keep=keep)
 
     def forward(self, params, tokens, extra=None):
         """Logits [B, S, V] at every position of `tokens` [B, S] (vlm:
@@ -204,7 +207,8 @@ class Model:
             return self._hybrid_forward(params, tokens)[0]
         return tfm.decoder_forward(params, cfg, tokens, self.blocks(params),
                                    input_embeds=self._vlm_embeds(
-                                       params, tokens, extra))[0]
+                                       params, tokens, extra),
+                                   tp=self.tp)[0]
 
     def forward_hidden(self, params, tokens, extra=None, remat: bool = True):
         """The final-norm hidden states [B, S, d] before the unembedding
@@ -228,7 +232,8 @@ class Model:
         return tfm.decoder_forward(params, cfg, tokens, self.blocks(params),
                                    input_embeds=self._vlm_embeds(
                                        params, tokens, extra),
-                                   return_hidden=True, remat=remat)
+                                   return_hidden=True, remat=remat,
+                                   tp=self.tp)
 
     def _vlm_embeds(self, params, tokens, extra):
         """The vlm family's input: patch embeddings, then the tokens'
@@ -340,7 +345,7 @@ class Model:
             cfg.frontend.num_embeddings if fam == "vlm" else 0)
         logits, (k, v) = tfm.decoder_forward(params, cfg, tokens,
                                              self.blocks(params),
-                                             input_embeds=embeds)
+                                             input_embeds=embeds, tp=self.tp)
         cache = prefill_cache(geo, k, v, prompt)
         return logits[:, -1], cache
 
@@ -358,7 +363,7 @@ class Model:
         return tfm.decoder_prefill_chunk(
             params, self.cfg, cache, tokens, start, n_valid,
             self.blocks(params), end,
-            all_lanes=self.cfg.family == "moe")
+            all_lanes=self.cfg.family == "moe", tp=self.tp)
 
     def init_decode_state(self, batch: int,
                           geo: Optional[CacheGeometry] = None, device=None):
@@ -450,7 +455,7 @@ class Model:
             params, self.cfg, state, token, write_slot,
             self.blocks(params), logical_page_mask=logical_page_mask,
             active=active, pool_ready=pool_ready,
-            all_lanes=self.cfg.family == "moe")
+            all_lanes=self.cfg.family == "moe", tp=self.tp)
 
     def _encdec_decode_step(self, params, state, token, write_slot,
                             logical_page_mask=None, active=None):

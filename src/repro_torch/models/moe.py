@@ -33,16 +33,23 @@ def moe_schema(cfg: ModelConfig, L: int):
     d, f = cfg.d_model, cfg.d_ff
     E = cfg.moe.num_experts_padded
     s = {
-        "moe_norm": Param((L, d), "ones"),
-        "router": Param((L, d, cfg.moe.num_experts), fan_in_axes=(1,)),
-        "we_gate": Param((L, E, d, f), fan_in_axes=(2,)),
-        "we_up": Param((L, E, d, f), fan_in_axes=(2,)),
-        "we_down": Param((L, E, f, d), fan_in_axes=(2,)),
+        "moe_norm": Param((L, d), ("layers", "embed"), "ones"),
+        "router": Param((L, d, cfg.moe.num_experts),
+                        ("layers", "embed", None), fan_in_axes=(1,)),
+        "we_gate": Param((L, E, d, f), ("layers", "experts", "embed", "mlp"),
+                         fan_in_axes=(2,)),
+        "we_up": Param((L, E, d, f), ("layers", "experts", "embed", "mlp"),
+                       fan_in_axes=(2,)),
+        "we_down": Param((L, E, f, d), ("layers", "experts", "mlp", "embed"),
+                         fan_in_axes=(2,)),
     }
     if cfg.moe.shared_expert:
-        s["ws_gate"] = Param((L, d, f), fan_in_axes=(1,))
-        s["ws_up"] = Param((L, d, f), fan_in_axes=(1,))
-        s["ws_down"] = Param((L, f, d), fan_in_axes=(1,))
+        s["ws_gate"] = Param((L, d, f), ("layers", "embed", "mlp"),
+                             fan_in_axes=(1,))
+        s["ws_up"] = Param((L, d, f), ("layers", "embed", "mlp"),
+                           fan_in_axes=(1,))
+        s["ws_down"] = Param((L, f, d), ("layers", "mlp", "embed"),
+                             fan_in_axes=(1,))
     return s
 
 

@@ -7,16 +7,16 @@ leaf from one explicit `torch.Generator` in sorted-key order, so a seed
 fixes the whole tree. The reference's JAX keys give other numbers from
 the same seed; weights cross between the two through `repro_torch.bridge`.
 `abstract_params` gives tensors on `torch.device("meta")`, PyTorch's
-counterpart of the reference's `ShapeDtypeStruct`s. The reference's
-`logical_axes` names each leaf's mesh axes for its sharding rules; the
-port serves on one card and has none, so it has no counterpart.
+counterpart of the reference's `ShapeDtypeStruct`s. Each leaf names the
+logical axis of each dim (`Param.axes`, `logical_axes`), which
+`repro_torch.launch.shardings` resolves to mesh axes.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -26,8 +26,17 @@ from repro_torch import resolve_device
 @dataclasses.dataclass(frozen=True)
 class Param:
     shape: Tuple[int, ...]
+    #: logical axis name per dim (None = replicated); None = all None
+    axes: Optional[Tuple[Optional[str], ...]] = None
     init: str = "normal"                # normal | zeros | ones | embed
     fan_in_axes: Tuple[int, ...] = ()   # dims forming fan-in for scaling
+
+    def __post_init__(self):
+        if self.axes is None:
+            object.__setattr__(self, "axes", (None,) * len(self.shape))
+        if len(self.axes) != len(self.shape):
+            raise ValueError(f"Param axes {self.axes} do not match its "
+                             f"shape {self.shape}")
 
 
 Schema = Dict[str, Any]  # nested dict with Param leaves
@@ -40,7 +49,8 @@ SLICED_DRAW_BYTES = 8 << 30
 
 
 def init_params(schema: Schema, generator: torch.Generator,
-                dtype=torch.bfloat16, device=None) -> Dict[str, Any]:
+                dtype=torch.bfloat16, device=None,
+                keep=None) -> Dict[str, Any]:
     """Concrete parameters for `schema` on `device` (default: the CUDA
     card): ones/zeros as named, else normal * scale with scale 0.02 for
     embeddings and 1/sqrt(fan_in) otherwise (fan_in = the product of
@@ -54,14 +64,20 @@ def init_params(schema: Schema, generator: torch.Generator,
     and each slice is a whole number of 16 (else the leaf is drawn
     whole). On the card a sliced leaf's numbers differ from a whole
     draw's (they are as fixed by the seed); every leaf under the limit
-    is drawn whole, with the numbers it always had."""
+    is drawn whole, with the numbers it always had.
+
+    `keep(param, tensor)` (optional) gives what is kept of each leaf as
+    soon as it is drawn (`bridge.init_shards`: one rank's shard), so at
+    most one whole leaf is alive beside what was kept; the draws, and
+    so the numbers, are the same."""
     device = resolve_device(device)
     out = {}
     for key in sorted(schema):
         p = schema[key]
         if isinstance(p, dict):
-            out[key] = init_params(p, generator, dtype, device)
-        elif p.init == "zeros":
+            out[key] = init_params(p, generator, dtype, device, keep)
+            continue
+        if p.init == "zeros":
             out[key] = torch.zeros(p.shape, dtype=dtype, device=device)
         elif p.init == "ones":
             out[key] = torch.ones(p.shape, dtype=dtype, device=device)
@@ -79,6 +95,8 @@ def init_params(schema: Schema, generator: torch.Generator,
             else:
                 out[key] = _normal(p.shape, generator, scale,
                                    device).to(dtype)
+        if keep is not None:
+            out[key] = keep(p, out[key])
     return out
 
 
@@ -99,6 +117,12 @@ def abstract_params(schema: Schema, dtype=torch.bfloat16) -> Dict[str, Any]:
     nothing is allocated."""
     return {k: abstract_params(p, dtype) if isinstance(p, dict)
             else torch.empty(p.shape, dtype=dtype, device="meta")
+            for k, p in schema.items()}
+
+
+def logical_axes(schema: Schema) -> Dict[str, Any]:
+    """The schema's tree with each leaf's logical axes in its place."""
+    return {k: logical_axes(p) if isinstance(p, dict) else p.axes
             for k, p in schema.items()}
 
 

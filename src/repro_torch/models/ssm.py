@@ -41,16 +41,19 @@ def mamba2_schema(cfg: ModelConfig, L: int):
     N = ssm.state_dim
     conv_ch = inner + 2 * N
     return {
-        "norm": Param((L, d), "ones"),
+        "norm": Param((L, d), ("layers", "embed"), "ones"),
         # in_proj -> [z(inner), x(inner), B(N), C(N), dt(H)]
-        "w_in": Param((L, d, 2 * inner + 2 * N + H), fan_in_axes=(1,)),
-        "conv_w": Param((L, ssm.conv_width, conv_ch), fan_in_axes=(1,)),
-        "conv_b": Param((L, conv_ch), "zeros"),
-        "a_log": Param((L, H), "zeros"),
-        "dt_bias": Param((L, H), "zeros"),
-        "skip_d": Param((L, H), "ones"),
-        "y_norm": Param((L, inner), "ones"),
-        "w_out": Param((L, inner, d), fan_in_axes=(1,)),
+        "w_in": Param((L, d, 2 * inner + 2 * N + H),
+                      ("layers", "embed", "mlp"), fan_in_axes=(1,)),
+        "conv_w": Param((L, ssm.conv_width, conv_ch),
+                        ("layers", None, "mlp"), fan_in_axes=(1,)),
+        "conv_b": Param((L, conv_ch), ("layers", "mlp"), "zeros"),
+        "a_log": Param((L, H), ("layers", "heads"), "zeros"),
+        "dt_bias": Param((L, H), ("layers", "heads"), "zeros"),
+        "skip_d": Param((L, H), ("layers", "heads"), "ones"),
+        "y_norm": Param((L, inner), ("layers", "mlp"), "ones"),
+        "w_out": Param((L, inner, d), ("layers", "mlp", "embed"),
+                       fan_in_axes=(1,)),
     }
 
 

@@ -10,12 +10,27 @@ reference's `lax.scan` over layers is a Python loop here, over
 order (`dense_blocks` here, `Model.blocks` for the moe family). An
 FFN is called as `ffn(h, group_size)`; `group_size` is the moe routing
 group, which the dense MLP ignores.
+
+Tensor parallelism (the meshed serve): a rank's `Model` runs its
+rank-local config (`ModelConfig.rank_local`: local head counts) over
+its weight shards (`bridge.shard_params`) and holds a `TensorParallel`,
+which the dense path's functions take as `tp` (None: the whole model).
+The attention output projection and the MLP's down projection give
+partial sums, all-reduced over `model`; the embedding is the rank's
+vocabulary rows, looked up where the token falls in them (zero
+elsewhere) and all-reduced, which is exact; the logits are the rank's
+vocabulary columns, all-gathered over `model` before anything reads
+them; the decode step's per-page importance sums over KV heads, so
+each rank's share is all-reduced before it enters the cache, and every
+model rank plans from the same numbers. A dim the axis does not divide
+(`TensorParallel.mlp_split` False, `.vocab` None) is held whole and
+needs no collective.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.utils.checkpoint
@@ -26,7 +41,7 @@ from repro_torch.kvcache.paged import (
     IMPORTANCE_EMA, PagedKVCache, allocate_prompt_pages, read_token_layer,
     write_token_layer, write_tokens_layer,
 )
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ModelConfig, splits
 from repro_torch.models.layers import (
     apply_rope, attention, gelu, layer_norm, prefix_chunk_attention,
     repeat_kv, rms_norm, swiglu,
@@ -41,38 +56,52 @@ from repro_torch.models.params import Param
 def attn_schema(cfg: ModelConfig, L: int):
     d, h, kh, hd = cfg.d_model, cfg.num_heads, cfg.kv_heads, cfg.head_dim
     s = {
-        "attn_norm": Param((L, d), "ones"),
-        "wq": Param((L, d, h, hd), fan_in_axes=(1,)),
-        "wk": Param((L, d, kh, hd), fan_in_axes=(1,)),
-        "wv": Param((L, d, kh, hd), fan_in_axes=(1,)),
-        "wo": Param((L, h, hd, d), fan_in_axes=(1, 2)),
+        "attn_norm": Param((L, d), ("layers", "embed"), "ones"),
+        "wq": Param((L, d, h, hd), ("layers", "embed", "heads", "head_dim"),
+                    fan_in_axes=(1,)),
+        "wk": Param((L, d, kh, hd),
+                    ("layers", "embed", "kv_heads", "head_dim"),
+                    fan_in_axes=(1,)),
+        "wv": Param((L, d, kh, hd),
+                    ("layers", "embed", "kv_heads", "head_dim"),
+                    fan_in_axes=(1,)),
+        "wo": Param((L, h, hd, d), ("layers", "heads", "head_dim", "embed"),
+                    fan_in_axes=(1, 2)),
     }
     if cfg.qk_norm:
-        s["q_norm"] = Param((L, hd), "ones")
-        s["k_norm"] = Param((L, hd), "ones")
+        s["q_norm"] = Param((L, hd), ("layers", "head_dim"), "ones")
+        s["k_norm"] = Param((L, hd), ("layers", "head_dim"), "ones")
     return s
 
 
 def mlp_schema(cfg: ModelConfig, L: int):
     d, f = cfg.d_model, cfg.d_ff
     return {
-        "mlp_norm": Param((L, d), "ones"),
-        "w_gate": Param((L, d, f), fan_in_axes=(1,)),
-        "w_up": Param((L, d, f), fan_in_axes=(1,)),
-        "w_down": Param((L, f, d), fan_in_axes=(1,)),
+        "mlp_norm": Param((L, d), ("layers", "embed"), "ones"),
+        "w_gate": Param((L, d, f), ("layers", "embed", "mlp"),
+                        fan_in_axes=(1,)),
+        "w_up": Param((L, d, f), ("layers", "embed", "mlp"),
+                      fan_in_axes=(1,)),
+        "w_down": Param((L, f, d), ("layers", "mlp", "embed"),
+                        fan_in_axes=(1,)),
     }
+
+
+def head_schema(cfg: ModelConfig):
+    """The embedding, the final norm and the (untied) unembedding."""
+    s = {"embed": Param((cfg.vocab, cfg.d_model), ("vocab", "embed"),
+                        "embed"),
+         "final_norm": Param((cfg.d_model,), ("embed",), "ones")}
+    if not cfg.tie_embeddings:
+        s["unembed"] = Param((cfg.d_model, cfg.vocab), ("embed", "vocab"),
+                             fan_in_axes=(0,))
+    return s
 
 
 def dense_schema(cfg: ModelConfig):
-    L = cfg.num_layers
-    s = {
-        "embed": Param((cfg.vocab, cfg.d_model), "embed"),
-        "final_norm": Param((cfg.d_model,), "ones"),
-        "layers": {**attn_schema(cfg, L), **mlp_schema(cfg, L)},
-    }
-    if not cfg.tie_embeddings:
-        s["unembed"] = Param((cfg.d_model, cfg.vocab), fan_in_axes=(0,))
-    return s
+    return {**head_schema(cfg), "layers": {
+        **attn_schema(cfg, cfg.num_layers),
+        **mlp_schema(cfg, cfg.num_layers)}}
 
 
 def encdec_schema(cfg: ModelConfig):
@@ -83,7 +112,8 @@ def encdec_schema(cfg: ModelConfig):
     Ld = cfg.num_layers
 
     def ln(L):
-        return {"w": Param((L, d), "ones"), "b": Param((L, d), "zeros")}
+        return {"w": Param((L, d), ("layers", "embed"), "ones"),
+                "b": Param((L, d), ("layers", "embed"), "zeros")}
 
     def attn(L):
         base = attn_schema(cfg, L)
@@ -92,23 +122,31 @@ def encdec_schema(cfg: ModelConfig):
 
     def mlp(L):
         return {
-            "w_in": Param((L, d, f), fan_in_axes=(1,)),
-            "b_in": Param((L, f), "zeros"),
-            "w_out": Param((L, f, d), fan_in_axes=(1,)),
-            "b_out": Param((L, d), "zeros"),
+            "w_in": Param((L, d, f), ("layers", "embed", "mlp"),
+                          fan_in_axes=(1,)),
+            "b_in": Param((L, f), ("layers", "mlp"), "zeros"),
+            "w_out": Param((L, f, d), ("layers", "mlp", "embed"),
+                           fan_in_axes=(1,)),
+            "b_out": Param((L, d), ("layers", "embed"), "zeros"),
         }
 
+    def final():
+        return {"w": Param((d,), ("embed",), "ones"),
+                "b": Param((d,), ("embed",), "zeros")}
+
     return {
-        "embed": Param((cfg.vocab, d), "embed"),
-        "dec_pos": Param((cfg.encdec.dec_positions, d), "embed"),
-        "enc_pos": Param((cfg.encdec.enc_positions, d), "embed"),
+        "embed": Param((cfg.vocab, d), ("vocab", "embed"), "embed"),
+        "dec_pos": Param((cfg.encdec.dec_positions, d), (None, "embed"),
+                         "embed"),
+        "enc_pos": Param((cfg.encdec.enc_positions, d), (None, "embed"),
+                         "embed"),
         "enc_layers": {"ln1": ln(Le), "attn": attn(Le), "ln2": ln(Le),
                        "mlp": mlp(Le)},
-        "enc_final": {"w": Param((d,), "ones"), "b": Param((d,), "zeros")},
+        "enc_final": final(),
         "dec_layers": {"ln1": ln(Ld), "self_attn": attn(Ld),
                        "ln2": ln(Ld), "cross_attn": attn(Ld),
                        "ln3": ln(Ld), "mlp": mlp(Ld)},
-        "dec_final": {"w": Param((d,), "ones"), "b": Param((d,), "zeros")},
+        "dec_final": final(),
     }
 
 
@@ -149,7 +187,42 @@ def attn_out(o, lp):
     return o.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
 
 
-def full_attn_block(h, lp, cfg: ModelConfig, positions):
+@dataclasses.dataclass(frozen=True)
+class TensorParallel:
+    """One rank's place on a serving mesh's `model` axis, and the axis's
+    collectives: `reduce(t)` sums `t` over the axis in place and returns
+    it, `gather(t, dim)` concatenates the ranks' `t` on `dim` in rank
+    order (the serving engine binds them to its mesh). Heads and KV
+    heads are always split; the MLP's hidden dim when `mlp_split`; the
+    vocabulary when `vocab` is the rank's [lo, hi) rows (None: held
+    whole)."""
+
+    size: int
+    rank: int
+    mlp_split: bool
+    vocab: Optional[Tuple[int, int]]
+    reduce: Callable[[torch.Tensor], torch.Tensor]
+    gather: Callable[[torch.Tensor, int], torch.Tensor]
+
+    @classmethod
+    def of(cls, cfg: ModelConfig, size: int, rank: int, reduce,
+           gather) -> "TensorParallel":
+        """Rank `rank` of a `model` axis of `size` over the whole
+        model's `cfg` (the sharding rules' splits)."""
+        per = cfg.vocab // size
+        return cls(size=size, rank=rank, mlp_split=splits(cfg.d_ff, size),
+                   vocab=(rank * per, (rank + 1) * per)
+                   if splits(cfg.vocab, size) else None,
+                   reduce=reduce, gather=gather)
+
+
+def model_sum(x, tp: Optional[TensorParallel], split: bool = True):
+    """A row-parallel partial sum `x` all-reduced over the `model` axis
+    when `tp` is given and the dim is `split`; else `x`."""
+    return tp.reduce(x) if tp is not None and split else x
+
+
+def full_attn_block(h, lp, cfg: ModelConfig, positions, tp=None):
     """Pre-norm attention block over a full sequence (prefill); also
     returns the post-RoPE (k, v). `attention` takes K/V with KH heads:
     the flash kernel reads them un-repeated on the card, the CPU path
@@ -157,18 +230,20 @@ def full_attn_block(h, lp, cfg: ModelConfig, positions):
     x = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
     q, k, v = attn_qkv(x, lp, cfg, positions)
     o = attention(q, k, v)
-    return h + attn_out(o, lp), (k, v)
+    return h + model_sum(attn_out(o, lp), tp), (k, v)
 
 
-def dense_mlp_block(h, lp, cfg: ModelConfig):
+def dense_mlp_block(h, lp, cfg: ModelConfig, tp=None):
     x = rms_norm(h, lp["mlp_norm"], cfg.norm_eps)
-    return h + swiglu(x, lp["w_gate"], lp["w_up"], lp["w_down"])
+    y = swiglu(x, lp["w_gate"], lp["w_up"], lp["w_down"])
+    return h + model_sum(y, tp, tp is not None and tp.mlp_split)
 
 
-def dense_blocks(params, cfg: ModelConfig):
+def dense_blocks(params, cfg: ModelConfig, tp=None):
     """(attention weights, FFN) per layer of a dense model."""
     def block(lp):
-        return lp, lambda h, group_size=None: dense_mlp_block(h, lp, cfg)
+        return lp, lambda h, group_size=None: dense_mlp_block(h, lp, cfg,
+                                                              tp)
     return [block(lp) for lp in layers_of(params["layers"])]
 
 
@@ -184,30 +259,40 @@ def remat_call(remat: bool, fn, *args):
     return fn(*args)
 
 
-def embed_tokens(params, cfg: ModelConfig, tokens):
-    return params["embed"][tokens.long()].to(cfg.dtype)
+def embed_tokens(params, cfg: ModelConfig, tokens, tp=None):
+    if tp is None or tp.vocab is None:
+        return params["embed"][tokens.long()].to(cfg.dtype)
+    lo, hi = tp.vocab
+    local = tokens.long() - lo
+    mine = (local >= 0) & (local < hi - lo)
+    rows = params["embed"][local.clamp(0, hi - lo - 1)]
+    return tp.reduce(rows.masked_fill(~mine[..., None], 0).to(cfg.dtype))
 
 
-def unembed(params, cfg: ModelConfig, h):
+def unembed(params, cfg: ModelConfig, h, tp=None):
     w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
-    return h @ w
+    logits = h @ w
+    if tp is not None and tp.vocab is not None:
+        logits = tp.gather(logits, -1)
+    return logits
 
 
 def decoder_forward(params, cfg: ModelConfig, tokens, blocks,
                     input_embeds: Optional[torch.Tensor] = None, *,
-                    return_hidden: bool = False, remat: bool = False):
+                    return_hidden: bool = False, remat: bool = False,
+                    tp=None):
     """tokens [B,S] (or `input_embeds` [B,S,d], which the vlm family
     builds from patch and token embeddings) -> (logits [B,S,V], the
     post-RoPE (k, v) stacked [L,B,S,KH,HD] for prefill cache
     population). With `return_hidden`: the final-norm hidden states
     [B,S,d] alone (training's path; `remat` checkpoints each layer)."""
-    h = embed_tokens(params, cfg, tokens) if input_embeds is None \
+    h = embed_tokens(params, cfg, tokens, tp) if input_embeds is None \
         else input_embeds
     S = h.shape[1]
     positions = torch.arange(S, device=h.device)[None, :]
 
     def layer(h, lp, ffn):
-        h, kv = full_attn_block(h, lp, cfg, positions)
+        h, kv = full_attn_block(h, lp, cfg, positions, tp)
         return ffn(h), kv
     ks, vs = [], []
     for lp, ffn in blocks:
@@ -218,7 +303,7 @@ def decoder_forward(params, cfg: ModelConfig, tokens, blocks,
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     if return_hidden:
         return h
-    return unembed(params, cfg, h), (torch.stack(ks), torch.stack(vs))
+    return unembed(params, cfg, h, tp), (torch.stack(ks), torch.stack(vs))
 
 
 # ---------------------------------------------------------------------------
@@ -313,7 +398,7 @@ def decoder_decode_step(params, cfg: ModelConfig, cache: PagedKVCache,
                         token: torch.Tensor, write_slot: torch.Tensor,
                         blocks, logical_page_mask=None, active=None,
                         pool_ready=None, all_lanes: bool = False,
-                        ) -> Tuple[torch.Tensor, PagedKVCache]:
+                        tp=None) -> Tuple[torch.Tensor, PagedKVCache]:
     """One decode step over the two-tier paged cache.
 
     token: [B] int32. write_slot: [L, B] physical slot receiving this
@@ -329,13 +414,14 @@ def decoder_decode_step(params, cfg: ModelConfig, cache: PagedKVCache,
     CUDA event, optional): the current stream waits on it just before
     the step first touches the pools (layer 0's token write), so the
     step's embedding and first projections overlap a migration commit
-    that is still copying pages. Returns (logits [B, V], updated cache).
+    that is still copying pages. `tp`: a rank's `TensorParallel` (see
+    the module docstring). Returns (logits [B, V], updated cache).
     """
     B = token.shape[0]
     T = cache.k_hbm.shape[3]
     pos = cache.length                        # [B]
     offset = pos % T
-    h = embed_tokens(params, cfg, token[:, None])    # [B,1,d]
+    h = embed_tokens(params, cfg, token[:, None], tp)    # [B,1,d]
 
     cache = allocate_token_page(cache, write_slot)
     logical_page_mask = mask_write_visible(cache, logical_page_mask)
@@ -362,12 +448,14 @@ def decoder_decode_step(params, cfg: ModelConfig, cache: PagedKVCache,
                               offset, cfg)
         if put_back:
             write_token_layer(*pools, slot, offset, *old, active=~active)
-        h = h + attn_out(o, lp)
+        h = h + model_sum(attn_out(o, lp), tp)
         h = ffn(h, B)           # decode routes the B lanes as one group
         imps.append(imp)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    logits = unembed(params, cfg, h)[:, 0]
-    cache = _update_cache_after_step(cache, torch.stack(imps), write_slot)
+    logits = unembed(params, cfg, h, tp)[:, 0]
+    # the importance sums over KV heads: each model rank holds a share
+    imp = model_sum(torch.stack(imps), tp)
+    cache = _update_cache_after_step(cache, imp, write_slot)
     return logits, cache
 
 
@@ -376,7 +464,7 @@ def decoder_decode_step(params, cfg: ModelConfig, cache: PagedKVCache,
 # ---------------------------------------------------------------------------
 
 def prefill_chunk_attn(hcur, lp, cfg: ModelConfig, pools, pos, page,
-                       offset, valid, lanes, seen):
+                       offset, valid, lanes, seen, tp=None):
     """One layer's chunked-prefill attention block over the paged pools.
 
     hcur: [R, C, d] residual stream of the R prefilling lanes `lanes`;
@@ -388,7 +476,7 @@ def prefill_chunk_attn(hcur, lp, cfg: ModelConfig, pools, pos, page,
     migration planner only touches lanes that have started decoding.
     `seen` = (HBM slots, host slots) read from the front of each tier:
     those that can hold a prefix the slice sees (the causal mask gives
-    the later ones weight zero).
+    the later ones weight zero). `tp`: a rank's `TensorParallel`.
     """
     R = pos.shape[0]
     T = pools[0].shape[2]
@@ -401,7 +489,7 @@ def prefill_chunk_attn(hcur, lp, cfg: ModelConfig, pools, pos, page,
     vals = vals.reshape(R, S, cfg.kv_heads, cfg.head_dim)
     o = prefix_chunk_attention(q, repeat_kv(keys, cfg.q_per_kv),
                                repeat_kv(vals, cfg.q_per_kv), pos)
-    return hcur + attn_out(o, lp)
+    return hcur + model_sum(attn_out(o, lp), tp)
 
 
 def lane_pages(pools, lanes: torch.Tensor, seen):
@@ -443,7 +531,7 @@ def decoder_prefill_chunk(params, cfg: ModelConfig, cache: PagedKVCache,
                           tokens: torch.Tensor, start: torch.Tensor,
                           n_valid: torch.Tensor, blocks,
                           end: Optional[int] = None,
-                          all_lanes: bool = False,
+                          all_lanes: bool = False, tp=None,
                           ) -> Tuple[torch.Tensor, PagedKVCache]:
     """Consume a [B, C] prompt slice directly into the paged cache.
 
@@ -457,9 +545,10 @@ def decoder_prefill_chunk(params, cfg: ModelConfig, cache: PagedKVCache,
     the caller knows it without reading the device. With `all_lanes`
     (the moe family, whose routing groups all B x C rows, idle lanes
     and padding slots included) every lane reads its whole pools, as in
-    the reference, and `end` is not used. Returns (logits [B, C, V],
-    updated cache); the logits at slice index n_valid-1 are those of
-    the last consumed prompt position.
+    the reference, and `end` is not used. `tp`: a rank's
+    `TensorParallel`. Returns (logits [B, C, V], updated cache); the
+    logits at slice index n_valid-1 are those of the last consumed
+    prompt position.
     """
     B, C = tokens.shape
     T = cache.k_hbm.shape[3]
@@ -469,15 +558,15 @@ def decoder_prefill_chunk(params, cfg: ModelConfig, cache: PagedKVCache,
     seen = (min(pages, Ph), max(pages - Ph, 0))
     pos, page, offset, valid = chunk_coords(T, C, start, n_valid)
     lanes = torch.arange(B, device=tokens.device)
-    h = embed_tokens(params, cfg, tokens)
+    h = embed_tokens(params, cfg, tokens, tp)
     for l, (lp, ffn) in enumerate(blocks):
         pools = (cache.k_hbm[l], cache.v_hbm[l], cache.k_host[l],
                  cache.v_host[l])
         h = prefill_chunk_attn(h, lp, cfg, pools, pos, page, offset, valid,
-                               lanes, seen)
+                               lanes, seen, tp)
         h = ffn(h)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    logits = unembed(params, cfg, h).to(cfg.dtype)
+    logits = unembed(params, cfg, h, tp).to(cfg.dtype)
     cache = allocate_prompt_pages(cache, pos, valid, n_valid)
     return logits, cache
 

@@ -45,19 +45,27 @@ def mlstm_schema(cfg: ModelConfig, L: int):
     H = cfg.num_heads
     W = cfg.xlstm.conv_width
     return {
-        "norm": Param((L, d), "ones"),
-        "w_up": Param((L, d, 2 * inner), fan_in_axes=(1,)),
-        "conv_w": Param((L, W, inner), fan_in_axes=(1,)),
-        "conv_b": Param((L, inner), "zeros"),
-        "wq": Param((L, inner, inner), fan_in_axes=(1,)),
-        "wk": Param((L, inner, inner), fan_in_axes=(1,)),
-        "wv": Param((L, inner, inner), fan_in_axes=(1,)),
-        "wi": Param((L, inner, H), fan_in_axes=(1,)),
-        "wf": Param((L, inner, H), fan_in_axes=(1,)),
-        "bi": Param((L, H), "zeros"),
-        "bf": Param((L, H), "ones"),
-        "y_norm": Param((L, inner), "ones"),
-        "w_out": Param((L, inner, d), fan_in_axes=(1,)),
+        "norm": Param((L, d), ("layers", "embed"), "ones"),
+        "w_up": Param((L, d, 2 * inner), ("layers", "embed", "mlp"),
+                      fan_in_axes=(1,)),
+        "conv_w": Param((L, W, inner), ("layers", None, "mlp"),
+                        fan_in_axes=(1,)),
+        "conv_b": Param((L, inner), ("layers", "mlp"), "zeros"),
+        "wq": Param((L, inner, inner), ("layers", "mlp", None),
+                    fan_in_axes=(1,)),
+        "wk": Param((L, inner, inner), ("layers", "mlp", None),
+                    fan_in_axes=(1,)),
+        "wv": Param((L, inner, inner), ("layers", "mlp", None),
+                    fan_in_axes=(1,)),
+        "wi": Param((L, inner, H), ("layers", "mlp", "heads"),
+                    fan_in_axes=(1,)),
+        "wf": Param((L, inner, H), ("layers", "mlp", "heads"),
+                    fan_in_axes=(1,)),
+        "bi": Param((L, H), ("layers", "heads"), "zeros"),
+        "bf": Param((L, H), ("layers", "heads"), "ones"),
+        "y_norm": Param((L, inner), ("layers", "mlp"), "ones"),
+        "w_out": Param((L, inner, d), ("layers", "mlp", "embed"),
+                       fan_in_axes=(1,)),
     }
 
 
@@ -67,14 +75,18 @@ def slstm_schema(cfg: ModelConfig, L: int):
     P = d // H
     gates = {}
     for g in ("z", "i", "f", "o"):
-        gates[f"w{g}"] = Param((L, d, d), fan_in_axes=(1,))
-        gates[f"r{g}"] = Param((L, H, P, P), fan_in_axes=(2,))
-        gates[f"b{g}"] = Param((L, d), "ones" if g == "f" else "zeros")
+        gates[f"w{g}"] = Param((L, d, d), ("layers", "embed", None),
+                               fan_in_axes=(1,))
+        gates[f"r{g}"] = Param((L, H, P, P), ("layers", "heads", None, None),
+                               fan_in_axes=(2,))
+        gates[f"b{g}"] = Param((L, d), ("layers", "embed"),
+                               "ones" if g == "f" else "zeros")
     return {
-        "norm": Param((L, d), "ones"),
+        "norm": Param((L, d), ("layers", "embed"), "ones"),
         **gates,
-        "y_norm": Param((L, d), "ones"),
-        "w_out": Param((L, d, d), fan_in_axes=(1,)),
+        "y_norm": Param((L, d), ("layers", "embed"), "ones"),
+        "w_out": Param((L, d, d), ("layers", "embed", None),
+                       fan_in_axes=(1,)),
     }
 
 

@@ -103,20 +103,63 @@ with the chunk's lane->request bindings, in `_serve_trace_log` for
 `trace_bridge.collect_serve`; the per-step arrays stay on the device
 until the chunk's one readback.
 
-Not ported (raises NotImplementedError, `refuse_mesh`): `mesh`, which
-spans more than one card.
+Serving across a device mesh (`ServingEngine(..., mesh=)`, the dense
+family's `serve()` only, as in the reference): a (`data`, `model`)
+`DeviceMesh` of `torch.distributed` ranks (`launch.mesh`), one card
+each (the CPU under gloo). The rank program is explicit SPMD: every
+rank runs this host loop identically over all B lanes, and its device
+work over its own block of them, with named collectives at fixed
+points. The rules are the reference's (`launch.shardings`):
+
+  * lanes over `data` when the axis divides them
+    (`serve_shardings`' "lane"; else every rank holds every lane and
+    the data-axis collectives are left out): the arena, the cache
+    ([L, B/data, P, T, KH/model, HD] pools; in overlap mode each rank's
+    host tier is pinned host memory, where the reference's GSPMD puts
+    device memory — the values are the same) and the policy state hold
+    the rank's lanes, and its plans name them;
+  * heads, KV heads, MLP and vocabulary over `model`: the rank-local
+    model (`ModelConfig.rank_local`, and a `transformer.TensorParallel`
+    bound to the mesh's collectives) and the weight shards
+    (`bridge.shard_params`, or `bridge.init_shards` to draw them
+    without the whole model): the engine keeps no whole copy, so a rank
+    holds about 1/model of the weights plus the leaves held whole;
+    with the row-parallel sums, the embedding's and the importance's
+    all-reduce and the logits' all-gather in `models.transformer`;
+  * inside a chunk, over `data`: the decode plane's "any lane decoding"
+    flag, the prefill budget's token demand and, for the fault plane's
+    commit cap, each (layer, lane) block's live rows (so the cap counts
+    rows in the unsplit plan's order, `throttle_plan(ahead=)`);
+  * at the chunk's one readback, over `data`: the per-step rows, the
+    trace and the lane carries all-gathered, the telemetry's page
+    counts summed (a page's bytes on the `model` ranks are its KV-head
+    slices, so the whole geometry prices it once);
+  * host decisions read from a clock or a per-rank measurement (open-
+    loop arrivals, deadlines and cancellation, SLO sheds, the measured
+    payback) are the mesh's first rank's, broadcast (`_agree`), so the
+    ranks never diverge and a collective never waits on a rank that
+    went elsewhere.
+
+The captured chunk holds its collectives. What stays unported raises
+NotImplementedError naming it (`refuse_mesh`): the moe family's mesh
+(expert parallelism), the `pages` and `none` pool rules (a `model`
+axis that does not divide the KV heads), the single-stream path of a
+meshed dense engine (`start`: the rank holds only its shards), the
+train CLI's mesh and the dry run's `--mesh multi`.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
+from repro_torch.bridge import shard_params
 from repro_torch.core.latency_model import StepTraffic, step_latency
 from repro_torch.core.tiers import H100, MemorySystemSpec
 from repro_torch.kernels import ops
@@ -124,7 +167,13 @@ from repro_torch.kvcache.migrate import (
     MigrationPlan, apply_migrations, commit_async,
 )
 from repro_torch.kvcache.paged import NO_SLOT, PagedKVCache, init_cache
+from repro_torch.launch.mesh import (
+    AXES, all_gather, all_reduce_sum, axis_names, mesh_axis_sizes,
+    mesh_coordinate,
+)
+from repro_torch.launch.shardings import _kv_shard_axis, batch_axes
 from repro_torch.models.model import Model
+from repro_torch.models.transformer import TensorParallel
 from repro_torch.serving import control
 from repro_torch.serving.faults import FaultPlane, throttle_plan
 from repro_torch.serving.graphs import ChunkGraphs
@@ -241,12 +290,55 @@ def _require_cache(state, family: str) -> None:
             f"Model.decode_step")
 
 
-def refuse_mesh():
-    """Raise the port's refusal of a device mesh: the engine, the serve
-    CLI's `--mesh` and the dry run's `--mesh multi` share it."""
-    raise NotImplementedError(
-        "serving across a device mesh spans more than one card and is not "
-        "ported yet: the port runs on one card")
+#: what the port leaves out of the mesh, by case (`refuse_mesh`)
+MESH_REFUSALS = {
+    "moe": "serving the moe family across a mesh needs expert parallelism "
+           "(its experts lead the model axis's sharding priority) and is "
+           "not ported yet",
+    "pool": "the {rule!r} KV pool rule (a model axis of {model} does not "
+            "divide {kv_heads} KV heads) is not ported yet: the meshed "
+            "serve shards the pools over KV heads",
+    "stream": "the single-stream path (start, step, run, generate) "
+              "across a mesh is not ported yet: a meshed engine holds "
+              "only its rank's weight shards; serve() spans the mesh, or "
+              "use an engine without one",
+    "train": "training across a mesh (the train CLI's --data/--model "
+             "above 1: FSDP over data and TP in the train step) is not "
+             "ported yet",
+    "dryrun": "the dry run's --mesh multi (per-card shard bytes of the "
+              "512-card twin-pod mesh) spans more than one card and is "
+              "not ported yet",
+}
+
+
+def refuse_mesh(case: str, **detail):
+    """Raise NotImplementedError for a part of the mesh the port leaves
+    out, named by `case` (a key of `MESH_REFUSALS`): the engine, the
+    serve and train CLIs and the dry run share it."""
+    raise NotImplementedError(MESH_REFUSALS[case].format(**detail))
+
+
+@dataclasses.dataclass
+class MeshView:
+    """A rank's part of a meshed serve: the rank-local model (its
+    `TensorParallel` bound to the mesh), its mesh coordinate and the
+    axis sizes."""
+
+    model: Model
+    coord: Dict[str, int]
+    sizes: Dict[str, int]
+
+
+class Lanes(NamedTuple):
+    """The lanes of a stream of `total` that this rank runs: `count` of
+    them from `first`; `split`: whether they are split over a mesh's
+    `data` axis (then the data-axis collectives join the ranks' blocks,
+    whatever the axis size)."""
+
+    first: int
+    count: int
+    total: int
+    split: bool
 
 
 @dataclasses.dataclass
@@ -479,13 +571,31 @@ class ServingEngine:
             raise ValueError(
                 f"EngineConfig.prefill_budget must be >= 1 tokens/step "
                 f"or None (uncapped), got {cfg.prefill_budget}")
-        if mesh is not None:
-            refuse_mesh()
+        if mesh is not None and "model" not in axis_names(mesh):
+            raise ValueError(
+                f"ServingEngine mesh needs a 'model' axis (and usually "
+                f"'data'); got axes {axis_names(mesh)}")
         self.device = resolve_device(device)
         self.model = model
-        self.params = _to_device(params, self.device)
         self.cfg = cfg
-        self.mesh = None
+        #: the device mesh `serve` spans (see the module docstring), or
+        #: None; `_tp` is this rank's part of it (dense family only)
+        self.mesh = mesh
+        self._tp = self._bind_mesh(mesh) if mesh is not None else None
+        #: the weights on this device: the whole model's, or under a
+        #: mesh this rank's shards alone (`params` may be whole, on the
+        #: CPU or on the card, or already the shards, `bridge.
+        #: init_shards`; the engine keeps no whole copy)
+        if self._tp is None:
+            self.params = _to_device(params, self.device)
+        else:
+            self.params = _to_device(shard_params(
+                params, model.cfg, mesh, self._tp.coord), self.device)
+        #: the (model, params) the decode and prefill steps run: the
+        #: whole ones, or a meshed serve's rank-local ones
+        self._run = (self._tp.model if self._tp else model, self.params)
+        #: the lanes this rank runs (all of them unmeshed; `_setup`)
+        self._lanes = Lanes(0, 0, 0, False)
         self.stats: List[StepStats] = []
         self._sampling = SamplingConfig()
         #: raw (base, access, tier) chunks when cfg.trace_telemetry
@@ -515,6 +625,80 @@ class ServingEngine:
         #: off the card)}
         self.chunk_log: List[dict] = []
 
+    def _bind_mesh(self, mesh) -> Optional[MeshView]:
+        """This rank's part of `mesh` for the dense family's serve, after
+        the refusals of what is unported (other families: None, and they
+        run unmeshed, as in the reference). Warms both axes'
+        communicators outside any capture."""
+        cfg = self.model.cfg
+        if cfg.family == "moe":
+            refuse_mesh("moe")
+        if cfg.family != "dense":
+            return None
+        sizes = mesh_axis_sizes(mesh)
+        geo = self.model.cache_geometry(1, self.cfg.max_context,
+                                        hbm_fraction=self.cfg.hbm_fraction)
+        rule = _kv_shard_axis(geo, mesh)
+        if rule != "kv_heads":
+            refuse_mesh("pool", rule=rule, model=sizes.get("model", 1),
+                        kv_heads=cfg.kv_heads)
+        coord = mesh_coordinate(mesh)
+        tp = TensorParallel.of(
+            cfg, sizes["model"], coord["model"],
+            reduce=lambda t: all_reduce_sum(t, mesh, "model"),
+            gather=lambda t, dim: all_gather(t, mesh, "model", dim))
+        for axis in AXES:
+            all_reduce_sum(torch.zeros(1, device=self.device), mesh, axis)
+        return MeshView(model=Model(cfg.rank_local(sizes["model"]), tp=tp),
+                        coord=coord, sizes=sizes)
+
+    def _agree(self, value):
+        """`value` as the mesh's first rank (coordinate (0, 0)) holds it,
+        on every rank of a meshed serve (host decisions read from a
+        clock or a per-rank measurement): broadcast over `data` from its
+        first rank, then over `model` from its first; `value` itself
+        otherwise."""
+        if self._tp is None:
+            return value
+        box = [value]
+        device = self.device if self.device.type == "cuda" else None
+        for axis in AXES:
+            group = self.mesh.get_group(axis)
+            dist.broadcast_object_list(
+                box, src=dist.get_global_rank(group, 0), group=group,
+                device=device)
+        return box[0]
+
+    def _lane_slice(self, x, dim: int = 0):
+        """This rank's lanes of a host array over all B lanes (on `dim`)."""
+        lo, n = self._lanes.first, self._lanes.count
+        return x[(slice(None),) * dim + (slice(lo, lo + n),)]
+
+    def _data_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """A per-rank count over its lanes summed over `data` (lanes
+        split), in place on the temporary `t`; else `t`."""
+        return all_reduce_sum(t, self.mesh, "data") if self._lanes.split \
+            else t
+
+    def _data_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """A per-lane tensor over all B lanes: the ranks' blocks
+        all-gathered over `data` on `dim` (lanes split); else `t`."""
+        return all_gather(t, self.mesh, "data", dim) if self._lanes.split \
+            else t
+
+    def _throttle(self, plan: MigrationPlan, cap) -> MigrationPlan:
+        """`throttle_plan` in the whole stream's plan's row order: the
+        live rows the whole plan holds ahead of each of this rank's
+        (layer, lane) blocks, from every rank's block counts when the
+        lanes are split over `data` (else from this plan's own)."""
+        lo, n = self._lanes.first, self._lanes.count
+        live = (plan.pro_layer >= 0).to(torch.int32)
+        L = live.shape[0] // (n * self._budget)
+        per = self._data_gather(live.view(L, n, -1).sum(
+            -1, dtype=torch.int32), 1).reshape(-1)
+        ahead = (torch.cumsum(per, 0) - per).view(L, -1)[:, lo:lo + n]
+        return throttle_plan(plan, cap, ahead=ahead)
+
     @property
     def captures(self):
         """Graph captures by key (a Counter; empty off the card): the
@@ -523,13 +707,20 @@ class ServingEngine:
         return self._graphs.captures
 
     # ------------------------------------------------------------------ #
-    def _setup(self, geo):
-        """Bind the stream's geometry: policy, its state, the budget."""
+    def _setup(self, geo, local=None, lanes=None):
+        """Bind the stream's geometry (`geo`, which prices the
+        telemetry), the rank's lanes (`lanes`, a meshed serve's; default
+        all of them) and the policy, its state and the budget over the
+        rank's cache (`local`, a meshed serve's; default `geo`)."""
         self.geo = geo
-        self._policy = make_policy(self.cfg.policy, cfg=self.cfg, geo=geo)
-        self._pstate = _to_device(self._policy.init_state(geo), self.device)
+        self._lanes = lanes or Lanes(0, geo.batch, geo.batch, False)
+        local = local or geo
+        self._policy = make_policy(self.cfg.policy, cfg=self.cfg,
+                                   geo=local)
+        self._pstate = _to_device(self._policy.init_state(local),
+                                  self.device)
         self._budget = control.migration_budget(
-            geo, self.cfg.migration_budget_frac)
+            local, self.cfg.migration_budget_frac)
 
     def start(self, prompts: torch.Tensor, extra=None):
         """Prefill `prompts` [B, S] into a fresh cache and return the
@@ -538,7 +729,10 @@ class ServingEngine:
         (only `serve` resets it). `extra` (vlm: {"patch_embeds"},
         encdec: {"frame_embeds"}, [B, n, d] each, tensors or numpy) is
         moved to the engine's device. The single-stream entry point for
-        `step`/`run`/`generate`."""
+        `step`/`run`/`generate`; a meshed dense engine, which holds only
+        its rank's weight shards, refuses it."""
+        if self._tp is not None:
+            refuse_mesh("stream")
         prompts = prompts.to(self.device)
         if extra is not None:
             extra = {k: torch.as_tensor(v).to(self.device)
@@ -571,8 +765,9 @@ class ServingEngine:
         # the read set this step's attention streams, for the policy
         read = mask if mask is not None else cache.page_table >= 0
         old = cache
-        logits, state = self.model.decode_step(
-            self.params, state, token, write_slot=write_slot,
+        model, params = self._run
+        logits, state = model.decode_step(
+            params, state, token, write_slot=write_slot,
             logical_page_mask=mask, active=active)
         cache = _get_cache(state)
         if active is not None:
@@ -584,7 +779,7 @@ class ServingEngine:
         plan, pstate, (n_pro, n_dem) = self._policy.plan(
             cache, pstate, active, self._budget, read_mask=read)
         if mig_cap is not None:
-            plan = throttle_plan(plan, mig_cap)
+            plan = self._throttle(plan, mig_cap)
             n_pro, n_dem = plan.row_counts()
         moves = torch.stack([n_pro, n_dem]).to(torch.int32)
         base = torch.cat([occ, moves])
@@ -615,8 +810,9 @@ class ServingEngine:
             if sparsity > 0 else None
         read = mask if mask is not None else cache.page_table >= 0
         old = cache
-        logits, cache = self.model.decode_step(
-            self.params, cache, token, write_slot=write_slot,
+        model, params = self._run
+        logits, cache = model.decode_step(
+            params, cache, token, write_slot=write_slot,
             logical_page_mask=mask, active=active,
             pool_ready=self._commit_done)
         cache = control.lane_merge(old, cache, active)
@@ -627,7 +823,7 @@ class ServingEngine:
             else None
         commit = control.revalidate_plan(staged, cache)
         if mig_cap is not None:
-            commit = throttle_plan(commit, mig_cap)
+            commit = self._throttle(commit, mig_cap)
         n_pro, n_dem = commit.row_counts()
         if self._copy_stream is not None:
             cache, self._commit_done = commit_async(cache, commit,
@@ -807,7 +1003,19 @@ class ServingEngine:
         B = num_slots if num_slots is not None else min(len(requests), 4)
         geo = self.model.cache_geometry(B, cfg.max_context,
                                         hbm_fraction=cfg.hbm_fraction)
-        self._setup(geo)
+        tp = self._tp
+        if tp is None:
+            self._setup(geo)
+            local = geo
+        else:
+            # the rank's lanes (all of them when `data` does not divide
+            # B) and its KV heads
+            split = batch_axes(self.mesh, B) == ("data",)
+            n = B // tp.sizes["data"] if split else B
+            local = tp.model.cache_geometry(n, cfg.max_context,
+                                            hbm_fraction=cfg.hbm_fraction)
+            self._setup(geo, local, Lanes(
+                tp.coord["data"] * n if split else 0, n, B, split))
         self.stats = []
         self._serve_trace_log = []
         self.chunk_log = []
@@ -815,7 +1023,7 @@ class ServingEngine:
         sampler = make_sampler(self._sampling)
         overlap = cfg.overlap_migrations
         stride = max(1, cfg.telemetry_stride)
-        a = self._bind_serve_arena(geo, stride)
+        a = self._bind_serve_arena(local, stride)
         faults = faults if faults is not None else FaultPlane()
         base_spec = cfg.spec
         cap_rows = control.plan_capacity(geo, cfg.migration_budget_frac)
@@ -826,7 +1034,8 @@ class ServingEngine:
         # pricing stays on cfg.spec under them
         calib_base = base_spec
         if cfg.measured_payback:
-            measured, detail = self._measure_migration_spec(geo)
+            measured, detail = self._agree(
+                self._measure_migration_spec(local))
             if measured is not None:
                 calib_base = measured
                 self._recalibrate(a, measured)
@@ -886,7 +1095,9 @@ class ServingEngine:
                 submit_one(r)
 
         def submit_arrivals() -> bool:
-            now_rel = time.time() - t_start
+            if not pending:
+                return False
+            now_rel = self._agree(time.time() - t_start)
             due = False
             while pending and pending[0].arrival_s <= now_rel:
                 submit_one(pending.pop(0))
@@ -924,7 +1135,8 @@ class ServingEngine:
             if slo is None:
                 return
             now = time.time()
-            for req in list(batcher.queue):
+            shed = []
+            for req in batcher.queue:
                 if req.cancel_requested or (
                         req.deadline_s is not None
                         and now - req.submitted_at > req.deadline_s):
@@ -932,12 +1144,15 @@ class ServingEngine:
                 reason = slo.should_shed(req, now, est_step_s,
                                          cfg.prefill_chunk)
                 if reason is not None:
-                    batcher.drop_queued(req, "rejected", "slo_shed",
-                                        reason)
-                    events.append({"kind": "slo_shed",
-                                   "step": batcher.step_idx,
-                                   "rid": req.rid, "tier": req.tier,
-                                   "reason": reason})
+                    shed.append((req.rid, reason))
+            queued = {req.rid: req for req in batcher.queue}
+            for rid, reason in self._agree(shed):
+                req = queued[rid]
+                batcher.drop_queued(req, "rejected", "slo_shed", reason)
+                events.append({"kind": "slo_shed",
+                               "step": batcher.step_idx,
+                               "rid": req.rid, "tier": req.tier,
+                               "reason": reason})
 
         admit()
         shed_slo()
@@ -1004,13 +1219,16 @@ class ServingEngine:
             for req in live.values():
                 if req.admitted_at is None:
                     req.admitted_at = t0
-            # the chunk's inputs, into the arena in place
+            # the chunk's inputs (the rank's lanes), into the arena in place
+            lanes = self._lane_slice
             for name, value in (
-                    ("tok", hs["token"]), ("act", view.active),
-                    ("rem", view.remaining), ("prog", view.prefilled),
-                    ("prompt_len", view.prompt_len),
-                    ("prompt_buf", hs["prompt_buf"]), ("keys", hs["keys"]),
-                    ("caps", caps), ("poison", poison), ("stale", stale)):
+                    ("tok", lanes(hs["token"])), ("act", lanes(view.active)),
+                    ("rem", lanes(view.remaining)),
+                    ("prog", lanes(view.prefilled)),
+                    ("prompt_len", lanes(view.prompt_len)),
+                    ("prompt_buf", lanes(hs["prompt_buf"])),
+                    ("keys", lanes(hs["keys"])), ("caps", caps),
+                    ("poison", lanes(poison, 1)), ("stale", lanes(stale))):
                 a[name].copy_(torch.as_tensor(value))
             stale[:] = False
             plane = prefill_plane(view, stride, C, geo.page_tokens,
@@ -1032,7 +1250,8 @@ class ServingEngine:
                 timers[1].record()
             issued = time.perf_counter() - t_issue
             self.steps_run += stride
-            out = {k: v.cpu().numpy() for k, v in rows.items()}
+            out = {k: v.cpu().numpy()
+                   for k, v in self._global_rows(rows).items()}
             self.chunk_log.append({
                 "prefill_pages": plane[0], "prefill_steps": plane[1],
                 "replayed": sum(self._graphs.replays.values()) > replays,
@@ -1044,9 +1263,9 @@ class ServingEngine:
             first = out["first"]
             pf_tok = out["pf"]
             failed_lane = out["failed"].any(axis=0)      # [B]
-            hs["token"] = a["tok"].cpu().numpy().copy()
-            prog_np = a["prog"].cpu().numpy()
-            done_d = ~a["act"].cpu().numpy()
+            hs["token"] = self._data_gather(a["tok"], 0).cpu().numpy().copy()
+            prog_np = self._data_gather(a["prog"], 0).cpu().numpy()
+            done_d = ~self._data_gather(a["act"], 0).cpu().numpy()
             # telemetry: only steps where at least one lane DECODED,
             # each priced under the spec governing its step
             row_mask = emitted.max(axis=1) >= 0
@@ -1111,32 +1330,37 @@ class ServingEngine:
                         req.finished_at = stamp(int(got[-1]))
             # deadline + cooperative cancellation, at boundaries
             now = time.time()
-            for lane, req in list(live.items()):
-                timed_out = req.deadline_s is not None and \
-                    now - req.submitted_at > req.deadline_s
-                if not (req.cancel_requested or timed_out):
-                    continue
-                status = "cancelled" if req.cancel_requested else "timeout"
-                del live[lane]
+
+            def reaped(req) -> Optional[str]:
+                if req.cancel_requested:
+                    return "cancelled"
+                if req.deadline_s is not None and \
+                        now - req.submitted_at > req.deadline_s:
+                    return "timeout"
+                return None
+            live_out, queued_out = self._agree((
+                [(lane, reaped(req)) for lane, req in live.items()
+                 if reaped(req)],
+                [(req.rid, reaped(req)) for req in batcher.queue
+                 if reaped(req)]))
+            for lane, status in live_out:
+                req = live.pop(lane)
                 release[lane] = True
                 batcher.complete(req, status, RequestError(
                     "cancelled" if status == "cancelled"
                     else "deadline_exceeded",
                     f"reaped at step {batcher.step_idx + stride}"))
-            for req in [q for q in batcher.queue
-                        if q.cancel_requested or
-                        (q.deadline_s is not None and
-                         now - q.submitted_at > q.deadline_s)]:
-                status = "cancelled" if req.cancel_requested else "timeout"
+            queued = {req.rid: req for req in batcher.queue}
+            for rid, status in queued_out:
                 batcher.drop_queued(
-                    req, status,
+                    queued[rid], status,
                     "cancelled" if status == "cancelled"
                     else "deadline_exceeded",
                     "reaped while queued")
             stale |= release
             if release.any():
                 _write_back(a["cache"], control.release_lanes(
-                    a["cache"], upload(release)))
+                    a["cache"], upload(self._lane_slice(release))))
             delta = faults.pool_delta(step0, stride)
             if delta:
                 batcher.resize_pool(delta)
@@ -1148,6 +1372,18 @@ class ServingEngine:
             view = batcher.device_view()
         return ServeReport.build(batcher.completed, batcher.rejected,
                                  events, eos_id=cfg.eos_id)
+
+    def _global_rows(self, rows: Dict[str, torch.Tensor]
+                     ) -> Dict[str, torch.Tensor]:
+        """A serve chunk's per-step rows over all B lanes: with lanes
+        split over `data`, the per-lane rows and the trace all-gathered
+        and the telemetry's page counts summed; else `rows`."""
+        if not self._lanes.split:
+            return rows
+        return {k: self._data_sum(v.clone()) if k == "base"
+                else self._data_gather(v, 2 if k in ("access", "tier")
+                                       else 1)
+                for k, v in rows.items()}
 
     def _bind_serve_arena(self, geo, stride: int):
         """The serve arena for `geo`, reset in place for a new stream:
@@ -1258,8 +1494,9 @@ class ServingEngine:
             pf, dec = control.lane_modes(act, prog, prompt_len)
             # decode plane: an exact no-op on steps with no decoding
             # lane (its stats row is filtered at the boundary; in
-            # overlap mode the staged plan waits)
-            live = dec.any()
+            # overlap mode the staged plan waits); over every rank's
+            # lanes in a meshed serve
+            live = self._data_sum(dec.sum(dtype=torch.int32)) > 0
             cap = torch.where(live, a["caps"][n_step], 0)
             if overlap:
                 logits, cache, new_ps, new_staged, stats = \
@@ -1295,9 +1532,11 @@ class ServingEngine:
                                 0).to(torch.int32)
             if Pb is not None:
                 # per-batch token bucket: run the prefill plane only
-                # when the accrued budget covers the step's demand
-                want_tot = n_val.sum().to(torch.int32)
-                credits = torch.clamp_max(credits + Pb, B * C)
+                # when the accrued budget covers the step's demand (of
+                # every rank's lanes in a meshed serve)
+                want_tot = self._data_sum(n_val.sum(dtype=torch.int32))
+                credits = torch.clamp_max(credits + Pb,
+                                          self._lanes.total * C)
                 run_now = credits >= want_tot
                 n_val = torch.where(run_now, n_val, 0)
                 credits = credits - torch.where(run_now, want_tot, 0)
@@ -1307,8 +1546,9 @@ class ServingEngine:
                 idx = (prog[:, None] + ar_c).clamp(0, S_cap - 1).long()
                 sl_toks = torch.gather(prompt_buf, 1, idx)
                 self._pools_ready()
-                logits_c, cache = self.model.prefill_chunk(
-                    self.params, cache, sl_toks, prog, n_val, pf_pages * T)
+                model, params = self._run
+                logits_c, cache = model.prefill_chunk(
+                    params, cache, sl_toks, prog, n_val, pf_pages * T)
                 prog = prog + n_val
                 crossed = pf & (prog >= prompt_len)
                 last = (n_val - 1).clamp(0, C - 1).long()

@@ -28,6 +28,11 @@ Everything here is host numpy and plain Python except `throttle_plan`,
 a few tensor ops on the plan with no host sync. The same constructor
 arguments (or `FaultPlane.random`'s seed) give the same schedule as the
 reference, bit for bit.
+
+The plane is global under a serving mesh: every rank draws the same
+schedule from the same arguments, slices its lanes out of the
+[stride, B] poison masks, and caps each step's commits by the rows'
+ranks in the whole stream's plan (`throttle_plan(ahead=)`).
 """
 
 from __future__ import annotations
@@ -227,15 +232,27 @@ class FaultPlane:
                           pool=tuple(pool), poison=tuple(poison))
 
 
-def throttle_plan(plan: MigrationPlan, cap) -> MigrationPlan:
+def throttle_plan(plan: MigrationPlan, cap, ahead=None) -> MigrationPlan:
     """Commit only the first `cap` live promote rows of a plan and their
     index-paired demote rows (`plan_by_score` pairs demote i with
     promote i, so a partial commit never orphans half a swap); the rest
     become -1 no-ops. `cap` is a host int or a 0-dim tensor; no host
-    sync either way. The engine skips the call when the cap is at least
-    the plan's capacity, where it is the identity."""
+    sync either way. At a cap of at least the plan's capacity it is the
+    identity.
+
+    A row is kept when its rank among the live rows of the whole
+    stream's plan is at most `cap`. `ahead` (int32 [L, B'], the
+    engine's): the plan holds the rows of B' of the stream's lanes
+    (a meshed serve's rank; unmeshed, all of them), laid out
+    [L, B', budget] as `plan_by_score` lays them, and `ahead[l, b]`
+    counts the live rows the whole plan holds before block (l, b).
+    Without it the plan is the whole plan, one block."""
     live = plan.pro_layer >= 0
-    keep = (torch.cumsum(live.to(torch.int32), 0) <= cap) & live
+    if ahead is None:
+        ahead = torch.zeros((1,), dtype=torch.int32, device=live.device)
+    blocks = live.to(torch.int32).view(*ahead.shape, -1)
+    rank = (ahead[..., None] + torch.cumsum(blocks, -1)).reshape(-1)
+    keep = (rank <= cap) & live
     return MigrationPlan(*[
         torch.where(keep, getattr(plan, f.name), -1).to(torch.int32)
         for f in dataclasses.fields(plan)])

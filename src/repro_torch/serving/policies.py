@@ -44,6 +44,13 @@ way, and `quest` already ranks by the next step's mask. The oracle
 needs a sparse read set: dense attention reads every alive page, so
 protecting the read set would freeze placement; plan-ahead is on only
 with `attention_sparsity > 0`.
+
+Under a serving mesh a policy plans the rank's own lanes: its state is
+built for the rank-local geometry (`launch.shardings.
+policy_state_shardings`: [L, B, ...] leaves hold the rank's lanes,
+0-dim leaves are whole), and every plan is per (layer, lane), so the
+data ranks' plans together are the unsplit plan. The `model` ranks
+plan from the same all-reduced importance and agree step by step.
 """
 
 from __future__ import annotations

@@ -306,6 +306,10 @@ def collect_serve(engine) -> ServeTraceRecord:
     `serve(requests)`; each chunk boundary logs the chunk's read sets,
     placements, emitted/first tokens, and lane->request bindings
     (fixed within a chunk — admission happens only at boundaries).
+    A meshed engine's log is already the whole stream's on every rank:
+    each chunk's per-lane trace rows are all-gathered over `data` at
+    its one readback (`ServingEngine._global_rows`), so rank 0 (or any
+    rank) scores the whole stream.
     """
     log = getattr(engine, "_serve_trace_log", None)
     if not log:

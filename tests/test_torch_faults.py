@@ -241,8 +241,8 @@ def test_chaos_serve_matches_reference(models, scenario, overlap,
                                        monkeypatch):
     dropped = []
 
-    def spy(plan, cap):
-        out = tf.throttle_plan(plan, cap)
+    def spy(plan, cap, ahead=None):
+        out = tf.throttle_plan(plan, cap, ahead)
         dropped.append(int((plan.pro_layer >= 0).sum()
                            - (out.pro_layer >= 0).sum()))
         return out

@@ -3,7 +3,8 @@ reference's (`repro.launch.serve`): the same request stream bitwise
 from the same seed, the same served stream — tokens, statuses and
 per-step bytes — from the same f32 smoke weights carried by the bridge
 under `--spec gh200`, `main` on the CPU, and the two refusals: `--mesh`
-(more than one card) and `--parity` without a card."""
+for the moe family (expert parallelism) and `--parity` without a card
+or `--mesh`."""
 
 import argparse
 
@@ -80,9 +81,11 @@ def test_main_serves_on_the_cpu(capsys):
 
 
 def test_mesh_is_refused():
-    with pytest.raises(NotImplementedError, match="more than one card"):
-        tserve.main(["--smoke", "--device", "cpu", "--mesh",
-                     "data=2,model=2"])
+    """`--mesh` serves the dense family (tests/test_torch_mesh_serve.py);
+    the moe family's mesh is refused before any rank starts."""
+    with pytest.raises(NotImplementedError, match="expert parallelism"):
+        tserve.main(["--smoke", "--device", "cpu", "--arch",
+                     "granite-moe-3b-a800m", "--mesh", "data=2,model=2"])
 
 
 def test_parity_without_a_card_refuses(monkeypatch, capsys):
