@@ -265,6 +265,28 @@ non-zero):
              version. The multi-rank path on cards is a four-card
              cell's.
 
+  14a. mesh train phase 12's training on a world-size-1 NCCL mesh
+             (`make_train_step(..., mesh=)`, `init_train_state(...,
+             mesh=)`), internlm2-1.8b at full width and depth, B=8 x
+             S=512, remat, 3 steps on phase 12's batches: every
+             collective of the meshed step runs (each an identity at
+             size 1); losses, grad norms and parameters bitwise equal to
+             phase 12's first 3 steps; flash 48 and its backward 24
+             launches a step (`mesh_train` in the kernels line). Then,
+             at 2 layers (as 12b: the full-depth train state is ~19 GB),
+             2 meshed steps, a save on the mesh, a restore without one
+             and a third step: bitwise equal to 3 unmeshed steps.
+  14b. train split one full-width internlm2-1.8b decoder layer's
+             forward and backward split over (data, model) = (1, 2), (1,
+             4), (2, 2) and (2, 4), rank after rank on one card, the
+             collectives by hand in one autograd graph (FSDP blocks
+             concatenated over data, partial outputs summed over model
+             in bf16, the norms' input shared by the model ranks): dx
+             and every weight's gradient, assembled from the ranks'
+             blocks, against the unsplit layer's within
+             TRAIN_SPLIT_TOL; the flash kernel and its backward at 8/4
+             and 4/2 heads (`train_split`).
+
 Then a `kernels` JSON line, the card's name and power limit, and, last,
 {"ok": true, "device": {...}}. Without a CUDA card it exits non-zero
 and prints no result. `--profile DIR` runs phase 4 under torch.profiler
@@ -1087,7 +1109,9 @@ def lane_pages_part(rng, device, geo, lanes=(1, 6), seen=(64, 100)):
 #: 160), granite-8b's (phase 10, H/KH = 4), whisper-tiny's encoder
 #: (phase 10: non-causal, G = 1, S = 1500) and its cross-attention in
 #: prefill (Sq = 64 over Sk = 1500), zamba2-1.2b's attention sites
-#: (phase 10: H = KH = 32, D = 64); the others are checked
+#: (phase 10: H = KH = 32, D = 64), and a training rank's (phase 14:
+#: internlm2 at data = 2, 4 rows of 512, over model = 2 and 4); the
+#: others are checked
 FLASH_SHAPES = (
     ("internlm2-1.8b", 4, 2304, 2304, 16, 8, 128, "bf16", True, True),
     ("granite-moe-3b-a800m", 4, 2304, 2304, 24, 8, 64, "bf16", True, True),
@@ -1114,6 +1138,12 @@ FLASH_SHAPES = (
      False),
     ("whisper-tiny cross, decode", 4, 1, 1500, 6, 6, 64, "bf16", False,
      False),
+    # a rank's training shapes across a mesh (phase 14): internlm2 at
+    # data = 2 (4 rows of 512) over model = 2 and 4
+    ("internlm2-1.8b train rank, model=2", 4, 512, 512, 8, 4, 128, "bf16",
+     True, True),
+    ("internlm2-1.8b train rank, model=4", 4, 512, 512, 4, 2, 128, "bf16",
+     True, True),
 )
 FLASH_TOL = {"bf16": 1e-2, "f32": 2e-5}
 
@@ -1203,7 +1233,8 @@ def flash_phase(device):
 
 #: (label, B, Sq, Sk, H, KH, D, dtype name, causal, timed): phase 12's
 #: training shape is timed (internlm2-1.8b, S = 512 after the shift by
-#: one); the others are checked
+#: one), and a rank's at data = 2 over model = 2 and 4 (phase 14); the
+#: others are checked
 BWD_SHAPES = (
     ("internlm2-1.8b train", 8, 512, 512, 16, 8, 128, "bf16", True, True),
     ("smoke f32, ragged S", 2, 300, 300, 4, 2, 16, "f32", True, False),
@@ -1211,6 +1242,10 @@ BWD_SHAPES = (
     ("H = KH = 32", 2, 700, 700, 32, 32, 64, "bf16", True, False),
     ("D=160 ragged S", 2, 300, 300, 32, 8, 160, "bf16", True, False),
     ("whisper-tiny cross", 4, 64, 1500, 6, 6, 64, "bf16", False, False),
+    ("internlm2-1.8b train rank, model=2", 4, 512, 512, 8, 4, 128, "bf16",
+     True, True),
+    ("internlm2-1.8b train rank, model=4", 4, 512, 512, 4, 2, 128, "bf16",
+     True, True),
 )
 #: max abs error of each of dq, dk, dv over that gradient's max |value|:
 #: bf16 gradients are rounded once (one bf16 step is 2^-8 relative),
@@ -1617,6 +1652,7 @@ def fused_phase(model, params, seed):
 
 
 KERNEL_GROUPS = (   # (group, lower-case substrings of its kernel names)
+    ("collectives (NCCL)", ("nccl",)),
     ("paged attention (csrc/paged_attention.cu)", ("paged_split_kernel",)),
     ("row copies (csrc/page_copy.cu)", ("page_copy_kernel",)),
     ("flash attention (csrc/flash_attention.cu)", ("flash_wgmma_kernel",
@@ -2972,7 +3008,10 @@ def train_phase(seed):
     parameters are saved (`save_pytree`), restored into fresh tensors
     (bitwise equal), the optimizer state is freed and phase 4's stream
     is served from the restored weights. Returns (launches by kernel in
-    the training steps, the serve's launches, numbers)."""
+    the training steps, the serve's launches, numbers; "mesh_ref": the
+    losses and grad norms of the first MESH_TRAIN_STEPS steps and the
+    parameters after them, on the host, which phase 14a holds its
+    meshed steps to)."""
     import tempfile
     import torch
     from repro_torch import configs
@@ -2998,15 +3037,20 @@ def train_phase(seed):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     COUNTS.clear()                          # the main path's run only
-    losses, times = [], []
+    losses, gnorms, times = [], [], []
     for i, tokens in enumerate(batches):
         t = time.time()
         state, m = step_fn(state, {"tokens": tokens})
         loss, gnorm = float(m["loss"]), float(m["grad_norm"])
         times.append(time.time() - t)
         losses.append(loss)
+        gnorms.append(gnorm)
         log(f"train step {i + 1}: loss {loss:.4f} grad norm {gnorm:.4f} "
             f"{times[-1] * 1e3:.1f} ms")
+        if i + 1 == MESH_TRAIN_STEPS:       # phase 14a's reference
+            mesh_ref = {"losses": list(losses), "grad_norms": list(gnorms),
+                        "params": [p.to("cpu") for p in
+                                   tree_leaves(state.params)]}
     counts = dict(COUNTS)
     peak = torch.cuda.max_memory_allocated()
     tokens_per_s = TRAIN_B * TRAIN_S * (TRAIN_STEPS - 1) / sum(times[1:])
@@ -3046,7 +3090,8 @@ def train_phase(seed):
                                  what="serve trained")
     numbers.update(losses=losses, step_s=times, train_peak_bytes=peak,
                    tokens_per_s_train=tokens_per_s, save_s=save_s,
-                   restore_s=restore_s, ckpt_bytes=nbytes)
+                   restore_s=restore_s, ckpt_bytes=nbytes,
+                   mesh_ref=mesh_ref)
     del restored
     free_card()
     return counts, serve, numbers
@@ -3398,6 +3443,303 @@ def tp_split_phase(seed):
     return out
 
 
+#: phase 14a: the meshed steps held to phase 12's first steps
+MESH_TRAIN_STEPS = 3
+
+
+def mesh_train_phase(seed, ref):
+    """Phase 14a: phase 12's training on a world-size-1 NCCL mesh (a
+    `file://` store in a temporary directory) and `make_test_mesh(1,
+    1)`: internlm2-1.8b at full width and depth, the same seed and
+    batches, MESH_TRAIN_STEPS steps of `make_train_step(..., mesh=)`
+    from `init_train_state(..., mesh=)`, so every collective of the
+    meshed step runs on the card (each an identity at size 1). Losses,
+    grad norms and parameters must be bitwise phase 12's (`ref`). Then
+    the checkpoint round trip at 2 layers (as phase 12b, whose whole
+    train state takes a minute to write; at full depth it would be
+    ~19 GB): 2 meshed steps, a save on the mesh (`CheckpointManager(
+    mesh=)`, the leaves gathered whole), a restore without a mesh and
+    one unmeshed step must equal 3 unmeshed steps, bitwise. The state
+    is freed, then the group is torn down. Returns the launches by
+    kernel of the full-depth meshed steps and numbers."""
+    import shutil
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.kernels.build import COUNTS
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.model import Model
+    from repro_torch.training.train_step import (
+        init_train_state, make_train_step)
+    from repro_torch.tree import tree_leaves
+    free_card()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_mesh_")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_test_mesh(1, 1)
+        cfg = configs.get("internlm2-1.8b")
+        model = Model(cfg)
+        state = init_train_state(model, seed, "cuda", mesh=mesh)
+        step_fn = make_train_step(model, lr=TRAIN_LR, mesh=mesh)
+        batches = train_batches(cfg.vocab, seed, MESH_TRAIN_STEPS)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        COUNTS.clear()                      # the main path's run only
+        losses, gnorms, times = [], [], []
+        for tokens in batches:
+            t = time.time()
+            state, m = step_fn(state, {"tokens": tokens})
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+            times.append(time.time() - t)
+        counts = dict(COUNTS)
+        peak = torch.cuda.max_memory_allocated()
+        diffs = [float((a.float() - b.to(a.device).float()).abs().max())
+                 for a, b in zip(tree_leaves(state.params), ref["params"])]
+        same = {"losses": losses == ref["losses"],
+                "grad_norms": gnorms == ref["grad_norms"],
+                "params": all(torch.equal(a, b.to(a.device)) for a, b in
+                              zip(tree_leaves(state.params),
+                                  ref["params"]))}
+        log(f"mesh train: {cfg.name} {cfg.num_layers} layers, data=1 "
+            f"model=1 over NCCL, B={TRAIN_B} S={TRAIN_S}, lr {TRAIN_LR}, "
+            f"remat on: losses {losses} grad norms {gnorms} (phase 12: "
+            f"{ref['losses']} {ref['grad_norms']}); bitwise equal to phase "
+            f"12's steps: losses {same['losses']} grad norms "
+            f"{same['grad_norms']} parameters {same['params']} (largest "
+            f"|diff| {max(diffs):.3e}); "
+            f"{[round(x * 1e3, 1) for x in times]} ms a step, peak memory "
+            f"{peak / 1e9:.2f} GB, launches {counts}")
+        del state, m
+        free_card()
+        numbers = {"losses": losses, "grad_norms": gnorms, "step_s": times,
+                   "peak_bytes": peak, "max_param_diff": max(diffs)}
+        numbers.update(mesh_checkpoint_part(seed, mesh, tmp))
+        per_step = 2 * cfg.num_layers * MESH_TRAIN_STEPS
+        if not all(same.values()):
+            raise AssertionError(f"mesh train: the meshed steps differ "
+                                 f"from phase 12's: {same}")
+        if counts.get("flash_attention") != per_step or \
+                counts.get("flash_attention_bwd") != per_step // 2:
+            raise AssertionError(f"mesh train: launches {counts}, expected "
+                                 f"flash {per_step} and its backward "
+                                 f"{per_step // 2}")
+        return counts, numbers
+    finally:
+        gc.collect()
+        torch.cuda.synchronize()
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def mesh_checkpoint_part(seed, mesh, tmp):
+    """Phase 14a's checkpoint round trip at 2 layers on `mesh`: 2 meshed
+    steps, a save on the mesh, a restore without one and a third,
+    unmeshed step against 3 unmeshed steps; losses and the whole train
+    state bitwise equal. Returns its numbers."""
+    import dataclasses
+    import os
+    import torch
+    from repro_torch import configs
+    from repro_torch.bridge import train_state_specs
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.models.model import Model
+    from repro_torch.training.train_step import (
+        init_train_state, make_train_step)
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = dataclasses.replace(configs.get("internlm2-1.8b"), num_layers=2)
+    model = Model(cfg)
+    batches = train_batches(cfg.vocab, seed + 2, 3)
+
+    def run(state, step_fn, which):
+        losses = []
+        for i in which:
+            state, m = step_fn(state, {"tokens": batches[i]})
+            losses.append(m["loss"])
+        return state, losses
+
+    plain = make_train_step(model, lr=TRAIN_LR)
+    straight, l_straight = run(init_train_state(model, seed, "cuda"), plain,
+                               range(3))
+    meshed, l_resumed = run(init_train_state(model, seed, "cuda",
+                                             mesh=mesh),
+                            make_train_step(model, lr=TRAIN_LR, mesh=mesh),
+                            range(2))
+    root = os.path.join(tmp, "ckpt")
+    t = time.time()
+    CheckpointManager(root, mesh=mesh).save(
+        2, meshed, blocking=True, specs=train_state_specs(cfg, mesh))
+    save_s = time.time() - t
+    target = tree_map(lambda x: x.to("meta"), meshed)
+    del meshed
+    t = time.time()
+    resumed = CheckpointManager(root).restore(target, step=2, device="cuda")
+    torch.cuda.synchronize()
+    restore_s = time.time() - t
+    resumed, more = run(resumed, plain, range(2, 3))
+    l_resumed += more
+    same_loss = torch.equal(torch.stack(l_straight), torch.stack(l_resumed))
+    same_state = all(torch.equal(a, b) for a, b in
+                     zip(tree_leaves(straight), tree_leaves(resumed)))
+    log(f"mesh train checkpoint: {cfg.name} at 2 layers: 2 steps on the "
+        f"mesh, saved on it ({save_s:.2f} s to COMMIT), restored without a "
+        f"mesh ({restore_s:.2f} s), 1 more step; losses straight "
+        f"{[round(float(x), 4) for x in l_straight]} resumed "
+        f"{[round(float(x), 4) for x in l_resumed]}; losses bitwise equal "
+        f"{same_loss}, params and optimizer state bitwise equal "
+        f"{same_state}")
+    del straight, resumed
+    free_card()
+    if not (same_loss and same_state):
+        raise AssertionError("mesh train checkpoint: the run resumed from "
+                             "the meshed save differs from the straight one")
+    return {"ckpt_save_s": save_s, "ckpt_restore_s": restore_s}
+
+
+#: phase 14b's splits: (data, model) over which one full-width
+#: internlm2-1.8b layer trains (B = TRAIN_B rows of TRAIN_S tokens)
+TRAIN_SPLITS = ((1, 2), (1, 4), (2, 2), (2, 4))
+#: a split layer's gradients against the unsplit layer's (bf16): max
+#: |split - unsplit| over max |unsplit| of dx and of every weight's
+#: gradient, assembled from the ranks' blocks; about twice the largest
+#: seen on an H100 (dx 1.50e-2 at model = 2: the ranks' partial outputs
+#: each rounded to bf16, then summed in bf16, in the forward and in the
+#: sums of their input's gradients; every weight 4e-3 to 1e-2)
+TRAIN_SPLIT_TOL = 3e-2
+
+
+def train_split_phase(seed):
+    """Phase 14b: one full-width internlm2-1.8b decoder layer (attention
+    and MLP blocks, random bf16 weights) forward AND backward, split
+    over each of `TRAIN_SPLITS` rank after rank on one card, the
+    collectives done by hand in one autograd graph: each rank's train-
+    mode shards (`bridge.shard_params(..., mode="train")` over a mesh of
+    names and sizes, `ModelConfig.rank_local`); a model rank's FSDP
+    blocks concatenated over `data` once and used by every data rank
+    (so autograd sums the data ranks' gradients into each block: the
+    reduce-scatter); each data rank's rows through the rank-local
+    blocks, the model ranks' partial outputs summed in bf16 in rank
+    order (g), the norms computed once per data rank from leaves whole
+    on both axes (so their input's gradient sums over the model ranks:
+    f). dx and every weight's gradient, assembled from the ranks'
+    blocks, against the unsplit layer's within TRAIN_SPLIT_TOL. The
+    flash kernel and its backward run at each rank's heads (8/4 at
+    model = 2, 4/2 at 4) and rows. Returns the launches by kernel and
+    the errors."""
+    import dataclasses
+    import torch
+    from repro_torch import bridge, configs
+    from repro_torch.kernels.build import COUNTS
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.launch.shardings import data_dim
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import attention, rms_norm, swiglu
+    from repro_torch.models.model import Model
+    free_card()
+    device = torch.device("cuda")
+    cfg = dataclasses.replace(configs.get("internlm2-1.8b"), num_layers=1)
+    params = Model(cfg).init(seed, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 3)
+    h = torch.randn((TRAIN_B, TRAIN_S, cfg.d_model), generator=gen,
+                    device=device).to(torch.bfloat16)
+    dy = torch.randn(h.shape, generator=gen,
+                     device=device).to(torch.bfloat16)
+    pos = torch.arange(TRAIN_S, device=device)[None, :]
+
+    def layer(x, lp, local):
+        """The layer on rows `x` with the model ranks' weights `lp` (a
+        list, one dict a model rank; norms from the first), their
+        partial outputs summed in rank order."""
+        xn = rms_norm(x, lp[0]["attn_norm"], cfg.norm_eps)
+        att = None
+        for w in lp:
+            q, k, v = tfm.attn_qkv(xn, w, local, pos)
+            part = tfm.attn_out(attention(q, k, v), w)
+            att = part if att is None else att + part
+        h1 = x + att
+        xn2 = rms_norm(h1, lp[0]["mlp_norm"], cfg.norm_eps)
+        mlp = None
+        for w in lp:
+            part = swiglu(xn2, w["w_gate"], w["w_up"], w["w_down"])
+            mlp = part if mlp is None else mlp + part
+        return h1 + mlp
+
+    whole = {k: v[0].detach().clone().requires_grad_(True)
+             for k, v in params["layers"].items()}
+    x = h.clone().requires_grad_(True)
+    torch.autograd.backward(layer(x, [whole], cfg), dy)
+    want = {"dx": x.grad, **{k: v.grad for k, v in whole.items()}}
+    COUNTS.clear()
+    out = []
+    for data, m in TRAIN_SPLITS:
+        mesh = AbstractMesh(("data", "model"), (data, m))
+        local = cfg.rank_local(m)
+        specs = bridge.param_specs(cfg, mesh, "train")
+        blocks = {(d, r): {k: v[0].detach().clone().requires_grad_(True)
+                           for k, v in bridge.shard_params(
+                               params, cfg, mesh, {"data": d, "model": r},
+                               "train")["layers"].items()}
+                  for d in range(data) for r in range(m)}
+        dims = {k: data_dim(specs[f"layers/{k}"]) for k in whole}
+        # a model rank's leaves whole on data: its FSDP blocks gathered
+        # (the stacked leaf's dim less its [L] dim), the others its own
+        gathered = [{k: torch.cat([blocks[(d, r)][k] for d in range(data)],
+                                  dims[k] - 1) if dims[k] is not None
+                     else blocks[(0, r)][k] for k in whole}
+                    for r in range(m)]
+        x = h.clone().requires_grad_(True)
+        rows = TRAIN_B // data
+        y = torch.cat([layer(x[d * rows:(d + 1) * rows], gathered, local)
+                       for d in range(data)])
+        torch.autograd.backward(y, dy)
+        got = {"dx": x.grad}
+        for k in whole:
+            spec = specs[f"layers/{k}"][1:]
+            grid = [[blocks[(d, r)][k].grad if blocks[(d, r)][k].grad is
+                     not None else torch.zeros_like(blocks[(d, r)][k])
+                     for r in range(m)] for d in range(data)]
+            got[k] = assemble(grid, spec)
+        err = {k: float((got[k].float() - want[k].float()).abs().max()
+                        / want[k].float().abs().max()) for k in want}
+        worst = max(err, key=err.get)
+        log(f"train split data={data} model={m}: {cfg.num_heads // m}/"
+            f"{cfg.kv_heads // m} heads, d_ff {local.d_ff}, {rows} rows a "
+            f"rank; gradients against the unsplit layer (max |diff| / max "
+            f"|value|): {', '.join(f'{k} {e:.3e}' for k, e in err.items())}"
+            f" (tolerance {TRAIN_SPLIT_TOL})")
+        if not err[worst] <= TRAIN_SPLIT_TOL:
+            raise AssertionError(f"train split data={data} model={m}: "
+                                 f"{worst} {err[worst]:.3e}")
+        out.append({"data": data, "model": m, "errors": err})
+        del blocks, gathered, y, x
+    counts = dict(COUNTS)
+    log(f"train split: launches {counts}")
+    del params, whole
+    free_card()
+    if not counts.get("flash_attention") or \
+            not counts.get("flash_attention_bwd"):
+        raise AssertionError(f"train split: launches {counts}")
+    return counts, out
+
+
+def assemble(grid, spec):
+    """The whole tensor from the blocks `grid[d][r]` (data rank d, model
+    rank r) that a spec with at most one dim on each axis cuts."""
+    import torch
+    dims = {entry: d for d, entry in enumerate(spec) if entry is not None}
+    rows = []
+    for blocks in grid:
+        rows.append(torch.cat(blocks, dims["model"]) if "model" in dims
+                    else blocks[0])
+    if "data" in dims:
+        return torch.cat(rows, dims["data"])
+    return rows[0]
+
+
 def _leaves(tree):
     for v in tree.values():
         yield from (_leaves(v) if isinstance(v, dict) else [v])
@@ -3508,9 +3850,16 @@ def main(argv=None) -> int:
         args.seed))
     phase("xlstm", lambda: xlstm_phase(args.seed))
     phase("train parity", lambda: train_parity_phase(args.seed))
-    train, trained_serve, _ = phase("train", lambda: train_phase(args.seed))
+    train, trained_serve, train_numbers = phase(
+        "train", lambda: train_phase(args.seed))
     resume, _ = phase("train resume", lambda: resume_phase(args.seed))
     phase("train witness", lambda: train_witness_phase(args.seed))
+    mesh_ref = train_numbers.pop("mesh_ref")
+    mesh_train, _ = phase("mesh train", lambda: mesh_train_phase(
+        args.seed, mesh_ref))
+    del mesh_ref
+    train_split, _ = phase("train split", lambda: train_split_phase(
+        args.seed))
     log(f"all phases: {time.time() - t_all:.1f} s wall")
 
     # one inline internlm2 decode layer: the HBM-tier (N=64) + host-tier
@@ -3577,6 +3926,8 @@ def main(argv=None) -> int:
                                  f"{dead}")
     flash_by_path = {"policy_sweep": sweep["flash_attention"],
                      "train": train.get("flash_attention", 0),
+                     "mesh_train": mesh_train.get("flash_attention", 0),
+                     "train_split": train_split.get("flash_attention", 0),
                      "example": example.get("flash_attention", 0),
                      "moe_start": moe["start"].get("flash_attention", 0),
                      **{f"{name}_start": c["start"].get("flash_attention", 0)
@@ -3593,6 +3944,8 @@ def main(argv=None) -> int:
     }
     bwd_by_path = {"train": train.get("flash_attention_bwd", 0),
                    "train_resume": resume.get("flash_attention_bwd", 0),
+                   "mesh_train": mesh_train.get("flash_attention_bwd", 0),
+                   "train_split": train_split.get("flash_attention_bwd", 0),
                    "example": example.get("flash_attention_bwd", 0)}
     bwd_entry = {
         "name": "flash_attention_bwd", "route": "cuda",

@@ -13,6 +13,17 @@ torch.profiler: the device's busy share and its kernel time by group
 and by kernel (`chip_smoke.breakdown`; the profiler's table goes to
 DIR, default build/train_profile). The profiled step's wall time
 includes the profiler's cost.
+
+    python3 scripts/train_profile.py --mesh [--rounds 3] [--out DIR]
+
+The price of the meshed step (phase 14a): on a world-size-1 NCCL mesh
+(a `file://` store in a temporary directory), after two warm-up steps
+of each, `make_train_step` unmeshed (P) and `make_train_step(...,
+mesh=)` (M) each take a step from the same state (its result dropped,
+so the card holds one train state) in the order P M M P, `--rounds`
+times, each timed by the host clock up to a synchronize; then one step
+of each under torch.profiler, broken down as above (the tables go to
+DIR/plain and DIR/mesh).
 """
 
 from __future__ import annotations
@@ -31,6 +42,10 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--out", default=os.path.join(ROOT, "build",
                                                   "train_profile"))
+    ap.add_argument("--mesh", action="store_true",
+                    help="time and profile the meshed step (world size 1) "
+                         "against the unmeshed one")
+    ap.add_argument("--rounds", type=int, default=3)
     args = ap.parse_args()
     sys.path[:0] = [ROOT, os.path.join(ROOT, "src")]
     import torch
@@ -47,6 +62,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     build.build_all()
     print(cs.card_line())
+    if args.mesh:
+        return mesh_ab(args)
     cfg = configs.get("internlm2-1.8b")
     model = Model(cfg)
     state = init_train_state(model, 0, "cuda")
@@ -80,6 +97,61 @@ def main() -> int:
     print(f"profiled step: {wall * 1e3:.1f} ms wall")
     cs.breakdown(prof, wall, args.out)
     return 0
+
+
+def mesh_ab(args) -> int:
+    """`--mesh`: the unmeshed and the meshed step, P M M P, then one of
+    each profiled."""
+    import shutil
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    import chip_smoke as cs
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.model import Model
+    from repro_torch.training.train_step import (
+        init_train_state, make_train_step)
+    tmp = tempfile.mkdtemp(prefix="train_profile_mesh_")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                            rank=0, world_size=1)
+    try:
+        cfg = configs.get("internlm2-1.8b")
+        model = Model(cfg)
+        mesh = make_test_mesh(1, 1)
+        state = init_train_state(model, 0, "cuda")
+        tokens = cs.train_batches(cfg.vocab, 0, 1)[0]
+        steps = {"plain": make_train_step(model, lr=cs.TRAIN_LR),
+                 "mesh": make_train_step(model, lr=cs.TRAIN_LR, mesh=mesh)}
+
+        def one(name):
+            t = time.time()
+            _, m = steps[name](state, {"tokens": tokens})
+            float(m["loss"])
+            torch.cuda.synchronize()
+            return time.time() - t
+        for name in ("plain", "mesh", "plain", "mesh"):
+            one(name)                                    # warm-up
+        times = {"plain": [], "mesh": []}
+        for _ in range(args.rounds):
+            for name in ("plain", "mesh", "mesh", "plain"):
+                times[name].append(one(name))
+        for name, ts in times.items():
+            print(f"train step {name}: median "
+                  f"{statistics.median(ts) * 1e3:.1f} ms of "
+                  f"{[round(t * 1e3, 1) for t in ts]}")
+        for name in ("plain", "mesh"):
+            t = time.time()
+            _, prof = cs.profiled(lambda: one(name))
+            wall = time.time() - t
+            print(f"profiled {name} step: {wall * 1e3:.1f} ms wall")
+            cs.breakdown(prof, wall, os.path.join(args.out, name))
+        return 0
+    finally:
+        torch.cuda.synchronize()
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 if __name__ == "__main__":

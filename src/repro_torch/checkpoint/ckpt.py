@@ -18,7 +18,13 @@ records it.
 
 Integrity as in the reference: every chunk file is fsync'd, then the
 manifest, and a COMMIT marker is written last, so a torn write is never
-mistaken for a checkpoint. Chunks are compressed on a thread pool
+mistaken for a checkpoint.
+
+A checkpoint holds whole leaves, whatever mesh wrote it (the manager
+gathers a meshed state's shards onto the mesh's first rank, which
+writes), so `restore_pytree(..., mesh=, specs=)` cuts each rank's block
+out of the whole leaf for whatever mesh the job has: the port's
+counterpart of the reference's `restore_pytree(..., shardings=)`. Chunks are compressed on a thread pool
 (zlib and zstd release the GIL); the bytes are those of a serial save.
 """
 
@@ -30,13 +36,13 @@ import json
 import os
 import struct
 import zlib
-from typing import Any, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.tree import leaves_with_path, tree_unflatten
+from repro_torch.tree import leaves_with_path, path_name, tree_unflatten
 
 try:
     import zstandard as zstd
@@ -73,10 +79,6 @@ def _decompressor(codec: str):
     if codec == "zlib":
         return zlib.decompress
     raise ValueError(f"unknown checkpoint codec {codec!r}")
-
-
-def _path_str(path) -> str:
-    return "/".join(str(p) for p in path)
 
 
 def _host_array(leaf) -> np.ndarray:
@@ -132,7 +134,7 @@ def save_pytree(tree: Any, directory: str,
         queue = collections.deque()
         waiting = 0
         for path, leaf in leaves_with_path(tree):
-            name = _path_str(path)
+            name = path_name(path)
             arr = _host_array(leaf)
             raw = memoryview(arr.reshape(-1).view(np.uint8))
             blobs = [pool.submit(compress, raw[off:off + _CHUNK])
@@ -179,13 +181,21 @@ def _read_leaf(directory, meta, decompress, pool) -> torch.Tensor:
     return torch.from_numpy(arr.copy())
 
 
-def restore_pytree(target: Any, directory: str, device=None) -> Any:
+def restore_pytree(target: Any, directory: str, device=None, mesh=None,
+                   specs: Optional[Dict[str, Any]] = None) -> Any:
     """Restore into the structure of `target` (tensors, real or on the
     "meta" device), each leaf cast to its target's dtype, on `device`
-    (default: the CUDA card). Raises if the checkpoint is not
-    committed, a leaf is missing or has another shape, or a chunk's
-    crc disagrees."""
+    (default: the CUDA card). With `mesh`: each leaf is this rank's
+    block of the whole leaf under its spec (`specs`: {leaf name:
+    partition spec}, e.g. `bridge.train_state_specs`; a leaf not named
+    is whole), cut by `launch.shardings.shard`, and `target` holds the
+    blocks' shapes. Raises if the checkpoint is not committed, a leaf
+    is missing or has another shape, or a chunk's crc disagrees."""
     device = resolve_device(device)
+    coord = None
+    if mesh is not None:
+        from repro_torch.launch.mesh import mesh_coordinate
+        coord = mesh_coordinate(mesh)
     if not is_committed(directory):
         raise FileNotFoundError(f"no committed checkpoint in {directory}")
     with open(os.path.join(directory, "manifest.json")) as f:
@@ -195,10 +205,13 @@ def restore_pytree(target: Any, directory: str, device=None) -> Any:
     out = []
     with concurrent.futures.ThreadPoolExecutor(WORKERS) as pool:
         for path, leaf in leaves_with_path(target):
-            name = _path_str(path)
+            name = path_name(path)
             if name not in by_name:
                 raise KeyError(f"leaf {name} is not in the checkpoint")
             t = _read_leaf(directory, by_name[name], decompress, pool)
+            if mesh is not None:
+                from repro_torch.launch.shardings import shard
+                t = shard(t, (specs or {}).get(name, ()), mesh, coord)
             if tuple(t.shape) != tuple(leaf.shape):
                 raise ValueError(f"leaf {name}: checkpoint shape "
                                  f"{tuple(t.shape)}, target "

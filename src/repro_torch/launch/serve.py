@@ -35,13 +35,9 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import datetime
 import gc
-import multiprocessing
 import os
-import shutil
 import sys
-import tempfile
 import time
 from typing import Dict, Optional
 
@@ -53,7 +49,7 @@ from repro_torch import configs, resolve_device
 from repro_torch.core.sa import SAConfig
 from repro_torch.core.tiers import SPECS
 from repro_torch.bridge import init_shards
-from repro_torch.launch.mesh import make_test_mesh, mesh_coordinate
+from repro_torch.launch.mesh import join_mesh, mesh_coordinate, spawn_ranks
 from repro_torch.models.model import Model
 from repro_torch.models.params import param_bytes
 from repro_torch.serving import trace_bridge
@@ -61,11 +57,6 @@ from repro_torch.serving.engine import EngineConfig, ServingEngine, refuse_mesh
 from repro_torch.serving.policies import policy_names
 from repro_torch.serving.scheduler import Request
 from repro_torch.tree import tree_leaves
-
-#: seconds a collective of a CLI mesh may wait before it fails
-MESH_TIMEOUT_S = 300
-#: seconds the spawning process waits for its ranks
-SPAWN_TIMEOUT_S = 3600
 
 
 def parse_mesh(spec: str) -> Optional[Dict[str, int]]:
@@ -80,66 +71,6 @@ def parse_mesh(spec: str) -> Optional[Dict[str, int]]:
             raise SystemExit(f"--mesh wants 'data=N,model=M', got {spec!r}")
         sizes[name.strip()] = int(val)
     return sizes
-
-
-def join_mesh(sizes: Dict[str, int], device_arg):
-    """This process's rank of the mesh: joins the process group from
-    RANK, WORLD_SIZE and LOCAL_RANK (torchrun's variables; the group's
-    address is torchrun's, or the `file://` store of the CLI's own
-    spawn in REPRO_TORCH_MESH_STORE) and builds the (`data`, `model`)
-    mesh. Returns (mesh, device): `cuda:LOCAL_RANK` over NCCL, or the
-    CPU over gloo when `device_arg` is "cpu"."""
-    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
-    if str(device_arg) == "cpu":
-        device, backend = torch.device("cpu"), "gloo"
-    else:
-        local = int(os.environ.get("LOCAL_RANK", rank))
-        device = resolve_device(f"cuda:{local}")
-        torch.cuda.set_device(device)
-        backend = "nccl"
-    store = os.environ.get("REPRO_TORCH_MESH_STORE")
-    dist.init_process_group(
-        backend, init_method=f"file://{store}" if store else "env://",
-        rank=rank, world_size=world,
-        timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
-    return make_test_mesh(sizes["data"], sizes["model"]), device
-
-
-def _rank_entry(rank: int, world: int, store: str, argv) -> None:
-    """A spawned rank: the CLI's `main` with the rank's variables set."""
-    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
-                      LOCAL_RANK=str(rank), REPRO_TORCH_MESH_STORE=store)
-    sys.exit(main(argv))
-
-
-def spawn_ranks(world: int, argv) -> int:
-    """Run `main(argv)` in `world` spawned processes over a `file://`
-    store in a temporary directory; the worst exit status."""
-    tmp = tempfile.mkdtemp(prefix="repro_torch_mesh_")
-    ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=_rank_entry,
-                         args=(r, world, os.path.join(tmp, "store"), argv))
-             for r in range(world)]
-    try:
-        for proc in procs:
-            proc.start()
-        deadline = time.monotonic() + SPAWN_TIMEOUT_S
-        for proc in procs:
-            proc.join(max(0.0, deadline - time.monotonic()))
-        codes = []
-        for proc in procs:
-            if proc.is_alive():
-                proc.kill()
-                proc.join()
-                codes.append(124)
-            else:
-                codes.append(proc.exitcode)
-    finally:
-        for proc in procs:
-            if proc.is_alive():
-                proc.kill()
-        shutil.rmtree(tmp, ignore_errors=True)
-    return max(abs(c) for c in codes)
 
 
 def build_requests(vocab: int, n: int, prompt_len: int,
@@ -315,7 +246,7 @@ def main(argv=None) -> int:
         if cfg.family == "moe":
             refuse_mesh("moe")
         if "RANK" not in os.environ:
-            return spawn_ranks(sizes["data"] * sizes["model"],
+            return spawn_ranks(sizes["data"] * sizes["model"], main,
                                list(argv if argv is not None
                                     else sys.argv[1:]))
         return mesh_main(cfg, sizes, args)

@@ -271,6 +271,24 @@ def _entry_axes(entry) -> Tuple[str, ...]:
     return (entry,) if isinstance(entry, str) else tuple(entry)
 
 
+def spec_axes(spec: Spec) -> Tuple[str, ...]:
+    """The mesh axes that split a tensor under `spec`, in dim order
+    (`()`: whole on every rank). A meshed train step reads it to count
+    each leaf's share of the global gradient norm once: a sum of squares
+    over a block is summed over exactly these axes."""
+    return tuple(a for entry in spec for a in _entry_axes(entry))
+
+
+def data_dim(spec: Spec) -> Optional[int]:
+    """The dim `spec` splits over `data` (None: whole on `data`): the dim
+    on which a meshed train step gathers an FSDP leaf's blocks before
+    using it, and reduce-scatters its gradient."""
+    for d, entry in enumerate(spec):
+        if "data" in _entry_axes(entry):
+            return d
+    return None
+
+
 def local_shape(shape, spec: Spec, mesh) -> Tuple[int, ...]:
     """The shape of one rank's block of a `shape` tensor under `spec`
     (a dim split over axes of total size n holds shape / n)."""

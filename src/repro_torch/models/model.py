@@ -85,9 +85,10 @@ class Model:
             raise ValueError("moe interleave 1 or 2 supported, got "
                              f"{cfg.moe.interleave}")
         self.cfg = cfg
-        #: a meshed serve's rank: its `transformer.TensorParallel` over
-        #: the rank-local `cfg` and the rank's weight shards (dense
-        #: family only); None: the whole model
+        #: a meshed serve's or train step's rank: its
+        #: `transformer.TensorParallel` over the rank-local `cfg` and the
+        #: rank's weight shards (dense family only; a train step's also
+        #: binds its FSDP blocks over `data`); None: the whole model
         self.tp = tp
 
     def schema(self):
@@ -216,7 +217,11 @@ class Model:
         reference), which the chunked loss unembeds a slice at a time.
         `remat` checkpoints each block (`transformer.remat_call`), as the
         reference's `jax.checkpoint`; the values are the same with it on
-        or off."""
+        or off. On a train step's rank (`self.tp` with its data-axis
+        binding, dense family) `params` are the rank's shards and the
+        result is its rows' hidden states, whole on every model rank;
+        each layer gathers its FSDP blocks inside its checkpointed
+        block."""
         cfg = self.cfg
         fam = cfg.family
         if fam == "encdec":

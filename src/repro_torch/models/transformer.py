@@ -25,12 +25,27 @@ each rank's share is all-reduced before it enters the cache, and every
 model rank plans from the same numbers. A dim the axis does not divide
 (`TensorParallel.mlp_split` False, `.vocab` None) is held whole and
 needs no collective.
+
+Training across a mesh (the dense family's `loss_fn` under
+`make_train_step(..., mesh=)`) binds the same `TensorParallel` to
+differentiable collectives (`launch.mesh`): the sums are Megatron's g,
+the logits' gather gives each rank its slice of the gradient back, and
+`enter` (Megatron's f: the identity forward, the gradient summed over
+`model` backward) sits where a replicated activation meets a
+column-parallel product (the QKV and gate/up projections, the
+unembedding) and on the per-head norm weights, so the gradients of the
+norm weights, the residual stream and the embedding rows are whole on
+every rank. A training rank also holds FSDP blocks over `data`
+(`TensorParallel.data_dims`): each block gathers them whole inside
+itself (`data_whole`), so under remat a layer's whole weights live only
+during its forward and its recompute, and the gather's backward
+reduce-scatters their gradient.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.utils.checkpoint
@@ -165,15 +180,18 @@ def layers_of(tree):
 # Forward building blocks
 # ---------------------------------------------------------------------------
 
-def attn_qkv(x, lp, cfg: ModelConfig, positions, rope: bool = True):
-    """x [B,S,d] -> q [B,S,H,HD], k/v [B,S,KH,HD] (RoPE applied)."""
+def attn_qkv(x, lp, cfg: ModelConfig, positions, rope: bool = True,
+             tp=None):
+    """x [B,S,d] -> q [B,S,H,HD], k/v [B,S,KH,HD] (RoPE applied). `tp`:
+    a training rank's, whose per-head norm weights (whole on `model`,
+    used on its heads alone) enter the split region."""
     B, S, d = x.shape
     q = (x @ lp["wq"].reshape(d, -1)).view(B, S, cfg.num_heads, cfg.head_dim)
     k = (x @ lp["wk"].reshape(d, -1)).view(B, S, cfg.kv_heads, cfg.head_dim)
     v = (x @ lp["wv"].reshape(d, -1)).view(B, S, cfg.kv_heads, cfg.head_dim)
     if cfg.qk_norm:
-        q = rms_norm(q, lp["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, lp["k_norm"], cfg.norm_eps)
+        q = rms_norm(q, model_enter(lp["q_norm"], tp), cfg.norm_eps)
+        k = rms_norm(k, model_enter(lp["k_norm"], tp), cfg.norm_eps)
     if rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -187,15 +205,25 @@ def attn_out(o, lp):
     return o.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
 
 
+def _same(x):
+    return x
+
+
 @dataclasses.dataclass(frozen=True)
 class TensorParallel:
-    """One rank's place on a serving mesh's `model` axis, and the axis's
-    collectives: `reduce(t)` sums `t` over the axis in place and returns
-    it, `gather(t, dim)` concatenates the ranks' `t` on `dim` in rank
-    order (the serving engine binds them to its mesh). Heads and KV
-    heads are always split; the MLP's hidden dim when `mlp_split`; the
-    vocabulary when `vocab` is the rank's [lo, hi) rows (None: held
-    whole)."""
+    """One rank's place on a mesh's `model` axis, and the axis's
+    collectives: `reduce(t)` sums `t` over the axis, `gather(t, dim)`
+    concatenates the ranks' `t` on `dim` in rank order, `enter(t)` marks
+    where a replicated activation enters the split region (the serving
+    engine binds the first two to in-place collectives with no gradient
+    and `enter` to the identity; a meshed train step binds all three to
+    differentiable ones, `enter` summing the gradient over the axis).
+    Heads and KV heads are always split; the MLP's hidden dim when
+    `mlp_split`; the vocabulary when `vocab` is the rank's [lo, hi) rows
+    (None: held whole). A training rank also holds FSDP blocks over
+    `data`: `data_dims` gives, by leaf name, the dim of its block (of
+    one layer's weights, for a stacked leaf), `gather_data(t, dim)`
+    gathers a block whole; a leaf not named is whole on `data`."""
 
     size: int
     rank: int
@@ -203,23 +231,51 @@ class TensorParallel:
     vocab: Optional[Tuple[int, int]]
     reduce: Callable[[torch.Tensor], torch.Tensor]
     gather: Callable[[torch.Tensor, int], torch.Tensor]
+    enter: Callable[[torch.Tensor], torch.Tensor] = _same
+    data_dims: Dict[str, int] = dataclasses.field(default_factory=dict,
+                                                  compare=False)
+    gather_data: Optional[Callable[[torch.Tensor, int], torch.Tensor]] = None
 
     @classmethod
     def of(cls, cfg: ModelConfig, size: int, rank: int, reduce,
-           gather) -> "TensorParallel":
+           gather, **training) -> "TensorParallel":
         """Rank `rank` of a `model` axis of `size` over the whole
-        model's `cfg` (the sharding rules' splits)."""
+        model's `cfg` (the sharding rules' splits); `training`: `enter`,
+        `data_dims` and `gather_data` for a meshed train step."""
         per = cfg.vocab // size
         return cls(size=size, rank=rank, mlp_split=splits(cfg.d_ff, size),
                    vocab=(rank * per, (rank + 1) * per)
                    if splits(cfg.vocab, size) else None,
-                   reduce=reduce, gather=gather)
+                   reduce=reduce, gather=gather, **training)
 
 
 def model_sum(x, tp: Optional[TensorParallel], split: bool = True):
-    """A row-parallel partial sum `x` all-reduced over the `model` axis
-    when `tp` is given and the dim is `split`; else `x`."""
+    """A row-parallel partial sum `x` summed over the `model` axis when
+    `tp` is given and the dim is `split`; else `x`."""
     return tp.reduce(x) if tp is not None and split else x
+
+
+def model_enter(x, tp: Optional[TensorParallel], split: bool = True):
+    """`x` entering the `model`-split region (`TensorParallel.enter`)
+    when `tp` is given and the dim is `split`; else `x`."""
+    return tp.enter(x) if tp is not None and split else x
+
+
+def data_whole(tree, tp: Optional[TensorParallel], names):
+    """`tree` (a dict of weights) with each of its leaves `names` whole
+    on the `data` axis: a leaf the rank holds an FSDP block of
+    (`TensorParallel.data_dims`) is gathered; `tree` itself when the
+    rank holds none."""
+    if tp is None or not tp.data_dims:
+        return tree
+    return {k: tp.gather_data(v, tp.data_dims[k])
+            if k in names and k in tp.data_dims else v
+            for k, v in tree.items()}
+
+
+#: the weights of an attention block and of a dense MLP block
+ATTN_LEAVES = ("attn_norm", "wq", "wk", "wv", "wo", "q_norm", "k_norm")
+MLP_LEAVES = ("mlp_norm", "w_gate", "w_up", "w_down")
 
 
 def full_attn_block(h, lp, cfg: ModelConfig, positions, tp=None):
@@ -227,16 +283,20 @@ def full_attn_block(h, lp, cfg: ModelConfig, positions, tp=None):
     returns the post-RoPE (k, v). `attention` takes K/V with KH heads:
     the flash kernel reads them un-repeated on the card, the CPU path
     repeats them per query head."""
+    lp = data_whole(lp, tp, ATTN_LEAVES)
     x = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
-    q, k, v = attn_qkv(x, lp, cfg, positions)
+    q, k, v = attn_qkv(model_enter(x, tp), lp, cfg, positions, tp=tp)
     o = attention(q, k, v)
     return h + model_sum(attn_out(o, lp), tp), (k, v)
 
 
 def dense_mlp_block(h, lp, cfg: ModelConfig, tp=None):
+    lp = data_whole(lp, tp, MLP_LEAVES)
+    split = tp is not None and tp.mlp_split
     x = rms_norm(h, lp["mlp_norm"], cfg.norm_eps)
-    y = swiglu(x, lp["w_gate"], lp["w_up"], lp["w_down"])
-    return h + model_sum(y, tp, tp is not None and tp.mlp_split)
+    y = swiglu(model_enter(x, tp, split), lp["w_gate"], lp["w_up"],
+               lp["w_down"])
+    return h + model_sum(y, tp, split)
 
 
 def dense_blocks(params, cfg: ModelConfig, tp=None):
@@ -260,19 +320,28 @@ def remat_call(remat: bool, fn, *args):
 
 
 def embed_tokens(params, cfg: ModelConfig, tokens, tp=None):
+    embed = data_whole(params, tp, ("embed",))["embed"]
     if tp is None or tp.vocab is None:
-        return params["embed"][tokens.long()].to(cfg.dtype)
+        return embed[tokens.long()].to(cfg.dtype)
     lo, hi = tp.vocab
     local = tokens.long() - lo
     mine = (local >= 0) & (local < hi - lo)
-    rows = params["embed"][local.clamp(0, hi - lo - 1)]
+    rows = embed[local.clamp(0, hi - lo - 1)]
     return tp.reduce(rows.masked_fill(~mine[..., None], 0).to(cfg.dtype))
 
 
+def unembed_weight(params, cfg: ModelConfig, tp=None):
+    """The unembedding [d, V] (tied: `embed`'s transpose), whole on the
+    `data` axis; a rank's vocabulary columns when `tp` splits them."""
+    name = "embed" if cfg.tie_embeddings else "unembed"
+    w = data_whole(params, tp, (name,))[name]
+    return w.T if cfg.tie_embeddings else w
+
+
 def unembed(params, cfg: ModelConfig, h, tp=None):
-    w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
-    logits = h @ w
-    if tp is not None and tp.vocab is not None:
+    split = tp is not None and tp.vocab is not None
+    logits = model_enter(h, tp, split) @ unembed_weight(params, cfg, tp)
+    if split:
         logits = tp.gather(logits, -1)
     return logits
 
@@ -300,7 +369,8 @@ def decoder_forward(params, cfg: ModelConfig, tokens, blocks,
         if not return_hidden:
             ks.append(k)
             vs.append(v)
-    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    h = rms_norm(h, data_whole(params, tp, ("final_norm",))["final_norm"],
+                 cfg.norm_eps)
     if return_hidden:
         return h
     return unembed(params, cfg, h, tp), (torch.stack(ks), torch.stack(vs))

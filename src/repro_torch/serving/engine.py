@@ -144,8 +144,9 @@ The captured chunk holds its collectives. What stays unported raises
 NotImplementedError naming it (`refuse_mesh`): the moe family's mesh
 (expert parallelism), the `pages` and `none` pool rules (a `model`
 axis that does not divide the KV heads), the single-stream path of a
-meshed dense engine (`start`: the rank holds only its shards), the
-train CLI's mesh and the dry run's `--mesh multi`.
+meshed dense engine (`start`: the rank holds only its shards),
+training any family but dense across a mesh, or over a `model` axis
+that does not divide the KV heads, and the dry run's `--mesh multi`.
 """
 
 from __future__ import annotations
@@ -302,9 +303,8 @@ MESH_REFUSALS = {
               "across a mesh is not ported yet: a meshed engine holds "
               "only its rank's weight shards; serve() spans the mesh, or "
               "use an engine without one",
-    "train": "training across a mesh (the train CLI's --data/--model "
-             "above 1: FSDP over data and TP in the train step) is not "
-             "ported yet",
+    "train": "training across a mesh runs the dense family over a model "
+             "axis that divides its KV heads; {what} is not ported yet",
     "dryrun": "the dry run's --mesh multi (per-card shard bytes of the "
               "512-card twin-pod mesh) spans more than one card and is "
               "not ported yet",

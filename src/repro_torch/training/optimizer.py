@@ -8,13 +8,19 @@ clip and the update are taken in f32 and the result cast back per leaf
 `torch.optim.AdamW`, which would update bf16 parameters in bf16. Every
 function is pure: it returns new tensors and leaves its arguments as
 they were.
+
+Across a mesh (`make_train_step(..., mesh=)`) the trees are a rank's
+shards, m and v held as the parameters are (ZeRO-style, as the
+reference's state is sharded with the parameters' specs): the update
+is elementwise, so it runs on the shards as they are; only the global
+norm needs the mesh, through `across`.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 
@@ -51,18 +57,26 @@ def cosine_schedule(step, *, peak_lr=3e-4, warmup=100, total=10_000,
     return torch.where(step < warmup, warm, cos)
 
 
-def global_norm(grads) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's f32 sum of squares."""
-    return torch.sqrt(sum(g.float().square().sum()
-                          for g in tree_leaves(grads)))
+def global_norm(grads, across: Optional[Callable] = None) -> torch.Tensor:
+    """sqrt of the sum over leaves of each leaf's f32 sum of squares, in
+    leaf order. `across` (a meshed step's): maps the vector of the
+    rank's per-leaf sums over its blocks to each leaf's sum over the
+    whole model, so every element counts once and every rank gets the
+    same norm."""
+    sums = [g.float().square().sum() for g in tree_leaves(grads)]
+    if across is not None:
+        sums = across(torch.stack(sums)).unbind()
+    return torch.sqrt(sum(sums))
 
 
 def adamw_update(grads, state: AdamWState, params, *, lr=None,
                  b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
-                 grad_clip=1.0) -> Tuple[Any, AdamWState]:
+                 grad_clip=1.0, across: Optional[Callable] = None
+                 ) -> Tuple[Any, AdamWState]:
     """One AdamW step: (new params, new state). `lr` a float, a tensor
     or a function of the new step (e.g. a `cosine_schedule` with its
-    own warm-up); None takes `cosine_schedule` of the new step."""
+    own warm-up); None takes `cosine_schedule` of the new step.
+    `across`: `global_norm`'s, for a rank's shards."""
     step = state.step + 1
     if lr is None:
         lr = cosine_schedule(step)
@@ -70,7 +84,7 @@ def adamw_update(grads, state: AdamWState, params, *, lr=None,
         lr = lr(step)
 
     # global-norm clip
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, across)
     scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
     grads = tree_map(lambda g: g.float() * scale, grads)
 

@@ -7,17 +7,39 @@ whole-sequence attention inside it is the hand-written flash kernel
 forward and backward (`kernels.flash_attention.FlashAttention`), on the
 CPU the plain version. Gradient accumulation in f32 and a bf16 compute /
 f32 optimizer-state split are built in, as in the reference.
+
+Across a (`data`, `model`) mesh (`make_train_step(..., mesh=)`, the
+dense family) the step is explicit SPMD, one process a rank, as the
+meshed serve: the rank holds its train-mode shards of the parameters
+and of m and v (`bridge.shard_params(..., mode="train")`: tensor
+parallelism over `model`, FSDP blocks over `data`), takes its rows of
+the batch (`launch.shardings.tokens_sharding`; every rank takes every
+row where `data` does not divide the batch), and runs the rank-local
+model (`TrainMesh`) whose collectives carry the gradient
+(`launch.mesh`). The loss is the mean over every data rank's rows; the
+FSDP leaves' gradients come out of their gathers' backward
+reduce-scattered over `data`, the leaves whole on `data` are summed
+over it here, and the global norm counts each element of the whole
+model once. The step then equals the unmeshed one up to the order of
+its sums.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional
+import functools
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 import torch.utils.checkpoint
 
+from repro_torch.launch import mesh as mesh_mod
+from repro_torch.launch.shardings import (
+    data_dim, shard, spec_axes, tokens_sharding,
+)
+from repro_torch.models.config import ModelConfig, splits
 from repro_torch.models.model import Model
+from repro_torch.models.transformer import TensorParallel, unembed_weight
 from repro_torch.training.optimizer import (
     AdamWState, adamw_init, adamw_update, global_norm,
 )
@@ -30,18 +52,24 @@ class TrainState:
     opt: AdamWState
 
 
-def _chunk_loss(h_blk, t_blk, w):
+def _chunk_loss(h_blk, t_blk, w, gather=None):
     """Summed next-token NLL of one sequence chunk: its [B, c, V]
     logits `(h @ w).float()` (the reference's precision), taken under
-    checkpointing so no chunk's logits outlive it."""
-    logits = (h_blk @ w).float()
+    checkpointing so no chunk's logits outlive it. `gather`: a meshed
+    rank's, which concatenates the model ranks' vocabulary slices of
+    the chunk's logits (`TensorParallel.gather`) before any reads
+    them."""
+    logits = h_blk @ w
+    if gather is not None:
+        logits = gather(logits, -1)
+    logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, t_blk[..., None])[..., 0]
     return (logz - gold).sum()
 
 
 def loss_fn(model: Model, params, tokens, *, extra: Optional[Dict] = None,
-            logit_chunk: int = 512):
+            logit_chunk: int = 512, rows: Optional[int] = None):
     """Causal LM loss. tokens [B, S]; shift-by-one inside.
 
     The [B, S, vocab] logits are never materialized: the hidden states
@@ -50,39 +78,154 @@ def loss_fn(model: Model, params, tokens, *, extra: Optional[Dict] = None,
     logits at a time (peak ~ B * chunk * vocab f32); the blocks of the
     forward are checkpointed too (`forward_hidden`'s remat). The vlm
     family's loss runs over the text tail only; tied embeddings unembed
-    through `embed`."""
+    through `embed`. `rows`: the rows the mean runs over (default B; a
+    meshed rank's: every data rank's rows together, so the ranks'
+    losses sum to the global mean). On a meshed rank (`model.tp`) the
+    unembedding is its vocabulary columns, whose logits are gathered a
+    chunk at a time inside the chunk's checkpoint."""
     cfg = model.cfg
+    tp = model.tp
     hidden = model.forward_hidden(params, tokens[:, :-1], extra=extra)
     # VLM prepends patch embeddings: loss only over the text tail
     if cfg.family == "vlm":
         hidden = hidden[:, -(tokens.shape[1] - 1):]
     targets = tokens[:, 1:].long()
-    w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    w = unembed_weight(params, cfg, tp)
+    chunk = _chunk_loss
+    if tp is not None and tp.vocab is not None:
+        hidden = tp.enter(hidden)
+        chunk = functools.partial(_chunk_loss, gather=tp.gather)
     B, S, _ = hidden.shape
     c = min(logit_chunk, S)
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for s0 in range(0, S, c):
         total = total + torch.utils.checkpoint.checkpoint(
-            _chunk_loss, hidden[:, s0:s0 + c], targets[:, s0:s0 + c], w,
+            chunk, hidden[:, s0:s0 + c], targets[:, s0:s0 + c], w,
             use_reentrant=False)
-    return total / (B * S)
+    return total / ((B if rows is None else rows) * S)
 
 
-def value_and_grad(model: Model, params, tokens, extra=None):
-    """(loss, grads shaped as `params`) of `loss_fn`, by autograd. The
-    parameters are not modified: the graph runs on detached aliases."""
+def value_and_grad(model: Model, params, tokens, extra=None,
+                   rows: Optional[int] = None):
+    """(loss, grads shaped as `params`) of `loss_fn` (`rows` its), by
+    autograd. The parameters are not modified: the graph runs on
+    detached aliases."""
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
     with torch.enable_grad():
         loss = loss_fn(model, tree_unflatten(params, leaves), tokens,
-                       extra=extra)
+                       extra=extra, rows=rows)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(leaves, grads)]
     return loss.detach(), tree_unflatten(params, grads)
 
 
+#: what training across a mesh leaves out, by family (the others: the
+#: family's name)
+_UNPORTED_FAMILIES = {
+    "moe": "the moe family (its experts lead the model axis's sharding "
+           "priority: it needs expert parallelism)",
+}
+
+
+def check_train_mesh(cfg: ModelConfig, model_size: int) -> None:
+    """Raise NotImplementedError naming it (`refuse_mesh("train")`) when
+    training `cfg` across a mesh whose `model` axis has `model_size`
+    ranks is left out: a family other than dense, or a model axis that
+    does not divide the KV heads. Needs no rank: the train CLI asks
+    before it starts any."""
+    from repro_torch.serving.engine import refuse_mesh
+    if cfg.family != "dense":
+        refuse_mesh("train", what=_UNPORTED_FAMILIES.get(
+            cfg.family, f"the {cfg.family} family"))
+    if not splits(cfg.kv_heads, model_size):
+        refuse_mesh("train", what=f"a model axis of {model_size} over "
+                                  f"{cfg.kv_heads} KV heads")
+
+
+@dataclasses.dataclass
+class TrainMesh:
+    """A rank's part of a meshed train step: the rank-local model (its
+    `TensorParallel` bound to the mesh's differentiable collectives and
+    to its FSDP blocks), its coordinate and the axis sizes, and for each
+    parameter leaf (in tree order) whether it is whole on `data` and
+    which axes split it."""
+
+    model: Model
+    mesh: Any
+    coord: Dict[str, int]
+    sizes: Dict[str, int]
+    whole_on_data: List[bool]
+    #: {axis: whether it splits each leaf, a bool tensor on the rank's
+    #: device}, for each axis of more than one rank that splits a leaf
+    split_by: Dict[str, torch.Tensor]
+
+    @classmethod
+    def bind(cls, model: Model, mesh) -> "TrainMesh":
+        """This rank's part of `mesh` for training `model` (the whole
+        model's `Model(cfg)`), after `check_train_mesh`'s refusals."""
+        from repro_torch.bridge import param_specs
+        cfg = model.cfg
+        sizes = mesh_mod.mesh_axis_sizes(mesh)
+        check_train_mesh(cfg, sizes["model"])
+        coord = mesh_mod.mesh_coordinate(mesh)
+        specs = param_specs(cfg, mesh, "train")
+        data_dims = {}
+        for name, spec in specs.items():
+            d = data_dim(spec)
+            if d is not None:           # a layer's leaf loses its [L] dim
+                key = name.split("/")[-1]
+                data_dims[key] = d - 1 if name.startswith("layers/") else d
+        tp = TensorParallel.of(
+            cfg, sizes["model"], coord["model"],
+            reduce=lambda t: mesh_mod.sum_model(t, mesh),
+            gather=lambda t, dim: mesh_mod.gather_model(t, mesh, dim),
+            enter=lambda t: mesh_mod.enter_model(t, mesh),
+            data_dims=data_dims,
+            gather_data=lambda t, dim: mesh_mod.gather_data(t, mesh, dim))
+        device = mesh_mod.mesh_device(mesh)
+        split_by = {}
+        for axis in mesh_mod.AXES:
+            mask = [axis in spec_axes(s) for s in specs.values()]
+            if sizes[axis] > 1 and any(mask):
+                split_by[axis] = torch.tensor(mask, device=device)
+        return cls(model=Model(cfg.rank_local(sizes["model"]), tp=tp),
+                   mesh=mesh, coord=coord, sizes=sizes,
+                   whole_on_data=[data_dim(s) is None
+                                  for s in specs.values()],
+                   split_by=split_by)
+
+    def rows(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a global batch tensor [B, ...], as
+        `tokens_sharding` splits them (all B where `data` does not
+        divide B)."""
+        spec = tokens_sharding(self.mesh, t.shape[0])
+        return shard(t, spec + (None,) * (t.dim() - 2), self.mesh,
+                     self.coord)
+
+    def reduce_grads(self, grads):
+        """The gradients of the leaves whole on `data` summed over it
+        (in place: the step's own tensors); the FSDP leaves' arrive
+        reduce-scattered already."""
+        for g, whole in zip(tree_leaves(grads), self.whole_on_data):
+            if whole:
+                mesh_mod.all_reduce_sum(g, self.mesh, "data")
+        return grads
+
+    def leaf_sums(self, sums: torch.Tensor) -> torch.Tensor:
+        """The per-leaf sums of squares over the rank's blocks [n leaves]
+        -> each leaf's sum over the whole model: summed over `model`,
+        then `data`, where that axis splits the leaf (a leaf whole on
+        both counts once)."""
+        for axis, mask in self.split_by.items():
+            part = torch.where(mask, sums, torch.zeros_like(sums))
+            sums = torch.where(mask, mesh_mod.all_reduce_sum(
+                part, self.mesh, axis), sums)
+        return sums
+
+
 def make_train_step(model: Model, *, accum_steps: int = 1,
-                    extra_keys: tuple = (), lr=None) -> Callable:
+                    extra_keys: tuple = (), lr=None, mesh=None) -> Callable:
     """Returns train_step(state, batch) -> (state, metrics).
 
     batch: {"tokens": [B, S]} (+ modality extras, named by
@@ -90,14 +233,30 @@ def make_train_step(model: Model, *, accum_steps: int = 1,
     accum_steps > 1 the batch's leading dim is split into micro-batches
     and gradients are accumulated in f32 before one optimizer update.
     metrics: {"loss", "grad_norm", "step"}, tensors on the device (no
-    host sync inside the step)."""
+    host sync inside the step).
+
+    With `mesh` (a (`data`, `model`) `DeviceMesh`; the dense family,
+    `check_train_mesh`): every rank calls the step with its own state
+    (`init_train_state(..., mesh=)`, `bridge.train_state_from_jax(...,
+    mesh=)`: its train-mode shards) and the same global batch, of which
+    it takes its rows (`TrainMesh.rows`); accum_steps splits those. The
+    metrics are the global ones on every rank."""
+    rank = None if mesh is None else TrainMesh.bind(model, mesh)
+    run = model if rank is None else rank.model
+    across = None if rank is None else rank.leaf_sums
+    share = 1 if rank is None else rank.sizes["data"]
 
     def train_step(state: TrainState, batch: Dict) -> tuple:
         tokens = batch["tokens"]
         extra = {k: batch[k] for k in extra_keys} or None
+        if rank is not None:
+            tokens = rank.rows(tokens)
+            extra = None if extra is None else {
+                k: rank.rows(v) for k, v in extra.items()}
 
         if accum_steps == 1:
-            loss, grads = value_and_grad(model, state.params, tokens, extra)
+            loss, grads = value_and_grad(run, state.params, tokens, extra,
+                                         rows=tokens.shape[0] * share)
         else:
             mb = tokens.shape[0] // accum_steps
             grads = tree_map(lambda p: torch.zeros(
@@ -107,21 +266,37 @@ def make_train_step(model: Model, *, accum_steps: int = 1,
                 sl = slice(i * mb, (i + 1) * mb)
                 ex = None if extra is None else {
                     k: v[sl] for k, v in extra.items()}
-                l_i, g = value_and_grad(model, state.params, tokens[sl], ex)
+                l_i, g = value_and_grad(run, state.params, tokens[sl], ex,
+                                        rows=mb * share)
                 grads = tree_map(lambda a, b: a + b.float(), grads, g)
                 loss = loss + l_i
             grads = tree_map(lambda g: g / accum_steps, grads)
             loss = loss / accum_steps
+        if rank is not None:
+            grads = rank.reduce_grads(grads)
+            loss = mesh_mod.all_reduce_sum(loss.clone(), mesh, "data")
 
-        params, opt = adamw_update(grads, state.opt, state.params, lr=lr)
+        params, opt = adamw_update(grads, state.opt, state.params, lr=lr,
+                                   across=across)
         return TrainState(params=params, opt=opt), {
-            "loss": loss, "grad_norm": global_norm(grads), "step": opt.step}
+            "loss": loss, "grad_norm": global_norm(grads, across),
+            "step": opt.step}
 
     return train_step
 
 
-def init_train_state(model: Model, seed=0, device=None) -> TrainState:
+def init_train_state(model: Model, seed=0, device=None,
+                     mesh=None) -> TrainState:
     """Random parameters (`Model.init(seed, device)`; default device the
-    CUDA card) and a zero AdamW state beside them."""
-    params = model.init(seed, device=device)
+    CUDA card) and a zero AdamW state beside them. With `mesh`: this
+    rank's train-mode shards of them, drawn leaf by leaf
+    (`bridge.init_shards`, the same numbers) so no whole model is ever
+    on the device."""
+    if mesh is None:
+        params = model.init(seed, device=device)
+    else:
+        from repro_torch.bridge import init_shards
+        params = init_shards(model.cfg, seed, mesh,
+                             mesh_mod.mesh_coordinate(mesh), device,
+                             mode="train")
     return TrainState(params=params, opt=adamw_init(params))

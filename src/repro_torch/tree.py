@@ -41,6 +41,12 @@ def leaves_with_path(tree, prefix=()) -> Iterator[Tuple[tuple, Any]]:
         yield from leaves_with_path(child, prefix + (key,))
 
 
+def path_name(path) -> str:
+    """A leaf's name: its path's entries joined by "/" (the reference's
+    checkpoint leaf names, e.g. ".opt/.m/layers/wq")."""
+    return "/".join(str(p) for p in path)
+
+
 def tree_leaves(tree) -> List[Any]:
     return [leaf for _, leaf in leaves_with_path(tree)]
 

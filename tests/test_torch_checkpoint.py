@@ -37,6 +37,7 @@ from repro_torch.checkpoint.manager import CheckpointManager  # noqa: E402
 from repro_torch.training.optimizer import adamw_init  # noqa: E402
 from repro_torch.training.train_step import TrainState  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 CHUNK = 1000        # bytes: every leaf but the scalars spans chunks
 

@@ -19,6 +19,7 @@ from repro_torch import bridge  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.models.model import Model as TModel  # noqa: E402
 from repro_torch.serving import control as tctl  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 PLAN_FIELDS = ("pro_layer", "pro_batch", "pro_src", "pro_dst",
                "pro_logical", "dem_layer", "dem_batch", "dem_src",

@@ -12,6 +12,7 @@ pytest.importorskip("torch")
 
 from repro.data import pipeline as jpipe  # noqa: E402
 from repro_torch.data import pipeline as tpipe  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 CONFIGS = [dict(vocab=256, seq_len=33, global_batch=4),
            dict(vocab=92544, seq_len=64, global_batch=8, num_shards=2,

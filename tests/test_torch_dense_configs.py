@@ -20,6 +20,7 @@ from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.models.model import Model as TModel  # noqa: E402
 
 from _torch_serve_ref import model_steps, smoke_pair  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 DENSE = ["llama31-8b", "granite-8b", "qwen3-32b", "stablelm-12b"]
 PROMPT = 300

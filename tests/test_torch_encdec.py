@@ -31,6 +31,7 @@ from _torch_serve_ref import (  # noqa: E402
     assert_refuses_serve, assert_stream_matches, model_steps, smoke_pair,
     state_numpy,
 )
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 NAME = "whisper-tiny"
 

@@ -37,6 +37,7 @@ from repro_torch.serving.scheduler import Request  # noqa: E402
 from _torch_serve_ref import (  # noqa: E402
     JAX_H100, assert_same, engines, outcome, requests, smoke_pair,
 )
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 PLAN_FIELDS = tuple(f.name for f in dataclasses.fields(MigrationPlan))
 

@@ -29,6 +29,7 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.models import layers as tlayers  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 ATOL = {"f32": 1e-5, "bf16": 3e-2}
 JDT = {"f32": jnp.float32, "bf16": jnp.bfloat16}

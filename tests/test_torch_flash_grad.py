@@ -27,6 +27,7 @@ import numpy as np  # noqa: E402
 
 from repro.models import layers as jlayers  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 CASES = [
     # (B, Sq, Sk, H, KH, D, causal)

@@ -22,6 +22,7 @@ from repro_torch.models.model import FAMILIES  # noqa: E402
 from repro_torch.models.model import Model as TModel  # noqa: E402
 
 from _torch_serve_ref import smoke_pair  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 #: a smoke config of each family with a config (ssm has none: the

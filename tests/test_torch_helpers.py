@@ -31,6 +31,7 @@ from repro_torch.kvcache import paged as tpaged  # noqa: E402
 from repro_torch.models import params as tparams  # noqa: E402
 from repro_torch.models.model import Model as TModel  # noqa: E402
 from repro_torch.serving import control as tctl  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 #: the 10 architectures plus the paper's own llama31-8b
 ARCHS = jconfigs.all_arch_names() + ["llama31-8b"]

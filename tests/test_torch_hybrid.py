@@ -48,6 +48,7 @@ from _torch_serve_ref import (  # noqa: E402
     assert_refuses_serve, assert_stream_matches, model_steps, smoke_pair,
     state_numpy,
 )
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 NAME = "zamba2-1.2b"
 #: the tolerances of the pools and the recurrent state after the whole

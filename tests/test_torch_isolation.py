@@ -18,6 +18,7 @@ import sys
 import pytest
 
 pytest.importorskip("torch")
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"

@@ -19,6 +19,7 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.paged_attention import paged_attention  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 ATOL = 1e-5
 

@@ -16,6 +16,7 @@ from repro.kvcache import paged as jpaged  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch.kvcache import migrate as tmig  # noqa: E402
 from repro_torch.kvcache import paged as tpaged  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 L, B, KH, HD, T = 2, 3, 2, 8, 4
 PH, PE = 4, 6

@@ -18,6 +18,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 H100_SMS = 132
 

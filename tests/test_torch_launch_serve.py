@@ -18,6 +18,7 @@ from repro.launch import serve as jserve  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
 
 from _torch_serve_ref import smoke_pair  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 def args(**kw):

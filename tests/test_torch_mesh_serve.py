@@ -47,6 +47,7 @@ from repro.serving.scheduler import Request as JRequest  # noqa: E402
 
 import _torch_mesh_worker as worker  # noqa: E402
 from _torch_serve_ref import JAX_H100, smoke_pair  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: (data, model) -> the streams its ranks serve

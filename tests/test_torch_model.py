@@ -23,6 +23,7 @@ from repro_torch import bridge  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.models import layers as tlayers  # noqa: E402
 from repro_torch.models.model import Model as TModel  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 LOGIT_ATOL = 1e-4
 INT_FIELDS = ("page_table", "hbm_owner", "host_owner", "length")

@@ -41,6 +41,7 @@ from repro_torch.serving import control as tctl  # noqa: E402
 from repro_torch.serving.engine import EngineConfig, ServingEngine  # noqa: E402
 
 from _torch_serve_ref import JAX_H100, smoke_pair  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 FFN_ATOL = 1e-5
 LOGIT_ATOL = 1e-4

@@ -26,6 +26,7 @@ from repro_torch.serving.scheduler import Request  # noqa: E402
 from _torch_serve_ref import (  # noqa: E402
     assert_same, engines, outcome, requests, smoke_pair,
 )
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 ARCHS = {"granite": "granite-moe-3b-a800m",
          "llama4": "llama4-maverick-400b-a17b"}

@@ -53,6 +53,7 @@ from repro_torch.serving import engine as tengine  # noqa: E402
 from repro_torch.serving import policies as tpol  # noqa: E402
 from repro_torch.serving.engine import EngineConfig, ServingEngine  # noqa: E402
 from repro_torch.serving.scheduler import Request  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 POLICIES = ("static", "importance", "recency", "cost_aware", "quest")
 PLAN_FIELDS = tuple(f.name for f in dataclasses.fields(MigrationPlan))

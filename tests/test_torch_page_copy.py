@@ -28,6 +28,7 @@ from repro_torch.kernels.page_copy import Split  # noqa: E402
 from repro_torch.kvcache import migrate as tmig  # noqa: E402
 from repro_torch.kvcache import paged as tpaged  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 L, B, PH, PE, T, KH, HD = 2, 4, 3, 5, 4, 2, 8
 

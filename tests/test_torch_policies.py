@@ -36,6 +36,7 @@ from repro_torch.core.tiers import GH200, H100  # noqa: E402
 from repro_torch.models.model import Model as TModel  # noqa: E402
 from repro_torch.serving import policies  # noqa: E402
 from repro_torch.serving.engine import EngineConfig, ServingEngine  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 POLICIES = ["static", "importance", "recency", "cost_aware", "quest"]
 STEPS = 12

@@ -29,6 +29,7 @@ from repro_torch.launch import dryrun, op_cost  # noqa: E402
 from repro_torch.launch import roofline as troof  # noqa: E402
 from repro_torch.models.model import Model as TModel  # noqa: E402
 from repro_torch.models.params import abstract_params  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 CHIP = dict(name="made-up", peak_flops_bf16=123e12, hbm_bw=1.5e12,
             ici_bw=77e9, hbm_capacity=40 * 1024**3)

@@ -33,6 +33,7 @@ from repro_torch.models.model import Model as TModel  # noqa: E402
 from repro_torch.serving.engine import EngineConfig, ServingEngine  # noqa: E402
 from repro_torch.serving.sampling import SamplingConfig  # noqa: E402
 from repro_torch.serving.scheduler import Request  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 PROMPTS = (300, 40, 280, 20)
 BUDGET = 12
@@ -199,8 +200,8 @@ def test_later_slices_raise(models, prompts, ask):
     """What the port leaves out of the mesh raises NotImplementedError
     naming it, never runs something else: the moe family's serve
     (expert parallelism), a model axis that does not divide the KV
-    heads (the `pages` pool rule), training across a mesh, the dry
-    run's twin-pod mesh. The refusals come before any rank is needed,
+    heads (the `pages` pool rule), training the moe family across a
+    mesh, the dry run's twin-pod mesh. The refusals come before any rank is needed,
     so a mesh of names and sizes stands for one."""
     from repro_torch.launch import dryrun
     from repro_torch.launch import train as ttrain
@@ -219,7 +220,8 @@ def test_later_slices_raise(models, prompts, ask):
             ServingEngine(tm, tp, cfg, device="cpu",
                           mesh=AbstractMesh(("data", "model"), (1, 4)))
         elif ask == "train":
-            ttrain.main(["--smoke", "--device", "cpu", "--model", "2"])
+            ttrain.main(["--arch", "granite-moe-3b-a800m", "--smoke",
+                         "--device", "cpu", "--model", "2"])
         else:
             dryrun.run_cell("internlm2-1.8b", "decode_32k", "multi")
     assert want in str(err.value)

@@ -42,6 +42,7 @@ from repro_torch.serving.slo import SLOPolicy  # noqa: E402
 from _torch_serve_ref import (  # noqa: E402
     JAX_H100, engines, outcome, requests, smoke_pair,
 )
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 SA = dict(max_evaluations=8, iters_per_level=3, seed=0)
 RECORD_ARRAYS = ("access", "tier", "emitted", "first", "rids", "prompt_len")

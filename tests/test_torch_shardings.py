@@ -36,6 +36,7 @@ from repro_torch.launch import shardings as tshd  # noqa: E402
 from repro_torch.models.model import Model as TModel  # noqa: E402
 from repro_torch.models.transformer import TensorParallel  # noqa: E402
 from repro_torch.serving import policies as tpol  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 NAMES = tconfigs.all_arch_names() + ["llama31-8b"]
 #: (axis names, sizes): the meshes the rules are held to

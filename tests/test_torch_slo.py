@@ -35,6 +35,7 @@ from repro_torch.serving.scheduler import (  # noqa: E402
 from _torch_serve_ref import (  # noqa: E402
     assert_same, engines, outcome, requests, smoke_pair,
 )
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 #: residual bound of the TTFT identity (see the module docstring)
 IDENTITY_TOL = 2e-6

@@ -42,6 +42,7 @@ from repro_torch.core.tiers import H100  # noqa: E402
 from repro_torch.models.model import Model as TModel  # noqa: E402
 from repro_torch.serving import trace_bridge as ttb  # noqa: E402
 from repro_torch.serving.engine import EngineConfig, ServingEngine  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 ENGINE_POLICIES = ["static", "importance", "recency", "cost_aware", "quest"]
 JAX_H100 = JSpec(**dataclasses.asdict(H100))

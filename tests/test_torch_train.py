@@ -43,6 +43,7 @@ from repro_torch.tree import (  # noqa: E402
 
 from _torch_serve_ref import smoke_pair  # noqa: E402
 from test_torch_forward import FORWARD_FAMILIES  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 def batch(cfg, seed, B=2, S=17):

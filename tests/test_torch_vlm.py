@@ -21,6 +21,7 @@ import numpy as np  # noqa: E402
 from _torch_serve_ref import (  # noqa: E402
     assert_refuses_serve, assert_stream_matches, model_steps, smoke_pair,
 )
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 NAME = "internvl2-2b"
 

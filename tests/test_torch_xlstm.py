@@ -35,6 +35,7 @@ from repro_torch.models import xlstm as tx  # noqa: E402
 from _torch_serve_ref import (  # noqa: E402
     assert_refuses_serve, engines, model_steps, smoke_pair, state_numpy,
 )
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 NAME = "xlstm-125m"
 
