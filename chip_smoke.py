@@ -79,7 +79,8 @@ non-zero):
              self-attention (B=4, S=64, causal) and its cross-attention
              (not causal, Sq = 64, 37 and 1 over Sk = 1500: keys past
              Sk masked); time it at the prefill shapes (whisper's
-             cross-attention in prefill among them)
+             cross-attention in prefill among them), a training rank's
+             (phase 14) and granite-moe's training shape (phase 15c)
              beside the plain version, one scaled_dot_product_attention
              call (enable_gqa, on [B, H, S, D] copies made outside the
              timed region) and its bound.
@@ -96,7 +97,9 @@ non-zero):
              H=16 over KH=8, D=128, bf16, causal), the smoke shape in
              f32 with a ragged S, H/KH = 3 at D=64, H = KH = 32 at D=64,
              D=160 with a ragged S and whisper's cross-attention (not
-             causal, Sq = 64 over Sk = 1500); the training shape timed
+             causal, Sq = 64 over Sk = 1500), a training rank's shapes
+             (phase 14) and granite-moe's training shape (phase 15c: B=8,
+             S=512, H=24 over 8, D=64); the training shapes timed
              by CUDA-graph replay beside the plain version, the backward
              of one scaled_dot_product_attention (its forward outside
              the timed region; each call timed alone behind a spin
@@ -181,9 +184,10 @@ non-zero):
   7. moe     granite-moe-3b-a800m at its published widths (32 layers,
              d_model 1536, 24 heads over 8, head_dim 64, 40 experts
              top-8; random bf16 weights), after the internlm2 model is
-             dropped: phase 4's serve with the same checks, then `start`
-             of 4 prompts of 2304 tokens (32 flash launches) and
-             `generate(32)`.
+             dropped: phase 4's serve of its 8 long requests with the
+             same checks, then `start` of 4 prompts of 2304 tokens (32
+             flash launches) and `generate(32)`; phase 15a serves again
+             on its weights.
   8. llama31-8b the paper's own model at its published widths (32
              layers, d_model 4096, 32 heads over 8, head_dim 128, vocab
              128256; random bf16 weights): phase 4's serve (4.56 GB of
@@ -287,6 +291,35 @@ non-zero):
              TRAIN_SPLIT_TOL; the flash kernel and its backward at 8/4
              and 4/2 heads (`train_split`).
 
+  15a. mesh moe serve (after phase 7, on its weights) phase 7's serve
+             on a new `ServingEngine(..., mesh=)` over a world-size-1
+             NCCL group: every collective of the meshed moe path (the
+             experts' range, the lanes' rows bound for routing) runs,
+             eagerly as phase 7; greedy tokens, statuses and step bytes
+             equal phase 7's; tokens/s, TTFT and TPOT p50 beside phase
+             7's (`mesh_moe_serve` in the kernels line).
+  15b. moe split one full-width granite-moe layer: a decode step of 8
+             lanes (64 HBM + 208 host pages) and a 256-token prefill
+             chunk, attention and the moe FFN, split over (data, model)
+             = (1, 2), (1, 4), (2, 1) and (2, 2) rank after rank (24 or
+             12 of the 48 padded experts a model rank; each data rank's
+             lanes routed over every data rank's logits): against the
+             unsplit layer within MOE_SPLIT_TOL, the importance summed
+             over ranks, the paged kernel at each split's KH against
+             its plain version (`moe_split`).
+  15c. moe train granite-moe-3b-a800m at full width, depth cut to
+             MOE_TRAIN_LAYERS (the unfused AdamW's f32 temporaries do
+             not leave room for 32), B=8 x S=512, remat, 3 steps
+             unmeshed and 3 on a world-size-1 NCCL mesh from
+             `init_train_state(..., mesh=)`: losses, grad norms and
+             parameters bitwise equal, ms per step and peak memory
+             (`moe_train`, `mesh_moe_train`); then one full-width
+             granite-moe layer's attention and moe blocks, forward and
+             backward, each on its own rows, split over (data, model) =
+             (1, 2), (2, 2) and (1, 4) as 14b: each block's dx and every
+             weight's gradient within MOE_TRAIN_SPLIT_TOL
+             (`moe_train_split`).
+
 Then a `kernels` JSON line, the card's name and power limit, and, last,
 {"ok": true, "device": {...}}. Without a CUDA card it exits non-zero
 and prints no result. `--profile DIR` runs phase 4 under torch.profiler
@@ -297,6 +330,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import gc
 import json
 import math
@@ -1144,6 +1178,9 @@ FLASH_SHAPES = (
      True, True),
     ("internlm2-1.8b train rank, model=4", 4, 512, 512, 4, 2, 128, "bf16",
      True, True),
+    # granite-moe's training shape (phase 15c)
+    ("granite-moe-3b-a800m train", 8, 512, 512, 24, 8, 64, "bf16", True,
+     True),
 )
 FLASH_TOL = {"bf16": 1e-2, "f32": 2e-5}
 
@@ -1246,6 +1283,8 @@ BWD_SHAPES = (
      True, True),
     ("internlm2-1.8b train rank, model=4", 4, 512, 512, 4, 2, 128, "bf16",
      True, True),
+    ("granite-moe-3b-a800m train", 8, 512, 512, 24, 8, 64, "bf16", True,
+     True),
 )
 #: max abs error of each of dq, dk, dv over that gradient's max |value|:
 #: bf16 gradients are rounded once (one bf16 step is 2^-8 relative),
@@ -2440,17 +2479,16 @@ def faulted_serve_phase(model, params, seed):
     return counts, numbers
 
 
-def moe_phase(seed):
-    """Phase 7: granite-moe-3b-a800m at its published widths, random
-    bf16 weights: phase 4's serve of its 8 long requests (eager chunks:
-    `engine.EAGER_SERVE_FAMILIES`), then `start` of 4 prompts of 2304
-    tokens and `generate(32)`. Returns the launches by path and the
-    numbers."""
+def moe_phase(model, params, seed):
+    """Phase 7: granite-moe-3b-a800m at its published widths (`model`,
+    `params`: random bf16 weights): phase 4's serve of its 8 long
+    requests (eager chunks: `engine.EAGER_SERVE_FAMILIES`), then `start`
+    of 4 prompts of 2304 tokens and `generate(32)`. Returns the launches
+    by path and the numbers."""
     import torch
     from repro_torch.kernels.build import COUNTS
     from repro_torch.serving.engine import EngineConfig, ServingEngine
 
-    model, params = full_width(seed, "granite-moe-3b-a800m")
     cfg = model.cfg
     serve, numbers = serve_phase(model, params, seed, what="serve moe",
                                  n_requests=8)
@@ -2490,9 +2528,8 @@ def moe_phase(seed):
                              f"{tuple(logits.shape)}, tokens "
                              f"{tuple(toks.shape)}")
     numbers.update(start_s=t_start, decode_tokens_per_s=B * steps / t_dec)
-    del eng, logits, params, model
-    gc.collect()
-    torch.cuda.empty_cache()
+    del eng, logits
+    free_card()
     return {"serve": serve, "start": c_start, "generate": c_dec}, numbers
 
 
@@ -3192,29 +3229,13 @@ def mesh_serve_phase(model, params, seed, inline, overlap):
     are freed, then the group is torn down. Returns the launches by
     kernel by path ("mesh_serve", "mesh_serve_overlap": the latter with
     its payback probe's) and the numbers by mode."""
-    import shutil
-    import tempfile
-    import torch
-    import torch.distributed as dist
-    from repro_torch.launch.mesh import make_test_mesh
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
-    torch.cuda.set_device(0)
-    dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
-                            rank=0, world_size=1)
     counts, numbers = {}, {}
-    try:
-        mesh = make_test_mesh(1, 1)
+    with world_of_one("chip_smoke_mesh_") as mesh:
         for path, mode, want in (("mesh_serve", "inline", inline),
                                  ("mesh_serve_overlap", "overlap", overlap)):
             counts[path], numbers[mode] = mesh_serve_mode(
                 model, params, seed, mesh, mode, want)
-            gc.collect()
-            torch.cuda.empty_cache()
-    finally:
-        gc.collect()
-        torch.cuda.synchronize()
-        dist.destroy_process_group()
-        shutil.rmtree(tmp, ignore_errors=True)
+            free_card()
     return counts, numbers
 
 
@@ -3462,24 +3483,15 @@ def mesh_train_phase(seed, ref):
     one unmeshed step must equal 3 unmeshed steps, bitwise. The state
     is freed, then the group is torn down. Returns the launches by
     kernel of the full-depth meshed steps and numbers."""
-    import shutil
-    import tempfile
     import torch
-    import torch.distributed as dist
     from repro_torch import configs
     from repro_torch.kernels.build import COUNTS
-    from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.models.model import Model
     from repro_torch.training.train_step import (
         init_train_state, make_train_step)
     from repro_torch.tree import tree_leaves
     free_card()
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_mesh_")
-    torch.cuda.set_device(0)
-    dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
-                            rank=0, world_size=1)
-    try:
-        mesh = make_test_mesh(1, 1)
+    with world_of_one("chip_smoke_train_mesh_") as mesh:
         cfg = configs.get("internlm2-1.8b")
         model = Model(cfg)
         state = init_train_state(model, seed, "cuda", mesh=mesh)
@@ -3517,7 +3529,7 @@ def mesh_train_phase(seed, ref):
         free_card()
         numbers = {"losses": losses, "grad_norms": gnorms, "step_s": times,
                    "peak_bytes": peak, "max_param_diff": max(diffs)}
-        numbers.update(mesh_checkpoint_part(seed, mesh, tmp))
+        numbers.update(mesh_checkpoint_part(seed, mesh))
         per_step = 2 * cfg.num_layers * MESH_TRAIN_STEPS
         if not all(same.values()):
             raise AssertionError(f"mesh train: the meshed steps differ "
@@ -3528,20 +3540,16 @@ def mesh_train_phase(seed, ref):
                                  f"flash {per_step} and its backward "
                                  f"{per_step // 2}")
         return counts, numbers
-    finally:
-        gc.collect()
-        torch.cuda.synchronize()
-        dist.destroy_process_group()
-        shutil.rmtree(tmp, ignore_errors=True)
 
 
-def mesh_checkpoint_part(seed, mesh, tmp):
+def mesh_checkpoint_part(seed, mesh):
     """Phase 14a's checkpoint round trip at 2 layers on `mesh`: 2 meshed
     steps, a save on the mesh, a restore without one and a third,
     unmeshed step against 3 unmeshed steps; losses and the whole train
     state bitwise equal. Returns its numbers."""
     import dataclasses
-    import os
+    import shutil
+    import tempfile
     import torch
     from repro_torch import configs
     from repro_torch.bridge import train_state_specs
@@ -3568,17 +3576,21 @@ def mesh_checkpoint_part(seed, mesh, tmp):
                                              mesh=mesh),
                             make_train_step(model, lr=TRAIN_LR, mesh=mesh),
                             range(2))
-    root = os.path.join(tmp, "ckpt")
-    t = time.time()
-    CheckpointManager(root, mesh=mesh).save(
-        2, meshed, blocking=True, specs=train_state_specs(cfg, mesh))
-    save_s = time.time() - t
-    target = tree_map(lambda x: x.to("meta"), meshed)
-    del meshed
-    t = time.time()
-    resumed = CheckpointManager(root).restore(target, step=2, device="cuda")
-    torch.cuda.synchronize()
-    restore_s = time.time() - t
+    root = tempfile.mkdtemp(prefix="chip_smoke_mesh_ckpt_")
+    try:
+        t = time.time()
+        CheckpointManager(root, mesh=mesh).save(
+            2, meshed, blocking=True, specs=train_state_specs(cfg, mesh))
+        save_s = time.time() - t
+        target = tree_map(lambda x: x.to("meta"), meshed)
+        del meshed
+        t = time.time()
+        resumed = CheckpointManager(root).restore(target, step=2,
+                                                  device="cuda")
+        torch.cuda.synchronize()
+        restore_s = time.time() - t
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     resumed, more = run(resumed, plain, range(2, 3))
     l_resumed += more
     same_loss = torch.equal(torch.stack(l_straight), torch.stack(l_resumed))
@@ -3726,6 +3738,522 @@ def train_split_phase(seed):
     return counts, out
 
 
+# --------------------------------------------------------------------------
+# phase 15: the moe family across a mesh
+# --------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def world_of_one(prefix):
+    """A world-size-1 NCCL process group over a `file://` store in a
+    temporary directory (no network) and its `make_test_mesh(1, 1)`;
+    torn down once the caller's tensors are collected."""
+    import shutil
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_test_mesh
+    tmp = tempfile.mkdtemp(prefix=prefix)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                            rank=0, world_size=1)
+    try:
+        yield make_test_mesh(1, 1)
+    finally:
+        gc.collect()
+        torch.cuda.synchronize()
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def mesh_moe_serve_phase(model, params, seed, want):
+    """Phase 15a: phase 7's serve (granite-moe-3b-a800m at full width,
+    phase 4's 8 long requests, the same stream: routing depends on a
+    lane's company) on a new `ServingEngine(..., mesh=)` over a
+    world-size-1 NCCL mesh, on phase 7's weights: every collective of
+    the meshed moe path runs (the experts' range and the lanes' rows
+    bound; each an identity at size 1), eagerly as phase 7. Tokens,
+    statuses and step bytes must equal phase 7's (`want["stream"]`);
+    tokens/s, TTFT and TPOT p50 beside phase 7's. Returns the launches
+    by kernel and the numbers."""
+    import torch
+    from repro_torch.kernels.build import COUNTS
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    cfg = model.cfg
+    ecfg = EngineConfig(max_context=4096, hbm_fraction=0.25,
+                        policy="importance", prefill_chunk=256,
+                        telemetry_stride=16)
+    with world_of_one("chip_smoke_moe_mesh_") as mesh:
+        eng = ServingEngine(model, params, ecfg, mesh=mesh)
+        reqs = phase4_requests(cfg.vocab, seed)[:8]
+        free_card()
+        torch.cuda.reset_peak_memory_stats()
+        COUNTS.clear()                      # the main path's run only
+        torch.cuda.synchronize()
+        t0 = time.time()
+        rep = eng.serve(reqs, num_slots=8, seed=seed)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = dict(COUNTS)
+        steps_run = eng.steps_run
+        got = stream_outcome(eng, rep)
+        experts = eng._run[0].tp.experts
+        del eng
+    same = {k: got[k] == want["stream"][k] for k in want["stream"]}
+    tokens = sum(len(o) for o in got["outputs"].values())
+    peak = torch.cuda.max_memory_allocated()
+    numbers = {"tokens_per_s": tokens / wall, "ttft_p50": rep.ttft["p50"],
+               "tpot_p50": rep.tpot["p50"], "peak_bytes": peak}
+    log(f"mesh moe serve: {wall:.2f} s wall, {tokens} tokens, "
+        f"{tokens / wall:.1f} tokens/s (phase 7: "
+        f"{want['tokens_per_s']:.1f}), TTFT p50 {rep.ttft['p50']:.3f} s "
+        f"({want['ttft_p50']:.3f}), TPOT p50 {rep.tpot['p50'] * 1e3:.2f} "
+        f"ms ({want['tpot_p50'] * 1e3:.2f}); data=1 model=1 over NCCL, "
+        f"experts {experts} of {cfg.moe.num_experts_padded}; equal to "
+        f"phase 7's serve: tokens {same['outputs']} statuses "
+        f"{same['statuses']} step bytes {same['bytes']}; "
+        f"{counts.get('paged_attention', 0)} paged and "
+        f"{counts.get('page_copy', 0)} row-copy launches, {steps_run} "
+        f"steps run, peak memory {peak / 1e9:.2f} GB; card {card_line()}")
+    if not all(same.values()):
+        raise AssertionError(f"mesh moe serve differs from phase 7's: "
+                             f"{same}")
+    if counts.get("paged_attention", 0) != 2 * cfg.num_layers * steps_run:
+        raise AssertionError(f"mesh moe serve: {counts} for {steps_run} "
+                             f"steps")
+    return counts, numbers
+
+
+#: phase 15b's splits of one granite-moe layer: (data, model)
+MOE_SPLITS = ((1, 2), (1, 4), (2, 1), (2, 2))
+#: a split granite-moe layer against the unsplit one (bf16): max |split
+#: - unsplit| over max |unsplit| of the attention blocks' and the moe
+#: FFN's outputs, decode and prefill chunk, about twice the largest seen
+#: on an H100 (attention 4.1e-3, moe 4.6e-3: partial outputs each
+#: rounded to bf16, then summed in bf16; 0 at data = 2 alone); the
+#: importance summed over shards, absolute, as TP_TOL
+MOE_SPLIT_TOL = {"attn": 1e-2, "moe": 1e-2, "importance": 1e-4}
+
+
+def moe_rank(cfg, data, m, i, r, logits_of):
+    """The `TensorParallel` of (data rank i, model rank r) of a split
+    done by hand on one card: its experts' range and rows, its partial
+    sums left to the caller (`reduce` the identity), and the routing
+    rows' gather concatenating every data rank's logits
+    (`logits_of(j)`, this rank's own tensor for j == i)."""
+    import torch
+    from repro_torch.models.transformer import TensorParallel
+
+    def gather_rows(t, dim):
+        return torch.cat([t if j == i else logits_of(j)
+                          for j in range(data)], dim)
+    return TensorParallel.of(cfg, m, r, reduce=lambda t: t, gather=None,
+                             gather_rows=gather_rows,
+                             rows=(i, data) if data > 1 else None)
+
+
+def moe_split_ffn(x, lps, cfg, local, data, m, group):
+    """The moe FFN of `x` [B, S, d] (post-norm) split over (data, m) by
+    hand: each data rank's rows through each model rank's experts
+    (`lps[r]`, the router whole), the model ranks' partial outputs
+    summed in bf16 in rank order, the data ranks' rows concatenated."""
+    import torch
+    from repro_torch.models.moe import moe_ffn
+    rows = x.shape[0] // data
+    xs = [x[i * rows:(i + 1) * rows] for i in range(data)]
+    router = lps[0]["router"]
+
+    def logits_of(j):
+        return (xs[j].reshape(-1, x.shape[-1]) @ router).float()
+    out = []
+    for i, xi in enumerate(xs):
+        y = None
+        for r, w in enumerate(lps):
+            part = moe_ffn(xi, {**w, "router": router}, local,
+                           group_size=group,
+                           tp=moe_rank(cfg, data, m, i, r, logits_of))
+            y = part if y is None else y + part
+        out.append(y)
+    return torch.cat(out)
+
+
+def moe_split_phase(seed):
+    """Phase 15b: one full-width granite-moe-3b-a800m layer (random bf16
+    weights) split over each of `MOE_SPLITS` rank after rank on one
+    card: a decode step of B=8 lanes over 64 HBM and 208 host pages and
+    a prefill chunk of 256 tokens a lane. Attention: each model rank's
+    heads and KV-head pools (`bridge.shard_params`, `rank_local`; the
+    paged kernel, and the chunk's `prefill_chunk_attn`), the partial
+    outputs summed in bf16 in rank order, the importance summed over
+    ranks. The moe FFN: each model rank's experts (24 or 12 of the 48
+    padded ones) on each data rank's lanes, routed over every data
+    rank's logits (`TensorParallel.rows`: the decode step's 8 lanes are
+    one group across data ranks, the chunk's 2048 rows four groups of
+    512, each inside one data rank's lanes at data = 2). Against the
+    unsplit layer within `MOE_SPLIT_TOL`; the paged kernel at each
+    model split's KH against its plain version. Returns the launches by
+    kernel and the errors."""
+    import dataclasses
+    import torch
+    from repro_torch import bridge, configs
+    from repro_torch.kernels.build import COUNTS
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.models.model import Model
+    from repro_torch.models.moe import moe_ffn
+    from repro_torch.models.transformer import TensorParallel
+    free_card()
+    device = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    cfg = dataclasses.replace(configs.get("granite-moe-3b-a800m"),
+                              num_layers=1)
+    params = Model(cfg).init(seed, device=device)
+    lp = tfm.layers_of(params["layers"])[0]
+    B, Ph, Pe, T, C = 8, 64, 208, cfg.kv_page_tokens, 256
+    d = cfg.d_model
+    pools, lists, slot, offset = tp_pools(rng, B, Ph, Pe, T, cfg.kv_heads,
+                                          cfg.head_dim, device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 5)
+    h = torch.randn((B, 1, d), generator=gen, device=device).to(
+        torch.bfloat16)
+    hc = torch.randn((B, C, d), generator=gen, device=device).to(
+        torch.bfloat16)
+    pos = (lists[1] > 0).sum(-1) * T        # any position will do
+    # the chunk: lane b's C tokens from position T * b, over its HBM
+    # slots (a prefix of random K/V before them)
+    start = torch.arange(B, device=device) * T
+    cpos, cpage, coff, cvalid = tfm.chunk_coords(
+        T, C, start, torch.full((B,), C, device=device))
+    seen = (-(-(T * (B - 1) + C) // T), 0)
+    lanes = torch.arange(B, device=device)
+
+    def blocks(w, local, pl):
+        """(decode attention, importance, chunk attention) of the
+        weights `w` over the pools `pl` (a rank's partials)."""
+        a, imp, _ = tp_layer(w, local, h, pos, pl, lists, slot, offset)
+        parts = []
+        capture = TensorParallel(size=1, rank=0, mlp_split=False,
+                                 vocab=None, gather=None,
+                                 reduce=lambda t: parts.append(t) or
+                                 torch.zeros_like(t))
+        tfm.prefill_chunk_attn(hc, w, local, pl, cpos, cpage, coff, cvalid,
+                               lanes, seen, capture)
+        return a, imp, parts[0]
+
+    attn, imp, cattn = blocks(lp, cfg, [p.clone() for p in pools])
+    x = rms_norm(h + attn, lp["moe_norm"], cfg.norm_eps)
+    xc = rms_norm(hc + cattn, lp["moe_norm"], cfg.norm_eps)
+    y = moe_ffn(x, lp, cfg, group_size=B)
+    yc = moe_ffn(xc, lp, cfg)
+
+    def rel(got, want):
+        return float((got.float() - want.float()).abs().max()
+                     / want.float().abs().max())
+    COUNTS.clear()
+    out = []
+    checked = set()
+    checks = collections.Counter()      # the kernel checks' launches
+    for data, m in MOE_SPLITS:
+        mesh = AbstractMesh(("data", "model"), (data, m))
+        local = cfg.rank_local(m)
+        kh = cfg.kv_heads // m
+        lps, parts = [], []
+        for r in range(m):
+            lps.append(tfm.layers_of(bridge.shard_params(
+                params, cfg, mesh, {"data": 0, "model": r})["layers"])[0])
+            parts.append(blocks(lps[r], local, [
+                p[..., r * kh:(r + 1) * kh, :].clone(
+                    memory_format=torch.contiguous_format) for p in pools]))
+            if m > 1 and m not in checked:
+                before = collections.Counter(COUNTS)
+                q = torch.randn((B, kh, local.q_per_kv, cfg.head_dim),
+                                dtype=torch.bfloat16, device=device)
+                shard = [p[..., r * kh:(r + 1) * kh, :] for p in pools]
+                for tier, (k, v, pl, pv) in enumerate((
+                        (*shard[:2], *lists[:2]), (*shard[2:], *lists[2:]))):
+                    pl, pv = pl.clone(), pv.clone()
+                    pl[B - 1], pv[B - 1] = -1, 0  # check_paged's empty lane
+                    check_paged(f"moe split model={m} rank {r} KH={kh} "
+                                f"G={local.q_per_kv} HD={cfg.head_dim} "
+                                f"{'host' if tier else 'HBM'} tier N="
+                                f"{pl.shape[1]}",
+                                (q, k.contiguous(), v.contiguous(), pl, pv))
+                checks.update(COUNTS - before)
+        checked.add(m)
+        summed = [None] * 3
+        for part in parts:
+            summed = [p if s is None else s + p
+                      for s, p in zip(summed, part)]
+        err = {"attn": max(rel(summed[0], attn), rel(summed[2], cattn)),
+               "importance": float((summed[1] - imp).abs().max()),
+               "moe": max(rel(moe_split_ffn(x, lps, cfg, local, data, m, B),
+                              y),
+                          rel(moe_split_ffn(xc, lps, cfg, local, data, m,
+                                            None), yc))}
+        torch.cuda.synchronize()
+        experts = cfg.moe.num_experts_padded // m
+        log(f"moe split data={data} model={m}: heads {cfg.num_heads // m}/"
+            f"{kh} and {experts} of {cfg.moe.num_experts_padded} experts a "
+            f"model rank, {B // data} lanes a data rank; split against "
+            f"unsplit (max |diff| / max |value|, decode and prefill chunk): "
+            f"attention {err['attn']:.3e} moe {err['moe']:.3e}, importance "
+            f"summed over ranks {err['importance']:.3e} absolute "
+            f"(tolerance {MOE_SPLIT_TOL})")
+        bad = {k: e for k, e in err.items() if not e <= MOE_SPLIT_TOL[k]}
+        if bad:
+            raise AssertionError(f"moe split data={data} model={m}: {bad}")
+        out.append({"data": data, "model": m, **err})
+    counts = dict(COUNTS - checks)
+    log(f"moe split: launches {counts} (the kernel checks' "
+        f"{dict(checks)} apart)")
+    del params, pools, lps, parts
+    free_card()
+    return counts, out
+
+
+#: phase 15c: granite-moe's training at full width; the unfused AdamW
+#: holds ~26 bytes a parameter at its update (bf16 weights, gradients
+#: and new weights, f32 m and v old and new, the f32 gradient), ~103 GB
+#: at granite-moe's 3.97 B parameters (its 48 padded experts), so the
+#: depth is cut to 16 of 32 layers (~54 GB)
+MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 16, 3
+
+
+def moe_train_phase(seed):
+    """Phase 15c: granite-moe-3b-a800m at full width, depth cut to
+    MOE_TRAIN_LAYERS, B=8 x S=512 from `SyntheticCorpus` (8 routing
+    groups of 512 tokens, each one row), remat on, MOE_TRAIN_STEPS steps
+    at TRAIN_LR: unmeshed, then from `init_train_state(..., mesh=)` on a
+    world-size-1 NCCL mesh (`make_train_step(..., mesh=)`: every
+    collective of the meshed moe step, the experts' range and the
+    router's f). Losses, grad norms and parameters bitwise equal; ms per
+    step and peak memory of each. Returns the launches by path
+    ("moe_train", "mesh_moe_train") and the numbers."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels.build import COUNTS
+    from repro_torch.models.model import Model
+    from repro_torch.training.train_step import (
+        init_train_state, make_train_step)
+    from repro_torch.tree import tree_leaves
+    free_card()
+    cfg = dataclasses.replace(configs.get("granite-moe-3b-a800m"),
+                              num_layers=MOE_TRAIN_LAYERS)
+    model = Model(cfg)
+    batches = train_batches(cfg.vocab, seed, MOE_TRAIN_STEPS)
+
+    def run(state, step_fn, what):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        COUNTS.clear()                      # the main path's run only
+        losses, gnorms, times = [], [], []
+        for tokens in batches:
+            t = time.time()
+            state, m = step_fn(state, {"tokens": tokens})
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+            times.append(time.time() - t)
+        counts = dict(COUNTS)
+        peak = torch.cuda.max_memory_allocated()
+        n = sum(p.numel() for p in tree_leaves(state.params))
+        log(f"{what}: {cfg.name} at {cfg.num_layers} of 32 layers "
+            f"({n / 1e9:.3f} B params), B={TRAIN_B} S={TRAIN_S}, lr "
+            f"{TRAIN_LR}, remat on: losses {losses} grad norms {gnorms}; "
+            f"{[round(x * 1e3, 1) for x in times]} ms a step, peak memory "
+            f"{peak / 1e9:.2f} GB, launches {counts}; card {card_line()}")
+        return state, {"losses": losses, "grad_norms": gnorms,
+                       "step_s": times, "peak_bytes": peak,
+                       "counts": counts}
+
+    state, plain = run(init_train_state(model, seed, "cuda"),
+                       make_train_step(model, lr=TRAIN_LR), "moe train")
+    ref = [p.cpu() for p in tree_leaves(state.params)]
+    del state
+    free_card()
+    with world_of_one("chip_smoke_moe_train_mesh_") as mesh:
+        state, meshed = run(init_train_state(model, seed, "cuda",
+                                             mesh=mesh),
+                            make_train_step(model, lr=TRAIN_LR, mesh=mesh),
+                            "mesh moe train")
+        same = {"losses": meshed["losses"] == plain["losses"],
+                "grad_norms": meshed["grad_norms"] == plain["grad_norms"],
+                "params": all(torch.equal(a, b.to(a.device)) for a, b in
+                              zip(tree_leaves(state.params), ref))}
+        del state
+    log(f"mesh moe train: bitwise equal to the unmeshed steps: losses "
+        f"{same['losses']} grad norms {same['grad_norms']} parameters "
+        f"{same['params']}; ms a step (median) "
+        f"{sorted(meshed['step_s'])[1] * 1e3:.1f} against "
+        f"{sorted(plain['step_s'])[1] * 1e3:.1f} unmeshed")
+    del ref
+    free_card()
+    per_step = 2 * cfg.num_layers * MOE_TRAIN_STEPS
+    for what, c in (("moe train", plain["counts"]),
+                    ("mesh moe train", meshed["counts"])):
+        if c.get("flash_attention") != per_step or \
+                c.get("flash_attention_bwd") != per_step // 2:
+            raise AssertionError(f"{what}: launches {c}, expected flash "
+                                 f"{per_step} and its backward "
+                                 f"{per_step // 2}")
+    if not all(same.values()):
+        raise AssertionError(f"mesh moe train: the meshed steps differ "
+                             f"from the unmeshed ones: {same}")
+    if not all(math.isfinite(x) for x in plain["losses"]):
+        raise AssertionError(f"moe train: losses {plain['losses']}")
+    return {"moe_train": plain.pop("counts"),
+            "mesh_moe_train": meshed.pop("counts")}, \
+        {"plain": plain, "meshed": meshed}
+
+
+#: phase 15c's splits of one granite-moe layer's training: (data, model)
+MOE_TRAIN_SPLITS = ((1, 2), (2, 2), (1, 4))
+#: its gradients against the unsplit layer's (bf16): max |split -
+#: unsplit| over max |unsplit| of each block's dx and of every weight's
+#: gradient, about twice the largest seen on an H100 (dx of the
+#: attention block 7.8e-3; a model split alone leaves every weight's
+#: gradient exact, each head's and each expert's computed whole on one
+#: rank from the same inputs)
+MOE_TRAIN_SPLIT_TOL = 1.6e-2
+
+
+def moe_train_split_phase(seed):
+    """Phase 15c's split: one full-width granite-moe-3b-a800m layer's
+    attention block and moe block (random bf16 weights), each forward
+    AND backward on its own TRAIN_B rows of TRAIN_S tokens, split over
+    each of `MOE_TRAIN_SPLITS` rank after rank on one card, as phase
+    14b: each rank's train-mode shards (a model rank's heads and
+    experts, their `embed` over data), a model rank's FSDP blocks
+    concatenated over data once and used by every data rank, the model
+    ranks' partial outputs summed in bf16 in rank order, the norms and
+    the router used whole by every rank (so their gradients sum over
+    the ranks: f), each data rank's rows routed over every data rank's
+    logits (`moe_rank`; at data = 2 each rank's 4 rows are whole routing
+    groups). The blocks take separate inputs because a moe block fed
+    the split attention's output (rounded otherwise in bf16) may route
+    a near-tied token to another expert, a difference of routing, not
+    of the split. dx of each block and every weight's gradient,
+    assembled from the ranks' blocks, against the unsplit layer's
+    within MOE_TRAIN_SPLIT_TOL; the flash kernel and its backward at
+    12/4 and 6/2 heads. Returns the launches by kernel and the
+    errors."""
+    import dataclasses
+    import torch
+    from repro_torch import bridge, configs
+    from repro_torch.kernels.build import COUNTS
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.launch.shardings import data_dim
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import attention, rms_norm
+    from repro_torch.models.model import Model
+    from repro_torch.models.moe import moe_ffn
+    free_card()
+    device = torch.device("cuda")
+    cfg = dataclasses.replace(configs.get("granite-moe-3b-a800m"),
+                              num_layers=1)
+    params = Model(cfg).init(seed, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 7)
+    shape = (TRAIN_B, TRAIN_S, cfg.d_model)
+    h, dy = [[torch.randn(shape, generator=gen, device=device).to(
+        torch.bfloat16) for _ in range(2)] for _ in range(2)]
+    pos = torch.arange(TRAIN_S, device=device)[None, :]
+    dmodel = cfg.d_model
+
+    def layer(xs, lp, local, data):
+        """(the attention block on rows xs[0], the moe block on rows
+        xs[1]) split over `data` data ranks and the model ranks' weights
+        `lp` (one dict a model rank; the norms and the router from the
+        first); unsplit with one of each."""
+        rows = TRAIN_B // data
+        m = len(lp)
+        ya = []
+        for i in range(data):
+            xi = xs[0][i * rows:(i + 1) * rows]
+            xn = rms_norm(xi, lp[0]["attn_norm"], cfg.norm_eps)
+            att = None
+            for w in lp:
+                q, k, v = tfm.attn_qkv(xn, w, local, pos)
+                part = tfm.attn_out(attention(q, k, v), w)
+                att = part if att is None else att + part
+            ya.append(xi + att)
+        xs1 = [xs[1][i * rows:(i + 1) * rows] for i in range(data)]
+        xn2 = [rms_norm(t, lp[0]["moe_norm"], cfg.norm_eps) for t in xs1]
+        router = lp[0]["router"]
+
+        def logits_of(j):
+            return (xn2[j].reshape(-1, dmodel) @ router).float()
+        ym = []
+        for i in range(data):
+            y = None
+            for r, w in enumerate(lp):
+                tp = None if (data, m) == (1, 1) else \
+                    moe_rank(cfg, data, m, i, r, logits_of)
+                part = moe_ffn(xn2[i], {**w, "router": router}, local,
+                               tp=tp)
+                y = part if y is None else y + part
+            ym.append(xs1[i] + y)
+        return torch.cat(ya), torch.cat(ym)
+
+    def run(lp, local, data):
+        """The blocks' outputs backward from `dy`: (dx of each)."""
+        xs = [t.clone().requires_grad_(True) for t in h]
+        torch.autograd.backward(layer(xs, lp, local, data), dy)
+        return {"dx attn": xs[0].grad, "dx moe": xs[1].grad}
+
+    whole = {k: v[0].detach().clone().requires_grad_(True)
+             for k, v in params["layers"].items()}
+    want = run([whole], cfg, 1)
+    want.update({k: v.grad for k, v in whole.items()})
+    COUNTS.clear()
+    out = []
+    for data, m in MOE_TRAIN_SPLITS:
+        mesh = AbstractMesh(("data", "model"), (data, m))
+        local = cfg.rank_local(m)
+        specs = bridge.param_specs(cfg, mesh, "train")
+        blocks = {(i, r): {k: v[0].detach().clone().requires_grad_(True)
+                           for k, v in bridge.shard_params(
+                               params, cfg, mesh, {"data": i, "model": r},
+                               "train")["layers"].items()}
+                  for i in range(data) for r in range(m)}
+        dims = {k: data_dim(specs[f"layers/{k}"]) for k in whole}
+        gathered = [{k: torch.cat([blocks[(i, r)][k] for i in range(data)],
+                                  dims[k] - 1) if dims[k] is not None
+                     else blocks[(0, r)][k] for k in whole}
+                    for r in range(m)]
+        got = run(gathered, local, data)
+        for k in whole:
+            spec = specs[f"layers/{k}"][1:]
+            grid = [[blocks[(i, r)][k].grad if blocks[(i, r)][k].grad is
+                     not None else torch.zeros_like(blocks[(i, r)][k])
+                     for r in range(m)] for i in range(data)]
+            got[k] = assemble(grid, spec)
+        err = {k: float((got[k].float() - want[k].float()).abs().max()
+                        / want[k].float().abs().max()) for k in want}
+        worst = max(err, key=err.get)
+        log(f"moe train split data={data} model={m}: "
+            f"{cfg.num_heads // m}/{cfg.kv_heads // m} heads and "
+            f"{local.moe.local_experts} experts a model rank, "
+            f"{TRAIN_B // data} rows a data rank; gradients against the "
+            f"unsplit layer (max |diff| / max |value|): "
+            f"{', '.join(f'{k} {e:.3e}' for k, e in err.items())} "
+            f"(tolerance {MOE_TRAIN_SPLIT_TOL})")
+        if not err[worst] <= MOE_TRAIN_SPLIT_TOL:
+            raise AssertionError(f"moe train split data={data} model={m}: "
+                                 f"{worst} {err[worst]:.3e}")
+        out.append({"data": data, "model": m, "errors": err})
+        del blocks, gathered, got
+    counts = dict(COUNTS)
+    log(f"moe train split: launches {counts}")
+    del params, whole, want
+    free_card()
+    if not counts.get("flash_attention") or \
+            not counts.get("flash_attention_bwd"):
+        raise AssertionError(f"moe train split: launches {counts}")
+    return counts, out
+
+
 def assemble(grid, spec):
     """The whole tensor from the blocks `grid[d][r]` (data rank d, model
     rank r) that a spec with at most one dim on each axis cuts."""
@@ -3841,7 +4369,15 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     cli, _ = phase("serve cli", lambda: serve_cli_phase(args.seed))
     example = phase("example", example_phase)
-    moe, moe_numbers = phase("moe", lambda: moe_phase(args.seed))
+    moe_model, moe_params = phase("moe model", lambda: full_width(
+        args.seed, "granite-moe-3b-a800m"))
+    moe, moe_numbers = phase("moe", lambda: moe_phase(
+        moe_model, moe_params, args.seed))
+    mesh_moe, _ = phase("mesh moe serve", lambda: mesh_moe_serve_phase(
+        moe_model, moe_params, args.seed, moe_numbers))
+    del moe_model, moe_params
+    free_card()
+    moe_split, _ = phase("moe split", lambda: moe_split_phase(args.seed))
     llama, _ = phase("llama31-8b", lambda: big_serve_phase(
         "llama31-8b", args.seed))
     qwen, _ = phase("qwen3-32b", lambda: big_serve_phase(
@@ -3860,6 +4396,9 @@ def main(argv=None) -> int:
     del mesh_ref
     train_split, _ = phase("train split", lambda: train_split_phase(
         args.seed))
+    moe_train, _ = phase("moe train", lambda: moe_train_phase(args.seed))
+    moe_train_split, _ = phase("moe train split", lambda:
+                               moe_train_split_phase(args.seed))
     log(f"all phases: {time.time() - t_all:.1f} s wall")
 
     # one inline internlm2 decode layer: the HBM-tier (N=64) + host-tier
@@ -3872,7 +4411,8 @@ def main(argv=None) -> int:
              "moe_serve": moe["serve"], "moe_generate": moe["generate"],
              "llama31_serve": llama, "qwen3_serve_overlap": qwen,
              "trained_serve": trained_serve, "serve_cli": cli,
-             "example": example, **mesh_serve,
+             "example": example, **mesh_serve, "mesh_moe_serve": mesh_moe,
+             "moe_split": moe_split,
              **{f"{name}_generate": c["generate"]
                 for name, c in streams.items()}}
     paged_by_path = {k: c.get("paged_attention", 0)
@@ -3928,6 +4468,10 @@ def main(argv=None) -> int:
                      "train": train.get("flash_attention", 0),
                      "mesh_train": mesh_train.get("flash_attention", 0),
                      "train_split": train_split.get("flash_attention", 0),
+                     **{k: c.get("flash_attention", 0)
+                        for k, c in moe_train.items()},
+                     "moe_train_split": moe_train_split.get(
+                         "flash_attention", 0),
                      "example": example.get("flash_attention", 0),
                      "moe_start": moe["start"].get("flash_attention", 0),
                      **{f"{name}_start": c["start"].get("flash_attention", 0)
@@ -3946,6 +4490,10 @@ def main(argv=None) -> int:
                    "train_resume": resume.get("flash_attention_bwd", 0),
                    "mesh_train": mesh_train.get("flash_attention_bwd", 0),
                    "train_split": train_split.get("flash_attention_bwd", 0),
+                   **{k: c.get("flash_attention_bwd", 0)
+                      for k, c in moe_train.items()},
+                   "moe_train_split": moe_train_split.get(
+                       "flash_attention_bwd", 0),
                    "example": example.get("flash_attention_bwd", 0)}
     bwd_entry = {
         "name": "flash_attention_bwd", "route": "cuda",

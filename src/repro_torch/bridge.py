@@ -71,7 +71,7 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
 
 
 #: the logical dims a rank holds its shard of on the `model` axis
-SPLIT_NAMES = ("heads", "kv_heads", "mlp", "vocab")
+SPLIT_NAMES = ("experts", "heads", "kv_heads", "mlp", "vocab")
 
 
 def leaf_spec(param, mesh, mode: str = "serve"):
@@ -112,18 +112,21 @@ def shard_params(params: Dict[str, Any], cfg: ModelConfig, mesh,
     shape (`init_shards`) are kept as they are.
 
     The rule on `model`, in both modes: a leaf whose spec puts `model`
-    on a `heads`, `kv_heads`, `mlp` or `vocab` dim is held as its shard
-    (`shard`, a contiguous copy); a leaf whose spec puts `model` on
-    `embed` or `head_dim` (the norm weights, which those rules shard at
-    the tail of their priority, or an MLP or vocabulary the axis does
-    not divide) is held whole on `model`, as GSPMD's all-gather would
-    give it. So what the port splits on `model` is exactly what
-    `ModelConfig.rank_local` counts. On `data`, serve mode holds every
-    leaf whole; train mode holds the leaf's FSDP block on the dim that
-    `param_pspec(..., "train")` gives `data` (for internlm2 at (2, 2):
-    `wq`'s `embed`, `w_down`'s `embed`, `embed`'s `embed`), so a rank
-    holds about 1/(data x model) of the big leaves. A leaf that is held
-    whole is the same tensor, not a copy."""
+    on an `experts`, `heads`, `kv_heads`, `mlp` or `vocab` dim is held
+    as its shard (`shard`, a contiguous copy); a leaf whose spec puts
+    `model` on `embed` or `head_dim` (the norm weights and the moe
+    router, which those rules shard at the tail of their priority, or
+    an MLP or vocabulary the axis does not divide) is held whole on
+    `model`, as GSPMD's all-gather would give it. So what the port
+    splits on `model` is exactly what `ModelConfig.rank_local` counts:
+    a moe model's expert leaves by experts (granite-moe's `we_gate`
+    [L, 48, d, f] as [L, 48 / model, d, f]). On `data`, serve mode
+    holds every leaf whole; train mode holds the leaf's FSDP block on
+    the dim that `param_pspec(..., "train")` gives `data` (for internlm2
+    at (2, 2): `wq`'s `embed`, `w_down`'s `embed`, `embed`'s `embed`;
+    for an expert leaf its `embed`), so a rank holds about 1/(data x
+    model) of the big leaves. A leaf that is held whole is the same
+    tensor, not a copy."""
     from repro_torch.models.model import Model
 
     def cut(node, schema):

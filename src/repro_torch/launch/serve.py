@@ -49,11 +49,15 @@ from repro_torch import configs, resolve_device
 from repro_torch.core.sa import SAConfig
 from repro_torch.core.tiers import SPECS
 from repro_torch.bridge import init_shards
-from repro_torch.launch.mesh import join_mesh, mesh_coordinate, spawn_ranks
+from repro_torch.launch.mesh import (
+    AXES, AbstractMesh, join_mesh, mesh_coordinate, spawn_ranks,
+)
 from repro_torch.models.model import Model
 from repro_torch.models.params import param_bytes
 from repro_torch.serving import trace_bridge
-from repro_torch.serving.engine import EngineConfig, ServingEngine, refuse_mesh
+from repro_torch.serving.engine import (
+    EngineConfig, ServingEngine, check_serve_mesh,
+)
 from repro_torch.serving.policies import policy_names
 from repro_torch.serving.scheduler import Request
 from repro_torch.tree import tree_leaves
@@ -85,17 +89,22 @@ def build_requests(vocab: int, n: int, prompt_len: int,
             for i in range(n)]
 
 
-def run_stream(model, params, args, device=None, *, trace: bool = False,
-               mesh=None):
-    """Serve one stream on `device` (default: the card), across `mesh`
-    when given; returns (engine, ServeReport, wall seconds)."""
-    cfg = EngineConfig(
+def engine_config(args, trace: bool = False) -> EngineConfig:
+    """The engine the CLI's flags ask for."""
+    return EngineConfig(
         max_context=args.prompt_len + 32 + args.new_tokens + 16,
         hbm_fraction=args.hbm_fraction, policy=args.policy,
         attention_sparsity=args.sparsity, spec=SPECS[args.spec],
         telemetry_stride=args.stride, prefill_chunk=16,
         trace_telemetry=trace)
-    eng = ServingEngine(model, params, cfg, device=device, mesh=mesh)
+
+
+def run_stream(model, params, args, device=None, *, trace: bool = False,
+               mesh=None):
+    """Serve one stream on `device` (default: the card), across `mesh`
+    when given; returns (engine, ServeReport, wall seconds)."""
+    eng = ServingEngine(model, params, engine_config(args, trace),
+                        device=device, mesh=mesh)
     reqs = build_requests(model.cfg.vocab, args.requests,
                           args.prompt_len, args.new_tokens)
     t0 = time.perf_counter()
@@ -243,8 +252,9 @@ def main(argv=None) -> int:
            else configs.get(args.arch))
     sizes = parse_mesh(args.mesh)
     if sizes is not None:
-        if cfg.family == "moe":
-            refuse_mesh("moe")
+        # what the port leaves out is refused before any rank starts
+        check_serve_mesh(Model(cfg), engine_config(args),
+                         AbstractMesh(AXES, (sizes["data"], sizes["model"])))
         if "RANK" not in os.environ:
             return spawn_ranks(sizes["data"] * sizes["model"], main,
                                list(argv if argv is not None

@@ -6,15 +6,17 @@ auto-resume), on one card or across a (`data`, `model`) mesh.
       --smoke --steps 50 --ckpt-dir CKPT_DIR [--device cpu]
 
 `--data N --model M` (N x M above 1) trains across a mesh of N x M
-ranks, one process each (`make_train_step(..., mesh=)`, the dense
-family: FSDP over `data`, tensor parallelism over `model`): under
+ranks, one process each (`make_train_step(..., mesh=)`, the dense and
+moe families: FSDP over `data`, tensor parallelism over `model`, a moe
+model's experts split over it): under
 `torchrun --nproc-per-node N*M` (rank r on `cuda:LOCAL_RANK` over NCCL,
 or the CPU over gloo with `--device cpu`), or, with no RANK in the
 environment, the CLI spawns its ranks itself over a `file://` store in
 a temporary directory:
 
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
-      --data 2 --model 2 --steps 20 --ckpt-dir CKPT_DIR
+      --data 2 --model 2 --steps 20 --ckpt-dir CKPT_DIR \\
+      [--arch granite-moe-3b-a800m]
 
 Each rank draws only its shards of the parameters and of AdamW's m and
 v, and takes its rows of each batch; rank 0 prints the step lines and,

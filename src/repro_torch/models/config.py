@@ -31,6 +31,16 @@ class MoEConfig:
     #: token-group size of the capacity dispatch ([G, S, E, C] grows
     #: with group^2 / E)
     group_size: int = 1024
+    #: a rank-local config's share of the expert leaves
+    #: (`ModelConfig.rank_local`): the padded experts it holds and their
+    #: hidden width (None: all of them, at `d_ff`). Routing still runs
+    #: over the whole model's `num_experts` and `num_experts_padded`.
+    #: A rank's bookkeeping, not the architecture: a whole config prints
+    #: as the reference's
+    local_experts: Optional[int] = dataclasses.field(default=None,
+                                                     repr=False)
+    expert_d_ff: Optional[int] = dataclasses.field(default=None,
+                                                   repr=False)
 
     @property
     def num_experts_padded(self) -> int:
@@ -127,16 +137,26 @@ class ModelConfig:
         counts of heads, KV heads and, when the axis divides it, MLP
         hidden units (else the MLP is held whole), so the transformer
         code reads them as it reads a whole model's. `head_dim` and
-        `vocab` are unchanged."""
+        `vocab` are unchanged. A moe model's expert leaves follow the
+        sharding rules' priority (`experts` before `mlp`): the padded
+        experts split when the axis divides them, each expert's hidden
+        width whole; else every expert at the split (or whole) `d_ff`
+        of the dense and shared MLPs."""
         if not (splits(self.num_heads, size) and
                 splits(self.kv_heads, size)):
             raise ValueError(f"a model axis of {size} does not split "
                              f"{self.num_heads} heads over "
                              f"{self.kv_heads} KV heads")
+        d_ff = self.d_ff // size if splits(self.d_ff, size) else self.d_ff
+        moe = self.moe
+        if moe is not None:
+            E = moe.num_experts_padded
+            moe = dataclasses.replace(
+                moe, local_experts=E // size if splits(E, size) else E,
+                expert_d_ff=self.d_ff if splits(E, size) else d_ff)
         return dataclasses.replace(
             self, num_heads=self.num_heads // size,
-            kv_heads=self.kv_heads // size,
-            d_ff=self.d_ff // size if splits(self.d_ff, size) else self.d_ff)
+            kv_heads=self.kv_heads // size, d_ff=d_ff, moe=moe)
 
     @property
     def q_per_kv(self) -> int:

@@ -52,6 +52,7 @@ as the reference's does, and it launches no kernel.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -87,9 +88,19 @@ class Model:
         self.cfg = cfg
         #: a meshed serve's or train step's rank: its
         #: `transformer.TensorParallel` over the rank-local `cfg` and the
-        #: rank's weight shards (dense family only; a train step's also
-        #: binds its FSDP blocks over `data`); None: the whole model
+        #: rank's weight shards (the dense and moe families; a train
+        #: step's also binds its FSDP blocks over `data`); None: the
+        #: whole model
         self.tp = tp
+
+    def with_rows(self, rows) -> "Model":
+        """A meshed rank's model whose rows are block `rows` = (index,
+        size) of a stream split over `data`, or the whole of it (None):
+        what a moe model's routing must see (`TensorParallel.rows`).
+        Itself when its `tp` already says so."""
+        if self.tp.rows == rows:
+            return self
+        return Model(self.cfg, tp=dataclasses.replace(self.tp, rows=rows))
 
     def schema(self):
         fam = self.cfg.family
@@ -165,10 +176,11 @@ class Model:
         if cfg.family in ("dense", "vlm"):
             return tfm.dense_blocks(params, cfg, self.tp)
         layers = params["layers"]
+        tp = self.tp
 
         def moe_ffn(lp):
             return lambda h, group_size=None: moe_mod.moe_block(
-                h, lp, cfg, group_size=group_size)
+                h, lp, cfg, group_size=group_size, tp=tp)
 
         if cfg.moe.interleave == 1:
             return [(lp, moe_ffn(lp)) for lp in tfm.layers_of(layers)]
@@ -176,7 +188,7 @@ class Model:
         for da, dm, ma, mo in zip(*(tfm.layers_of(layers[k]) for k in (
                 "dense_attn", "dense_mlp", "moe_attn", "moe"))):
             out.append((da, lambda h, group_size=None, lp=dm:
-                        tfm.dense_mlp_block(h, lp, cfg)))
+                        tfm.dense_mlp_block(h, lp, cfg, tp)))
             out.append((ma, moe_ffn(mo)))
         return out
 

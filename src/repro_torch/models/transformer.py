@@ -220,10 +220,19 @@ class TensorParallel:
     differentiable ones, `enter` summing the gradient over the axis).
     Heads and KV heads are always split; the MLP's hidden dim when
     `mlp_split`; the vocabulary when `vocab` is the rank's [lo, hi) rows
-    (None: held whole). A training rank also holds FSDP blocks over
-    `data`: `data_dims` gives, by leaf name, the dim of its block (of
-    one layer's weights, for a stacked leaf), `gather_data(t, dim)`
-    gathers a block whole; a leaf not named is whole on `data`."""
+    (None: held whole); a moe model's padded experts when `experts` is
+    the rank's [lo, hi) of them (None: every expert, at the MLP's
+    split). A training rank also holds FSDP blocks over `data`:
+    `data_dims` gives, by leaf name, the dim of its block (of one
+    layer's weights, for a stacked leaf), `gather_data(t, dim)` gathers
+    a block whole; a leaf not named is whole on `data`. `rows` = (this
+    rank's index, the axis size) on `data` when the rank's rows (lanes,
+    or a batch's rows) are one block of a stream split over the axis,
+    which moe routing must see whole (`models.moe`):
+    `gather_rows(t, dim)` concatenates every data rank's `t` in rank
+    order (a serve binds it to a collective with no gradient, a train
+    step to `gather_data`, whose backward gives each rank its own
+    rows' gradient summed); None: the rank holds every row."""
 
     size: int
     rank: int
@@ -235,18 +244,25 @@ class TensorParallel:
     data_dims: Dict[str, int] = dataclasses.field(default_factory=dict,
                                                   compare=False)
     gather_data: Optional[Callable[[torch.Tensor, int], torch.Tensor]] = None
+    experts: Optional[Tuple[int, int]] = None
+    rows: Optional[Tuple[int, int]] = None
+    gather_rows: Optional[Callable[[torch.Tensor, int], torch.Tensor]] = None
 
     @classmethod
     def of(cls, cfg: ModelConfig, size: int, rank: int, reduce,
-           gather, **training) -> "TensorParallel":
+           gather, **more) -> "TensorParallel":
         """Rank `rank` of a `model` axis of `size` over the whole
-        model's `cfg` (the sharding rules' splits); `training`: `enter`,
-        `data_dims` and `gather_data` for a meshed train step."""
+        model's `cfg` (the sharding rules' splits); `more`: `enter`,
+        `data_dims` and `gather_data` for a meshed train step,
+        `gather_rows` for a moe model's routing over `data`."""
         per = cfg.vocab // size
+        E = cfg.moe.num_experts_padded if cfg.moe is not None else 0
         return cls(size=size, rank=rank, mlp_split=splits(cfg.d_ff, size),
                    vocab=(rank * per, (rank + 1) * per)
                    if splits(cfg.vocab, size) else None,
-                   reduce=reduce, gather=gather, **training)
+                   experts=(rank * E // size, (rank + 1) * E // size)
+                   if E and splits(E, size) else None,
+                   reduce=reduce, gather=gather, **more)
 
 
 def model_sum(x, tp: Optional[TensorParallel], split: bool = True):
@@ -519,7 +535,8 @@ def decoder_decode_step(params, cfg: ModelConfig, cache: PagedKVCache,
         if put_back:
             write_token_layer(*pools, slot, offset, *old, active=~active)
         h = h + model_sum(attn_out(o, lp), tp)
-        h = ffn(h, B)           # decode routes the B lanes as one group
+        # decode routes the B lanes (every data rank's) as one group
+        h = ffn(h, B if tp is None or tp.rows is None else B * tp.rows[1])
         imps.append(imp)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     logits = unembed(params, cfg, h, tp)[:, 0]

@@ -104,7 +104,7 @@ with the chunk's lane->request bindings, in `_serve_trace_log` for
 until the chunk's one readback.
 
 Serving across a device mesh (`ServingEngine(..., mesh=)`, the dense
-family's `serve()` only, as in the reference): a (`data`, `model`)
+and moe families' `serve()`, as in the reference): a (`data`, `model`)
 `DeviceMesh` of `torch.distributed` ranks (`launch.mesh`), one card
 each (the CPU under gloo). The rank program is explicit SPMD: every
 rank runs this host loop identically over all B lanes, and its device
@@ -126,6 +126,11 @@ points. The rules are the reference's (`launch.shardings`):
     holds about 1/model of the weights plus the leaves held whole;
     with the row-parallel sums, the embedding's and the importance's
     all-reduce and the logits' all-gather in `models.transformer`;
+  * a moe model's padded experts over `model` (expert parallelism:
+    `models.moe`), its router whole on every rank; with its lanes split
+    over `data`, each moe layer all-gathers the router logits of every
+    data rank's lanes, so a decode step routes all B lanes as one group
+    and a prefill chunk all B x C slots, as the unsplit stream does;
   * inside a chunk, over `data`: the decode plane's "any lane decoding"
     flag, the prefill budget's token demand and, for the fault plane's
     commit cap, each (layer, lane) block's live rows (so the cap counts
@@ -140,13 +145,14 @@ points. The rules are the reference's (`launch.shardings`):
     ranks never diverge and a collective never waits on a rank that
     went elsewhere.
 
-The captured chunk holds its collectives. What stays unported raises
-NotImplementedError naming it (`refuse_mesh`): the moe family's mesh
-(expert parallelism), the `pages` and `none` pool rules (a `model`
-axis that does not divide the KV heads), the single-stream path of a
-meshed dense engine (`start`: the rank holds only its shards),
-training any family but dense across a mesh, or over a `model` axis
-that does not divide the KV heads, and the dry run's `--mesh multi`.
+The captured chunk holds its collectives (the moe family's serve runs
+the chunk eagerly, meshed or not). What stays unported raises
+NotImplementedError naming it (`refuse_mesh`): the `pages` and `none`
+pool rules (a `model` axis that does not divide the KV heads), the
+single-stream path of a meshed engine (`start`: the rank holds only its
+shards), training the vlm, encdec, hybrid, ssm or xlstm family across a
+mesh, or over a `model` axis that does not divide the KV heads, and the
+dry run's `--mesh multi`.
 """
 
 from __future__ import annotations
@@ -293,9 +299,6 @@ def _require_cache(state, family: str) -> None:
 
 #: what the port leaves out of the mesh, by case (`refuse_mesh`)
 MESH_REFUSALS = {
-    "moe": "serving the moe family across a mesh needs expert parallelism "
-           "(its experts lead the model axis's sharding priority) and is "
-           "not ported yet",
     "pool": "the {rule!r} KV pool rule (a model axis of {model} does not "
             "divide {kv_heads} KV heads) is not ported yet: the meshed "
             "serve shards the pools over KV heads",
@@ -303,8 +306,9 @@ MESH_REFUSALS = {
               "across a mesh is not ported yet: a meshed engine holds "
               "only its rank's weight shards; serve() spans the mesh, or "
               "use an engine without one",
-    "train": "training across a mesh runs the dense family over a model "
-             "axis that divides its KV heads; {what} is not ported yet",
+    "train": "training across a mesh runs the dense and moe families "
+             "over a model axis that divides their KV heads; {what} is not "
+             "ported yet",
     "dryrun": "the dry run's --mesh multi (per-card shard bytes of the "
               "512-card twin-pod mesh) spans more than one card and is "
               "not ported yet",
@@ -318,6 +322,21 @@ def refuse_mesh(case: str, **detail):
     raise NotImplementedError(MESH_REFUSALS[case].format(**detail))
 
 
+def check_serve_mesh(model: Model, cfg: "EngineConfig", mesh) -> None:
+    """Raise NotImplementedError naming it (`refuse_mesh("pool")`) when
+    serving `model` under `cfg` across `mesh` needs a KV pool rule the
+    port leaves out (a `model` axis that does not divide the KV heads).
+    Reads only the mesh's axis sizes: the serve CLI asks before it
+    starts any rank."""
+    geo = model.cache_geometry(1, cfg.max_context,
+                               hbm_fraction=cfg.hbm_fraction)
+    rule = _kv_shard_axis(geo, mesh)
+    if rule != "kv_heads":
+        refuse_mesh("pool", rule=rule,
+                    model=mesh_axis_sizes(mesh).get("model", 1),
+                    kv_heads=model.cfg.kv_heads)
+
+
 @dataclasses.dataclass
 class MeshView:
     """A rank's part of a meshed serve: the rank-local model (its
@@ -327,6 +346,13 @@ class MeshView:
     model: Model
     coord: Dict[str, int]
     sizes: Dict[str, int]
+
+    def model_for(self, split: bool) -> Model:
+        """The rank-local model of a stream whose lanes are `split` over
+        `data` or not: a moe model's routing then sees every data rank's
+        lanes (`TensorParallel.rows`)."""
+        return self.model.with_rows(
+            (self.coord["data"], self.sizes["data"]) if split else None)
 
 
 class Lanes(NamedTuple):
@@ -579,7 +605,8 @@ class ServingEngine:
         self.model = model
         self.cfg = cfg
         #: the device mesh `serve` spans (see the module docstring), or
-        #: None; `_tp` is this rank's part of it (dense family only)
+        #: None; `_tp` is this rank's part of it (the dense and moe
+        #: families)
         self.mesh = mesh
         self._tp = self._bind_mesh(mesh) if mesh is not None else None
         #: the weights on this device: the whole model's, or under a
@@ -626,27 +653,21 @@ class ServingEngine:
         self.chunk_log: List[dict] = []
 
     def _bind_mesh(self, mesh) -> Optional[MeshView]:
-        """This rank's part of `mesh` for the dense family's serve, after
-        the refusals of what is unported (other families: None, and they
-        run unmeshed, as in the reference). Warms both axes'
-        communicators outside any capture."""
+        """This rank's part of `mesh` for the dense and moe families'
+        serve, after the refusals of what is unported (other families:
+        None, and they run unmeshed, as in the reference). Warms both
+        axes' communicators outside any capture."""
         cfg = self.model.cfg
-        if cfg.family == "moe":
-            refuse_mesh("moe")
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "moe"):
             return None
+        check_serve_mesh(self.model, self.cfg, mesh)
         sizes = mesh_axis_sizes(mesh)
-        geo = self.model.cache_geometry(1, self.cfg.max_context,
-                                        hbm_fraction=self.cfg.hbm_fraction)
-        rule = _kv_shard_axis(geo, mesh)
-        if rule != "kv_heads":
-            refuse_mesh("pool", rule=rule, model=sizes.get("model", 1),
-                        kv_heads=cfg.kv_heads)
         coord = mesh_coordinate(mesh)
         tp = TensorParallel.of(
             cfg, sizes["model"], coord["model"],
             reduce=lambda t: all_reduce_sum(t, mesh, "model"),
-            gather=lambda t, dim: all_gather(t, mesh, "model", dim))
+            gather=lambda t, dim: all_gather(t, mesh, "model", dim),
+            gather_rows=lambda t, dim: all_gather(t, mesh, "data", dim))
         for axis in AXES:
             all_reduce_sum(torch.zeros(1, device=self.device), mesh, axis)
         return MeshView(model=Model(cfg.rank_local(sizes["model"]), tp=tp),
@@ -729,7 +750,7 @@ class ServingEngine:
         (only `serve` resets it). `extra` (vlm: {"patch_embeds"},
         encdec: {"frame_embeds"}, [B, n, d] each, tensors or numpy) is
         moved to the engine's device. The single-stream entry point for
-        `step`/`run`/`generate`; a meshed dense engine, which holds only
+        `step`/`run`/`generate`; a meshed engine, which holds only
         its rank's weight shards, refuses it."""
         if self._tp is not None:
             refuse_mesh("stream")
@@ -1012,6 +1033,7 @@ class ServingEngine:
             # B) and its KV heads
             split = batch_axes(self.mesh, B) == ("data",)
             n = B // tp.sizes["data"] if split else B
+            self._run = (tp.model_for(split), self.params)
             local = tp.model.cache_geometry(n, cfg.max_context,
                                             hbm_fraction=cfg.hbm_fraction)
             self._setup(geo, local, Lanes(

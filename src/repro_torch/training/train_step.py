@@ -9,15 +9,19 @@ CPU the plain version. Gradient accumulation in f32 and a bf16 compute /
 f32 optimizer-state split are built in, as in the reference.
 
 Across a (`data`, `model`) mesh (`make_train_step(..., mesh=)`, the
-dense family) the step is explicit SPMD, one process a rank, as the
-meshed serve: the rank holds its train-mode shards of the parameters
-and of m and v (`bridge.shard_params(..., mode="train")`: tensor
-parallelism over `model`, FSDP blocks over `data`), takes its rows of
-the batch (`launch.shardings.tokens_sharding`; every rank takes every
-row where `data` does not divide the batch), and runs the rank-local
-model (`TrainMesh`) whose collectives carry the gradient
-(`launch.mesh`). The loss is the mean over every data rank's rows; the
-FSDP leaves' gradients come out of their gathers' backward
+dense and moe families) the step is explicit SPMD, one process a rank,
+as the meshed serve: the rank holds its train-mode shards of the
+parameters and of m and v (`bridge.shard_params(..., mode="train")`:
+tensor parallelism over `model` — a moe model's experts split over it,
+expert parallelism —, FSDP blocks over `data`), takes its rows of each
+micro-batch (`launch.shardings.tokens_sharding`; every rank takes every
+row where `data` does not divide them), and runs the rank-local model
+(`TrainMesh`) whose collectives carry the gradient (`launch.mesh`). A
+moe model routes over every data rank's rows of the micro-batch, as the
+unsplit step does (`models.moe`); its router, whole on every rank and
+used on each model rank's experts alone, has its gradient summed over
+`model` (`enter`). The loss is the mean over every data rank's rows;
+the FSDP leaves' gradients come out of their gathers' backward
 reduce-scattered over `data`, the leaves whole on `data` are summed
 over it here, and the global norm counts each element of the whole
 model once. The step then equals the unmeshed one up to the order of
@@ -120,24 +124,19 @@ def value_and_grad(model: Model, params, tokens, extra=None,
     return loss.detach(), tree_unflatten(params, grads)
 
 
-#: what training across a mesh leaves out, by family (the others: the
-#: family's name)
-_UNPORTED_FAMILIES = {
-    "moe": "the moe family (its experts lead the model axis's sharding "
-           "priority: it needs expert parallelism)",
-}
+#: the families a train step runs across a mesh
+MESH_FAMILIES = ("dense", "moe")
 
 
 def check_train_mesh(cfg: ModelConfig, model_size: int) -> None:
     """Raise NotImplementedError naming it (`refuse_mesh("train")`) when
     training `cfg` across a mesh whose `model` axis has `model_size`
-    ranks is left out: a family other than dense, or a model axis that
-    does not divide the KV heads. Needs no rank: the train CLI asks
-    before it starts any."""
+    ranks is left out: a family other than dense and moe, or a model
+    axis that does not divide the KV heads. Needs no rank: the train
+    CLI asks before it starts any."""
     from repro_torch.serving.engine import refuse_mesh
-    if cfg.family != "dense":
-        refuse_mesh("train", what=_UNPORTED_FAMILIES.get(
-            cfg.family, f"the {cfg.family} family"))
+    if cfg.family not in MESH_FAMILIES:
+        refuse_mesh("train", what=f"the {cfg.family} family")
     if not splits(cfg.kv_heads, model_size):
         refuse_mesh("train", what=f"a model axis of {model_size} over "
                                   f"{cfg.kv_heads} KV heads")
@@ -182,7 +181,8 @@ class TrainMesh:
             gather=lambda t, dim: mesh_mod.gather_model(t, mesh, dim),
             enter=lambda t: mesh_mod.enter_model(t, mesh),
             data_dims=data_dims,
-            gather_data=lambda t, dim: mesh_mod.gather_data(t, mesh, dim))
+            gather_data=lambda t, dim: mesh_mod.gather_data(t, mesh, dim),
+            gather_rows=lambda t, dim: mesh_mod.gather_data(t, mesh, dim))
         device = mesh_mod.mesh_device(mesh)
         split_by = {}
         for axis in mesh_mod.AXES:
@@ -202,6 +202,14 @@ class TrainMesh:
         spec = tokens_sharding(self.mesh, t.shape[0])
         return shard(t, spec + (None,) * (t.dim() - 2), self.mesh,
                      self.coord)
+
+    def model_for(self, batch: int) -> Model:
+        """The rank-local model for a micro-batch of `batch` global rows:
+        a moe model's routing sees every data rank's rows when `data`
+        splits them (`TensorParallel.rows`)."""
+        split = tokens_sharding(self.mesh, batch)[0] == ("data",)
+        return self.model.with_rows(
+            (self.coord["data"], self.sizes["data"]) if split else None)
 
     def reduce_grads(self, grads):
         """The gradients of the leaves whole on `data` summed over it
@@ -235,28 +243,34 @@ def make_train_step(model: Model, *, accum_steps: int = 1,
     metrics: {"loss", "grad_norm", "step"}, tensors on the device (no
     host sync inside the step).
 
-    With `mesh` (a (`data`, `model`) `DeviceMesh`; the dense family,
-    `check_train_mesh`): every rank calls the step with its own state
-    (`init_train_state(..., mesh=)`, `bridge.train_state_from_jax(...,
-    mesh=)`: its train-mode shards) and the same global batch, of which
-    it takes its rows (`TrainMesh.rows`); accum_steps splits those. The
-    metrics are the global ones on every rank."""
+    With `mesh` (a (`data`, `model`) `DeviceMesh`; the dense and moe
+    families, `check_train_mesh`): every rank calls the step with its
+    own state (`init_train_state(..., mesh=)`,
+    `bridge.train_state_from_jax(..., mesh=)`: its train-mode shards)
+    and the same global batch; accum_steps splits it into micro-batches
+    of global rows, as unmeshed, and the rank takes its rows of each
+    (`TrainMesh.rows`). The metrics are the global ones on every
+    rank."""
     rank = None if mesh is None else TrainMesh.bind(model, mesh)
-    run = model if rank is None else rank.model
     across = None if rank is None else rank.leaf_sums
-    share = 1 if rank is None else rank.sizes["data"]
+
+    def micro(params, tokens, extra):
+        """(loss, grads) of a micro-batch of global rows: on a rank, of
+        its rows of them, the loss a share of the global mean."""
+        if rank is None:
+            return value_and_grad(model, params, tokens, extra)
+        run = rank.model_for(tokens.shape[0])
+        tokens = rank.rows(tokens)
+        extra = None if extra is None else {
+            k: rank.rows(v) for k, v in extra.items()}
+        return value_and_grad(run, params, tokens, extra,
+                              rows=tokens.shape[0] * rank.sizes["data"])
 
     def train_step(state: TrainState, batch: Dict) -> tuple:
         tokens = batch["tokens"]
         extra = {k: batch[k] for k in extra_keys} or None
-        if rank is not None:
-            tokens = rank.rows(tokens)
-            extra = None if extra is None else {
-                k: rank.rows(v) for k, v in extra.items()}
-
         if accum_steps == 1:
-            loss, grads = value_and_grad(run, state.params, tokens, extra,
-                                         rows=tokens.shape[0] * share)
+            loss, grads = micro(state.params, tokens, extra)
         else:
             mb = tokens.shape[0] // accum_steps
             grads = tree_map(lambda p: torch.zeros(
@@ -266,8 +280,7 @@ def make_train_step(model: Model, *, accum_steps: int = 1,
                 sl = slice(i * mb, (i + 1) * mb)
                 ex = None if extra is None else {
                     k: v[sl] for k, v in extra.items()}
-                l_i, g = value_and_grad(run, state.params, tokens[sl], ex,
-                                        rows=mb * share)
+                l_i, g = micro(state.params, tokens[sl], ex)
                 grads = tree_map(lambda a, b: a + b.float(), grads, g)
                 loss = loss + l_i
             grads = tree_map(lambda g: g / accum_steps, grads)

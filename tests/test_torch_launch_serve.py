@@ -82,11 +82,13 @@ def test_main_serves_on_the_cpu(capsys):
 
 
 def test_mesh_is_refused():
-    """`--mesh` serves the dense family (tests/test_torch_mesh_serve.py);
-    the moe family's mesh is refused before any rank starts."""
-    with pytest.raises(NotImplementedError, match="expert parallelism"):
-        tserve.main(["--smoke", "--device", "cpu", "--arch",
-                     "granite-moe-3b-a800m", "--mesh", "data=2,model=2"])
+    """`--mesh` serves the dense and moe families
+    (tests/test_torch_mesh_serve.py, tests/test_torch_mesh_moe.py); a
+    model axis that does not divide the KV heads (the smoke config's 2
+    over 4) is refused before any rank starts."""
+    with pytest.raises(NotImplementedError, match="KV pool rule"):
+        tserve.main(["--smoke", "--device", "cpu", "--mesh",
+                     "data=1,model=4"])
 
 
 def test_parity_without_a_card_refuses(monkeypatch, capsys):

@@ -195,32 +195,27 @@ def test_sampled_streams_are_reproducible(models, prompts):
     assert run(8) != first
 
 
-@pytest.mark.parametrize("ask", ["moe", "pool", "train", "dryrun"])
+@pytest.mark.parametrize("ask", ["pool", "train", "dryrun"])
 def test_later_slices_raise(models, prompts, ask):
     """What the port leaves out of the mesh raises NotImplementedError
-    naming it, never runs something else: the moe family's serve
-    (expert parallelism), a model axis that does not divide the KV
-    heads (the `pages` pool rule), training the moe family across a
-    mesh, the dry run's twin-pod mesh. The refusals come before any rank is needed,
-    so a mesh of names and sizes stands for one."""
+    naming it, never runs something else: a model axis that does not
+    divide the KV heads (the `pages` pool rule), training the vlm family
+    across a mesh, the dry run's twin-pod mesh. The refusals come before
+    any rank is needed, so a mesh of names and sizes stands for one."""
     from repro_torch.launch import dryrun
     from repro_torch.launch import train as ttrain
     from repro_torch.launch.mesh import AbstractMesh
     _, _, tm, tp = models
     cfg = EngineConfig(**engine_kw("importance"))
-    want = {"moe": "expert parallelism", "pool": "'pages' KV pool rule",
+    want = {"pool": "'pages' KV pool rule",
             "train": "training across a mesh",
             "dryrun": "--mesh multi"}[ask]
     with pytest.raises(NotImplementedError, match="not ported yet") as err:
-        if ask == "moe":
-            moe = TModel(tconfigs.get_smoke("granite-moe-3b-a800m"))
-            ServingEngine(moe, moe.init(0, device="cpu"), cfg, device="cpu",
-                          mesh=AbstractMesh(("data", "model"), (1, 2)))
-        elif ask == "pool":
+        if ask == "pool":
             ServingEngine(tm, tp, cfg, device="cpu",
                           mesh=AbstractMesh(("data", "model"), (1, 4)))
         elif ask == "train":
-            ttrain.main(["--arch", "granite-moe-3b-a800m", "--smoke",
+            ttrain.main(["--arch", "internvl2-2b", "--smoke",
                          "--device", "cpu", "--model", "2"])
         else:
             dryrun.run_cell("internlm2-1.8b", "decode_32k", "multi")
