@@ -80,7 +80,8 @@ non-zero):
              (not causal, Sq = 64, 37 and 1 over Sk = 1500: keys past
              Sk masked); time it at the prefill shapes (whisper's
              cross-attention in prefill among them), a training rank's
-             (phase 14) and granite-moe's training shape (phase 15c)
+             (phase 14), granite-moe's training shape (phase 15c) and
+             whisper's cross-attention on a training rank (phase 16)
              beside the plain version, one scaled_dot_product_attention
              call (enable_gqa, on [B, H, S, D] copies made outside the
              timed region) and its bound.
@@ -98,8 +99,11 @@ non-zero):
              f32 with a ragged S, H/KH = 3 at D=64, H = KH = 32 at D=64,
              D=160 with a ragged S and whisper's cross-attention (not
              causal, Sq = 64 over Sk = 1500), a training rank's shapes
-             (phase 14) and granite-moe's training shape (phase 15c: B=8,
-             S=512, H=24 over 8, D=64); the training shapes timed
+             (phase 14), granite-moe's training shape (phase 15c: B=8,
+             S=512, H=24 over 8, D=64) and phase 16's ranks (internvl2
+             at 8/4 and 4/2 heads over 768 positions, whisper's encoder,
+             decoder and cross-attention at 3 heads, zamba2's sites at
+             16 and 8 heads); the training shapes timed
              by CUDA-graph replay beside the plain version, the backward
              of one scaled_dot_product_attention (its forward outside
              the timed region; each call timed alone behind a spin
@@ -319,6 +323,30 @@ non-zero):
              (1, 2), (2, 2) and (1, 4) as 14b: each block's dx and every
              weight's gradient within MOE_TRAIN_SPLIT_TOL
              (`moe_train_split`).
+
+  16a. family train internvl2-2b (256 patch embeddings before the text),
+             whisper-tiny (1500 frame embeddings), zamba2-1.2b and
+             xlstm-125m at full width and depth (FAMILY_TRAIN_ARCHS
+             says why no depth is cut), B=8 x S=512, remat, 3 steps
+             unmeshed and 3 on a world-size-1 NCCL mesh
+             (`make_train_step(..., extra_keys=, mesh=)`): losses, grad
+             norms and parameters bitwise equal, ms per step and peak
+             memory, flash 2 x and its backward 1 x the attention calls
+             of a forward each step (`family_train`,
+             `mesh_family_train`).
+  16b. family train split one full-width layer's blocks of each of
+             those families (internvl2-2b's decoder layer, whisper-tiny's
+             encoder layer and decoder layer with its cross-attention,
+             zamba2-1.2b's Mamba2 block and shared attention site,
+             xlstm-125m's mLSTM and sLSTM blocks), forward and backward,
+             split over (data, model) = (1, 2), (2, 2) and (1, 4)
+             (whisper's 6 heads skip model = 4), the ranks as threads
+             running the port's rank-local blocks (`ThreadMesh`): dx and
+             every weight's gradient, assembled from the ranks, within
+             FAMILY_TRAIN_SPLIT_TOL of the unsplit layer's; the flash
+             kernel and its backward at each rank's heads
+             (`family_train_split`; phases 2b and 2d check those shapes
+             against the plain versions).
 
 Then a `kernels` JSON line, the card's name and power limit, and, last,
 {"ok": true, "device": {...}}. Without a CUDA card it exits non-zero
@@ -1181,6 +1209,23 @@ FLASH_SHAPES = (
     # granite-moe's training shape (phase 15c)
     ("granite-moe-3b-a800m train", 8, 512, 512, 24, 8, 64, "bf16", True,
      True),
+    # phase 16's training ranks: internvl2 (256 patches + 512 tokens),
+    # whisper's encoder, decoder and cross-attention and zamba2's sites,
+    # at model = 2 and 4
+    ("internvl2-2b train rank, model=2", 8, 768, 768, 8, 4, 128, "bf16",
+     True, False),
+    ("internvl2-2b train rank, model=4", 8, 768, 768, 4, 2, 128, "bf16",
+     True, False),
+    ("whisper-tiny encoder train rank, model=2", 8, 1500, 1500, 3, 3, 64,
+     "bf16", False, False),
+    ("whisper-tiny decoder train rank, model=2", 8, 512, 512, 3, 3, 64,
+     "bf16", True, False),
+    ("whisper-tiny cross train rank, model=2", 8, 512, 1500, 3, 3, 64,
+     "bf16", False, True),
+    ("zamba2-1.2b train rank, model=2", 8, 512, 512, 16, 16, 64, "bf16",
+     True, False),
+    ("zamba2-1.2b train rank, model=4", 8, 512, 512, 8, 8, 64, "bf16",
+     True, False),
 )
 FLASH_TOL = {"bf16": 1e-2, "f32": 2e-5}
 
@@ -1285,6 +1330,21 @@ BWD_SHAPES = (
      True, True),
     ("granite-moe-3b-a800m train", 8, 512, 512, 24, 8, 64, "bf16", True,
      True),
+    # phase 16's training ranks, as in FLASH_SHAPES
+    ("internvl2-2b train rank, model=2", 8, 768, 768, 8, 4, 128, "bf16",
+     True, False),
+    ("internvl2-2b train rank, model=4", 8, 768, 768, 4, 2, 128, "bf16",
+     True, False),
+    ("whisper-tiny encoder train rank, model=2", 8, 1500, 1500, 3, 3, 64,
+     "bf16", False, False),
+    ("whisper-tiny decoder train rank, model=2", 8, 512, 512, 3, 3, 64,
+     "bf16", True, False),
+    ("whisper-tiny cross train rank, model=2", 8, 512, 1500, 3, 3, 64,
+     "bf16", False, True),
+    ("zamba2-1.2b train rank, model=2", 8, 512, 512, 16, 16, 64, "bf16",
+     True, False),
+    ("zamba2-1.2b train rank, model=4", 8, 512, 512, 8, 8, 64, "bf16",
+     True, False),
 )
 #: max abs error of each of dq, dk, dv over that gradient's max |value|:
 #: bf16 gradients are rounded once (one bf16 step is 2^-8 relative),
@@ -4254,18 +4314,487 @@ def moe_train_split_phase(seed):
     return counts, out
 
 
+# --------------------------------------------------------------------------
+# phase 16: training across a mesh for the vlm, encdec, hybrid, ssm and
+# xlstm families
+# --------------------------------------------------------------------------
+
+#: phase 16a's models (the ssm family is zamba2's stack without its
+#: sites, which 16b's Mamba2 block covers), all at full width and depth:
+#: the unfused AdamW holds ~26 bytes a parameter at its update, ~49 GB
+#: for internvl2-2b's 1.89 B (as phase 12's internlm2 at 1.89 B, peak
+#: ~54 GB), ~30 GB for zamba2-1.2b's 1.17 B, less for the others, so no
+#: depth is cut
+FAMILY_TRAIN_ARCHS = ("internvl2-2b", "whisper-tiny", "zamba2-1.2b",
+                      "xlstm-125m")
+FAMILY_TRAIN_STEPS = 3
+
+
+def attention_calls(cfg) -> int:
+    """Whole-sequence attention calls of one forward of `cfg` (each a
+    flash launch on the card): every decoder layer; whisper's encoder
+    layers and each decoder layer's self- and cross-attention; a
+    hybrid model's sites; none in an ssm or xlstm model."""
+    if cfg.family == "encdec":
+        return cfg.encdec.enc_layers + 2 * cfg.num_layers
+    return len(cfg.attention_layer_ids())
+
+
+def family_batch_extra(cfg, seed, rows=TRAIN_B):
+    """The family's modality input of a train batch, from `seed`, on the
+    card in the model dtype: the vlm family's patch embeddings or the
+    encdec family's frame embeddings [rows, n, d]; {} otherwise."""
+    import torch
+    key = {"vlm": "patch_embeds", "encdec": "frame_embeds"}.get(cfg.family)
+    if key is None:
+        return {}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 11)
+    return {key: torch.randn((rows, cfg.frontend.num_embeddings,
+                              cfg.d_model), generator=gen,
+                             device="cuda").to(cfg.dtype)}
+
+
+def family_train_phase(seed):
+    """Phase 16a: internvl2-2b (256 patch embeddings before the text),
+    whisper-tiny (1500 frame embeddings), zamba2-1.2b and xlstm-125m at
+    full width and depth (random bf16 weights from `seed`), B=8 x S=512
+    tokens from `SyntheticCorpus` (and the family's extra, from `seed`),
+    remat on, FAMILY_TRAIN_STEPS steps at TRAIN_LR: unmeshed, then from
+    `init_train_state(..., mesh=)` on a world-size-1 NCCL mesh
+    (`make_train_step(..., extra_keys=, mesh=)`: every collective of the
+    family's meshed step, each an identity at size 1). Losses, grad
+    norms and parameters bitwise equal; ms per step and peak memory of
+    each; flash 2 x and its backward 1 x `attention_calls` a step (none
+    for xlstm). Returns the launches by path ("family_train",
+    "mesh_family_train") and the numbers by model."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels.build import COUNTS
+    from repro_torch.models.model import Model
+    from repro_torch.training.train_step import (
+        init_train_state, make_train_step)
+    from repro_torch.tree import tree_leaves
+    counts = {"family_train": collections.Counter(),
+              "mesh_family_train": collections.Counter()}
+    numbers = {}
+    for name in FAMILY_TRAIN_ARCHS:
+        free_card()
+        cfg = configs.get(name)
+        model = Model(cfg)
+        extra = family_batch_extra(cfg, seed)
+        batches = train_batches(cfg.vocab, seed, FAMILY_TRAIN_STEPS)
+
+        def run(state, step_fn, what):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            COUNTS.clear()                  # the main path's run only
+            losses, gnorms, times = [], [], []
+            for tokens in batches:
+                t = time.time()
+                state, m = step_fn(state, {"tokens": tokens, **extra})
+                losses.append(float(m["loss"]))
+                gnorms.append(float(m["grad_norm"]))
+                times.append(time.time() - t)
+            c = dict(COUNTS)
+            peak = torch.cuda.max_memory_allocated()
+            n = sum(p.numel() for p in tree_leaves(state.params))
+            shapes = "".join(f", {k} {list(v.shape)}"
+                             for k, v in extra.items())
+            log(f"{what}: {name} ({cfg.family}, {cfg.num_layers} layers, "
+                f"{n / 1e9:.3f} B params{shapes}), B={TRAIN_B} "
+                f"S={TRAIN_S}, lr {TRAIN_LR}, remat on: losses {losses} "
+                f"grad norms {gnorms}; "
+                f"{[round(x * 1e3, 1) for x in times]} ms a step, peak "
+                f"memory {peak / 1e9:.2f} GB, launches {c}; card "
+                f"{card_line()}")
+            return state, {"losses": losses, "grad_norms": gnorms,
+                           "step_s": times, "peak_bytes": peak, "counts": c,
+                           "params": n}
+
+        keys = tuple(extra)
+        state, plain = run(init_train_state(model, seed, "cuda"),
+                           make_train_step(model, lr=TRAIN_LR,
+                                           extra_keys=keys), "family train")
+        ref = [p.cpu() for p in tree_leaves(state.params)]
+        del state
+        free_card()
+        with world_of_one("chip_smoke_family_train_") as mesh:
+            state, meshed = run(
+                init_train_state(model, seed, "cuda", mesh=mesh),
+                make_train_step(model, lr=TRAIN_LR, extra_keys=keys,
+                                mesh=mesh), "mesh family train")
+            same = {"losses": meshed["losses"] == plain["losses"],
+                    "grad_norms": meshed["grad_norms"] ==
+                    plain["grad_norms"],
+                    "params": all(torch.equal(a, b.to(a.device)) for a, b in
+                                  zip(tree_leaves(state.params), ref))}
+            del state
+        del ref, extra
+        log(f"mesh family train: {name}: bitwise equal to the unmeshed "
+            f"steps: losses {same['losses']} grad norms "
+            f"{same['grad_norms']} parameters {same['params']}; ms a step "
+            f"(median) {sorted(meshed['step_s'])[1] * 1e3:.1f} against "
+            f"{sorted(plain['step_s'])[1] * 1e3:.1f} unmeshed")
+        calls = attention_calls(cfg) * FAMILY_TRAIN_STEPS
+        for what, got in (("family train", plain), ("mesh family train",
+                                                    meshed)):
+            c = got["counts"]
+            if c.get("flash_attention", 0) != 2 * calls or \
+                    c.get("flash_attention_bwd", 0) != calls:
+                raise AssertionError(f"{what} {name}: launches {c}, "
+                                     f"expected flash {2 * calls} and its "
+                                     f"backward {calls}")
+            if not all(math.isfinite(x) for x in got["losses"]):
+                raise AssertionError(f"{what} {name}: losses "
+                                     f"{got['losses']}")
+        if not all(same.values()):
+            raise AssertionError(f"mesh family train {name}: the meshed "
+                                 f"steps differ from the unmeshed ones: "
+                                 f"{same}")
+        counts["family_train"].update(plain.pop("counts"))
+        counts["mesh_family_train"].update(meshed.pop("counts"))
+        numbers[name] = {"plain": plain, "meshed": meshed}
+    free_card()
+    return {k: dict(v) for k, v in counts.items()}, numbers
+
+
+class ThreadMesh:
+    """The ranks of a (`data`, `model`) mesh as threads of this process,
+    each running the port's own rank-local code (a block with its
+    `TensorParallel`) on its shards, the collectives exchanging the
+    ranks' tensors in one autograd graph: `reduce` sums the model
+    ranks' tensors in rank order, `gather` and `gather_data` concatenate
+    theirs, `enter` is the identity. One backward over the ranks'
+    outputs then gives every shard its gradient (the graph sums what
+    Megatron's f and FSDP's reduce-scatter sum), so this checks the
+    ranks' forward and the gradient it implies, not the collectives'
+    backward (the gloo tests run those). Every exchange waits at most
+    `TIMEOUT_S` for its peers."""
+
+    TIMEOUT_S = 300
+
+    def __init__(self, data: int, model: int):
+        import threading
+        self.sizes = {"data": data, "model": model}
+        self._lock = threading.Lock()
+        self._calls = collections.Counter()
+        self._slots = {}
+        self._barriers = {
+            **{("model", d): threading.Barrier(model, timeout=self.TIMEOUT_S)
+               for d in range(data)},
+            **{("data", r): threading.Barrier(data, timeout=self.TIMEOUT_S)
+               for r in range(model)}}
+
+    def exchange(self, coord, axis, t):
+        """The tensors of every rank of `coord`'s group on `axis`, in
+        rank order (each rank of the group calls this at the same
+        point of its code)."""
+        group = (axis, coord["model" if axis == "data" else "data"])
+        me = coord[axis]
+        with self._lock:
+            call = self._calls[(group, me)]
+            self._calls[(group, me)] += 1
+            slot = self._slots.setdefault((group, call),
+                                          [None] * self.sizes[axis])
+        slot[me] = t
+        self._barriers[group].wait()
+        return list(slot)
+
+    def tp(self, cfg, coord, specs):
+        """The `TensorParallel` of the rank at `coord` over the whole
+        model's `cfg`, its FSDP and model blocks as `specs` (by path)
+        give them."""
+        import torch
+        from repro_torch.models.transformer import TensorParallel
+        from repro_torch.training.train_step import layer_dims
+
+        def reduce(t):
+            parts = self.exchange(coord, "model", t)
+            out = parts[0]
+            for p in parts[1:]:
+                out = out + p
+            return out
+
+        def gather(t, dim):
+            return torch.cat(self.exchange(coord, "model", t), dim)
+
+        def gather_data(t, dim):
+            return torch.cat(self.exchange(coord, "data", t), dim)
+        return TensorParallel.of(
+            cfg, self.sizes["model"], coord["model"], reduce=reduce,
+            gather=gather, data_dims=layer_dims(cfg, specs, "data"),
+            model_dims=layer_dims(cfg, specs, "model"),
+            gather_data=gather_data, gather_rows=gather_data)
+
+    def run(self, fn):
+        """{(data, model): fn(coord)} with every rank in a thread; the
+        first error of a rank is raised (its peers' waits abort)."""
+        import threading
+        out, errors = {}, []
+
+        def rank(coord):
+            try:
+                out[(coord["data"], coord["model"])] = fn(coord)
+            except BaseException as e:      # noqa: BLE001 - re-raised
+                errors.append(e)
+                for b in self._barriers.values():
+                    b.abort()
+        threads = [threading.Thread(target=rank, args=(
+            {"data": d, "model": r},)) for d in range(self.sizes["data"])
+            for r in range(self.sizes["model"])]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+        return out
+
+
+#: phase 16b's splits of one layer of each family: (data, model)
+FAMILY_TRAIN_SPLITS = ((1, 2), (2, 2), (1, 4))
+#: its gradients against the unsplit layer's, by the layer's dtype: max
+#: |split - unsplit| over max |unsplit| of dx and of every weight's
+#: gradient; about twice the largest seen on an H100 (bf16: whisper's
+#: decoder `ln2/w` 1.62e-2 at (2, 2); f32, the sLSTM block: `bi`
+#: 3.4e-5 against the floor below, every other leaf under 1.5e-6)
+FAMILY_TRAIN_SPLIT_TOL = {"bf16": 3e-2, "f32": 7e-5}
+#: the least max |unsplit| an error is taken relative to, as a share of
+#: the layer's largest gradient: the sLSTM's input gate bias `bi` has a
+#: gradient that is zero in exact arithmetic (rounding noise on both
+#: sides), as tests/test_torch_train.py's floor says
+FAMILY_SPLIT_FLOOR = 1e-3
+
+
+def family_split_cases(seed, device, get, rows, seq):
+    """(label, whole config, block(params, cfg, tp, inputs) -> output,
+    inputs {name: [rows, ...] tensor}, names of the inputs to
+    differentiate) of each layer phase 16b splits, over `seq` tokens
+    (the vlm: its patches, then `seq` tokens): `get(name)` gives the
+    config to cut."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models import xlstm as xlstm_mod
+    from repro_torch.models.model import Model
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 13)
+
+    def h(cfg, S):
+        return torch.randn((rows, S, cfg.d_model), generator=gen,
+                           device=device).to(cfg.dtype)
+
+    def decoder_layer(p, cfg, tp, x):
+        lp = tfm.layers_of(p["layers"])[0]
+        pos = torch.arange(x["h"].shape[1], device=device)[None, :]
+        y, _ = tfm.full_attn_block(x["h"], lp, cfg, pos, tp)
+        return tfm.dense_mlp_block(y, lp, cfg, tp)
+
+    def encdec_layers(p, cfg, tp, x):
+        return Model(cfg, tp=tp).forward_hidden(
+            p, x["tokens"], extra={"frame_embeds": x["frames"]}, remat=False)
+
+    def mamba_block(p, cfg, tp, x):
+        lp = tfm.layers_of(p["mamba"])[0]
+        return x["h"] + ssm_mod.mamba2_forward_layer(x["h"], lp, cfg, False,
+                                                     tp)
+
+    def site(p, cfg, tp, x):
+        pos = torch.arange(x["h"].shape[1], device=device)[None, :]
+        y, _ = tfm.full_attn_block(x["h"], p["shared_attn"], cfg, pos, tp,
+                                   "shared_attn")
+        return tfm.dense_mlp_block(y, p["shared_attn"], cfg, tp,
+                                   "shared_attn")
+
+    def mlstm_block(p, cfg, tp, x):
+        lp = tfm.layers_of(p["mlstm"])[0]
+        return x["h"] + xlstm_mod.mlstm_forward_layer(x["h"], lp, cfg, tp)
+
+    def slstm_block(p, cfg, tp, x):
+        lp = tfm.layers_of(p["slstm"])[0]
+        return x["h"] + xlstm_mod.slstm_forward_layer(x["h"], lp, cfg, tp)
+
+    vlm = dataclasses.replace(get("internvl2-2b"), num_layers=1)
+    whisper = get("whisper-tiny")
+    whisper = dataclasses.replace(whisper, num_layers=1,
+                                  encdec=dataclasses.replace(
+                                      whisper.encdec, enc_layers=1))
+    zamba = get("zamba2-1.2b")
+    zamba = dataclasses.replace(zamba, num_layers=1, ssm=dataclasses.replace(
+        zamba.ssm, attn_every=1))
+    xl = get("xlstm-125m")
+    xl = dataclasses.replace(xl, num_layers=2, xlstm=dataclasses.replace(
+        xl.xlstm, slstm_every=2))
+    # the sLSTM's weights take their gradient as `seq` per-step
+    # products summed in the weights' dtype: in bf16 two orders of that
+    # sum (8 rows a step, or 4 on each of two data ranks) differ by ~7e-2
+    # of its largest value, which swamps what a split changes
+    f32_xl = dataclasses.replace(xl, dtype=torch.float32,
+                                 param_dtype=torch.float32)
+    n_vlm = vlm.frontend.num_embeddings + seq
+    tokens = torch.randint(0, whisper.vocab, (rows, seq),
+                           generator=gen, device=device)
+    frames = torch.randn((rows, whisper.frontend.num_embeddings,
+                          whisper.d_model), generator=gen,
+                         device=device).to(whisper.dtype)
+    return [
+        (f"{vlm.name} decoder layer", vlm, decoder_layer,
+         {"h": h(vlm, n_vlm)}, ("h",)),
+        (f"{whisper.name} encoder + decoder layer", whisper, encdec_layers,
+         {"tokens": tokens, "frames": frames}, ("frames",)),
+        (f"{zamba.name} Mamba2 block", zamba, mamba_block,
+         {"h": h(zamba, seq)}, ("h",)),
+        (f"{zamba.name} shared attention site", zamba, site,
+         {"h": h(zamba, seq)}, ("h",)),
+        (f"{xl.name} mLSTM block", xl, mlstm_block, {"h": h(xl, seq)},
+         ("h",)),
+        (f"{xl.name} sLSTM block (f32)", f32_xl, slstm_block,
+         {"h": h(f32_xl, seq)}, ("h",)),
+    ]
+
+
+def family_train_split_phase(seed, device="cuda", get=None, rows=TRAIN_B,
+                             seq=TRAIN_S):
+    """Phase 16b: one full-width layer's blocks of each family phase 16a
+    trains (`family_split_cases`: internvl2-2b's decoder layer over 256
+    patches + 512 tokens, whisper-tiny's encoder layer and decoder
+    layer with its cross-attention over 1500 frames, zamba2-1.2b's
+    Mamba2 block and its shared attention site, xlstm-125m's mLSTM and
+    sLSTM blocks; random bf16 weights and inputs from `seed`), forward
+    AND backward on `rows` x `seq`, split over each (data, model) of
+    FAMILY_TRAIN_SPLITS whose model axis divides the KV heads
+    (whisper's 6 heads skip model = 4),
+    the ranks as threads of this process (`ThreadMesh`) running the
+    port's rank-local blocks on their train-mode shards
+    (`bridge.shard_params(..., mode="train")`, `ModelConfig.rank_local`,
+    the FSDP and model blocks by path): dx and every weight's gradient,
+    assembled from the ranks' blocks, against the unsplit layer's
+    within FAMILY_TRAIN_SPLIT_TOL. The flash kernel and its backward
+    run at each rank's heads and rows (`family_train_split`); phases 2b
+    and 2d hold them at those shapes against their plain versions.
+    `device`, `get` (the configs by name; default the published ones),
+    `rows`, `seq`: tests/test_torch_mesh_families.py runs the phase on
+    the CPU at the f32 smoke configs. Returns the launches by kernel and
+    the errors."""
+    import torch
+    from repro_torch import bridge
+    from repro_torch.kernels.build import COUNTS
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.models.config import splits as divides
+    from repro_torch.models.model import Model
+    from repro_torch.tree import leaves_with_path, path_name, tree_map
+    from repro_torch import configs
+    device = torch.device(device)
+    if device.type == "cuda":
+        free_card()
+    COUNTS.clear()
+    out = []
+    for label, cfg, block, inputs, diff in family_split_cases(
+            seed, device, get or configs.get, rows, seq):
+        params = Model(cfg).init(seed, device=device)
+
+        def leaves(tree):
+            return tree_map(lambda t: t.detach().clone().requires_grad_(
+                True), tree)
+
+        def fresh():
+            return {k: v.detach().clone().requires_grad_(k in diff)
+                    for k, v in inputs.items()}
+        whole = leaves(params)
+        xs = fresh()
+        y = block(whole, cfg, None, xs)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed + 17)
+        dy = torch.randn(y.shape, generator=gen, device=device).to(y.dtype)
+        torch.autograd.backward(y, dy)
+        want = {f"d{k}": xs[k].grad for k in diff}
+        want.update({path_name(p): t.grad for p, t in leaves_with_path(whole)
+                     if t.grad is not None})
+        floor = FAMILY_SPLIT_FLOOR * max(float(g.float().abs().max())
+                                         for g in want.values())
+        del y, xs
+        for data, m in FAMILY_TRAIN_SPLITS:
+            if not divides(cfg.kv_heads, m):
+                log(f"family train split {label} data={data} model={m}: "
+                    f"skipped, {cfg.kv_heads} KV heads over a model axis "
+                    f"of {m} stay refused")
+                continue
+            mesh = AbstractMesh(("data", "model"), (data, m))
+            local = cfg.rank_local(m)
+            specs = bridge.param_specs(cfg, mesh, "train")
+            blocks = {(d, r): leaves(bridge.shard_params(
+                params, cfg, mesh, {"data": d, "model": r}, "train"))
+                for d in range(data) for r in range(m)}
+            xs = fresh()
+            per = rows // data
+            tm = ThreadMesh(data, m)
+            outs = tm.run(lambda c: block(
+                blocks[(c["data"], c["model"])], local,
+                tm.tp(cfg, c, specs),
+                {k: v[c["data"] * per:(c["data"] + 1) * per]
+                 for k, v in xs.items()}))
+            y = torch.cat([outs[(d, 0)] for d in range(data)])
+            torch.autograd.backward(y, dy)
+            got = {f"d{k}": xs[k].grad for k in diff}
+            named = {(d, r): dict((path_name(p), t) for p, t in
+                                  leaves_with_path(b))
+                     for (d, r), b in blocks.items()}
+            for k in want:
+                if k in got:
+                    continue
+                grid = [[named[(d, r)][k].grad if named[(d, r)][k].grad
+                         is not None else torch.zeros_like(named[(d, r)][k])
+                         for r in range(m)] for d in range(data)]
+                got[k] = assemble(grid, specs[k])
+            err = {k: float((got[k].float() - want[k].float()).abs().max()
+                            / max(float(want[k].float().abs().max()), floor))
+                   for k in want}
+            worst = max(err, key=err.get)
+            limit = FAMILY_TRAIN_SPLIT_TOL[
+                {torch.bfloat16: "bf16"}.get(cfg.dtype, "f32")]
+            log(f"family train split {label} data={data} model={m}: "
+                f"{local.num_heads}/{local.kv_heads} heads a model rank, "
+                f"{per} rows a data rank; gradients against the unsplit "
+                f"layer (max |diff| / max |value|): "
+                f"{', '.join(f'{k} {e:.3e}' for k, e in err.items())} "
+                f"(tolerance {limit})")
+            if not err[worst] <= limit:
+                raise AssertionError(f"family train split {label} data="
+                                     f"{data} model={m}: {worst} "
+                                     f"{err[worst]:.3e}")
+            out.append({"layer": label, "data": data, "model": m,
+                        "errors": err})
+            del blocks, outs, y, xs, got
+        del params, whole, want
+    counts = dict(COUNTS)
+    log(f"family train split: launches {counts}")
+    if device.type == "cuda":
+        free_card()
+        if not counts.get("flash_attention") or \
+                not counts.get("flash_attention_bwd"):
+            raise AssertionError(f"family train split: launches {counts}")
+    return counts, out
+
+
 def assemble(grid, spec):
-    """The whole tensor from the blocks `grid[d][r]` (data rank d, model
-    rank r) that a spec with at most one dim on each axis cuts."""
+    """The whole gradient of a leaf from its ranks' blocks' gradients
+    `grid[d][r]` (data rank d, model rank r) under `spec` (at most one
+    dim on each axis): blocks concatenated along an axis that splits
+    the leaf, the copies' gradients summed (in f32) along one that does
+    not, as the meshed step's `enter` and `reduce_grads` sum them
+    (phases 14b and 15c use one copy and give the others zeros; 16b's
+    `ThreadMesh` ranks each use their own)."""
     import torch
     dims = {entry: d for d, entry in enumerate(spec) if entry is not None}
-    rows = []
-    for blocks in grid:
-        rows.append(torch.cat(blocks, dims["model"]) if "model" in dims
-                    else blocks[0])
-    if "data" in dims:
-        return torch.cat(rows, dims["data"])
-    return rows[0]
+
+    def join(parts, axis):
+        if axis in dims:
+            return torch.cat(parts, dims[axis])
+        return torch.stack([p.float() for p in parts]).sum(0)
+    return join([join(blocks, "model") for blocks in grid], "data")
 
 
 def _leaves(tree):
@@ -4399,6 +4928,10 @@ def main(argv=None) -> int:
     moe_train, _ = phase("moe train", lambda: moe_train_phase(args.seed))
     moe_train_split, _ = phase("moe train split", lambda:
                                moe_train_split_phase(args.seed))
+    family_train, _ = phase("family train", lambda: family_train_phase(
+        args.seed))
+    family_split, _ = phase("family train split", lambda:
+                            family_train_split_phase(args.seed))
     log(f"all phases: {time.time() - t_all:.1f} s wall")
 
     # one inline internlm2 decode layer: the HBM-tier (N=64) + host-tier
@@ -4472,6 +5005,10 @@ def main(argv=None) -> int:
                         for k, c in moe_train.items()},
                      "moe_train_split": moe_train_split.get(
                          "flash_attention", 0),
+                     **{k: c.get("flash_attention", 0)
+                        for k, c in family_train.items()},
+                     "family_train_split": family_split.get(
+                         "flash_attention", 0),
                      "example": example.get("flash_attention", 0),
                      "moe_start": moe["start"].get("flash_attention", 0),
                      **{f"{name}_start": c["start"].get("flash_attention", 0)
@@ -4493,6 +5030,10 @@ def main(argv=None) -> int:
                    **{k: c.get("flash_attention_bwd", 0)
                       for k, c in moe_train.items()},
                    "moe_train_split": moe_train_split.get(
+                       "flash_attention_bwd", 0),
+                   **{k: c.get("flash_attention_bwd", 0)
+                      for k, c in family_train.items()},
+                   "family_train_split": family_split.get(
                        "flash_attention_bwd", 0),
                    "example": example.get("flash_attention_bwd", 0)}
     bwd_entry = {

@@ -6,9 +6,10 @@ auto-resume), on one card or across a (`data`, `model`) mesh.
       --smoke --steps 50 --ckpt-dir CKPT_DIR [--device cpu]
 
 `--data N --model M` (N x M above 1) trains across a mesh of N x M
-ranks, one process each (`make_train_step(..., mesh=)`, the dense and
-moe families: FSDP over `data`, tensor parallelism over `model`, a moe
-model's experts split over it): under
+ranks, one process each (`make_train_step(..., mesh=)`, any family whose
+KV heads the `model` axis divides: FSDP over `data`, tensor parallelism
+over `model`, a moe model's experts split over it, a recurrent block's
+heads): under
 `torchrun --nproc-per-node N*M` (rank r on `cuda:LOCAL_RANK` over NCCL,
 or the CPU over gloo with `--device cpu`), or, with no RANK in the
 environment, the CLI spawns its ranks itself over a `file://` store in
@@ -16,14 +17,17 @@ a temporary directory:
 
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
       --data 2 --model 2 --steps 20 --ckpt-dir CKPT_DIR \\
-      [--arch granite-moe-3b-a800m]
+      [--arch granite-moe-3b-a800m | zamba2-1.2b | xlstm-125m]
 
 Each rank draws only its shards of the parameters and of AdamW's m and
 v, and takes its rows of each batch; rank 0 prints the step lines and,
 at the end, every rank's weight, optimizer-state and peak memory bytes.
 A checkpoint holds whole leaves whatever mesh wrote it, and
 auto-resume restores it onto the mesh the job has (or onto none). The
-exit status is the worst rank's.
+exit status is the worst rank's. The CLI feeds tokens alone, as the
+reference's: the vlm and encdec families, which need patch or frame
+embeddings beside them, train through `make_train_step(...,
+extra_keys=, mesh=)` (`scripts/mesh_family_step.py`).
 """
 
 from __future__ import annotations

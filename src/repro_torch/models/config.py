@@ -2,7 +2,7 @@
 
 The fields the six families (dense, moe, vlm, encdec, and the
 recurrent hybrid/ssm and xlstm) read are kept. `ModelConfig.rank_local`
-gives the counts one rank of a serving mesh's `model` axis holds (what
+gives the counts one rank of a mesh's `model` axis computes (what
 else the rank needs, its vocabulary slice and the axis's collectives,
 is `transformer.TensorParallel`, held by the rank's `Model`).
 """
@@ -59,6 +59,11 @@ class SSMConfig:
     #: hybrid (zamba2): a weight-shared attention block after every
     #: `attn_every`-th SSM block; 0 disables attention entirely
     attn_every: int = 0
+    #: a rank-local config's `model` axis (`ModelConfig.rank_local`):
+    #: a block computes its `num_heads` heads (the whole model's over
+    #: `shards`) and their 1/shards of the inner width. A rank's
+    #: bookkeeping, not the architecture
+    shards: int = dataclasses.field(default=1, repr=False)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,6 +73,9 @@ class XLSTMConfig:
     expand: int = 2
     conv_width: int = 4
     chunk: int = 128
+    #: a rank-local config's `model` axis, as `SSMConfig.shards` (the
+    #: mLSTM's inner width and the sLSTM's d_model split with the heads)
+    shards: int = dataclasses.field(default=1, repr=False)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,12 +144,15 @@ class ModelConfig:
         """The config one rank of a `model` axis of `size` runs: local
         counts of heads, KV heads and, when the axis divides it, MLP
         hidden units (else the MLP is held whole), so the transformer
-        code reads them as it reads a whole model's. `head_dim` and
-        `vocab` are unchanged. A moe model's expert leaves follow the
-        sharding rules' priority (`experts` before `mlp`): the padded
-        experts split when the axis divides them, each expert's hidden
-        width whole; else every expert at the split (or whole) `d_ff`
-        of the dense and shared MLPs."""
+        code reads them as it reads a whole model's. `head_dim`,
+        `d_model` and `vocab` are unchanged. A moe model's expert leaves
+        follow the sharding rules' priority (`experts` before `mlp`):
+        the padded experts split when the axis divides them, each
+        expert's hidden width whole; else every expert at the split (or
+        whole) `d_ff` of the dense and shared MLPs. The recurrent
+        families' heads are the same `num_heads`: a Mamba2, mLSTM or
+        sLSTM block computes the local heads over 1/size of its inner
+        width (`SSMConfig.shards`, `XLSTMConfig.shards`)."""
         if not (splits(self.num_heads, size) and
                 splits(self.kv_heads, size)):
             raise ValueError(f"a model axis of {size} does not split "
@@ -154,9 +165,11 @@ class ModelConfig:
             moe = dataclasses.replace(
                 moe, local_experts=E // size if splits(E, size) else E,
                 expert_d_ff=self.d_ff if splits(E, size) else d_ff)
+        more = {k: dataclasses.replace(getattr(self, k), shards=size)
+                for k in ("ssm", "xlstm") if getattr(self, k) is not None}
         return dataclasses.replace(
             self, num_heads=self.num_heads // size,
-            kv_heads=self.kv_heads // size, d_ff=d_ff, moe=moe)
+            kv_heads=self.kv_heads // size, d_ff=d_ff, moe=moe, **more)
 
     @property
     def q_per_kv(self) -> int:

@@ -88,9 +88,9 @@ class Model:
         self.cfg = cfg
         #: a meshed serve's or train step's rank: its
         #: `transformer.TensorParallel` over the rank-local `cfg` and the
-        #: rank's weight shards (the dense and moe families; a train
-        #: step's also binds its FSDP blocks over `data`); None: the
-        #: whole model
+        #: rank's weight shards (a serve's: the dense and moe families; a
+        #: train step's, every family, also binds its FSDP blocks over
+        #: `data`); None: the whole model
         self.tp = tp
 
     def with_rows(self, rows) -> "Model":
@@ -178,19 +178,31 @@ class Model:
         layers = params["layers"]
         tp = self.tp
 
-        def moe_ffn(lp):
+        def moe_ffn(lp, at):
             return lambda h, group_size=None: moe_mod.moe_block(
-                h, lp, cfg, group_size=group_size, tp=tp)
+                h, lp, cfg, group_size=group_size, tp=tp, at=at)
 
         if cfg.moe.interleave == 1:
-            return [(lp, moe_ffn(lp)) for lp in tfm.layers_of(layers)]
+            return [(lp, moe_ffn(lp, "layers"))
+                    for lp in tfm.layers_of(layers)]
         out = []
         for da, dm, ma, mo in zip(*(tfm.layers_of(layers[k]) for k in (
                 "dense_attn", "dense_mlp", "moe_attn", "moe"))):
             out.append((da, lambda h, group_size=None, lp=dm:
-                        tfm.dense_mlp_block(h, lp, cfg, tp)))
-            out.append((ma, moe_ffn(mo)))
+                        tfm.dense_mlp_block(h, lp, cfg, tp,
+                                            "layers/dense_mlp")))
+            out.append((ma, moe_ffn(mo, "layers/moe")))
         return out
+
+    def attn_paths(self):
+        """The path in the parameter tree of each block's attention
+        weights, in `blocks` order (a training rank's FSDP blocks are
+        named by path)."""
+        cfg = self.cfg
+        if cfg.family == "moe" and cfg.moe.interleave == 2:
+            return ["layers/dense_attn", "layers/moe_attn"] * (
+                cfg.num_layers // 2)
+        return ["layers"] * cfg.num_layers
 
     def init(self, seed=0, device=None, keep=None):
         """Random parameters on `device` (default: the CUDA card), drawn
@@ -230,7 +242,7 @@ class Model:
         `remat` checkpoints each block (`transformer.remat_call`), as the
         reference's `jax.checkpoint`; the values are the same with it on
         or off. On a train step's rank (`self.tp` with its data-axis
-        binding, dense family) `params` are the rank's shards and the
+        binding, every family) `params` are the rank's shards and the
         result is its rows' hidden states, whole on every model rank;
         each layer gathers its FSDP blocks inside its checkpointed
         block."""
@@ -239,7 +251,7 @@ class Model:
         if fam == "encdec":
             return tfm.encdec_forward(
                 params, cfg, tokens, extra["frame_embeds"].to(cfg.dtype),
-                return_hidden=True, remat=remat)
+                return_hidden=True, remat=remat, tp=self.tp)
         if fam == "xlstm":
             return self._xlstm_forward(params, tokens, return_hidden=True,
                                        remat=remat)
@@ -250,7 +262,7 @@ class Model:
                                    input_embeds=self._vlm_embeds(
                                        params, tokens, extra),
                                    return_hidden=True, remat=remat,
-                                   tp=self.tp)
+                                   tp=self.tp, attn_at=self.attn_paths())
 
     def _vlm_embeds(self, params, tokens, extra):
         """The vlm family's input: patch embeddings, then the tokens'
@@ -259,22 +271,24 @@ class Model:
         if cfg.family != "vlm":
             return None
         return torch.cat([extra["patch_embeds"].to(cfg.dtype),
-                          tfm.embed_tokens(params, cfg, tokens)], dim=1)
+                          tfm.embed_tokens(params, cfg, tokens, self.tp)],
+                         dim=1)
 
     def _xlstm_forward(self, params, tokens, return_hidden: bool = False,
                        remat: bool = False):
         """Logits [B, S, V], or with `return_hidden` the final-norm
-        hidden states (`remat` checkpoints each block)."""
-        cfg = self.cfg
-        h = tfm.embed_tokens(params, cfg, tokens)
+        hidden states (`remat` checkpoints each block). On a training
+        rank (`self.tp`) each block runs its heads (`models.xlstm`)."""
+        cfg, tp = self.cfg, self.tp
+        h = tfm.embed_tokens(params, cfg, tokens, tp)
         stacks = {kind: tfm.layers_of(params[kind])
                   for kind in ("mlstm", "slstm")}
         for kind, i in self._xlstm_layers():
             fn = xlstm_mod.slstm_forward_layer if kind == "slstm" \
                 else xlstm_mod.mlstm_forward_layer
-            h = h + tfm.remat_call(remat, fn, h, stacks[kind][i], cfg)
-        h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-        return h if return_hidden else tfm.unembed(params, cfg, h)
+            h = h + tfm.remat_call(remat, fn, h, stacks[kind][i], cfg, tp)
+        h = tfm.final_norm(params, cfg, h, tp)
+        return h if return_hidden else tfm.unembed(params, cfg, h, tp)
 
     def _hybrid_forward(self, params, tokens, collect_state: bool = False,
                         return_hidden: bool = False, remat: bool = False):
@@ -284,19 +298,24 @@ class Model:
         [L, B, W-1, C]) after the sequence). The shared attention block
         runs after the Mamba2 block at each site. With `return_hidden`:
         the final-norm hidden states alone (`remat` checkpoints each
-        Mamba2 block and each site)."""
-        cfg = self.cfg
-        h = tfm.embed_tokens(params, cfg, tokens)
+        Mamba2 block and each site). On a training rank (`self.tp`) each
+        Mamba2 block runs its heads (`models.ssm`) and each site is the
+        attention and MLP blocks' tensor parallelism over the shared
+        weights, gathered over `data` at every site (their gradient
+        reduce-scattered once a site, summed on the rank's block)."""
+        cfg, tp = self.cfg, self.tp
+        h = tfm.embed_tokens(params, cfg, tokens, tp)
         positions = torch.arange(h.shape[1], device=h.device)[None, :]
         sites = set(cfg.attention_layer_ids())
         ks, vs, ss, convs = [], [], [], []
 
         def site(h, sp):
-            h, kv = tfm.full_attn_block(h, sp, cfg, positions)
-            return tfm.dense_mlp_block(h, sp, cfg), kv
+            h, kv = tfm.full_attn_block(h, sp, cfg, positions, tp,
+                                        "shared_attn")
+            return tfm.dense_mlp_block(h, sp, cfg, tp, "shared_attn"), kv
         for l, lp in enumerate(tfm.layers_of(params["mamba"])):
             out = tfm.remat_call(remat, ssm_mod.mamba2_forward_layer, h, lp,
-                                 cfg, collect_state)
+                                 cfg, collect_state, tp)
             if collect_state:
                 out, (s, conv) = out
                 ss.append(s)
@@ -308,12 +327,12 @@ class Model:
                 if not return_hidden:
                     ks.append(k)
                     vs.append(v)
-        h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+        h = tfm.final_norm(params, cfg, h, tp)
         if return_hidden:
             return h
         kv = (torch.stack(ks), torch.stack(vs)) if ks else None
         state = (torch.stack(ss), torch.stack(convs)) if ss else None
-        return tfm.unembed(params, cfg, h), kv, state
+        return tfm.unembed(params, cfg, h, tp), kv, state
 
     def cache_geometry(self, batch: int, max_context: int,
                        hbm_fraction: float = 0.25,

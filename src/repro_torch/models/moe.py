@@ -222,11 +222,12 @@ def _rank_moe_ffn(x, lp, cfg: ModelConfig, group_size, tp):
     return y.reshape(B, S, d)
 
 
-def moe_block(h, lp, cfg: ModelConfig, *, group_size=None, tp=None):
+def moe_block(h, lp, cfg: ModelConfig, *, group_size=None, tp=None,
+              at: str = "layers"):
     """Pre-norm residual MoE block. `tp`: a rank's (see the module
     docstring); a training rank gathers its FSDP blocks over `data`
-    here."""
+    here (`at`: the weights' path in the parameter tree)."""
     from repro_torch.models.transformer import data_whole
-    lp = data_whole(lp, tp, MOE_LEAVES)
+    lp = data_whole(lp, tp, at, MOE_LEAVES)
     x = rms_norm(h, lp["moe_norm"], cfg.norm_eps)
     return h + moe_ffn(x, lp, cfg, group_size=group_size, tp=tp)

@@ -17,6 +17,17 @@ Every many-operand contraction of the chunked form is written as
 explicit broadcasts and `matmul`s in a fixed order, so the largest
 temporary is [B, nc, Q, Q, H] (the decay-weighted C.B scores), never a
 product with the head dim P on top of it.
+
+On a training rank of a mesh (`tp`, a `transformer.TensorParallel`,
+and a rank-local config, `SSMConfig.shards`) a block computes its
+heads. The sharding rules cut `w_in` (z | x | B | C | dt) and the conv
+(x | B | C) into contiguous blocks that do not follow the heads, so the
+rank gathers those three leaves over `model` and runs the input
+projection and the conv whole; its heads' z, x and dt and the shared
+B and C enter the split region there. `a_log`, `dt_bias`, `skip_d`,
+`y_norm` and `w_out` are cut by heads: the scan runs on the rank's
+heads, the gated norm over the inner width sums its mean of squares
+over `model`, and the output projection's partial is summed over it.
 """
 
 from __future__ import annotations
@@ -27,6 +38,15 @@ import torch.nn.functional as F
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import causal_conv, rms_norm
 from repro_torch.models.params import Param
+from repro_torch.models.transformer import (
+    data_whole, model_enter, model_own, model_part, model_sum, model_whole,
+    split_rms_norm,
+)
+
+#: the Mamba2 leaves a rank gathers over `model` (their cut does not
+#: follow the heads) and those it uses as its heads' block (dim 0)
+WHOLE_LEAVES = ("w_in", "conv_w", "conv_b")
+HEAD_LEAVES = ("a_log", "dt_bias", "skip_d", "y_norm", "w_out")
 
 
 # ---------------------------------------------------------------------------
@@ -61,13 +81,24 @@ def mamba2_schema(cfg: ModelConfig, L: int):
 # Shared pieces
 # ---------------------------------------------------------------------------
 
+def _dims(cfg: ModelConfig):
+    """(inner width, heads, head dim P, state dim N) of what a block
+    computes: the whole model's, or a rank's share of the heads and of
+    the inner width (`SSMConfig.shards`)."""
+    ssm = cfg.ssm
+    inner = ssm.expand * cfg.d_model // ssm.shards
+    return inner, cfg.num_heads, inner // cfg.num_heads, ssm.state_dim
+
+
 def _split_proj(x, lp, cfg: ModelConfig):
-    """x [B,S,d] -> (z [B,S,inner], conv_in [B,S,inner+2N], dt [B,S,H])."""
-    inner = cfg.ssm.expand * cfg.d_model
-    N = cfg.ssm.state_dim
+    """x [B,S,d] -> (z [B,S,inner], conv_in [B,S,inner+2N], dt [B,S,H]),
+    at the whole model's widths (a rank's `w_in` gathered whole)."""
+    ssm = cfg.ssm
+    inner = ssm.expand * cfg.d_model
+    N = ssm.state_dim
     proj = x @ lp["w_in"]
     z, xin, Bc, Cc, dt = torch.split(
-        proj, [inner, inner, N, N, cfg.num_heads], dim=-1)
+        proj, [inner, inner, N, N, cfg.num_heads * ssm.shards], dim=-1)
     return z, torch.cat([xin, Bc, Cc], dim=-1), dt
 
 
@@ -77,32 +108,38 @@ def _dt_a(dt_raw, lp):
     return dt, -torch.exp(lp["a_log"].float())
 
 
-def _gate_out(y, z, lp, cfg: ModelConfig):
+def _gate_out(y, z, lp, cfg: ModelConfig, tp=None):
     """y [..., inner] f32 gated by silu(z), normed in the model dtype,
-    projected out to d."""
+    projected out to d (on a rank, `tp`: its heads' block of the inner
+    width, the norm's mean of squares and the projection's partial
+    summed over `model`)."""
     y = y * F.silu(z.float())
-    y = rms_norm(y.to(cfg.dtype), lp["y_norm"], cfg.norm_eps)
-    return y @ lp["w_out"]
+    y = split_rms_norm(y.to(cfg.dtype), lp["y_norm"], cfg.norm_eps, tp)
+    return model_sum(y @ lp["w_out"], tp)
 
 
 # ---------------------------------------------------------------------------
 # Chunked SSD forward (one layer)
 # ---------------------------------------------------------------------------
 
-def mamba2_forward_layer(h, lp, cfg: ModelConfig, return_state: bool = False):
+def mamba2_forward_layer(h, lp, cfg: ModelConfig, return_state: bool = False,
+                         tp=None, at: str = "mamba"):
     """h: [B, S, d] -> [B, S, d] (residual applied by the caller).
 
     return_state additionally yields the post-sequence recurrent state
     (s [B,H,N,P] f32, conv [B,W-1,conv_ch] f32) so prefill can hand off
     to the recurrent decode path; it needs S >= conv_width - 1 (the
     reference's slice of a shorter prompt wraps around and gives a
-    conv state of the wrong size, so this raises ValueError)."""
+    conv state of the wrong size, so this raises ValueError). `tp`: a
+    training rank's, with `lp` its blocks of the weights at path `at`
+    of the parameter tree (the module docstring)."""
     ssm = cfg.ssm
     B_, S, d = h.shape
-    inner = ssm.expand * d
-    H, N = cfg.num_heads, ssm.state_dim
-    P = inner // H
+    inner, H, P, N = _dims(cfg)
     W = ssm.conv_width
+    if tp is not None:
+        lp = model_whole(data_whole(lp, tp, at), tp, at, WHOLE_LEAVES)
+        lp = {**lp, **{k: model_own(lp, tp, at, k, 0) for k in HEAD_LEAVES}}
     if return_state and S < W - 1:
         raise ValueError(
             f"prefill of a Mamba2 layer needs at least conv_width - 1 = "
@@ -123,7 +160,11 @@ def mamba2_forward_layer(h, lp, cfg: ModelConfig, return_state: bool = False):
     nc = S // Q
 
     conv = F.silu(causal_conv(conv_in, lp["conv_w"], lp["conv_b"]))
-    xin, Bc, Cc = torch.split(conv, [inner, N, N], dim=-1)
+    xin, Bc, Cc = torch.split(conv, [inner * ssm.shards, N, N], dim=-1)
+    if tp is not None:
+        # the part run whole ends: the rank's heads, the shared B and C
+        z, xin, dt_raw = (model_part(t, tp, -1) for t in (z, xin, dt_raw))
+        Bc, Cc = model_enter(Bc, tp), model_enter(Cc, tp)
 
     dt, a = _dt_a(dt_raw, lp)                                   # [B,S,H]
     if pad:
@@ -146,9 +187,13 @@ def mamba2_forward_layer(h, lp, cfg: ModelConfig, return_state: bool = False):
     lh = la.permute(0, 1, 3, 2)                                 # [B,nc,H,Q]
     ar = torch.arange(Q, device=h.device)
     tri = ar[:, None] >= ar[None, :]
-    # exp of the differences, masked after: exp(li) * exp(-lj) overflows
-    decay = torch.where(tri, torch.exp(lh[..., :, None] - lh[..., None, :]),
-                        0.0)                                    # [B,nc,H,Q,Q]
+    # exp of the differences (exp(li) * exp(-lj) overflows), masked
+    # before the exp: above the diagonal li - lj >= 0 grows with the
+    # chunk's decay, and an exp that overflows there, masked after it,
+    # gives its gradient inf * 0 = NaN (the reference's masking, whose
+    # gradient is NaN at zamba2's full width); the values are the same
+    decay = torch.exp(torch.where(tri, lh[..., :, None] - lh[..., None, :],
+                                  float("-inf")))               # [B,nc,H,Q,Q]
     y_intra = (cb[:, :, None] * decay) @ xq                     # [B,nc,H,Q,P]
 
     # ---- chunk states: S_c = sum_j exp(la_end - la_j) B_j (x) xbar_j
@@ -169,7 +214,7 @@ def mamba2_forward_layer(h, lp, cfg: ModelConfig, return_state: bool = False):
     y = (y_intra + y_inter).permute(0, 1, 3, 2, 4).reshape(B_, S, H, P)
     y = y + xh * lp["skip_d"].float()[None, None, :, None]
 
-    out = _gate_out(y.reshape(B_, S, inner), z, lp, cfg)[:, :S_real]
+    out = _gate_out(y.reshape(B_, S, inner), z, lp, cfg, tp)[:, :S_real]
     if return_state:
         conv_state = conv_in_real[:, S_real - (W - 1):, :].float()
         return out, (s, conv_state)

@@ -26,20 +26,25 @@ model rank plans from the same numbers. A dim the axis does not divide
 (`TensorParallel.mlp_split` False, `.vocab` None) is held whole and
 needs no collective.
 
-Training across a mesh (the dense family's `loss_fn` under
-`make_train_step(..., mesh=)`) binds the same `TensorParallel` to
-differentiable collectives (`launch.mesh`): the sums are Megatron's g,
-the logits' gather gives each rank its slice of the gradient back, and
-`enter` (Megatron's f: the identity forward, the gradient summed over
-`model` backward) sits where a replicated activation meets a
-column-parallel product (the QKV and gate/up projections, the
-unembedding) and on the per-head norm weights, so the gradients of the
-norm weights, the residual stream and the embedding rows are whole on
-every rank. A training rank also holds FSDP blocks over `data`
-(`TensorParallel.data_dims`): each block gathers them whole inside
-itself (`data_whole`), so under remat a layer's whole weights live only
+Training across a mesh (`loss_fn` under `make_train_step(..., mesh=)`,
+every family) binds the same `TensorParallel` to differentiable
+collectives (`launch.mesh`): the sums are Megatron's g, the logits'
+gather gives each rank its slice of the gradient back, and `enter`
+(Megatron's f: the identity forward, the gradient summed over `model`
+backward) sits where a replicated activation meets a column-parallel
+product (the QKV and gate/up projections, the unembedding) and on the
+per-head norm weights, so the gradients of the norm weights, the
+residual stream and the embedding rows are whole on every rank. A
+training rank also holds FSDP blocks over `data`
+(`TensorParallel.data_dims`, by the leaf's path in the parameter tree):
+each block gathers them whole inside itself (`data_whole`, given the
+path of its weights), so under remat a layer's whole weights live only
 during its forward and its recompute, and the gather's backward
-reduce-scatters their gradient.
+reduce-scatters their gradient. A recurrent block (`models.ssm`,
+`models.xlstm`) whose leaves the sharding rules cut across its heads
+gathers those over `model` (`model_whole`) and runs that part whole;
+it splits only what follows its heads (`model_own`, `model_part`,
+`split_rms_norm`).
 """
 
 from __future__ import annotations
@@ -223,9 +228,13 @@ class TensorParallel:
     (None: held whole); a moe model's padded experts when `experts` is
     the rank's [lo, hi) of them (None: every expert, at the MLP's
     split). A training rank also holds FSDP blocks over `data`:
-    `data_dims` gives, by leaf name, the dim of its block (of one
-    layer's weights, for a stacked leaf), `gather_data(t, dim)` gathers
-    a block whole; a leaf not named is whole on `data`. `rows` = (this
+    `data_dims` gives, by the leaf's path in the parameter tree
+    ("layers/wq", "enc_layers/ln1/w", "shared_attn/wq", "embed"), the
+    dim of its block (of one layer's weights, for a stacked leaf),
+    `gather_data(t, dim)` gathers a block whole; a leaf not named is
+    whole on `data`. `model_dims` likewise names the leaves it holds a
+    block of on `model` and the dim (a recurrent block gathers those its
+    heads do not follow, `model_whole`). `rows` = (this
     rank's index, the axis size) on `data` when the rank's rows (lanes,
     or a batch's rows) are one block of a stream split over the axis,
     which moe routing must see whole (`models.moe`):
@@ -243,6 +252,8 @@ class TensorParallel:
     enter: Callable[[torch.Tensor], torch.Tensor] = _same
     data_dims: Dict[str, int] = dataclasses.field(default_factory=dict,
                                                   compare=False)
+    model_dims: Dict[str, int] = dataclasses.field(default_factory=dict,
+                                                   compare=False)
     gather_data: Optional[Callable[[torch.Tensor, int], torch.Tensor]] = None
     experts: Optional[Tuple[int, int]] = None
     rows: Optional[Tuple[int, int]] = None
@@ -253,7 +264,7 @@ class TensorParallel:
            gather, **more) -> "TensorParallel":
         """Rank `rank` of a `model` axis of `size` over the whole
         model's `cfg` (the sharding rules' splits); `more`: `enter`,
-        `data_dims` and `gather_data` for a meshed train step,
+        `data_dims`, `model_dims` and `gather_data` for a meshed train step,
         `gather_rows` for a moe model's routing over `data`."""
         per = cfg.vocab // size
         E = cfg.moe.num_experts_padded if cfg.moe is not None else 0
@@ -277,16 +288,81 @@ def model_enter(x, tp: Optional[TensorParallel], split: bool = True):
     return tp.enter(x) if tp is not None and split else x
 
 
-def data_whole(tree, tp: Optional[TensorParallel], names):
-    """`tree` (a dict of weights) with each of its leaves `names` whole
-    on the `data` axis: a leaf the rank holds an FSDP block of
-    (`TensorParallel.data_dims`) is gathered; `tree` itself when the
-    rank holds none."""
+def data_whole(tree, tp: Optional[TensorParallel], at: str = "",
+               names=None):
+    """`tree` (a dict of weights, nested dicts recursed) at path `at` of
+    the parameter tree ("" the root), with each of its leaves (those
+    named in `names`, if given) whole on the `data` axis: a leaf the
+    rank holds an FSDP block of (`TensorParallel.data_dims`) is
+    gathered; `tree` itself when the rank holds none."""
     if tp is None or not tp.data_dims:
         return tree
-    return {k: tp.gather_data(v, tp.data_dims[k])
-            if k in names and k in tp.data_dims else v
+    out = dict(tree)
+    for k, v in tree.items():
+        path = _path(at, k)
+        if names is not None and k not in names:
+            continue
+        if isinstance(v, dict):
+            out[k] = data_whole(v, tp, path)
+        elif path in tp.data_dims:
+            out[k] = tp.gather_data(v, tp.data_dims[path])
+    return out
+
+
+def _path(at: str, name: str) -> str:
+    return f"{at}/{name}" if at else name
+
+
+def model_whole(tree, tp: Optional[TensorParallel], at: str, names):
+    """`tree` with its leaves `names` whole on the `model` axis: a leaf
+    the rank holds a block of (`TensorParallel.model_dims`) is gathered
+    (`gather`: in training, its backward hands the rank its own slice of
+    a gradient every model rank holds whole, so the block must use the
+    whole leaf alike on every rank)."""
+    if tp is None or not tp.model_dims:
+        return tree
+    dims = {k: tp.model_dims.get(_path(at, k)) for k in names}
+    return {k: v if dims.get(k) is None else tp.gather(v, dims[k])
             for k, v in tree.items()}
+
+
+def model_part(x, tp: Optional[TensorParallel], dim: int):
+    """This rank's block on `dim` of `x`, whole on every model rank
+    (an activation of a part run whole, or a leaf held whole): the
+    block the rank's heads follow, rank-major. It enters the split
+    region (`enter`), so its gradient, which the rank gives only for
+    its block, is summed over `model`. `x` itself without `tp`."""
+    if tp is None:
+        return x
+    n = x.shape[dim] // tp.size
+    return tp.enter(x).narrow(dim, tp.rank * n, n)
+
+
+def model_own(tree, tp: Optional[TensorParallel], at: str, name: str,
+              dim: int):
+    """The rank's block on `dim` of the leaf `name` of `tree` (at path
+    `at`): the leaf itself where the rank holds that block
+    (`TensorParallel.model_dims`), else cut from the whole
+    (`model_part`)."""
+    t = tree[name]
+    if tp is None or tp.model_dims.get(_path(at, name)) == dim % t.dim():
+        return t
+    return model_part(model_whole(tree, tp, at, (name,))[name], tp, dim)
+
+
+def split_rms_norm(x, w, eps: float, tp: Optional[TensorParallel]):
+    """`rms_norm` over a last dim split over the `model` axis: x [..., n]
+    is the rank's block of the whole [..., n x size] and `w` its block
+    of the weight; the mean of squares is summed over the axis (forward
+    and backward: each rank's block feeds every rank's norm). On one
+    model rank, or without `tp`, `rms_norm` itself."""
+    if tp is None or tp.size == 1:
+        return rms_norm(x, w, eps)
+    dtype = x.dtype
+    xf = x.float()
+    ss = tp.enter(tp.reduce(xf.square().sum(dim=-1, keepdim=True)))
+    var = ss / (x.shape[-1] * tp.size)
+    return (xf * torch.rsqrt(var + eps)).to(dtype) * w
 
 
 #: the weights of an attention block and of a dense MLP block
@@ -294,20 +370,22 @@ ATTN_LEAVES = ("attn_norm", "wq", "wk", "wv", "wo", "q_norm", "k_norm")
 MLP_LEAVES = ("mlp_norm", "w_gate", "w_up", "w_down")
 
 
-def full_attn_block(h, lp, cfg: ModelConfig, positions, tp=None):
+def full_attn_block(h, lp, cfg: ModelConfig, positions, tp=None,
+                    at: str = "layers"):
     """Pre-norm attention block over a full sequence (prefill); also
     returns the post-RoPE (k, v). `attention` takes K/V with KH heads:
     the flash kernel reads them un-repeated on the card, the CPU path
-    repeats them per query head."""
-    lp = data_whole(lp, tp, ATTN_LEAVES)
+    repeats them per query head. `at`: the weights' path in the
+    parameter tree (a training rank's FSDP blocks, `data_whole`)."""
+    lp = data_whole(lp, tp, at, ATTN_LEAVES)
     x = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
     q, k, v = attn_qkv(model_enter(x, tp), lp, cfg, positions, tp=tp)
     o = attention(q, k, v)
     return h + model_sum(attn_out(o, lp), tp), (k, v)
 
 
-def dense_mlp_block(h, lp, cfg: ModelConfig, tp=None):
-    lp = data_whole(lp, tp, MLP_LEAVES)
+def dense_mlp_block(h, lp, cfg: ModelConfig, tp=None, at: str = "layers"):
+    lp = data_whole(lp, tp, at, MLP_LEAVES)
     split = tp is not None and tp.mlp_split
     x = rms_norm(h, lp["mlp_norm"], cfg.norm_eps)
     y = swiglu(model_enter(x, tp, split), lp["w_gate"], lp["w_up"],
@@ -336,21 +414,28 @@ def remat_call(remat: bool, fn, *args):
 
 
 def embed_tokens(params, cfg: ModelConfig, tokens, tp=None):
-    embed = data_whole(params, tp, ("embed",))["embed"]
+    return embed_rows(params, tokens, tp).to(cfg.dtype)
+
+
+def embed_rows(params, tokens, tp=None):
+    """The embedding's rows of `tokens`, in the parameters' dtype: on a
+    rank whose `tp` splits the vocabulary, its rows looked up where the
+    token falls in them (zero elsewhere) and summed over `model`."""
+    embed = data_whole(params, tp, "", ("embed",))["embed"]
     if tp is None or tp.vocab is None:
-        return embed[tokens.long()].to(cfg.dtype)
+        return embed[tokens.long()]
     lo, hi = tp.vocab
     local = tokens.long() - lo
     mine = (local >= 0) & (local < hi - lo)
     rows = embed[local.clamp(0, hi - lo - 1)]
-    return tp.reduce(rows.masked_fill(~mine[..., None], 0).to(cfg.dtype))
+    return tp.reduce(rows.masked_fill(~mine[..., None], 0))
 
 
 def unembed_weight(params, cfg: ModelConfig, tp=None):
     """The unembedding [d, V] (tied: `embed`'s transpose), whole on the
     `data` axis; a rank's vocabulary columns when `tp` splits them."""
     name = "embed" if cfg.tie_embeddings else "unembed"
-    w = data_whole(params, tp, (name,))[name]
+    w = data_whole(params, tp, "", (name,))[name]
     return w.T if cfg.tie_embeddings else w
 
 
@@ -365,31 +450,39 @@ def unembed(params, cfg: ModelConfig, h, tp=None):
 def decoder_forward(params, cfg: ModelConfig, tokens, blocks,
                     input_embeds: Optional[torch.Tensor] = None, *,
                     return_hidden: bool = False, remat: bool = False,
-                    tp=None):
+                    tp=None, attn_at=None):
     """tokens [B,S] (or `input_embeds` [B,S,d], which the vlm family
     builds from patch and token embeddings) -> (logits [B,S,V], the
     post-RoPE (k, v) stacked [L,B,S,KH,HD] for prefill cache
     population). With `return_hidden`: the final-norm hidden states
-    [B,S,d] alone (training's path; `remat` checkpoints each layer)."""
+    [B,S,d] alone (training's path; `remat` checkpoints each layer).
+    `attn_at`: each block's attention weights' path in the parameter
+    tree (default "layers"; `Model.attn_paths`)."""
     h = embed_tokens(params, cfg, tokens, tp) if input_embeds is None \
         else input_embeds
     S = h.shape[1]
     positions = torch.arange(S, device=h.device)[None, :]
 
-    def layer(h, lp, ffn):
-        h, kv = full_attn_block(h, lp, cfg, positions, tp)
+    def layer(h, lp, ffn, at):
+        h, kv = full_attn_block(h, lp, cfg, positions, tp, at)
         return ffn(h), kv
     ks, vs = [], []
-    for lp, ffn in blocks:
-        h, (k, v) = remat_call(remat, layer, h, lp, ffn)
+    for l, (lp, ffn) in enumerate(blocks):
+        at = "layers" if attn_at is None else attn_at[l]
+        h, (k, v) = remat_call(remat, layer, h, lp, ffn, at)
         if not return_hidden:
             ks.append(k)
             vs.append(v)
-    h = rms_norm(h, data_whole(params, tp, ("final_norm",))["final_norm"],
-                 cfg.norm_eps)
+    h = final_norm(params, cfg, h, tp)
     if return_hidden:
         return h
     return unembed(params, cfg, h, tp), (torch.stack(ks), torch.stack(vs))
+
+
+def final_norm(params, cfg: ModelConfig, h, tp=None):
+    """The final RMSNorm (its weight whole on the `data` axis)."""
+    return rms_norm(h, data_whole(params, tp, "", ("final_norm",))[
+        "final_norm"], cfg.norm_eps)
 
 
 # ---------------------------------------------------------------------------
@@ -672,75 +765,106 @@ def _proj(x, w):
     return (x @ w.reshape(d, -1)).view(B, S, w.shape[1], w.shape[2])
 
 
-def _mlp(x, mp):
-    """The encdec MLP: GELU (tanh) between two biased projections."""
-    return gelu(x @ mp["w_in"] + mp["b_in"]) @ mp["w_out"] + mp["b_out"]
+def _mlp(x, mp, tp=None):
+    """The encdec MLP: GELU (tanh) between two biased projections. On a
+    rank (`tp`) whose MLP is split (`mlp_split`): its hidden units,
+    column- then row-parallel, and `b_out` added once after the sum."""
+    split = tp is not None and tp.mlp_split
+    y = gelu(model_enter(x, tp, split) @ mp["w_in"] + mp["b_in"]) \
+        @ mp["w_out"]
+    return model_sum(y, tp, split) + mp["b_out"]
 
 
-def _encdec_attn(x_q, x_kv, lp, cfg: ModelConfig, *, causal: bool):
+def _encdec_attn(x_q, x_kv, lp, cfg: ModelConfig, *, causal: bool,
+                 tp=None):
     """Attention with no RoPE and no norm inside (the caller's LN):
     whole-sequence `attention`, which runs the flash kernel on the card
-    (K/V with KH heads, read un-repeated)."""
-    q, k, v = _proj(x_q, lp["wq"]), _proj(x_kv, lp["wk"]), \
-        _proj(x_kv, lp["wv"])
-    return attn_out(attention(q, k, v, causal=causal), lp)
+    (K/V with KH heads, read un-repeated). On a rank (`tp`): its heads,
+    `x_q` entering the split region (and self-attention's keys with
+    it; a cross-attention's `x_kv` has entered already: the caller
+    enters the encoder output once for every layer), the output
+    projection's partial summed over `model`."""
+    xq = model_enter(x_q, tp)
+    xkv = xq if x_kv is x_q else x_kv
+    q, k, v = _proj(xq, lp["wq"]), _proj(xkv, lp["wk"]), \
+        _proj(xkv, lp["wv"])
+    return model_sum(attn_out(attention(q, k, v, causal=causal), lp), tp)
+
+
+def _root(params, tp, name):
+    """The root leaf (or dict) `name` of `params`, whole on `data`."""
+    return data_whole(params, tp, "", (name,))[name]
 
 
 def encoder_forward(params, cfg: ModelConfig, frames: torch.Tensor,
-                    remat: bool = False):
+                    remat: bool = False, tp=None):
     """frames: [B, F, d] precomputed frame embeddings (conv stub) ->
-    encoder output [B, F, d]; `remat` checkpoints each layer."""
+    encoder output [B, F, d]; `remat` checkpoints each layer. `tp`: a
+    training rank's (heads and MLP split over `model`, each layer's
+    FSDP blocks gathered inside it)."""
     F = frames.shape[1]
-    h = frames.to(cfg.dtype) + params["enc_pos"][:F][None].to(cfg.dtype)
+    h = frames.to(cfg.dtype) + _root(params, tp, "enc_pos")[:F][None].to(
+        cfg.dtype)
 
     def layer(h, lp):
+        lp = data_whole(lp, tp, "enc_layers")
         x = _ln(h, lp["ln1"], cfg.norm_eps)
-        h = h + _encdec_attn(x, x, lp["attn"], cfg, causal=False)
+        h = h + _encdec_attn(x, x, lp["attn"], cfg, causal=False, tp=tp)
         x = _ln(h, lp["ln2"], cfg.norm_eps)
-        return h + _mlp(x, lp["mlp"])
+        return h + _mlp(x, lp["mlp"], tp)
     for lp in layers_of(params["enc_layers"]):
         h = remat_call(remat, layer, h, lp)
-    return _ln(h, params["enc_final"], cfg.norm_eps)
+    return _ln(h, _root(params, tp, "enc_final"), cfg.norm_eps)
 
 
-def encdec_cross_mlp(h, lp, enc, cfg: ModelConfig):
+def encdec_cross_mlp(h, lp, enc, cfg: ModelConfig, tp=None):
     """A decoder layer after its self-attention: cross-attention over
     the static encoder output (its K/V recomputed from `enc`, as the
-    reference does), then the MLP."""
+    reference does), then the MLP. `tp`: a rank's (the cross-attention's
+    K/V from its heads of `enc`, which has entered the split region)."""
     x = _ln(h, lp["ln2"], cfg.norm_eps)
-    h = h + _encdec_attn(x, enc, lp["cross_attn"], cfg, causal=False)
+    h = h + _encdec_attn(x, enc, lp["cross_attn"], cfg, causal=False,
+                         tp=tp)
     x = _ln(h, lp["ln3"], cfg.norm_eps)
-    return h + _mlp(x, lp["mlp"])
+    return h + _mlp(x, lp["mlp"], tp)
 
 
 def encdec_forward(params, cfg: ModelConfig, tokens, enc_embeds, *,
-                   return_hidden: bool = False, remat: bool = False):
+                   return_hidden: bool = False, remat: bool = False,
+                   tp=None):
     """Teacher-forced decode over the encoder output. tokens [B,S] ->
     (logits [B,S,V], the decoder's self-attention (k, v) stacked
     [L,B,S,KH,HD], encoder output [B,F,d]). With `return_hidden`: the
     decoder's final-norm hidden states [B,S,d] alone (`remat`
-    checkpoints each encoder and decoder layer)."""
-    enc = encoder_forward(params, cfg, enc_embeds, remat=remat)
+    checkpoints each encoder and decoder layer). `tp`: a training
+    rank's (the module docstring): its heads, its MLP hidden units and
+    its vocabulary rows where the axis divides them."""
+    enc = encoder_forward(params, cfg, enc_embeds, remat=remat, tp=tp)
+    # entered once: every layer's share of its gradient sums before the
+    # one sum over `model` (and, at one rank, in the unmeshed order)
+    enc_in = model_enter(enc, tp)
     S = tokens.shape[1]
-    h = (params["embed"][tokens.long()]
-         + params["dec_pos"][:S][None]).to(cfg.dtype)
+    h = (embed_rows(params, tokens, tp)
+         + _root(params, tp, "dec_pos")[:S][None]).to(cfg.dtype)
 
     def layer(h, lp, enc):
+        lp = data_whole(lp, tp, "dec_layers")
         sa = lp["self_attn"]
-        x = _ln(h, lp["ln1"], cfg.norm_eps)
+        x = model_enter(_ln(h, lp["ln1"], cfg.norm_eps), tp)
         q, k, v = _proj(x, sa["wq"]), _proj(x, sa["wk"]), _proj(x, sa["wv"])
-        h = h + attn_out(attention(q, k, v, causal=True), sa)
-        return encdec_cross_mlp(h, lp, enc, cfg), (k, v)
+        h = h + model_sum(attn_out(attention(q, k, v, causal=True), sa), tp)
+        return encdec_cross_mlp(h, lp, enc, cfg, tp), (k, v)
     ks, vs = [], []
     for lp in layers_of(params["dec_layers"]):
-        h, (k, v) = remat_call(remat, layer, h, lp, enc)
+        h, (k, v) = remat_call(remat, layer, h, lp, enc_in)
         if not return_hidden:
             ks.append(k)
             vs.append(v)
-    h = _ln(h, params["dec_final"], cfg.norm_eps)
+    h = _ln(h, _root(params, tp, "dec_final"), cfg.norm_eps)
     if return_hidden:
         return h
-    return unembed(params, cfg, h), (torch.stack(ks), torch.stack(vs)), enc
+    return unembed(params, cfg, h, tp), (torch.stack(ks), torch.stack(vs)), \
+        enc
 
 
 def encdec_decode_step(params, cfg: ModelConfig, cache: PagedKVCache,

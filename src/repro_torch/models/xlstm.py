@@ -21,6 +21,21 @@ widened to f32.
 The family has no KV cache: its decode state is a fixed-size set of
 recurrent tensors that every step reads whole, so the paper's
 placement does not apply to it.
+
+On a training rank of a mesh (`tp`, a `transformer.TensorParallel`,
+and a rank-local config, `XLSTMConfig.shards`) a block computes its
+heads. mLSTM: the sharding rules cut `w_up` (x | z), the conv and the
+input dim of `wq`, `wk` and `wv`, none of which follows the heads, so
+the rank gathers them over `model` and runs the up projection, the conv
+and q, k, v whole; its heads of q, k, v and z enter the split region
+there, the gates come from its heads' columns of `wi` and `wf` (cut by
+heads), and the gated norm (a summed mean of squares) and the output
+projection (a partial summed over `model`) run on its heads' block of
+the inner width. sLSTM: its heads' block of d (the recurrent `r{z,i,f,
+o}` cut by heads; the columns of `w{z,i,f,o}` and `b{z,i,f,o}`, the
+weight of the gated norm and the rows of `w_out`, held whole, cut here
+from the whole) runs the recurrence, the norm and the projection
+likewise.
 """
 
 from __future__ import annotations
@@ -31,8 +46,28 @@ import torch.nn.functional as F
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import causal_conv, rms_norm
 from repro_torch.models.params import Param
+from repro_torch.models.transformer import (
+    data_whole, model_enter, model_own, model_part, model_sum, model_whole,
+    split_rms_norm,
+)
 
 NEG = -1e30
+#: an mLSTM rank's leaves gathered over `model` (cut across its heads),
+#: and those it uses as its heads' block, by the dim the heads follow
+MLSTM_WHOLE = ("w_up", "conv_w", "conv_b", "wq", "wk", "wv")
+MLSTM_HEADS = {"wi": 1, "wf": 1, "bi": 0, "bf": 0, "y_norm": 0, "w_out": 0}
+#: an sLSTM rank's heads' blocks, by dim
+SLSTM_HEADS = {**{f"{w}{g}": 1 if w == "w" else 0
+                  for w in "wrb" for g in "zifo"}, "y_norm": 0, "w_out": 0}
+
+
+def _rank_leaves(lp, tp, at, whole, heads):
+    """A rank's weights of one block at path `at`: FSDP blocks gathered
+    over `data`, the leaves `whole` gathered over `model`, and of each
+    leaf in `heads` its heads' block on the given dim."""
+    lp = model_whole(data_whole(lp, tp, at), tp, at, whole)
+    return {**lp, **{k: model_own(lp, tp, at, k, d)
+                     for k, d in heads.items()}}
 
 
 # ---------------------------------------------------------------------------
@@ -102,42 +137,56 @@ def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def _mlstm_inputs(h, lp, cfg: ModelConfig):
-    d = cfg.d_model
-    inner = cfg.xlstm.expand * d
+    """(x path, z, inner, H, P): the up projection at the whole model's
+    width; inner, H and P what the block computes (a rank's share,
+    `XLSTMConfig.shards`)."""
+    inner = cfg.xlstm.expand * cfg.d_model // cfg.xlstm.shards
     H = cfg.num_heads
-    P = inner // H
     x = rms_norm(h, lp["norm"], cfg.norm_eps)
     xpath, z = torch.chunk(x @ lp["w_up"], 2, dim=-1)
-    return xpath, z, inner, H, P
+    return xpath, z, inner, H, inner // H
 
 
-def _qkv_gates(xconv, xpath, lp, H, P):
+def _qkv_gates(xconv, xpath, lp, H, P, tp=None):
     """(q, k scaled by P^-1/2, v, input gate, log forget gate), all f32:
-    q, k and the gates from the conv path, v from the plain path."""
+    q, k and the gates from the conv path, v from the plain path. On a
+    rank (`tp`): q, k, v of the whole width, then its heads' block; the
+    gates from its heads' columns."""
     B_, S, _ = xconv.shape
-    q = _mm(xconv, lp["wq"]).reshape(B_, S, H, P)
-    k = _mm(xconv, lp["wk"]).reshape(B_, S, H, P)
-    v = _mm(xpath, lp["wv"]).reshape(B_, S, H, P)
+
+    def heads(t):
+        return model_part(t, tp, -1).reshape(B_, S, H, P)
+    q = heads(_mm(xconv, lp["wq"]))
+    k = heads(_mm(xconv, lp["wk"]))
+    v = heads(_mm(xpath, lp["wv"]))
     k = k.float() * (P ** -0.5)
-    ig = (_mm(xconv, lp["wi"]) + lp["bi"]).float()
-    fg = (_mm(xconv, lp["wf"]) + lp["bf"]).float()
+    xg = model_enter(xconv, tp)
+    ig = (_mm(xg, lp["wi"]) + lp["bi"]).float()
+    fg = (_mm(xg, lp["wf"]) + lp["bf"]).float()
     return q.float(), k, v.float(), ig, F.logsigmoid(fg)
 
 
-def _mlstm_out(y, z, lp, cfg: ModelConfig):
+def _mlstm_out(y, z, lp, cfg: ModelConfig, tp=None):
     """y [..., inner] f32 gated by silu(z), normed in the model dtype,
-    projected out to d."""
+    projected out to d (on a rank: the norm's mean of squares and the
+    projection's partial summed over `model`)."""
     y = y * F.silu(z.float())
-    y = rms_norm(y.to(cfg.dtype), lp["y_norm"], cfg.norm_eps)
-    return y @ lp["w_out"]
+    y = split_rms_norm(y.to(cfg.dtype), lp["y_norm"], cfg.norm_eps, tp)
+    return model_sum(y @ lp["w_out"], tp)
 
 
-def mlstm_forward_layer(h, lp, cfg: ModelConfig):
-    """h [B,S,d] -> [B,S,d] (residual added by the caller)."""
+def mlstm_forward_layer(h, lp, cfg: ModelConfig, tp=None,
+                        at: str = "mlstm"):
+    """h [B,S,d] -> [B,S,d] (residual added by the caller). `tp`: a
+    training rank's, with `lp` its blocks of the weights at path `at`
+    (the module docstring)."""
     B_, S, d = h.shape
+    if tp is not None:
+        lp = _rank_leaves(lp, tp, at, MLSTM_WHOLE, MLSTM_HEADS)
     xpath, z, inner, H, P = _mlstm_inputs(h, lp, cfg)
     xconv = F.silu(causal_conv(xpath, lp["conv_w"], lp["conv_b"]))
-    q, k, v, ig, lf = _qkv_gates(xconv, xpath, lp, H, P)
+    q, k, v, ig, lf = _qkv_gates(xconv, xpath, lp, H, P, tp)
+    z = model_part(z, tp, -1)
 
     Q = min(cfg.xlstm.chunk, S)
     S_real = S
@@ -192,7 +241,7 @@ def mlstm_forward_layer(h, lp, cfg: ModelConfig):
         m = m_new
     y = torch.stack(ys, dim=1)                              # [B,nc,H,Q,P]
     y = y.permute(0, 1, 3, 2, 4).reshape(B_, S, inner)
-    return _mlstm_out(y, z, lp, cfg)[:, :S_real]
+    return _mlstm_out(y, z, lp, cfg, tp)[:, :S_real]
 
 
 def _mlstm_cell(C, n, m, qt, kt, vt, it, lft):
@@ -251,8 +300,7 @@ def _slstm_step(lp, cfg: ModelConfig, carry, xt):
     """carry: (c, n, m, hprev) each [B,H,P] f32; xt: [B,d] normed input.
     Returns (the new carry, h [B,H,P])."""
     c, n, m, hprev = carry
-    H = cfg.num_heads
-    P = cfg.d_model // H
+    H, P = _slstm_dims(cfg)
     B_ = xt.shape[0]
 
     def gate(name):
@@ -275,25 +323,36 @@ def _slstm_step(lp, cfg: ModelConfig, carry, xt):
     return (c, n, m_new, hnew), hnew
 
 
-def _slstm_out(y, lp, cfg: ModelConfig):
-    y = rms_norm(y.to(cfg.dtype), lp["y_norm"], cfg.norm_eps)
-    return y @ lp["w_out"]
+def _slstm_dims(cfg: ModelConfig):
+    """(heads, head dim P) of what an sLSTM block computes (a rank's
+    share of the heads: `XLSTMConfig.shards`)."""
+    H = cfg.num_heads
+    return H, cfg.d_model // (H * cfg.xlstm.shards)
 
 
-def slstm_forward_layer(h, lp, cfg: ModelConfig):
+def _slstm_out(y, lp, cfg: ModelConfig, tp=None):
+    y = split_rms_norm(y.to(cfg.dtype), lp["y_norm"], cfg.norm_eps, tp)
+    return model_sum(y @ lp["w_out"], tp)
+
+
+def slstm_forward_layer(h, lp, cfg: ModelConfig, tp=None,
+                        at: str = "slstm"):
     """h [B,S,d] -> [B,S,d]: the recurrence over time (the reference's
-    `lax.scan`) as a Python loop."""
+    `lax.scan`) as a Python loop. `tp`: a training rank's, with `lp` its
+    blocks of the weights at path `at` (the module docstring)."""
     B_, S, d = h.shape
-    H, P = cfg.num_heads, d // cfg.num_heads
-    x = rms_norm(h, lp["norm"], cfg.norm_eps)
+    H, P = _slstm_dims(cfg)
+    if tp is not None:
+        lp = _rank_leaves(lp, tp, at, (), SLSTM_HEADS)
+    x = model_enter(rms_norm(h, lp["norm"], cfg.norm_eps), tp)
     z0 = torch.zeros((B_, H, P), dtype=torch.float32, device=h.device)
     carry = (z0, z0, torch.full_like(z0, NEG), z0)
     ys = []
     for t in range(S):
         carry, y = _slstm_step(lp, cfg, carry, x[:, t])
         ys.append(y)
-    y = torch.stack(ys, dim=1).reshape(B_, S, d)
-    return _slstm_out(y, lp, cfg)
+    y = torch.stack(ys, dim=1).reshape(B_, S, H * P)
+    return _slstm_out(y, lp, cfg, tp)
 
 
 def slstm_decode_layer(h, lp, cfg: ModelConfig, state):

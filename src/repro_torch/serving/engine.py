@@ -306,9 +306,8 @@ MESH_REFUSALS = {
               "across a mesh is not ported yet: a meshed engine holds "
               "only its rank's weight shards; serve() spans the mesh, or "
               "use an engine without one",
-    "train": "training across a mesh runs the dense and moe families "
-             "over a model axis that divides their KV heads; {what} is not "
-             "ported yet",
+    "train": "training across a mesh runs every family over a model "
+             "axis that divides its KV heads; {what} is not ported yet",
     "dryrun": "the dry run's --mesh multi (per-card shard bytes of the "
               "512-card twin-pod mesh) spans more than one card and is "
               "not ported yet",

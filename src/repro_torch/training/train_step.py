@@ -8,24 +8,26 @@ forward and backward (`kernels.flash_attention.FlashAttention`), on the
 CPU the plain version. Gradient accumulation in f32 and a bf16 compute /
 f32 optimizer-state split are built in, as in the reference.
 
-Across a (`data`, `model`) mesh (`make_train_step(..., mesh=)`, the
-dense and moe families) the step is explicit SPMD, one process a rank,
-as the meshed serve: the rank holds its train-mode shards of the
-parameters and of m and v (`bridge.shard_params(..., mode="train")`:
-tensor parallelism over `model` — a moe model's experts split over it,
-expert parallelism —, FSDP blocks over `data`), takes its rows of each
-micro-batch (`launch.shardings.tokens_sharding`; every rank takes every
-row where `data` does not divide them), and runs the rank-local model
-(`TrainMesh`) whose collectives carry the gradient (`launch.mesh`). A
-moe model routes over every data rank's rows of the micro-batch, as the
-unsplit step does (`models.moe`); its router, whole on every rank and
-used on each model rank's experts alone, has its gradient summed over
-`model` (`enter`). The loss is the mean over every data rank's rows;
-the FSDP leaves' gradients come out of their gathers' backward
-reduce-scattered over `data`, the leaves whole on `data` are summed
-over it here, and the global norm counts each element of the whole
-model once. The step then equals the unmeshed one up to the order of
-its sums.
+Across a (`data`, `model`) mesh (`make_train_step(..., mesh=)`, every
+family) the step is explicit SPMD, one process a rank, as the meshed
+serve: the rank holds its train-mode shards of the parameters and of m
+and v (`bridge.shard_params(..., mode="train")`: tensor parallelism
+over `model` — a moe model's experts split over it, expert
+parallelism; a recurrent block's heads, with the leaves the rules cut
+across its heads gathered over it, `models.ssm`, `models.xlstm` —,
+FSDP blocks over `data`), takes its rows of each micro-batch
+(`launch.shardings.tokens_sharding`; every rank takes every row where
+`data` does not divide them; a modality extra's rows alike), and runs
+the rank-local model (`TrainMesh`) whose collectives carry the gradient
+(`launch.mesh`). A moe model routes over every data rank's rows of the
+micro-batch, as the unsplit step does (`models.moe`); its router,
+whole on every rank and used on each model rank's experts alone, has
+its gradient summed over `model` (`enter`). The loss is the mean over
+every data rank's rows; the FSDP leaves' gradients come out of their
+gathers' backward reduce-scattered over `data`, the leaves whole on
+`data` are summed over it here, and the global norm counts each element
+of the whole model once. The step then equals the unmeshed one up to
+the order of its sums.
 """
 
 from __future__ import annotations
@@ -124,22 +126,38 @@ def value_and_grad(model: Model, params, tokens, extra=None,
     return loss.detach(), tree_unflatten(params, grads)
 
 
-#: the families a train step runs across a mesh
-MESH_FAMILIES = ("dense", "moe")
-
-
 def check_train_mesh(cfg: ModelConfig, model_size: int) -> None:
     """Raise NotImplementedError naming it (`refuse_mesh("train")`) when
     training `cfg` across a mesh whose `model` axis has `model_size`
-    ranks is left out: a family other than dense and moe, or a model
-    axis that does not divide the KV heads. Needs no rank: the train
-    CLI asks before it starts any."""
+    ranks is left out: a model axis that does not divide the KV heads
+    (every family trains across a mesh otherwise). Needs no rank: the
+    train CLI asks before it starts any."""
     from repro_torch.serving.engine import refuse_mesh
-    if cfg.family not in MESH_FAMILIES:
-        refuse_mesh("train", what=f"the {cfg.family} family")
     if not splits(cfg.kv_heads, model_size):
         refuse_mesh("train", what=f"a model axis of {model_size} over "
                                   f"{cfg.kv_heads} KV heads")
+
+
+def layer_dims(cfg: ModelConfig, specs, axis: str) -> Dict[str, int]:
+    """{leaf path: the dim `axis` splits, of one layer's weights for a
+    stacked leaf} for each leaf of `cfg` that `specs` (by path) split
+    over `axis`: how a block, handed one layer's weights, finds its
+    blocks (`TensorParallel.data_dims`, `.model_dims`)."""
+    from repro_torch.tree import path_name
+    out = {}
+
+    def walk(schema, prefix):
+        for k, p in schema.items():
+            if isinstance(p, dict):
+                walk(p, prefix + (k,))
+                continue
+            name = path_name(prefix + (k,))
+            d = next((d for d, entry in enumerate(specs[name])
+                      if axis in spec_axes((entry,))), None)
+            if d is not None:
+                out[name] = d - (p.axes[:1] == ("layers",))
+    walk(Model(cfg).schema(), ())
+    return out
 
 
 @dataclasses.dataclass
@@ -169,18 +187,13 @@ class TrainMesh:
         check_train_mesh(cfg, sizes["model"])
         coord = mesh_mod.mesh_coordinate(mesh)
         specs = param_specs(cfg, mesh, "train")
-        data_dims = {}
-        for name, spec in specs.items():
-            d = data_dim(spec)
-            if d is not None:           # a layer's leaf loses its [L] dim
-                key = name.split("/")[-1]
-                data_dims[key] = d - 1 if name.startswith("layers/") else d
         tp = TensorParallel.of(
             cfg, sizes["model"], coord["model"],
             reduce=lambda t: mesh_mod.sum_model(t, mesh),
             gather=lambda t, dim: mesh_mod.gather_model(t, mesh, dim),
             enter=lambda t: mesh_mod.enter_model(t, mesh),
-            data_dims=data_dims,
+            data_dims=layer_dims(cfg, specs, "data"),
+            model_dims=layer_dims(cfg, specs, "model"),
             gather_data=lambda t, dim: mesh_mod.gather_data(t, mesh, dim),
             gather_rows=lambda t, dim: mesh_mod.gather_data(t, mesh, dim))
         device = mesh_mod.mesh_device(mesh)
@@ -243,8 +256,9 @@ def make_train_step(model: Model, *, accum_steps: int = 1,
     metrics: {"loss", "grad_norm", "step"}, tensors on the device (no
     host sync inside the step).
 
-    With `mesh` (a (`data`, `model`) `DeviceMesh`; the dense and moe
-    families, `check_train_mesh`): every rank calls the step with its
+    With `mesh` (a (`data`, `model`) `DeviceMesh`; any family whose KV
+    heads the `model` axis divides, `check_train_mesh`): every rank
+    calls the step with its
     own state (`init_train_state(..., mesh=)`,
     `bridge.train_state_from_jax(..., mesh=)`: its train-mode shards)
     and the same global batch; accum_steps splits it into micro-batches

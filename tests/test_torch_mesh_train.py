@@ -343,16 +343,17 @@ def test_collectives_transpose_each_other(runs):
 
 
 @pytest.mark.parametrize("arch,model,want", [
-    ("internvl2-2b", 2, "the vlm family"),
-    ("whisper-tiny", 2, "the encdec family"),
-    ("zamba2-1.2b", 2, "the hybrid family"),
-    ("xlstm-125m", 2, "the xlstm family"),
+    ("internvl2-2b", 4, "a model axis of 4 over 2 KV heads"),
+    ("whisper-tiny", 3, "a model axis of 3 over 4 KV heads"),
+    ("zamba2-1.2b", 3, "a model axis of 3 over 4 KV heads"),
+    ("xlstm-125m", 8, "a model axis of 8 over 4 KV heads"),
     ("internlm2-1.8b", 4, "a model axis of 4 over 2 KV heads"),
 ], ids=["vlm", "encdec", "hybrid", "xlstm", "kv-heads"])
 def test_what_is_left_out_is_refused_by_name(arch, model, want):
-    """Training across a mesh refuses, naming it, a family other than
-    dense and moe and a model axis that does not divide the KV heads,
-    before any rank is needed: the train CLI and the step alike."""
+    """Training across a mesh refuses, naming it, a model axis that does
+    not divide the KV heads (the `pages` and `none` pool rules' case),
+    for every family, before any rank is needed: the train CLI and the
+    step alike."""
     from repro_torch.launch import train as ttrain
     cfg = tconfigs.get_smoke(arch)
     with pytest.raises(NotImplementedError, match="not ported yet") as err:

@@ -199,9 +199,10 @@ def test_sampled_streams_are_reproducible(models, prompts):
 def test_later_slices_raise(models, prompts, ask):
     """What the port leaves out of the mesh raises NotImplementedError
     naming it, never runs something else: a model axis that does not
-    divide the KV heads (the `pages` pool rule), training the vlm family
-    across a mesh, the dry run's twin-pod mesh. The refusals come before
-    any rank is needed, so a mesh of names and sizes stands for one."""
+    divide the KV heads (the `pages` pool rule; in training the same
+    case, the vlm family's 2 KV heads over a model axis of 4), the dry
+    run's twin-pod mesh. The refusals come before any rank is needed, so
+    a mesh of names and sizes stands for one."""
     from repro_torch.launch import dryrun
     from repro_torch.launch import train as ttrain
     from repro_torch.launch.mesh import AbstractMesh
@@ -216,7 +217,7 @@ def test_later_slices_raise(models, prompts, ask):
                           mesh=AbstractMesh(("data", "model"), (1, 4)))
         elif ask == "train":
             ttrain.main(["--arch", "internvl2-2b", "--smoke",
-                         "--device", "cpu", "--model", "2"])
+                         "--device", "cpu", "--model", "4"])
         else:
             dryrun.run_cell("internlm2-1.8b", "decode_32k", "multi")
     assert want in str(err.value)
