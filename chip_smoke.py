@@ -80,8 +80,11 @@ non-zero):
              (not causal, Sq = 64, 37 and 1 over Sk = 1500: keys past
              Sk masked); time it at the prefill shapes (whisper's
              cross-attention in prefill among them), a training rank's
-             (phase 14), granite-moe's training shape (phase 15c) and
+             (phase 14), granite-moe's training shape (phase 15c),
              whisper's cross-attention on a training rank (phase 16)
+             and a meshed `start`'s rank shapes (phase 17b: internlm2
+             at H/KH = 8/4 and 4/2, llama31-8b at 16/4 and 8/2, B=4,
+             S=2304, D=128)
              beside the plain version, one scaled_dot_product_attention
              call (enable_gqa, on [B, H, S, D] copies made outside the
              timed region) and its bound.
@@ -347,6 +350,26 @@ non-zero):
              kernel and its backward at each rank's heads
              (`family_train_split`; phases 2b and 2d check those shapes
              against the plain versions).
+
+  17a. mesh stream the single-stream path of a meshed engine at world
+             size 1, on phase 4's internlm2-1.8b weights (after phase
+             13a) and phase 7's granite-moe-3b-a800m weights (after 15a):
+             `start` of 4 prompts of 2304 tokens (granite-moe: 1024),
+             `run` of 32 teacher-forced tokens and `generate(64)` at
+             telemetry_stride 16 on an unmeshed engine, freed, then on a
+             new `ServingEngine(..., mesh=)` over a world-size-1 NCCL
+             group: start logits, run logits, tokens and StepStats bytes
+             bitwise equal; start wall, generate's tokens/s both ways and
+             the captures; flash once per layer at `start`, the paged
+             kernel twice per layer per step (`mesh_stream`).
+  17b. prefill split one full-width layer's whole-prompt prefill (B=4,
+             S=2304) of internlm2-1.8b and llama31-8b split over a model
+             axis of 2 and 4, rank after rank on one card: each rank's
+             K/V written to its cache equal to the unsplit cache's
+             KV-head slices, the ranks' partial attention and MLP
+             outputs summed in bf16 within PREFILL_SPLIT_TOL of the
+             unsplit layer's, the flash kernel at each rank's heads
+             against its plain version (`prefill_split`).
 
 Then a `kernels` JSON line, the card's name and power limit, and, last,
 {"ok": true, "device": {...}}. Without a CUDA card it exits non-zero
@@ -1209,6 +1232,16 @@ FLASH_SHAPES = (
     # granite-moe's training shape (phase 15c)
     ("granite-moe-3b-a800m train", 8, 512, 512, 24, 8, 64, "bf16", True,
      True),
+    # a meshed engine's `start` at a rank's heads (phase 17b): the whole
+    # prompt of internlm2 and llama31-8b over model = 2 and 4
+    ("internlm2-1.8b prefill rank, model=2", 4, 2304, 2304, 8, 4, 128,
+     "bf16", True, True),
+    ("internlm2-1.8b prefill rank, model=4", 4, 2304, 2304, 4, 2, 128,
+     "bf16", True, True),
+    ("llama31-8b prefill rank, model=2", 4, 2304, 2304, 16, 4, 128,
+     "bf16", True, True),
+    ("llama31-8b prefill rank, model=4", 4, 2304, 2304, 8, 2, 128,
+     "bf16", True, True),
     # phase 16's training ranks: internvl2 (256 patches + 512 tokens),
     # whisper's encoder, decoder and cross-attention and zamba2's sites,
     # at model = 2 and 4
@@ -4779,6 +4812,269 @@ def family_train_split_phase(seed, device="cuda", get=None, rows=TRAIN_B,
     return counts, out
 
 
+# --------------------------------------------------------------------------
+# phase 17: the single-stream path of a meshed engine
+# --------------------------------------------------------------------------
+
+#: phase 17a's stream: lanes, teacher-forced `run` steps, `generate`
+#: steps (at telemetry_stride 16: 2 and 4 chunks)
+MESH_STREAM_B, MESH_STREAM_RUN, MESH_STREAM_GEN = 4, 32, 64
+#: phase 17a's configs and prompt tokens
+MESH_STREAMS = (("internlm2-1.8b", 2304), ("granite-moe-3b-a800m", 1024))
+
+
+def mesh_stream_drive(eng, prompts, fed):
+    """`start(prompts)`, `run` teacher-forced over its greedy token and
+    then `fed` [MESH_STREAM_RUN - 1, B], `generate(MESH_STREAM_GEN)` from
+    run's last greedy token (its chunks captured on a new engine), then
+    `generate(MESH_STREAM_GEN)` again from its last token (replayed).
+    Returns (the outputs and StepStats bytes, {"start_s", "generate_s",
+    "again_s"}, the launches by kernel of the first three calls)."""
+    import torch
+    from repro_torch.kernels.build import COUNTS
+    COUNTS.clear()                      # the main path's run only
+    torch.cuda.synchronize()
+    t0 = time.time()
+    logits = eng.start(prompts)
+    torch.cuda.synchronize()
+    t_start = time.time() - t0
+    run = eng.run(torch.cat([logits.argmax(-1).to(torch.int32)[None], fed]))
+    torch.cuda.synchronize()
+    t0 = time.time()
+    tokens = eng.generate(run[-1].argmax(-1).to(torch.int32),
+                          MESH_STREAM_GEN)
+    torch.cuda.synchronize()
+    t_gen = time.time() - t0
+    counts = dict(COUNTS)
+    t0 = time.time()
+    again = eng.generate(tokens[-1], MESH_STREAM_GEN)
+    torch.cuda.synchronize()
+    t_again = time.time() - t0
+    out = {"start": logits, "run": run, "tokens": tokens, "again": again,
+           "bytes": [(s.h_read, s.e_read, s.m_in, s.m_out)
+                     for s in eng.stats]}
+    return out, {"start_s": t_start, "generate_s": t_gen,
+                 "again_s": t_again}, counts
+
+
+def mesh_stream_phase(model, params, seed, prompt_len):
+    """Phase 17a: the single-stream path of a meshed engine at world size
+    1. `start` of MESH_STREAM_B prompts of `prompt_len` tokens, `run` of
+    MESH_STREAM_RUN teacher-forced tokens and `generate(MESH_STREAM_GEN)`
+    at telemetry_stride 16, then `generate` again (replayed), on an
+    unmeshed engine, which is then freed, and the same on a new
+    `ServingEngine(..., mesh=)` over a world-size-1 NCCL group
+    (`world_of_one`), on the same weights: the meshed stream's lanes,
+    rank-local model and collectives (each an identity at size 1) inside
+    its captured chunks. Start logits, run logits, generated tokens and
+    every StepStats row's bytes must be bitwise equal; flash once per
+    layer at `start`, the paged kernel twice per layer per decode step
+    (of `start`, `run` and the first `generate`). Returns the meshed
+    run's launches by kernel and the numbers."""
+    import torch
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    cfg = model.cfg
+    L, B = cfg.num_layers, MESH_STREAM_B
+    rng = np.random.default_rng(seed + 17)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab, (B, prompt_len)),
+                              dtype=torch.int32, device="cuda")
+    fed = torch.as_tensor(rng.integers(0, cfg.vocab,
+                                       (MESH_STREAM_RUN - 1, B)),
+                          dtype=torch.int32, device="cuda")
+    ecfg = EngineConfig(max_context=4096, hbm_fraction=0.25,
+                        policy="importance", telemetry_stride=16)
+    eng = ServingEngine(model, params, ecfg)
+    want, t_want, _ = mesh_stream_drive(eng, prompts, fed)
+    captures_want = sum(eng.captures.values())
+    del eng
+    free_card()
+    with world_of_one("chip_smoke_stream_") as mesh:
+        eng = ServingEngine(model, params, ecfg, mesh=mesh)
+        torch.cuda.reset_peak_memory_stats()
+        got, t_got, counts = mesh_stream_drive(eng, prompts, fed)
+        captures = dict(eng.captures)
+        peak = torch.cuda.max_memory_allocated()
+        del eng
+        free_card()
+    same = {k: torch.equal(got[k], want[k])
+            for k in ("start", "run", "tokens", "again")}
+    same["bytes"] = got["bytes"] == want["bytes"]
+    steps = MESH_STREAM_RUN + MESH_STREAM_GEN
+    launches = (counts.get("flash_attention", 0),
+                counts.get("paged_attention", 0))
+    rate = {(k, g): B * MESH_STREAM_GEN / t[f"{g}_s"]
+            for k, t in (("meshed", t_got), ("unmeshed", t_want))
+            for g in ("generate", "again")}
+    log(f"mesh stream {cfg.name}: B={B} S={prompt_len}, start "
+        f"{t_got['start_s']:.3f} s (unmeshed {t_want['start_s']:.3f}), "
+        f"generate({MESH_STREAM_GEN}) {rate['meshed', 'generate']:.1f} "
+        f"tokens/s with its captures (unmeshed "
+        f"{rate['unmeshed', 'generate']:.1f}), again "
+        f"{rate['meshed', 'again']:.1f} replayed (unmeshed "
+        f"{rate['unmeshed', 'again']:.1f}); data=1 model=1 over NCCL; "
+        f"bitwise equal to the unmeshed stream: start logits "
+        f"{same['start']} run logits {same['run']} tokens {same['tokens']} "
+        f"again {same['again']} step bytes {same['bytes']}; captures "
+        f"{sum(captures.values())} "
+        f"(unmeshed {captures_want}): "
+        f"{', '.join(graph_label(k) for k in captures)}; launches flash "
+        f"{launches[0]} paged {launches[1]} row copies "
+        f"{counts.get('page_copy', 0)}; peak memory {peak / 1e9:.2f} GB; "
+        f"card {card_line()}")
+    if not all(same.values()):
+        raise AssertionError(f"mesh stream {cfg.name} differs from the "
+                             f"unmeshed stream: {same}")
+    if launches != (L, 2 * L * steps):
+        raise AssertionError(f"mesh stream {cfg.name}: (flash, paged) "
+                             f"launches {launches}, expected "
+                             f"{(L, 2 * L * steps)}")
+    return counts, {"start_s": t_got["start_s"],
+                    "unmeshed_start_s": t_want["start_s"],
+                    "tokens_per_s": rate["meshed", "generate"],
+                    "unmeshed_tokens_per_s": rate["unmeshed", "generate"],
+                    "again_tokens_per_s": rate["meshed", "again"],
+                    "unmeshed_again_tokens_per_s": rate["unmeshed", "again"],
+                    "captures": sum(captures.values()),
+                    "unmeshed_captures": captures_want}
+
+
+#: phase 17b's layers: (config, model axis sizes), B=4 x S=2304
+PREFILL_SPLITS = (("internlm2-1.8b", (2, 4)), ("llama31-8b", (2, 4)))
+#: a split prefill layer against the unsplit one (bf16): max |split -
+#: unsplit| over max |unsplit| of the attention block's and the MLP's
+#: outputs, the ranks' partial outputs summed in bf16 in rank order;
+#: about twice the largest seen on an H100 (attention 7.6e-3, MLP
+#: 7.5e-3, llama31-8b at model = 4)
+PREFILL_SPLIT_TOL = {"attn": 1.5e-2, "mlp": 1.5e-2}
+
+
+def prefill_layer(lp, cfg, h, positions, geo):
+    """One layer's whole-prompt prefill under `cfg` (a rank-local one on
+    a rank's shard): attention (the flash kernel on the card) and its
+    K/V written to a fresh cache of `geo`, then the function giving the
+    MLP's output. Returns (q, k, v, attention out [B, S, H, HD],
+    attention output [B, S, d], the cache, mlp(h2) -> [B, S, d])."""
+    from repro_torch.kvcache.paged import prefill_cache
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import attention, rms_norm, swiglu
+    x = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
+    q, k, v = tfm.attn_qkv(x, lp, cfg, positions)
+    o = attention(q, k, v)
+    cache = prefill_cache(geo, k[None], v[None], h.shape[1])
+
+    def mlp(h2):
+        return swiglu(rms_norm(h2, lp["mlp_norm"], cfg.norm_eps),
+                      lp["w_gate"], lp["w_up"], lp["w_down"])
+    return q, k, v, o, tfm.attn_out(o, lp), cache, mlp
+
+
+def prefill_split_phase(seed):
+    """Phase 17b: the tensor-parallel split of one full-width layer's
+    whole-prompt prefill (B=4, S=2304, the path of a meshed engine's
+    `start`) on one card, rank after rank, for each of PREFILL_SPLITS:
+    each rank's shard (`bridge.shard_params`, `ModelConfig.rank_local`)
+    runs the attention block (the flash kernel at the rank's heads, held
+    against its plain version on the rank's q, k, v within FLASH_TOL)
+    and writes its K/V into a cache of its KV heads, whose pools and
+    tables must equal the unsplit layer's cache's KV-head slices; the
+    ranks' partial outputs summed in bf16 in rank order (as
+    `all_reduce_sum` sums them), then the MLP's likewise on the summed
+    residual, within PREFILL_SPLIT_TOL of the unsplit layer's. Returns
+    the launches by kernel of the split layers (`prefill_split`)."""
+    import dataclasses
+    import torch
+    from repro_torch import bridge, configs
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.build import COUNTS
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.models.model import Model
+    from repro_torch.models.transformer import layers_of
+    device = torch.device("cuda")
+    B, S = 4, 2304
+    total = collections.Counter()
+    for name, sizes in PREFILL_SPLITS:
+        cfg = dataclasses.replace(configs.get(name), num_layers=1)
+        params = Model(cfg).init(seed, device=device)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed + 17)
+        h = torch.randn((B, S, cfg.d_model), generator=gen, device=device,
+                        dtype=torch.bfloat16)
+        positions = torch.arange(S, device=device)[None]
+        geo = Model(cfg).cache_geometry(B, 4096, hbm_fraction=0.25)
+        _, k, v, _, attn, cache, mlp = prefill_layer(
+            layers_of(params["layers"])[0], cfg, h, positions, geo)
+        h2 = h + attn
+        y = mlp(h2)
+        for m in sizes:
+            local = cfg.rank_local(m)
+            kh = cfg.kv_heads // m
+            lgeo = Model(local).cache_geometry(B, 4096, hbm_fraction=0.25)
+            mesh = AbstractMesh(("data", "model"), (1, m))
+            parts, mlps, flash_err, kv_err, kv_same = [], [], 0.0, 0.0, True
+            for r in range(m):
+                lp = layers_of(bridge.shard_params(
+                    params, cfg, mesh, {"data": 0, "model": r})["layers"])[0]
+                COUNTS.clear()
+                q_r, k_r, v_r, o_r, a, c_r, f = prefill_layer(
+                    lp, local, h, positions, lgeo)
+                torch.cuda.synchronize()
+                total.update(COUNTS)
+                want = ref.flash_attention_ref(q_r, k_r, v_r, causal=True)
+                flash_err = max(flash_err, float(
+                    (o_r.float() - want.float()).abs().max()))
+                heads = slice(r * kh, (r + 1) * kh)
+                kv_same &= all(torch.equal(getattr(c_r, fld), getattr(
+                    cache, fld)[..., heads, :]) for fld in (
+                        "k_hbm", "v_hbm", "k_host", "v_host"))
+                kv_same &= all(torch.equal(getattr(c_r, fld),
+                                           getattr(cache, fld))
+                               for fld in ("page_table", "hbm_owner",
+                                           "host_owner", "length"))
+                kv_err = max(kv_err, *(float((x.float() - w[:, :, heads]
+                                              .float()).abs().max())
+                                       for x, w in ((k_r, k), (v_r, v))))
+                parts.append(a)
+                mlps.append(f)
+                del q_r, k_r, v_r, o_r, c_r, want
+            summed = parts[0]
+            for a in parts[1:]:
+                summed = summed + a
+            y_split = mlps[0](h2)
+            for f in mlps[1:]:
+                y_split = y_split + f(h2)
+            err = {"attn": float((summed.float() - attn.float()).abs().max()
+                                 / attn.float().abs().max()),
+                   "mlp": float((y_split.float() - y.float()).abs().max()
+                                / y.float().abs().max())}
+            torch.cuda.synchronize()
+            log(f"prefill split {name} model={m}: B={B} S={S} heads "
+                f"{cfg.num_heads}/{cfg.kv_heads} -> {local.num_heads}/{kh} "
+                f"a rank (flash H={local.num_heads}/{kh} D={cfg.head_dim} "
+                f"max err against its plain version {flash_err:.3e}, "
+                f"tolerance {FLASH_TOL['bf16']}); each rank's pools and "
+                f"tables equal the unsplit cache's KV-head slices: "
+                f"{kv_same} (its K/V against the unsplit's slices: max "
+                f"|diff| {kv_err:.3e}); split against unsplit (max |diff| "
+                f"/ max |value|): attention {err['attn']:.3e} mlp "
+                f"{err['mlp']:.3e} (tolerance {PREFILL_SPLIT_TOL})")
+            if not flash_err <= FLASH_TOL["bf16"]:
+                raise AssertionError(f"prefill split {name} model={m}: "
+                                     f"flash error {flash_err}")
+            if not kv_same:
+                raise AssertionError(f"prefill split {name} model={m}: a "
+                                     f"rank's cache is not the unsplit "
+                                     f"cache's KV-head slice")
+            bad = {k: e for k, e in err.items()
+                   if not e <= PREFILL_SPLIT_TOL[k]}
+            if bad:
+                raise AssertionError(f"prefill split {name} model={m}: "
+                                     f"{bad}")
+            del parts, mlps, summed, y_split
+        del params, cache, k, v, attn, h, h2, y
+        free_card()
+    return dict(total)
+
+
 def assemble(grid, spec):
     """The whole gradient of a leaf from its ranks' blocks' gradients
     `grid[d][r]` (data rank d, model rank r) under `spec` (at most one
@@ -4892,7 +5188,11 @@ def main(argv=None) -> int:
                                                          args.seed))
     mesh_serve, _ = phase("mesh serve", lambda: mesh_serve_phase(
         model, params, args.seed, inline, overlap_numbers))
+    mesh_stream, _ = phase("mesh stream", lambda: mesh_stream_phase(
+        model, params, args.seed, dict(MESH_STREAMS)[model.cfg.name]))
     phase("tp split", lambda: tp_split_phase(args.seed))
+    prefill_split = phase("prefill split", lambda: prefill_split_phase(
+        args.seed))
     del model, params               # the CLI's model takes the card next
     gc.collect()
     torch.cuda.empty_cache()
@@ -4904,6 +5204,11 @@ def main(argv=None) -> int:
         moe_model, moe_params, args.seed))
     mesh_moe, _ = phase("mesh moe serve", lambda: mesh_moe_serve_phase(
         moe_model, moe_params, args.seed, moe_numbers))
+    mesh_moe_stream, _ = phase("mesh moe stream", lambda: mesh_stream_phase(
+        moe_model, moe_params, args.seed,
+        dict(MESH_STREAMS)[moe_model.cfg.name]))
+    mesh_stream = dict(collections.Counter(mesh_stream) +
+                       collections.Counter(mesh_moe_stream))
     del moe_model, moe_params
     free_card()
     moe_split, _ = phase("moe split", lambda: moe_split_phase(args.seed))
@@ -4945,7 +5250,7 @@ def main(argv=None) -> int:
              "llama31_serve": llama, "qwen3_serve_overlap": qwen,
              "trained_serve": trained_serve, "serve_cli": cli,
              "example": example, **mesh_serve, "mesh_moe_serve": mesh_moe,
-             "moe_split": moe_split,
+             "moe_split": moe_split, "mesh_stream": mesh_stream,
              **{f"{name}_generate": c["generate"]
                 for name, c in streams.items()}}
     paged_by_path = {k: c.get("paged_attention", 0)
@@ -5011,6 +5316,9 @@ def main(argv=None) -> int:
                          "flash_attention", 0),
                      "example": example.get("flash_attention", 0),
                      "moe_start": moe["start"].get("flash_attention", 0),
+                     "mesh_stream": mesh_stream.get("flash_attention", 0),
+                     "prefill_split": prefill_split.get("flash_attention",
+                                                        0),
                      **{f"{name}_start": c["start"].get("flash_attention", 0)
                         for name, c in streams.items()},
                      "whisper-tiny_generate": streams["whisper-tiny"][

@@ -1,11 +1,14 @@
-"""One-card dry run: count every (arch x shape) cell's step without
+"""Dry run: count every (arch x shape x mesh) cell's step without
 allocating it (the port of the reference's `launch/dryrun.py`).
 
 The reference lowers and compiles each cell for a 256-chip pod mesh
 (or a 512-chip twin-pod one) and reads XLA's cost and memory analyses.
-The port runs on one card, so a cell here is the same step at the
-per-card batch, ceil(global_batch / 256) (the reference's single mesh
-is 16 x 16), built entirely on the meta device (shapes, no data):
+The port has no compiler to partition a step, so its two meshes are
+counted two ways.
+
+`single` (one card): the same step at the per-card batch,
+ceil(global_batch / 256) (the reference's single mesh is 16 x 16),
+built entirely on the meta device (shapes, no data):
 parameters, state (the AdamW state for `train`, the paged cache at
 hbm_fraction=0.25 for `decode`) and inputs. The step — the train step,
 `Model.prefill` (xlstm: `forward_hidden`, as the reference) or
@@ -23,23 +26,51 @@ the most bytes of its results alive at once, new state included). The
 CUDA context and the allocator's rounding are not counted, so a cell
 within a few GB of the limit may still not fit.
 
+`multi` (the reference's twin-pod mesh, (`pod`, `data`, `model`) =
+(2, 16, 16), 512 cards: `launch.mesh.make_production_mesh`): each
+card's bytes of the global step's arguments, through the sharding
+rules (`launch.shardings`, the reference's rule for rule) and
+`local_shape`: the parameters by `param_pspec` in the reference's mode
+(train for `train`, else serve), AdamW's f32 m and v on the
+parameters' specs, a decode cell's state by `state_shardings_for`
+(its host tier in pinned host memory, the rest on the card) and the
+inputs by `tokens_sharding` / `batch_axes` (a batch the batch axes do
+not divide is whole on every card). These are the layouts GSPMD gives
+the reference; the port's own meshed ranks hold the norm weights and a
+moe router whole on `model` where `param_pspec` splits them
+(`bridge.leaf_spec`), a few KB to MB more a card. A cell whose card
+bytes exceed the card's is `skip`, with them; `ok` says only that
+the arguments fit (its `reason` says so), since the activations are
+not counted. `flops_per_device` is the global batch's step counted
+once by `OpCost` on the meta device, divided evenly over the cards that
+split it (`flops_split`): the `model` axis times the batch axes in use
+(`batch_axes`), so a batch those axes leave whole (long_500k's 1) is
+repeated on every `pod` and `data` card. The bytes each card
+moves, its activations and its collectives need the rank-local step,
+counted with its collectives; at a 16-way `model` axis that step needs
+the `pages` KV pool rule for every config but zamba2-1.2b (its 32 KV
+heads), which the port has not ported: they are null, with the reason
+in `unmeasured`.
+
 Usage:
   python -m repro_torch.launch.dryrun                     # all cells
   python -m repro_torch.launch.dryrun --arch qwen3-32b --shape decode_32k
                                                           # one, in-process
+  python -m repro_torch.launch.dryrun --mesh multi        # the twin-pod
+                                                          # mesh (or both)
   python -m repro_torch.launch.dryrun --list              # enumerate cells
 
-The sweep runs each cell in a fresh subprocess, so a failure never
-poisons it; results append to build/dryrun_results.jsonl. `--mesh
-multi` (the reference's twin-pod mesh: per-card shard bytes) is
-refused, NotImplementedError naming it (`refuse_mesh("dryrun")`): it
-spans more than one card.
+The sweep runs each (cell, mesh) in a fresh subprocess, so a failure
+never poisons it; results append to build/dryrun_results.jsonl. One
+cell in-process prints one record per mesh.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -50,10 +81,11 @@ import torch
 from repro_torch import configs
 from repro_torch.core.tiers import H100_CHIP
 from repro_torch.kvcache.paged import PagedKVCache
+from repro_torch.launch import shardings
+from repro_torch.launch.mesh import make_production_mesh, mesh_axis_sizes
 from repro_torch.launch.op_cost import OpCost, tensor_bytes
 from repro_torch.models.model import Model
 from repro_torch.models.params import abstract_params
-from repro_torch.serving.engine import refuse_mesh
 from repro_torch.training.optimizer import adamw_init
 from repro_torch.training.train_step import TrainState, make_train_step
 
@@ -70,6 +102,18 @@ SUBQUADRATIC = {"xlstm-125m", "zamba2-1-2b", "zamba2-1.2b"}
 #: chips of the reference's single (16 x 16) mesh: the per-card batch is
 #: the global batch over these
 REFERENCE_CHIPS = 256
+
+#: the dry run's meshes (`--mesh both` runs them in this order)
+MESHES = ("single", "multi")
+
+#: why a multi record's per-card traffic, activations and collectives
+#: are null
+MULTI_UNMEASURED = (
+    "bytes moved, activations and collectives per card need the "
+    "rank-local step, counted with its collectives; at a 16-way model "
+    "axis that step needs the 'pages' KV pool rule for every config whose "
+    "KV heads the axis does not divide (all but zamba2-1.2b's 32), which "
+    "is not ported yet")
 
 RESULTS = os.path.join("build", "dryrun_results.jsonl")
 
@@ -135,10 +179,37 @@ def _host_tier_bytes(state) -> int:
                for t in (cache.k_host, cache.v_host))
 
 
+def _count_step(model, kind, state, params, specs, batch, seq) -> OpCost:
+    """The cell's step (the train step, the prefill or one decode step)
+    on the meta device under `OpCost`."""
+    cfg = model.cfg
+    with OpCost() as cost:
+        if kind == "train":
+            step = make_train_step(
+                model, extra_keys=tuple(k for k in specs if k != "tokens"))
+            step(state, specs)
+        elif kind == "prefill":
+            extra = {k: v for k, v in specs.items() if k != "tokens"} or None
+            if cfg.family == "xlstm":
+                # recurrent arch: parallel prompt scoring is the prefill
+                # analogue, as in the reference
+                model.forward_hidden(params, specs["tokens"], remat=False)
+            else:
+                geo = model.cache_geometry(batch, seq, hbm_fraction=0.25)
+                model.prefill(params, specs["tokens"], geo, extra=extra)
+        else:
+            model.decode_step(params, state, specs["token"])
+    return cost
+
+
 def run_cell(arch: str, shape: str, mesh_kind: str = "single") -> dict:
-    """Count one cell's step on the meta device; returns its record."""
+    """Count one cell's step on the meta device under `mesh_kind`
+    ("single" or "multi", see the module docstring); returns its
+    record."""
+    if mesh_kind == "multi":
+        return _multi_cell(arch, shape)
     if mesh_kind != "single":
-        refuse_mesh("dryrun")
+        raise ValueError(f"mesh {mesh_kind!r}: one of {MESHES}")
     t0 = time.time()
     cfg = configs.get(arch)
     model = Model(cfg)
@@ -149,6 +220,7 @@ def run_cell(arch: str, shape: str, mesh_kind: str = "single") -> dict:
 
     host = 0
     card = tensor_bytes(params)
+    state = None
     if kind == "train":
         state = TrainState(params=params, opt=adamw_init(params))
         card += tensor_bytes(state.opt)
@@ -170,22 +242,7 @@ def run_cell(arch: str, shape: str, mesh_kind: str = "single") -> dict:
             f"{int(H100_CHIP.hbm_capacity)}"))
         return record
 
-    with OpCost() as cost:
-        if kind == "train":
-            step = make_train_step(
-                model, extra_keys=tuple(k for k in specs if k != "tokens"))
-            step(state, specs)
-        elif kind == "prefill":
-            extra = {k: v for k, v in specs.items() if k != "tokens"} or None
-            if cfg.family == "xlstm":
-                # recurrent arch: parallel prompt scoring is the prefill
-                # analogue, as in the reference
-                model.forward_hidden(params, specs["tokens"], remat=False)
-            else:
-                geo = model.cache_geometry(batch, seq, hbm_fraction=0.25)
-                model.prefill(params, specs["tokens"], geo, extra=extra)
-        else:
-            model.decode_step(params, state, specs["token"])
+    cost = _count_step(model, kind, state, params, specs, batch, seq)
     record["memory"]["activation_bytes"] = int(cost.peak)
     fits = card + cost.peak <= H100_CHIP.hbm_capacity
     record.update(
@@ -201,20 +258,132 @@ def run_cell(arch: str, shape: str, mesh_kind: str = "single") -> dict:
     return record
 
 
+def _pairs(tree, spec):
+    """(tensor, spec) of each leaf of `tree` (nested dicts and
+    dataclasses) against `spec`, the tree of its specs."""
+    if isinstance(tree, dict):
+        for k in tree:
+            yield from _pairs(tree[k], spec[k])
+    elif dataclasses.is_dataclass(tree):
+        for f in dataclasses.fields(tree):
+            yield from _pairs(getattr(tree, f.name), getattr(spec, f.name))
+    else:
+        yield tree, spec
+
+
+def card_bytes(tree, spec, mesh, itemsize=None) -> int:
+    """Bytes of one card's blocks of `tree`'s tensors under `spec` (the
+    tree of their specs) on `mesh`; `itemsize` counts every element at
+    that many bytes (AdamW's f32 moments of bf16 parameters)."""
+    return sum(math.prod(shardings.local_shape(tuple(t.shape), s, mesh))
+               * (itemsize or t.element_size())
+               for t, s in _pairs(tree, spec))
+
+
+def multi_memory(arch: str, shape: str) -> dict:
+    """Each card's bytes of `arch`'s `shape` cell on the reference's
+    twin-pod mesh (see the module docstring): {"params", "opt" (AdamW's
+    m and v, and its step), "state" (a decode cell's, on the card),
+    "pinned_host" (its host tier), "inputs"} bytes, with the global
+    step's meta arguments under "args" (params, the train or decode
+    state, the input specs)."""
+    cfg = configs.get(arch)
+    model = Model(cfg)
+    seq, batch, kind = SHAPES[shape]
+    mesh = make_production_mesh(multi_pod=True)
+    mode = "train" if kind == "train" else "serve"
+    params = abstract_params(model.schema(), cfg.param_dtype)
+    pspecs = shardings.param_shardings(model.logical_axes(), params, mesh,
+                                       mode)
+    specs = input_specs(cfg, seq, batch, kind)
+    b_ax = shardings.batch_axes(mesh, batch)
+    ispecs = {k: shardings.tokens_sharding(mesh, batch) if k == "tokens"
+              else (b_ax,) if k == "token" else (b_ax, None, None)
+              for k in specs}
+    out = {"params": card_bytes(params, pspecs, mesh), "opt": 0,
+           "state": 0, "pinned_host": 0,
+           "inputs": card_bytes(specs, ispecs, mesh)}
+    state = None
+    if kind == "train":
+        state = TrainState(params=params, opt=adamw_init(params))
+        out["opt"] = 2 * card_bytes(params, pspecs, mesh, itemsize=4) + \
+            state.opt.step.element_size()
+    elif kind == "decode":
+        state = _decode_state(model, batch, seq)
+        sspecs = shardings.state_shardings_for(model, state, mesh)
+        total = card_bytes(state, sspecs, mesh)
+        cache = state if isinstance(state, PagedKVCache) else \
+            state.get("kv")
+        if cache is not None:
+            cspecs = sspecs if isinstance(state, PagedKVCache) else \
+                sspecs["kv"]
+            out["pinned_host"] = sum(
+                card_bytes(getattr(cache, f), getattr(cspecs, f), mesh)
+                for f in ("k_host", "v_host"))
+        out["state"] = total - out["pinned_host"]
+    out["args"] = (params, state, specs)
+    return out
+
+
+def _multi_cell(arch: str, shape: str) -> dict:
+    """`run_cell` on the reference's twin-pod mesh."""
+    t0 = time.time()
+    cfg = configs.get(arch)
+    seq, batch, kind = SHAPES[shape]
+    mesh = make_production_mesh(multi_pod=True)
+    n_dev = math.prod(mesh.sizes)
+    mem = multi_memory(arch, shape)
+    params, state, specs = mem.pop("args")
+    card = mem["params"] + mem["opt"] + mem["state"] + mem["inputs"]
+    record = {"arch": arch, "shape": shape, "mesh": "multi",
+              "devices": n_dev, "seq": seq, "batch": batch,
+              "global_batch": batch, "kind": kind,
+              "memory": {"card_bytes": int(card),
+                         "pinned_host_bytes": int(mem["pinned_host"]),
+                         "param_bytes": int(mem["params"]),
+                         "opt_bytes": int(mem["opt"]),
+                         "state_bytes": int(mem["state"]),
+                         "input_bytes": int(mem["inputs"]),
+                         "activation_bytes": None},
+              "params": int(cfg.param_count()),
+              "active_params": int(cfg.active_param_count())}
+    if card > H100_CHIP.hbm_capacity:
+        record.update(status="skip", reason=(
+            f"{card} bytes of arguments on each card exceed the H100's "
+            f"{int(H100_CHIP.hbm_capacity)}"))
+        return record
+    cost = _count_step(Model(cfg), kind, state, params, specs, batch, seq)
+    sizes = mesh_axis_sizes(mesh)
+    b_ax = shardings.batch_axes(mesh, batch)
+    split = sizes["model"] * math.prod(sizes[a] for a in b_ax)
+    record.update(
+        status="ok", trace_s=round(time.time() - t0, 1),
+        reason=(f"the arguments' {card} bytes a card fit the H100's "
+                f"{int(H100_CHIP.hbm_capacity)}; activations are not "
+                f"counted (see unmeasured)"),
+        flops_per_device=float(cost.flops) / split,
+        flops_split=(f"even: the global step's {float(cost.flops)} FLOPs "
+                     f"over the {split} cards that split it (model "
+                     f"{sizes['model']} x batch axes {list(b_ax)}), each "
+                     f"block repeated on {n_dev // split} cards"),
+        bytes_per_device=None, collective_bytes_per_device=None,
+        unmeasured=MULTI_UNMEASURED, kernels=dict(cost.kernels))
+    return record
+
+
 def main(argv=None):
     """CLI driver: one in-process cell, or the subprocess-per-cell sweep."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch")
     ap.add_argument("--shape")
-    ap.add_argument("--mesh", choices=["single", "multi"], default="single",
-                    help="'multi' (the reference's twin-pod mesh) is "
-                         "refused: it spans more than one card")
+    ap.add_argument("--mesh", choices=[*MESHES, "both"], default="single",
+                    help="one card, the reference's 512-card twin-pod "
+                         "mesh, or both in turn")
     ap.add_argument("--list", action="store_true")
     ap.add_argument("--out", default=RESULTS)
     args = ap.parse_args(argv)
 
-    if args.mesh != "single":
-        refuse_mesh("dryrun")
+    meshes = MESHES if args.mesh == "both" else (args.mesh,)
     todo = cells([args.arch] if args.arch else None,
                  [args.shape] if args.shape else None)
     if args.list:
@@ -224,10 +393,11 @@ def main(argv=None):
 
     if args.arch and args.shape:
         arch, shape, status, why = todo[0]
-        rec = ({"arch": arch, "shape": shape, "mesh": "single",
-                "status": "skip", "reason": why} if status == "SKIP"
-               else run_cell(arch, shape))
-        print(json.dumps(rec))
+        for mesh_kind in meshes:
+            rec = ({"arch": arch, "shape": shape, "mesh": mesh_kind,
+                    "status": "skip", "reason": why} if status == "SKIP"
+                   else run_cell(arch, shape, mesh_kind))
+            print(json.dumps(rec), flush=True)
         return 0
 
     # sweep: one subprocess per cell, appending to the results file
@@ -239,28 +409,31 @@ def main(argv=None):
         [src] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
     with open(args.out, "a") as out:
         for arch, shape, status, why in todo:
-            if status == "SKIP":
-                rec = {"arch": arch, "shape": shape, "mesh": "single",
-                       "status": "skip", "reason": why}
-                out.write(json.dumps(rec) + "\n")
+            for mesh_kind in meshes:
+                if status == "SKIP":
+                    rec = {"arch": arch, "shape": shape, "mesh": mesh_kind,
+                           "status": "skip", "reason": why}
+                    out.write(json.dumps(rec) + "\n")
+                    out.flush()
+                    continue
+                cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                       "--arch", arch, "--shape", shape, "--mesh",
+                       mesh_kind]
+                t0 = time.time()
+                proc = subprocess.run(cmd, capture_output=True, text=True,
+                                      timeout=3600, env=env)
+                if proc.returncode == 0 and proc.stdout.strip():
+                    line = proc.stdout.strip().splitlines()[-1]
+                    out.write(line + "\n")
+                    print(f"{json.loads(line)['status'].upper():4s} {arch} "
+                          f"{shape} {mesh_kind} ({time.time() - t0:.0f}s)")
+                else:
+                    rec = {"arch": arch, "shape": shape, "mesh": mesh_kind,
+                           "status": "fail", "stderr": proc.stderr[-2000:]}
+                    out.write(json.dumps(rec) + "\n")
+                    print(f"FAIL {arch} {shape} {mesh_kind}: "
+                          f"{proc.stderr[-300:]}")
                 out.flush()
-                continue
-            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
-                   "--arch", arch, "--shape", shape]
-            t0 = time.time()
-            proc = subprocess.run(cmd, capture_output=True, text=True,
-                                  timeout=3600, env=env)
-            if proc.returncode == 0 and proc.stdout.strip():
-                line = proc.stdout.strip().splitlines()[-1]
-                out.write(line + "\n")
-                print(f"{json.loads(line)['status'].upper():4s} {arch} "
-                      f"{shape} ({time.time() - t0:.0f}s)")
-            else:
-                rec = {"arch": arch, "shape": shape, "mesh": "single",
-                       "status": "fail", "stderr": proc.stderr[-2000:]}
-                out.write(json.dumps(rec) + "\n")
-                print(f"FAIL {arch} {shape}: {proc.stderr[-300:]}")
-            out.flush()
     return 0
 
 

@@ -1,4 +1,4 @@
-"""Roofline terms of the one-card dry run (the port of the reference's
+"""Roofline terms of the dry run (the port of the reference's
 `launch/roofline.py`, same keys and formulas).
 
 Three terms per (arch x shape x mesh) cell — all in seconds:
@@ -14,7 +14,9 @@ the usefulness ratio MODEL_FLOPS / counted FLOPs.
 
 The reference also parses collective bytes out of XLA's optimized HLO
 (`collective_bytes_of_hlo`); the port has no HLO and a one-card run no
-collective, so that function has no counterpart here.
+collective, so that function has no counterpart here. A twin-pod
+(`multi`) record counts its FLOPs alone (`launch.dryrun`): the table
+prints its compute term and leaves the others blank.
 """
 
 from __future__ import annotations
@@ -92,6 +94,13 @@ def table(path: str = RESULTS, chip=H100_CHIP) -> str:
                         f"{r.get('mesh', '-'):6s} {r['status'].upper()}"
                         + (f" ({r.get('reason', '')[:60]})"
                            if r.get("reason") else ""))
+            continue
+        if r.get("bytes_per_device") is None:
+            rows.append(
+                f"{r['arch']:26s} {r['shape']:12s} {r['mesh']:6s} "
+                f"{'-':10s} "
+                f"{r['flops_per_device'] / chip.peak_flops_bf16:10.2e} "
+                f"{'-':>10s} {'-':>10s} {'-':>7s} {'-':>7s}")
             continue
         t = roofline_terms(r, chip)
         rows.append(

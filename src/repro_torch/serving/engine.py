@@ -104,7 +104,8 @@ with the chunk's lane->request bindings, in `_serve_trace_log` for
 until the chunk's one readback.
 
 Serving across a device mesh (`ServingEngine(..., mesh=)`, the dense
-and moe families' `serve()`, as in the reference): a (`data`, `model`)
+and moe families' `serve()` and single-stream path, as in the
+reference): a (`data`, `model`)
 `DeviceMesh` of `torch.distributed` ranks (`launch.mesh`), one card
 each (the CPU under gloo). The rank program is explicit SPMD: every
 rank runs this host loop identically over all B lanes, and its device
@@ -139,20 +140,26 @@ points. The rules are the reference's (`launch.shardings`):
     trace and the lane carries all-gathered, the telemetry's page
     counts summed (a page's bytes on the `model` ranks are its KV-head
     slices, so the whole geometry prices it once);
+  * the single-stream path (`start`, `step`, `run`, `generate`) binds
+    the rank's lanes and KV heads as `serve` does: `start` prefills the
+    rank's lanes of the prompts with the rank-local model, and every
+    entry point takes the rank's lanes of its input tokens and returns
+    whole outputs on every rank (logits over the whole vocabulary,
+    gathered over `model` inside the model and over `data` here; a
+    greedy step's argmax over the whole vocabulary), with the stats
+    made global as a serve chunk's (inside the captured chunk);
   * host decisions read from a clock or a per-rank measurement (open-
     loop arrivals, deadlines and cancellation, SLO sheds, the measured
     payback) are the mesh's first rank's, broadcast (`_agree`), so the
     ranks never diverge and a collective never waits on a rank that
     went elsewhere.
 
-The captured chunk holds its collectives (the moe family's serve runs
-the chunk eagerly, meshed or not). What stays unported raises
+The captured chunks hold their collectives (the moe family's serve
+runs the chunk eagerly, meshed or not; its `run`/`generate` chunks are
+captured, meshed or not). What stays unported raises
 NotImplementedError naming it (`refuse_mesh`): the `pages` and `none`
-pool rules (a `model` axis that does not divide the KV heads), the
-single-stream path of a meshed engine (`start`: the rank holds only its
-shards), training the vlm, encdec, hybrid, ssm or xlstm family across a
-mesh, or over a `model` axis that does not divide the KV heads, and the
-dry run's `--mesh multi`.
+pool rules (a `model` axis that does not divide the KV heads), in
+serving and in training.
 """
 
 from __future__ import annotations
@@ -302,22 +309,15 @@ MESH_REFUSALS = {
     "pool": "the {rule!r} KV pool rule (a model axis of {model} does not "
             "divide {kv_heads} KV heads) is not ported yet: the meshed "
             "serve shards the pools over KV heads",
-    "stream": "the single-stream path (start, step, run, generate) "
-              "across a mesh is not ported yet: a meshed engine holds "
-              "only its rank's weight shards; serve() spans the mesh, or "
-              "use an engine without one",
     "train": "training across a mesh runs every family over a model "
              "axis that divides its KV heads; {what} is not ported yet",
-    "dryrun": "the dry run's --mesh multi (per-card shard bytes of the "
-              "512-card twin-pod mesh) spans more than one card and is "
-              "not ported yet",
 }
 
 
 def refuse_mesh(case: str, **detail):
     """Raise NotImplementedError for a part of the mesh the port leaves
     out, named by `case` (a key of `MESH_REFUSALS`): the engine, the
-    serve and train CLIs and the dry run share it."""
+    serve and train CLIs and the train step share it."""
     raise NotImplementedError(MESH_REFUSALS[case].format(**detail))
 
 
@@ -603,9 +603,9 @@ class ServingEngine:
         self.device = resolve_device(device)
         self.model = model
         self.cfg = cfg
-        #: the device mesh `serve` spans (see the module docstring), or
-        #: None; `_tp` is this rank's part of it (the dense and moe
-        #: families)
+        #: the device mesh `serve` and the single-stream path span (see
+        #: the module docstring), or None; `_tp` is this rank's part of
+        #: it (the dense and moe families)
         self.mesh = mesh
         self._tp = self._bind_mesh(mesh) if mesh is not None else None
         #: the weights on this device: the whole model's, or under a
@@ -618,7 +618,7 @@ class ServingEngine:
             self.params = _to_device(shard_params(
                 params, model.cfg, mesh, self._tp.coord), self.device)
         #: the (model, params) the decode and prefill steps run: the
-        #: whole ones, or a meshed serve's rank-local ones
+        #: whole ones, or a meshed stream's rank-local ones
         self._run = (self._tp.model if self._tp else model, self.params)
         #: the lanes this rank runs (all of them unmeshed; `_setup`)
         self._lanes = Lanes(0, 0, 0, False)
@@ -727,32 +727,45 @@ class ServingEngine:
         return self._graphs.captures
 
     # ------------------------------------------------------------------ #
-    def _setup(self, geo, local=None, lanes=None):
-        """Bind the stream's geometry (`geo`, which prices the
-        telemetry), the rank's lanes (`lanes`, a meshed serve's; default
-        all of them) and the policy, its state and the budget over the
-        rank's cache (`local`, a meshed serve's; default `geo`)."""
+    def _setup(self, geo):
+        """Bind a stream of `geo` (whose geometry prices the telemetry):
+        the rank's lanes and its cache's geometry (under a mesh, the
+        lanes over `data` — all of them when the axis does not divide
+        B — and the KV heads over `model`, with the rank-local model
+        that runs them; else every lane and `geo`), then the policy, its
+        state and the budget over the rank's cache. Returns the rank's
+        geometry."""
         self.geo = geo
-        self._lanes = lanes or Lanes(0, geo.batch, geo.batch, False)
-        local = local or geo
-        self._policy = make_policy(self.cfg.policy, cfg=self.cfg,
-                                   geo=local)
+        tp, cfg = self._tp, self.cfg
+        if tp is None:
+            local = geo
+            self._lanes = Lanes(0, geo.batch, geo.batch, False)
+        else:
+            B = geo.batch
+            split = batch_axes(self.mesh, B) == ("data",)
+            n = B // tp.sizes["data"] if split else B
+            self._run = (tp.model_for(split), self.params)
+            local = tp.model.cache_geometry(n, cfg.max_context,
+                                            hbm_fraction=cfg.hbm_fraction)
+            self._lanes = Lanes(tp.coord["data"] * n if split else 0, n, B,
+                                split)
+        self._policy = make_policy(cfg.policy, cfg=cfg, geo=local)
         self._pstate = _to_device(self._policy.init_state(local),
                                   self.device)
         self._budget = control.migration_budget(
-            local, self.cfg.migration_budget_frac)
+            local, cfg.migration_budget_frac)
+        return local
 
     def start(self, prompts: torch.Tensor, extra=None):
         """Prefill `prompts` [B, S] into a fresh cache and return the
-        last-position logits; resets the policy state and any captured
-        trace. `self.stats` is kept, as the reference's code keeps it
-        (only `serve` resets it). `extra` (vlm: {"patch_embeds"},
-        encdec: {"frame_embeds"}, [B, n, d] each, tensors or numpy) is
-        moved to the engine's device. The single-stream entry point for
-        `step`/`run`/`generate`; a meshed engine, which holds only
-        its rank's weight shards, refuses it."""
-        if self._tp is not None:
-            refuse_mesh("stream")
+        last-position logits [B, V]; resets the policy state and any
+        captured trace. `self.stats` is kept, as the reference's code
+        keeps it (only `serve` resets it). `extra` (vlm:
+        {"patch_embeds"}, encdec: {"frame_embeds"}, [B, n, d] each,
+        tensors or numpy) is moved to the engine's device. The
+        single-stream entry point for `step`/`run`/`generate`; a meshed
+        engine prefills its rank's lanes with its rank-local model (the
+        whole logits on every rank)."""
         prompts = prompts.to(self.device)
         if extra is not None:
             extra = {k: torch.as_tensor(v).to(self.device)
@@ -760,12 +773,13 @@ class ServingEngine:
         geo = self.model.cache_geometry(prompts.shape[0],
                                         self.cfg.max_context,
                                         hbm_fraction=self.cfg.hbm_fraction)
-        logits, self.state = self.model.prefill(self.params, prompts, geo,
-                                                extra=extra)
-        self._setup(geo)
+        local = self._setup(geo)
+        model, params = self._run
+        logits, self.state = model.prefill(
+            params, self._lane_slice(prompts), local, extra=extra)
         self._trace_log = []
         self._trace_prompt_len = int(prompts.shape[1])
-        return logits
+        return self._data_gather(logits, 0)
 
     def _decode(self, state, pstate, token, active=None, mig_cap=None):
         """The fused step: control plane + decode + lane merge + plan +
@@ -864,19 +878,24 @@ class ServingEngine:
             torch.cuda.current_stream(self.device).wait_event(
                 self._commit_done)
 
-    def _readback(self, rows: List[tuple]) -> None:
-        """One host readback of a chunk's stats tuples, then pricing."""
-        self._record(tuple(torch.stack(col).cpu().numpy()
-                           for col in zip(*rows)))
+    def _stream_stats(self, rows: List[tuple]) -> tuple:
+        """Decode steps' stats tuples (`_decode`'s: base, then the read
+        set and placement when traced) stacked by step and made global
+        as a serve chunk's rows (`_global_rows`)."""
+        cols = (torch.stack(col) for col in zip(*rows))
+        return tuple(self._global_rows(
+            dict(zip(("base", "access", "tier"), cols))).values())
 
     def step(self, token: torch.Tensor) -> torch.Tensor:
         """One decode step + one telemetry readback (eager, as the
-        reference's `step`)."""
+        reference's `step`): token [B] -> logits [B, V]."""
         _require_cache(self.state, self.model.cfg.family)
         logits, self.state, self._pstate, stats = self._decode(
-            self.state, self._pstate, token.to(self.device))
-        self._readback([stats])
-        return logits
+            self.state, self._pstate,
+            self._lane_slice(token.to(self.device)))
+        self._record(tuple(col.cpu().numpy()
+                           for col in self._stream_stats([stats])))
+        return self._data_gather(logits, 0)
 
     def _bind_stream_arena(self, batch: int):
         """The run/generate arena holding the current decode state and
@@ -905,10 +924,10 @@ class ServingEngine:
     def _stream_chunk(self, a, n: int, mode: str):
         """`n` fused decode steps over the arena `a` (the reference's
         `chunk_fn` for mode "run": teacher-forced from a["tokens"][:n];
-        `gen_fn` for "generate": greedy from a["token"]). Writes the
-        final states (and the last token) back into the arena and
-        returns (logits [n, B, V] or tokens [n, B], stats rows stacked
-        [n, ...])."""
+        `gen_fn` for "generate": greedy from a["token"]), over the
+        rank's lanes. Writes the final states (and the last token) back
+        into the arena and returns (logits [n, B, V] or tokens [n, B],
+        stats rows stacked [n, ...]) over all B lanes (`_stream_stats`)."""
         state, pstate, token = a["state"], a["pstate"], a["token"]
         outs, rows = [], []
         for i in range(n):
@@ -924,16 +943,20 @@ class ServingEngine:
         _write_back(a["pstate"], pstate)
         if mode == "generate":
             a["token"].copy_(token)
-        return torch.stack(outs), tuple(torch.stack(col)
-                                        for col in zip(*rows))
+        return self._data_gather(torch.stack(outs), 1), \
+            self._stream_stats(rows)
 
     def _stream_chunks(self, mode: str, steps: int, tokens=None,
                        token=None) -> torch.Tensor:
         """Drive `steps` fused steps in chunks of `telemetry_stride`,
-        one readback each, through graphs on the card."""
+        one readback each, through graphs on the card; the arena holds
+        the rank's lanes of `tokens` [steps, B] or `token` [B]."""
         stride = max(1, self.cfg.telemetry_stride)
-        batch = (tokens if tokens is not None else token).shape[-1]
-        a = self._bind_stream_arena(batch)
+        if tokens is not None:
+            tokens = self._lane_slice(tokens, 1)
+        if token is not None:
+            token = self._lane_slice(token)
+        a = self._bind_stream_arena(self._lanes.count)
         if token is not None:
             a["token"].copy_(token)
         out = []
@@ -944,7 +967,8 @@ class ServingEngine:
 
             def chunk():
                 return self._stream_chunk(a, n, mode)
-            key = (mode, self.cfg.policy, self.cfg.trace_telemetry, n)
+            key = (mode, self.cfg.policy, self.cfg.trace_telemetry,
+                   self._lanes.split, n)
             res, stats = self._graphs.run(key, chunk)
             self.steps_run += n
             # a replay overwrites the graph's outputs: keep a copy
@@ -1023,20 +1047,7 @@ class ServingEngine:
         B = num_slots if num_slots is not None else min(len(requests), 4)
         geo = self.model.cache_geometry(B, cfg.max_context,
                                         hbm_fraction=cfg.hbm_fraction)
-        tp = self._tp
-        if tp is None:
-            self._setup(geo)
-            local = geo
-        else:
-            # the rank's lanes (all of them when `data` does not divide
-            # B) and its KV heads
-            split = batch_axes(self.mesh, B) == ("data",)
-            n = B // tp.sizes["data"] if split else B
-            self._run = (tp.model_for(split), self.params)
-            local = tp.model.cache_geometry(n, cfg.max_context,
-                                            hbm_fraction=cfg.hbm_fraction)
-            self._setup(geo, local, Lanes(
-                tp.coord["data"] * n if split else 0, n, B, split))
+        local = self._setup(geo)
         self.stats = []
         self._serve_trace_log = []
         self.chunk_log = []
@@ -1396,9 +1407,10 @@ class ServingEngine:
 
     def _global_rows(self, rows: Dict[str, torch.Tensor]
                      ) -> Dict[str, torch.Tensor]:
-        """A serve chunk's per-step rows over all B lanes: with lanes
-        split over `data`, the per-lane rows and the trace all-gathered
-        and the telemetry's page counts summed; else `rows`."""
+        """A serve or stream chunk's per-step rows over all B lanes:
+        with lanes split over `data`, the per-lane rows and the trace
+        ([steps, L, B, P]) all-gathered and the telemetry's page counts
+        summed; else `rows`."""
         if not self._lanes.split:
             return rows
         return {k: self._data_sum(v.clone()) if k == "base"
@@ -1452,6 +1464,14 @@ class ServingEngine:
             cache.host_owner.fill_(NO_SLOT)
             cache.length.zero_()
             cache.importance.zero_()
+            if self.model.cfg.family == "moe":
+                # moe routing groups every lane, and a lane's prefill
+                # rows attend over its pools in slot order: an idle
+                # lane's rows must read the zeros of the reference's
+                # fresh cache, not the last stream's pages
+                for pool in (cache.k_hbm, cache.v_hbm, cache.k_host,
+                             cache.v_host):
+                    pool.zero_()
             _write_back(a["pstate"], pstate)
             if overlap:
                 _write_back(a["staged"], MigrationPlan.empty(cap, device=dev))

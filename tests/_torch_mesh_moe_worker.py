@@ -9,10 +9,15 @@ start from a fresh interpreter.
 
 The serves: `stream` (8 requests through 8 lanes, prompts of 17-300
 tokens spilling into the host tier) on granite-smoke and llama4-smoke
-at capacity factor 0.5, inline and in overlap mode. The training:
-granite-smoke's three steps from the reference's initial state, a
-checkpoint of the state after them on `SAVED_ON`, and the fourth step
-from that checkpoint restored on `RESTORED_ON`.
+at capacity factor 0.5, inline and in overlap mode. The single streams
+(`stream_cases`): `_torch_mesh_worker.drive_stream` (`start`,
+`generate`, `start`, `run`, `step`, with trace capture) of 8 prompts of
+`STREAM_PROMPT` tokens on both, and on (2, 2) also of 3 prompts (lanes
+`data` does not divide) and `serve`, `start` + `generate`, `serve` again
+on one engine, on granite-smoke. The training: granite-smoke's three
+steps from the reference's initial state, a checkpoint of the state
+after them on `SAVED_ON`, and the fourth step from that checkpoint
+restored on `RESTORED_ON`.
 """
 
 import datetime
@@ -28,11 +33,14 @@ from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.core.tiers import H100
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models.model import Model
+from repro_torch.serving import trace_bridge
 from repro_torch.serving.engine import EngineConfig, ServingEngine
 from repro_torch.training.train_step import (
     init_train_state, make_train_step,
 )
 from repro_torch.tree import leaves_with_path, path_name, tree_leaves
+
+from _torch_mesh_worker import again_case, drive_stream, stream_prompts
 
 #: seconds a collective waits before it fails
 TIMEOUT_S = 60
@@ -48,6 +56,28 @@ ENGINE = dict(max_context=512, policy="importance", prefill_chunk=16,
 SLOTS = 8
 BUDGET = 6
 MODES = ("inline", "overlap")
+#: single-stream prompt tokens (19 pages, past the 16-page HBM tier of a
+#: 512-token context) and lanes, by case
+STREAM_PROMPT = 300
+STREAMS = {"stream": SLOTS, "stream3": 3}
+#: the serve -> start + generate -> serve case on one engine
+AGAIN = "again"
+#: the mesh and the arch that also run "stream3" and `AGAIN`
+EXTRA_ON, EXTRA_ARCH = (2, 2), "granite"
+
+
+def stream_cases(shape, archs):
+    """The (arch, case) single-stream cases a mesh of `shape` runs."""
+    out = [(arch, "stream") for arch in archs]
+    if tuple(shape) == EXTRA_ON:
+        out += [(EXTRA_ARCH, "stream3"), (EXTRA_ARCH, AGAIN)]
+    return out
+
+
+def stream_config() -> EngineConfig:
+    """The serve's engine with trace capture, in chunks of 4 steps."""
+    return EngineConfig(spec=H100, trace_telemetry=True,
+                        **{**ENGINE, "telemetry_stride": 4})
 
 
 def stream(cls, vocab):
@@ -87,6 +117,25 @@ def serve_case(cfg, params, mode, mesh=None):
                         device="cpu")
     rep = eng.serve(stream(Request, cfg.vocab), num_slots=SLOTS, seed=0)
     return outcome(eng, rep)
+
+
+def stream_case(cfg, params, case, mesh=None):
+    """Single-stream `case` (a key of `STREAMS`, or `AGAIN`) on the
+    port's engine (`mesh` when given)."""
+    from repro_torch.serving.scheduler import Request
+    model = Model(cfg)
+    if case in STREAMS:
+        eng = ServingEngine(model, params, stream_config(), mesh=mesh,
+                            device="cpu")
+        return drive_stream(
+            eng, stream_prompts(STREAMS[case], cfg.vocab, STREAM_PROMPT),
+            torch.from_numpy, lambda t: t.numpy(), trace_bridge.collect)
+    eng = ServingEngine(model, params, engine_config("inline"), mesh=mesh,
+                        device="cpu")
+    return again_case(
+        eng, lambda e: e.serve(stream(Request, cfg.vocab), num_slots=SLOTS,
+                               seed=0),
+        stream_prompts(SLOTS, cfg.vocab, STREAM_PROMPT), outcome)
 
 
 def numpy_tree(tree):
@@ -172,6 +221,9 @@ def rank_main(rank, world, store, plan, data_path, out_dir):
             for arch, (cfg, params) in data["serve"].items():
                 for mode in MODES:
                     out[(arch, mode)] = serve_case(cfg, params, mode, mesh)
+            for arch, case in stream_cases((d, m), data["serve"]):
+                cfg, params = data["serve"][arch]
+                out[(arch, case)] = stream_case(cfg, params, case, mesh)
             cfg = data["train_cfg"]
             out["train"] = train_case(data, cfg, mesh, ckpt)
             if (d, m) == RESTORED_ON:

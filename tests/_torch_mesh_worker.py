@@ -13,6 +13,13 @@ of 272-288 tokens at 512 with Quest sparsity 0.5 and trace capture),
 with commit caps and a poisoned request in the spilling one, plus a
 sampled stream, and 3 lanes that a data axis of 4 does not divide
 (replicated on every rank) with SLO sheds.
+
+The single-stream cases (`STREAMS`): `start` on 2, 3 or 4 prompts of
+`STREAM_PROMPT` tokens (past the HBM tier), `generate`, a second
+`start` and a teacher-forced `run` over the generated tokens, then one
+`step`, with Quest sparsity and trace capture (`drive_stream`, which
+the tests also run on the reference's engine); and `AGAIN`: `serve`,
+`start` + `generate`, then `serve` again on one engine.
 """
 
 import dataclasses
@@ -203,16 +210,99 @@ def serve_case(name, model, params, mesh=None, device="cpu"):
                    fractions=mesh is None or dist.get_rank() == 0)
 
 
-def start_refusal(cfg, params, mesh) -> str:
-    """The message of the NotImplementedError a meshed engine's `start`
-    raises (it holds only its rank's shards), or "" if it ran."""
-    eng = ServingEngine(Model(cfg), params, engine_config(), mesh=mesh,
+#: the single-stream cases: name -> lanes
+STREAMS = {"stream": 2, "stream3": 3, "stream4": 4}
+#: the serve -> start + generate -> serve case on one engine
+AGAIN = "again"
+#: prompt tokens of a single stream (19 pages, past the 16-page HBM
+#: tier of a 512-token context) and its generate, run lengths
+STREAM_PROMPT, GEN, RUN = 300, 12, 8
+
+
+def stream_config(**kw):
+    """The single stream's engine: a 512-token context, Quest sparsity
+    0.5, trace capture and chunks of 4 steps (so generate and run span
+    several)."""
+    return engine_config(max_context=512, attention_sparsity=0.5,
+                         trace_telemetry=True, telemetry_stride=4, **kw)
+
+
+def stream_prompts(lanes, vocab, length=STREAM_PROMPT):
+    return np.random.default_rng(9).integers(
+        0, vocab, (lanes, length)).astype(np.int32)
+
+
+def drive_stream(eng, prompts, asarray, numpy, collect, steps=(GEN, RUN)):
+    """`start(prompts)`, `generate(GEN)` from its greedy token, the
+    trace (`collect(eng)`), then `start` again, `run` teacher-forced over
+    the first `RUN` tokens generate fed itself and one `step` with the
+    next: the logits, tokens, every StepStats row's bytes, the trace and
+    the rank's integer tables. `asarray` and `numpy` carry arrays into
+    and out of the engine (the port's or the reference's)."""
+    gen, run = steps
+    logits = numpy(eng.start(asarray(prompts)))
+    first = logits.argmax(-1).astype(np.int32)
+    tokens = numpy(eng.generate(asarray(first), gen)).astype(np.int32)
+    rec = collect(eng)
+    trace = (np.asarray(rec.access), np.asarray(rec.tier),
+             np.asarray(rec.moves))
+    eng.start(asarray(prompts))
+    fed = np.concatenate([first[None], tokens[:run - 1]])
+    return {
+        "start": logits, "tokens": tokens,
+        "run": numpy(eng.run(asarray(fed))),
+        "step": numpy(eng.step(asarray(tokens[run - 1]))),
+        "bytes": [(s.h_read, s.e_read, s.m_in, s.m_out) for s in eng.stats],
+        "trace": trace,
+        "tables": {f: np.array(getattr(eng.state, f))
+                   for f in ("page_table", "hbm_owner", "host_owner",
+                             "length")},
+        "pool_shape": tuple(eng.state.k_hbm.shape),
+    }
+
+
+def stream_case(name, model, params, mesh=None):
+    """Single-stream case `name` (a key of `STREAMS`) on the port's
+    engine, on `mesh` when given."""
+    eng = ServingEngine(model, params, stream_config(), mesh=mesh,
                         device="cpu")
-    try:
-        eng.start(torch.zeros((2, 8), dtype=torch.int32))
-    except NotImplementedError as err:
-        return str(err)
-    return ""
+    return drive_stream(
+        eng, stream_prompts(STREAMS[name], model.cfg.vocab),
+        torch.from_numpy, lambda t: t.numpy(), trace_bridge.collect)
+
+
+def again_case(eng, serve, prompts, judge):
+    """`serve(eng)` (a served stream's report), `start(prompts)` +
+    `generate(GEN)`, then `serve(eng)` again, on the one engine `eng`:
+    each serve's `judge(eng, report)`, and the stream's start logits,
+    tokens and step bytes."""
+    out = {"serve": judge(eng, serve(eng))}
+    logits = eng.start(torch.from_numpy(prompts))
+    tokens = eng.generate(logits.argmax(-1).to(torch.int32), GEN)
+    out["stream"] = {"start": logits.numpy(), "tokens": tokens.numpy(),
+                     "bytes": [(s.h_read, s.e_read, s.m_in, s.m_out)
+                               for s in eng.stats]}
+    out["served again"] = judge(eng, serve(eng))
+    return out
+
+
+def run_case(name, cfg, params, mesh=None):
+    """Serve case, single-stream case or `AGAIN` `name` on the port's
+    engine (`mesh` when given)."""
+    if name in STREAMS:
+        return stream_case(name, Model(cfg), params, mesh)
+    if name == AGAIN:
+        from repro_torch.serving.scheduler import Request
+        eng = ServingEngine(Model(cfg), params, engine_config(), mesh=mesh,
+                            device="cpu")
+        return again_case(
+            eng, lambda e: e.serve(stream(Request, "inline", cfg.vocab),
+                                   num_slots=2),
+            stream_prompts(2, cfg.vocab),
+            lambda e, rep: outcome(e, rep, fractions=False))
+    given = bridge.shard_params(params, cfg, mesh, mesh_coordinate(mesh)) \
+        if mesh is not None and name in PRE_CUT else params
+    return serve_case(name, Model(cfg), given, mesh)
 
 
 def rank_main(rank, world, store, plan, params_path, out_dir):
@@ -238,13 +328,9 @@ def rank_main(rank, world, store, plan, params_path, out_dir):
                            mesh_dim_names=AXES)
             if rank >= n:
                 continue
-            coord = mesh_coordinate(mesh)
-            res[(data, model)] = out = {"coord": coord}
+            res[(data, model)] = out = {"coord": mesh_coordinate(mesh)}
             for name in cases:
-                given = bridge.shard_params(params, cfg, mesh, coord) \
-                    if name in PRE_CUT else params
-                out[name] = serve_case(name, Model(cfg), given, mesh)
-            out["start"] = start_refusal(cfg, params, mesh)
+                out[name] = run_case(name, cfg, params, mesh)
         with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(res, f)
     finally:

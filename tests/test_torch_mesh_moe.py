@@ -19,7 +19,12 @@ through the reference and the port unmeshed.
 
 The serves: tokens, statuses, events and every StepStats row exactly
 equal to both unmeshed serves (modeled latencies within 1e-12
-relative), in both modes. The steps: `tests/test_torch_mesh_train.py`'s
+relative), in both modes. The single streams (`worker.stream_cases`:
+`start`, `generate`, `run`, `step` of 8 prompts, whose prefill routing
+groups span the data ranks, on both configs; 3 prompts and `serve`,
+`start` + `generate`, `serve` again on granite-smoke at (2, 2)):
+tokens, StepStats bytes and the trace equal the port's unmeshed engine
+and the reference's, logits within `STREAM_ATOL`. The steps: `tests/test_torch_mesh_train.py`'s
 `TOL` against the reference's. Beside them: each rank's weight shards
 at `launch.shardings.local_shape` (and at the rank-local config's
 schema), a (2, 2) checkpoint restored on (1, 2) and without a mesh, and
@@ -43,6 +48,9 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+from repro.serving import trace_bridge as jtb  # noqa: E402
+from repro.serving.engine import EngineConfig as JConfig  # noqa: E402
+from repro.serving.engine import ServingEngine as JEngine  # noqa: E402
 from repro.serving.scheduler import Request as JRequest  # noqa: E402
 from repro.training.train_step import init_train_state as jinit  # noqa: E402
 from repro.training.train_step import make_train_step as jmake  # noqa: E402
@@ -58,8 +66,9 @@ from repro_torch.training.train_step import TrainState  # noqa: E402
 from repro_torch.tree import leaves_with_path, path_name  # noqa: E402
 
 import _torch_mesh_moe_worker as worker  # noqa: E402
+from _torch_mesh_worker import drive_stream, stream_prompts  # noqa: E402
 from _torch_serve_ref import (  # noqa: E402
-    assert_same, engines, smoke_pair,
+    JAX_H100, assert_same, engines, smoke_pair,
 )
 from _torch_serve_ref import outcome as ref_outcome  # noqa: E402
 from _torch_threads import one_torch_thread  # noqa: E402,F401
@@ -78,6 +87,9 @@ JOIN_S = 420
 #: `tests/test_torch_mesh_train.py`'s
 TOL = {"metric": 1e-5, "params": 1e-4, "opt": 1e-6}
 TRAIN_ARCH = "granite"
+#: a meshed single stream's logits against the unmeshed streams' (f32;
+#: `tests/test_torch_mesh_serve.py`'s)
+STREAM_ATOL = 2e-5
 
 
 def moe_pair(arch):
@@ -112,6 +124,27 @@ def unmeshed_serves(models):
         finally:
             moe.route_logits = route
         out[mode] = (ref_outcome(jeng, jrep), port)
+    return out
+
+
+def unmeshed_streams(models, arch):
+    """{case: (the reference's outcome or None, the port's)} of the
+    arch's single-stream cases (the reference has no `AGAIN` here: the
+    port's unmeshed one is held to its serves)."""
+    jm, jp, tm, tp = models
+    out = {}
+    for _, case in worker.stream_cases(worker.EXTRA_ON, [arch]):
+        if case != worker.AGAIN and (case == "stream"
+                                     or arch == worker.EXTRA_ARCH):
+            eng = JEngine(jm, jp, JConfig(**{**dataclasses.asdict(
+                worker.stream_config()), "spec": JAX_H100}))
+            ref = drive_stream(eng, stream_prompts(
+                worker.STREAMS[case], jm.cfg.vocab, worker.STREAM_PROMPT),
+                jnp.asarray, np.asarray, jtb.collect)
+        else:
+            ref = None
+        if case == "stream" or arch == worker.EXTRA_ARCH:
+            out[case] = (ref, worker.stream_case(tm.cfg, tp, case))
     return out
 
 
@@ -182,6 +215,8 @@ def runs(tmp_path_factory):
     try:
         got = {"serve": {arch: unmeshed_serves(m)
                          for arch, m in models.items()},
+               "streams": {arch: unmeshed_streams(m, arch)
+                           for arch, m in models.items()},
                "train": reference_steps(jm, js, batches)}
     finally:
         ranks.join()
@@ -219,6 +254,56 @@ def test_meshed_moe_serve_equals_the_unmeshed_serves(runs, shape, arch,
         got = res[(arch, mode)]
         assert_same(got, ref)
         assert_same(got, port)
+
+
+STREAMS = [(shape, arch, case) for shape in SHAPES
+           for arch, case in worker.stream_cases(shape, ARCHS)
+           if case != worker.AGAIN]
+
+
+@pytest.mark.parametrize("shape,arch,case", STREAMS,
+                         ids=[f"{d}x{m}-{a}-{c}" for (d, m), a, c in STREAMS])
+def test_meshed_moe_single_stream_equals_the_unmeshed_streams(
+        runs, shape, arch, case):
+    """`start`, `generate`, `run` and `step` of a meshed moe engine on
+    every rank: tokens, every StepStats row's bytes and the collected
+    trace equal the port's unmeshed stream's and the reference's, the
+    logits (whole on every rank) within `STREAM_ATOL`; the stream reads
+    the host tier."""
+    ref, port = runs["streams"][arch][case]
+    assert any(b[1] > 0 for b in ref["bytes"])
+    for res in runs[shape]:
+        got = res[(arch, case)]
+        for want in (port, ref):
+            np.testing.assert_array_equal(got["tokens"], want["tokens"])
+            assert got["bytes"] == want["bytes"]
+            for a, b in zip(got["trace"], want["trace"]):
+                np.testing.assert_array_equal(a, b)
+            for k in ("start", "run", "step"):
+                assert got[k].shape == want[k].shape, k
+                np.testing.assert_allclose(got[k], want[k],
+                                           atol=STREAM_ATOL, err_msg=k)
+
+
+def test_serve_start_generate_serve_on_one_meshed_moe_engine(runs):
+    """granite-smoke's `serve`, `start` + `generate`, `serve` again on one
+    engine at (2, 2), on every rank, against the same on the port's
+    unmeshed engine, whose serves equal the reference's serve."""
+    arch = worker.EXTRA_ARCH
+    _, want = runs["streams"][arch][worker.AGAIN]
+    ref, _ = runs["serve"][arch]["inline"]
+    for part in ("serve", "served again"):
+        assert_same(want[part], ref)
+    for res in runs[worker.EXTRA_ON]:
+        got = res[(arch, worker.AGAIN)]
+        for part in ("serve", "served again"):
+            assert_same(got[part], want[part])
+        np.testing.assert_array_equal(got["stream"]["tokens"],
+                                      want["stream"]["tokens"])
+        assert got["stream"]["bytes"] == want["stream"]["bytes"]
+        np.testing.assert_allclose(got["stream"]["start"],
+                                   want["stream"]["start"],
+                                   atol=STREAM_ATOL)
 
 
 @pytest.mark.parametrize("arch", list(ARCHS))

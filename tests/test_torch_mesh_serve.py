@@ -21,6 +21,14 @@ stream unchanged by the mesh, commit caps that cut across the lanes of
 two data ranks and a poisoned request (in the spilling stream), lanes
 the data axis does not divide (replicated) with SLO sheds, and the
 serve CLI's `--parity --mesh` in a subprocess.
+
+The single-stream path of the meshed engine (`start`, `generate`,
+`run`, `step`: `_torch_mesh_worker.STREAMS`, 2, 3 or 4 lanes, 3 at
+(2, 2) where `data` does not divide them) against the port's unmeshed
+engine and the reference's: greedy tokens, every StepStats row's bytes
+and the collected trace equal, logits within `STREAM_ATOL`, on every
+rank; and `serve`, `start` + `generate`, `serve` again on one meshed
+engine against the same on the port's unmeshed one.
 """
 
 import dataclasses
@@ -35,6 +43,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from repro.core.sa import SAConfig as JSAConfig  # noqa: E402
@@ -54,9 +63,18 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPES = {(2, 2): ("inline", "overlap", "trace", "budget", "sampled"),
           (4, 1): ("recency", "replicated"),
           (1, 2): ("inline", "overlap")}
+#: (data, model) -> the single-stream cases its ranks run
+#: (`worker.STREAMS`, and `worker.AGAIN`)
+STREAM_SHAPES = {(2, 2): ("stream", "stream3", worker.AGAIN),
+                 (4, 1): ("stream4",),
+                 (1, 2): ("stream", worker.AGAIN)}
 #: the streams the reference also serves (it has no sampled stream to
 #: compare: its PRNG is another)
 REFERENCE = ("inline", "overlap", "recency", "trace", "budget")
+#: a meshed stream's logits against the unmeshed streams' (f32; the
+#: single-stream tests' tolerance against the reference,
+#: `_torch_serve_ref.assert_stream_matches`)
+STREAM_ATOL = 2e-5
 #: the ranks spawned; a smaller mesh takes the first of them
 WORLD = 4
 #: seconds to wait for the ranks
@@ -88,14 +106,27 @@ def reference_case(models, name):
     return out
 
 
+def reference_stream(models, name):
+    """Single-stream case `name` through the reference's engine."""
+    jm, jp, _, _ = models
+    eng = JEngine(jm, jp, JConfig(**{**dataclasses.asdict(
+        worker.stream_config()), "spec": JAX_H100}))
+    return worker.drive_stream(
+        eng, worker.stream_prompts(worker.STREAMS[name], jm.cfg.vocab),
+        jnp.asarray, np.asarray, jtb.collect)
+
+
 def run_ranks(tmp, params):
-    """Spawn the `WORLD` ranks over `SHAPES` and wait for them; their
-    exit codes. Ranks still alive after `JOIN_S` are killed."""
+    """Spawn the `WORLD` ranks over `SHAPES` and `STREAM_SHAPES` and
+    wait for them; their exit codes. Ranks still alive after `JOIN_S`
+    are killed."""
     ctx = multiprocessing.get_context("spawn")
+    plan = [(shape, cases + STREAM_SHAPES[shape])
+            for shape, cases in SHAPES.items()]
     ranks = [ctx.Process(
         target=worker.rank_main,
-        args=(r, WORLD, str(tmp / "store"), list(SHAPES.items()), params,
-              str(tmp))) for r in range(WORLD)]
+        args=(r, WORLD, str(tmp / "store"), plan, params, str(tmp)))
+        for r in range(WORLD)]
     try:
         for proc in ranks:
             proc.start()
@@ -128,10 +159,13 @@ def runs(tmp_path_factory):
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        got = {"ref": {name: reference_case(models, name)
-                       for name in REFERENCE},
-               "port": {name: worker.serve_case(name, tm, tp)
-                        for name in worker.CASES}}
+        got = {"ref": {**{name: reference_case(models, name)
+                          for name in REFERENCE},
+                       **{name: reference_stream(models, name)
+                          for name in worker.STREAMS}},
+               "port": {name: worker.run_case(name, tm.cfg, tp)
+                        for name in (*worker.CASES, *worker.STREAMS,
+                                     worker.AGAIN)}}
     finally:
         torch.set_num_threads(threads)
         ranks.join()
@@ -269,11 +303,72 @@ def test_rank_holds_its_shards_alone(runs, shape):
     assert runs["port"]["inline"]["param_bytes"] == whole
 
 
-@pytest.mark.parametrize("shape", list(SHAPES),
-                         ids=[f"{d}x{m}" for d, m in SHAPES])
-def test_meshed_engine_refuses_the_single_stream_path(runs, shape):
+STREAM_PAIRS = [(shape, name) for shape, names in STREAM_SHAPES.items()
+                for name in names if name in worker.STREAMS]
+
+
+@pytest.mark.parametrize("shape,name", STREAM_PAIRS,
+                         ids=[f"{d}x{m}-{n}" for (d, m), n in STREAM_PAIRS])
+def test_meshed_single_stream_equals_the_unmeshed_streams(runs, shape,
+                                                          name):
+    """`start`, `generate`, `run` and `step` of a meshed engine, on every
+    rank: greedy tokens, every StepStats row's bytes and the collected
+    trace ([steps, L, B, P] read sets and placements, and the moves)
+    equal the port's unmeshed stream's and the reference's; the start,
+    run and step logits, whole on every rank, within `STREAM_ATOL` of
+    both. Each rank's tables are its lanes' of the unmeshed stream
+    (every lane where `data` does not divide them), its pools
+    [L, lanes, P, T, KH/model, HD]."""
+    data, model = shape
+    port, ref = runs["port"][name], runs["ref"][name]
+    assert any(b[1] > 0 for b in ref["bytes"])          # host tier read
+    assert any(b[2] > 0 for b in ref["bytes"])          # pages promoted
+    B = worker.STREAMS[name]
+    n = B // data if B % data == 0 else B
+    for rank, res in enumerate(runs[shape]):
+        got = res[name]
+        for want in (port, ref):
+            np.testing.assert_array_equal(got["tokens"], want["tokens"])
+            assert got["bytes"] == want["bytes"], rank
+            for a, b in zip(got["trace"], want["trace"]):
+                np.testing.assert_array_equal(a, b)
+            for k in ("start", "run", "step"):
+                assert got[k].shape == want[k].shape, k
+                np.testing.assert_allclose(got[k], want[k],
+                                           atol=STREAM_ATOL, err_msg=k)
+        lo = res["coord"]["data"] * n if n < B else 0
+        for f, t in got["tables"].items():
+            np.testing.assert_array_equal(t, np.take(
+                port["tables"][f], range(lo, lo + n),
+                axis=0 if f == "length" else 1), err_msg=f)
+        L, _, P, T, KH, HD = port["pool_shape"]
+        assert got["pool_shape"] == (L, n, P, T, KH // model, HD)
+
+
+@pytest.mark.parametrize("shape", [s for s, names in STREAM_SHAPES.items()
+                                   if worker.AGAIN in names],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_serve_start_generate_serve_on_one_meshed_engine(runs, shape):
+    """`serve`, then `start` + `generate`, then `serve` again on one
+    meshed engine, on every rank: each serve's tokens, statuses, events
+    and step bytes, and the stream's tokens and bytes, equal the same
+    sequence on the port's unmeshed engine (start logits within
+    `STREAM_ATOL`); the stream between leaves the serve as it was."""
+    want = runs["port"][worker.AGAIN]
+    for part in ("serve", "served again"):
+        for key in ("outputs", "statuses", "events", "bytes"):
+            assert want[part][key] == runs["port"]["inline"][key], part
     for res in runs[shape]:
-        assert "single-stream path" in res["start"], res["start"]
+        got = res[worker.AGAIN]
+        for part in ("serve", "served again"):
+            for key in ("outputs", "statuses", "events", "bytes"):
+                assert got[part][key] == want[part][key], (part, key)
+        np.testing.assert_array_equal(got["stream"]["tokens"],
+                                      want["stream"]["tokens"])
+        assert got["stream"]["bytes"] == want["stream"]["bytes"]
+        np.testing.assert_allclose(got["stream"]["start"],
+                                   want["stream"]["start"],
+                                   atol=STREAM_ATOL)
 
 
 def test_sampled_stream_unchanged_by_the_mesh(runs):

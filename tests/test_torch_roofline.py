@@ -1,13 +1,17 @@
-"""The one-card dry run and its roofline against the reference: the
-roofline terms and table of one record under one made-up chip built in
-both packages, the cell list, a decode cell counted on the meta device,
-a cell that does not fit the card, and `op_cost`'s FLOPs of a smoke
-decode step against the reference's HLO analyzer on the same step."""
+"""The dry run and its roofline against the reference: the roofline
+terms and table of one record under one made-up chip built in both
+packages, the cell list, a decode cell counted on the meta device, a
+cell that does not fit the card, the twin-pod (`multi`) records' bytes
+per card against the reference's own sharding rules, and `op_cost`'s
+FLOPs of a smoke decode step against the reference's HLO analyzer on
+the same step."""
 
 import dataclasses
 import functools
 import json
+import math
 import os
+from types import SimpleNamespace
 
 import pytest
 
@@ -19,6 +23,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro import configs as jconfigs  # noqa: E402
 from repro.core.tiers import ChipSpec as JChip  # noqa: E402
 from repro.launch import roofline as jroof  # noqa: E402
+from repro.launch import shardings as jshd  # noqa: E402
 from repro.launch.hlo_cost import analyze  # noqa: E402
 from repro.models.model import Model as JModel  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
@@ -128,12 +133,146 @@ def test_cell_past_the_card_is_skipped_with_its_bytes():
     assert str(want) in rec["reason"]
 
 
-def test_multi_mesh_is_refused():
-    with pytest.raises(NotImplementedError, match="more than one card"):
-        dryrun.run_cell("internlm2-1.8b", "decode_32k", "multi")
-    with pytest.raises(NotImplementedError, match="more than one card"):
-        dryrun.main(["--arch", "internlm2-1.8b", "--shape", "decode_32k",
-                     "--mesh", "multi"])
+#: the twin-pod cells held to the reference's rules: two decode cells,
+#: whose pools split their pages over `model` (8 KV heads do not divide
+#: 16), a dense and a moe train step (the single record skips
+#: llama4-maverick's: it does not fit one card)
+MULTI_CELLS = [("internlm2-1.8b", "decode_32k"), ("qwen3-32b", "decode_32k"),
+               ("granite-8b", "train_4k"),
+               ("llama4-maverick-400b-a17b", "train_4k")]
+
+
+def reference_card_bytes(leaves, specs, sizes, itemsize=None):
+    """Bytes of one card's blocks of the reference's abstract `leaves`
+    under its `PartitionSpec`s `specs` on a mesh of `sizes`."""
+    total = 0
+    for leaf, spec in zip(leaves, specs):
+        shape = list(leaf.shape)
+        for d, entry in enumerate(spec):
+            axes = () if entry is None else \
+                (entry,) if isinstance(entry, str) else tuple(entry)
+            n = math.prod(sizes[a] for a in axes)
+            assert shape[d] % n == 0
+            shape[d] //= n
+        total += math.prod(shape) * (itemsize or leaf.dtype.itemsize)
+    return total
+
+
+@pytest.mark.parametrize("arch,shape", MULTI_CELLS,
+                         ids=[f"{a}-{s}" for a, s in MULTI_CELLS])
+def test_multi_record_bytes_follow_the_reference_rules(arch, shape,
+                                                       monkeypatch):
+    """A twin-pod record's per-card parameter, AdamW and decode-state
+    bytes (its host tier apart) equal those the reference's own
+    `param_pspec` and `state_shardings_for` give on its (2, 16, 16) mesh
+    of names and sizes (its `NamedSharding` swapped for a holder of the
+    spec: the mesh has no devices); the inputs by its
+    `tokens_sharding`; FLOPs the global step's over 512 cards."""
+    from jax.sharding import AbstractMesh as JMesh
+    from jax.sharding import PartitionSpec as P
+    monkeypatch.setattr(jshd, "NamedSharding",
+                        lambda mesh, spec: SimpleNamespace(spec=spec))
+    jmesh = JMesh((2, 16, 16), ("pod", "data", "model"))
+    sizes = dict(zip(jmesh.axis_names, jmesh.axis_sizes))
+    rec = dryrun.run_cell(arch, shape, "multi")
+    seq, batch, kind = dryrun.SHAPES[shape]
+    assert (rec["mesh"], rec["devices"], rec["batch"]) == ("multi", 512,
+                                                          batch)
+    assert rec["status"] == "ok"
+    jm = JModel(jconfigs.get(arch))
+    mode = "train" if kind == "train" else "serve"
+    params = jax.tree.leaves(jm.abstract_params())
+    axes = jax.tree.leaves(jm.logical_axes(),
+                           is_leaf=lambda x: isinstance(x, tuple))
+    pspecs = [jshd.param_pspec(a, p.shape, jmesh, mode)
+              for a, p in zip(axes, params)]
+    mem = rec["memory"]
+    assert mem["param_bytes"] == reference_card_bytes(params, pspecs, sizes)
+    tok = jshd.tokens_sharding(jmesh, batch).spec
+    if kind == "train":
+        assert mem["opt_bytes"] == 2 * reference_card_bytes(
+            params, pspecs, sizes, itemsize=4) + 4
+        assert (mem["state_bytes"], mem["pinned_host_bytes"]) == (0, 0)
+        assert mem["input_bytes"] == reference_card_bytes(
+            [jax.ShapeDtypeStruct((batch, seq), jnp.int32)], [tok], sizes)
+    else:
+        geo = jm.cache_geometry(batch, seq, hbm_fraction=0.25)
+        state = jax.eval_shape(lambda: jm.init_decode_state(batch, geo))
+        holders = jshd.state_shardings_for(jm, state, jmesh)
+        specs = [h.spec for h in jax.tree.leaves(
+            holders, is_leaf=lambda x: isinstance(x, SimpleNamespace))]
+        host = reference_card_bytes([state.k_host, state.v_host],
+                                    [holders.k_host.spec,
+                                     holders.v_host.spec], sizes)
+        total = reference_card_bytes(jax.tree.leaves(state), specs, sizes)
+        assert mem["pinned_host_bytes"] == host
+        assert mem["state_bytes"] == total - host
+        assert mem["opt_bytes"] == 0
+        assert mem["input_bytes"] == reference_card_bytes(
+            [jax.ShapeDtypeStruct((batch,), jnp.int32)], [P(tok[0])], sizes)
+        # qwen3-32b's 8 KV heads do not divide 16: the pools split pages
+        assert (holders.k_hbm.spec[2] == "model") == \
+            (jm.cfg.kv_heads % 16 != 0)
+    assert mem["card_bytes"] == mem["param_bytes"] + mem["opt_bytes"] + \
+        mem["state_bytes"] + mem["input_bytes"]
+    assert mem["card_bytes"] <= H100_CHIP.hbm_capacity
+    assert rec["flops_per_device"] > 0
+    split = 16 * math.prod(sizes[a] for a in (
+        () if tok[0] is None else (tok[0],) if isinstance(tok[0], str)
+        else tok[0]))
+    assert f"over the {split} cards that split it" in rec["flops_split"]
+    assert rec["bytes_per_device"] is None
+    assert "activations are not counted" in rec["reason"]
+
+
+def test_multi_fits_what_one_card_cannot():
+    """llama4-maverick's train step skips on one card and fits each card
+    of the twin-pod mesh; internlm2's decode FLOPs split evenly are
+    128/512 of the one-card (batch 1) step's, within what the step
+    counts once a step whatever its batch."""
+    single = dryrun.run_cell("llama4-maverick-400b-a17b", "train_4k",
+                             "single")
+    assert single["status"] == "skip"
+    one = dryrun.run_cell("internlm2-1.8b", "decode_32k", "single")
+    multi = dryrun.run_cell("internlm2-1.8b", "decode_32k", "multi")
+    assert multi["flops_per_device"] == pytest.approx(
+        one["flops_per_device"] * 128 / 512, rel=1e-4)
+    assert multi["memory"]["card_bytes"] < one["memory"]["card_bytes"]
+
+
+@pytest.mark.parametrize("arch", ["xlstm-125m", "zamba2-1.2b"])
+def test_multi_flops_count_the_cards_that_split_the_step(arch):
+    """long_500k's batch of 1 is whole on every `pod` and `data` card
+    (the reference's `tokens_sharding` replicates it), so only the
+    16-way `model` axis splits the step: each card does 1/16 of the
+    one-card record's step (the same global batch), not 1/512."""
+    from jax.sharding import AbstractMesh as JMesh
+    single = dryrun.run_cell(arch, "long_500k", "single")
+    multi = dryrun.run_cell(arch, "long_500k", "multi")
+    jmesh = JMesh((2, 16, 16), ("pod", "data", "model"))
+    assert jshd.tokens_sharding(jmesh, 1).spec[0] is None
+    assert multi["status"] == single["status"] == "ok"
+    assert multi["flops_per_device"] == pytest.approx(
+        single["flops_per_device"] / 16, rel=1e-9)
+    assert "over the 16 cards that split it" in multi["flops_split"]
+    assert "repeated on 32 cards" in multi["flops_split"]
+
+
+def test_mesh_both_writes_both_records(capsys, tmp_path):
+    """`--mesh both` runs the one-card record, then the twin-pod one;
+    the roofline table renders both (the twin-pod one its compute term
+    alone)."""
+    dryrun.main(["--arch", "internlm2-1.8b", "--shape", "decode_32k",
+                 "--mesh", "both"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    recs = [json.loads(line) for line in lines]
+    assert [r["mesh"] for r in recs] == ["single", "multi"]
+    assert [r["devices"] for r in recs] == [1, 512]
+    path = tmp_path / "results.jsonl"
+    path.write_text("".join(line + "\n" for line in lines))
+    rows = troof.table(str(path)).splitlines()
+    assert len(rows) == 2 + 2
+    assert rows[2].split()[2:4] == ["multi", "-"]
 
 
 #: op_cost against the reference's analyzer on one smoke decode step.
