@@ -371,6 +371,30 @@ non-zero):
              unsplit layer's, the flash kernel at each rank's heads
              against its plain version (`prefill_split`).
 
+  18a. pages split one full-width layer of internlm2-1.8b (16/8 heads)
+             and of qwen3-32b (64/8) split over a model axis of 16 that
+             does not divide the KV heads (the reference's `pages` KV
+             pool rule), the ranks as threads of this process
+             (`ThreadMesh`) running the engine's rank-local code: each
+             rank's pools hold 4 of phase 4's 64 HBM and 13 of its 208
+             host slots a lane (B=8), every KV head, the tables whole; a
+             decode step (`Model.decode_step`: the token written by the
+             rank that holds its slot, the paged kernel on every rank's
+             slots, the 32 partials merged, the importance at the rank's
+             slots summed), a migration plan at the budget over random
+             importance (rows crossing ranks exchanged over `model`), a
+             32-token chunked-prefill slice (ranks past every prefix give
+             zero partials) and `start` of 2 x 1536 tokens (flash at the
+             rank's query heads over the KV heads they read): every
+             rank's pools bitwise the unsplit pools' slots and its tables
+             equal after each, logits and importance within
+             PAGES_SPLIT_TOL of the unsplit layer's (`pages_split`);
+             phase 2 times the paged kernel at a rank's slots (N = 4,
+             13).
+  18b. none split the internlm2-1.8b layer over a model axis of 3 (the
+             `none` rule: pools and heads whole, the vocabulary split):
+             pools, tables and importance exact (`none_split`).
+
 Then a `kernels` JSON line, the card's name and power limit, and, last,
 {"ok": true, "device": {...}}. Without a CUDA card it exits non-zero
 and prints no result. `--profile DIR` runs phase 4 under torch.profiler
@@ -579,6 +603,11 @@ def kernel_phase(rng, device):
     shapes = []
     for model, KH, G, HD in PAGED_MODELS:
         shapes += paged_shapes(rng, device, model, KH, G, HD)
+    # phase 18a's shard of internlm2's tiers: 4 HBM + 13 host slots
+    _, Ph, Pe = PAGES_GEO
+    for model, split in PAGES_SPLITS[:1]:
+        shapes += paged_shapes(rng, device, model, 8, 2, 128,
+                               Ns=(Ph // split, Pe // split), split=split)
     for model, KH, G, HD in PAGED_STREAMS:
         for N in (64, 208):
             check_paged(f"kernel {model} B=4 G={G} HD={HD} N={N}",
@@ -624,20 +653,23 @@ def check_paged(what, inputs):
     return err
 
 
-def paged_shapes(rng, device, model, KH, G, HD):
+def paged_shapes(rng, device, model, KH, G, HD, Ns=(64, 208), split=None):
     """The HBM tier (N=64) and host tier (N=208) of one model's decode,
-    bf16 pools on the card: checked, then timed."""
+    bf16 pools on the card: checked, then timed. `Ns`, `split`: a rank's
+    block of those slots under the `pages` rule over a model axis of
+    `split` (phase 18a's shapes)."""
     import torch
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ref
     B, T = 8, 16
     shapes = []
-    for N in (64, 208):
+    for N in Ns:
         per_copy = 2 * B * N * T * KH * HD * 2
         copies = max(2, math.ceil(256e6 / per_copy))   # beat the 50 MB L2
         sets = [paged_inputs(rng, B, KH, G, HD, N, T, torch.bfloat16, device)
                 for _ in range(copies)]
-        what = f"kernel {model} G={G} HD={HD} N={N}"
+        what = f"kernel {model} G={G} HD={HD} N={N}" + (
+            f" (a rank's slots, pages rule, model={split})" if split else "")
         err = check_paged(what, sets[0])
 
         def kernel(i):
@@ -667,6 +699,7 @@ def paged_shapes(rng, device, model, KH, G, HD):
             f"eager call {kernel_eager:.4f} ms  "
             f"{pa.launch_plan(B, KH, G, HD, T, N, 2, sms)}")
         shapes.append({"model": model, "G": G, "HD": HD, "N": N,
+                       **({"pages_split": split} if split else {}),
                        "ms": ms, "plain_ms": plain_ms,
                        "library_ms": lib_ms, "bound_ms": bound,
                        "eager_ms": kernel_eager,
@@ -4534,13 +4567,10 @@ class ThreadMesh:
         self._barriers[group].wait()
         return list(slot)
 
-    def tp(self, cfg, coord, specs):
-        """The `TensorParallel` of the rank at `coord` over the whole
-        model's `cfg`, its FSDP and model blocks as `specs` (by path)
-        give them."""
+    def model_collectives(self, coord):
+        """(reduce, gather) over `model` for the rank at `coord`: the
+        sum of the ranks' tensors in rank order, their concatenation."""
         import torch
-        from repro_torch.models.transformer import TensorParallel
-        from repro_torch.training.train_step import layer_dims
 
         def reduce(t):
             parts = self.exchange(coord, "model", t)
@@ -4551,6 +4581,16 @@ class ThreadMesh:
 
         def gather(t, dim):
             return torch.cat(self.exchange(coord, "model", t), dim)
+        return reduce, gather
+
+    def tp(self, cfg, coord, specs):
+        """The `TensorParallel` of the rank at `coord` over the whole
+        model's `cfg`, its FSDP and model blocks as `specs` (by path)
+        give them."""
+        import torch
+        from repro_torch.models.transformer import TensorParallel
+        from repro_torch.training.train_step import layer_dims
+        reduce, gather = self.model_collectives(coord)
 
         def gather_data(t, dim):
             return torch.cat(self.exchange(coord, "data", t), dim)
@@ -4559,6 +4599,24 @@ class ThreadMesh:
             gather=gather, data_dims=layer_dims(cfg, specs, "data"),
             model_dims=layer_dims(cfg, specs, "model"),
             gather_data=gather_data, gather_rows=gather_data)
+
+    def serve_tp(self, cfg, coord, geo):
+        """The serving `TensorParallel` of the rank at `coord` over the
+        whole model's `cfg` for a cache of `geo`'s tiers (the engine's
+        `_bind_mesh`): its block of the pools' slots under the `pages`
+        rule, the exchange its `reduce`."""
+        from repro_torch.kvcache.paged import PoolShard
+        from repro_torch.launch.mesh import AbstractMesh
+        from repro_torch.launch.shardings import _kv_shard_axis, pool_slots
+        from repro_torch.models.transformer import TensorParallel
+        reduce, gather = self.model_collectives(coord)
+        mesh = AbstractMesh(("data", "model"), (self.sizes["data"],
+                                                self.sizes["model"]))
+        pool = PoolShard(*pool_slots(geo, mesh, coord["model"]),
+                         exchange=reduce) \
+            if _kv_shard_axis(geo, mesh) == "pages" else None
+        return TensorParallel.of(cfg, self.sizes["model"], coord["model"],
+                                 reduce=reduce, gather=gather, pool=pool)
 
     def run(self, fn):
         """{(data, model): fn(coord)} with every rank in a thread; the
@@ -5075,6 +5133,271 @@ def prefill_split_phase(seed):
     return dict(total)
 
 
+#: phase 18a's layers split under the `pages` KV pool rule: (model,
+#: model-axis size), 4 HBM + 13 host slots a rank at PAGES_GEO; 18b's
+#: under the `none` rule (pools whole, heads whole: 16 over 3, the
+#: vocabulary split)
+PAGES_SPLITS = (("internlm2-1.8b", 16), ("qwen3-32b", 16))
+NONE_SPLITS = (("internlm2-1.8b", 3),)
+#: phase 4's lanes and pages a lane and layer (HBM, host)
+PAGES_GEO = (8, 64, 208)
+#: `start`'s lanes and prompt tokens a lane (96 pages: 32 past the HBM
+#: tier; its logits at every position, whole on each of 16 ranks, bound
+#: the lanes), the prefill chunk's tokens and the largest start of a
+#: lane's chunk (so the ranks whose slots lie past every lane's prefix
+#: give zero partials)
+PAGES_START = (2, 1536)
+PAGES_CHUNK, PAGES_CHUNK_START = 32, 700
+#: a split layer against the unsplit one, by dtype: max |split -
+#: unsplit| over max |unsplit| of the decode step's, the chunk's and
+#: `start`'s logits; the decode importance absolute. About twice the
+#: largest seen: bf16 on an H100 (logits 1.324e-2, internlm2's chunk:
+#: the ranks' bf16 partial outputs, merged in f32, and the MLP's 16
+#: partial sums in bf16; importance 7.7e-6, qwen3-32b), f32 on the CPU
+#: at the smoke configs (logits 9.7e-7, importance 3.0e-8)
+PAGES_SPLIT_TOL = {"bf16": {"decode": 2.7e-2, "chunk": 2.7e-2,
+                            "start": 2.7e-2, "importance": 1.6e-5},
+                   "f32": {"decode": 2e-6, "chunk": 2e-6, "start": 2e-6,
+                           "importance": 6e-8}}
+
+
+def pages_cache(geo, lengths, gen, device):
+    """A whole cache of `geo` in static placement (`prefill_cache`) over
+    random K/V, each lane holding `lengths[b]` tokens."""
+    import torch
+    from repro_torch.kvcache.paged import prefill_cache
+    L, B, KH, HD = geo.num_layers, geo.batch, geo.kv_heads, geo.head_dim
+    S = int(max(lengths))
+    k, v = (torch.randn((L, B, S, KH, HD), generator=gen, device=device)
+            .to(geo.dtype) for _ in range(2))
+    return prefill_cache(geo, k, v, torch.as_tensor(
+        lengths, dtype=torch.int32, device=device))
+
+
+def rank_cache(cache, shard):
+    """A rank's cache cut from the whole `cache`: its slots of each tier
+    (`shard`, the `pages` rule; None: the whole pools), the tables whole;
+    copies."""
+    from repro_torch.kvcache.paged import PagedKVCache
+    f = {n: getattr(cache, n).clone() for n in (
+        "page_table", "hbm_owner", "host_owner", "length", "importance")}
+    for n, tier in (("k_hbm", 0), ("v_hbm", 0), ("k_host", 1),
+                    ("v_host", 1)):
+        pool = getattr(cache, n)
+        if shard is not None:
+            lo, hi = (shard.hbm, shard.host)[tier]
+            pool = pool[:, :, lo:hi]
+        f[n] = pool.clone()
+    return PagedKVCache(**f)
+
+
+def same_as_slots(got, want, shard) -> bool:
+    """Whether a rank's cache `got` holds bitwise the whole cache
+    `want`'s pools at its slots (`shard`; None: every slot) and its
+    tables."""
+    import torch
+    ok = all(torch.equal(getattr(got, n), getattr(want, n)) for n in (
+        "page_table", "hbm_owner", "host_owner", "length"))
+    for n, tier in (("k_hbm", 0), ("v_hbm", 0), ("k_host", 1),
+                    ("v_host", 1)):
+        pool = getattr(want, n)
+        if shard is not None:
+            lo, hi = (shard.hbm, shard.host)[tier]
+            pool = pool[:, :, lo:hi]
+        ok &= torch.equal(getattr(got, n), pool)
+    return ok
+
+
+def rel_err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
+def pages_split_case(cfg, m, params, seed, device, geo_pages, start,
+                     chunk, chunk_start):
+    """One full-width layer of `cfg` split over a model axis of `m` as
+    threads (`ThreadMesh`), each rank running the engine's rank-local
+    code on its serve shards and its cache (`rank_cache`), against the
+    unsplit layer: a decode step (`Model.decode_step`: the token written
+    by the rank that holds its slot, the paged kernel on every rank's
+    slots, the partials merged, the importance), a migration plan at the
+    budget over random importance (`apply_migrations` with the rank's
+    shard: rows exchanged across ranks), a chunked-prefill slice
+    (`Model.prefill_chunk`) and `start`'s whole-prompt prefill
+    (`Model.prefill` of `start` = (lanes, tokens): flash at the rank's
+    heads). Returns (the errors,
+    whether every rank's pools are bitwise the unsplit's slots and its
+    tables equal, after each step, and facts for the log)."""
+    import dataclasses
+    import torch
+    from repro_torch import bridge
+    from repro_torch.kvcache.migrate import apply_migrations
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.models.model import Model
+    from repro_torch.serving import control
+    B, Ph, Pe = geo_pages
+    whole = Model(cfg)
+    T = cfg.kv_page_tokens
+    geo = dataclasses.replace(
+        whole.cache_geometry(B, (Ph + Pe - 1) * T, hbm_fraction=0.25),
+        hbm_pages=Ph, host_pages=Pe)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 18)
+    rng = np.random.default_rng(seed + 18)
+    mesh = ThreadMesh(1, m)
+    local = cfg.rank_local(m)
+    amesh = AbstractMesh(("data", "model"), (1, m))
+    shards = [bridge.shard_params(params, cfg, amesh,
+                                  {"data": 0, "model": r}) for r in range(m)]
+    # the decode step's cache: lanes past the HBM tier, some at a page
+    # boundary (a fresh page) and some inside one
+    lengths = rng.integers((Ph - 8) * T, (Ph + Pe - 2) * T, B)
+    lengths[: B // 2] = lengths[: B // 2] // T * T
+    dec = pages_cache(geo, lengths, gen, device)
+    token = torch.as_tensor(rng.integers(0, cfg.vocab, B), dtype=torch.int32,
+                            device=device)
+    slot = control.choose_write_slot(dec)
+    imp = torch.rand(dec.importance.shape, generator=gen, device=device)
+    budget = control.migration_budget(geo, 0.1)
+    # the prefill chunk's cache: prefixes of up to `chunk_start` tokens
+    starts = rng.integers(16, chunk_start, B)
+    pre = pages_cache(geo, starts, gen, device)
+    ctoks = torch.as_tensor(rng.integers(0, cfg.vocab, (B, chunk)),
+                            dtype=torch.int32, device=device)
+    cstart = torch.as_tensor(starts, dtype=torch.int32, device=device)
+    n_valid = torch.as_tensor(rng.integers(1, chunk + 1, B),
+                              dtype=torch.int32, device=device)
+    end = int((starts + chunk).max())
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab, start),
+                              dtype=torch.int32, device=device)
+    geo_start = dataclasses.replace(geo, batch=start[0])
+
+    def run(model, p, cache, pre_c, geo_r, shard):
+        logits, after = model.decode_step(p, cache, token, write_slot=slot)
+        decoded = rank_cache(after, None)       # before the migration
+        plan = control.plan_migrations(dataclasses.replace(
+            after, importance=imp), budget=budget, promote_thresh=0.0)[0]
+        moved = apply_migrations(after, plan, shard)
+        c_logits, chunked = model.prefill_chunk(p, pre_c, ctoks, cstart,
+                                                n_valid, end)
+        s_logits, started = model.prefill(p, prompts, geo_r)
+        return {"decode": logits, "decoded": decoded, "plan": plan,
+                "moved": moved, "chunk": c_logits, "chunked": chunked,
+                "start": s_logits, "started": started}
+    want = run(whole, params, rank_cache(dec, None), rank_cache(pre, None),
+               geo_start, None)
+
+    def rank(coord):
+        tp = mesh.serve_tp(cfg, coord, geo)
+        got = run(Model(local, tp=tp), shards[coord["model"]],
+                  rank_cache(dec, tp.pool), rank_cache(pre, tp.pool),
+                  geo_start, tp.pool)
+        got["shard"], got["heads"] = tp.pool, tp.heads
+        return got
+    ranks = mesh.run(rank)
+    err = {"decode": 0.0, "chunk": 0.0, "start": 0.0, "importance": 0.0}
+    same = {"decode": True, "migration": True, "chunk": True,
+            "start": True}
+    for got in ranks.values():
+        for k in ("decode", "chunk", "start"):
+            err[k] = max(err[k], rel_err(got[k], want[k]))
+        err["importance"] = max(err["importance"], float(
+            (got["decoded"].importance - want["decoded"].importance)
+            .abs().max()))
+        for k, c in (("decode", "decoded"), ("migration", "moved"),
+                     ("chunk", "chunked"), ("start", "started")):
+            same[k] &= same_as_slots(got[c], want[c], got["shard"])
+        same["migration"] &= all(torch.equal(getattr(got["plan"], f.name),
+                                             getattr(want["plan"], f.name))
+                                 for f in dataclasses.fields(want["plan"]))
+    shard = ranks[(0, 0)]["shard"]
+    plan = want["plan"]
+    live = plan.pro_layer >= 0
+    crossing = None
+    if shard is not None:
+        nh, ne = shard.counts
+        crossing = int((live & (plan.pro_src // ne != plan.pro_dst // nh))
+                       .sum())
+    facts = {"rows": int(live.sum()), "crossing": crossing,
+             "slots": shard.counts if shard is not None else (Ph, Pe),
+             "heads": ranks[(0, 0)]["heads"],
+             "zero_partials": sum(
+                 1 for r in range(m) if shard is not None and
+                 r * shard.counts[0] >= -(-end // T))}
+    return err, same, facts
+
+
+def pages_split_phase(seed, device="cuda", get=None, splits=None,
+                      geo_pages=PAGES_GEO, start=PAGES_START,
+                      chunk=PAGES_CHUNK, chunk_start=PAGES_CHUNK_START):
+    """Phase 18: one full-width layer of each of `splits` (default
+    PAGES_SPLITS, the `pages` rule, 18a, then NONE_SPLITS, the `none`
+    rule, 18b) split over its model axis as threads of this process
+    (`pages_split_case`; random bf16 weights from `seed`): the decode
+    step's, the chunk's and `start`'s logits within PAGES_SPLIT_TOL of
+    the unsplit layer's (the `none` rule's pools, tables and importance
+    exact), every rank's pools bitwise the unsplit pools' slots and its
+    tables equal after the decode step's write, the migration, the
+    chunk's write and `start`. `device`, `get` (the configs by name),
+    the geometry and sizes: tests/test_torch_mesh_pages.py runs the
+    phase on the CPU at the f32 smoke configs. Returns (the launches by
+    kernel of 18a and of 18b, the rows)."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels.build import COUNTS
+    from repro_torch.models.model import Model
+    device = torch.device(device)
+    get = get or configs.get
+    rows, launches = [], {}
+    for rule, cases in splits or (("pages", PAGES_SPLITS),
+                                  ("none", NONE_SPLITS)):
+        COUNTS.clear()
+        for name, m in cases:
+            if device.type == "cuda":
+                free_card()
+            cfg = dataclasses.replace(get(name), num_layers=1)
+            params = Model(cfg).init(seed, device=device)
+            err, same, facts = pages_split_case(
+                cfg, m, params, seed, device, geo_pages, start, chunk,
+                chunk_start)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            tol = PAGES_SPLIT_TOL["f32" if cfg.dtype == torch.float32
+                                  else "bf16"]
+            log(f"{rule} split {cfg.name} model={m}: B={geo_pages[0]} "
+                f"{geo_pages[1]} HBM + {geo_pages[2]} host pages, "
+                f"{facts['slots'][0]} + {facts['slots'][1]} a rank, query "
+                f"heads {facts['heads'] or 'whole'} of {cfg.num_heads} "
+                f"over {cfg.kv_heads} KV heads whole; pools bitwise the "
+                f"unsplit slots and tables equal after the decode write "
+                f"{same['decode']}, the migration {same['migration']} "
+                f"({facts['rows']} rows, {facts['crossing']} crossing "
+                f"ranks), the chunk {same['chunk']} ({facts['zero_partials']}"
+                f" ranks past every prefix) and start {same['start']}; "
+                f"split against unsplit (max |diff| / max |logit|): decode "
+                f"{err['decode']:.3e} chunk {err['chunk']:.3e} start "
+                f"{err['start']:.3e}, importance {err['importance']:.3e} "
+                f"absolute (tolerance {tol})")
+            rows.append({"rule": rule, "model": cfg.name, "split": m,
+                         "errors": err, "same": same, **facts})
+            if not all(same.values()):
+                raise AssertionError(f"{rule} split {cfg.name} model={m}: "
+                                     f"a rank's cache is not the unsplit "
+                                     f"cache's slots: {same}")
+            if rule == "none" and err["importance"] != 0:
+                raise AssertionError(f"none split {cfg.name}: importance "
+                                     f"{err['importance']}")
+            bad = {k: e for k, e in err.items() if not e <= tol[k]}
+            if bad:
+                raise AssertionError(f"{rule} split {cfg.name} model={m}: "
+                                     f"{bad}")
+            del params
+        launches[rule] = dict(COUNTS)
+        log(f"{rule} split: launches {dict(COUNTS)}")
+    return launches, rows
+
+
 def assemble(grid, spec):
     """The whole gradient of a leaf from its ranks' blocks' gradients
     `grid[d][r]` (data rank d, model rank r) under `spec` (at most one
@@ -5193,6 +5516,8 @@ def main(argv=None) -> int:
     phase("tp split", lambda: tp_split_phase(args.seed))
     prefill_split = phase("prefill split", lambda: prefill_split_phase(
         args.seed))
+    pages_split, _ = phase("pages split", lambda: pages_split_phase(
+        args.seed))
     del model, params               # the CLI's model takes the card next
     gc.collect()
     torch.cuda.empty_cache()
@@ -5243,7 +5568,7 @@ def main(argv=None) -> int:
     # (N=208) launch; granite-moe's and the pinned host tier of overlap
     # mode are in per_shape
     layer = [s for s in shapes if "pools" not in s
-             and s["model"] == "internlm2-1.8b"]
+             and "pages_split" not in s and s["model"] == "internlm2-1.8b"]
     paths = {"serve": serve, "serve_overlap": overlap,
              "policy_sweep": sweep, "serve_faulted": faulted,
              "moe_serve": moe["serve"], "moe_generate": moe["generate"],
@@ -5251,6 +5576,8 @@ def main(argv=None) -> int:
              "trained_serve": trained_serve, "serve_cli": cli,
              "example": example, **mesh_serve, "mesh_moe_serve": mesh_moe,
              "moe_split": moe_split, "mesh_stream": mesh_stream,
+             "pages_split": pages_split["pages"],
+             "none_split": pages_split["none"],
              **{f"{name}_generate": c["generate"]
                 for name, c in streams.items()}}
     paged_by_path = {k: c.get("paged_attention", 0)
@@ -5319,6 +5646,8 @@ def main(argv=None) -> int:
                      "mesh_stream": mesh_stream.get("flash_attention", 0),
                      "prefill_split": prefill_split.get("flash_attention",
                                                         0),
+                     **{f"{rule}_split": c.get("flash_attention", 0)
+                        for rule, c in pages_split.items()},
                      **{f"{name}_start": c["start"].get("flash_attention", 0)
                         for name, c in streams.items()},
                      "whisper-tiny_generate": streams["whisper-tiny"][

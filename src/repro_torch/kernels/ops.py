@@ -14,6 +14,9 @@ Each op picks by device: a CUDA tensor launches the hand-written kernel
                           card, with the host tier in pinned host
                           memory, its launch runs on a side stream
                           beside the HBM-tier launch.
+  shard_paged_attention   the same over a rank's block of each tier's
+                          slots (the `pages` rule), the partials of
+                          every rank merged exactly.
   flash_attention         whole-sequence (prefill) attention, public
                           layout [B, S, H, D], GQA K/V un-repeated
                           (`flash_attention.flash_attention`); when a
@@ -57,19 +60,15 @@ def tier_attention(q, k_pool, v_pool, page_list, page_valid,
     raise ValueError(f"tier_attention runs on cuda or cpu, not {q.device}")
 
 
-def tiered_paged_attention(
+def tier_partials(
     q: torch.Tensor,
     k_hbm: torch.Tensor, v_hbm: torch.Tensor,
     k_host: torch.Tensor, v_host: torch.Tensor,
     hbm_list: torch.Tensor, hbm_valid: torch.Tensor,
     host_list: torch.Tensor, host_valid: torch.Tensor,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Decode attention over the union of two tiers.
-
-    q: [B, KH, G, HD]. Returns (out [B, KH, G, HD], importance [B, Nh+Ne])
-    where importance is the per-page attention mass (summed over heads),
-    ordered [hbm pages..., host pages...] matching the two lists.
-    """
+):
+    """Each tier's partial attention, (out, m, l, page_lse) of the HBM
+    tier and of the host tier (`tier_attention`; q [B, KH, G, HD])."""
     if q.device.type == "cuda" and k_host.device.type == "cpu":
         # the host tier lies in pinned host memory (overlap mode): its
         # launch reads over the link for milliseconds, so it runs on a
@@ -83,21 +82,56 @@ def tiered_paged_attention(
         side = side_stream(q.device)
         side.wait_stream(main)
         with torch.cuda.stream(side):
-            out_e, m_e, l_e, lse_e = tier_attention(
-                q, k_host, v_host, host_list, host_valid, ticket_set=1)
-        out_h, m_h, l_h, lse_h = tier_attention(q, k_hbm, v_hbm, hbm_list,
-                                                hbm_valid)
+            host = tier_attention(q, k_host, v_host, host_list, host_valid,
+                                  ticket_set=1)
+        hbm = tier_attention(q, k_hbm, v_hbm, hbm_list, hbm_valid)
         main.wait_stream(side)
-    else:
-        out_h, m_h, l_h, lse_h = tier_attention(q, k_hbm, v_hbm, hbm_list,
-                                                hbm_valid)
-        out_e, m_e, l_e, lse_e = tier_attention(q, k_host, v_host,
-                                                host_list, host_valid)
+        return hbm, host
+    return (tier_attention(q, k_hbm, v_hbm, hbm_list, hbm_valid),
+            tier_attention(q, k_host, v_host, host_list, host_valid))
+
+
+def tiered_paged_attention(
+    q: torch.Tensor,
+    k_hbm: torch.Tensor, v_hbm: torch.Tensor,
+    k_host: torch.Tensor, v_host: torch.Tensor,
+    hbm_list: torch.Tensor, hbm_valid: torch.Tensor,
+    host_list: torch.Tensor, host_valid: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Decode attention over the union of two tiers.
+
+    q: [B, KH, G, HD]. Returns (out [B, KH, G, HD], importance [B, Nh+Ne])
+    where importance is the per-page attention mass (summed over heads),
+    ordered [hbm pages..., host pages...] matching the two lists.
+    """
+    (out_h, m_h, l_h, lse_h), (out_e, m_e, l_e, lse_e) = tier_partials(
+        q, k_hbm, v_hbm, k_host, v_host, hbm_list, hbm_valid, host_list,
+        host_valid)
     merged, total_lse = ref.merge_partials(
         [(out_h, m_h, l_h), (out_e, m_e, l_e)])
     imp_h = ref.page_importance(lse_h, total_lse)
     imp_e = ref.page_importance(lse_e, total_lse)
     return merged.to(q.dtype), torch.cat([imp_h, imp_e], dim=-1)
+
+
+def shard_paged_attention(q, k_hbm, v_hbm, k_host, v_host, hbm_list,
+                          hbm_valid, host_list, host_valid, gather):
+    """Decode attention over two tiers whose slots are split over the
+    ranks of an axis (the `pages` KV pool rule: sequence-parallel
+    attention). The rank's pools and lists hold its slots; q holds every
+    head. Each tier's partial (the paged kernel on the card), then the
+    partials of every rank's tiers — `gather(t, 0)` concatenates the
+    ranks' `t` in rank order — merged exactly by the log-sum-exp merge
+    in one exchange (`ref.merge_over`, plain PyTorch: rank order, each
+    rank's HBM tier first), so every rank holds the same output. Returns (out
+    [B, KH, G, HD], (importance of the rank's HBM slots [B, n_h], of its
+    host slots [B, n_e])): its pages' attention mass against the merged
+    (global) LSE, summed over heads."""
+    hbm, host = tier_partials(q, k_hbm, v_hbm, k_host, v_host, hbm_list,
+                              hbm_valid, host_list, host_valid)
+    merged, total_lse = ref.merge_over([hbm[:3], host[:3]], gather)
+    return merged.to(q.dtype), (ref.page_importance(hbm[3], total_lse),
+                                ref.page_importance(host[3], total_lse))
 
 
 _SIDE: Dict[torch.device, "torch.cuda.Stream"] = {}

@@ -121,6 +121,20 @@ def merge_partials(parts) -> Tuple[torch.Tensor, torch.Tensor]:
     return merged, lse
 
 
+def merge_over(parts, gather) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`merge_partials` of the partials every rank of an axis holds:
+    this rank's `parts` packed into one f32 tensor (out, m and l on the
+    last dim), `gather(t, 0)` concatenating every rank's in rank order,
+    then one merge over all of them in that order, so every rank gets
+    the same (out, lse). The exchange of sequence-parallel attention
+    (the `pages` KV pool rule), plain PyTorch."""
+    HD = parts[0][0].shape[-1]
+    mine = torch.stack([torch.cat([out.float(), m[..., None], l[..., None]],
+                                  dim=-1) for out, m, l in parts])
+    return merge_partials([(p[..., :HD], p[..., HD], p[..., HD + 1])
+                           for p in gather(mine, 0)])
+
+
 def page_importance(page_lse: torch.Tensor,
                     total_lse: torch.Tensor) -> torch.Tensor:
     """Attention mass per page: sum over (KH, G) of exp(page_lse - lse).

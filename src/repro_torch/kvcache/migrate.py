@@ -17,19 +17,30 @@ table rewrites send them to a spare element. On the card that is no host sync,
 whether the host pools lie in HBM (inline mode) or in pinned host
 memory (overlap mode), and `commit_async` runs the copies on a side
 stream concurrently with the decode compute.
+
+On a rank whose pools hold its block of each tier's slots (the `pages`
+rule: a `PoolShard`, passed as `shard`), a plan row may move a page
+between slots of two ranks. Each rank gathers the source rows it holds
+into staging buffers filled with -0.0 elsewhere, the buffers are
+summed over the ranks (`PoolShard.exchange`: plain PyTorch addition in
+the collective, exact, since -0.0 is the identity of every sum and each
+row comes from one rank), and each rank scatters the rows whose
+destination it holds. Every row of the plan's capacity crosses the
+exchange, its sentinel rows included. The tables are whole on every
+rank and rewritten alike.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.kernels import ops
-from repro_torch.kvcache.paged import NO_SLOT, PagedKVCache
+from repro_torch.kvcache.paged import NO_SLOT, PagedKVCache, PoolShard
 
 _FIELDS = ("pro_layer", "pro_batch", "pro_src", "pro_dst", "pro_logical",
            "dem_layer", "dem_batch", "dem_src", "dem_dst", "dem_logical")
@@ -87,27 +98,43 @@ class MigrationPlan:
         return ((self.pro_layer >= 0).sum(), (self.dem_layer >= 0).sum())
 
 
-def stage_plan(cache: PagedKVCache, plan: MigrationPlan):
+def stage_plan(cache: PagedKVCache, plan: MigrationPlan,
+               shard: Optional[PoolShard] = None):
     """Phase 1: gather every source page from the input pools.
 
     Returns `(dem_k, dem_v, pro_k, pro_v)`, each [M, T, KH, HD] — copies,
     so later scatters cannot change them. Sentinel rows gather an
-    arbitrary in-bounds page; `commit_staged` drops them.
+    arbitrary in-bounds page; `commit_staged` drops them. With `shard`
+    (a rank's slots, the `pages` rule) every rank gathers the rows it
+    holds and the exchange gives each rank every row (the module
+    docstring).
     """
-    L = cache.k_hbm.shape[0]
-    hbm_pages = cache.k_hbm.shape[2]
-    host_pages = cache.k_host.shape[2]
+    L = cache.page_table.shape[0]
+    hbm_pages = cache.hbm_owner.shape[2]
+    host_pages = cache.host_owner.shape[2]
+    dem_src = plan.dem_src.clamp(0, hbm_pages - 1)
+    pro_src = plan.pro_src.clamp(0, host_pages - 1)
+    if shard is not None:
+        dem_src = shard.tier_local(dem_src, 0)
+        pro_src = shard.tier_local(pro_src, 1)
     d = _rows_of(plan.dem_layer.clamp(0, L - 1), plan.dem_batch.clamp_min(0),
-                 plan.dem_src.clamp(0, hbm_pages - 1))
+                 dem_src)
     p = _rows_of(plan.pro_layer.clamp(0, L - 1), plan.pro_batch.clamp_min(0),
-                 plan.pro_src.clamp(0, host_pages - 1))
-    pairs = [(torch.empty((plan.capacity,) + pool.shape[3:],
-                          dtype=pool.dtype, device=plan.pro_layer.device),
-              (None,), pool, at)
-             for pool, at in ((cache.k_hbm, d), (cache.v_hbm, d),
-                              (cache.k_host, p), (cache.v_host, p))]
-    ops.copy_rows(*pairs)
-    return tuple(pair[0] for pair in pairs)
+                 pro_src)
+    row = cache.k_hbm.shape[3:]
+    like = dict(dtype=cache.k_hbm.dtype, device=plan.pro_layer.device)
+    if shard is None:
+        bufs = [torch.empty((plan.capacity,) + row, **like)
+                for _ in range(4)]
+    else:
+        staged = torch.full((4, plan.capacity) + row, -0.0, **like)
+        bufs = staged.unbind(0)
+    ops.copy_rows(*[(buf, (None,), pool, at) for buf, pool, at in zip(
+        bufs, (cache.k_hbm, cache.v_hbm, cache.k_host, cache.v_host),
+        (d, d, p, p))])
+    if shard is not None:
+        bufs = shard.exchange(staged).unbind(0)
+    return tuple(bufs)
 
 
 def _rows_of(*idx):
@@ -116,15 +143,17 @@ def _rows_of(*idx):
 
 
 def commit_staged(cache: PagedKVCache, plan: MigrationPlan,
-                  staged) -> PagedKVCache:
+                  staged, shard: Optional[PoolShard] = None
+                  ) -> PagedKVCache:
     """Phase 2: scatter the staged pages and rewrite the maps.
 
     `staged` is `stage_plan`'s gather of the SAME plan. A row scatters
-    only where the reference's would land in bounds. Owner clears land
-    before owner sets, so swapped slots end up owned by the arriving
-    page, not marked free.
+    only where the reference's would land in bounds (and, with `shard`,
+    where the rank holds its destination). Owner clears land before
+    owner sets, so swapped slots end up owned by the arriving page, not
+    marked free.
     """
-    scatter_staged(cache, plan, staged)
+    scatter_staged(cache, plan, staged, shard)
     return commit_tables(cache, plan)
 
 
@@ -149,16 +178,18 @@ def _scatter(table: torch.Tensor, ok: torch.Tensor, at, values
 
 
 def scatter_staged(cache: PagedKVCache, plan: MigrationPlan,
-                   staged) -> None:
+                   staged, shard: Optional[PoolShard] = None) -> None:
     """The data half of `commit_staged`: row r of the staged pages lands
     at (layer, batch, dst) where those are in range; the row copy skips
     the others (the batch index is clamped at 0 first, as the reference
-    does)."""
+    does). With `shard`: where the rank holds dst, at its local slot."""
     dem_k, dem_v, pro_k, pro_v = staged
-    d_at = _rows_of(plan.dem_layer, plan.dem_batch.clamp_min(0),
-                    plan.dem_dst)
-    p_at = _rows_of(plan.pro_layer, plan.pro_batch.clamp_min(0),
-                    plan.pro_dst)
+    dem_dst, pro_dst = plan.dem_dst, plan.pro_dst
+    if shard is not None:
+        dem_dst = shard.tier_local(dem_dst, 1)
+        pro_dst = shard.tier_local(pro_dst, 0)
+    d_at = _rows_of(plan.dem_layer, plan.dem_batch.clamp_min(0), dem_dst)
+    p_at = _rows_of(plan.pro_layer, plan.pro_batch.clamp_min(0), pro_dst)
     ops.copy_rows((cache.k_host, d_at, dem_k, (None,)),
                   (cache.v_host, d_at, dem_v, (None,)),
                   (cache.k_hbm, p_at, pro_k, (None,)),
@@ -170,11 +201,9 @@ def commit_tables(cache: PagedKVCache, plan: MigrationPlan
     """The table half of `commit_staged`: owner maps and page table
     rewritten for the plan's in-range rows, in fixed shapes (`_scatter`),
     so a CUDA graph can hold it."""
-    L = cache.k_hbm.shape[0]
-    B = cache.k_hbm.shape[1]
-    hbm_pages = cache.k_hbm.shape[2]
-    host_pages = cache.k_host.shape[2]
-    max_pages = cache.page_table.shape[2]
+    L, B, max_pages = cache.page_table.shape
+    hbm_pages = cache.hbm_owner.shape[2]
+    host_pages = cache.host_owner.shape[2]
     d_b = plan.dem_batch.clamp_min(0)
     d_ok = _in(plan.dem_layer, L) & (d_b < B)
     p_b = plan.pro_batch.clamp_min(0)
@@ -207,28 +236,31 @@ def commit_tables(cache: PagedKVCache, plan: MigrationPlan
                                hbm_owner=hbm_owner, host_owner=host_owner)
 
 
-def apply_migrations(cache: PagedKVCache,
-                     plan: MigrationPlan) -> PagedKVCache:
-    """Execute a migration batch inline: stage, then commit."""
-    return commit_staged(cache, plan, stage_plan(cache, plan))
+def apply_migrations(cache: PagedKVCache, plan: MigrationPlan,
+                     shard: Optional[PoolShard] = None) -> PagedKVCache:
+    """Execute a migration batch inline: stage, then commit (`shard`: a
+    rank's slots under the `pages` rule)."""
+    return commit_staged(cache, plan, stage_plan(cache, plan, shard), shard)
 
 
 def commit_async(cache: PagedKVCache, plan: MigrationPlan,
-                 stream: "torch.cuda.Stream"):
+                 stream: "torch.cuda.Stream",
+                 shard: Optional[PoolShard] = None):
     """`apply_migrations` with the page copies on `stream` (a CUDA
     cache whose host pools are pinned): they start after everything
     the current stream has queued so far — this step's token writes and
     attention reads — and run concurrently with what it queues next;
     the tables are rewritten on the current stream at once. Returns
     (cache, event): work that touches the pools must wait on the event
-    (`torch.cuda.Stream.wait_event`) first."""
+    (`torch.cuda.Stream.wait_event`) first. With `shard` the exchange
+    runs on `stream` too, at the same point of every rank's step."""
     main = torch.cuda.current_stream(plan.pro_layer.device)
     stream.wait_stream(main)
     with torch.cuda.stream(stream):
         # the staging buffers belong to `stream`'s pool; the plan's
         # rows, made on the main stream, must outlive the copies
-        staged = stage_plan(cache, plan)
-        scatter_staged(cache, plan, staged)
+        staged = stage_plan(cache, plan, shard)
+        scatter_staged(cache, plan, staged, shard)
     for name in _FIELDS:
         getattr(plan, name).record_stream(stream)
     done = torch.cuda.Event()

@@ -30,9 +30,17 @@ pinned memory kind to place its host pools in; the port pins them
 
 Under a serving mesh (`ServingEngine(..., mesh=)`) each rank holds its
 block of the cache, as `launch.shardings.cache_shardings` lays it out:
-pools [L, B/data, P, T, KH/model, HD], the tables and owner maps of its
-B/data lanes (the same on every `model` rank). A rank's cache is an
-ordinary cache of a rank-local geometry, built by `init_cache`. In
+under the `kv_heads` rule pools [L, B/data, P, T, KH/model, HD], under
+the `pages` rule [L, B/data, P/model, T, KH, HD] (the rank's contiguous
+block of each tier's slots, `PoolShard`), under `none` whole pools; and
+in every rule the tables and owner maps of its B/data lanes whole on
+every `model` rank (where the reference shards the owner maps with the
+pools' pages: the port keeps them whole, so every decision over them
+is computed alike on every model rank). A rank's cache is a cache of a
+rank-local geometry (its lanes, the whole tier sizes, which the tables,
+the plans and the budget read) built by `init_cache`, whose `shard`
+names the rank's slots (a `PoolShard`). Every function that needs a
+tier's size reads it from the owner maps, never from the pools. In
 overlap mode each rank keeps its host tier where the unmeshed port
 keeps it, in pinned host memory; the reference's GSPMD puts a meshed
 cache in device memory (its `serve` drops the pinned kind under a
@@ -54,6 +62,7 @@ mask back to the host.
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -67,6 +76,67 @@ NO_SLOT = -1
 #: (`PagedKVCache.importance`), applied by the decode data plane every
 #: step.
 IMPORTANCE_EMA = 0.25
+
+
+@dataclasses.dataclass(frozen=True)
+class PoolShard:
+    """A rank's block of the pools under the `pages` rule: the global
+    slots [lo, hi) of each tier (`hbm`, `host`) whose pages it holds,
+    every KV head of them (`launch.shardings.pool_slots`). `exchange`
+    sums a tensor over the ranks that share the lanes (the `model`
+    axis), in place: the migration's row exchange, which the rank's
+    `TensorParallel.reduce` is (no part of equality or the hash)."""
+
+    hbm: Tuple[int, int]
+    host: Tuple[int, int]
+    exchange: Optional[Callable[[torch.Tensor], torch.Tensor]] = \
+        dataclasses.field(default=None, compare=False, repr=False)
+
+    @property
+    def counts(self) -> Tuple[int, int]:
+        """The rank's (HBM, host) slot counts: its pools' slot dims."""
+        return self.hbm[1] - self.hbm[0], self.host[1] - self.host[0]
+
+    def local_slots(self, slot: torch.Tensor, hbm_pages: int
+                    ) -> torch.Tensor:
+        """Global slots (< `hbm_pages`: HBM, else host at slot -
+        `hbm_pages`) as the rank's own slot space (its HBM slots, then
+        its host slots from its HBM count on), int32; a slot on another
+        rank, or none, is NO_SLOT, which every row copy skips."""
+        h = self.tier_local(torch.where(slot < hbm_pages, slot, NO_SLOT), 0)
+        e = self.tier_local(slot - hbm_pages, 1)
+        return torch.where(h >= 0, h, torch.where(
+            e >= 0, e + self.counts[0], NO_SLOT)).to(torch.int32)
+
+    def tier_local(self, index: torch.Tensor, tier: int) -> torch.Tensor:
+        """Slots of one tier (`tier` 0: HBM, 1: host) as the rank's
+        slots of that tier's pool, int32; another rank's, NO_SLOT."""
+        lo, hi = self.hbm if tier == 0 else self.host
+        return torch.where((index >= lo) & (index < hi), index - lo,
+                           NO_SLOT).to(torch.int32)
+
+    def lists(self, hl, hv, el, ev):
+        """The rank's part of `PagedKVCache.tier_lists`' whole lists (of
+        one layer or all): its slots' columns, each listed slot as its
+        place in the rank's pool."""
+        out = []
+        for (lst, val), (lo, hi) in (((hl, hv), self.hbm),
+                                     ((el, ev), self.host)):
+            lst = lst[..., lo:hi]
+            out += [torch.where(lst >= 0, lst - lo, NO_SLOT)
+                    .to(torch.int32), val[..., lo:hi].contiguous()]
+        return tuple(out)
+
+    def place(self, imp_h: torch.Tensor, imp_e: torch.Tensor,
+              hbm_pages: int, host_pages: int) -> torch.Tensor:
+        """The rank's pages' [..., n_h] and [..., n_e] values at their
+        global places of a [..., hbm_pages + host_pages] vector of
+        zeros: summed over the ranks (each slot on one rank), the
+        whole vector, exactly."""
+        out = imp_h.new_zeros(imp_h.shape[:-1] + (hbm_pages + host_pages,))
+        out[..., self.hbm[0]:self.hbm[1]] = imp_h
+        out[..., hbm_pages + self.host[0]:hbm_pages + self.host[1]] = imp_e
+        return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,17 +222,21 @@ class PagedKVCache:
         return hl, hv, el, ev
 
 
-def init_cache(geo: CacheGeometry, device=None,
-               host_pinned: bool = False) -> PagedKVCache:
+def init_cache(geo: CacheGeometry, device=None, host_pinned: bool = False,
+               shard: Optional[PoolShard] = None) -> PagedKVCache:
     """A fresh all-free cache for `geo` on `device` (default: the CUDA
-    card). With `host_pinned` and a CUDA `device`, the host pools are
-    zeroed pinned CPU tensors (the overlap-mode placement); on the CPU
-    they are plain CPU tensors either way."""
+    card): pools of `shard`'s slots when it names a rank's (the `pages`
+    rule; the tables always whole). With `host_pinned` and a CUDA
+    `device`, the host pools are zeroed pinned CPU tensors (the
+    overlap-mode placement); on the CPU they are plain CPU tensors
+    either way."""
     device = resolve_device(device)
     L, B, T = geo.num_layers, geo.batch, geo.page_tokens
     kh, hd = geo.kv_heads, geo.head_dim
-    shape_h = (L, B, geo.hbm_pages, T, kh, hd)
-    shape_e = (L, B, geo.host_pages, T, kh, hd)
+    n_h, n_e = shard.counts if shard is not None else (
+        geo.hbm_pages, geo.host_pages)
+    shape_h = (L, B, n_h, T, kh, hd)
+    shape_e = (L, B, n_e, T, kh, hd)
     pool = dict(dtype=geo.dtype, device=device)
     i32 = dict(dtype=torch.int32, device=device)
     host = pool
@@ -194,13 +268,15 @@ def page_of_token(token_idx, page_tokens: int):
 
 
 def prefill_cache(geo: CacheGeometry, k: torch.Tensor, v: torch.Tensor,
-                  length) -> PagedKVCache:
+                  length, shard: Optional[PoolShard] = None
+                  ) -> PagedKVCache:
     """Populate a cache from prefill K/V (static placement: HBM first).
 
     k, v: [L, B, S, KH, HD] with RoPE already applied to k.
     length: int or [B] — prompt tokens actually valid (<= S). Logical
     page p maps to HBM slot p while p < hbm_pages, then host slot
-    p - hbm_pages — the paper's Static Placement.
+    p - hbm_pages — the paper's Static Placement. With a rank's `shard`
+    (the `pages` rule) its pools keep the pages that fall in its slots.
     """
     L, B, S = k.shape[0], k.shape[1], k.shape[2]
     T = geo.page_tokens
@@ -216,14 +292,18 @@ def prefill_cache(geo: CacheGeometry, k: torch.Tensor, v: torch.Tensor,
     kp = k.reshape(L, B, n_pages, T, geo.kv_heads, geo.head_dim)
     vp = v.reshape(L, B, n_pages, T, geo.kv_heads, geo.head_dim)
 
-    cache = init_cache(geo, device=dev)
+    cache = init_cache(geo, device=dev, shard=shard)
     n_h = min(n_pages, geo.hbm_pages)
     n_e = n_pages - n_h
-    cache.k_hbm[:, :, :n_h] = kp[:, :, :n_h].to(geo.dtype)
-    cache.v_hbm[:, :, :n_h] = vp[:, :, :n_h].to(geo.dtype)
-    if n_e > 0:
-        cache.k_host[:, :, :n_e] = kp[:, :, n_h:].to(geo.dtype)
-        cache.v_host[:, :, :n_e] = vp[:, :, n_h:].to(geo.dtype)
+    shard = shard or PoolShard((0, geo.hbm_pages), (0, geo.host_pages))
+    for pools, first, n, (lo, hi) in (
+            ((cache.k_hbm, cache.v_hbm), 0, n_h, shard.hbm),
+            ((cache.k_host, cache.v_host), n_h, n_e, shard.host)):
+        end = min(n, hi)
+        if end > lo:
+            for pool, src in zip(pools, (kp, vp)):
+                pool[:, :, :end - lo] = src[:, :, first + lo:first + end] \
+                    .to(geo.dtype)
 
     def ar(n):
         return torch.arange(n, dtype=torch.int32, device=dev)
@@ -325,8 +405,8 @@ def allocate_prompt_pages(cache: PagedKVCache, pos: torch.Tensor,
     pages are registered at once.
     """
     T = cache.k_hbm.shape[3]
-    hbm_pages = cache.k_hbm.shape[2]
-    host_pages = cache.k_host.shape[2]
+    hbm_pages = cache.hbm_owner.shape[2]
+    host_pages = cache.host_owner.shape[2]
     max_pages = cache.page_table.shape[2]
     page = (pos // T).to(torch.int32)
     lane = torch.arange(pos.shape[0], device=pos.device)[:, None] \

@@ -47,10 +47,11 @@ split it (`flops_split`): the `model` axis times the batch axes in use
 (`batch_axes`), so a batch those axes leave whole (long_500k's 1) is
 repeated on every `pod` and `data` card. The bytes each card
 moves, its activations and its collectives need the rank-local step,
-counted with its collectives; at a 16-way `model` axis that step needs
-the `pages` KV pool rule for every config but zamba2-1.2b (its 32 KV
-heads), which the port has not ported: they are null, with the reason
-in `unmeasured`.
+counted with its collectives; at a 16-way `model` axis that step runs
+under the `pages` KV pool rule for every config but zamba2-1.2b (its
+32 KV heads): the meshed serve runs it, the dry run does not count a
+meshed step yet, and training across such an axis is not ported. They
+are null, with the reason in `unmeasured`.
 
 Usage:
   python -m repro_torch.launch.dryrun                     # all cells
@@ -111,9 +112,10 @@ MESHES = ("single", "multi")
 MULTI_UNMEASURED = (
     "bytes moved, activations and collectives per card need the "
     "rank-local step, counted with its collectives; at a 16-way model "
-    "axis that step needs the 'pages' KV pool rule for every config whose "
-    "KV heads the axis does not divide (all but zamba2-1.2b's 32), which "
-    "is not ported yet")
+    "axis that step runs under the 'pages' KV pool rule for every config "
+    "whose KV heads the axis does not divide (all but zamba2-1.2b's 32): "
+    "the meshed serve runs it, the dry run does not count a meshed step "
+    "yet, and training across such an axis is not ported yet")
 
 RESULTS = os.path.join("build", "dryrun_results.jsonl")
 

@@ -16,6 +16,11 @@ serves:
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke \\
       --mesh data=2,model=2 --device cpu
 
+A `model` axis that does not divide the KV heads serves under the
+reference's `pages` or `none` KV pool rule (`--mesh data=1,model=4` on
+the smoke config's 2 KV heads: each rank's pools hold a quarter of
+each tier's slots).
+
 Rank 0 prints the summary; the exit status is the worst rank's.
 
 `--parity` without `--mesh` runs the stream twice with the same weights,
@@ -49,15 +54,11 @@ from repro_torch import configs, resolve_device
 from repro_torch.core.sa import SAConfig
 from repro_torch.core.tiers import SPECS
 from repro_torch.bridge import init_shards
-from repro_torch.launch.mesh import (
-    AXES, AbstractMesh, join_mesh, mesh_coordinate, spawn_ranks,
-)
+from repro_torch.launch.mesh import join_mesh, mesh_coordinate, spawn_ranks
 from repro_torch.models.model import Model
 from repro_torch.models.params import param_bytes
 from repro_torch.serving import trace_bridge
-from repro_torch.serving.engine import (
-    EngineConfig, ServingEngine, check_serve_mesh,
-)
+from repro_torch.serving.engine import EngineConfig, ServingEngine
 from repro_torch.serving.policies import policy_names
 from repro_torch.serving.scheduler import Request
 from repro_torch.tree import tree_leaves
@@ -252,9 +253,6 @@ def main(argv=None) -> int:
            else configs.get(args.arch))
     sizes = parse_mesh(args.mesh)
     if sizes is not None:
-        # what the port leaves out is refused before any rank starts
-        check_serve_mesh(Model(cfg), engine_config(args),
-                         AbstractMesh(AXES, (sizes["data"], sizes["model"])))
         if "RANK" not in os.environ:
             return spawn_ranks(sizes["data"] * sizes["model"], main,
                                list(argv if argv is not None

@@ -133,8 +133,9 @@ def _kv_shard_axis(geo, mesh) -> str:
     """Which pool dim carries the model axis: kv_heads when divisible
     (classic TP); otherwise pages (the LSE merge over pages is
     associative, so page-sharding is exact sequence-parallel attention);
-    "none" when neither divides. The port's meshed serve runs the
-    kv_heads rule only (`serving.engine.refuse_mesh` names the rest)."""
+    "none" when neither divides (the pools whole on every rank). The
+    port's meshed serve runs all three (`pool_slots` gives a rank its
+    slots)."""
     m = mesh_axis_sizes(mesh).get("model", 1)
     if geo.kv_heads % m == 0:
         return "kv_heads"
@@ -143,12 +144,27 @@ def _kv_shard_axis(geo, mesh) -> str:
     return "none"
 
 
+def pool_slots(geo, mesh, rank: int):
+    """The global slots [lo, hi) of each tier whose pages the rank at
+    index `rank` of the `model` axis holds: ((HBM lo, hi), (host lo,
+    hi)), a contiguous 1/model of each under the `pages` rule (the block
+    `shard` cuts on the pools' pages dim), the whole of each under the
+    other rules."""
+    whole = ((0, geo.hbm_pages), (0, geo.host_pages))
+    if _kv_shard_axis(geo, mesh) != "pages":
+        return whole
+    m = mesh_axis_sizes(mesh)["model"]
+    return tuple((rank * n // m, (rank + 1) * n // m) for _, n in whole)
+
+
 def cache_shardings(geo, mesh):
     """Specs of a `PagedKVCache`'s fields.
 
     Pools [L, B, P, T, KH, HD]: batch over data(/pod); model axis on
     kv_heads or pages per `_kv_shard_axis`. Owner tables follow the
-    pools' pages dim so tier_lists stays local."""
+    pools' pages dim so tier_lists stays local (the reference's rule;
+    the port's meshed serve holds the pools so, and keeps the owner
+    maps whole on every model rank: `kvcache.paged`)."""
     from repro_torch.kvcache.paged import PagedKVCache
     b_ax = batch_axes(mesh, getattr(geo, "batch", None))
     ax = _kv_shard_axis(geo, mesh)

@@ -152,12 +152,19 @@ class ModelConfig:
         whole) `d_ff` of the dense and shared MLPs. The recurrent
         families' heads are the same `num_heads`: a Mamba2, mLSTM or
         sLSTM block computes the local heads over 1/size of its inner
-        width (`SSMConfig.shards`, `XLSTMConfig.shards`)."""
-        if not (splits(self.num_heads, size) and
-                splits(self.kv_heads, size)):
-            raise ValueError(f"a model axis of {size} does not split "
-                             f"{self.num_heads} heads over "
-                             f"{self.kv_heads} KV heads")
+        width (`SSMConfig.shards`, `XLSTMConfig.shards`).
+
+        An axis that does not divide the KV heads (the `pages` and
+        `none` KV pool rules) keeps both head counts whole: the rank
+        holds every KV head, and its decode and chunked-prefill
+        attention run over every query head (q gathered over `model`
+        where the axis splits the query heads), which is the geometry
+        the config describes. Which query heads the rank's `wq`/`wo`
+        shards hold is its `TensorParallel.heads`: a config of fewer
+        query heads than KV heads (1 over 2 at size 4 on 4 over 2) is
+        not a GQA config."""
+        kv_split = splits(self.kv_heads, size)
+        heads = self.num_heads // size if kv_split else self.num_heads
         d_ff = self.d_ff // size if splits(self.d_ff, size) else self.d_ff
         moe = self.moe
         if moe is not None:
@@ -168,8 +175,9 @@ class ModelConfig:
         more = {k: dataclasses.replace(getattr(self, k), shards=size)
                 for k in ("ssm", "xlstm") if getattr(self, k) is not None}
         return dataclasses.replace(
-            self, num_heads=self.num_heads // size,
-            kv_heads=self.kv_heads // size, d_ff=d_ff, moe=moe, **more)
+            self, num_heads=heads,
+            kv_heads=self.kv_heads // size if kv_split else self.kv_heads,
+            d_ff=d_ff, moe=moe, **more)
 
     @property
     def q_per_kv(self) -> int:

@@ -116,6 +116,33 @@ def prefix_chunk_attention(q, k, v, q_positions) -> torch.Tensor:
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
+def prefix_chunk_partial(q, k, v, q_positions, k_positions):
+    """`prefix_chunk_attention` over a part of the prefix, as a partial
+    for an exact log-sum-exp merge with the other parts'
+    (`kernels.ref.merge_partials`): key i sits at absolute position
+    k_positions[i] [S] and is visible to the query at position p iff
+    k_positions[i] <= p. q: [B, C, H, D]; k, v: [B, S, H, D]. Returns
+    (out [B, C, H, D] normalized over the part, m and l [B, C, H], the
+    f32 max score and sum of exp(score - m)); a query that sees no key
+    of the part gets out 0, m -1e30 and l 0, which the merge ignores."""
+    if k.shape[1] == 0:
+        B, C, H, _ = q.shape
+        none = torch.zeros((B, C, H), dtype=torch.float32, device=q.device)
+        return torch.zeros_like(q), none + NEG_INF, none
+    scale = q.shape[-1] ** -0.5
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    mask = k_positions[None, None, None, :] <= q_positions[:, None, :, None]
+    s = torch.where(mask, s, NEG_INF)
+    m = s.amax(dim=-1)
+    m_safe = torch.where(m <= NEG_INF / 2, 0.0, m)
+    p = torch.where(mask, torch.exp(s - m_safe[..., None]), 0.0)
+    l = p.sum(dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p.to(q.dtype), v).float() \
+        / l.clamp_min(1e-20).transpose(1, 2)[..., None]
+    m = torch.where(l > 0, m_safe, NEG_INF)
+    return out.to(q.dtype), m.transpose(1, 2), l.transpose(1, 2)
+
+
 def naive_attention(q, k, v, *, causal: bool = True,
                     q_offset: int = 0) -> torch.Tensor:
     """Reference attention. q: [B,Sq,H,D], k/v: [B,Sk,H,D]."""

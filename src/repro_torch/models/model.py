@@ -382,7 +382,7 @@ class Model:
         logits, (k, v) = tfm.decoder_forward(params, cfg, tokens,
                                              self.blocks(params),
                                              input_embeds=embeds, tp=self.tp)
-        cache = prefill_cache(geo, k, v, prompt)
+        cache = prefill_cache(geo, k, v, prompt, self._pool())
         return logits[:, -1], cache
 
     def prefill_chunk(self, params, cache: PagedKVCache, tokens, start,
@@ -406,7 +406,8 @@ class Model:
         """A fresh decode state for `batch` lanes on `device` (default:
         the CUDA card): an empty cache of `geo` (the cache-backed
         families; hybrid also the zero Mamba2 state, and that state alone
-        without `geo`), or the xlstm family's initial recurrent state."""
+        without `geo`; a meshed rank's pools hold its slots under the
+        `pages` rule), or the xlstm family's initial recurrent state."""
         fam = self.cfg.family
         device = resolve_device(device)
         if fam == "xlstm":
@@ -419,7 +420,12 @@ class Model:
         if geo is None:
             raise ValueError(f"family {fam!r} decodes over a paged cache; "
                              f"pass its geometry")
-        return init_cache(geo, device)
+        return init_cache(geo, device, shard=self._pool())
+
+    def _pool(self):
+        """The rank's block of the pools' slots under the `pages` KV
+        pool rule (`TensorParallel.pool`), or None: every slot."""
+        return self.tp.pool if self.tp is not None else None
 
     def _mamba_state(self, batch, device):
         cfg = self.cfg
@@ -594,5 +600,5 @@ def default_write_slot(cache: PagedKVCache) -> torch.Tensor:
     existing = cache.page_table[:, torch.arange(B, device=logical.device),
                                 at]                            # [L, B]
     slot = torch.where(existing >= 0, existing, logical[None, :])
-    max_slot = cache.k_hbm.shape[2] + cache.k_host.shape[2] - 1
+    max_slot = cache.hbm_owner.shape[2] + cache.host_owner.shape[2] - 1
     return slot.clamp(0, max_slot).to(torch.int32)

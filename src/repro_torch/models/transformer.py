@@ -55,16 +55,16 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 import torch.utils.checkpoint
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels.page_copy import Split
 from repro_torch.kvcache.paged import (
-    IMPORTANCE_EMA, PagedKVCache, allocate_prompt_pages, read_token_layer,
-    write_token_layer, write_tokens_layer,
+    IMPORTANCE_EMA, PagedKVCache, PoolShard, allocate_prompt_pages,
+    read_token_layer, write_token_layer, write_tokens_layer,
 )
 from repro_torch.models.config import ModelConfig, splits
 from repro_torch.models.layers import (
     apply_rope, attention, gelu, layer_norm, prefix_chunk_attention,
-    repeat_kv, rms_norm, swiglu,
+    prefix_chunk_partial, repeat_kv, rms_norm, swiglu,
 )
 from repro_torch.models.params import Param
 
@@ -187,13 +187,16 @@ def layers_of(tree):
 
 def attn_qkv(x, lp, cfg: ModelConfig, positions, rope: bool = True,
              tp=None):
-    """x [B,S,d] -> q [B,S,H,HD], k/v [B,S,KH,HD] (RoPE applied). `tp`:
-    a training rank's, whose per-head norm weights (whole on `model`,
+    """x [B,S,d] -> q [B,S,H,HD], k/v [B,S,KH,HD] (RoPE applied), the
+    heads those of the weights (a rank's `wq` shard under a rule that
+    keeps the KV heads whole: its `TensorParallel.heads`). `tp`: a
+    training rank's, whose per-head norm weights (whole on `model`,
     used on its heads alone) enter the split region."""
     B, S, d = x.shape
-    q = (x @ lp["wq"].reshape(d, -1)).view(B, S, cfg.num_heads, cfg.head_dim)
-    k = (x @ lp["wk"].reshape(d, -1)).view(B, S, cfg.kv_heads, cfg.head_dim)
-    v = (x @ lp["wv"].reshape(d, -1)).view(B, S, cfg.kv_heads, cfg.head_dim)
+    hd = cfg.head_dim
+    q = (x @ lp["wq"].reshape(d, -1)).view(B, S, -1, hd)
+    k = (x @ lp["wk"].reshape(d, -1)).view(B, S, -1, hd)
+    v = (x @ lp["wv"].reshape(d, -1)).view(B, S, -1, hd)
     if cfg.qk_norm:
         q = rms_norm(q, model_enter(lp["q_norm"], tp), cfg.norm_eps)
         k = rms_norm(k, model_enter(lp["k_norm"], tp), cfg.norm_eps)
@@ -223,7 +226,18 @@ class TensorParallel:
     engine binds the first two to in-place collectives with no gradient
     and `enter` to the identity; a meshed train step binds all three to
     differentiable ones, `enter` summing the gradient over the axis).
-    Heads and KV heads are always split; the MLP's hidden dim when
+    Heads and KV heads are split when the axis divides the KV heads
+    (`kv_split`, the `kv_heads` KV pool rule: the rank-local config
+    counts the rank's heads). Otherwise the rank holds every KV head
+    (`wk`/`wv` whole) and its config counts every head; `heads` is the
+    rank's [lo, hi) of the query heads its `wq`/`wo` shards hold when
+    the axis divides them (None: whole), and its decode and chunked-
+    prefill attention gathers q's heads over `model` (`gather_heads`),
+    attends over every head and keeps its own (`own_heads`). Its pools
+    then hold `pool`, its block of each tier's slots (the `pages` rule:
+    the ranks' partial attentions gathered with `gather` and merged,
+    `ops.shard_paged_attention`), or every slot (`pool` None: the
+    `none` rule). The MLP's hidden dim is split when
     `mlp_split`; the vocabulary when `vocab` is the rank's [lo, hi) rows
     (None: held whole); a moe model's padded experts when `experts` is
     the rank's [lo, hi) of them (None: every expert, at the MLP's
@@ -258,6 +272,24 @@ class TensorParallel:
     experts: Optional[Tuple[int, int]] = None
     rows: Optional[Tuple[int, int]] = None
     gather_rows: Optional[Callable[[torch.Tensor, int], torch.Tensor]] = None
+    kv_split: bool = True
+    heads: Optional[Tuple[int, int]] = None
+    pool: Optional[PoolShard] = None
+
+    @property
+    def heads_split(self) -> bool:
+        """Whether the rank's attention projections hold a block of the
+        query heads (then the output projection's partial is summed
+        over `model`)."""
+        return self.kv_split or self.heads is not None
+
+    @property
+    def imp_split(self) -> bool:
+        """Whether the rank's decode importance is its share of the
+        whole (its KV heads' mass, or its slots' placed among zeros),
+        summed over `model`; under the `none` rule every rank computes
+        the whole."""
+        return self.kv_split or self.pool is not None
 
     @classmethod
     def of(cls, cfg: ModelConfig, size: int, rank: int, reduce,
@@ -265,10 +297,16 @@ class TensorParallel:
         """Rank `rank` of a `model` axis of `size` over the whole
         model's `cfg` (the sharding rules' splits); `more`: `enter`,
         `data_dims`, `model_dims` and `gather_data` for a meshed train step,
-        `gather_rows` for a moe model's routing over `data`."""
+        `gather_rows` for a moe model's routing over `data`, `pool` for
+        a serve's pools under the `pages` rule."""
         per = cfg.vocab // size
         E = cfg.moe.num_experts_padded if cfg.moe is not None else 0
+        kv_split = splits(cfg.kv_heads, size)
+        nh = cfg.num_heads // size
+        heads = (rank * nh, (rank + 1) * nh) \
+            if not kv_split and splits(cfg.num_heads, size) else None
         return cls(size=size, rank=rank, mlp_split=splits(cfg.d_ff, size),
+                   kv_split=kv_split, heads=heads,
                    vocab=(rank * per, (rank + 1) * per)
                    if splits(cfg.vocab, size) else None,
                    experts=(rank * E // size, (rank + 1) * E // size)
@@ -286,6 +324,43 @@ def model_enter(x, tp: Optional[TensorParallel], split: bool = True):
     """`x` entering the `model`-split region (`TensorParallel.enter`)
     when `tp` is given and the dim is `split`; else `x`."""
     return tp.enter(x) if tp is not None and split else x
+
+
+def gather_heads(q, tp: Optional[TensorParallel]):
+    """q [B, S, h, HD] of the rank's query heads as every head's,
+    gathered over `model` (`TensorParallel.heads`); else `q`."""
+    if tp is None or tp.heads is None:
+        return q
+    return tp.gather(q, 2)
+
+
+def own_heads(o, tp: Optional[TensorParallel]):
+    """o [B, S, H, HD] over every query head cut to the rank's own
+    (`TensorParallel.heads`), which its `wo` shard projects; else `o`."""
+    if tp is None or tp.heads is None:
+        return o
+    lo, hi = tp.heads
+    return o[:, :, lo:hi]
+
+
+def rank_kv(k, v, cfg: ModelConfig, tp: Optional[TensorParallel]):
+    """The K/V [B, S, KH, HD] (every KV head, under a rule that keeps
+    them whole) that the rank's query heads read through the flash
+    kernel, whose KV heads must divide the call's heads: head h reads
+    KV head h // G. The KV heads the rank's heads span when they start
+    and end on a KV head's boundary or lie in one KV head (internlm2 at
+    16 ranks: 1 head, KV head rank // 2; qwen3-32b at 16: 4 heads, one
+    KV head); else each of the rank's heads' KV head, repeated to its
+    heads. (k, v) themselves where the rank runs every head."""
+    if tp is None or tp.heads is None:
+        return k, v
+    lo, hi = tp.heads
+    G = cfg.q_per_kv
+    if lo % G == 0 and hi % G == 0 or lo // G == (hi - 1) // G:
+        first, last = lo // G, (hi - 1) // G + 1
+        return k[:, :, first:last], v[:, :, first:last]
+    idx = torch.arange(lo, hi, device=k.device) // G
+    return k[:, :, idx], v[:, :, idx]
 
 
 def data_whole(tree, tp: Optional[TensorParallel], at: str = "",
@@ -376,12 +451,16 @@ def full_attn_block(h, lp, cfg: ModelConfig, positions, tp=None,
     returns the post-RoPE (k, v). `attention` takes K/V with KH heads:
     the flash kernel reads them un-repeated on the card, the CPU path
     repeats them per query head. `at`: the weights' path in the
-    parameter tree (a training rank's FSDP blocks, `data_whole`)."""
+    parameter tree (a training rank's FSDP blocks, `data_whole`). A
+    serving rank that holds every KV head attends at its own query
+    heads over the KV heads they read (`rank_kv`) and returns every KV
+    head's (k, v)."""
     lp = data_whole(lp, tp, at, ATTN_LEAVES)
     x = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
     q, k, v = attn_qkv(model_enter(x, tp), lp, cfg, positions, tp=tp)
-    o = attention(q, k, v)
-    return h + model_sum(attn_out(o, lp), tp), (k, v)
+    o = attention(q, *rank_kv(k, v, cfg, tp))
+    return h + model_sum(attn_out(o, lp), tp,
+                         tp is not None and tp.heads_split), (k, v)
 
 
 def dense_mlp_block(h, lp, cfg: ModelConfig, tp=None, at: str = "layers"):
@@ -495,8 +574,8 @@ def allocate_token_page(cache: PagedKVCache,
     table / owner maps (before `tier_lists`, so the fresh page is
     visible to attention). Returns new tables; pools are untouched."""
     L, B = write_slot.shape
-    hbm_pages = cache.k_hbm.shape[2]
-    host_pages = cache.k_host.shape[2]
+    hbm_pages = cache.hbm_owner.shape[2]
+    host_pages = cache.host_owner.shape[2]
     T = cache.k_hbm.shape[3]
     max_pages = cache.page_table.shape[2]
     dev = write_slot.device
@@ -542,19 +621,32 @@ def _bump_valid(valid, slot, offset, T, *, hbm: bool, hbm_pages: int):
     return out
 
 
-def paged_attend(q, pools, lists, slot, offset, cfg: ModelConfig):
+def paged_attend(q, pools, lists, slot, offset, cfg: ModelConfig,
+                 tp: Optional[TensorParallel] = None):
     """This step's query q [B, 1, H, HD] against one layer's two tiers,
     the token just written at (slot, offset) counted valid: (o
-    [B, 1, H, HD], per-page importance) from the paged kernel on the
-    card."""
+    [B, 1, H, HD], per-page importance [B, Ph + Pe]) from the paged
+    kernel on the card. `lists`: `tier_lists`' whole lists of the layer;
+    on a rank whose pools hold its block of each tier's slots
+    (`tp.pool`, the `pages` rule) the kernel reads its slots, the ranks'
+    partials merge (`ops.shard_paged_attention`) and the importance is
+    the rank's slots' mass at their places among zeros."""
     B = q.shape[0]
-    Ph, T = pools[0].shape[1], pools[0].shape[2]
+    T = pools[0].shape[2]
     hl, hv, el, ev = lists
+    Ph, Pe = hl.shape[-1], el.shape[-1]
     qg = q[:, 0].reshape(B, cfg.kv_heads, cfg.q_per_kv, cfg.head_dim)
     hv_new = _bump_valid(hv, slot, offset, T, hbm=True, hbm_pages=Ph)
     ev_new = _bump_valid(ev, slot - Ph, offset, T, hbm=False, hbm_pages=Ph)
-    o, imp = ops.tiered_paged_attention(qg.contiguous(), *pools, hl, hv_new,
-                                        el, ev_new)
+    shard = tp.pool if tp is not None else None
+    if shard is None:
+        o, imp = ops.tiered_paged_attention(qg.contiguous(), *pools, hl,
+                                            hv_new, el, ev_new)
+    else:
+        o, (imp_h, imp_e) = ops.shard_paged_attention(
+            qg.contiguous(), *pools, *shard.lists(hl, hv_new, el, ev_new),
+            tp.gather)
+        imp = shard.place(imp_h, imp_e, Ph, Pe)
     return o.reshape(B, 1, cfg.num_heads, cfg.head_dim), imp
 
 
@@ -598,6 +690,8 @@ def decoder_decode_step(params, cfg: ModelConfig, cache: PagedKVCache,
     """
     B = token.shape[0]
     T = cache.k_hbm.shape[3]
+    Ph = cache.hbm_owner.shape[2]
+    shard = tp.pool if tp is not None else None
     pos = cache.length                        # [B]
     offset = pos % T
     h = embed_tokens(params, cfg, token[:, None], tp)    # [B,1,d]
@@ -614,27 +708,32 @@ def decoder_decode_step(params, cfg: ModelConfig, cache: PagedKVCache,
                  cache.v_host[l])
         x = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
         q, k, v = attn_qkv(x, lp, cfg, pos[:, None])
+        q = gather_heads(q, tp)
         if l == 0 and pool_ready is not None:
             torch.cuda.current_stream(token.device).wait_event(pool_ready)
-        # write this token's k/v BEFORE attending (it must see itself)
+        # write this token's k/v BEFORE attending (it must see itself);
+        # under the pages rule only the rank that holds the slot writes
+        mine = slot if shard is None else shard.local_slots(slot, Ph)
         if put_back:
-            old = read_token_layer(*pools, slot, offset)
-            write_token_layer(*pools, slot, offset, k[:, 0], v[:, 0])
+            old = read_token_layer(*pools, mine, offset)
+            write_token_layer(*pools, mine, offset, k[:, 0], v[:, 0])
         else:
-            write_token_layer(*pools, slot, offset, k[:, 0], v[:, 0],
+            write_token_layer(*pools, mine, offset, k[:, 0], v[:, 0],
                               active=active)
         o, imp = paged_attend(q, pools, (hl[l], hv[l], el[l], ev[l]), slot,
-                              offset, cfg)
+                              offset, cfg, tp)
         if put_back:
-            write_token_layer(*pools, slot, offset, *old, active=~active)
-        h = h + model_sum(attn_out(o, lp), tp)
+            write_token_layer(*pools, mine, offset, *old, active=~active)
+        h = h + model_sum(attn_out(own_heads(o, tp), lp), tp,
+                          tp is not None and tp.heads_split)
         # decode routes the B lanes (every data rank's) as one group
         h = ffn(h, B if tp is None or tp.rows is None else B * tp.rows[1])
         imps.append(imp)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     logits = unembed(params, cfg, h, tp)[:, 0]
-    # the importance sums over KV heads: each model rank holds a share
-    imp = model_sum(torch.stack(imps), tp)
+    # the importance sums over KV heads (or slots, under the pages
+    # rule): each model rank holds a share
+    imp = model_sum(torch.stack(imps), tp, tp is not None and tp.imp_split)
     cache = _update_cache_after_step(cache, imp, write_slot)
     return logits, cache
 
@@ -644,7 +743,8 @@ def decoder_decode_step(params, cfg: ModelConfig, cache: PagedKVCache,
 # ---------------------------------------------------------------------------
 
 def prefill_chunk_attn(hcur, lp, cfg: ModelConfig, pools, pos, page,
-                       offset, valid, lanes, seen, tp=None):
+                       offset, valid, lanes, seen, tp=None,
+                       hbm_pages: Optional[int] = None):
     """One layer's chunked-prefill attention block over the paged pools.
 
     hcur: [R, C, d] residual stream of the R prefilling lanes `lanes`;
@@ -657,19 +757,45 @@ def prefill_chunk_attn(hcur, lp, cfg: ModelConfig, pools, pos, page,
     `seen` = (HBM slots, host slots) read from the front of each tier:
     those that can hold a prefix the slice sees (the causal mask gives
     the later ones weight zero). `tp`: a rank's `TensorParallel`.
+    `hbm_pages`: the HBM tier's slots (default: the HBM pool's), which
+    a rank's pools under the `pages` rule (`tp.pool`) hold a block of:
+    it writes the tokens whose slot it holds, attends over its own seen
+    slots at their keys' global positions (`prefix_chunk_partial`), and
+    the ranks' partials merge exactly (`ref.merge_over`, plain PyTorch,
+    in rank order).
     """
     R = pos.shape[0]
     T = pools[0].shape[2]
+    shard = tp.pool if tp is not None else None
+    Ph = pools[0].shape[1] if hbm_pages is None else hbm_pages
     x = rms_norm(hcur, lp["attn_norm"], cfg.norm_eps)
     q, k, v = attn_qkv(x, lp, cfg, pos)
-    write_tokens_layer(*pools, page, offset, k, v, valid, lanes=lanes)
-    keys, vals = lane_pages(pools, lanes, seen)   # [R, n_h + n_e, ...]
+    q = gather_heads(q, tp)
+    mine = page if shard is None else shard.local_slots(page, Ph)
+    write_tokens_layer(*pools, mine, offset, k, v, valid, lanes=lanes)
+    n_h, n_e = seen
+    if shard is not None:
+        # the rank's seen slots of each tier, from the front of its block
+        (lo_h, hi_h), (lo_e, hi_e) = shard.hbm, shard.host
+        n_h = max(min(n_h, hi_h) - lo_h, 0)
+        n_e = max(min(n_e, hi_e) - lo_e, 0)
+    keys, vals = lane_pages(pools, lanes, (n_h, n_e))  # [R, n_h + n_e, ...]
     S = keys.shape[1] * T
-    keys = keys.reshape(R, S, cfg.kv_heads, cfg.head_dim)
-    vals = vals.reshape(R, S, cfg.kv_heads, cfg.head_dim)
-    o = prefix_chunk_attention(q, repeat_kv(keys, cfg.q_per_kv),
-                               repeat_kv(vals, cfg.q_per_kv), pos)
-    return hcur + model_sum(attn_out(o, lp), tp)
+    keys, vals = (repeat_kv(x.reshape(R, S, cfg.kv_heads, cfg.head_dim),
+                            cfg.q_per_kv) for x in (keys, vals))
+    if shard is None:
+        o = prefix_chunk_attention(q, keys, vals, pos)
+    else:
+        dev = pos.device
+        kpos = torch.cat([torch.arange(lo_h * T, (lo_h + n_h) * T,
+                                       device=dev),
+                          torch.arange((Ph + lo_e) * T,
+                                       (Ph + lo_e + n_e) * T, device=dev)])
+        o = ref.merge_over(
+            [prefix_chunk_partial(q, keys, vals, pos, kpos)],
+            tp.gather)[0].to(q.dtype)
+    return hcur + model_sum(attn_out(own_heads(o, tp), lp), tp,
+                            tp is not None and tp.heads_split)
 
 
 def lane_pages(pools, lanes: torch.Tensor, seen):
@@ -732,7 +858,7 @@ def decoder_prefill_chunk(params, cfg: ModelConfig, cache: PagedKVCache,
     """
     B, C = tokens.shape
     T = cache.k_hbm.shape[3]
-    Ph, Pe = cache.k_hbm.shape[2], cache.k_host.shape[2]
+    Ph, Pe = cache.hbm_owner.shape[2], cache.host_owner.shape[2]
     pages = Ph + Pe if end is None or all_lanes \
         else min(-(-end // T), Ph + Pe)
     seen = (min(pages, Ph), max(pages - Ph, 0))
@@ -743,7 +869,7 @@ def decoder_prefill_chunk(params, cfg: ModelConfig, cache: PagedKVCache,
         pools = (cache.k_hbm[l], cache.v_hbm[l], cache.k_host[l],
                  cache.v_host[l])
         h = prefill_chunk_attn(h, lp, cfg, pools, pos, page, offset, valid,
-                               lanes, seen, tp)
+                               lanes, seen, tp, Ph)
         h = ffn(h)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     logits = unembed(params, cfg, h, tp).to(cfg.dtype)

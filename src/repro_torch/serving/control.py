@@ -34,10 +34,12 @@ from repro_torch.kvcache.paged import NO_SLOT, PagedKVCache
 
 
 def choose_write_slot(cache: PagedKVCache) -> torch.Tensor:
-    """Physical slot [L, B] (int32) receiving this step's token."""
+    """Physical slot [L, B] (int32) receiving this step's token (the
+    tiers' sizes read from the owner maps, which are whole where a
+    rank's pools hold a block of the slots)."""
     T = cache.k_hbm.shape[3]
-    hbm_pages = cache.k_hbm.shape[2]
-    host_pages = cache.k_host.shape[2]
+    hbm_pages = cache.hbm_owner.shape[2]
+    host_pages = cache.host_owner.shape[2]
     max_pages = cache.page_table.shape[2]
     B = cache.length.shape[0]
 
@@ -315,7 +317,7 @@ def page_tiers(cache: PagedKVCache) -> torch.Tensor:
     """Read-time placement codes, int8 [L, B, max_pages]: 0 = HBM,
     1 = host DRAM, -1 = unallocated."""
     slot = cache.page_table
-    hbm_pages = cache.k_hbm.shape[2]
+    hbm_pages = cache.hbm_owner.shape[2]
     return torch.where(slot < 0, -1,
                        torch.where(slot < hbm_pages, 0, 1)).to(torch.int8)
 

@@ -115,11 +115,13 @@ points. The rules are the reference's (`launch.shardings`):
   * lanes over `data` when the axis divides them
     (`serve_shardings`' "lane"; else every rank holds every lane and
     the data-axis collectives are left out): the arena, the cache
-    ([L, B/data, P, T, KH/model, HD] pools; in overlap mode each rank's
+    ([L, B/data, P, T, KH/model, HD] pools under the `kv_heads` rule,
+    the other rules below; in overlap mode each rank's
     host tier is pinned host memory, where the reference's GSPMD puts
     device memory — the values are the same) and the policy state hold
     the rank's lanes, and its plans name them;
-  * heads, KV heads, MLP and vocabulary over `model`: the rank-local
+  * heads, KV heads (the `kv_heads` rule), MLP and vocabulary over
+    `model`: the rank-local
     model (`ModelConfig.rank_local`, and a `transformer.TensorParallel`
     bound to the mesh's collectives) and the weight shards
     (`bridge.shard_params`, or `bridge.init_shards` to draw them
@@ -138,10 +140,10 @@ points. The rules are the reference's (`launch.shardings`):
     rows in the unsplit plan's order, `throttle_plan(ahead=)`);
   * at the chunk's one readback, over `data`: the per-step rows, the
     trace and the lane carries all-gathered, the telemetry's page
-    counts summed (a page's bytes on the `model` ranks are its KV-head
-    slices, so the whole geometry prices it once);
+    counts summed (every model rank counts the whole tables' pages,
+    which the whole geometry prices once);
   * the single-stream path (`start`, `step`, `run`, `generate`) binds
-    the rank's lanes and KV heads as `serve` does: `start` prefills the
+    the rank's lanes and pools as `serve` does: `start` prefills the
     rank's lanes of the prompts with the rank-local model, and every
     entry point takes the rank's lanes of its input tokens and returns
     whole outputs on every rank (logits over the whole vocabulary,
@@ -154,12 +156,28 @@ points. The rules are the reference's (`launch.shardings`):
     ranks never diverge and a collective never waits on a rank that
     went elsewhere.
 
+A `model` axis that does not divide the KV heads takes the
+reference's other KV pool rules (`launch.shardings._kv_shard_axis`):
+every rank holds every KV head (`wk`/`wv` whole) and the query heads'
+block where the axis divides them (`TensorParallel.heads`; q is
+gathered over `model` before the attention, whose output the rank cuts
+back to its heads). Under `pages` (the axis divides both tiers' slots)
+its pools hold a contiguous 1/model of each tier's slots
+(`launch.shardings.pool_slots`, `kvcache.paged.PoolShard`): the token
+is written by the rank that holds its slot, each rank's paged kernel
+reads its slots, the ranks' partials merge exactly, and a migration row
+between two ranks' slots crosses an exchange over `model`
+(`kvcache.migrate`). Under `none` the pools are whole on every rank.
+The tables, owner maps, plans and policy state are whole on every model
+rank in every rule, so every decision is computed alike on each and
+equals the unmeshed one (the reference shards the owner maps with the
+pools).
+
 The captured chunks hold their collectives (the moe family's serve
 runs the chunk eagerly, meshed or not; its `run`/`generate` chunks are
 captured, meshed or not). What stays unported raises
-NotImplementedError naming it (`refuse_mesh`): the `pages` and `none`
-pool rules (a `model` axis that does not divide the KV heads), in
-serving and in training.
+NotImplementedError naming it (`refuse_mesh`): training across a
+`model` axis that does not divide the KV heads.
 """
 
 from __future__ import annotations
@@ -180,12 +198,14 @@ from repro_torch.kernels import ops
 from repro_torch.kvcache.migrate import (
     MigrationPlan, apply_migrations, commit_async,
 )
-from repro_torch.kvcache.paged import NO_SLOT, PagedKVCache, init_cache
+from repro_torch.kvcache.paged import (
+    NO_SLOT, PagedKVCache, PoolShard, init_cache,
+)
 from repro_torch.launch.mesh import (
     AXES, all_gather, all_reduce_sum, axis_names, mesh_axis_sizes,
     mesh_coordinate,
 )
-from repro_torch.launch.shardings import _kv_shard_axis, batch_axes
+from repro_torch.launch.shardings import _kv_shard_axis, batch_axes, pool_slots
 from repro_torch.models.model import Model
 from repro_torch.models.transformer import TensorParallel
 from repro_torch.serving import control
@@ -306,9 +326,6 @@ def _require_cache(state, family: str) -> None:
 
 #: what the port leaves out of the mesh, by case (`refuse_mesh`)
 MESH_REFUSALS = {
-    "pool": "the {rule!r} KV pool rule (a model axis of {model} does not "
-            "divide {kv_heads} KV heads) is not ported yet: the meshed "
-            "serve shards the pools over KV heads",
     "train": "training across a mesh runs every family over a model "
              "axis that divides its KV heads; {what} is not ported yet",
 }
@@ -316,24 +333,9 @@ MESH_REFUSALS = {
 
 def refuse_mesh(case: str, **detail):
     """Raise NotImplementedError for a part of the mesh the port leaves
-    out, named by `case` (a key of `MESH_REFUSALS`): the engine, the
-    serve and train CLIs and the train step share it."""
+    out, named by `case` (a key of `MESH_REFUSALS`): the train CLI and
+    the train step share it."""
     raise NotImplementedError(MESH_REFUSALS[case].format(**detail))
-
-
-def check_serve_mesh(model: Model, cfg: "EngineConfig", mesh) -> None:
-    """Raise NotImplementedError naming it (`refuse_mesh("pool")`) when
-    serving `model` under `cfg` across `mesh` needs a KV pool rule the
-    port leaves out (a `model` axis that does not divide the KV heads).
-    Reads only the mesh's axis sizes: the serve CLI asks before it
-    starts any rank."""
-    geo = model.cache_geometry(1, cfg.max_context,
-                               hbm_fraction=cfg.hbm_fraction)
-    rule = _kv_shard_axis(geo, mesh)
-    if rule != "kv_heads":
-        refuse_mesh("pool", rule=rule,
-                    model=mesh_axis_sizes(mesh).get("model", 1),
-                    kv_heads=model.cfg.kv_heads)
 
 
 @dataclasses.dataclass
@@ -565,17 +567,18 @@ def swap_plan(geo, cap: int, device, host_slots=None, *,
     return MigrationPlan(*[torch.as_tensor(c, device=device) for c in cols])
 
 
-def commit_seconds(cache: PagedKVCache, plan: MigrationPlan) -> float:
-    """Seconds of one `apply_migrations(cache, plan)`: CUDA events on
-    the card, `time.perf_counter` on the CPU."""
+def commit_seconds(cache: PagedKVCache, plan: MigrationPlan,
+                   shard: Optional[PoolShard] = None) -> float:
+    """Seconds of one `apply_migrations(cache, plan, shard)`: CUDA
+    events on the card, `time.perf_counter` on the CPU."""
     if cache.k_hbm.device.type != "cuda":
         t0 = time.perf_counter()
-        apply_migrations(cache, plan)
+        apply_migrations(cache, plan, shard)
         return time.perf_counter() - t0
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
-    apply_migrations(cache, plan)
+    apply_migrations(cache, plan, shard)
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / 1e3
@@ -622,6 +625,9 @@ class ServingEngine:
         self._run = (self._tp.model if self._tp else model, self.params)
         #: the lanes this rank runs (all of them unmeshed; `_setup`)
         self._lanes = Lanes(0, 0, 0, False)
+        #: the rank's block of each tier's slots under the `pages` rule
+        #: (None: its pools hold every slot)
+        self._shard = self._tp.model.tp.pool if self._tp else None
         self.stats: List[StepStats] = []
         self._sampling = SamplingConfig()
         #: raw (base, access, tier) chunks when cfg.trace_telemetry
@@ -653,20 +659,29 @@ class ServingEngine:
 
     def _bind_mesh(self, mesh) -> Optional[MeshView]:
         """This rank's part of `mesh` for the dense and moe families'
-        serve, after the refusals of what is unported (other families:
-        None, and they run unmeshed, as in the reference). Warms both
-        axes' communicators outside any capture."""
+        serve (other families: None, and they run unmeshed, as in the
+        reference): its `TensorParallel`, with its block of the pools'
+        slots under the `pages` rule (the tiers' sizes depend on
+        `max_context` and `hbm_fraction` alone, not on the lanes). Warms
+        both axes' communicators outside any capture."""
         cfg = self.model.cfg
         if cfg.family not in ("dense", "moe"):
             return None
-        check_serve_mesh(self.model, self.cfg, mesh)
         sizes = mesh_axis_sizes(mesh)
         coord = mesh_coordinate(mesh)
+
+        def reduce(t):
+            return all_reduce_sum(t, mesh, "model")
+        geo = self.model.cache_geometry(1, self.cfg.max_context,
+                                        hbm_fraction=self.cfg.hbm_fraction)
+        pool = PoolShard(*pool_slots(geo, mesh, coord["model"]),
+                         exchange=reduce) \
+            if _kv_shard_axis(geo, mesh) == "pages" else None
         tp = TensorParallel.of(
-            cfg, sizes["model"], coord["model"],
-            reduce=lambda t: all_reduce_sum(t, mesh, "model"),
+            cfg, sizes["model"], coord["model"], reduce=reduce,
             gather=lambda t, dim: all_gather(t, mesh, "model", dim),
-            gather_rows=lambda t, dim: all_gather(t, mesh, "data", dim))
+            gather_rows=lambda t, dim: all_gather(t, mesh, "data", dim),
+            pool=pool)
         for axis in AXES:
             all_reduce_sum(torch.zeros(1, device=self.device), mesh, axis)
         return MeshView(model=Model(cfg.rank_local(sizes["model"]), tp=tp),
@@ -731,9 +746,11 @@ class ServingEngine:
         """Bind a stream of `geo` (whose geometry prices the telemetry):
         the rank's lanes and its cache's geometry (under a mesh, the
         lanes over `data` — all of them when the axis does not divide
-        B — and the KV heads over `model`, with the rank-local model
-        that runs them; else every lane and `geo`), then the policy, its
-        state and the budget over the rank's cache. Returns the rank's
+        B — and the KV heads over `model` or, under the `pages` rule,
+        the slots (`_shard`, which its caches are made with), with the
+        rank-local model that runs them; else every lane and `geo`),
+        then the policy, its state and the budget over the rank's
+        cache, whose tier sizes are the whole ones. Returns the rank's
         geometry."""
         self.geo = geo
         tp, cfg = self._tp, self.cfg
@@ -823,7 +840,7 @@ class ServingEngine:
             stats = (base, read, control.page_tiers(cache))
         else:
             stats = (base,)
-        cache = apply_migrations(cache, plan)
+        cache = apply_migrations(cache, plan, self._shard)
         return logits, _set_cache(state, cache), pstate, stats
 
     def _decode_overlap(self, cache: PagedKVCache, pstate, staged,
@@ -860,10 +877,10 @@ class ServingEngine:
             commit = self._throttle(commit, mig_cap)
         n_pro, n_dem = commit.row_counts()
         if self._copy_stream is not None:
-            cache, self._commit_done = commit_async(cache, commit,
-                                                    self._copy_stream)
+            cache, self._commit_done = commit_async(
+                cache, commit, self._copy_stream, self._shard)
         else:
-            cache = apply_migrations(cache, commit)
+            cache = apply_migrations(cache, commit, self._shard)
         staged, pstate, _ = self._policy.plan(cache, pstate, active,
                                               self._budget, read_mask=read)
         moves = torch.stack([n_pro, n_dem]).to(torch.int32)
@@ -1441,7 +1458,8 @@ class ServingEngine:
             self._serve_arena = None        # free the old pools first
             i32 = dict(dtype=torch.int32, device=dev)
             flags = dict(dtype=torch.bool, device=dev)
-            a = {"cache": init_cache(geo, device=dev, host_pinned=overlap),
+            a = {"cache": init_cache(geo, device=dev, host_pinned=overlap,
+                                     shard=self._shard),
                  "pstate": pstate,
                  "staged": MigrationPlan.empty(cap, device=dev)
                  if overlap else None,
@@ -1645,11 +1663,14 @@ class ServingEngine:
         cap = control.plan_capacity(geo, self.cfg.migration_budget_frac)
         plan = swap_plan(geo, cap, self.device)
         empty = MigrationPlan.empty(cap, device=self.device)
-        cache = init_cache(geo, device=self.device, host_pinned=True)
-        commit_seconds(cache, plan)         # warm both outside the timing
-        commit_seconds(cache, empty)
-        delta = min(commit_seconds(cache, plan) for _ in range(iters)) - \
-            min(commit_seconds(cache, empty) for _ in range(iters))
+        cache = init_cache(geo, device=self.device, host_pinned=True,
+                           shard=self._shard)
+        shard = self._shard
+        commit_seconds(cache, plan, shard)  # warm both outside the timing
+        commit_seconds(cache, empty, shard)
+        delta = min(commit_seconds(cache, plan, shard)
+                    for _ in range(iters)) - \
+            min(commit_seconds(cache, empty, shard) for _ in range(iters))
         moved = 2 * cap * geo.page_bytes()
         return measured_link_spec(self.cfg.spec, delta, moved, rows=cap)
 

@@ -40,7 +40,9 @@ from repro_torch.training.train_step import (
 )
 from repro_torch.tree import leaves_with_path, path_name, tree_leaves
 
-from _torch_mesh_worker import again_case, drive_stream, stream_prompts
+from _torch_mesh_worker import (
+    again_case, drive_stream, pools_of, stream_prompts,
+)
 
 #: seconds a collective waits before it fails
 TIMEOUT_S = 60
@@ -108,6 +110,7 @@ def outcome(eng, rep):
         "latency": [s.modeled_latency_s for s in eng.stats],
         "held": {path_name(p): tuple(t.shape)
                  for p, t in leaves_with_path(eng.params)},
+        "pools": pools_of(eng.state),
     }
 
 

@@ -150,6 +150,16 @@ def serve_kwargs(name):
     return kw
 
 
+#: a paged cache's pools
+POOLS = ("k_hbm", "v_hbm", "k_host", "v_host")
+
+
+def pools_of(state):
+    """The four pools of a decode state's cache as numpy (the port's
+    engine's or the reference's)."""
+    return {f: np.array(getattr(state, f)) for f in POOLS}
+
+
 def outcome(eng, rep, plans=None, fractions=True):
     """What a served stream is judged by (numpy and plain Python); with
     `fractions`, the port's scores of a traced stream (a port engine's)."""
@@ -163,6 +173,7 @@ def outcome(eng, rep, plans=None, fractions=True):
                    for e in rep.events],
         "bytes": [(s.h_read, s.e_read, s.m_in, s.m_out) for s in eng.stats],
         "pool_shape": tuple(eng.state.k_hbm.shape),
+        "pools": pools_of(eng.state),
         "param_bytes": sum(t.nbytes for t in tree_leaves(eng.params)),
         "tables": {f: np.array(getattr(eng.state, f))
                    for f in ("page_table", "hbm_owner", "host_owner",
@@ -258,6 +269,7 @@ def drive_stream(eng, prompts, asarray, numpy, collect, steps=(GEN, RUN)):
                    for f in ("page_table", "hbm_owner", "host_owner",
                              "length")},
         "pool_shape": tuple(eng.state.k_hbm.shape),
+        "pools": pools_of(eng.state),
     }
 
 

@@ -2,11 +2,14 @@
 reference's (`repro.launch.serve`): the same request stream bitwise
 from the same seed, the same served stream — tokens, statuses and
 per-step bytes — from the same f32 smoke weights carried by the bridge
-under `--spec gh200`, `main` on the CPU, and the two refusals: `--mesh`
-for the moe family (expert parallelism) and `--parity` without a card
-or `--mesh`."""
+under `--spec gh200`, `main` on the CPU, `--mesh` over a model axis
+that does not divide the KV heads with `--parity`, and the refusal of
+`--parity` without a card or `--mesh`."""
 
 import argparse
+import os
+import subprocess
+import sys
 
 import pytest
 
@@ -19,6 +22,8 @@ from repro_torch.launch import serve as tserve  # noqa: E402
 
 from _torch_serve_ref import smoke_pair  # noqa: E402
 from _torch_threads import one_torch_thread  # noqa: E402,F401
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def args(**kw):
@@ -81,14 +86,25 @@ def test_main_serves_on_the_cpu(capsys):
     assert len(out) == 3
 
 
-def test_mesh_is_refused():
-    """`--mesh` serves the dense and moe families
-    (tests/test_torch_mesh_serve.py, tests/test_torch_mesh_moe.py); a
-    model axis that does not divide the KV heads (the smoke config's 2
-    over 4) is refused before any rank starts."""
-    with pytest.raises(NotImplementedError, match="KV pool rule"):
-        tserve.main(["--smoke", "--device", "cpu", "--mesh",
-                     "data=1,model=4"])
+def test_mesh_over_kv_heads_it_does_not_divide_serves_with_parity():
+    """`--mesh data=1,model=4` on the smoke config's 2 KV heads (the
+    reference's `pages` KV pool rule: each rank's pools hold a quarter
+    of each tier's slots) spawns its 4 ranks, serves, and `--parity`
+    holds the meshed stream to the unmeshed one (`MESH PARITY OK`);
+    tests/test_torch_mesh_pages.py holds the engine to the
+    reference's."""
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    src = os.path.join(REPO, "src")
+    env["PYTHONPATH"] = src + (
+        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--smoke",
+         "--parity", "--mesh", "data=1,model=4", "--device", "cpu",
+         "--requests", "3", "--new-tokens", "3", "--batch-slots", "2",
+         "--stride", "8"],
+        capture_output=True, text=True, env=env, cwd=REPO, timeout=300)
+    assert proc.returncode == 0, (proc.stdout, proc.stderr)
+    assert "MESH PARITY OK" in proc.stdout, proc.stdout
 
 
 def test_parity_without_a_card_refuses(monkeypatch, capsys):

@@ -456,9 +456,9 @@ def test_payback_probe_times_the_swap_over_the_empty_plan(models,
     seen = []
     real = tengine.apply_migrations
 
-    def spy(cache, plan):
+    def spy(cache, plan, *shard):
         seen.append((int((plan.pro_layer >= 0).sum()), id(cache)))
-        return real(cache, plan)
+        return real(cache, plan, *shard)
     monkeypatch.setattr(tengine, "apply_migrations", spy)
     _, detail = eng._measure_migration_spec(geo, iters=2)
     cap = tctl.plan_capacity(geo, eng.cfg.migration_budget_frac)

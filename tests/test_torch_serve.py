@@ -195,23 +195,19 @@ def test_sampled_streams_are_reproducible(models, prompts):
     assert run(8) != first
 
 
-@pytest.mark.parametrize("ask", ["pool", "train", "dryrun"])
+@pytest.mark.parametrize("ask", ["train", "dryrun"])
 def test_later_slices_raise(models, prompts, ask):
     """What the port leaves out of the mesh raises NotImplementedError
-    naming it, never runs something else: a model axis that does not
-    divide the KV heads (the `pages` pool rule; in training the same
-    case, the vlm family's 2 KV heads over a model axis of 4). The
-    refusals come before any rank is needed, so a mesh of names and
-    sizes stands for one. The dry run's twin-pod record, whose
-    rank-local counts wait for that rule, leaves them null and names
-    it."""
+    naming it, never runs something else: training across a model axis
+    that does not divide the KV heads (the vlm family's 2 KV heads over
+    a model axis of 4; the serve runs that case under the `pages` and
+    `none` KV pool rules, tests/test_torch_mesh_pages.py). The refusal
+    comes before any rank is needed. The dry run's twin-pod record,
+    whose rank-local counts wait for a counted meshed step, leaves them
+    null and names why."""
     from repro_torch.launch import dryrun
     from repro_torch.launch import train as ttrain
-    from repro_torch.launch.mesh import AbstractMesh
-    _, _, tm, tp = models
-    cfg = EngineConfig(**engine_kw("importance"))
-    want = {"pool": "'pages' KV pool rule",
-            "train": "training across a mesh",
+    want = {"train": "training across a mesh",
             "dryrun": "'pages' KV pool rule"}[ask]
     if ask == "dryrun":
         rec = dryrun.run_cell("internlm2-1.8b", "decode_32k", "multi")
@@ -223,10 +219,6 @@ def test_later_slices_raise(models, prompts, ask):
         assert "not ported yet" in rec["unmeasured"]
         return
     with pytest.raises(NotImplementedError, match="not ported yet") as err:
-        if ask == "pool":
-            ServingEngine(tm, tp, cfg, device="cpu",
-                          mesh=AbstractMesh(("data", "model"), (1, 4)))
-        else:
-            ttrain.main(["--arch", "internvl2-2b", "--smoke",
-                         "--device", "cpu", "--model", "4"])
+        ttrain.main(["--arch", "internvl2-2b", "--smoke", "--device", "cpu",
+                     "--model", "4"])
     assert want in str(err.value)
