@@ -342,11 +342,17 @@ non-zero):
              encoder layer and decoder layer with its cross-attention,
              zamba2-1.2b's Mamba2 block and shared attention site,
              xlstm-125m's mLSTM and sLSTM blocks), forward and backward,
-             split over (data, model) = (1, 2), (2, 2) and (1, 4)
-             (whisper's 6 heads skip model = 4), the ranks as threads
-             running the port's rank-local blocks (`ThreadMesh`): dx and
-             every weight's gradient, assembled from the ranks, within
-             FAMILY_TRAIN_SPLIT_TOL of the unsplit layer's; the flash
+             split over (data, model) = (1, 2), (2, 2) and (1, 4), and
+             zamba2's blocks also over (1, 3) and xlstm's over (1, 8)
+             (where the axis does not divide the KV heads: whisper's 6
+             heads whole at model = 4, zamba2's Mamba2 block and xlstm's
+             blocks run whole on every model rank), the ranks as threads
+             each bound as the meshed train step binds it (`TrainMesh`
+             over `ThreadMesh.collectives`, every enter and sum with its
+             backward) and taking its own backward: each rank's dx and
+             weight gradients within FAMILY_TRAIN_SPLIT_TOL of its block
+             of the unsplit layer's; the launches counted are the
+             ranks', not the unsplit layer's; the flash
              kernel and its backward at each rank's heads
              (`family_train_split`; phases 2b and 2d check those shapes
              against the plain versions).
@@ -394,6 +400,24 @@ non-zero):
   18b. none split the internlm2-1.8b layer over a model axis of 3 (the
              `none` rule: pools and heads whole, the vocabulary split):
              pools, tables and importance exact (`none_split`).
+
+  19a. kv train split one full-width decoder layer (random bf16
+             weights) of internlm2-1.8b and qwen3-32b (qk norm) over a
+             model axis of 16 that does not divide their 8 KV heads
+             (each rank's query heads over every KV head, `wk`/`wv`
+             whole on every rank) and of granite-moe-3b-a800m (its 24
+             heads whole on every rank, 3 of its 48 experts a rank),
+             forward and backward on B=8 x S=512 as threads, as 16b:
+             each rank's dx and weight gradients within KV_SPLIT_TOL of
+             its block of the unsplit layer's (`kv_train_split`, the
+             ranks' launches).
+  19b. kv train step internlm2-1.8b at full width and 4 of its 24 layers
+             (depth cut) in f32: 2 steps unmeshed and 2 over (1, 16) as
+             threads, each rank calling the meshed `make_train_step(...,
+             mesh=, comm=)` with the threads' collectives (backward
+             included), its backward on its own thread: losses, grad
+             norms, m and the parameters' update within KV_STEP_TOL
+             (`kv_train_step`).
 
 Then a `kernels` JSON line, the card's name and power limit, and, last,
 {"ok": true, "device": {...}}. Without a CUDA card it exits non-zero
@@ -1292,6 +1316,15 @@ FLASH_SHAPES = (
      True, False),
     ("zamba2-1.2b train rank, model=4", 8, 512, 512, 8, 8, 64, "bf16",
      True, False),
+    # phase 19's training ranks over 16 model ranks that do not divide
+    # the KV heads: a rank's query heads over the one KV head they read
+    # (internlm2: 1 over 1, timed; qwen3-32b: 4 over 1), and 19b's f32
+    ("internlm2-1.8b train rank, model=16", 8, 512, 512, 1, 1, 128, "bf16",
+     True, True),
+    ("qwen3-32b train rank, model=16", 8, 512, 512, 4, 1, 128, "bf16",
+     True, False),
+    ("internlm2-1.8b f32 train rank, model=16", 8, 512, 512, 1, 1, 128,
+     "f32", True, False),
 )
 FLASH_TOL = {"bf16": 1e-2, "f32": 2e-5}
 
@@ -1411,6 +1444,13 @@ BWD_SHAPES = (
      True, False),
     ("zamba2-1.2b train rank, model=4", 8, 512, 512, 8, 8, 64, "bf16",
      True, False),
+    # phase 19's, as in FLASH_SHAPES
+    ("internlm2-1.8b train rank, model=16", 8, 512, 512, 1, 1, 128, "bf16",
+     True, True),
+    ("qwen3-32b train rank, model=16", 8, 512, 512, 4, 1, 128, "bf16",
+     True, False),
+    ("internlm2-1.8b f32 train rank, model=16", 8, 512, 512, 1, 1, 128,
+     "f32", True, False),
 )
 #: max abs error of each of dq, dk, dv over that gradient's max |value|:
 #: bf16 gradients are rounded once (one bf16 step is 2^-8 relative),
@@ -4527,16 +4567,12 @@ def family_train_phase(seed):
 
 class ThreadMesh:
     """The ranks of a (`data`, `model`) mesh as threads of this process,
-    each running the port's own rank-local code (a block with its
-    `TensorParallel`) on its shards, the collectives exchanging the
-    ranks' tensors in one autograd graph: `reduce` sums the model
-    ranks' tensors in rank order, `gather` and `gather_data` concatenate
-    theirs, `enter` is the identity. One backward over the ranks'
-    outputs then gives every shard its gradient (the graph sums what
-    Megatron's f and FSDP's reduce-scatter sum), so this checks the
-    ranks' forward and the gradient it implies, not the collectives'
-    backward (the gloo tests run those). Every exchange waits at most
-    `TIMEOUT_S` for its peers."""
+    each running the port's own rank-local code on its shards: a
+    training rank binds `TrainMesh` (and so `make_train_step`) to
+    `collectives`, the meshed step's differentiable collectives with
+    each exchange (forward and backward) across the threads, and takes
+    its own gradient on its own thread; a serving rank its `serve_tp`.
+    Every exchange waits at most `TIMEOUT_S` for its peers."""
 
     TIMEOUT_S = 300
 
@@ -4546,6 +4582,7 @@ class ThreadMesh:
         self._lock = threading.Lock()
         self._calls = collections.Counter()
         self._slots = {}
+        self._read = collections.Counter()
         self._barriers = {
             **{("model", d): threading.Barrier(model, timeout=self.TIMEOUT_S)
                for d in range(data)},
@@ -4557,15 +4594,28 @@ class ThreadMesh:
         rank order (each rank of the group calls this at the same
         point of its code)."""
         group = (axis, coord["model" if axis == "data" else "data"])
-        me = coord[axis]
+        me, n = coord[axis], self.sizes[axis]
         with self._lock:
             call = self._calls[(group, me)]
             self._calls[(group, me)] += 1
-            slot = self._slots.setdefault((group, call),
-                                          [None] * self.sizes[axis])
+            slot = self._slots.setdefault((group, call), [None] * n)
         slot[me] = t
         self._barriers[group].wait()
-        return list(slot)
+        parts = list(slot)
+        with self._lock:              # the last reader lets the tensors go
+            self._read[(group, call)] += 1
+            if self._read[(group, call)] == n:
+                del self._slots[(group, call)], self._read[(group, call)]
+        return parts
+
+    def sum(self, coord, axis, t):
+        """The sum of the tensors of `coord`'s group on `axis`, in rank
+        order (a new tensor)."""
+        parts = self.exchange(coord, axis, t)
+        out = parts[0].clone() if len(parts) == 1 else parts[0]
+        for p in parts[1:]:
+            out = out + p
+        return out
 
     def model_collectives(self, coord):
         """(reduce, gather) over `model` for the rank at `coord`: the
@@ -4573,32 +4623,63 @@ class ThreadMesh:
         import torch
 
         def reduce(t):
-            parts = self.exchange(coord, "model", t)
-            out = parts[0]
-            for p in parts[1:]:
-                out = out + p
-            return out
+            return self.sum(coord, "model", t)
 
         def gather(t, dim):
             return torch.cat(self.exchange(coord, "model", t), dim)
         return reduce, gather
 
-    def tp(self, cfg, coord, specs):
-        """The `TensorParallel` of the rank at `coord` over the whole
-        model's `cfg`, its FSDP and model blocks as `specs` (by path)
-        give them."""
+    def collectives(self, coord, device):
+        """The meshed train step's collectives (`launch.mesh.
+        Collectives`) of the rank at `coord`, over the threads: `sum`
+        over an axis, `enter` the identity whose backward sums the
+        gradient over `model`, `reduce` the sum whose backward passes
+        the gradient through, `gather` whose backward keeps the rank's
+        slice, `gather_data` whose backward reduce-scatters over `data`.
+        Each backward exchanges with the peers' backward, so each rank
+        runs its backward on its own thread
+        (`torch.autograd.set_multithreading_enabled(False)`)."""
         import torch
-        from repro_torch.models.transformer import TensorParallel
-        from repro_torch.training.train_step import layer_dims
-        reduce, gather = self.model_collectives(coord)
+        from repro_torch.launch.mesh import Collectives
+        mesh = self
 
-        def gather_data(t, dim):
-            return torch.cat(self.exchange(coord, "data", t), dim)
-        return TensorParallel.of(
-            cfg, self.sizes["model"], coord["model"], reduce=reduce,
-            gather=gather, data_dims=layer_dims(cfg, specs, "data"),
-            model_dims=layer_dims(cfg, specs, "model"),
-            gather_data=gather_data, gather_rows=gather_data)
+        class Enter(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, x):
+                return x.view_as(x)
+
+            @staticmethod
+            def backward(ctx, g):
+                return mesh.sum(coord, "model", g)
+
+        class Sum(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, x):
+                return mesh.sum(coord, "model", x)
+
+            @staticmethod
+            def backward(ctx, g):
+                return g
+
+        class Gather(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, x, axis, dim):
+                ctx.axis, ctx.dim, ctx.size = axis, dim, x.shape[dim]
+                return torch.cat(mesh.exchange(coord, axis, x), dim)
+
+            @staticmethod
+            def backward(ctx, g):
+                if ctx.axis == "data":
+                    g = mesh.sum(coord, "data", g)
+                return g.narrow(ctx.dim, coord[ctx.axis] * ctx.size,
+                                ctx.size).contiguous(), None, None
+
+        return Collectives(
+            coord=dict(coord), device=device,
+            sum=lambda t, axis: self.sum(coord, axis, t),
+            enter=Enter.apply, reduce=Sum.apply,
+            gather=lambda t, dim: Gather.apply(t, "model", dim),
+            gather_data=lambda t, dim: Gather.apply(t, "data", dim))
 
     def serve_tp(self, cfg, coord, geo):
         """The serving `TensorParallel` of the rank at `coord` over the
@@ -4643,13 +4724,22 @@ class ThreadMesh:
         return out
 
 
-#: phase 16b's splits of one layer of each family: (data, model)
+#: phase 16b's splits of one layer of each family: (data, model), and
+#: those a family's cases add: a model axis that divides neither
+#: zamba2's 32 heads (its Mamba2 block runs whole on every model rank,
+#: `w_in` and the conv gathered; its site's heads whole) nor xlstm's 4
+#: (both blocks whole, the mLSTM's inner width, which the rules still
+#: cut at 8, gathered)
 FAMILY_TRAIN_SPLITS = ((1, 2), (2, 2), (1, 4))
-#: its gradients against the unsplit layer's, by the layer's dtype: max
-#: |split - unsplit| over max |unsplit| of dx and of every weight's
-#: gradient; about twice the largest seen on an H100 (bf16: whisper's
-#: decoder `ln2/w` 1.62e-2 at (2, 2); f32, the sLSTM block: `bi`
-#: 3.4e-5 against the floor below, every other leaf under 1.5e-6)
+FAMILY_MORE_SPLITS = {"hybrid": ((1, 3),), "xlstm": ((1, 8),)}
+#: each rank's gradients against its block of the unsplit layer's, by
+#: the layer's dtype: max |split - unsplit| over max |unsplit| of dx and
+#: of every weight's gradient; set at about twice the largest seen on an
+#: H100 when the ranks' gradients were assembled (bf16: whisper's decoder
+#: `ln2/w` 1.62e-2 at (2, 2)); with each rank's dx held alone the
+#: largest is whisper's frames, 1.951e-2 at (1, 2) and (2, 2); f32, the
+#: sLSTM block: `bi` 3.4e-5 against the floor below, every other leaf
+#: under 1.5e-6
 FAMILY_TRAIN_SPLIT_TOL = {"bf16": 3e-2, "f32": 7e-5}
 #: the least max |unsplit| an error is taken relative to, as a share of
 #: the layer's largest gradient: the sLSTM's input gate bias `bi` has a
@@ -4661,12 +4751,11 @@ FAMILY_SPLIT_FLOOR = 1e-3
 def family_split_cases(seed, device, get, rows, seq):
     """(label, whole config, block(params, cfg, tp, inputs) -> output,
     inputs {name: [rows, ...] tensor}, names of the inputs to
-    differentiate) of each layer phase 16b splits, over `seq` tokens
-    (the vlm: its patches, then `seq` tokens): `get(name)` gives the
-    config to cut."""
+    differentiate, (data, model) splits) of each layer phase 16b
+    splits, over `seq` tokens (the vlm: its patches, then `seq`
+    tokens): `get(name)` gives the config to cut."""
     import dataclasses
     import torch
-    from repro_torch import configs
     from repro_torch.models import ssm as ssm_mod
     from repro_torch.models import transformer as tfm
     from repro_torch.models import xlstm as xlstm_mod
@@ -4677,12 +4766,6 @@ def family_split_cases(seed, device, get, rows, seq):
     def h(cfg, S):
         return torch.randn((rows, S, cfg.d_model), generator=gen,
                            device=device).to(cfg.dtype)
-
-    def decoder_layer(p, cfg, tp, x):
-        lp = tfm.layers_of(p["layers"])[0]
-        pos = torch.arange(x["h"].shape[1], device=device)[None, :]
-        y, _ = tfm.full_attn_block(x["h"], lp, cfg, pos, tp)
-        return tfm.dense_mlp_block(y, lp, cfg, tp)
 
     def encdec_layers(p, cfg, tp, x):
         return Model(cfg, tp=tp).forward_hidden(
@@ -4731,7 +4814,7 @@ def family_split_cases(seed, device, get, rows, seq):
     frames = torch.randn((rows, whisper.frontend.num_embeddings,
                           whisper.d_model), generator=gen,
                          device=device).to(whisper.dtype)
-    return [
+    cases = [
         (f"{vlm.name} decoder layer", vlm, decoder_layer,
          {"h": h(vlm, n_vlm)}, ("h",)),
         (f"{whisper.name} encoder + decoder layer", whisper, encdec_layers,
@@ -4745,6 +4828,140 @@ def family_split_cases(seed, device, get, rows, seq):
         (f"{xl.name} sLSTM block (f32)", f32_xl, slstm_block,
          {"h": h(f32_xl, seq)}, ("h",)),
     ]
+    return [case + (FAMILY_TRAIN_SPLITS + FAMILY_MORE_SPLITS.get(
+        case[1].family, ()),) for case in cases]
+
+
+def decoder_layer(p, cfg, tp, x):
+    """One decoder layer of a dense, vlm or moe model on inputs {"h"}:
+    its attention block, then its MLP or moe block."""
+    import torch
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tfm
+    lp = tfm.layers_of(p["layers"])[0]
+    pos = torch.arange(x["h"].shape[1], device=x["h"].device)[None, :]
+    y, _ = tfm.full_attn_block(x["h"], lp, cfg, pos, tp)
+    if cfg.moe is not None:
+        return moe_mod.moe_block(y, lp, cfg, tp=tp)
+    return tfm.dense_mlp_block(y, lp, cfg, tp)
+
+
+def head_split(cfg, m) -> str:
+    """How a `model` axis of `m` splits `cfg`'s attention heads (the
+    three shapes of `transformer.TensorParallel`), in words."""
+    from repro_torch.models.transformer import TensorParallel
+    tp = TensorParallel.of(cfg, m, 0, reduce=None, gather=None)
+    if tp.kv_split:
+        return "heads and KV heads split"
+    if tp.heads is not None:
+        return f"query heads {tp.heads} of rank 0 over every KV head"
+    return "heads whole on every rank"
+
+
+def split_check(what, label, cfg, block, inputs, diff, splits, seed, device,
+                tol, floor=0.0):
+    """The layer `block` of `cfg` (random weights from `seed`) forward AND
+    backward on `inputs` (the rows split over `data`), whole and then
+    split over each (data, model) of `splits`, the ranks as threads of
+    this process (`ThreadMesh`), each bound as the meshed train step
+    binds it (`TrainMesh.bind` over the threads' collectives: the port's
+    rank-local blocks on their train-mode shards, every enter, sum and
+    gather with its backward across the threads) and taking its own
+    backward on its own thread: each rank's dx of the inputs named in
+    `diff` (its rows) and its gradient of every weight (summed over
+    `data` where that axis leaves the leaf whole, `TrainMesh.
+    reduce_grads`) against its block of the unsplit layer's, as max
+    |diff| over max |unsplit| (at least `floor` of the layer's largest
+    gradient), the worst rank, within `tol`. Logs a `<what> <label>
+    data=.. model=..` line a split; returns (the split ranks' launches
+    by kernel, the unsplit layer's left out; their errors)."""
+    import torch
+    from repro_torch import bridge
+    from repro_torch.kernels.build import COUNTS
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.launch.shardings import shard
+    from repro_torch.models.model import Model
+    from repro_torch.training.train_step import TrainMesh
+    from repro_torch.tree import leaves_with_path, path_name, tree_map
+    params = Model(cfg).init(seed, device=device)
+    rows = next(iter(inputs.values())).shape[0]
+
+    def leaves(tree):
+        return tree_map(lambda t: t.detach().clone().requires_grad_(True),
+                        tree)
+
+    def fresh(lo, hi):
+        return {k: v[lo:hi].detach().clone().requires_grad_(k in diff)
+                for k, v in inputs.items()}
+    whole = leaves(params)
+    xs = fresh(0, rows)
+    y = block(whole, cfg, None, xs)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 17)
+    dy = torch.randn(y.shape, generator=gen, device=device).to(y.dtype)
+    torch.autograd.backward(y, dy)
+    want_dx = {f"d{k}": xs[k].grad for k in diff}
+    want = {path_name(p): t.grad for p, t in leaves_with_path(whole)
+            if t.grad is not None}
+    floor = floor * max(float(g.float().abs().max())
+                        for g in [*want_dx.values(), *want.values()])
+    del y, xs, whole
+    out, launched = [], collections.Counter()
+    for data, m in splits:
+        mesh = AbstractMesh(("data", "model"), (data, m))
+        specs = bridge.param_specs(cfg, mesh, "train")
+        per = rows // data
+        tm = ThreadMesh(data, m)
+
+        def rank(c):
+            """The rank's dx and weight gradients, by name."""
+            ranked = TrainMesh.bind(Model(cfg), mesh,
+                                    tm.collectives(c, device))
+            run = ranked.model_for(rows)
+            mine = leaves(bridge.shard_params(params, cfg, mesh, c,
+                                              "train"))
+            lo = c["data"] * per
+            xs = fresh(lo, lo + per)
+            with torch.autograd.set_multithreading_enabled(False):
+                torch.autograd.backward(block(mine, run.cfg, run.tp, xs),
+                                        dy[lo:lo + per])
+            grads = ranked.reduce_grads(tree_map(
+                lambda t: torch.zeros_like(t) if t.grad is None
+                else t.grad, mine))
+            got = {f"d{k}": xs[k].grad for k in diff}
+            got.update((path_name(p), g) for p, g in leaves_with_path(grads))
+            return got
+        before = collections.Counter(COUNTS)
+        ranks = tm.run(rank)
+        launched.update(collections.Counter(COUNTS) - before)
+        err = dict.fromkeys([*want_dx, *want], 0.0)
+        for (d, r), got in ranks.items():
+            coord = {"data": d, "model": r}
+            for k in err:
+                w = want_dx[k][d * per:(d + 1) * per] if k in want_dx \
+                    else shard(want[k], specs[k], mesh, coord)
+                big = want_dx[k] if k in want_dx else want[k]
+                err[k] = max(err[k], float(
+                    (got[k].float() - w.float()).abs().max()
+                    / max(float(big.float().abs().max()), floor)))
+        worst = max(err, key=err.get)
+        local = cfg.rank_local(m)
+        log(f"{what} {label} data={data} model={m}: "
+            f"{local.num_heads}/{local.kv_heads} heads a model rank's "
+            f"config ({head_split(cfg, m)}), "
+            f"{per} rows a data rank; each rank's gradients against its "
+            f"block of the unsplit layer's (max |diff| / max |value|, "
+            f"the worst rank): "
+            f"{', '.join(f'{k} {e:.3e}' for k, e in err.items())} "
+            f"(tolerance {tol})")
+        if not err[worst] <= tol:
+            raise AssertionError(f"{what} {label} data={data} model={m}: "
+                                 f"{worst} {err[worst]:.3e}")
+        out.append({"layer": label, "data": data, "model": m,
+                    "errors": err})
+        del ranks
+    del params, want, want_dx
+    return dict(launched), out
 
 
 def family_train_split_phase(seed, device="cuda", get=None, rows=TRAIN_B,
@@ -4756,111 +4973,32 @@ def family_train_split_phase(seed, device="cuda", get=None, rows=TRAIN_B,
     Mamba2 block and its shared attention site, xlstm-125m's mLSTM and
     sLSTM blocks; random bf16 weights and inputs from `seed`), forward
     AND backward on `rows` x `seq`, split over each (data, model) of
-    FAMILY_TRAIN_SPLITS whose model axis divides the KV heads
-    (whisper's 6 heads skip model = 4),
-    the ranks as threads of this process (`ThreadMesh`) running the
-    port's rank-local blocks on their train-mode shards
-    (`bridge.shard_params(..., mode="train")`, `ModelConfig.rank_local`,
-    the FSDP and model blocks by path): dx and every weight's gradient,
-    assembled from the ranks' blocks, against the unsplit layer's
-    within FAMILY_TRAIN_SPLIT_TOL. The flash kernel and its backward
-    run at each rank's heads and rows (`family_train_split`); phases 2b
-    and 2d hold them at those shapes against their plain versions.
-    `device`, `get` (the configs by name; default the published ones),
-    `rows`, `seq`: tests/test_torch_mesh_families.py runs the phase on
-    the CPU at the f32 smoke configs. Returns the launches by kernel and
-    the errors."""
+    FAMILY_TRAIN_SPLITS and the family's FAMILY_MORE_SPLITS (whisper's
+    6 heads whole at model = 4, zamba2's blocks at 3, xlstm's at 8),
+    `split_check`'s threads against the unsplit layer within
+    FAMILY_TRAIN_SPLIT_TOL. The flash kernel and its backward run at
+    each rank's heads and rows (`family_train_split`); phases 2b and 2d
+    hold them at those shapes against their plain versions. `device`,
+    `get` (the configs by name; default the published ones), `rows`,
+    `seq`: tests/test_torch_mesh_families.py runs the phase on the CPU
+    at the f32 smoke configs. Returns the split ranks' launches by
+    kernel and the errors."""
     import torch
-    from repro_torch import bridge
-    from repro_torch.kernels.build import COUNTS
-    from repro_torch.launch.mesh import AbstractMesh
-    from repro_torch.models.config import splits as divides
-    from repro_torch.models.model import Model
-    from repro_torch.tree import leaves_with_path, path_name, tree_map
     from repro_torch import configs
     device = torch.device(device)
     if device.type == "cuda":
         free_card()
-    COUNTS.clear()
-    out = []
-    for label, cfg, block, inputs, diff in family_split_cases(
+    counts, out = collections.Counter(), []
+    for label, cfg, block, inputs, diff, splits in family_split_cases(
             seed, device, get or configs.get, rows, seq):
-        params = Model(cfg).init(seed, device=device)
-
-        def leaves(tree):
-            return tree_map(lambda t: t.detach().clone().requires_grad_(
-                True), tree)
-
-        def fresh():
-            return {k: v.detach().clone().requires_grad_(k in diff)
-                    for k, v in inputs.items()}
-        whole = leaves(params)
-        xs = fresh()
-        y = block(whole, cfg, None, xs)
-        gen = torch.Generator(device=device)
-        gen.manual_seed(seed + 17)
-        dy = torch.randn(y.shape, generator=gen, device=device).to(y.dtype)
-        torch.autograd.backward(y, dy)
-        want = {f"d{k}": xs[k].grad for k in diff}
-        want.update({path_name(p): t.grad for p, t in leaves_with_path(whole)
-                     if t.grad is not None})
-        floor = FAMILY_SPLIT_FLOOR * max(float(g.float().abs().max())
-                                         for g in want.values())
-        del y, xs
-        for data, m in FAMILY_TRAIN_SPLITS:
-            if not divides(cfg.kv_heads, m):
-                log(f"family train split {label} data={data} model={m}: "
-                    f"skipped, {cfg.kv_heads} KV heads over a model axis "
-                    f"of {m} stay refused")
-                continue
-            mesh = AbstractMesh(("data", "model"), (data, m))
-            local = cfg.rank_local(m)
-            specs = bridge.param_specs(cfg, mesh, "train")
-            blocks = {(d, r): leaves(bridge.shard_params(
-                params, cfg, mesh, {"data": d, "model": r}, "train"))
-                for d in range(data) for r in range(m)}
-            xs = fresh()
-            per = rows // data
-            tm = ThreadMesh(data, m)
-            outs = tm.run(lambda c: block(
-                blocks[(c["data"], c["model"])], local,
-                tm.tp(cfg, c, specs),
-                {k: v[c["data"] * per:(c["data"] + 1) * per]
-                 for k, v in xs.items()}))
-            y = torch.cat([outs[(d, 0)] for d in range(data)])
-            torch.autograd.backward(y, dy)
-            got = {f"d{k}": xs[k].grad for k in diff}
-            named = {(d, r): dict((path_name(p), t) for p, t in
-                                  leaves_with_path(b))
-                     for (d, r), b in blocks.items()}
-            for k in want:
-                if k in got:
-                    continue
-                grid = [[named[(d, r)][k].grad if named[(d, r)][k].grad
-                         is not None else torch.zeros_like(named[(d, r)][k])
-                         for r in range(m)] for d in range(data)]
-                got[k] = assemble(grid, specs[k])
-            err = {k: float((got[k].float() - want[k].float()).abs().max()
-                            / max(float(want[k].float().abs().max()), floor))
-                   for k in want}
-            worst = max(err, key=err.get)
-            limit = FAMILY_TRAIN_SPLIT_TOL[
-                {torch.bfloat16: "bf16"}.get(cfg.dtype, "f32")]
-            log(f"family train split {label} data={data} model={m}: "
-                f"{local.num_heads}/{local.kv_heads} heads a model rank, "
-                f"{per} rows a data rank; gradients against the unsplit "
-                f"layer (max |diff| / max |value|): "
-                f"{', '.join(f'{k} {e:.3e}' for k, e in err.items())} "
-                f"(tolerance {limit})")
-            if not err[worst] <= limit:
-                raise AssertionError(f"family train split {label} data="
-                                     f"{data} model={m}: {worst} "
-                                     f"{err[worst]:.3e}")
-            out.append({"layer": label, "data": data, "model": m,
-                        "errors": err})
-            del blocks, outs, y, xs, got
-        del params, whole, want
-    counts = dict(COUNTS)
+        tol = FAMILY_TRAIN_SPLIT_TOL[
+            {torch.bfloat16: "bf16"}.get(cfg.dtype, "f32")]
+        launched, errors = split_check(
+            "family train split", label, cfg, block, inputs, diff, splits,
+            seed, device, tol, FAMILY_SPLIT_FLOOR)
+        counts.update(launched)
+        out += errors
+    counts = dict(counts)
     log(f"family train split: launches {counts}")
     if device.type == "cuda":
         free_card()
@@ -4868,6 +5006,261 @@ def family_train_split_phase(seed, device="cuda", get=None, rows=TRAIN_B,
                 not counts.get("flash_attention_bwd"):
             raise AssertionError(f"family train split: launches {counts}")
     return counts, out
+
+
+# --------------------------------------------------------------------------
+# phase 19: training across a model axis that does not divide the KV heads
+# --------------------------------------------------------------------------
+
+#: phase 19a's layers and splits: internlm2-1.8b and qwen3-32b at 16
+#: model ranks (one query head, four, over one whole KV head a rank:
+#: `wk`/`wv` whole on every rank) and granite-moe-3b-a800m at 16 (24
+#: heads whole on every rank, 3 of its 48 padded experts a rank)
+KV_SPLIT_ARCHS = ("internlm2-1.8b", "qwen3-32b", "granite-moe-3b-a800m")
+KV_SPLITS = ((1, 16),)
+#: its gradients against the unsplit layer's (bf16): max |split -
+#: unsplit| over max |unsplit| of dx and of every weight's gradient,
+#: about twice the largest seen on an H100 (internlm2's dx 1.449e-2: 16
+#: ranks' bf16 partials summed after the attention and the MLP)
+KV_SPLIT_TOL = 3e-2
+
+
+def kv_train_split_phase(seed, device="cuda", get=None, rows=TRAIN_B,
+                         seq=TRAIN_S, splits=KV_SPLITS):
+    """Phase 19a: one full-width decoder layer (attention, then MLP or
+    moe block) of each of KV_SPLIT_ARCHS, random bf16 weights and input
+    from `seed`, forward AND backward on `rows` x `seq`, split over each
+    (data, model) of `splits` (`split_check`'s threads: every rank runs
+    the port's rank-local layer; under a model axis that splits the
+    query heads over whole KV heads each rank's `wk`/`wv` copy takes the
+    gradient its heads give, which the step sums over `model`): dx and
+    every weight's gradient against the unsplit layer's within
+    KV_SPLIT_TOL. The flash kernel and its backward run at each rank's
+    heads (internlm2: 1 over 1 KV head; qwen3-32b: 4 over 1;
+    granite-moe: 24 over 8); phases 2b and 2d hold the first at that
+    shape against their plain versions. `device`, `get`, `rows`,
+    `seq`, `splits`: tests/test_torch_mesh_kv_train.py runs the phase on
+    the CPU at the f32 smoke configs. Returns the split ranks' launches
+    by kernel and the errors."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    device = torch.device(device)
+    get = get or configs.get
+    if device.type == "cuda":
+        free_card()
+    counts, out = collections.Counter(), []
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 19)
+    for name in KV_SPLIT_ARCHS:
+        cfg = dataclasses.replace(get(name), num_layers=1)
+        h = torch.randn((rows, seq, cfg.d_model), generator=gen,
+                        device=device).to(cfg.dtype)
+        launched, errors = split_check(
+            "kv train split", f"{cfg.name} layer", cfg, decoder_layer,
+            {"h": h}, ("h",), splits, seed, device, KV_SPLIT_TOL,
+            FAMILY_SPLIT_FLOOR)
+        counts.update(launched)
+        out += errors
+        del h
+        if device.type == "cuda":
+            free_card()
+    counts = dict(counts)
+    log(f"kv train split: launches {counts}")
+    if device.type == "cuda" and (not counts.get("flash_attention") or
+                                  not counts.get("flash_attention_bwd")):
+        raise AssertionError(f"kv train split: launches {counts}")
+    return counts, out
+
+
+#: phase 19b: internlm2-1.8b at full width, its depth cut to
+#: KV_STEP_LAYERS of 24 layers (16 ranks' threads hold their shards, the
+#: whole `wk`/`wv` on each, and the unmeshed state beside them), in f32
+#: so that the split is compared with the unsplit step at f32's
+#: precision, KV_STEP_STEPS steps at lr KV_STEP_LR over (1, 16)
+KV_STEP_LAYERS, KV_STEP_STEPS, KV_STEP_LR, KV_STEP_MODEL = 4, 2, 1e-3, 16
+#: the positions a step unembeds at a time (`make_train_step`'s
+#: `logit_chunk`, meshed and unmeshed alike): 16 ranks' gathered logits
+#: live at once, [B, chunk, V] f32 each
+KV_STEP_CHUNK = 128
+#: phase 19b's steps against the unmeshed steps (f32): loss and grad
+#: norm relative (tests/test_torch_train.py's); AdamW's m, the gradient's
+#: average, per leaf as max |diff| over max |value|; the parameters'
+#: update over the steps as the L2 norm of its difference over its own
+#: (AdamW's first update is g / |g| per element, so an element whose
+#: gradient is f32 noise flips a whole step either way: the largest
+#: parameter difference is logged, not held). m: about twice the
+#: largest seen on an H100 (1.15e-4: the second step's gradient, at a
+#: grad norm of 67, is taken at parameters that such flips moved by up
+#: to 5.5e-4)
+KV_STEP_TOL = {"loss": 1e-5, "grad_norm": 1e-5, "m": 2.5e-4,
+               "update": 1e-3}
+
+
+def kv_train_step_phase(seed, device="cuda", get=None, rows=TRAIN_B,
+                        seq=TRAIN_S, layers=KV_STEP_LAYERS,
+                        model=KV_STEP_MODEL):
+    """Phase 19b: KV_STEP_STEPS train steps of internlm2-1.8b at full
+    width and `layers` layers in f32 (random weights from `seed`, `rows`
+    x `seq` tokens from `SyntheticCorpus`), unmeshed (`make_train_step`)
+    and over (1, `model`) with the ranks as threads: each rank calls the
+    meshed `make_train_step(..., mesh=, comm=)` on its train-mode shards,
+    its collectives the threads' (`ThreadMesh.collectives`: each with
+    its backward across threads; each rank's backward runs on its own
+    thread). At 16 ranks the 16 query heads split one a
+    rank over the 8 whole KV heads, the MLP and the vocabulary split;
+    every rank's losses and grad norms and the whole parameters and m
+    after the steps (the ranks' blocks joined) against the unmeshed
+    steps' within KV_STEP_TOL. Returns the launches by kernel of the
+    meshed steps and the numbers."""
+    import dataclasses
+    import torch
+    from repro_torch import bridge, configs
+    from repro_torch.kernels.build import COUNTS
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.launch.shardings import spec_axes
+    from repro_torch.models.model import Model
+    from repro_torch.training.optimizer import adamw_init
+    from repro_torch.training.train_step import TrainState, make_train_step
+    from repro_torch.tree import leaves_with_path, path_name, tree_map
+    device = torch.device(device)
+    get = get or configs.get
+    if device.type == "cuda":
+        free_card()
+    cfg = dataclasses.replace(get("internlm2-1.8b"), num_layers=layers,
+                              dtype=torch.float32,
+                              param_dtype=torch.float32)
+    whole = Model(cfg)
+    params = whole.init(seed, device=device)
+    if device.type == "cuda":
+        batches = train_batches(cfg.vocab, seed, KV_STEP_STEPS, rows, seq)
+    else:
+        gen = torch.Generator().manual_seed(seed)
+        batches = [torch.randint(0, cfg.vocab, (rows, seq + 1), generator=gen)
+                   for _ in range(KV_STEP_STEPS)]
+
+    def timed(fn):
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        t = time.time()
+        out = fn()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        return out, time.time() - t
+
+    # the unmeshed steps
+    state = TrainState(params=tree_map(torch.clone, params),
+                       opt=adamw_init(params))
+    step_fn = make_train_step(whole, lr=KV_STEP_LR, logit_chunk=KV_STEP_CHUNK)
+    plain = {"losses": [], "grad_norms": [], "step_s": []}
+    for tokens in batches:
+        (state, m), dt = timed(lambda: step_fn(state, {"tokens": tokens}))
+        plain["losses"].append(float(m["loss"]))
+        plain["grad_norms"].append(float(m["grad_norm"]))
+        plain["step_s"].append(dt)
+    want = {"params": {path_name(p): t for p, t in
+                       leaves_with_path(state.params)},
+            "m": {path_name(p): t for p, t in leaves_with_path(state.opt.m)}}
+    del state
+    if device.type == "cuda":
+        free_card()
+
+    # the same steps over (1, model), a thread a rank
+    mesh = AbstractMesh(("data", "model"), (1, model))
+    specs = bridge.param_specs(cfg, mesh, "train")
+    local = cfg.rank_local(model)
+    shards = {r: tree_map(torch.clone, bridge.shard_params(
+        params, cfg, mesh, {"data": 0, "model": r}, "train"))
+        for r in range(model)}
+    del params
+    tm = ThreadMesh(1, model)
+
+    def rank(c):
+        mine = shards.pop(c["model"])
+        state = TrainState(params=mine, opt=adamw_init(mine))
+        step = make_train_step(whole, lr=KV_STEP_LR, mesh=mesh,
+                               comm=tm.collectives(c, device),
+                               logit_chunk=KV_STEP_CHUNK)
+        losses, gnorms = [], []
+        with torch.autograd.set_multithreading_enabled(False):
+            for tokens in batches:
+                state, metrics = step(state, {"tokens": tokens})
+                losses.append(float(metrics["loss"]))
+                gnorms.append(float(metrics["grad_norm"]))
+        return {"losses": losses, "grad_norms": gnorms,
+                "params": {path_name(p): t for p, t in
+                           leaves_with_path(state.params)},
+                "m": {path_name(p): t for p, t in
+                      leaves_with_path(state.opt.m)}}
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    COUNTS.clear()                          # the meshed steps' launches
+    ranks, dt = timed(lambda: tm.run(rank))
+    counts = dict(COUNTS)
+    peak = torch.cuda.max_memory_allocated() if device.type == "cuda" \
+        else 0
+
+    def joined(key, name):
+        """A leaf of every rank's `key` tree, whole: the ranks' blocks
+        concatenated where `model` splits it, else rank 0's (every rank
+        holds the same whole leaf; checked)."""
+        spec = specs[name]
+        parts = [ranks[(0, r)][key][name] for r in range(model)]
+        if "model" in spec_axes(spec):
+            return torch.cat(parts, list(spec).index("model"))
+        if not all(torch.equal(parts[0], p) for p in parts[1:]):
+            raise AssertionError(f"kv train step: the ranks' copies of "
+                                 f"{key} {name} differ")
+        return parts[0]
+    got = {key: {name: joined(key, name) for name in specs}
+           for key in ("params", "m")}
+    start = {path_name(p): t for p, t in leaves_with_path(
+        whole.init(seed, device=device))}
+    err = {"loss": max(abs(a - b) / abs(b) for res in ranks.values()
+                       for a, b in zip(res["losses"], plain["losses"])),
+           "grad_norm": max(abs(a - b) / abs(b) for res in ranks.values()
+                            for a, b in zip(res["grad_norms"],
+                                            plain["grad_norms"])),
+           "m": max(float((got["m"][k] - want["m"][k]).abs().max()
+                          / max(float(want["m"][k].abs().max()), 1e-30))
+                    for k in specs),
+           "update": float(torch.sqrt(sum(
+               (got["params"][k] - want["params"][k]).double().square().sum()
+               for k in specs) / sum(
+               (want["params"][k] - start[k]).double().square().sum()
+               for k in specs)))}
+    max_param = max(float((got["params"][k] - want["params"][k]).abs().max())
+                    for k in specs)
+    n = sum(t.numel() for t in start.values())
+    r0 = ranks[(0, 0)]
+    log(f"kv train step: {cfg.name} at full width, {layers} of "
+        f"{get('internlm2-1.8b').num_layers} layers (depth cut), f32, "
+        f"{n / 1e9:.3f} B params, B={rows} S={seq}, lr {KV_STEP_LR}: "
+        f"unmeshed losses {plain['losses']} grad norms "
+        f"{plain['grad_norms']}; data=1 model={model} as threads "
+        f"({local.num_heads}/{local.kv_heads} heads a rank's config, "
+        f"{head_split(cfg, model)}): "
+        f"rank 0 losses {r0['losses']} grad norms {r0['grad_norms']}; "
+        f"errors {', '.join(f'{k} {v:.3e}' for k, v in err.items())} "
+        f"(tolerance {KV_STEP_TOL}), largest parameter |diff| "
+        f"{max_param:.3e}; {dt:.1f} s for the threaded steps, unmeshed "
+        f"{[round(x * 1e3, 1) for x in plain['step_s']]} ms a step, peak "
+        f"memory {peak / 1e9:.2f} GB, launches {counts}")
+    bad = {k: v for k, v in err.items() if not v <= KV_STEP_TOL[k]}
+    if bad:
+        raise AssertionError(f"kv train step: the threaded steps differ "
+                             f"from the unmeshed ones: {bad}")
+    if device.type == "cuda":
+        calls = layers * KV_STEP_STEPS * model
+        if counts.get("flash_attention") != 2 * calls or \
+                counts.get("flash_attention_bwd") != calls:
+            raise AssertionError(f"kv train step: launches {counts}, "
+                                 f"expected flash {2 * calls} and its "
+                                 f"backward {calls}")
+        free_card()
+    return counts, {"plain": plain, "errors": err, "threads_s": dt,
+                    "peak_bytes": peak, "max_param_diff": max_param,
+                    "losses": r0["losses"], "grad_norms": r0["grad_norms"]}
 
 
 # --------------------------------------------------------------------------
@@ -5562,6 +5955,10 @@ def main(argv=None) -> int:
         args.seed))
     family_split, _ = phase("family train split", lambda:
                             family_train_split_phase(args.seed))
+    kv_split, _ = phase("kv train split", lambda: kv_train_split_phase(
+        args.seed))
+    kv_step, _ = phase("kv train step", lambda: kv_train_step_phase(
+        args.seed))
     log(f"all phases: {time.time() - t_all:.1f} s wall")
 
     # one inline internlm2 decode layer: the HBM-tier (N=64) + host-tier
@@ -5641,6 +6038,8 @@ def main(argv=None) -> int:
                         for k, c in family_train.items()},
                      "family_train_split": family_split.get(
                          "flash_attention", 0),
+                     "kv_train_split": kv_split.get("flash_attention", 0),
+                     "kv_train_step": kv_step.get("flash_attention", 0),
                      "example": example.get("flash_attention", 0),
                      "moe_start": moe["start"].get("flash_attention", 0),
                      "mesh_stream": mesh_stream.get("flash_attention", 0),
@@ -5672,6 +6071,8 @@ def main(argv=None) -> int:
                       for k, c in family_train.items()},
                    "family_train_split": family_split.get(
                        "flash_attention_bwd", 0),
+                   "kv_train_split": kv_split.get("flash_attention_bwd", 0),
+                   "kv_train_step": kv_step.get("flash_attention_bwd", 0),
                    "example": example.get("flash_attention_bwd", 0)}
     bwd_entry = {
         "name": "flash_attention_bwd", "route": "cuda",

@@ -114,8 +114,8 @@ MULTI_UNMEASURED = (
     "rank-local step, counted with its collectives; at a 16-way model "
     "axis that step runs under the 'pages' KV pool rule for every config "
     "whose KV heads the axis does not divide (all but zamba2-1.2b's 32): "
-    "the meshed serve runs it, the dry run does not count a meshed step "
-    "yet, and training across such an axis is not ported yet")
+    "the meshed serve and the meshed train step run it, but counting a "
+    "meshed step in the dry run is not ported yet")
 
 RESULTS = os.path.join("build", "dryrun_results.jsonl")
 

@@ -14,7 +14,8 @@ Two kinds of collective. The serve's (`all_reduce_sum`, `all_gather`)
 carry no gradient: the first works in place and both sit inside
 captured CUDA graphs. Training's are `torch.autograd.Function`s, each
 the other's transpose in its backward (Megatron's f and g, and FSDP's
-gather): `enter_model`, `sum_model`, `gather_model`, `gather_data`.
+gather): `enter_model`, `sum_model`, `gather_model`, `gather_data`,
+which `Collectives.of` hands the meshed train step.
 
 Defined as FUNCTIONS so importing this module creates no process group
 and touches no device.
@@ -269,6 +270,36 @@ def gather_data(x: torch.Tensor, mesh, dim: int) -> torch.Tensor:
     the gradient reduce-scattered over `data` (each data rank keeps the
     sum of every data rank's gradient of its block)."""
     return _GatherData.apply(x, mesh, dim)
+
+
+@dataclasses.dataclass(frozen=True)
+class Collectives:
+    """How one rank of a meshed train step reaches its peers: its
+    coordinate and device, `sum(t, axis)` (`t` summed over the ranks of
+    `axis`, no gradient; the caller uses the returned tensor and hands
+    `t` over), and the differentiable collectives its `TensorParallel`
+    calls: `enter` and `reduce` over `model` (Megatron's f and g),
+    `gather(t, dim)` over `model`, `gather_data(t, dim)` over `data`.
+    `of(mesh)`: this process's over a `DeviceMesh`; ranks run another
+    way (threads of one process standing for them) bring their own."""
+
+    coord: Dict[str, int]
+    device: torch.device
+    sum: Callable
+    enter: Callable
+    reduce: Callable
+    gather: Callable
+    gather_data: Callable
+
+    @classmethod
+    def of(cls, mesh) -> "Collectives":
+        return cls(
+            coord=mesh_coordinate(mesh), device=mesh_device(mesh),
+            sum=lambda t, axis: all_reduce_sum(t, mesh, axis),
+            enter=lambda t: enter_model(t, mesh),
+            reduce=lambda t: sum_model(t, mesh),
+            gather=lambda t, dim: gather_model(t, mesh, dim),
+            gather_data=lambda t, dim: gather_data(t, mesh, dim))
 
 
 # ---------------------------------------------------------------------------

@@ -49,7 +49,7 @@ from repro_torch.launch.mesh import join_mesh, mesh_coordinate, spawn_ranks
 from repro_torch.models.model import Model
 from repro_torch.models.params import param_bytes
 from repro_torch.training.train_step import (
-    check_train_mesh, init_train_state, make_train_step,
+    init_train_state, make_train_step,
 )
 from repro_torch.tree import tree_leaves
 
@@ -81,7 +81,6 @@ def main(argv=None) -> int:
     if world == 1:
         train(cfg, args, resolve_device(args.device))
         return 0
-    check_train_mesh(cfg, args.model)
     if "RANK" not in os.environ:
         return spawn_ranks(world, main, list(argv if argv is not None
                                              else sys.argv[1:]))

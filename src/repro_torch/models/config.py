@@ -150,19 +150,24 @@ class ModelConfig:
         the padded experts split when the axis divides them, each
         expert's hidden width whole; else every expert at the split (or
         whole) `d_ff` of the dense and shared MLPs. The recurrent
-        families' heads are the same `num_heads`: a Mamba2, mLSTM or
-        sLSTM block computes the local heads over 1/size of its inner
-        width (`SSMConfig.shards`, `XLSTMConfig.shards`).
+        families' heads are the same `num_heads` (their KV heads): where
+        the axis divides them a Mamba2, mLSTM or sLSTM block computes the
+        local heads over 1/size of its inner width (`SSMConfig.shards`,
+        `XLSTMConfig.shards` = size); otherwise the block runs whole on
+        every rank (`shards` 1).
 
         An axis that does not divide the KV heads (the `pages` and
         `none` KV pool rules) keeps both head counts whole: the rank
-        holds every KV head, and its decode and chunked-prefill
+        holds every KV head. A serving rank's decode and chunked-prefill
         attention run over every query head (q gathered over `model`
         where the axis splits the query heads), which is the geometry
-        the config describes. Which query heads the rank's `wq`/`wo`
-        shards hold is its `TensorParallel.heads`: a config of fewer
-        query heads than KV heads (1 over 2 at size 4 on 4 over 2) is
-        not a GQA config."""
+        the config describes; its `start` and a training rank's
+        attention run its own query heads over the KV heads they read
+        (`transformer.rank_kv`), or every head where the axis does not
+        divide them. Which query heads the rank's `wq`/`wo` shards hold
+        is its `TensorParallel.heads`: a config of fewer query heads
+        than KV heads (1 over 2 at size 4 on 4 over 2) is not a GQA
+        config."""
         kv_split = splits(self.kv_heads, size)
         heads = self.num_heads // size if kv_split else self.num_heads
         d_ff = self.d_ff // size if splits(self.d_ff, size) else self.d_ff
@@ -172,7 +177,8 @@ class ModelConfig:
             moe = dataclasses.replace(
                 moe, local_experts=E // size if splits(E, size) else E,
                 expert_d_ff=self.d_ff if splits(E, size) else d_ff)
-        more = {k: dataclasses.replace(getattr(self, k), shards=size)
+        more = {k: dataclasses.replace(getattr(self, k),
+                                       shards=size if kv_split else 1)
                 for k in ("ssm", "xlstm") if getattr(self, k) is not None}
         return dataclasses.replace(
             self, num_heads=heads,

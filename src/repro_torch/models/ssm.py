@@ -28,6 +28,10 @@ B and C enter the split region there. `a_log`, `dt_bias`, `skip_d`,
 `y_norm` and `w_out` are cut by heads: the scan runs on the rank's
 heads, the gated norm over the inner width sums its mean of squares
 over `model`, and the output projection's partial is summed over it.
+Where the axis does not divide the heads (`TensorParallel.
+recurrent_split` False: zamba2's 32 at 3 ranks) the rank gathers every
+leaf it holds a block of and runs the block whole, as every model rank
+does alike: nothing enters the split region and nothing is summed.
 """
 
 from __future__ import annotations
@@ -137,7 +141,10 @@ def mamba2_forward_layer(h, lp, cfg: ModelConfig, return_state: bool = False,
     B_, S, d = h.shape
     inner, H, P, N = _dims(cfg)
     W = ssm.conv_width
-    if tp is not None:
+    if tp is not None and not tp.recurrent_split:
+        lp = model_whole(data_whole(lp, tp, at), tp, at, tuple(lp))
+        tp = None                       # the block runs whole from here
+    elif tp is not None:
         lp = model_whole(data_whole(lp, tp, at), tp, at, WHOLE_LEAVES)
         lp = {**lp, **{k: model_own(lp, tp, at, k, 0) for k in HEAD_LEAVES}}
     if return_state and S < W - 1:

@@ -34,7 +34,12 @@ gather gives each rank its slice of the gradient back, and `enter`
 backward) sits where a replicated activation meets a column-parallel
 product (the QKV and gate/up projections, the unembedding) and on the
 per-head norm weights, so the gradients of the norm weights, the
-residual stream and the embedding rows are whole on every rank. A
+residual stream and the embedding rows are whole on every rank. Only a
+part the axis splits enters or is summed: a part it does not split (the
+attention where it divides no head count, a recurrent block where it
+does not divide the heads, an MLP or vocabulary it does not divide)
+runs whole and alike on every model rank, whose gradients are then
+whole already (an enter would count them size times). A
 training rank also holds FSDP blocks over `data`
 (`TensorParallel.data_dims`, by the leaf's path in the parameter tree):
 each block gathers them whole inside itself (`data_whole`, given the
@@ -44,7 +49,8 @@ reduce-scatters their gradient. A recurrent block (`models.ssm`,
 `models.xlstm`) whose leaves the sharding rules cut across its heads
 gathers those over `model` (`model_whole`) and runs that part whole;
 it splits only what follows its heads (`model_own`, `model_part`,
-`split_rms_norm`).
+`split_rms_norm`), and where the axis does not divide its heads it
+gathers every leaf it holds a block of and runs whole.
 """
 
 from __future__ import annotations
@@ -191,15 +197,24 @@ def attn_qkv(x, lp, cfg: ModelConfig, positions, rope: bool = True,
     heads those of the weights (a rank's `wq` shard under a rule that
     keeps the KV heads whole: its `TensorParallel.heads`). `tp`: a
     training rank's, whose per-head norm weights (whole on `model`,
-    used on its heads alone) enter the split region."""
+    used on its heads alone) enter the split region where the axis
+    splits the heads, and `wk`/`wv` too where it keeps the KV heads
+    whole (after their FSDP gather: their gradient summed over `model`,
+    then reduce-scattered over `data`)."""
     B, S, d = x.shape
     hd = cfg.head_dim
+    split = tp is not None and tp.heads_split
+    wk, wv = lp["wk"], lp["wv"]
+    if tp is not None and tp.heads is not None:
+        # every KV head on every rank, each rank's heads reading some:
+        # each rank's gradient of them is a share, summed over `model`
+        wk, wv = tp.enter(wk), tp.enter(wv)
     q = (x @ lp["wq"].reshape(d, -1)).view(B, S, -1, hd)
-    k = (x @ lp["wk"].reshape(d, -1)).view(B, S, -1, hd)
-    v = (x @ lp["wv"].reshape(d, -1)).view(B, S, -1, hd)
+    k = (x @ wk.reshape(d, -1)).view(B, S, -1, hd)
+    v = (x @ wv.reshape(d, -1)).view(B, S, -1, hd)
     if cfg.qk_norm:
-        q = rms_norm(q, model_enter(lp["q_norm"], tp), cfg.norm_eps)
-        k = rms_norm(k, model_enter(lp["k_norm"], tp), cfg.norm_eps)
+        q = rms_norm(q, model_enter(lp["q_norm"], tp, split), cfg.norm_eps)
+        k = rms_norm(k, model_enter(lp["k_norm"], tp, split), cfg.norm_eps)
     if rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -241,7 +256,16 @@ class TensorParallel:
     `mlp_split`; the vocabulary when `vocab` is the rank's [lo, hi) rows
     (None: held whole); a moe model's padded experts when `experts` is
     the rank's [lo, hi) of them (None: every expert, at the MLP's
-    split). A training rank also holds FSDP blocks over `data`:
+    split).
+
+    A training rank meets three shapes of attention and recurrence
+    (`heads_split`, `recurrent_split`): its heads and KV heads split
+    (`kv_split`); its query heads split over every KV head (`heads`
+    set: `wk`/`wv` whole, their gradient a share each rank's heads
+    give, summed over `model`); or its heads whole, where every model
+    rank runs the attention, or a recurrent block, whole and alike,
+    with no enter and no sum. A training rank also holds FSDP blocks
+    over `data`:
     `data_dims` gives, by the leaf's path in the parameter tree
     ("layers/wq", "enc_layers/ln1/w", "shared_attn/wq", "embed"), the
     dim of its block (of one layer's weights, for a stacked leaf),
@@ -282,6 +306,14 @@ class TensorParallel:
         query heads (then the output projection's partial is summed
         over `model`)."""
         return self.kv_split or self.heads is not None
+
+    @property
+    def recurrent_split(self) -> bool:
+        """Whether a recurrent block (Mamba2, mLSTM, sLSTM) runs the
+        rank's block of its heads, which are the config's heads and KV
+        heads alike (`ModelConfig.rank_local` then counts the rank's);
+        else every model rank runs the block whole."""
+        return self.kv_split
 
     @property
     def imp_split(self) -> bool:
@@ -452,15 +484,17 @@ def full_attn_block(h, lp, cfg: ModelConfig, positions, tp=None,
     the flash kernel reads them un-repeated on the card, the CPU path
     repeats them per query head. `at`: the weights' path in the
     parameter tree (a training rank's FSDP blocks, `data_whole`). A
-    serving rank that holds every KV head attends at its own query
-    heads over the KV heads they read (`rank_kv`) and returns every KV
-    head's (k, v)."""
+    rank that holds every KV head attends at its own query heads over
+    the KV heads they read (`rank_kv`) and returns every KV head's
+    (k, v); one whose axis splits no head runs the block whole, its
+    input entering nothing and its output summed over nothing."""
     lp = data_whole(lp, tp, at, ATTN_LEAVES)
+    split = tp is not None and tp.heads_split
     x = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
-    q, k, v = attn_qkv(model_enter(x, tp), lp, cfg, positions, tp=tp)
+    q, k, v = attn_qkv(model_enter(x, tp, split), lp, cfg, positions,
+                       tp=tp)
     o = attention(q, *rank_kv(k, v, cfg, tp))
-    return h + model_sum(attn_out(o, lp), tp,
-                         tp is not None and tp.heads_split), (k, v)
+    return h + model_sum(attn_out(o, lp), tp, split), (k, v)
 
 
 def dense_mlp_block(h, lp, cfg: ModelConfig, tp=None, at: str = "layers"):
@@ -905,16 +939,20 @@ def _encdec_attn(x_q, x_kv, lp, cfg: ModelConfig, *, causal: bool,
                  tp=None):
     """Attention with no RoPE and no norm inside (the caller's LN):
     whole-sequence `attention`, which runs the flash kernel on the card
-    (K/V with KH heads, read un-repeated). On a rank (`tp`): its heads,
-    `x_q` entering the split region (and self-attention's keys with
-    it; a cross-attention's `x_kv` has entered already: the caller
-    enters the encoder output once for every layer), the output
-    projection's partial summed over `model`."""
-    xq = model_enter(x_q, tp)
+    (K/V with KH heads, read un-repeated). On a rank (`tp`) whose axis
+    splits the heads (`heads_split`; heads and KV heads alike, G = 1):
+    its heads, `x_q` entering the split region (and self-attention's
+    keys with it; a cross-attention's `x_kv` has entered already: the
+    caller enters the encoder output once for every layer), the output
+    projection's partial summed over `model`. Else every head, whole
+    on every rank."""
+    split = tp is not None and tp.heads_split
+    xq = model_enter(x_q, tp, split)
     xkv = xq if x_kv is x_q else x_kv
     q, k, v = _proj(xq, lp["wq"]), _proj(xkv, lp["wk"]), \
         _proj(xkv, lp["wv"])
-    return model_sum(attn_out(attention(q, k, v, causal=causal), lp), tp)
+    return model_sum(attn_out(attention(q, k, v, causal=causal), lp), tp,
+                     split)
 
 
 def _root(params, tp, name):
@@ -926,8 +964,8 @@ def encoder_forward(params, cfg: ModelConfig, frames: torch.Tensor,
                     remat: bool = False, tp=None):
     """frames: [B, F, d] precomputed frame embeddings (conv stub) ->
     encoder output [B, F, d]; `remat` checkpoints each layer. `tp`: a
-    training rank's (heads and MLP split over `model`, each layer's
-    FSDP blocks gathered inside it)."""
+    training rank's (heads and MLP split over `model` where the axis
+    divides them, each layer's FSDP blocks gathered inside it)."""
     F = frames.shape[1]
     h = frames.to(cfg.dtype) + _root(params, tp, "enc_pos")[:F][None].to(
         cfg.dtype)
@@ -964,11 +1002,13 @@ def encdec_forward(params, cfg: ModelConfig, tokens, enc_embeds, *,
     decoder's final-norm hidden states [B,S,d] alone (`remat`
     checkpoints each encoder and decoder layer). `tp`: a training
     rank's (the module docstring): its heads, its MLP hidden units and
-    its vocabulary rows where the axis divides them."""
+    its vocabulary rows where the axis divides them (each whole on
+    every rank where it does not)."""
     enc = encoder_forward(params, cfg, enc_embeds, remat=remat, tp=tp)
+    split = tp is not None and tp.heads_split
     # entered once: every layer's share of its gradient sums before the
     # one sum over `model` (and, at one rank, in the unmeshed order)
-    enc_in = model_enter(enc, tp)
+    enc_in = model_enter(enc, tp, split)
     S = tokens.shape[1]
     h = (embed_rows(params, tokens, tp)
          + _root(params, tp, "dec_pos")[:S][None]).to(cfg.dtype)
@@ -976,9 +1016,10 @@ def encdec_forward(params, cfg: ModelConfig, tokens, enc_embeds, *,
     def layer(h, lp, enc):
         lp = data_whole(lp, tp, "dec_layers")
         sa = lp["self_attn"]
-        x = model_enter(_ln(h, lp["ln1"], cfg.norm_eps), tp)
+        x = model_enter(_ln(h, lp["ln1"], cfg.norm_eps), tp, split)
         q, k, v = _proj(x, sa["wq"]), _proj(x, sa["wk"]), _proj(x, sa["wv"])
-        h = h + model_sum(attn_out(attention(q, k, v, causal=True), sa), tp)
+        h = h + model_sum(attn_out(attention(q, k, v, causal=True), sa), tp,
+                          split)
         return encdec_cross_mlp(h, lp, enc, cfg, tp), (k, v)
     ks, vs = [], []
     for lp in layers_of(params["dec_layers"]):

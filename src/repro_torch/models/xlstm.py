@@ -35,7 +35,11 @@ the inner width. sLSTM: its heads' block of d (the recurrent `r{z,i,f,
 o}` cut by heads; the columns of `w{z,i,f,o}` and `b{z,i,f,o}`, the
 weight of the gated norm and the rows of `w_out`, held whole, cut here
 from the whole) runs the recurrence, the norm and the projection
-likewise.
+likewise. Where the axis does not divide the heads (`TensorParallel.
+recurrent_split` False: xlstm-125m's 4 at 8 ranks, whose mLSTM inner
+width the rules still cut) either block gathers every leaf the rank
+holds a block of and runs whole, alike on every model rank: nothing
+enters the split region and nothing is summed.
 """
 
 from __future__ import annotations
@@ -62,12 +66,17 @@ SLSTM_HEADS = {**{f"{w}{g}": 1 if w == "w" else 0
 
 
 def _rank_leaves(lp, tp, at, whole, heads):
-    """A rank's weights of one block at path `at`: FSDP blocks gathered
-    over `data`, the leaves `whole` gathered over `model`, and of each
-    leaf in `heads` its heads' block on the given dim."""
-    lp = model_whole(data_whole(lp, tp, at), tp, at, whole)
+    """(a rank's weights of one block at path `at`, the `tp` the block
+    runs with): FSDP blocks gathered over `data`, the leaves `whole`
+    gathered over `model`, and of each leaf in `heads` its heads' block
+    on the given dim; where the axis does not divide the heads, every
+    leaf gathered whole and no `tp` (the block runs whole)."""
+    lp = data_whole(lp, tp, at)
+    if not tp.recurrent_split:
+        return model_whole(lp, tp, at, tuple(lp)), None
+    lp = model_whole(lp, tp, at, whole)
     return {**lp, **{k: model_own(lp, tp, at, k, d)
-                     for k, d in heads.items()}}
+                     for k, d in heads.items()}}, tp
 
 
 # ---------------------------------------------------------------------------
@@ -182,7 +191,7 @@ def mlstm_forward_layer(h, lp, cfg: ModelConfig, tp=None,
     (the module docstring)."""
     B_, S, d = h.shape
     if tp is not None:
-        lp = _rank_leaves(lp, tp, at, MLSTM_WHOLE, MLSTM_HEADS)
+        lp, tp = _rank_leaves(lp, tp, at, MLSTM_WHOLE, MLSTM_HEADS)
     xpath, z, inner, H, P = _mlstm_inputs(h, lp, cfg)
     xconv = F.silu(causal_conv(xpath, lp["conv_w"], lp["conv_b"]))
     q, k, v, ig, lf = _qkv_gates(xconv, xpath, lp, H, P, tp)
@@ -343,7 +352,7 @@ def slstm_forward_layer(h, lp, cfg: ModelConfig, tp=None,
     B_, S, d = h.shape
     H, P = _slstm_dims(cfg)
     if tp is not None:
-        lp = _rank_leaves(lp, tp, at, (), SLSTM_HEADS)
+        lp, tp = _rank_leaves(lp, tp, at, (), SLSTM_HEADS)
     x = model_enter(rms_norm(h, lp["norm"], cfg.norm_eps), tp)
     z0 = torch.zeros((B_, H, P), dtype=torch.float32, device=h.device)
     carry = (z0, z0, torch.full_like(z0, NEG), z0)

@@ -175,9 +175,7 @@ pools).
 
 The captured chunks hold their collectives (the moe family's serve
 runs the chunk eagerly, meshed or not; its `run`/`generate` chunks are
-captured, meshed or not). What stays unported raises
-NotImplementedError naming it (`refuse_mesh`): training across a
-`model` axis that does not divide the KV heads.
+captured, meshed or not).
 """
 
 from __future__ import annotations
@@ -322,20 +320,6 @@ def _require_cache(state, family: str) -> None:
             f"family {family!r} keeps a recurrent decode state and no paged "
             f"KV cache, so there is nothing to place: step it with "
             f"Model.decode_step")
-
-
-#: what the port leaves out of the mesh, by case (`refuse_mesh`)
-MESH_REFUSALS = {
-    "train": "training across a mesh runs every family over a model "
-             "axis that divides its KV heads; {what} is not ported yet",
-}
-
-
-def refuse_mesh(case: str, **detail):
-    """Raise NotImplementedError for a part of the mesh the port leaves
-    out, named by `case` (a key of `MESH_REFUSALS`): the train CLI and
-    the train step share it."""
-    raise NotImplementedError(MESH_REFUSALS[case].format(**detail))
 
 
 @dataclasses.dataclass

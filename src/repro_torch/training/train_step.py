@@ -19,7 +19,14 @@ FSDP blocks over `data`), takes its rows of each micro-batch
 (`launch.shardings.tokens_sharding`; every rank takes every row where
 `data` does not divide them; a modality extra's rows alike), and runs
 the rank-local model (`TrainMesh`) whose collectives carry the gradient
-(`launch.mesh`). A moe model routes over every data rank's rows of the
+(`launch.mesh`). A `model` axis of any size trains: where it does not
+divide the KV heads the rank holds every KV head and its block of the
+query heads (`wk`/`wv` whole, their gradient summed over `model`), or
+every head where it does not divide them, and a recurrent block whose
+heads it does not divide runs whole (`transformer.TensorParallel`);
+a part every model rank runs whole neither enters the split region nor
+is summed, so its gradient is whole on every rank and counted once in
+the norm. A moe model routes over every data rank's rows of the
 micro-batch, as the unsplit step does (`models.moe`); its router,
 whole on every rank and used on each model rank's experts alone, has
 its gradient summed over `model` (`enter`). The loss is the mean over
@@ -43,7 +50,7 @@ from repro_torch.launch import mesh as mesh_mod
 from repro_torch.launch.shardings import (
     data_dim, shard, spec_axes, tokens_sharding,
 )
-from repro_torch.models.config import ModelConfig, splits
+from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import Model
 from repro_torch.models.transformer import TensorParallel, unembed_weight
 from repro_torch.training.optimizer import (
@@ -112,30 +119,18 @@ def loss_fn(model: Model, params, tokens, *, extra: Optional[Dict] = None,
 
 
 def value_and_grad(model: Model, params, tokens, extra=None,
-                   rows: Optional[int] = None):
-    """(loss, grads shaped as `params`) of `loss_fn` (`rows` its), by
-    autograd. The parameters are not modified: the graph runs on
-    detached aliases."""
+                   rows: Optional[int] = None, logit_chunk: int = 512):
+    """(loss, grads shaped as `params`) of `loss_fn` (`rows` and
+    `logit_chunk` its), by autograd. The parameters are not modified:
+    the graph runs on detached aliases."""
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
     with torch.enable_grad():
         loss = loss_fn(model, tree_unflatten(params, leaves), tokens,
-                       extra=extra, rows=rows)
+                       extra=extra, logit_chunk=logit_chunk, rows=rows)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(leaves, grads)]
     return loss.detach(), tree_unflatten(params, grads)
-
-
-def check_train_mesh(cfg: ModelConfig, model_size: int) -> None:
-    """Raise NotImplementedError naming it (`refuse_mesh("train")`) when
-    training `cfg` across a mesh whose `model` axis has `model_size`
-    ranks is left out: a model axis that does not divide the KV heads
-    (every family trains across a mesh otherwise). Needs no rank: the
-    train CLI asks before it starts any."""
-    from repro_torch.serving.engine import refuse_mesh
-    if not splits(cfg.kv_heads, model_size):
-        refuse_mesh("train", what=f"a model axis of {model_size} over "
-                                  f"{cfg.kv_heads} KV heads")
 
 
 def layer_dims(cfg: ModelConfig, specs, axis: str) -> Dict[str, int]:
@@ -163,14 +158,15 @@ def layer_dims(cfg: ModelConfig, specs, axis: str) -> Dict[str, int]:
 @dataclasses.dataclass
 class TrainMesh:
     """A rank's part of a meshed train step: the rank-local model (its
-    `TensorParallel` bound to the mesh's differentiable collectives and
-    to its FSDP blocks), its coordinate and the axis sizes, and for each
-    parameter leaf (in tree order) whether it is whole on `data` and
-    which axes split it."""
+    `TensorParallel` bound to its `comm`'s differentiable collectives
+    and to its FSDP blocks), the axis sizes, and for each parameter leaf
+    (in tree order) whether it is whole on `data` and which axes split
+    it. `comm` (`launch.mesh.Collectives`) is how the rank reaches its
+    peers: every collective of the step goes through it."""
 
     model: Model
     mesh: Any
-    coord: Dict[str, int]
+    comm: mesh_mod.Collectives
     sizes: Dict[str, int]
     whole_on_data: List[bool]
     #: {axis: whether it splits each leaf, a bool tensor on the rank's
@@ -178,35 +174,36 @@ class TrainMesh:
     split_by: Dict[str, torch.Tensor]
 
     @classmethod
-    def bind(cls, model: Model, mesh) -> "TrainMesh":
+    def bind(cls, model: Model, mesh, comm=None) -> "TrainMesh":
         """This rank's part of `mesh` for training `model` (the whole
-        model's `Model(cfg)`), after `check_train_mesh`'s refusals."""
+        model's `Model(cfg)`), at any axis sizes: its collectives `comm`,
+        by default `Collectives.of(mesh)` (`mesh` a `DeviceMesh`; with
+        `comm` given, anything with the mesh's axis sizes)."""
         from repro_torch.bridge import param_specs
         cfg = model.cfg
+        comm = comm or mesh_mod.Collectives.of(mesh)
         sizes = mesh_mod.mesh_axis_sizes(mesh)
-        check_train_mesh(cfg, sizes["model"])
-        coord = mesh_mod.mesh_coordinate(mesh)
         specs = param_specs(cfg, mesh, "train")
         tp = TensorParallel.of(
-            cfg, sizes["model"], coord["model"],
-            reduce=lambda t: mesh_mod.sum_model(t, mesh),
-            gather=lambda t, dim: mesh_mod.gather_model(t, mesh, dim),
-            enter=lambda t: mesh_mod.enter_model(t, mesh),
+            cfg, sizes["model"], comm.coord["model"], reduce=comm.reduce,
+            gather=comm.gather, enter=comm.enter,
             data_dims=layer_dims(cfg, specs, "data"),
             model_dims=layer_dims(cfg, specs, "model"),
-            gather_data=lambda t, dim: mesh_mod.gather_data(t, mesh, dim),
-            gather_rows=lambda t, dim: mesh_mod.gather_data(t, mesh, dim))
-        device = mesh_mod.mesh_device(mesh)
+            gather_data=comm.gather_data, gather_rows=comm.gather_data)
         split_by = {}
         for axis in mesh_mod.AXES:
             mask = [axis in spec_axes(s) for s in specs.values()]
             if sizes[axis] > 1 and any(mask):
-                split_by[axis] = torch.tensor(mask, device=device)
+                split_by[axis] = torch.tensor(mask, device=comm.device)
         return cls(model=Model(cfg.rank_local(sizes["model"]), tp=tp),
-                   mesh=mesh, coord=coord, sizes=sizes,
+                   mesh=mesh, comm=comm, sizes=sizes,
                    whole_on_data=[data_dim(s) is None
                                   for s in specs.values()],
                    split_by=split_by)
+
+    @property
+    def coord(self) -> Dict[str, int]:
+        return self.comm.coord
 
     def rows(self, t: torch.Tensor) -> torch.Tensor:
         """This rank's rows of a global batch tensor [B, ...], as
@@ -226,12 +223,11 @@ class TrainMesh:
 
     def reduce_grads(self, grads):
         """The gradients of the leaves whole on `data` summed over it
-        (in place: the step's own tensors); the FSDP leaves' arrive
+        (the step's own tensors handed over); the FSDP leaves' arrive
         reduce-scattered already."""
-        for g, whole in zip(tree_leaves(grads), self.whole_on_data):
-            if whole:
-                mesh_mod.all_reduce_sum(g, self.mesh, "data")
-        return grads
+        return tree_unflatten(grads, [
+            self.comm.sum(g, "data") if whole else g
+            for g, whole in zip(tree_leaves(grads), self.whole_on_data)])
 
     def leaf_sums(self, sums: torch.Tensor) -> torch.Tensor:
         """The per-leaf sums of squares over the rank's blocks [n leaves]
@@ -240,13 +236,13 @@ class TrainMesh:
         both counts once)."""
         for axis, mask in self.split_by.items():
             part = torch.where(mask, sums, torch.zeros_like(sums))
-            sums = torch.where(mask, mesh_mod.all_reduce_sum(
-                part, self.mesh, axis), sums)
+            sums = torch.where(mask, self.comm.sum(part, axis), sums)
         return sums
 
 
 def make_train_step(model: Model, *, accum_steps: int = 1,
-                    extra_keys: tuple = (), lr=None, mesh=None) -> Callable:
+                    extra_keys: tuple = (), lr=None, mesh=None,
+                    comm=None, logit_chunk: int = 512) -> Callable:
     """Returns train_step(state, batch) -> (state, metrics).
 
     batch: {"tokens": [B, S]} (+ modality extras, named by
@@ -254,31 +250,32 @@ def make_train_step(model: Model, *, accum_steps: int = 1,
     accum_steps > 1 the batch's leading dim is split into micro-batches
     and gradients are accumulated in f32 before one optimizer update.
     metrics: {"loss", "grad_norm", "step"}, tensors on the device (no
-    host sync inside the step).
+    host sync inside the step). `logit_chunk`: `loss_fn`'s.
 
-    With `mesh` (a (`data`, `model`) `DeviceMesh`; any family whose KV
-    heads the `model` axis divides, `check_train_mesh`): every rank
-    calls the step with its
-    own state (`init_train_state(..., mesh=)`,
+    With `mesh` (a (`data`, `model`) `DeviceMesh` of any sizes; every
+    family): every rank calls the step with its own state (`init_train_state(..., mesh=)`,
     `bridge.train_state_from_jax(..., mesh=)`: its train-mode shards)
     and the same global batch; accum_steps splits it into micro-batches
     of global rows, as unmeshed, and the rank takes its rows of each
     (`TrainMesh.rows`). The metrics are the global ones on every
-    rank."""
-    rank = None if mesh is None else TrainMesh.bind(model, mesh)
+    rank. `comm`: the rank's collectives where they are not the
+    `DeviceMesh`'s (`TrainMesh.bind`)."""
+    rank = None if mesh is None else TrainMesh.bind(model, mesh, comm)
     across = None if rank is None else rank.leaf_sums
 
     def micro(params, tokens, extra):
         """(loss, grads) of a micro-batch of global rows: on a rank, of
         its rows of them, the loss a share of the global mean."""
         if rank is None:
-            return value_and_grad(model, params, tokens, extra)
+            return value_and_grad(model, params, tokens, extra,
+                                  logit_chunk=logit_chunk)
         run = rank.model_for(tokens.shape[0])
         tokens = rank.rows(tokens)
         extra = None if extra is None else {
             k: rank.rows(v) for k, v in extra.items()}
         return value_and_grad(run, params, tokens, extra,
-                              rows=tokens.shape[0] * rank.sizes["data"])
+                              rows=tokens.shape[0] * rank.sizes["data"],
+                              logit_chunk=logit_chunk)
 
     def train_step(state: TrainState, batch: Dict) -> tuple:
         tokens = batch["tokens"]
@@ -301,7 +298,7 @@ def make_train_step(model: Model, *, accum_steps: int = 1,
             loss = loss / accum_steps
         if rank is not None:
             grads = rank.reduce_grads(grads)
-            loss = mesh_mod.all_reduce_sum(loss.clone(), mesh, "data")
+            loss = rank.comm.sum(loss.clone(), "data")
 
         params, opt = adamw_update(grads, state.opt, state.params, lr=lr,
                                    across=across)

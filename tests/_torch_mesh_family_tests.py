@@ -198,18 +198,26 @@ def assert_state(got, want, tol=TOL):
 def test_split_layers_on_threads_equal_the_unsplit():
     """`chip_smoke.py`'s phase 16b on the CPU at the f32 smoke configs
     (4 rows of 24 tokens): each family's layer blocks run split over
-    (data, model) = (1, 2), (2, 2) and (1, 4), the ranks as threads of
-    the port's rank-local code whose collectives exchange tensors in one
-    autograd graph; dx and every weight's gradient within the phase's
-    f32 tolerance of the unsplit layer's (the phase raises otherwise).
-    internvl2's 2 KV heads skip model = 4."""
+    (data, model) = (1, 2), (2, 2) and (1, 4), zamba2's blocks also over
+    (1, 3) and xlstm's over (1, 8), the ranks as threads each bound as
+    the meshed train step binds it (every collective with its backward
+    across the threads) and taking its own backward; each rank's dx and
+    weight gradients within the phase's f32 tolerance of its block of
+    the unsplit layer's (the phase raises otherwise).
+    internvl2's 2 KV heads over model = 4 split its query heads over
+    whole KV heads; at (1, 3) and (1, 8) the recurrent blocks run whole
+    on every rank (at (1, 8) xlstm's mLSTM gathers its inner width)."""
     sys.path.insert(0, REPO)
     import chip_smoke
     _, out = chip_smoke.family_train_split_phase(
         0, device="cpu", get=worker.family_cfg, rows=4, seq=24)
-    run = {(o["layer"].split()[0], o["data"], o["model"]) for o in out}
-    assert len(out) == 17, sorted(run)
-    assert ("internvl2-smoke", 1, 4) not in run
+    run = {(o["layer"], o["data"], o["model"]) for o in out}
+    assert len(out) == 22, sorted(run)
+    assert ("internvl2-smoke decoder layer", 1, 4) in run
+    assert {(label, 1, 3) for label, _, _ in run
+            if label.startswith("zamba2")} <= run
+    assert {(label, 1, 8) for label, _, _ in run
+            if label.startswith("xlstm")} <= run
     limit = chip_smoke.FAMILY_TRAIN_SPLIT_TOL["f32"]
     assert max(e for o in out for e in o["errors"].values()) <= limit
 

@@ -18,8 +18,9 @@ whole leaves gathered by `bridge.unshard`. Beside them: accum_steps=2,
 rows no data axis divides, each rank's stored bytes, a checkpoint saved
 on (2, 2) restored on (2, 2) (bitwise), (4, 1), (1, 2) and without a
 mesh, the differentiable collectives, per-head norm weights (qwen3's
-qk norm), the refusals, and the train CLI across a mesh in a
-subprocess.
+qk norm), and the train CLI across a mesh in a subprocess (a `model`
+axis that does not divide the KV heads:
+tests/test_torch_mesh_kv_train.py).
 """
 
 import math
@@ -49,7 +50,7 @@ from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.models.params import abstract_params  # noqa: E402
 from repro_torch.training.optimizer import adamw_init  # noqa: E402
 from repro_torch.training.train_step import (  # noqa: E402
-    TrainState, check_train_mesh, init_train_state, make_train_step,
+    TrainState, init_train_state, make_train_step,
 )
 from repro_torch.tree import (  # noqa: E402
     leaves_with_path, path_name, tree_leaves,
@@ -340,28 +341,6 @@ def test_collectives_transpose_each_other(runs):
         np.testing.assert_allclose(y, 2 * ranks[0]["collectives"][
             "enter_model"][0], rtol=1e-6)
         np.testing.assert_array_equal(g, w[got["rank"]])
-
-
-@pytest.mark.parametrize("arch,model,want", [
-    ("internvl2-2b", 4, "a model axis of 4 over 2 KV heads"),
-    ("whisper-tiny", 3, "a model axis of 3 over 4 KV heads"),
-    ("zamba2-1.2b", 3, "a model axis of 3 over 4 KV heads"),
-    ("xlstm-125m", 8, "a model axis of 8 over 4 KV heads"),
-    ("internlm2-1.8b", 4, "a model axis of 4 over 2 KV heads"),
-], ids=["vlm", "encdec", "hybrid", "xlstm", "kv-heads"])
-def test_what_is_left_out_is_refused_by_name(arch, model, want):
-    """Training across a mesh refuses, naming it, a model axis that does
-    not divide the KV heads (the `pages` and `none` pool rules' case),
-    for every family, before any rank is needed: the train CLI and the
-    step alike."""
-    from repro_torch.launch import train as ttrain
-    cfg = tconfigs.get_smoke(arch)
-    with pytest.raises(NotImplementedError, match="not ported yet") as err:
-        check_train_mesh(cfg, model)
-    assert want in str(err.value)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        ttrain.main(["--arch", arch, "--smoke", "--device", "cpu",
-                     "--model", str(model)])
 
 
 def cli(*args, timeout=240):
