@@ -419,6 +419,22 @@ non-zero):
              norms, m and the parameters' update within KV_STEP_TOL
              (`kv_train_step`).
 
+  20. family rank the rank-local prefill and decode of the vlm, encdec,
+             hybrid, ssm and xlstm families: internvl2-2b, whisper-tiny
+             (over its 1500 frames), zamba2-1.2b and xlstm-125m at full
+             width (random bf16 weights), B=4 (FAMILY_RANK_SPLITS' prompt
+             lengths), split over a model axis of 2 and one that divides
+             no head count (whisper at 4: `pages`; zamba2 at 3: `none`,
+             its Mamba2 blocks whole; xlstm at 8: its blocks whole), the
+             ranks as threads (`ThreadMesh`) each binding
+             `TensorParallel.serving` as the engine binds a rank: the
+             prefill and 4 decode steps fed the unsplit run's greedy
+             tokens, every rank's logits within FAMILY_RANK_TOL of the
+             unsplit run's, its integer cache state equal; the flash and
+             paged kernels' launches of the ranks (`family_rank`). Then
+             one `--mesh multi` record of the dry run (qwen3-32b
+             decode_32k, meta device), printed as a JSON line.
+
 Then a `kernels` JSON line, the card's name and power limit, and, last,
 {"ok": true, "device": {...}}. Without a CUDA card it exits non-zero
 and prints no result. `--profile DIR` runs phase 4 under torch.profiler
@@ -638,8 +654,74 @@ def kernel_phase(rng, device):
                         paged_inputs(rng, 4, KH, G, HD, N, 16,
                                      torch.bfloat16, device))
     shapes.append(pinned_shape(rng, device, link))
+    paged_threads_check(rng, device)
     return shapes, link
 
+
+def paged_threads_check(rng, device, threads=16, rounds=2000):
+    """Phase 18a's two tiers of a rank (4 HBM and 13 host slots of
+    internlm2's pools) launched from `threads` host threads at once,
+    half of them each tier, `rounds` times each, through the library's
+    launcher with little Python between calls. The two sizes need
+    different dynamic shared memory, both over 48 KiB, and the
+    function's limit is one for every thread, so no launch may fail
+    when another thread asked for a smaller size in between (the ranks
+    of phases 18 and 20 are such threads). Each tier's output, written
+    by every launch of it, is then held against the plain version."""
+    import threading
+    import torch
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+    _, Ph, Pe = PAGES_GEO
+    split = PAGES_SPLITS[0][1]
+    sm = torch.cuda.get_device_properties(device).multi_processor_count
+    tiers, smem = [], []
+    for N in (Ph // split, Pe // split):
+        inputs = paged_inputs(rng, 8, 8, 2, 128, N, 16, torch.bfloat16,
+                              device)
+        plan = pa.launch_plan(8, 8, 2, 128, 16, N, 2, sm)
+        smem.append(pa.smem_bytes(plan.warps, 2, 128, 16, 2, plan.per))
+        # its own tickets: every launch runs on this stream, one by one
+        tiers.append((inputs, *pa.launch_args(*inputs, ticket_set=len(
+            tiers))))
+    if len(set(smem)) < 2 or min(smem) <= 48 * 1024:
+        raise AssertionError(f"paged threads: shared memory {smem} does "
+                             f"not exercise the shared limit")
+    launch = pa._library().paged_attention_launch
+    start = threading.Barrier(threads, timeout=300)
+    failed = collections.Counter()
+
+    def run(i):
+        args = tiers[i % 2][1]
+        try:
+            start.wait()
+        except threading.BrokenBarrierError:
+            return
+        for _ in range(rounds):
+            err = launch(*args)
+            if err:
+                failed[err] += 1
+    pool = [threading.Thread(target=run, args=(i,)) for i in range(threads)]
+    t = time.time()
+    for th in pool:
+        th.start()
+    for th in pool:
+        th.join()
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    if failed:
+        raise AssertionError(f"paged threads: launches failed, by CUDA "
+                             f"error: {dict(failed)} of {threads * rounds}")
+    err = 0.0
+    for inputs, _, got in tiers:
+        want = ref.paged_attention_ref(*inputs)
+        err = max(err, float((got[0].float() - want[0].float()).abs()
+                             .max()))
+    log(f"paged threads: {threads} threads x {rounds} launches of two "
+        f"tiers ({smem} bytes of shared memory) in {wall:.2f} s, none "
+        f"failed; out max err {err:.3e} (tolerance {TOL['out']})")
+    if not err <= TOL["out"]:
+        raise AssertionError(f"paged threads: out {err}")
 
 def check_paged(what, inputs):
     """The kernel against its plain version on one input set, with the
@@ -4684,20 +4766,16 @@ class ThreadMesh:
     def serve_tp(self, cfg, coord, geo):
         """The serving `TensorParallel` of the rank at `coord` over the
         whole model's `cfg` for a cache of `geo`'s tiers (the engine's
-        `_bind_mesh`): its block of the pools' slots under the `pages`
-        rule, the exchange its `reduce`."""
-        from repro_torch.kvcache.paged import PoolShard
+        `_bind_mesh`, `TensorParallel.serving`): its serve-mode blocks on
+        `model`, its block of the pools' slots under the `pages` rule,
+        the exchange its `reduce`."""
         from repro_torch.launch.mesh import AbstractMesh
-        from repro_torch.launch.shardings import _kv_shard_axis, pool_slots
         from repro_torch.models.transformer import TensorParallel
         reduce, gather = self.model_collectives(coord)
         mesh = AbstractMesh(("data", "model"), (self.sizes["data"],
                                                 self.sizes["model"]))
-        pool = PoolShard(*pool_slots(geo, mesh, coord["model"]),
-                         exchange=reduce) \
-            if _kv_shard_axis(geo, mesh) == "pages" else None
-        return TensorParallel.of(cfg, self.sizes["model"], coord["model"],
-                                 reduce=reduce, gather=gather, pool=pool)
+        return TensorParallel.serving(cfg, mesh, coord, reduce=reduce,
+                                      gather=gather, geo=geo)
 
     def run(self, fn):
         """{(data, model): fn(coord)} with every rank in a thread; the
@@ -5791,6 +5869,246 @@ def pages_split_phase(seed, device="cuda", get=None, splits=None,
     return launches, rows
 
 
+# --------------------------------------------------------------------------
+# phase 20: the rank-local decode and prefill of the vlm, encdec, hybrid,
+# ssm and xlstm families
+# --------------------------------------------------------------------------
+
+#: phase 20's configs, the model-axis sizes each is split over (2, and
+#: one that divides no head count: whisper's 6 at 4, zamba2's 32 at 3,
+#: xlstm's 4 at 8), its prompt tokens a lane (internvl2: 2048 after its
+#: 256 patches, phase 10's 2304 positions; whisper: phase 10's 64 over
+#: its 1500 frames; xlstm: replayed one decode step a token, each step
+#: of 8 threads gathering every leaf of its 12 blocks: 64 tokens took
+#: 62.8 s at 8 on the card, so 16) and the dtype
+#: it runs in. The recurrent configs run their random bf16 weights
+#: widened to f32: with random weights their stacks amplify the ranks'
+#: other order of sums with depth and time (zamba2 at its smoke widths,
+#: 4 blocks: 2.7e-2 of max |logit| in bf16, 1.7e-6 in f32; 38 blocks:
+#: 0.34 in bf16, 1.5e-5 in f32; on the card in bf16 at 2: zamba2 0.34,
+#: xlstm 9.6e-2), so only f32 holds their split to a bound that would
+#: show a fault
+FAMILY_RANK_SPLITS = (("internvl2-2b", (2,), 2048, "bf16"),
+                      ("whisper-tiny", (2, 4), 64, "bf16"),
+                      ("zamba2-1.2b", (2, 3), 2304, "f32"),
+                      ("xlstm-125m", (2, 8), 16, "f32"))
+#: phase 20's lanes (phase 10's B) and greedy decode steps
+FAMILY_RANK_B, FAMILY_RANK_STEPS = 4, 4
+#: a rank's logits against the unsplit step's, max |diff| over max
+#: |logit|, by dtype, about twice the largest seen on the card: bf16
+#: internvl2's 24 layers at 2, 2.559e-2 (the ranks' bf16 partial sums);
+#: f32 zamba2's 38 blocks at 2, 4.351e-5 (at the smoke widths on the
+#: CPU: 1.66e-6; tests/test_torch_mesh_decode_families.py holds its own
+#: bounds beside)
+FAMILY_RANK_TOL = {"bf16": 5e-2, "f32": 1e-4}
+
+
+def rank_state(state, tp, m: int):
+    """A rank's block of the unsplit decode `state` (a `PagedKVCache`, or
+    a family's dict) for the rank of `tp` on a model axis of `m`: its KV
+    heads (the `kv_heads` rule) or its slots (`pages`) of each pool, the
+    tables whole; the recurrent memories' heads where the axis splits
+    them (`recurrent_split`), the conv states and the encoder output
+    whole."""
+    import dataclasses
+    from repro_torch.kvcache.paged import PagedKVCache
+    if isinstance(state, PagedKVCache):
+        if tp.kv_split:
+            kh = state.k_hbm.shape[4] // m
+            pools = {n: getattr(state, n)[..., tp.rank * kh:
+                                          (tp.rank + 1) * kh, :]
+                     for n in ("k_hbm", "v_hbm", "k_host", "v_host")}
+            return dataclasses.replace(rank_cache(state, None), **{
+                n: t.clone() for n, t in pools.items()})
+        return rank_cache(state, tp.pool)
+    out = {}
+    for k, v in state.items():
+        if isinstance(v, (dict, PagedKVCache)):
+            out[k] = rank_state(v, tp, m)
+        elif k in ("enc", "conv", "m_conv") or not tp.recurrent_split:
+            out[k] = v
+        else:                               # [L, B, H, ...]: the heads
+            n = v.shape[2] // m
+            out[k] = v[:, :, tp.rank * n:(tp.rank + 1) * n]
+    return out
+
+
+def state_diff(got, want):
+    """(whether every integer tensor of two decode states is equal, the
+    largest |diff| over max |value| of their float tensors)."""
+    import torch
+    from repro_torch.tree import tree_leaves
+    same, err = True, 0.0
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        if g.dtype.is_floating_point:
+            if w.numel():
+                err = max(err, rel_err(g, w) if float(w.float().abs()
+                                                      .max()) else float(
+                    (g.float() - w.float()).abs().max()))
+        else:
+            same &= torch.equal(g, w)
+    return same, err
+
+
+def family_rank_case(cfg, m, params, seed, device, batch, prompt, steps):
+    """`cfg` (the whole model, parameters `params`) split over a model
+    axis of `m` as threads (`ThreadMesh`), each rank the rank-local
+    model (`TensorParallel.serving`, the engine's binding for any
+    family) on its serve shards and its own decode state: `Model.
+    prefill` of `batch` prompts of `prompt` tokens (and the family's
+    `extra`; ssm: none, the state from zero), then `steps` decode steps
+    fed the unsplit run's greedy tokens. Returns (the unsplit run
+    {"logits", "tokens", "state"}, {model rank: the rank's, with "tp"}).
+    The launches of the ranks' run alone are left in `build.COUNTS`."""
+    import torch
+    from repro_torch import bridge
+    from repro_torch.kernels.build import COUNTS
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.models.model import Model
+    whole = Model(cfg)
+    rng = np.random.default_rng(seed + 20)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (batch, prompt)),
+                             dtype=torch.int32, device=device)
+    extra = family_extra(cfg, rng, batch)
+    if extra is not None:
+        extra = {k: torch.as_tensor(v, device=device).to(cfg.dtype)
+                 for k, v in extra.items()}
+    ctx = prompt + steps + (cfg.frontend.num_embeddings
+                            if cfg.family == "vlm" else 0)
+
+    def run(model, p, fed=None):
+        geo = model.cache_geometry(batch, ctx, hbm_fraction=0.25) \
+            if cfg.attention_layer_ids() else None
+        if cfg.family == "ssm":
+            state = model.init_decode_state(batch, device=device)
+            logits, state = model.decode_step(p, state, tokens[:, 0])
+        else:
+            logits, state = model.prefill(p, tokens, geo, extra=extra)
+        out = {"logits": [logits], "tokens": []}
+        for i in range(steps):
+            tok = logits.argmax(-1).to(torch.int32)
+            out["tokens"].append(tok)
+            logits, state = model.decode_step(
+                p, state, tok if fed is None else fed[i])
+            out["logits"].append(logits)
+        out["state"] = state
+        return out
+    want = run(whole, params)
+    mesh = ThreadMesh(1, m)
+    amesh = AbstractMesh(("data", "model"), (1, m))
+    local = cfg.rank_local(m)
+    geo = whole.cache_geometry(batch, ctx, hbm_fraction=0.25)
+    shards = [bridge.shard_params(params, cfg, amesh,
+                                  {"data": 0, "model": r}) for r in range(m)]
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    COUNTS.clear()                          # the ranks' run only
+
+    def rank(coord):
+        tp = mesh.serve_tp(cfg, coord, geo)
+        got = run(Model(local, tp=tp), shards[coord["model"]],
+                  want["tokens"])
+        got["tp"] = tp
+        return got
+    ranks = {r: got for (_, r), got in mesh.run(rank).items()}
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return want, ranks
+
+
+def family_rank_phase(seed, device="cuda", get=None, splits=None,
+                      batch=FAMILY_RANK_B, steps=FAMILY_RANK_STEPS):
+    """Phase 20: each of `splits` (default FAMILY_RANK_SPLITS: (config,
+    model-axis sizes, prompt tokens, dtype)) at its published widths
+    (random bf16 weights from `seed`; "f32": widened) through
+    `family_rank_case`: every rank's
+    logits of the prefill and each decode step within FAMILY_RANK_TOL of
+    the unsplit run's, its greedy tokens beside (a near tie may flip one
+    in bf16: counted, not held), its integer cache state (page table,
+    owner maps, lengths) equal to the unsplit's, its pools' and
+    recurrent state's error against its block of the unsplit state
+    (`rank_state`) logged. Then one `--mesh multi` record of the dry run
+    (qwen3-32b decode_32k, the meta device: host only), held complete.
+    `device`, `get` (the configs by name), `batch`, `steps`:
+    tests/test_torch_mesh_decode_families.py runs the phase on the CPU
+    at the f32 smoke configs. Returns (the ranks' launches by kernel,
+    the rows, the dry-run record)."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels.build import COUNTS
+    from repro_torch.launch import dryrun
+    from repro_torch.models.model import Model
+    from repro_torch.tree import tree_map
+    device = torch.device(device)
+    get = get or configs.get
+    rows, launches = [], collections.Counter()
+    for name, sizes, prompt, dtype in splits or FAMILY_RANK_SPLITS:
+        if device.type == "cuda":
+            free_card()
+        cfg = get(name)
+        params = Model(cfg).init(seed, device=device)
+        if dtype == "f32" and cfg.dtype != torch.float32:
+            cfg = dataclasses.replace(cfg, dtype=torch.float32,
+                                      param_dtype=torch.float32)
+            params = tree_map(lambda t: t.float(), params)
+        tol = FAMILY_RANK_TOL["f32" if cfg.dtype == torch.float32
+                              else "bf16"]
+        for m in sizes:
+            t = time.time()
+            want, ranks = family_rank_case(cfg, m, params, seed, device,
+                                           batch, prompt, steps)
+            launches.update(COUNTS)
+            launched = dict(COUNTS)
+            err, flips, same, state_err = 0.0, 0, True, 0.0
+            for r, got in ranks.items():
+                for g, w in zip(got["logits"], want["logits"]):
+                    err = max(err, rel_err(g, w))
+                flips += sum(int((g != w).sum()) for g, w in zip(
+                    (x.argmax(-1) for x in got["logits"]),
+                    (x.argmax(-1) for x in want["logits"])))
+                ok, e = state_diff(got["state"], rank_state(
+                    want["state"], got["tp"], m))
+                same &= ok
+                state_err = max(state_err, e)
+            tp = ranks[0]["tp"]
+            rule = "no cache" if not cfg.attention_layer_ids() else \
+                "kv_heads" if tp.kv_split else \
+                "pages" if tp.pool is not None else "none"
+            log(f"family rank {cfg.name} model={m} ({rule}; heads "
+                f"{'split' if tp.heads_split else 'whole'}, recurrent "
+                f"blocks {'split' if tp.recurrent_split else 'whole'}): "
+                f"B={batch} x {prompt} prompt tokens, {steps} decode steps "
+                f"on {m} threads in {time.time() - t:.1f} s; logits "
+                f"{err:.3e} of max |logit| (tolerance {tol}), greedy "
+                f"flips {flips}, integer state equal {same}, float state "
+                f"{state_err:.3e} of max |value| against the rank's block; "
+                f"launches {launched}")
+            rows.append({"model": cfg.name, "split": m, "rule": rule,
+                         "logits_err": err, "flips": flips,
+                         "state_err": state_err, "launches": launched})
+            if not same:
+                raise AssertionError(f"family rank {cfg.name} model={m}: "
+                                     f"an integer cache state differs")
+            if not err <= tol:
+                raise AssertionError(f"family rank {cfg.name} model={m}: "
+                                     f"logits {err} over {tol}")
+            del want, ranks
+        del params
+    t = time.time()
+    record = dryrun.run_cell("qwen3-32b", "decode_32k", "multi")
+    coll = record.get("collective_bytes_per_device") or {}
+    if record.get("status") != "ok" or record.get("bytes_per_device") is \
+            None or record["memory"].get("activation_bytes") is None or \
+            set(coll.get("by_axis", {})) - {"pod", "data", "model"} or \
+            not coll.get("total"):
+        raise AssertionError(f"dry run multi record incomplete: {record}")
+    log(f"family rank: dry run multi record of qwen3-32b decode_32k in "
+        f"{time.time() - t:.1f} s (meta device)")
+    print(json.dumps(record), flush=True)
+    return dict(launches), rows, record
+
+
 def assemble(grid, spec):
     """The whole gradient of a leaf from its ranks' blocks' gradients
     `grid[d][r]` (data rank d, model rank r) under `spec` (at most one
@@ -5959,6 +6277,8 @@ def main(argv=None) -> int:
         args.seed))
     kv_step, _ = phase("kv train step", lambda: kv_train_step_phase(
         args.seed))
+    family_rank, _, _ = phase("family rank", lambda: family_rank_phase(
+        args.seed))
     log(f"all phases: {time.time() - t_all:.1f} s wall")
 
     # one inline internlm2 decode layer: the HBM-tier (N=64) + host-tier
@@ -5975,6 +6295,7 @@ def main(argv=None) -> int:
              "moe_split": moe_split, "mesh_stream": mesh_stream,
              "pages_split": pages_split["pages"],
              "none_split": pages_split["none"],
+             "family_rank": family_rank,
              **{f"{name}_generate": c["generate"]
                 for name, c in streams.items()}}
     paged_by_path = {k: c.get("paged_attention", 0)
@@ -6047,6 +6368,7 @@ def main(argv=None) -> int:
                                                         0),
                      **{f"{rule}_split": c.get("flash_attention", 0)
                         for rule, c in pages_split.items()},
+                     "family_rank": family_rank.get("flash_attention", 0),
                      **{f"{name}_start": c["start"].get("flash_attention", 0)
                         for name, c in streams.items()},
                      "whisper-tiny_generate": streams["whisper-tiny"][

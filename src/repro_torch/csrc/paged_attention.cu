@@ -60,10 +60,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace {
 
 constexpr float kNegInf = -1e30f;
 constexpr int kRing = 3;   // page stages per warp
+constexpr int kMaxDevices = 64;
 
 template <typename E> struct Pack;
 
@@ -436,6 +439,31 @@ __global__ void paged_split_kernel(
   }
 }
 
+// The kernel's dynamic shared-memory limit is one attribute of the
+// function, shared by every host thread: a launch sized below it runs,
+// one above it fails with cudaErrorInvalidValue. Launches from several
+// threads (the ranks of a mesh run as threads of one process) need
+// different sizes — a rank's HBM and host tiers differ in pages per
+// split — so the limit is raised to the largest size asked for so far
+// and never lowered: a thread setting its own, smaller size between
+// another's set and launch would fail that launch.
+template <typename E>
+cudaError_t allow_smem(size_t smem) {
+  static std::mutex mu;
+  static size_t allowed[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> hold(mu);
+  if (smem <= allowed[dev]) return cudaSuccess;
+  e = cudaFuncSetAttribute(paged_split_kernel<E>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e == cudaSuccess) allowed[dev] = smem;
+  return e;
+}
+
 template <typename E>
 cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
                    const int* page_list, const int* page_valid, void* out,
@@ -445,9 +473,7 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
   const size_t smem = smem_bytes(warps, s.G, s.HD, s.T, (int)sizeof(E),
                                  s.pages_per_split);
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        paged_split_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+    cudaError_t e = allow_smem<E>(smem);
     if (e != cudaSuccess) return e;
   }
   dim3 grid(s.splits, s.KH, s.B);

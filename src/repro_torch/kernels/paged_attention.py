@@ -175,6 +175,21 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     page_valid: [B, N] int32. Returns (out, m, l, page_lse) as the
     plain version does. Launches that may run concurrently (on two
     streams) pass different `ticket_set`s."""
+    args, outputs = launch_args(q, k_pool, v_pool, page_list, page_valid,
+                                ticket_set)
+    err = _library().paged_attention_launch(*args)
+    if err != 0:
+        raise RuntimeError(f"paged_attention launch failed: CUDA error "
+                           f"{err}")
+    COUNTS["paged_attention"] += 1
+    return outputs
+
+
+def launch_args(q, k_pool, v_pool, page_list, page_valid,
+                ticket_set: int = 0):
+    """(the arguments of the library's `paged_attention_launch` on the
+    current stream, the outputs (out, m, l, page_lse) it writes) for
+    `paged_attention`'s inputs, checked as it documents them."""
     for name, pool in (("k_pool", k_pool), ("v_pool", v_pool)):
         # before any CUDA call: a pageable host pool is refused outright
         check_memory(name, pool)
@@ -215,17 +230,12 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
         scratch[o:o + math.prod(sh)].view(sh) for _, o, sh in layout)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _library().paged_attention_launch(
-        q.data_ptr(), device_address(k_pool), device_address(v_pool),
-        page_list.data_ptr(), page_valid.data_ptr(), out.data_ptr(),
-        m.data_ptr(), l.data_ptr(), lse.data_ptr(), part_m.data_ptr(),
-        part_l.data_ptr(), part_acc.data_ptr(),
-        _tickets(q.device, ticket_set, B * KH).data_ptr(),
-        B, KH, G, HD, P, T, N, *k_pool.stride()[:4], *v_pool.stride()[:4],
-        plan.splits, plan.per, plan.warps, HD ** -0.5, _DTYPE_CODE[q.dtype],
-        stream)
-    if err != 0:
-        raise RuntimeError(f"paged_attention launch failed: CUDA error "
-                           f"{err}")
-    COUNTS["paged_attention"] += 1
-    return out, m, l, lse
+    args = (q.data_ptr(), device_address(k_pool), device_address(v_pool),
+            page_list.data_ptr(), page_valid.data_ptr(), out.data_ptr(),
+            m.data_ptr(), l.data_ptr(), lse.data_ptr(), part_m.data_ptr(),
+            part_l.data_ptr(), part_acc.data_ptr(),
+            _tickets(q.device, ticket_set, B * KH).data_ptr(),
+            B, KH, G, HD, P, T, N, *k_pool.stride()[:4],
+            *v_pool.stride()[:4], plan.splits, plan.per, plan.warps,
+            HD ** -0.5, _DTYPE_CODE[q.dtype], stream)
+    return args, (out, m, l, lse)

@@ -27,31 +27,45 @@ CUDA context and the allocator's rounding are not counted, so a cell
 within a few GB of the limit may still not fit.
 
 `multi` (the reference's twin-pod mesh, (`pod`, `data`, `model`) =
-(2, 16, 16), 512 cards: `launch.mesh.make_production_mesh`): each
-card's bytes of the global step's arguments, through the sharding
-rules (`launch.shardings`, the reference's rule for rule) and
-`local_shape`: the parameters by `param_pspec` in the reference's mode
-(train for `train`, else serve), AdamW's f32 m and v on the
-parameters' specs, a decode cell's state by `state_shardings_for`
-(its host tier in pinned host memory, the rest on the card) and the
-inputs by `tokens_sharding` / `batch_axes` (a batch the batch axes do
-not divide is whole on every card). These are the layouts GSPMD gives
-the reference; the port's own meshed ranks hold the norm weights and a
-moe router whole on `model` where `param_pspec` splits them
-(`bridge.leaf_spec`), a few KB to MB more a card. A cell whose card
-bytes exceed the card's is `skip`, with them; `ok` says only that
-the arguments fit (its `reason` says so), since the activations are
-not counted. `flops_per_device` is the global batch's step counted
-once by `OpCost` on the meta device, divided evenly over the cards that
-split it (`flops_split`): the `model` axis times the batch axes in use
-(`batch_axes`), so a batch those axes leave whole (long_500k's 1) is
-repeated on every `pod` and `data` card. The bytes each card
-moves, its activations and its collectives need the rank-local step,
-counted with its collectives; at a 16-way `model` axis that step runs
-under the `pages` KV pool rule for every config but zamba2-1.2b (its
-32 KV heads): the meshed serve runs it, the dry run does not count a
-meshed step yet, and training across such an axis is not ported. They
-are null, with the reason in `unmeasured`.
+(2, 16, 16), 512 cards: `launch.mesh.make_production_mesh`): one card's
+rank-local step, counted on the meta device with its collectives. The
+step's structure is the same on every rank, so the rank at coordinate 0
+on every axis stands for all of them. A `launch.op_cost.CountingRank`
+hands the step its collectives and records each one's (kind, axis,
+bytes):
+
+  train    the port's meshed train step (`make_train_step(..., mesh=,
+           comm=)` over (`data`, `model`) = (16, 16)) on the rank's
+           train-mode blocks (`bridge.shard_params(mode="train")`) and
+           its rows, 256 / (pod x data) = 8 a card; the parameters are
+           replicated over `pod` (the reference's FSDP runs over `data`
+           alone), so one all-reduce of the rank's gradient blocks over
+           `pod` is added;
+  prefill, decode
+           the rank-local `Model(cfg.rank_local(16), tp=
+           TensorParallel.serving(...))` on the rank's serve-mode
+           blocks, its pools' slots under the `pages` KV pool rule, at
+           the per-card batch over the batch axes in use
+           (`shardings.batch_axes`: decode_32k 4, prefill_32k 1,
+           long_500k's 1 repeated on every card); a moe rank routes every
+           card's rows of those axes (`gather_rows` over them).
+
+`flops_per_device`, `bytes_per_device` and `memory.activation_bytes`
+are the rank's own `OpCost` counts (FLOPs, bytes, peak);
+`collective_bytes_per_device` holds the bytes of each kind, their
+`total` and `by_axis`. `memory` keeps each card's bytes of the
+arguments by the reference's rules (`launch.shardings` rule for rule,
+`local_shape`): the parameters by `param_pspec` in the reference's mode
+(train for `train`, else serve), AdamW's f32 m and v on their specs, a
+decode cell's state by `state_shardings_for` (its host tier in pinned
+host memory, the rest on the card) and the inputs by `tokens_sharding`
+/ `batch_axes`: the layouts GSPMD gives the reference. The port's rank
+holds some leaves whole that GSPMD splits (the norm weights and a moe
+router on `model`, the attention and recurrent leaves and state where
+the axis divides no head count, the cache's tables, the conv states):
+`memory.rank_extra_bytes` is its arguments' bytes on the card less
+those. A cell is `ok` when the rank's arguments and its activations fit
+the card, else `skip` with both counts.
 
 Usage:
   python -m repro_torch.launch.dryrun                     # all cells
@@ -79,16 +93,20 @@ import time
 
 import torch
 
-from repro_torch import configs
+from repro_torch import bridge, configs
 from repro_torch.core.tiers import H100_CHIP
 from repro_torch.kvcache.paged import PagedKVCache
 from repro_torch.launch import shardings
-from repro_torch.launch.mesh import make_production_mesh, mesh_axis_sizes
-from repro_torch.launch.op_cost import OpCost, tensor_bytes
+from repro_torch.launch.mesh import (
+    AbstractMesh, make_production_mesh, mesh_axis_sizes,
+)
+from repro_torch.launch.op_cost import CountingRank, OpCost, tensor_bytes
 from repro_torch.models.model import Model
 from repro_torch.models.params import abstract_params
+from repro_torch.models.transformer import TensorParallel
 from repro_torch.training.optimizer import adamw_init
 from repro_torch.training.train_step import TrainState, make_train_step
+from repro_torch.tree import tree_leaves
 
 SHAPES = {
     # name: (seq_len, global_batch, kind)
@@ -106,16 +124,6 @@ REFERENCE_CHIPS = 256
 
 #: the dry run's meshes (`--mesh both` runs them in this order)
 MESHES = ("single", "multi")
-
-#: why a multi record's per-card traffic, activations and collectives
-#: are null
-MULTI_UNMEASURED = (
-    "bytes moved, activations and collectives per card need the "
-    "rank-local step, counted with its collectives; at a 16-way model "
-    "axis that step runs under the 'pages' KV pool rule for every config "
-    "whose KV heads the axis does not divide (all but zamba2-1.2b's 32): "
-    "the meshed serve and the meshed train step run it, but counting a "
-    "meshed step in the dry run is not ported yet")
 
 RESULTS = os.path.join("build", "dryrun_results.jsonl")
 
@@ -286,9 +294,7 @@ def multi_memory(arch: str, shape: str) -> dict:
     """Each card's bytes of `arch`'s `shape` cell on the reference's
     twin-pod mesh (see the module docstring): {"params", "opt" (AdamW's
     m and v, and its step), "state" (a decode cell's, on the card),
-    "pinned_host" (its host tier), "inputs"} bytes, with the global
-    step's meta arguments under "args" (params, the train or decode
-    state, the input specs)."""
+    "pinned_host" (its host tier), "inputs"} bytes."""
     cfg = configs.get(arch)
     model = Model(cfg)
     seq, batch, kind = SHAPES[shape]
@@ -305,11 +311,9 @@ def multi_memory(arch: str, shape: str) -> dict:
     out = {"params": card_bytes(params, pspecs, mesh), "opt": 0,
            "state": 0, "pinned_host": 0,
            "inputs": card_bytes(specs, ispecs, mesh)}
-    state = None
     if kind == "train":
-        state = TrainState(params=params, opt=adamw_init(params))
         out["opt"] = 2 * card_bytes(params, pspecs, mesh, itemsize=4) + \
-            state.opt.step.element_size()
+            adamw_init(params).step.element_size()
     elif kind == "decode":
         state = _decode_state(model, batch, seq)
         sspecs = shardings.state_shardings_for(model, state, mesh)
@@ -323,8 +327,65 @@ def multi_memory(arch: str, shape: str) -> dict:
                 card_bytes(getattr(cache, f), getattr(cspecs, f), mesh)
                 for f in ("k_host", "v_host"))
         out["state"] = total - out["pinned_host"]
-    out["args"] = (params, state, specs)
     return out
+
+
+def rank_step(cfg, kind: str, seq: int, batch: int, mesh):
+    """One card's rank-local step of a cell of `kind` at `seq` and the
+    global `batch` on `mesh` (an `AbstractMesh`: the twin-pod one, see
+    the module docstring, or any (`data`, `model`) mesh), counted: (its
+    `OpCost`, its `CountingRank`, its arguments' bytes on the card)."""
+    sizes = mesh_axis_sizes(mesh)
+    b_ax = shardings.batch_axes(mesh, batch)
+    split = math.prod(sizes[a] for a in b_ax)
+    rows = batch // split
+    coord = {a: 0 for a in sizes}
+    params = abstract_params(Model(cfg).schema(), cfg.param_dtype)
+    rank = CountingRank(sizes, b_ax)
+    if kind == "train":
+        # the port's meshed step over (data, model); the batch over pod
+        # and data, the parameters replicated over pod
+        tmesh = AbstractMesh(("data", "model"),
+                             (sizes["data"], sizes["model"]))
+        mine = bridge.shard_params(params, cfg, tmesh, coord, "train")
+        state = TrainState(params=mine, opt=adamw_init(mine))
+        inputs = input_specs(cfg, seq, batch // sizes.get("pod", 1), kind)
+        step = make_train_step(
+            Model(cfg), mesh=tmesh, comm=rank.collectives(),
+            extra_keys=tuple(k for k in inputs if k != "tokens"))
+        with OpCost() as cost:
+            step(state, inputs)
+        if "pod" in sizes:
+            rank.all_reduce(torch.empty(
+                (sum(t.numel() for t in tree_leaves(mine)),),
+                dtype=cfg.param_dtype, device="meta"), "pod")
+        # the rank's rows of the inputs
+        inputs = input_specs(cfg, seq, rows, kind)
+        return cost, rank, tensor_bytes(state) + tensor_bytes(inputs)
+    whole = Model(cfg)
+    mine = bridge.shard_params(params, cfg, mesh, coord, "serve")
+    tp = TensorParallel.serving(
+        cfg, mesh, coord, rank.reduce, rank.gather,
+        gather_rows=rank.gather_rows,
+        geo=whole.cache_geometry(rows, seq, hbm_fraction=0.25))
+    model = Model(cfg.rank_local(sizes["model"]), tp=tp)
+    if cfg.family == "moe" and b_ax:
+        model = model.with_rows((0, split))
+    inputs = input_specs(cfg, seq, rows, kind)
+    state = _decode_state(model, rows, seq) if kind == "decode" else None
+    host = _host_tier_bytes(state)
+    with OpCost() as cost:
+        if kind == "decode":
+            model.decode_step(mine, state, inputs["token"])
+        elif cfg.family == "xlstm":
+            model.forward_hidden(mine, inputs["tokens"], remat=False)
+        else:
+            extra = {k: v for k, v in inputs.items() if k != "tokens"}
+            model.prefill(mine, inputs["tokens"],
+                          model.cache_geometry(rows, seq, hbm_fraction=0.25),
+                          extra=extra or None)
+    return cost, rank, tensor_bytes(mine) + tensor_bytes(state) - host + \
+        tensor_bytes(inputs)
 
 
 def _multi_cell(arch: str, shape: str) -> dict:
@@ -335,7 +396,6 @@ def _multi_cell(arch: str, shape: str) -> dict:
     mesh = make_production_mesh(multi_pod=True)
     n_dev = math.prod(mesh.sizes)
     mem = multi_memory(arch, shape)
-    params, state, specs = mem.pop("args")
     card = mem["params"] + mem["opt"] + mem["state"] + mem["inputs"]
     record = {"arch": arch, "shape": shape, "mesh": "multi",
               "devices": n_dev, "seq": seq, "batch": batch,
@@ -354,22 +414,22 @@ def _multi_cell(arch: str, shape: str) -> dict:
             f"{card} bytes of arguments on each card exceed the H100's "
             f"{int(H100_CHIP.hbm_capacity)}"))
         return record
-    cost = _count_step(Model(cfg), kind, state, params, specs, batch, seq)
-    sizes = mesh_axis_sizes(mesh)
-    b_ax = shardings.batch_axes(mesh, batch)
-    split = sizes["model"] * math.prod(sizes[a] for a in b_ax)
+    cost, rank, held = rank_step(cfg, kind, seq, batch, mesh)
+    args = max(card, held)
+    record["memory"].update(activation_bytes=int(cost.peak),
+                            rank_extra_bytes=int(held - card))
+    fits = args + cost.peak <= H100_CHIP.hbm_capacity
     record.update(
-        status="ok", trace_s=round(time.time() - t0, 1),
-        reason=(f"the arguments' {card} bytes a card fit the H100's "
-                f"{int(H100_CHIP.hbm_capacity)}; activations are not "
-                f"counted (see unmeasured)"),
-        flops_per_device=float(cost.flops) / split,
-        flops_split=(f"even: the global step's {float(cost.flops)} FLOPs "
-                     f"over the {split} cards that split it (model "
-                     f"{sizes['model']} x batch axes {list(b_ax)}), each "
-                     f"block repeated on {n_dev // split} cards"),
-        bytes_per_device=None, collective_bytes_per_device=None,
-        unmeasured=MULTI_UNMEASURED, kernels=dict(cost.kernels))
+        status="ok" if fits else "skip", trace_s=round(time.time() - t0, 1),
+        flops_per_device=float(cost.flops),
+        bytes_per_device=float(cost.bytes),
+        collective_bytes_per_device=rank.tally(),
+        kernels=dict(cost.kernels))
+    if not fits:
+        record["reason"] = (
+            f"{args} bytes of the rank's arguments and {cost.peak} of "
+            f"activations on each card exceed the H100's "
+            f"{int(H100_CHIP.hbm_capacity)}")
     return record
 
 

@@ -37,6 +37,17 @@ meta device costs no memory and no arithmetic.
 
 The reference weighs a `lax.scan` body by its trip count; the port's
 layer loop is Python, so every op already counts once per layer.
+
+`CountingRank` is one rank of a mesh that does not exist (the dry run's
+twin-pod `AbstractMesh`): the collectives a rank-local step calls
+(`launch.mesh.Collectives` for a meshed train step, the serve-side
+`reduce`, `gather`, `gather_rows` and `exchange` of
+`transformer.TensorParallel.serving`) return meta tensors of the shapes
+the real collectives return and record (kind, axis, bytes) under the
+reference's kinds, bytes as `collective_bytes_of_hlo` counts them: the
+result's, an all-reduce twice (the ring). They move no data, so
+`OpCost` (which sees their results made) keeps the collectives out of
+its FLOPs and bytes.
 """
 
 from __future__ import annotations
@@ -200,3 +211,134 @@ def tensor_bytes(tree) -> int:
     return tree.numel() * tree.element_size() \
         if isinstance(tree, torch.Tensor) else 0
 
+
+
+# ---------------------------------------------------------------------------
+# A counting rank: the collectives of a rank-local step, recorded
+# ---------------------------------------------------------------------------
+
+#: the reference's collective kinds (`collective_bytes_of_hlo`)
+COLLECTIVE_KINDS = ("all-reduce", "all-gather", "reduce-scatter")
+
+
+def collective_bytes(kind: str, result: torch.Tensor) -> int:
+    """A collective's bytes as the reference's HLO count takes them: its
+    result's, twice for an all-reduce (the ring moves ~2x the
+    buffer)."""
+    n = result.numel() * result.element_size()
+    return 2 * n if kind == "all-reduce" else n
+
+
+class CountingRank:
+    """One rank of a mesh of `sizes` ({axis: size}) at coordinate 0 on
+    every axis, on the meta device: every collective it hands out
+    records (kind, axis, bytes) in `records` and returns what the real
+    one would (a sum keeps the shape; a gather over an axis multiplies
+    `dim` by its size; a reduce-scatter divides it). `batch_axes`: the
+    axes a moe rank's `gather_rows` spans (the batch axes in use,
+    gathered the last one first, as `launch.mesh.gather_whole`)."""
+
+    def __init__(self, sizes, batch_axes=("data",)):
+        self.sizes = dict(sizes)
+        self.batch_axes = tuple(batch_axes)
+        self.coord = {a: 0 for a in self.sizes}
+        self.records = []
+
+    def record(self, kind: str, axis: str, result: torch.Tensor):
+        self.records.append((kind, axis, collective_bytes(kind, result)))
+        return result
+
+    # -- the collectives, with no gradient ---------------------------------
+
+    def all_reduce(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+        """`t` summed over `axis` (in place, as `launch.mesh.
+        all_reduce_sum`): `t`."""
+        return self.record("all-reduce", axis, t)
+
+    def all_gather(self, t: torch.Tensor, axis: str,
+                   dim: int) -> torch.Tensor:
+        shape = list(t.shape)
+        shape[dim % t.dim()] *= self.sizes[axis]
+        return self.record("all-gather", axis, t.new_empty(shape))
+
+    def reduce_scatter(self, t: torch.Tensor, axis: str,
+                       dim: int) -> torch.Tensor:
+        shape = list(t.shape)
+        shape[dim % t.dim()] //= self.sizes[axis]
+        return self.record("reduce-scatter", axis, t.new_empty(shape))
+
+    # -- a serving rank's (`TensorParallel.serving`) ------------------------
+
+    def reduce(self, t: torch.Tensor) -> torch.Tensor:
+        return self.all_reduce(t, "model")
+
+    def gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        return self.all_gather(t, "model", dim)
+
+    def gather_rows(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        for axis in reversed(self.batch_axes):
+            t = self.all_gather(t, axis, dim)
+        return t
+
+    # -- a training rank's (`launch.mesh.Collectives`) ----------------------
+
+    def collectives(self):
+        """The meshed train step's collectives: `sum` with no gradient;
+        `enter`, `reduce`, `gather` (over `model`) and `gather_data`
+        (over `data`) differentiable, each recording its backward's
+        collective too (enter <-> a sum over `model`, the gather over
+        `model` <-> its slice, none; `gather_data` <-> a reduce-scatter
+        over `data`), as `launch.mesh`'s."""
+        from repro_torch.launch.mesh import Collectives
+        rank = self
+
+        class Enter(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, x):
+                return x.view_as(x)
+
+            @staticmethod
+            def backward(ctx, g):
+                return rank.all_reduce(g.clone(), "model")
+
+        class Sum(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, x):
+                return rank.all_reduce(x.clone(), "model")
+
+            @staticmethod
+            def backward(ctx, g):
+                return g
+
+        class Gather(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, x, axis, dim):
+                ctx.axis, ctx.dim, ctx.size = axis, dim, x.shape[dim]
+                return rank.all_gather(x, axis, dim)
+
+            @staticmethod
+            def backward(ctx, g):
+                if ctx.axis == "data":
+                    return rank.reduce_scatter(g, "data", ctx.dim), \
+                        None, None
+                return g.narrow(ctx.dim, 0, ctx.size).contiguous(), \
+                    None, None
+
+        return Collectives(
+            coord=dict(self.coord), device=torch.device("meta"),
+            sum=lambda t, axis: self.all_reduce(t, axis),
+            enter=Enter.apply, reduce=Sum.apply,
+            gather=lambda t, dim: Gather.apply(t, "model", dim),
+            gather_data=lambda t, dim: Gather.apply(t, "data", dim))
+
+    def tally(self) -> dict:
+        """{kind: bytes (each of COLLECTIVE_KINDS), "total": bytes,
+        "by_axis": {axis: bytes}} of every record."""
+        out = {k: 0.0 for k in COLLECTIVE_KINDS}
+        by_axis = collections.Counter()
+        for kind, axis, n in self.records:
+            out[kind] += n
+            by_axis[axis] += n
+        out["total"] = float(sum(n for _, _, n in self.records))
+        out["by_axis"] = {a: float(n) for a, n in sorted(by_axis.items())}
+        return out

@@ -5,18 +5,21 @@ Three terms per (arch x shape x mesh) cell — all in seconds:
 
   compute    = FLOPs      / peak_FLOP/s    [H100: 989 TFLOP/s bf16]
   memory     = bytes      / HBM_bw         [H100: 3.35 TB/s]
-  collective = coll_bytes / link_bw        [0 bytes on one card]
+  collective = coll_bytes / link_bw        [H100: NVLink; 0 bytes on
+                                             one card]
 
 FLOPs and bytes are `launch.op_cost`'s count of the cell's step (see
 there for what they include). Also derives MODEL_FLOPS = 6*N*D
 (training) or 2*N*D (inference; N the active parameters for moe) and
 the usefulness ratio MODEL_FLOPS / counted FLOPs.
 
-The reference also parses collective bytes out of XLA's optimized HLO
-(`collective_bytes_of_hlo`); the port has no HLO and a one-card run no
-collective, so that function has no counterpart here. A twin-pod
-(`multi`) record counts its FLOPs alone (`launch.dryrun`): the table
-prints its compute term and leaves the others blank.
+The reference parses collective bytes out of XLA's optimized HLO
+(`collective_bytes_of_hlo`); the port has no HLO. A one-card run has no
+collective; a twin-pod (`multi`) record's are those its rank-local step
+called, counted as that function counts them
+(`launch.op_cost.CountingRank`: a result's bytes, an all-reduce
+twice), and priced, as the reference prices every axis, at one link
+bandwidth (`ici_bw`: the H100's NVLink).
 """
 
 from __future__ import annotations
@@ -94,13 +97,6 @@ def table(path: str = RESULTS, chip=H100_CHIP) -> str:
                         f"{r.get('mesh', '-'):6s} {r['status'].upper()}"
                         + (f" ({r.get('reason', '')[:60]})"
                            if r.get("reason") else ""))
-            continue
-        if r.get("bytes_per_device") is None:
-            rows.append(
-                f"{r['arch']:26s} {r['shape']:12s} {r['mesh']:6s} "
-                f"{'-':10s} "
-                f"{r['flops_per_device'] / chip.peak_flops_bf16:10.2e} "
-                f"{'-':>10s} {'-':>10s} {'-':>7s} {'-':>7s}")
             continue
         t = roofline_terms(r, chip)
         rows.append(

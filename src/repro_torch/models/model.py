@@ -88,9 +88,10 @@ class Model:
         self.cfg = cfg
         #: a meshed serve's or train step's rank: its
         #: `transformer.TensorParallel` over the rank-local `cfg` and the
-        #: rank's weight shards (a serve's: the dense and moe families; a
-        #: train step's, every family, also binds its FSDP blocks over
-        #: `data`); None: the whole model
+        #: rank's weight shards (a serving rank's, every family:
+        #: `TensorParallel.serving`, which the meshed engine binds for
+        #: the dense and moe families; a train step's, every family, also
+        #: binds its FSDP blocks over `data`); None: the whole model
         self.tp = tp
 
     def with_rows(self, rows) -> "Model":
@@ -358,13 +359,13 @@ class Model:
         fam = cfg.family
         if fam == "encdec":
             logits, (k, v), enc = tfm.encdec_forward(
-                params, cfg, tokens, extra["frame_embeds"])
-            cache = prefill_cache(geo, k, v, tokens.shape[1])
+                params, cfg, tokens, extra["frame_embeds"], tp=self.tp)
+            cache = prefill_cache(geo, k, v, tokens.shape[1], self._pool())
             return logits[:, -1], {"kv": cache, "enc": enc}
         if fam == "hybrid":
             logits, (k, v), (s, conv) = self._hybrid_forward(
                 params, tokens, collect_state=True)
-            cache = prefill_cache(geo, k, v, tokens.shape[1])
+            cache = prefill_cache(geo, k, v, tokens.shape[1], self._pool())
             return logits[:, -1], {"ssm": {"s": s, "conv": conv},
                                    "kv": cache}
         if fam == "xlstm":
@@ -415,7 +416,7 @@ class Model:
         if fam in ("ssm", "hybrid"):
             state = {"ssm": self._mamba_state(batch, device)}
             if geo is not None and self.cfg.attention_layer_ids():
-                state["kv"] = init_cache(geo, device)
+                state["kv"] = init_cache(geo, device, shard=self._pool())
             return state
         if geo is None:
             raise ValueError(f"family {fam!r} decodes over a paged cache; "
@@ -428,23 +429,29 @@ class Model:
         return self.tp.pool if self.tp is not None else None
 
     def _mamba_state(self, batch, device):
+        """The zero Mamba2 state: `s` of the heads the blocks compute (a
+        rank's, `SSMConfig.shards`), `conv` over every channel (each
+        rank runs the conv whole)."""
         cfg = self.cfg
         inner = cfg.ssm.expand * cfg.d_model
-        H, N = cfg.num_heads, cfg.ssm.state_dim
+        _, H, P, N = ssm_mod._dims(cfg)
         f32 = dict(dtype=torch.float32, device=device)
         return {
-            "s": torch.zeros((cfg.num_layers, batch, H, N, inner // H),
-                             **f32),
+            "s": torch.zeros((cfg.num_layers, batch, H, N, P), **f32),
             "conv": torch.zeros((cfg.num_layers, batch,
                                  cfg.ssm.conv_width - 1, inner + 2 * N),
                                 **f32),
         }
 
     def _xlstm_state(self, batch, device):
+        """The initial xlstm state: the memories of the heads the blocks
+        compute (a rank's, `XLSTMConfig.shards`), the mLSTM conv state
+        over every channel (each rank runs the conv whole)."""
         cfg = self.cfg
         inner = cfg.xlstm.expand * cfg.d_model
         H = cfg.num_heads
-        P, Ps = inner // H, cfg.d_model // H
+        P = inner // (H * cfg.xlstm.shards)
+        Ps = cfg.d_model // (H * cfg.xlstm.shards)
         n_s = len(self._slstm_ids())
         n_m = cfg.num_layers - n_s
         f32 = dict(dtype=torch.float32, device=device)
@@ -509,14 +516,14 @@ class Model:
             write_slot = default_write_slot(cache)
         logits, cache = tfm.encdec_decode_step(
             params, self.cfg, cache, state["enc"], token, write_slot,
-            logical_page_mask=logical_page_mask, active=active)
+            logical_page_mask=logical_page_mask, active=active, tp=self.tp)
         return logits, {"kv": cache, "enc": state["enc"]}
 
     def _xlstm_decode_step(self, params, state, token):
         """One token through every block's recurrent update; the state's
         stacks are rebuilt, the old ones left as they were."""
-        cfg = self.cfg
-        h = tfm.embed_tokens(params, cfg, token[:, None])[:, 0]
+        cfg, tp = self.cfg, self.tp
+        h = tfm.embed_tokens(params, cfg, token[:, None], tp)[:, 0]
         new = {k: [] for k in state}
         stacks = {kind: tfm.layers_of(params[kind])
                   for kind in ("mlstm", "slstm")}
@@ -525,12 +532,12 @@ class Model:
             fn = xlstm_mod.slstm_decode_layer if kind == "slstm" \
                 else xlstm_mod.mlstm_decode_layer
             y, st = fn(h, stacks[kind][i], cfg,
-                       tuple(state[k][i] for k in keys))
+                       tuple(state[k][i] for k in keys), tp)
             for k, t in zip(keys, st):
                 new[k].append(t)
             h = h + y
         h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-        logits = tfm.unembed(params, cfg, h)
+        logits = tfm.unembed(params, cfg, h, tp)
         return logits, {k: torch.stack(v) if v else state[k]
                         for k, v in new.items()}
 
@@ -540,9 +547,13 @@ class Model:
         shared attention block over that site's layer of the paged cache
         (the paged kernel on the card, one launch per tier) and its MLP.
         state: {"ssm": {"s", "conv"}, "kv": PagedKVCache} ("kv" absent
-        for the ssm family)."""
-        cfg = self.cfg
-        h = tfm.embed_tokens(params, cfg, token[:, None])[:, 0]
+        for the ssm family). On a serving rank (`self.tp`) each Mamba2
+        block runs its heads or whole (`ssm.mamba2_decode_layer`), each
+        site its heads, MLP hidden units and pools' slots as a dense
+        decode layer does."""
+        cfg, tp = self.cfg, self.tp
+        split = tp is not None and tp.heads_split
+        h = tfm.embed_tokens(params, cfg, token[:, None], tp)[:, 0]
         ssm_state = state["ssm"]
         cache: Optional[PagedKVCache] = state.get("kv")
         sites = cfg.attention_layer_ids() if cache is not None else ()
@@ -559,7 +570,7 @@ class Model:
         ss, convs, imps = [], [], []
         for l, lp in enumerate(tfm.layers_of(params["mamba"])):
             y, s, conv = ssm_mod.mamba2_decode_layer(
-                h, lp, cfg, ssm_state["s"][l], ssm_state["conv"][l])
+                h, lp, cfg, ssm_state["s"][l], ssm_state["conv"][l], tp)
             ss.append(s)
             convs.append(conv)
             h = h + y
@@ -571,21 +582,20 @@ class Model:
                 q, k, v = tfm.attn_qkv(x, sp, cfg, pos[:, None])
                 pools = (cache.k_hbm[i], cache.v_hbm[i], cache.k_host[i],
                          cache.v_host[i])
-                # write this token's k/v BEFORE attending (it sees itself)
-                write_token_layer(*pools, write_slot[i], offset, k[:, 0],
-                                  v[:, 0])
-                o, imp = tfm.paged_attend(q, pools,
-                                          tuple(t[i] for t in lists),
-                                          write_slot[i], offset, cfg)
-                hs = tfm.dense_mlp_block(hs + tfm.attn_out(o, sp), sp, cfg)
+                o, imp = tfm.decode_attend(
+                    q, k, v, pools, tuple(t[i] for t in lists),
+                    write_slot[i], offset, cfg, tp)
+                hs = hs + tfm.model_sum(tfm.attn_out(o, sp), tp, split)
+                hs = tfm.dense_mlp_block(hs, sp, cfg, tp, "shared_attn")
                 h = hs[:, 0]
                 imps.append(imp)
         h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-        logits = tfm.unembed(params, cfg, h)
+        logits = tfm.unembed(params, cfg, h, tp)
         new = {"ssm": {"s": torch.stack(ss), "conv": torch.stack(convs)}}
         if cache is not None:
-            new["kv"] = tfm._update_cache_after_step(
-                cache, torch.stack(imps), write_slot)
+            imp = tfm.model_sum(torch.stack(imps), tp,
+                                tp is not None and tp.imp_split)
+            new["kv"] = tfm._update_cache_after_step(cache, imp, write_slot)
         return logits, new
 
 

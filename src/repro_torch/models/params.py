@@ -113,11 +113,13 @@ def _leaves(schema: Schema):
 
 
 def abstract_params(schema: Schema, dtype=torch.bfloat16) -> Dict[str, Any]:
-    """The parameters' shapes and dtype as tensors on the meta device:
-    nothing is allocated."""
-    return {k: abstract_params(p, dtype) if isinstance(p, dict)
-            else torch.empty(p.shape, dtype=dtype, device="meta")
-            for k, p in schema.items()}
+    """The parameters' shapes and dtype as tensors on the meta device,
+    keyed in `init_params`' order (a step walks them as it walks drawn
+    parameters): nothing is allocated."""
+    return {k: abstract_params(schema[k], dtype)
+            if isinstance(schema[k], dict)
+            else torch.empty(schema[k].shape, dtype=dtype, device="meta")
+            for k in sorted(schema)}
 
 
 def logical_axes(schema: Schema) -> Dict[str, Any]:

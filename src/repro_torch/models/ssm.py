@@ -43,8 +43,8 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import causal_conv, rms_norm
 from repro_torch.models.params import Param
 from repro_torch.models.transformer import (
-    data_whole, model_enter, model_own, model_part, model_sum, model_whole,
-    split_rms_norm,
+    data_whole, model_cols, model_enter, model_own, model_part, model_sum,
+    model_whole, split_rms_norm,
 )
 
 #: the Mamba2 leaves a rank gathers over `model` (their cut does not
@@ -94,13 +94,15 @@ def _dims(cfg: ModelConfig):
     return inner, cfg.num_heads, inner // cfg.num_heads, ssm.state_dim
 
 
-def _split_proj(x, lp, cfg: ModelConfig):
+def _split_proj(x, lp, cfg: ModelConfig, proj=None):
     """x [B,S,d] -> (z [B,S,inner], conv_in [B,S,inner+2N], dt [B,S,H]),
-    at the whole model's widths (a rank's `w_in` gathered whole)."""
+    at the whole model's widths (a rank's `w_in` gathered whole, or
+    `proj`, the whole product, given)."""
     ssm = cfg.ssm
     inner = ssm.expand * cfg.d_model
     N = ssm.state_dim
-    proj = x @ lp["w_in"]
+    if proj is None:
+        proj = x @ lp["w_in"]
     z, xin, Bc, Cc, dt = torch.split(
         proj, [inner, inner, N, N, cfg.num_heads * ssm.shards], dim=-1)
     return z, torch.cat([xin, Bc, Cc], dim=-1), dt
@@ -232,24 +234,41 @@ def mamba2_forward_layer(h, lp, cfg: ModelConfig, return_state: bool = False,
 # Recurrent decode (one layer, one token)
 # ---------------------------------------------------------------------------
 
-def mamba2_decode_layer(h, lp, cfg: ModelConfig, state, conv_state):
+def mamba2_decode_layer(h, lp, cfg: ModelConfig, state, conv_state,
+                        tp=None, at: str = "mamba"):
     """h: [B, d]; state: [B,H,N,P] f32; conv_state: [B, W-1, conv_ch]
-    f32. Returns (out [B, d], state, conv_state)."""
+    f32. Returns (out [B, d], state, conv_state). `tp`: a serving rank's
+    (a `TensorParallel` with its serve-mode blocks, `lp` its shards at
+    path `at`, `cfg` rank-local): where the axis divides the heads, the
+    input projection's block of columns the rank holds gathered over
+    `model` as a product (`model_cols`), the conv run whole (its small
+    leaves gathered; `conv_state` whole on every model rank), then the
+    rank's heads on its block of `state` [B, H/size, N, P], the gated
+    norm and the output projection summed over `model`; otherwise every
+    leaf gathered and the block run whole on the whole state."""
     ssm = cfg.ssm
     B_, d = h.shape
-    inner = ssm.expand * d
-    H, N = cfg.num_heads, ssm.state_dim
-    P = inner // H
+    inner, H, P, N = _dims(cfg)
+    if tp is not None and not tp.recurrent_split:
+        lp = model_whole(lp, tp, at, tuple(lp))
+        tp = None                       # the block runs whole from here
+    elif tp is not None:
+        lp = model_whole(lp, tp, at, ("conv_w", "conv_b"))
+        lp = {**lp, **{k: model_own(lp, tp, at, k, 0) for k in HEAD_LEAVES}}
 
-    x = rms_norm(h, lp["norm"], cfg.norm_eps)
-    z, conv_in, dt_raw = _split_proj(x[:, None], lp, cfg)
+    x = rms_norm(h, lp["norm"], cfg.norm_eps)[:, None]
+    z, conv_in, dt_raw = _split_proj(x, lp, cfg,
+                                     model_cols(x, lp, tp, at, "w_in"))
     # causal conv over [conv_state ; conv_in], in f32 (the state's dtype)
     hist = torch.cat([conv_state, conv_in.float()], dim=1)     # [B,W,C]
     conv = F.silu(torch.einsum("bwc,wc->bc", hist, lp["conv_w"].float())
                   + lp["conv_b"].float())
     conv_state = hist[:, 1:]
 
-    xin, Bc, Cc = torch.split(conv, [inner, N, N], dim=-1)
+    xin, Bc, Cc = torch.split(conv, [inner * ssm.shards, N, N], dim=-1)
+    if tp is not None:
+        # the rank's heads of the parts run whole
+        z, xin, dt_raw = (model_part(t, tp, -1) for t in (z, xin, dt_raw))
     dt, a = _dt_a(dt_raw[:, 0], lp)                             # [B,H]
     dec = torch.exp(dt * a)
 
@@ -261,7 +280,7 @@ def mamba2_decode_layer(h, lp, cfg: ModelConfig, state, conv_state):
              + Bf[:, None, :, None] * xbar[:, :, None, :])     # [B,H,N,P]
     y = (Cf[:, None, None, :] @ state)[:, :, 0]                 # [B,H,P]
     y = y + xh * lp["skip_d"].float()[None, :, None]
-    return _gate_out(y.reshape(B_, inner), z[:, 0], lp, cfg), state, \
+    return _gate_out(y.reshape(B_, inner), z[:, 0], lp, cfg, tp), state, \
         conv_state
 
 

@@ -24,7 +24,11 @@ them; the decode step's per-page importance sums over KV heads, so
 each rank's share is all-reduced before it enters the cache, and every
 model rank plans from the same numbers. A dim the axis does not divide
 (`TensorParallel.mlp_split` False, `.vocab` None) is held whole and
-needs no collective.
+needs no collective. `TensorParallel.serving` binds such a rank for
+every family: whisper's decoder and the hybrid sites attend as a dense
+decode layer does (`decode_attend`), a recurrent block's decode
+multiplies by the weight blocks it holds and moves the products
+(`model_cols`, `model_rows`).
 
 Training across a mesh (`loss_fn` under `make_train_step(..., mesh=)`,
 every family) binds the same `TensorParallel` to differentiable
@@ -345,6 +349,34 @@ class TensorParallel:
                    if E and splits(E, size) else None,
                    reduce=reduce, gather=gather, **more)
 
+    @classmethod
+    def serving(cls, cfg: ModelConfig, mesh, coord, reduce, gather,
+                gather_rows=None, geo=None) -> "TensorParallel":
+        """A serving rank's (a meshed engine's, a dry-run rank's) over the
+        whole model's `cfg`, every family: rank `coord["model"]` of
+        `mesh` (anything with axis sizes: a `DeviceMesh`, an
+        `AbstractMesh`) with its serve-mode blocks on `model`
+        (`model_dims`, which a recurrent block gathers or multiplies
+        by, `models.ssm`, `models.xlstm`), `reduce` and `gather` over
+        `model`, `gather_rows` over the batch axes (a moe model's
+        routing) and, for a cache of `geo`'s tiers under the `pages`
+        KV pool rule, its block of the pools' slots (`pool`, whose
+        exchange is `reduce`)."""
+        from repro_torch.bridge import param_specs
+        from repro_torch.kvcache.paged import PoolShard
+        from repro_torch.launch.mesh import mesh_axis_sizes
+        from repro_torch.launch.shardings import _kv_shard_axis, pool_slots
+        from repro_torch.training.train_step import layer_dims
+        size = mesh_axis_sizes(mesh)["model"]
+        pool = None
+        if geo is not None and _kv_shard_axis(geo, mesh) == "pages":
+            pool = PoolShard(*pool_slots(geo, mesh, coord["model"]),
+                             exchange=reduce)
+        return cls.of(cfg, size, coord["model"], reduce=reduce,
+                      gather=gather, gather_rows=gather_rows, pool=pool,
+                      model_dims=layer_dims(
+                          cfg, param_specs(cfg, mesh, "serve"), "model"))
+
 
 def model_sum(x, tp: Optional[TensorParallel], split: bool = True):
     """A row-parallel partial sum `x` summed over the `model` axis when
@@ -455,6 +487,31 @@ def model_own(tree, tp: Optional[TensorParallel], at: str, name: str,
     if tp is None or tp.model_dims.get(_path(at, name)) == dim % t.dim():
         return t
     return model_part(model_whole(tree, tp, at, (name,))[name], tp, dim)
+
+
+def model_cols(x, tree, tp: Optional[TensorParallel], at: str, name: str,
+               mm=torch.matmul):
+    """`mm(x, w)` over the whole of the leaf `w = tree[name]` (at path
+    `at`) whose last dim the rank may hold a block of
+    (`TensorParallel.model_dims`): then the rank's block of the product,
+    gathered over `model` (the product crosses, not the weight)."""
+    w = tree[name]
+    if tp is None or tp.model_dims.get(_path(at, name)) != w.dim() - 1:
+        return mm(x, w)
+    return tp.gather(mm(x, w), -1)
+
+
+def model_rows(x, tree, tp: Optional[TensorParallel], at: str, name: str,
+               mm=torch.matmul):
+    """`mm(x, w)` over the whole of the leaf `w = tree[name]` [n, k]
+    whose rows the rank may hold a block of (`TensorParallel.
+    model_dims`): then its block of `x`'s last dim times it, the
+    partial summed over `model`."""
+    w = tree[name]
+    if tp is None or tp.model_dims.get(_path(at, name)) != 0:
+        return mm(x, w)
+    n = w.shape[0]
+    return tp.reduce(mm(x.narrow(-1, tp.rank * n, n), w))
 
 
 def split_rms_norm(x, w, eps: float, tp: Optional[TensorParallel]):
@@ -682,6 +739,24 @@ def paged_attend(q, pools, lists, slot, offset, cfg: ModelConfig,
             tp.gather)
         imp = shard.place(imp_h, imp_e, Ph, Pe)
     return o.reshape(B, 1, cfg.num_heads, cfg.head_dim), imp
+
+
+def decode_attend(q, k, v, pools, lists, slot, offset, cfg: ModelConfig,
+                  tp: Optional[TensorParallel] = None, active=None):
+    """One layer's decode attention over its two tiers (a hybrid site, an
+    encdec decoder layer): this token's k/v [B, 1, KH, HD] written
+    first (it sees itself; under the `pages` rule by the rank that
+    holds its slot), then q [B, 1, h, HD] against the pools
+    (`paged_attend`; q gathered to every head and the output cut back
+    to the rank's where `tp.heads` is set). `active`: see
+    `decoder_decode_step`. Returns (o [B, 1, h, HD], the importance)."""
+    shard = tp.pool if tp is not None else None
+    q = gather_heads(q, tp)
+    mine = slot if shard is None else \
+        shard.local_slots(slot, lists[0].shape[-1])
+    write_token_layer(*pools, mine, offset, k[:, 0], v[:, 0], active=active)
+    o, imp = paged_attend(q, pools, lists, slot, offset, cfg, tp)
+    return own_heads(o, tp), imp
 
 
 def _update_cache_after_step(cache, imp, write_slot):
@@ -1037,36 +1112,41 @@ def encdec_forward(params, cfg: ModelConfig, tokens, enc_embeds, *,
 def encdec_decode_step(params, cfg: ModelConfig, cache: PagedKVCache,
                        enc: torch.Tensor, token: torch.Tensor,
                        write_slot: torch.Tensor, logical_page_mask=None,
-                       active=None) -> Tuple[torch.Tensor, PagedKVCache]:
+                       active=None, tp=None
+                       ) -> Tuple[torch.Tensor, PagedKVCache]:
     """One decoder step: self-attention over the paged cache (the paged
     kernel on the card, one launch per tier per layer, G = H / KH), then
     dense cross-attention over the static encoder output `enc` and the
-    MLP. Arguments as `decoder_decode_step`'s. Returns (logits [B, V],
-    updated cache)."""
+    MLP. Arguments as `decoder_decode_step`'s. `tp`: a serving rank's,
+    over its rank-local `cfg` and shards: its heads where the axis
+    splits them (the self-attention's output projection and the
+    cross-attention's summed over `model`), else every head over its
+    pools' slots (`pages`) or the whole pools (`none`); its MLP hidden
+    units and vocabulary rows where the axis divides them; `enc` whole.
+    Returns (logits [B, V], updated cache)."""
     T = cache.k_hbm.shape[3]
     pos = cache.length
     offset = pos % T
+    split = tp is not None and tp.heads_split
     cache = allocate_token_page(cache, write_slot)
     logical_page_mask = mask_write_visible(cache, logical_page_mask)
     hl, hv, el, ev = cache.tier_lists(logical_page_mask=logical_page_mask)
-    h = (params["embed"][token.long()]
+    h = (embed_rows(params, token, tp)
          + params["dec_pos"][pos.long()]).to(cfg.dtype)[:, None]
     imps = []
     for l, lp in enumerate(layers_of(params["dec_layers"])):
         sa = lp["self_attn"]
-        slot = write_slot[l]
         pools = (cache.k_hbm[l], cache.v_hbm[l], cache.k_host[l],
                  cache.v_host[l])
         x = _ln(h, lp["ln1"], cfg.norm_eps)
         q, k, v = _proj(x, sa["wq"]), _proj(x, sa["wk"]), _proj(x, sa["wv"])
-        write_token_layer(*pools, slot, offset, k[:, 0], v[:, 0],
-                          active=active)
-        o, imp = paged_attend(q, pools, (hl[l], hv[l], el[l], ev[l]), slot,
-                              offset, cfg)
-        h = h + attn_out(o, sa)
-        h = encdec_cross_mlp(h, lp, enc, cfg)
+        o, imp = decode_attend(q, k, v, pools, (hl[l], hv[l], el[l], ev[l]),
+                               write_slot[l], offset, cfg, tp, active)
+        h = h + model_sum(attn_out(o, sa), tp, split)
+        h = encdec_cross_mlp(h, lp, enc, cfg, tp)
         imps.append(imp)
     h = _ln(h, params["dec_final"], cfg.norm_eps)
-    logits = (h @ params["embed"].T)[:, 0]
-    cache = _update_cache_after_step(cache, torch.stack(imps), write_slot)
+    logits = unembed(params, cfg, h, tp)[:, 0]
+    imp = model_sum(torch.stack(imps), tp, tp is not None and tp.imp_split)
+    cache = _update_cache_after_step(cache, imp, write_slot)
     return logits, cache

@@ -51,8 +51,8 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import causal_conv, rms_norm
 from repro_torch.models.params import Param
 from repro_torch.models.transformer import (
-    data_whole, model_enter, model_own, model_part, model_sum, model_whole,
-    split_rms_norm,
+    data_whole, model_cols, model_enter, model_own, model_part, model_rows,
+    model_sum, model_whole, split_rms_norm,
 )
 
 NEG = -1e30
@@ -145,29 +145,34 @@ def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 # mLSTM: chunk-parallel forward / recurrent decode / sequential ref
 # ---------------------------------------------------------------------------
 
-def _mlstm_inputs(h, lp, cfg: ModelConfig):
+def _mlstm_inputs(h, lp, cfg: ModelConfig, up=None):
     """(x path, z, inner, H, P): the up projection at the whole model's
-    width; inner, H and P what the block computes (a rank's share,
-    `XLSTMConfig.shards`)."""
+    width (`up(x)`, the whole product, where given); inner, H and P what
+    the block computes (a rank's share, `XLSTMConfig.shards`)."""
     inner = cfg.xlstm.expand * cfg.d_model // cfg.xlstm.shards
     H = cfg.num_heads
     x = rms_norm(h, lp["norm"], cfg.norm_eps)
-    xpath, z = torch.chunk(x @ lp["w_up"], 2, dim=-1)
+    xpath, z = torch.chunk(x @ lp["w_up"] if up is None else up(x), 2,
+                           dim=-1)
     return xpath, z, inner, H, inner // H
 
 
-def _qkv_gates(xconv, xpath, lp, H, P, tp=None):
+def _qkv_gates(xconv, xpath, lp, H, P, tp=None, proj=None):
     """(q, k scaled by P^-1/2, v, input gate, log forget gate), all f32:
     q, k and the gates from the conv path, v from the plain path. On a
     rank (`tp`): q, k, v of the whole width, then its heads' block; the
-    gates from its heads' columns."""
+    gates from its heads' columns. `proj(x, name)`: the whole product of
+    `x` and the leaf `name` (default `_mm(x, lp[name])`)."""
     B_, S, _ = xconv.shape
+    if proj is None:
+        def proj(x, name):
+            return _mm(x, lp[name])
 
     def heads(t):
         return model_part(t, tp, -1).reshape(B_, S, H, P)
-    q = heads(_mm(xconv, lp["wq"]))
-    k = heads(_mm(xconv, lp["wk"]))
-    v = heads(_mm(xpath, lp["wv"]))
+    q = heads(proj(xconv, "wq"))
+    k = heads(proj(xconv, "wk"))
+    v = heads(proj(xpath, "wv"))
     k = k.float() * (P ** -0.5)
     xg = model_enter(xconv, tp)
     ig = (_mm(xg, lp["wi"]) + lp["bi"]).float()
@@ -285,19 +290,36 @@ def mlstm_forward_layer_ref(h, lp, cfg: ModelConfig):
     return _mlstm_out(y, z, lp, cfg)
 
 
-def mlstm_decode_layer(h, lp, cfg: ModelConfig, state):
+def mlstm_decode_layer(h, lp, cfg: ModelConfig, state, tp=None,
+                       at: str = "mlstm"):
     """h [B,d]; state = (C [B,H,P,P], n [B,H,P], m [B,H],
-    conv [B,W-1,inner]), all f32. Returns (out [B,d], new state)."""
+    conv [B,W-1,inner]), all f32. Returns (out [B,d], new state). `tp`:
+    a serving rank's (its serve-mode shards at path `at`, `cfg`
+    rank-local): where the axis divides the heads, the up projection's
+    block of columns gathered over `model` as a product
+    (`model_cols`), the conv run whole (its leaves gathered; the conv
+    state whole on every model rank), q, k and v as the rank's block of
+    their input rows times its rows of `wq`, `wk`, `wv`, summed over
+    `model` (`model_rows`), then its heads on its block of C, n and m,
+    the gated norm and the output projection summed over `model`;
+    otherwise every leaf gathered and the block run whole."""
     C, n, m, conv_state = state
-    xpath, z, inner, H, P = _mlstm_inputs(h[:, None], lp, cfg)
+    if tp is not None:
+        lp, tp = _rank_leaves(lp, tp, at, ("conv_w", "conv_b"),
+                              MLSTM_HEADS)
+    xpath, z, inner, H, P = _mlstm_inputs(
+        h[:, None], lp, cfg, lambda x: model_cols(x, lp, tp, at, "w_up"))
     # causal conv over [conv_state ; xpath], in f32 (the state's dtype)
     hist = torch.cat([conv_state, xpath.float()], dim=1)
     xconv = F.silu(torch.einsum("bwc,wc->bc", hist, lp["conv_w"].float())
                    + lp["conv_b"].float())
-    q, k, v, ig, lf = _qkv_gates(xconv[:, None], xpath, lp, H, P)
+    q, k, v, ig, lf = _qkv_gates(
+        xconv[:, None], xpath, lp, H, P, tp,
+        lambda x, name: model_rows(x, lp, tp, at, name, _mm))
     C, n, m, y = _mlstm_cell(C, n, m, q[:, 0], k[:, 0], v[:, 0], ig[:, 0],
                              lf[:, 0])
-    out = _mlstm_out(y.reshape(h.shape[0], inner), z[:, 0], lp, cfg)
+    out = _mlstm_out(y.reshape(h.shape[0], inner),
+                     model_part(z, tp, -1)[:, 0], lp, cfg, tp)
     return out, (C, n, m, hist[:, 1:])
 
 
@@ -364,9 +386,15 @@ def slstm_forward_layer(h, lp, cfg: ModelConfig, tp=None,
     return _slstm_out(y, lp, cfg, tp)
 
 
-def slstm_decode_layer(h, lp, cfg: ModelConfig, state):
+def slstm_decode_layer(h, lp, cfg: ModelConfig, state, tp=None,
+                       at: str = "slstm"):
     """h [B,d]; state = (c, n, m, h) [B,H,P] f32 each. Returns (out
-    [B,d], new state)."""
-    x = rms_norm(h, lp["norm"], cfg.norm_eps)
+    [B,d], new state). `tp`: a serving rank's, as the forward's: its
+    heads' block of d on its block of the state where the axis divides
+    the heads, else the block whole."""
+    H, P = _slstm_dims(cfg)
+    if tp is not None:
+        lp, tp = _rank_leaves(lp, tp, at, (), SLSTM_HEADS)
+    x = model_enter(rms_norm(h, lp["norm"], cfg.norm_eps), tp)
     state, y = _slstm_step(lp, cfg, state, x)
-    return _slstm_out(y.reshape(h.shape[0], cfg.d_model), lp, cfg), state
+    return _slstm_out(y.reshape(h.shape[0], H * P), lp, cfg, tp), state

@@ -203,7 +203,7 @@ from repro_torch.launch.mesh import (
     AXES, all_gather, all_reduce_sum, axis_names, mesh_axis_sizes,
     mesh_coordinate,
 )
-from repro_torch.launch.shardings import _kv_shard_axis, batch_axes, pool_slots
+from repro_torch.launch.shardings import batch_axes
 from repro_torch.models.model import Model
 from repro_torch.models.transformer import TensorParallel
 from repro_torch.serving import control
@@ -653,19 +653,14 @@ class ServingEngine:
             return None
         sizes = mesh_axis_sizes(mesh)
         coord = mesh_coordinate(mesh)
-
-        def reduce(t):
-            return all_reduce_sum(t, mesh, "model")
         geo = self.model.cache_geometry(1, self.cfg.max_context,
                                         hbm_fraction=self.cfg.hbm_fraction)
-        pool = PoolShard(*pool_slots(geo, mesh, coord["model"]),
-                         exchange=reduce) \
-            if _kv_shard_axis(geo, mesh) == "pages" else None
-        tp = TensorParallel.of(
-            cfg, sizes["model"], coord["model"], reduce=reduce,
+        tp = TensorParallel.serving(
+            cfg, mesh, coord,
+            reduce=lambda t: all_reduce_sum(t, mesh, "model"),
             gather=lambda t, dim: all_gather(t, mesh, "model", dim),
             gather_rows=lambda t, dim: all_gather(t, mesh, "data", dim),
-            pool=pool)
+            geo=geo)
         for axis in AXES:
             all_reduce_sum(torch.zeros(1, device=self.device), mesh, axis)
         return MeshView(model=Model(cfg.rank_local(sizes["model"]), tp=tp),

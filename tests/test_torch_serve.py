@@ -197,15 +197,15 @@ def test_sampled_streams_are_reproducible(models, prompts):
 
 @pytest.mark.parametrize("ask", ["dryrun"])
 def test_later_slices_raise(models, prompts, ask):
-    """What the port leaves out of the mesh is named, never run as
-    something else: the dry run's twin-pod record, whose rank-local
-    counts wait for a counted meshed step, leaves them null and names
-    why."""
+    """What the port once left out of the mesh now runs as itself: the
+    dry run's twin-pod record counts the rank-local step (internlm2's
+    decode under the 'pages' KV pool rule at a 16-way model axis) with
+    its collectives, and names nothing as unmeasured."""
     from repro_torch.launch import dryrun
     rec = dryrun.run_cell("internlm2-1.8b", "decode_32k", "multi")
     assert rec["status"] == "ok"
-    assert rec["bytes_per_device"] is None
-    assert rec["collective_bytes_per_device"] is None
-    assert rec["memory"]["activation_bytes"] is None
-    assert "'pages' KV pool rule" in rec["unmeasured"]
-    assert "not ported yet" in rec["unmeasured"]
+    assert rec["bytes_per_device"] > 0
+    assert rec["collective_bytes_per_device"]["by_axis"]["model"] > 0
+    assert rec["memory"]["activation_bytes"] > 0
+    assert rec["kernels"]["paged_attention"] == 2 * 24
+    assert "unmeasured" not in rec
