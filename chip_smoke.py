@@ -125,8 +125,12 @@ non-zero):
              on the CPU: tokens, statuses, step bytes, events, the
              serve trace and its scores equal.
   3e. moe    the granite-moe and llama4 smoke configs (capacity factor
-             0.5: choices drop) served through 8 slots on the card and
-             on the CPU: tokens, statuses and step bytes equal.
+             0.5: choices drop) served through 8 slots on the card
+             (captured chunks, their prefill planes bounded to the pages
+             that hold every row's position) and on the CPU: tokens,
+             statuses and step bytes equal, the captures within
+             `serve_graph_bound`; served again on the card's engine, the
+             same stream and no capture.
   3f. family the single stream (start + generate(16)) of the smoke
              configs of llama31-8b, granite-8b, qwen3-32b, stablelm-12b,
              internvl2-2b (vlm, patch embeddings from --seed),
@@ -191,10 +195,14 @@ non-zero):
   7. moe     granite-moe-3b-a800m at its published widths (32 layers,
              d_model 1536, 24 heads over 8, head_dim 64, 40 experts
              top-8; random bf16 weights), after the internlm2 model is
-             dropped: phase 4's serve of its 8 long requests with the
-             same checks, then `start` of 4 prompts of 2304 tokens (32
-             flash launches) and `generate(32)`; phase 15a serves again
-             on its weights.
+             dropped: phase 4's serve of its 8 long requests through
+             captured chunks with the same checks, served again on the
+             same engine (no capture; the same tokens, statuses and step
+             bytes; paged launches 2 x layers x steps run), its numbers,
+             capture seconds and graph pool beside the eager serve's
+             (`EAGER_MOE_SERVE`), then `start` of 4 prompts of 2304
+             tokens (32 flash launches) and `generate(32)`; phase 15a
+             serves again on its weights.
   8. llama31-8b the paper's own model at its published widths (32
              layers, d_model 4096, 32 heads over 8, head_dim 128, vocab
              128256; random bf16 weights): phase 4's serve (4.56 GB of
@@ -301,10 +309,12 @@ non-zero):
   15a. mesh moe serve (after phase 7, on its weights) phase 7's serve
              on a new `ServingEngine(..., mesh=)` over a world-size-1
              NCCL group: every collective of the meshed moe path (the
-             experts' range, the lanes' rows bound for routing) runs,
-             eagerly as phase 7; greedy tokens, statuses and step bytes
-             equal phase 7's; tokens/s, TTFT and TPOT p50 beside phase
-             7's (`mesh_moe_serve` in the kernels line).
+             experts' range, the lanes' rows bound for routing) runs
+             inside the captured chunks; greedy tokens, statuses and
+             step bytes equal phase 7's, served again too (no capture),
+             captures within `serve_graph_bound`; tokens/s, TTFT and
+             TPOT p50 beside phase 7's (`mesh_moe_serve` in the kernels
+             line).
   15b. moe split one full-width granite-moe layer: a decode step of 8
              lanes (64 HBM + 208 host pages) and a 256-token prefill
              chunk, attention and the moe FFN, split over (data, model)
@@ -2107,13 +2117,32 @@ def p50_ms(values) -> float:
         else float("nan")
 
 
+def graph_pool_bytes(eng):
+    """(reserved, allocated) bytes of the engine's graph memory pool, the
+    one private pool its captured chunks share: a private pool keeps
+    every segment it took while its graphs live, so the reserved bytes
+    are its high-water mark; the allocated ones are the graphs' live
+    outputs."""
+    import torch
+    pool = eng._graphs._pool
+    segs = [s for s in torch.cuda.memory_snapshot()
+            if pool is not None
+            and tuple(s.get("segment_pool_id", ())) == tuple(pool)]
+    return (sum(s["total_size"] for s in segs),
+            sum(s["allocated_size"] for s in segs))
+
+
 def graph_report(eng, what, chunks, numbers, serve_again=None,
                  profile_dir=None):
     """Print a serve's captures, each graph's kernel nodes and replays,
-    and its per-chunk host time beside its TPOT p50 and the card; with
+    the seconds its captures took, its graph pool's bytes and its
+    per-chunk host time beside its TPOT p50 and the card; with
     `serve_again`, serve the stream once more on the engine (under
     torch.profiler with `profile_dir`), print its numbers and fail if
-    that captures anything. A dense serve must replay its graphs."""
+    that captures anything or its paged launches are not 2 x layers x
+    the steps it ran (its stream is `again_stream` of the result).
+    Every serve must replay its graphs."""
+    from repro_torch.kernels.build import COUNTS
     nodes = {graph_label(k): dict(g[2])
              for k, g in eng._graphs._graphs.items()}
     log(f"{what}: {captures_line(eng)}; kernel nodes per graph {nodes}")
@@ -2122,12 +2151,16 @@ def graph_report(eng, what, chunks, numbers, serve_again=None,
     captured = [c["issue_s"] for c in chunks if c["captured"]]
     eager = [c["issue_s"] for c in chunks if not c["replayed"]]
     span = [c["span_s"] for c in chunks]
+    pool, live = graph_pool_bytes(eng)
     log(f"{what}: per-chunk host time p50 {p50_ms(replayed):.3f} ms to "
         f"enqueue a replay ({len(replayed)} chunks), "
         f"{p50_ms(captured):.1f} ms to capture and enqueue one "
-        f"({len(captured)}), {p50_ms(eager):.1f} ms to run one eagerly "
-        f"({len(eager)}); chunk span p50 {p50_ms(span):.1f} ms; TPOT p50 "
-        f"{numbers['tpot_p50'] * 1e3:.2f} ms; card {card_line()}")
+        f"({len(captured)}, {sum(captured):.2f} s in all), "
+        f"{p50_ms(eager):.1f} ms to run one eagerly ({len(eager)}); chunk "
+        f"span p50 {p50_ms(span):.1f} ms; TPOT p50 "
+        f"{numbers['tpot_p50'] * 1e3:.2f} ms; graph pool "
+        f"{pool / 1e9:.3f} GB reserved (its peak), {live / 1e9:.3f} GB "
+        f"held by the graphs' outputs; card {card_line()}")
     log(f"{what}: chunks (prefill pages x steps, C captured and "
         f"replayed / R replayed / E eager, host issue ms, span ms, device "
         f"ms): "
@@ -2136,13 +2169,17 @@ def graph_report(eng, what, chunks, numbers, serve_again=None,
            "replays": sum(eng._graphs.replays.values()),
            "chunk_issue_p50_ms": p50_ms(replayed),
            "capture_chunk_p50_ms": p50_ms(captured),
+           "capture_s": sum(captured),
            "eager_chunk_p50_ms": p50_ms(eager),
-           "chunk_span_p50_ms": p50_ms(span)}
-    if eng.model.cfg.family == "dense" and not (replayed or captured):
+           "chunk_span_p50_ms": p50_ms(span),
+           "graph_pool_bytes": pool}
+    if not (replayed or captured):
         raise AssertionError(f"{what}: no chunk replayed a graph")
     if serve_again:
         import torch
         before = dict(eng.captures)
+        steps0 = eng.steps_run
+        paged0 = COUNTS["paged_attention"]
         torch.cuda.synchronize()
         t0 = time.time()
         if profile_dir:
@@ -2151,6 +2188,8 @@ def graph_report(eng, what, chunks, numbers, serve_again=None,
             rep = serve_again()
         torch.cuda.synchronize()
         wall = time.time() - t0
+        paged = COUNTS["paged_attention"] - paged0
+        steps = eng.steps_run - steps0
         if profile_dir:
             breakdown(prof, wall, profile_dir)
         tokens = sum(len(r.output) for r in rep)
@@ -2166,10 +2205,15 @@ def graph_report(eng, what, chunks, numbers, serve_again=None,
         out.update(again_tokens_per_s=tokens / wall,
                    again_ttft_p50=rep.ttft["p50"],
                    again_tpot_p50=rep.tpot["p50"],
-                   again_span_p50_ms=p50_ms(span))
+                   again_span_p50_ms=p50_ms(span),
+                   again_stream=stream_outcome(eng, rep))
         if dict(eng.captures) != before:
             raise AssertionError(f"{what}: the second serve captured "
                                  f"{dict(eng.captures)} after {before}")
+        if paged != 2 * eng.geo.num_layers * steps:
+            raise AssertionError(f"{what}: served again, {paged} paged "
+                                 f"launches for {steps} steps x "
+                                 f"{eng.geo.num_layers} layers x 2")
     return out
 
 
@@ -2182,7 +2226,9 @@ def serve_phase(model, params, seed, profile_dir=None, overlap=False,
     import torch
     from repro_torch.kernels.build import COUNTS
     from repro_torch.models import transformer
-    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    from repro_torch.serving.engine import (
+        EngineConfig, ServingEngine, serve_graph_bound,
+    )
 
     cfg = model.cfg
     ecfg = EngineConfig(max_context=4096, hbm_fraction=0.25,
@@ -2283,8 +2329,12 @@ def serve_phase(model, params, seed, profile_dir=None, overlap=False,
                "row_copies_per_step": copies / max(steps, 1),
                "token_writes": len(writes), "stream": stream_outcome(eng, rep)}
     numbers.update(graph_report(eng, what, chunks, numbers, again and (
-        lambda: eng.serve(phase4_requests(cfg.vocab, seed), num_slots=8,
-                          seed=seed)), again and profile_dir))
+        lambda: eng.serve(phase4_requests(cfg.vocab, seed)[:n_requests],
+                          num_slots=8, seed=seed)), again and profile_dir))
+    numbers["bound"] = serve_graph_bound(eng.geo, ecfg.telemetry_stride)
+    if not 0 < numbers["captures"] <= numbers["bound"]:
+        raise AssertionError(f"{what}: {numbers['captures']} captures, "
+                             f"bound {numbers['bound']}")
     if overlap:
         pinned = sum(t.nbytes for t in (eng.state.k_host, eng.state.v_host))
         if not (eng.state.k_host.is_pinned() and eng.state.v_host.is_pinned()):
@@ -2573,9 +2623,11 @@ def faulted_parity_phase(seed, overlap=False):
 
 def moe_parity_phase(seed):
     """Phase 3e: the moe smoke configs (capacity factor 0.5, so choices
-    drop) in f32, 10 requests through 8 slots, on the card and on the
-    CPU: tokens, statuses and step bytes equal."""
-    from repro_torch.serving.engine import EngineConfig
+    drop) in f32, 10 requests through 8 slots, on the card through
+    captured chunks and on the CPU: tokens, statuses and step bytes
+    equal, the captures within `serve_graph_bound`; served again on the
+    card's engine, the stream is the same and nothing is captured."""
+    from repro_torch.serving.engine import EngineConfig, serve_graph_bound
     from repro_torch.serving.scheduler import Request
     for name in ("granite-moe-3b-a800m", "llama4-maverick-400b-a17b"):
         cfg = smoke_f32(name, capacity_factor=0.5)
@@ -2585,18 +2637,39 @@ def moe_parity_phase(seed):
         ecfg = EngineConfig(max_context=512, policy="importance",
                             prefill_chunk=16, telemetry_stride=8,
                             promote_thresh=1e-4)
-        runs, _ = card_vs_cpu(cfg, ecfg, lambda: [
-            Request(rid=i, prompt=p, max_new_tokens=10)
-            for i, p in enumerate(prompts)], seed, num_slots=8)
+
+        def reqs():
+            return [Request(rid=i, prompt=p, max_new_tokens=10)
+                    for i, p in enumerate(prompts)]
+        runs, engines = card_vs_cpu(cfg, ecfg, reqs, seed, num_slots=8)
         same = [runs["cuda"][i] == runs["cpu"][i] for i in range(3)]
         migrated = sum(r[2] + r[3] for r in runs["cuda"][2])
+        eng = engines["cuda"][0]
+        first = dict(eng.captures)
+        bound = serve_graph_bound(eng.geo, ecfg.telemetry_stride)
+        planes = sorted({(c["prefill_pages"], c["prefill_steps"])
+                         for c in eng.chunk_log})
         log(f"moe parity {cfg.name}: tokens {same[0]} statuses {same[1]} "
             f"step bytes {same[2]} ({len(runs['cuda'][2])} decode steps, "
-            f"{migrated:.0f} bytes migrated)")
+            f"{migrated:.0f} bytes migrated); prefill planes (pages, steps) "
+            f"{planes} of {eng.geo.max_pages} pages; {captures_line(eng)}, "
+            f"bound {bound}")
         if not all(same) or set(s for s, _ in runs["cuda"][1].values()) \
                 != {"ok"}:
             raise AssertionError(f"moe parity {cfg.name}: the card's serve "
                                  f"disagrees with the CPU's")
+        if not 0 < sum(first.values()) <= bound or not eng._graphs.replays:
+            raise AssertionError(f"moe parity {cfg.name}: "
+                                 f"{captures_line(eng)}, bound {bound}")
+        rep = eng.serve(reqs(), num_slots=8)
+        again = ({r.rid: r.output for r in rep.completed},
+                 {r.rid: (r.status, r.error.code if r.error else None)
+                  for r in rep.completed + rep.rejected},
+                 [(s.h_read, s.e_read, s.m_in, s.m_out) for s in eng.stats])
+        if again != runs["cuda"][:3] or dict(eng.captures) != first:
+            raise AssertionError(f"moe parity {cfg.name}: served again, the "
+                                 f"stream changed or captured: "
+                                 f"{captures_line(eng)}")
 
 
 #: phase 6's SLO tiers, by prompt length: (max prompt, tier, TTFT, TPOT)
@@ -2727,19 +2800,47 @@ def faulted_serve_phase(model, params, seed):
     return counts, numbers
 
 
+#: the moe serves' numbers when their chunks ran eagerly, not captured
+#: (this script's phases 7 and 15a on an NVIDIA H100 80GB HBM3 at
+#: 700.00 W, the same stream and weights): tokens/s, TTFT p50 s, TPOT
+#: p50 s
+EAGER_MOE_SERVE = {"serve moe": (29.5, 2.955, 0.20416),
+                   "mesh moe serve": (24.0, 2.929, 0.25346)}
+
+
+def beside_eager(what, numbers) -> str:
+    """A captured moe serve's first and served-again tokens/s, TTFT and
+    TPOT p50 beside its eager run's (`EAGER_MOE_SERVE`)."""
+    rate, ttft, tpot = EAGER_MOE_SERVE[what]
+    return (f"{what} captured vs eager: tokens/s first "
+            f"{numbers['tokens_per_s']:.1f}, again "
+            f"{numbers['again_tokens_per_s']:.1f} vs {rate}; TTFT p50 first "
+            f"{numbers['ttft_p50']:.3f}, again {numbers['again_ttft_p50']:.3f}"
+            f" vs {ttft} s; TPOT p50 first {numbers['tpot_p50'] * 1e3:.2f}, "
+            f"again {numbers['again_tpot_p50'] * 1e3:.2f} vs "
+            f"{tpot * 1e3:.2f} ms; captures {numbers['captures']} (bound "
+            f"{numbers['bound']}) in {numbers['capture_s']:.2f} s; graph "
+            f"pool {numbers['graph_pool_bytes'] / 1e9:.3f} GB")
+
+
 def moe_phase(model, params, seed):
     """Phase 7: granite-moe-3b-a800m at its published widths (`model`,
     `params`: random bf16 weights): phase 4's serve of its 8 long
-    requests (eager chunks: `engine.EAGER_SERVE_FAMILIES`), then `start`
-    of 4 prompts of 2304 tokens and `generate(32)`. Returns the launches
-    by path and the numbers."""
+    requests through captured chunks, served again on the same engine
+    (nothing captured, the same tokens, statuses and step bytes), then
+    `start` of 4 prompts of 2304 tokens and `generate(32)`. Returns the
+    launches by path and the numbers."""
     import torch
     from repro_torch.kernels.build import COUNTS
     from repro_torch.serving.engine import EngineConfig, ServingEngine
 
     cfg = model.cfg
     serve, numbers = serve_phase(model, params, seed, what="serve moe",
-                                 n_requests=8)
+                                 n_requests=8, again=True)
+    log(beside_eager("serve moe", numbers) + f"; card {card_line()}")
+    if numbers.pop("again_stream") != numbers["stream"]:
+        raise AssertionError("serve moe: served again, the tokens, "
+                             "statuses or step bytes changed")
     L, B, S, steps = cfg.num_layers, 4, 2304, 32
     prompts = torch.as_tensor(np.random.default_rng(seed + 1).integers(
         0, cfg.vocab, (B, S)), dtype=torch.int32, device="cuda")
@@ -4018,15 +4119,20 @@ def mesh_moe_serve_phase(model, params, seed, want):
     phase 4's 8 long requests, the same stream: routing depends on a
     lane's company) on a new `ServingEngine(..., mesh=)` over a
     world-size-1 NCCL mesh, on phase 7's weights: every collective of
-    the meshed moe path runs (the experts' range and the lanes' rows
-    bound; each an identity at size 1), eagerly as phase 7. Tokens,
-    statuses and step bytes must equal phase 7's (`want["stream"]`);
-    tokens/s, TTFT and TPOT p50 beside phase 7's. Returns the launches
-    by kernel and the numbers."""
+    the meshed moe path (the experts' range and the lanes' rows bound;
+    each an identity at size 1) runs inside the captured chunks.
+    Tokens, statuses and step bytes must equal phase 7's
+    (`want["stream"]`), the captures stay within `serve_graph_bound`,
+    and the stream served again on the engine captures nothing and
+    equals it too; tokens/s, TTFT and TPOT p50 of both serves beside
+    phase 7's. Returns the launches by kernel and the numbers."""
     import torch
     from repro_torch.kernels.build import COUNTS
-    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    from repro_torch.serving.engine import (
+        EngineConfig, ServingEngine, serve_graph_bound,
+    )
     cfg = model.cfg
+    what = "mesh moe serve"
     ecfg = EngineConfig(max_context=4096, hbm_fraction=0.25,
                         policy="importance", prefill_chunk=256,
                         telemetry_stride=16)
@@ -4045,29 +4151,46 @@ def mesh_moe_serve_phase(model, params, seed, want):
         steps_run = eng.steps_run
         got = stream_outcome(eng, rep)
         experts = eng._run[0].tp.experts
+        tokens = sum(len(o) for o in got["outputs"].values())
+        peak = torch.cuda.max_memory_allocated()
+        numbers = {"tokens_per_s": tokens / wall,
+                   "ttft_p50": rep.ttft["p50"], "tpot_p50": rep.tpot["p50"],
+                   "peak_bytes": peak,
+                   "bound": serve_graph_bound(eng.geo,
+                                              ecfg.telemetry_stride)}
+        numbers.update(graph_report(eng, what, list(eng.chunk_log), numbers,
+                                    lambda: eng.serve(
+                                        phase4_requests(cfg.vocab, seed)[:8],
+                                        num_slots=8, seed=seed)))
         del eng
     same = {k: got[k] == want["stream"][k] for k in want["stream"]}
-    tokens = sum(len(o) for o in got["outputs"].values())
-    peak = torch.cuda.max_memory_allocated()
-    numbers = {"tokens_per_s": tokens / wall, "ttft_p50": rep.ttft["p50"],
-               "tpot_p50": rep.tpot["p50"], "peak_bytes": peak}
-    log(f"mesh moe serve: {wall:.2f} s wall, {tokens} tokens, "
+    again = numbers.pop("again_stream") == got
+    log(f"{what}: {wall:.2f} s wall, {tokens} tokens, "
         f"{tokens / wall:.1f} tokens/s (phase 7: "
         f"{want['tokens_per_s']:.1f}), TTFT p50 {rep.ttft['p50']:.3f} s "
         f"({want['ttft_p50']:.3f}), TPOT p50 {rep.tpot['p50'] * 1e3:.2f} "
-        f"ms ({want['tpot_p50'] * 1e3:.2f}); data=1 model=1 over NCCL, "
+        f"ms ({want['tpot_p50'] * 1e3:.2f}); served again "
+        f"{numbers['again_tokens_per_s']:.1f} tokens/s "
+        f"({want['again_tokens_per_s']:.1f}), TTFT p50 "
+        f"{numbers['again_ttft_p50']:.3f} s ({want['again_ttft_p50']:.3f}), "
+        f"TPOT p50 {numbers['again_tpot_p50'] * 1e3:.2f} ms "
+        f"({want['again_tpot_p50'] * 1e3:.2f}); data=1 model=1 over NCCL, "
         f"experts {experts} of {cfg.moe.num_experts_padded}; equal to "
         f"phase 7's serve: tokens {same['outputs']} statuses "
-        f"{same['statuses']} step bytes {same['bytes']}; "
-        f"{counts.get('paged_attention', 0)} paged and "
+        f"{same['statuses']} step bytes {same['bytes']}, served again "
+        f"{again}; {numbers['captures']} captures of a bound of "
+        f"{numbers['bound']}; {counts.get('paged_attention', 0)} paged and "
         f"{counts.get('page_copy', 0)} row-copy launches, {steps_run} "
         f"steps run, peak memory {peak / 1e9:.2f} GB; card {card_line()}")
-    if not all(same.values()):
-        raise AssertionError(f"mesh moe serve differs from phase 7's: "
-                             f"{same}")
+    log(beside_eager(what, numbers))
+    if not all(same.values()) or not again:
+        raise AssertionError(f"{what} differs from phase 7's: {same}, "
+                             f"served again equal {again}")
+    if not 0 < numbers["captures"] <= numbers["bound"]:
+        raise AssertionError(f"{what}: {numbers['captures']} captures, "
+                             f"bound {numbers['bound']}")
     if counts.get("paged_attention", 0) != 2 * cfg.num_layers * steps_run:
-        raise AssertionError(f"mesh moe serve: {counts} for {steps_run} "
-                             f"steps")
+        raise AssertionError(f"{what}: {counts} for {steps_run} steps")
     return counts, numbers
 
 

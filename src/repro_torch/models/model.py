@@ -38,7 +38,9 @@ the encoder output (`transformer.encdec_*`). A moe model's FFN is
 block alternating (interleave 2: the reference's superblocks, cache
 layers ordered [dense0, moe0, dense1, moe1, ...]). Because its routing
 groups every row it is given, a moe model runs every lane through each
-decode step and prefill chunk (`all_lanes`), as the reference does.
+decode step (`all_lanes`) and prefill chunk, as the reference does; a
+chunk's `end` must then bound every row's position, not the real rows'
+alone.
 
 hybrid (zamba2) is a stack of Mamba2 blocks (`models.ssm`) with ONE
 weight-shared attention + MLP block after every `attn_every`-th of
@@ -389,8 +391,9 @@ class Model:
     def prefill_chunk(self, params, cache: PagedKVCache, tokens, start,
                       n_valid, end: Optional[int] = None):
         """Consume a [B, C] prompt slice directly into the paged cache;
-        see `transformer.decoder_prefill_chunk`. Dense and moe only, as
-        in the reference."""
+        see `transformer.decoder_prefill_chunk` (`end`: the slots it
+        reads, which must hold every real row's position, and every
+        row's for moe). Dense and moe only, as in the reference."""
         fam = self.cfg.family
         if fam not in ("dense", "moe"):
             raise NotImplementedError(
@@ -399,8 +402,7 @@ class Model:
                 f"recurrent state")
         return tfm.decoder_prefill_chunk(
             params, self.cfg, cache, tokens, start, n_valid,
-            self.blocks(params), end,
-            all_lanes=self.cfg.family == "moe", tp=self.tp)
+            self.blocks(params), end, tp=self.tp)
 
     def init_decode_state(self, batch: int,
                           geo: Optional[CacheGeometry] = None, device=None):

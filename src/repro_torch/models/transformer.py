@@ -945,8 +945,7 @@ def chunk_coords(page_tokens: int, chunk: int, start: torch.Tensor,
 def decoder_prefill_chunk(params, cfg: ModelConfig, cache: PagedKVCache,
                           tokens: torch.Tensor, start: torch.Tensor,
                           n_valid: torch.Tensor, blocks,
-                          end: Optional[int] = None,
-                          all_lanes: bool = False, tp=None,
+                          end: Optional[int] = None, tp=None,
                           ) -> Tuple[torch.Tensor, PagedKVCache]:
     """Consume a [B, C] prompt slice directly into the paged cache.
 
@@ -955,21 +954,23 @@ def decoder_prefill_chunk(params, cfg: ModelConfig, cache: PagedKVCache,
     shapes, as in the reference: a lane with n_valid 0 writes nothing,
     and its logits rows are discarded by every caller. So the host never
     reads `n_valid`, and a CUDA graph can hold the call. `end` (a host
-    int, optional): a bound on every lane's start + n_valid, which
-    limits the slots the attention reads to those the slice can see —
-    the caller knows it without reading the device. With `all_lanes`
-    (the moe family, whose routing groups all B x C rows, idle lanes
-    and padding slots included) every lane reads its whole pools, as in
-    the reference, and `end` is not used. `tp`: a rank's
-    `TensorParallel`. Returns (logits [B, C, V], updated cache); the
-    logits at slice index n_valid-1 are those of the last consumed
-    prompt position.
+    int, optional; None: the whole pools, as the reference reads them)
+    limits the slots the attention reads to the first `end` of each
+    lane's slot order — the caller knows it without reading the device.
+    A row at position p sees the keys at slots p and before (the causal
+    mask), so every row whose position is below `end` gets the values
+    the whole pools give. The dense family needs that of the real rows
+    alone (a bound on every lane's start + n_valid); the moe family,
+    whose routing groups all B x C rows, idle lanes, decoding lanes and
+    padding slots included, needs it of every row (a bound on every
+    lane's start + C). `tp`: a rank's `TensorParallel`. Returns (logits
+    [B, C, V], updated cache); the logits at slice index n_valid-1 are
+    those of the last consumed prompt position.
     """
     B, C = tokens.shape
     T = cache.k_hbm.shape[3]
     Ph, Pe = cache.hbm_owner.shape[2], cache.host_owner.shape[2]
-    pages = Ph + Pe if end is None or all_lanes \
-        else min(-(-end // T), Ph + Pe)
+    pages = Ph + Pe if end is None else min(-(-end // T), Ph + Pe)
     seen = (min(pages, Ph), max(pages - Ph, 0))
     pos, page, offset, valid = chunk_coords(T, C, start, n_valid)
     lanes = torch.arange(B, device=tokens.device)

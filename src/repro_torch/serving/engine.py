@@ -65,7 +65,9 @@ graph per key and replays it (`ServingEngine.captures` counts the
 captures, the reference's executable cache). A serve key is
 (drive mode, policy, overlap, trace capture, sampling, EOS, prefill
 budget, prefill plane); the prefill plane is (pages, steps): the pages
-it reads, rounded up to a power of two and capped at the lane's
+it reads — those that hold the positions of the prefilling lanes' real
+tokens, or of every row of every lane for the moe family, whose routing
+groups them all — rounded up to a power of two and capped at the lane's
 `max_pages` (`prefill_buckets`), and the chunk's leading steps it runs
 on — those the slowest prefilling lane needs, rounded up to a multiple
 of a quarter of the stride (`step_buckets`), all of them under a
@@ -83,9 +85,8 @@ and writes no pool row; a prefill lane of n_valid 0 writes nothing.
 Both are also left out where the host knows them empty: the prefill
 plane after its steps.
 `step()` stays eager, as the reference's. `run`/`generate` capture
-for every family they drive (those with a paged cache); `serve`
-captures for the dense family, and the moe family's serve runs the same
-chunk function eagerly (`EAGER_SERVE_FAMILIES`).
+for every family they drive (those with a paged cache), `serve` for
+both families it drives (dense and moe).
 
 `serve(faults=FaultPlane(...))` folds a seeded fault schedule into the
 stream at chunk boundaries (`serving.faults`): tier faults reprice the
@@ -173,9 +174,8 @@ rank in every rule, so every decision is computed alike on each and
 equals the unmeshed one (the reference shards the owner maps with the
 pools).
 
-The captured chunks hold their collectives (the moe family's serve
-runs the chunk eagerly, meshed or not; its `run`/`generate` chunks are
-captured, meshed or not).
+The captured chunks hold their collectives, for both families, meshed
+serve and single stream alike.
 """
 
 from __future__ import annotations
@@ -219,11 +219,6 @@ from repro_torch.serving.scheduler import (
 from repro_torch.serving.slo import SLOPolicy
 from repro_torch.tree import tree_leaves, tree_map
 
-#: families whose serve chunks run eagerly on the card, not captured:
-#: moe's prefill plane routes every lane over its whole pools and its
-#: expert dispatch is materialized (ROADMAP queue 1)
-EAGER_SERVE_FAMILIES = ("moe",)
-
 
 def prefill_buckets(max_pages: int) -> tuple:
     """The page counts a serve chunk's prefill plane may read: powers of
@@ -243,24 +238,36 @@ def step_buckets(stride: int) -> tuple:
 
 
 def prefill_plane(view, stride: int, chunk: int, page_tokens: int,
-                  max_pages: int, budgeted: bool):
+                  max_pages: int, budgeted: bool, all_lanes: bool = False):
     """(pages, steps) of the prefill plane of a serve chunk that starts
     at `view`: (0, 0) when no lane is prefilling (none can start inside
     the chunk); else the plane runs on the chunk's first `steps` steps —
     the steps the slowest prefilling lane needs at `chunk` tokens a step,
     rounded up to a step bucket, or all `stride` under a prefill budget,
     which may delay any of them — over the smallest page bucket that
-    holds every prefilling lane's last slice. After the steps a lane
-    needs it has no prompt left, so the plane is a no-op for it."""
+    holds every row the plane's values depend on. After the steps a lane
+    needs it has no prompt left, so the plane is a no-op for it.
+
+    Those rows are the prefilling lanes' real tokens (dense), or with
+    `all_lanes` (moe, whose routing groups all B x `chunk` rows) every
+    row of every lane: a prefilling lane's slice starts at most at
+    min(prefilled + (steps - 1) x chunk, prompt_len), every other lane's
+    (decoding, idle, or holding a stale count) at its `prefilled`, which
+    is the chunk's carried progress, and each spans `chunk` positions."""
     pf = view.active & (view.prefilled < view.prompt_len)
     if not pf.any():
         return 0, 0
     left = view.prompt_len[pf] - view.prefilled[pf]
     need = stride if budgeted else int((-(-left // chunk)).max())
     steps = next((b for b in step_buckets(stride) if b >= need), stride)
-    end = int(np.minimum(view.prefilled[pf] + steps * chunk,
-                         view.prompt_len[pf]).max())
-    pages = -(-end // page_tokens)
+    if all_lanes:
+        start = np.where(pf, np.minimum(view.prefilled + (steps - 1) * chunk,
+                                        view.prompt_len), view.prefilled)
+        end = int(start.max()) + chunk
+    else:
+        end = int(np.minimum(view.prefilled[pf] + steps * chunk,
+                             view.prompt_len[pf]).max())
+    pages = min(-(-end // page_tokens), max_pages)
     return next(b for b in prefill_buckets(max_pages) if b >= pages), steps
 
 
@@ -1084,7 +1091,6 @@ class ServingEngine:
         stale = np.zeros((B,), bool)
         C = max(1, cfg.prefill_chunk)
         eos = cfg.eos_id
-        graphed = fam not in EAGER_SERVE_FAMILIES
         key = ("serve", cfg.policy, overlap, cfg.trace_telemetry,
                self._sampling, eos, cfg.prefill_budget, C, stride)
 
@@ -1261,7 +1267,8 @@ class ServingEngine:
             stale[:] = False
             plane = prefill_plane(view, stride, C, geo.page_tokens,
                                   geo.max_pages,
-                                  cfg.prefill_budget is not None)
+                                  cfg.prefill_budget is not None,
+                                  all_lanes=fam == "moe")
 
             def chunk():
                 return self._serve_chunk(a, stride, plane, sampler)
@@ -1272,8 +1279,7 @@ class ServingEngine:
                       for _ in range(2)] if dev.type == "cuda" else None
             if timers:
                 timers[0].record()
-            rows = self._graphs.run(key + plane, chunk) if graphed \
-                else chunk()
+            rows = self._graphs.run(key + plane, chunk)
             if timers:
                 timers[1].record()
             issued = time.perf_counter() - t_issue

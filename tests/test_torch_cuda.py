@@ -801,10 +801,11 @@ def test_overlap_serve_on_the_card_matches_the_cpu(device):
 def test_moe_serve_on_the_card_matches_the_cpu(device, name, overlap):
     """The moe smoke configs (capacity factor 0.5, so choices drop) in
     f32, 10 requests through 8 slots: tokens, statuses and step bytes of
-    the card equal the CPU's."""
+    the card, served through captured chunks within the bound the cache
+    geometry fixes, equal the CPU's."""
     import dataclasses
     from repro_torch import configs
-    from repro_torch.serving.engine import EngineConfig
+    from repro_torch.serving.engine import EngineConfig, serve_graph_bound
     from repro_torch.serving.scheduler import Request
     cfg = configs.get_smoke(name)
     cfg = dataclasses.replace(cfg, dtype=torch.float32,
@@ -817,11 +818,15 @@ def test_moe_serve_on_the_card_matches_the_cpu(device, name, overlap):
     ecfg = EngineConfig(max_context=512, policy="importance",
                         prefill_chunk=16, telemetry_stride=8,
                         promote_thresh=1e-4, overlap_migrations=overlap)
-    runs, _ = _card_and_cpu(cfg, ecfg, lambda: [
+    runs, engines = _card_and_cpu(cfg, ecfg, lambda: [
         Request(rid=i, prompt=p, max_new_tokens=10)
         for i, p in enumerate(prompts)], {"num_slots": 8})
     assert runs["cuda"] == runs["cpu"]
     assert set(s for s, _ in runs["cuda"][1].values()) == {"ok"}
+    eng = engines["cuda"][0]
+    assert eng._graphs.replays
+    assert 0 < sum(eng.captures.values()) <= serve_graph_bound(
+        eng.geo, ecfg.telemetry_stride)
 
 
 @pytest.mark.parametrize("overlap", [False, True], ids=["inline", "overlap"])

@@ -4,7 +4,9 @@ chunk function of `telemetry_stride` steps that a CUDA graph can hold.
   * The chunks run on the meta device, where a host sync or a
     data-dependent shape raises: the serve chunk in inline and overlap
     mode under every policy with the fault rows and trace capture on,
-    sampled with a prefill budget and EOS, and the run/generate chunks
+    sampled with a prefill budget and EOS, the same of both moe smoke
+    configs (granite: top-2 of 4; llama4: interleave 2, a shared
+    expert) over a bounded prefill plane, and the run/generate chunks
     of every family with a paged cache (every family `run` drives).
   * `run` and `generate` equal the same steps taken one `step()` at a
     time on the CPU: logits bitwise, integer state exactly (the
@@ -59,12 +61,14 @@ def meta_engine(name="internlm2-1.8b", **kw):
         device=META)
 
 
-def serve_chunk_on_meta(eng, sampling=SamplingConfig()):
+def serve_chunk_on_meta(eng, sampling=SamplingConfig(), pages=None):
+    """One serve chunk of `eng` on the meta device, its prefill plane
+    over `pages` (default: every page) on every step."""
     geo = eng.model.cache_geometry(B, eng.cfg.max_context,
                                    hbm_fraction=eng.cfg.hbm_fraction)
     eng._setup(geo)
     a = eng._bind_serve_arena(geo, STRIDE)
-    rows = eng._serve_chunk(a, STRIDE, (geo.max_pages, STRIDE),
+    rows = eng._serve_chunk(a, STRIDE, (pages or geo.max_pages, STRIDE),
                             make_sampler(sampling))
     assert rows["emitted"].shape == (STRIDE, B)
     assert rows["base"].shape == (STRIDE, 4)
@@ -87,6 +91,32 @@ def test_serve_chunk_has_no_host_sync(policy, overlap):
 def test_sampled_budgeted_serve_chunk_has_no_host_sync():
     eng = meta_engine(policy="importance", prefill_budget=24, eos_id=3,
                       prefill_chunk=16)
+    serve_chunk_on_meta(eng, SamplingConfig(temperature=0.8, top_k=5,
+                                            top_p=0.9))
+
+
+MOE_ARCHS = {"granite": "granite-moe-3b-a800m",
+             "llama4": "llama4-maverick-400b-a17b"}
+
+
+@pytest.mark.parametrize("overlap", [False, True], ids=["inline", "overlap"])
+@pytest.mark.parametrize("arch", list(MOE_ARCHS))
+def test_moe_serve_chunk_has_no_host_sync(arch, overlap):
+    """The moe family's serve chunk (every lane's rows routed in the
+    decode and the prefill plane, the decode's put-back rows), both
+    modes, trace capture on, the fault rows in it, over a prefill plane
+    of half the pages (its bucket bounds every row's position)."""
+    eng = meta_engine(MOE_ARCHS[arch], policy="importance",
+                      overlap_migrations=overlap, trace_telemetry=True,
+                      prefill_chunk=16)
+    serve_chunk_on_meta(eng, pages=prefill_buckets(
+        eng.model.cache_geometry(B, eng.cfg.max_context).max_pages)[-2])
+
+
+@pytest.mark.parametrize("arch", list(MOE_ARCHS))
+def test_sampled_budgeted_moe_serve_chunk_has_no_host_sync(arch):
+    eng = meta_engine(MOE_ARCHS[arch], policy="importance",
+                      prefill_budget=24, eos_id=3, prefill_chunk=16)
     serve_chunk_on_meta(eng, SamplingConfig(temperature=0.8, top_k=5,
                                             top_p=0.9))
 

@@ -8,7 +8,10 @@ tokens. Float32, the same weights, both sides priced on the port's
 H100 spec; 10 greedy requests through 8 slots (lanes reused, idle lanes
 at the tail), prompts spilling into the host tier, inline and in
 overlap mode: tokens, statuses and every StepStats row exactly equal
-(modeled latencies within 1e-12 relative).
+(modeled latencies within 1e-12 relative). The port's prefill plane
+reads the pages that hold every row's position, fewer than the pools
+hold once the lanes are past their longest prompts' slices; the
+reference reads the whole pools.
 """
 
 import dataclasses
@@ -60,3 +63,6 @@ def test_moe_serve_matches_reference(models, overlap):
     assert all(len(o) == 10 for o in got["outputs"].values())
     assert sum(b[1] for b in got["bytes"]) > 0           # host tier read
     assert sum(b[2] + b[3] for b in got["bytes"]) > 0    # pages migrated
+    planes = [c["prefill_pages"] for c in teng.chunk_log
+              if c["prefill_steps"]]
+    assert min(planes) < teng.geo.max_pages              # a bounded plane
