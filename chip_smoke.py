@@ -10,7 +10,8 @@ non-zero):
 
   1. build   compile the kernels of src/repro_torch/csrc/ (paged
              decode attention, prefill flash attention and its
-             backward, row copies between pools) with nvcc for sm_90a,
+             backward, row copies between pools, AdamW's sums and
+             update) with nvcc for sm_90a,
              one nvcc per source,
              in parallel; print ptxas' register and spill report; fail
              if an instance of the flash kernel's tensor-core body
@@ -113,6 +114,18 @@ non-zero):
              kernel, the kernel's own time so printed beside it) and the
              bound (the larger of its bytes and 2.5x the forward's
              flops).
+  2e. adamw  the AdamW kernels (csrc/adamw.cu, one launch for every
+             leaf) against their plain versions on internlm2-1.8b's
+             parameter leaves at full width (phase 12's tree: bf16 at 24
+             layers, f32 at 6): each leaf's sum of squares within
+             SUMSQ_RTOL of `g.float().square().sum()` and two runs
+             bitwise equal; the update, with the clip active and idle,
+             pure and donated (in place), bitwise the plain version's for
+             the same scale, lr and bias corrections; at the bf16 tree
+             each timed beside the plain version and its bytes bound;
+             then granite-moe-3b-a800m's tree (3.978 B bf16 parameters)
+             timed, the update in place, its sums held to the plain
+             ones.
   3. parity  serve a small f32 request stream on the card and on the
              CPU (the plain path) with the same weights: greedy tokens,
              statuses and per-step byte counts must match exactly.
@@ -174,7 +187,7 @@ non-zero):
   4d. example examples/torch_serve_two_tier.py's `main` on the card: 30
              training steps of the smoke config, the five-policy sweep
              scored against the SA bound, and a sampled serve with
-             per-request scores; all four kernels must launch.
+             per-request scores; all six kernels must launch.
   5. sweep   the single-stream policy sweep at the same width, as the
              repo's benchmarks run it: per policy a fresh `start` of 4
              prompts of 2304 tokens (each spills ~1280 tokens to the
@@ -243,20 +256,25 @@ non-zero):
              within TRAIN_TOL, the flash backward launched on the card.
   12. train  internlm2-1.8b at full width and depth (24 layers, random
              bf16 weights from --seed), B=8 x S=512 tokens from
-             `SyntheticCorpus`, remat on, 6 steps at lr 1e-4: loss,
-             grad norm and ms per step, peak memory, flash 48 and its
-             backward 24 launches a step; the loss at step 6 below step
+             `SyntheticCorpus`, remat on, 6 steps at lr 1e-4, each
+             donated as the train CLI's (the new state written into the
+             given one's tensors): loss, grad norm and ms per step, peak
+             memory beside the unfused update's (UNFUSED_TRAIN), flash
+             48, its backward 24 and each AdamW kernel 1 launch a step;
+             the loss at step 6 below step
              1's (a sanity check of the loop: 12c checks the gradient).
              Then `save_pytree` of the parameters (bytes, seconds),
              `restore_pytree` into fresh tensors (bitwise equal,
              seconds), the optimizer state freed, and phase 4's stream
              served from the restored weights with phase 4's checks.
   12b. resume internlm2-1.8b at full width but 2 layers (a ~5 GB train
-             state, not ~23 GB, so the phase stays short): 4 steps
-             straight against 2 steps, an async
-             `CheckpointManager.save` of the whole TrainState, a restore
-             into fresh tensors and 2 more steps; losses, parameters and
-             optimizer state bitwise equal.
+             state, not ~23 GB, so the phase stays short), every step
+             donated: 4 steps straight against 2 steps, an async
+             `CheckpointManager.save` of the whole TrainState, 2 more
+             steps on that state (written in place while the save
+             writes), and a restore into fresh tensors with the same 2
+             steps; losses, parameters and optimizer state of both
+             bitwise the straight run's.
   12c. witness phase 12's first step at full width, 2 layers: the bf16
              gradient against the same step with the weights widened to
              f32 on the card: loss, grad norm and each parameter's
@@ -289,9 +307,10 @@ non-zero):
              mesh=)`), internlm2-1.8b at full width and depth, B=8 x
              S=512, remat, 3 steps on phase 12's batches: every
              collective of the meshed step runs (each an identity at
-             size 1); losses, grad norms and parameters bitwise equal to
-             phase 12's first 3 steps; flash 48 and its backward 24
-             launches a step (`mesh_train` in the kernels line). Then,
+             size 1), donated as phase 12's; losses, grad norms and
+             parameters bitwise equal to phase 12's first 3 steps; flash
+             48, its backward 24 and each AdamW kernel 1 launch a step
+             (`mesh_train` in the kernels line). Then,
              at 2 layers (as 12b: the full-depth train state is ~19 GB),
              2 meshed steps, a save on the mesh, a restore without one
              and a third step: bitwise equal to 3 unmeshed steps.
@@ -324,13 +343,15 @@ non-zero):
              unsplit layer within MOE_SPLIT_TOL, the importance summed
              over ranks, the paged kernel at each split's KH against
              its plain version (`moe_split`).
-  15c. moe train granite-moe-3b-a800m at full width, depth cut to
-             MOE_TRAIN_LAYERS (the unfused AdamW's f32 temporaries do
-             not leave room for 32), B=8 x S=512, remat, 3 steps
+  15c. moe train granite-moe-3b-a800m at full width and all 32
+             layers (the donated step's fused update holds 12 bytes a
+             parameter, 47.6 GB), B=8 x S=512, remat, 3 steps
              unmeshed and 3 on a world-size-1 NCCL mesh from
              `init_train_state(..., mesh=)`: losses, grad norms and
              parameters bitwise equal, ms per step and peak memory
-             (`moe_train`, `mesh_moe_train`); then one full-width
+             beside the 16-layer run's; a run that does not fit
+             fails with the bytes it reached (`moe_train`,
+             `mesh_moe_train`); then one full-width
              granite-moe layer's attention and moe blocks, forward and
              backward, each on its own rows, split over (data, model) =
              (1, 2), (2, 2) and (1, 4) as 14b: each block's dx and every
@@ -340,12 +361,13 @@ non-zero):
   16a. family train internvl2-2b (256 patch embeddings before the text),
              whisper-tiny (1500 frame embeddings), zamba2-1.2b and
              xlstm-125m at full width and depth (FAMILY_TRAIN_ARCHS
-             says why no depth is cut), B=8 x S=512, remat, 3 steps
-             unmeshed and 3 on a world-size-1 NCCL mesh
+             says why no depth is cut), B=8 x S=512, remat, 3 donated
+             steps unmeshed and 3 on a world-size-1 NCCL mesh
              (`make_train_step(..., extra_keys=, mesh=)`): losses, grad
              norms and parameters bitwise equal, ms per step and peak
-             memory, flash 2 x and its backward 1 x the attention calls
-             of a forward each step (`family_train`,
+             memory beside the unfused update's, flash 2 x and its
+             backward 1 x the attention calls of a forward and each
+             AdamW kernel once each step (`family_train`,
              `mesh_family_train`).
   16b. family train split one full-width layer's blocks of each of
              those families (internvl2-2b's decoder layer, whisper-tiny's
@@ -422,9 +444,10 @@ non-zero):
              its block of the unsplit layer's (`kv_train_split`, the
              ranks' launches).
   19b. kv train step internlm2-1.8b at full width and 4 of its 24 layers
-             (depth cut) in f32: 2 steps unmeshed and 2 over (1, 16) as
-             threads, each rank calling the meshed `make_train_step(...,
-             mesh=, comm=)` with the threads' collectives (backward
+             (depth cut) in f32: 2 donated steps unmeshed and 2 over
+             (1, 16) as threads, each rank calling the meshed
+             `make_train_step(..., mesh=, comm=, donate=True)` with the
+             threads' collectives (backward
              included), its backward on its own thread: losses, grad
              norms, m and the parameters' update within KV_STEP_TOL
              (`kv_train_step`).
@@ -1769,6 +1792,203 @@ def flash_bwd_phase(device, built):
 
 
 # --------------------------------------------------------------------------
+# phase 2e: the AdamW kernels against their plain versions
+# --------------------------------------------------------------------------
+
+#: phase 2e's trees: internlm2-1.8b's parameter leaves at full width
+#: (phase 12's: the stacked layers, the embedding and the head), bf16 at
+#: all 24 layers and f32 at 6 (at 24 the f32 tree, its gradient, m, v
+#: and the pure update's new tensors would take 53 GB before the plain
+#: version's and the donated copies')
+ADAMW_TREES = (("bf16", 24), ("f32", 6))
+#: each leaf's sum of squares against the plain `g.float().square()
+#: .sum()`, relative: the kernel adds the f32 squares in f64 and rounds
+#: the total once, the plain version adds them in f32 in its own tree
+#: (both within ~1e-7 of the exact sum at 4e8 elements)
+SUMSQ_RTOL = 1e-6
+
+
+def adamw_tree(dtype, layers, device, seed, arch="internlm2-1.8b"):
+    """(grads, params, m, v): random lists shaped as `arch`'s parameter
+    leaves at full width and `layers` layers, drawn on the card:
+    gradients ~ 1e-4 and parameters ~ 2e-2 in `dtype`, m ~ 1e-3 and
+    v ~ 1e-6 (non-negative) in f32."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import abstract_params
+    from repro_torch.tree import tree_leaves
+    cfg = dataclasses.replace(configs.get(arch), num_layers=layers)
+    shapes = [tuple(t.shape) for t in tree_leaves(abstract_params(
+        Model(cfg).schema(), cfg.param_dtype))]
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def draw(shape, std, out_dtype, square=False):
+        x = torch.randn(shape, generator=gen, device=device)
+        x = x.square_() if square else x
+        return x.mul_(std).to(out_dtype)
+    return ([draw(s, 1e-4, dtype) for s in shapes],
+            [draw(s, 2e-2, dtype) for s in shapes],
+            [draw(s, 1e-3, torch.float32) for s in shapes],
+            [draw(s, 1e-6, torch.float32, square=True) for s in shapes])
+
+
+def adamw_phase(device, seed):
+    """Phase 2e: the two AdamW kernels (`kernels/adamw.py`) against
+    their plain versions (`ref.grad_sumsq_ref`, `ref.adamw_apply_ref`)
+    on ADAMW_TREES. The sums: each leaf's within SUMSQ_RTOL of the
+    plain sum and two runs bitwise equal. The update, with the
+    clip active (grad_clip half the norm, lr a tensor on the card: the
+    cosine schedule's) and idle (twice the norm, lr TRAIN_LR), step 3:
+    pure (new tensors) and donated (in place, on copies of p, m, v) both
+    bitwise equal to the plain version given the same scale, lr and
+    bias corrections. Each timed at the bf16 tree (the update in place,
+    as the donated step runs it) beside the plain version and the bound
+    (bytes over HBM_BW; no PyTorch call computes either function).
+    Returns the two kernels' entries for the `kernels` line."""
+    import torch
+    from repro_torch.kernels import adamw, ref
+    from repro_torch.training.optimizer import cosine_schedule
+    sums_rows, update_rows = [], []
+    for label, layers in ADAMW_TREES:
+        dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[label]
+        free_card()
+        g, p, m, v = adamw_tree(dtype, layers, device, seed)
+        n = sum(t.numel() for t in p)
+        what = f"internlm2-1.8b leaves, {layers} layers, {label}"
+        sums = adamw.grad_sumsq(g)
+        same = torch.equal(sums, adamw.grad_sumsq(g))
+        plain = ref.grad_sumsq_ref(g)
+        rel = float(((sums.double() - plain.double()).abs()
+                     / plain.double()).max())
+        g_bytes = sum(t.nbytes for t in g)
+        row = {"tree": what, "leaves": len(g), "params": n,
+               "max_abs_err": float((sums - plain).abs().max()),
+               "max_rel_err": rel, "bitwise_runs": same,
+               "bound_ms": (g_bytes + sums.nbytes) / HBM_BW * 1e3}
+        if label == "bf16":
+            row["ms"] = eager_ms(lambda _: adamw.grad_sumsq(g), 10)
+            row["plain_ms"] = eager_ms(lambda _: ref.grad_sumsq_ref(g), 3)
+        log(f"adamw grad_sumsq {what} ({len(g)} leaves, {n / 1e9:.3f} B "
+            f"params): each leaf's sum within {rel:.3e} of the plain sum "
+            f"(tolerance {SUMSQ_RTOL}), two runs bitwise equal {same}"
+            + (f"; device {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} "
+               f"ms  bound {row['bound_ms']:.4f} ms (bytes, "
+               f"{g_bytes / 1e9:.2f} GB)" if "ms" in row else ""))
+        if not (rel <= SUMSQ_RTOL and same):
+            raise AssertionError(f"adamw grad_sumsq {what}: the sums "
+                                 f"disagree with the plain version or "
+                                 f"differ between runs")
+        sums_rows.append(row)
+
+        norm = torch.sqrt(sums.sum())
+        step = torch.tensor(3, dtype=torch.int32, device=device)
+        stepf = step.float()
+        outs = [[torch.empty_like(t) for t in ts] for ts in (p, m, v)]
+        for clip, lr in (("active", cosine_schedule(step)),
+                         ("idle", TRAIN_LR)):
+            grad_clip = float(norm) * (0.5 if clip == "active" else 2.0)
+            scalars = dict(
+                scale=torch.clamp(grad_clip / torch.clamp(norm, min=1e-12),
+                                  max=1.0),
+                lr=lr, bc1=1 - torch.pow(0.9, stepf),
+                bc2=1 - torch.pow(0.95, stepf), b1=0.9, b2=0.95, eps=1e-8,
+                weight_decay=0.1)
+            adamw.adamw_apply(g, p, m, v, *outs, **scalars)
+            pure = True
+            for i in range(len(p)):             # the plain version, leaf
+                want = [torch.empty_like(t) for t in (p[i], m[i], v[i])]
+                ref.adamw_apply_ref([g[i]], [p[i]], [m[i]], [v[i]],
+                                    *([w] for w in want), **scalars)
+                pure &= all(torch.equal(a[i], b)
+                            for a, b in zip(outs, want))
+                del want
+            copies = [[t.clone() for t in ts] for ts in (p, m, v)]
+            adamw.adamw_apply(g, *copies, *copies, **scalars)
+            donated = all(torch.equal(a, b) for x, y in zip(copies, outs)
+                          for a, b in zip(x, y))
+            moved = sum(t.nbytes for ts in (g, p, m, v, *outs) for t in ts)
+            row = {"tree": what, "clip": clip, "leaves": len(p), "params": n,
+                   "scale": float(scalars["scale"]), "pure_bitwise": pure,
+                   "donated_bitwise": donated,
+                   "bound_ms": moved / HBM_BW * 1e3, "bytes": moved}
+            if label == "bf16" and clip == "active":
+                row["ms"] = eager_ms(lambda _: adamw.adamw_apply(
+                    g, *copies, *copies, **scalars), 5)
+                row["pure_ms"] = eager_ms(lambda _: adamw.adamw_apply(
+                    g, p, m, v, *outs, **scalars), 5)
+                row["plain_ms"] = eager_ms(lambda _: ref.adamw_apply_ref(
+                    g, p, m, v, *outs, **scalars), 2)
+            lr_is = "a tensor" if isinstance(lr, torch.Tensor) else lr
+            log(f"adamw adamw_apply {what}, clip {clip} (scale "
+                f"{row['scale']:.4f}, lr {lr_is}): "
+                f"pure bitwise the plain version {pure}, donated (in place) "
+                f"bitwise {donated}"
+                + (f"; device in place {row['ms']:.4f} ms  pure "
+                   f"{row['pure_ms']:.4f} ms  plain {row['plain_ms']:.4f} "
+                   f"ms  bound {row['bound_ms']:.4f} ms (bytes, "
+                   f"{moved / 1e9:.2f} GB: {moved / n:.0f} a parameter)"
+                   if "ms" in row else ""))
+            if not (pure and donated):
+                raise AssertionError(f"adamw adamw_apply {what}, clip "
+                                     f"{clip}: the kernel's update is not "
+                                     f"the plain version's, bitwise")
+            update_rows.append(row)
+            del copies
+        del g, p, m, v, outs
+    # granite-moe-3b-a800m's tree (phase 15c's), timed alone: its 47.7 GB
+    # leave no room for the pure update's new tensors, so the update runs
+    # in place and the sums are held to the plain ones
+    free_card()
+    what = "granite-moe-3b-a800m leaves, 32 layers, bf16"
+    g, p, m, v = adamw_tree(torch.bfloat16, 32, device, seed,
+                            "granite-moe-3b-a800m")
+    n = sum(t.numel() for t in p)
+    sums = adamw.grad_sumsq(g)
+    plain = ref.grad_sumsq_ref(g).double()
+    rel = float(((sums.double() - plain).abs() / plain).max())
+    step = torch.tensor(3, dtype=torch.int32, device=device)
+    scalars = dict(scale=torch.tensor(0.5, device=device), lr=TRAIN_LR, bc1=1 - torch.pow(0.9, step.float()),
+                   bc2=1 - torch.pow(0.95, step.float()), b1=0.9, b2=0.95,
+                   eps=1e-8, weight_decay=0.1)
+    moved = sum(t.nbytes for ts in (g, p, m, v, p, m, v) for t in ts)
+    g_bytes = sum(t.nbytes for t in g)
+    sums_rows.append({"tree": what, "leaves": len(g), "params": n,
+                      "max_rel_err": rel, "max_abs_err": float(
+                          (sums.double() - plain).abs().max()),
+                      "ms": eager_ms(lambda _: adamw.grad_sumsq(g), 10),
+                      "bound_ms": (g_bytes + sums.nbytes) / HBM_BW * 1e3})
+    update_rows.append({"tree": what, "leaves": len(p), "params": n,
+                        "ms": eager_ms(lambda _: adamw.adamw_apply(
+                            g, p, m, v, p, m, v, **scalars), 5),
+                        "bound_ms": moved / HBM_BW * 1e3, "bytes": moved})
+    finite = all(bool(torch.isfinite(t).all()) for t in p)
+    log(f"adamw {what} ({len(p)} leaves, {n / 1e9:.3f} B params): "
+        f"grad_sumsq {sums_rows[-1]['ms']:.4f} ms (bound "
+        f"{sums_rows[-1]['bound_ms']:.4f}; each leaf's sum within "
+        f"{rel:.3e} of the plain sum), adamw_apply in place "
+        f"{update_rows[-1]['ms']:.4f} ms (bound "
+        f"{update_rows[-1]['bound_ms']:.4f}, {moved / 1e9:.2f} GB), "
+        f"parameters finite {finite}")
+    if not (rel <= SUMSQ_RTOL and finite):
+        raise AssertionError(f"adamw {what}: sums off by {rel:.3e} or "
+                             f"parameters not finite")
+    del g, p, m, v
+    free_card()
+    sums_entry = {**{k: v for k, v in sums_rows[0].items() if k != "tree"},
+                  "max_abs_err": max(r["max_abs_err"] for r in sums_rows),
+                  "max_rel_err": max(r["max_rel_err"] for r in sums_rows),
+                  "bound_by": "bytes", "library_ms": None,
+                  "per_shape": sums_rows}
+    update_entry = {**{k: v for k, v in update_rows[0].items()
+                       if k not in ("tree", "clip")},
+                    "max_abs_err": 0.0, "bound_by": "bytes",
+                    "library_ms": None, "per_shape": update_rows}
+    return sums_entry, update_entry
+
+
+# --------------------------------------------------------------------------
 # phases 3-5: serving
 # --------------------------------------------------------------------------
 
@@ -2439,9 +2659,9 @@ def serve_cli_phase(seed):
 
 def example_phase():
     """Phase 4d: examples/torch_serve_two_tier.py's `main` on the card:
-    training (flash forward and backward), the policy sweep and a
-    sampled serve (paged attention, row copies). Returns its launches
-    by kernel; each of the four kernels must have launched."""
+    training (flash forward and backward, the AdamW kernels), the policy
+    sweep and a sampled serve (paged attention, row copies). Returns its
+    launches by kernel; each of the six kernels must have launched."""
     import importlib.util
 
     import torch
@@ -2462,7 +2682,8 @@ def example_phase():
     log(f"example: examples/torch_serve_two_tier.py exit {rc}, "
         f"{time.time() - t0:.2f} s wall, launches {counts}")
     missing = [k for k in ("paged_attention", "flash_attention",
-                           "flash_attention_bwd", "page_copy")
+                           "flash_attention_bwd", "page_copy", "grad_sumsq",
+                           "adamw_apply")
                if not counts.get(k)]
     if rc != 0 or missing:
         raise AssertionError(f"example: exit {rc}, never launched {missing}")
@@ -3262,6 +3483,40 @@ TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = 8, 512, 6, 1e-4
 #: series through two layers and the backward, ~1e-2 (2e-2, 0.1); a
 #: gradient that is wrong for one head in 16 is off by ~0.25
 WITNESS_TOL = {"loss": 5e-3, "grad_norm": 2e-2, "grads": 0.1}
+#: ms a step and peak GB of each donated training phase's configuration
+#: with the pure step and the plain PyTorch update that the AdamW kernels
+#: replaced: `scripts/train_ab.py` on the tree before them (the mean of
+#: two runs' medians, P C C P; NVIDIA H100 80GB HBM3, 700.00 W), printed
+#: beside this run's (phase 12's steady mean, 12b's median, 14a's and
+#: 16a's median, 19b's second unmeshed step; the peak from the state on)
+UNFUSED_TRAIN = {
+    "train": (337.9, 53.84), "train resume": (79.0, 15.86),
+    "mesh train": (376.9, 53.84),
+    "family train internvl2-2b": (423.3, 53.85),
+    "family train whisper-tiny": (63.2, 4.98),
+    "family train zamba2-1.2b": (581.0, 38.64),
+    "family train xlstm-125m": (8547.6, 6.13),
+    "mesh family train internvl2-2b": (595.2, 53.85),
+    "mesh family train whisper-tiny": (136.2, 4.98),
+    "mesh family train zamba2-1.2b": (1021.3, 38.64),
+    "mesh family train xlstm-125m": (11782.4, 6.13),
+    "kv train step": (348.6, 21.78)}
+
+
+def beside_unfused(what, seconds, peak) -> str:
+    """`what`'s ms a step and peak memory beside UNFUSED_TRAIN's."""
+    old = UNFUSED_TRAIN.get(what)
+    if old is None:
+        return "(the unfused update's: not measured)"
+    ms, gb = old
+    return (f"(the unfused update: {ms} ms, {gb} GB; now "
+            f"{seconds * 1e3 / ms:.2f}x the time, {peak / 1e9 - gb:+.2f} GB)")
+
+
+def fused_update(counts, steps) -> bool:
+    """Whether `steps` train steps launched each AdamW kernel once a step
+    (every tree here has fewer leaves than one launch carries)."""
+    return counts.get("grad_sumsq") == steps == counts.get("adamw_apply")
 
 
 def train_card_vs_cpu(name, seed):
@@ -3415,11 +3670,11 @@ def train_phase(seed):
     state_bytes = sum(t.numel() * t.element_size()
                       for t in tree_leaves(state))
     batches = train_batches(cfg.vocab, seed, TRAIN_STEPS)
-    step_fn = make_train_step(model, lr=TRAIN_LR)
+    step_fn = make_train_step(model, lr=TRAIN_LR, donate=True)
     log(f"train: {cfg.name} {cfg.num_layers} layers, {n_params / 1e9:.3f} "
         f"B params bf16, train state {state_bytes / 1e9:.2f} GB (bf16 "
         f"params, f32 m and v), B={TRAIN_B} S={TRAIN_S}, lr {TRAIN_LR}, "
-        f"remat on")
+        f"remat on, the step donated")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     COUNTS.clear()                          # the main path's run only
@@ -3440,18 +3695,21 @@ def train_phase(seed):
     counts = dict(COUNTS)
     peak = torch.cuda.max_memory_allocated()
     tokens_per_s = TRAIN_B * TRAIN_S * (TRAIN_STEPS - 1) / sum(times[1:])
-    log(f"train: {TRAIN_STEPS} steps, steady {sum(times[1:]) / (TRAIN_STEPS - 1) * 1e3:.1f} "
+    steady = sum(times[1:]) / (TRAIN_STEPS - 1)
+    log(f"train: {TRAIN_STEPS} steps, steady {steady * 1e3:.1f} "
         f"ms/step ({tokens_per_s:.0f} tokens/s; the first step "
-        f"{times[0] * 1e3:.1f} ms), peak memory {peak / 1e9:.2f} GB, "
-        f"launches {counts}")
+        f"{times[0] * 1e3:.1f} ms), peak memory {peak / 1e9:.2f} GB "
+        f"{beside_unfused('train', steady, peak)}, launches {counts}")
     if not all(math.isfinite(x) for x in losses) or \
             not losses[-1] < losses[0]:
         raise AssertionError(f"train: the loss did not fall: {losses}")
     per_step = 2 * cfg.num_layers * TRAIN_STEPS     # forward + recompute
     if counts.get("flash_attention") != per_step or \
-            counts.get("flash_attention_bwd") != per_step // 2:
+            counts.get("flash_attention_bwd") != per_step // 2 or \
+            not fused_update(counts, TRAIN_STEPS):
         raise AssertionError(f"train: launches {counts}, expected flash "
-                             f"{per_step} and its backward {per_step // 2}")
+                             f"{per_step}, its backward {per_step // 2} and "
+                             f"the AdamW kernels {TRAIN_STEPS} each")
     params = state.params
     with tempfile.TemporaryDirectory() as d:
         t = time.time()
@@ -3485,11 +3743,14 @@ def train_phase(seed):
 
 def resume_phase(seed):
     """Phase 12b: internlm2-1.8b at full width but 2 layers (a ~5 GB
-    train state, not ~23 GB, so the phase stays short): 4 steps
-    straight, against 2 steps, an async `CheckpointManager.save` of the
-    whole TrainState, a restore into fresh tensors and 2 more steps.
-    Losses, parameters and optimizer state must be bitwise equal.
-    Returns (launches by kernel, numbers)."""
+    train state, not ~23 GB, so the phase stays short), the step
+    donated: 4 steps straight, against 2 steps, an async
+    `CheckpointManager.save` of the whole TrainState, 2 more steps on
+    that state (written in place while the save may still be writing),
+    and a restore of the save into fresh tensors with the same 2 steps.
+    Losses, parameters and optimizer state of both continuations must
+    be bitwise the straight run's. Returns (launches by kernel,
+    numbers)."""
     import dataclasses
     import tempfile
     import torch
@@ -3504,7 +3765,7 @@ def resume_phase(seed):
     cfg = dataclasses.replace(configs.get("internlm2-1.8b"), num_layers=2)
     model = Model(cfg)
     batches = train_batches(cfg.vocab, seed + 1, 4)
-    step_fn = make_train_step(model, lr=TRAIN_LR)
+    step_fn = make_train_step(model, lr=TRAIN_LR, donate=True)
 
     def run(state, steps):
         losses = []
@@ -3513,46 +3774,65 @@ def resume_phase(seed):
             losses.append(m["loss"])
         return state, losses
 
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     COUNTS.clear()
-    straight, l_straight = run(init_train_state(model, seed, "cuda"),
-                               range(4))
-    half, l_resumed = run(init_train_state(model, seed, "cuda"), range(2))
+    straight, times = init_train_state(model, seed, "cuda"), []
+    l_straight = []
+    for i in range(4):
+        t = time.time()
+        straight, loss = run(straight, [i])
+        torch.cuda.synchronize()
+        times.append(time.time() - t)
+        l_straight += loss
+    step_s = sorted(times)[len(times) // 2]
+    peak = torch.cuda.max_memory_allocated()
+    half, l_half = run(init_train_state(model, seed, "cuda"), range(2))
     state_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(half))
     with tempfile.TemporaryDirectory() as root:
         mgr = CheckpointManager(root)
         t = time.time()
         mgr.save(2, half)                   # async after the snapshot
         snapshot_s = time.time() - t
+        on, l_on = run(half, range(2, 4))   # written into the saved tensors
         mgr.wait()
         write_s = time.time() - t
-        del half
         t = time.time()
         resumed = mgr.restore(tree_map(lambda x: x.to("meta"), straight),
                               step=2, device="cuda")
         torch.cuda.synchronize()
         restore_s = time.time() - t
     resumed, more = run(resumed, range(2, 4))
-    l_resumed += more
     counts = dict(COUNTS)
-    same_loss = torch.equal(torch.stack(l_straight), torch.stack(l_resumed))
-    same_state = all(torch.equal(a, b) for a, b in
-                     zip(tree_leaves(straight), tree_leaves(resumed)))
+    same_loss = torch.equal(torch.stack(l_straight),
+                            torch.stack(l_half + more)) and \
+        torch.equal(torch.stack(l_straight), torch.stack(l_half + l_on))
+    same_state = all(torch.equal(a, b) and torch.equal(a, c) for a, b, c in
+                     zip(tree_leaves(straight), tree_leaves(resumed),
+                         tree_leaves(on)))
     log(f"train resume: {cfg.name} at 2 layers, train state "
-        f"{state_bytes / 1e9:.2f} GB: async save {snapshot_s:.2f} s to "
-        f"the host snapshot, {write_s:.2f} s to COMMIT, restore "
-        f"{restore_s:.2f} s; losses straight "
+        f"{state_bytes / 1e9:.2f} GB, the step donated: "
+        f"{[round(x * 1e3, 1) for x in times]} ms a step (median "
+        f"{step_s * 1e3:.1f}), peak memory {peak / 1e9:.2f} GB "
+        f"{beside_unfused('train resume', step_s, peak)}; async save "
+        f"{snapshot_s:.2f} s to the host snapshot, {write_s:.2f} s to "
+        f"COMMIT (2 donated steps on the saved state ran meanwhile), "
+        f"restore {restore_s:.2f} s; losses straight "
         f"{[round(float(x), 4) for x in l_straight]} resumed "
-        f"{[round(float(x), 4) for x in l_resumed]}; losses bitwise equal "
-        f"{same_loss}, params and optimizer state bitwise equal "
-        f"{same_state}")
+        f"{[round(float(x), 4) for x in l_half + more]}; losses bitwise "
+        f"equal {same_loss}, params and optimizer state bitwise equal "
+        f"{same_state} (the restored run and the run that went on)")
     if not (same_loss and same_state):
         raise AssertionError("train resume: the resumed run differs from "
                              "the straight one")
-    del straight, resumed
+    if not fused_update(counts, 10):
+        raise AssertionError(f"train resume: launches {counts}, expected "
+                             f"the AdamW kernels 10 times each")
+    del straight, resumed, on, half
     free_card()
     return counts, {"state_bytes": state_bytes, "snapshot_s": snapshot_s,
-                    "write_s": write_s, "restore_s": restore_s}
-
+                    "write_s": write_s, "restore_s": restore_s,
+                    "step_s": step_s, "peak_bytes": peak}
 
 
 def stream_outcome(eng, rep) -> dict:
@@ -3823,8 +4103,9 @@ def mesh_train_phase(seed, ref):
     1)`: internlm2-1.8b at full width and depth, the same seed and
     batches, MESH_TRAIN_STEPS steps of `make_train_step(..., mesh=)`
     from `init_train_state(..., mesh=)`, so every collective of the
-    meshed step runs on the card (each an identity at size 1). Losses,
-    grad norms and parameters must be bitwise phase 12's (`ref`). Then
+    meshed step runs on the card (each an identity at size 1), every
+    step donated as phase 12's. Losses, grad norms and parameters must
+    be bitwise phase 12's (`ref`). Then
     the checkpoint round trip at 2 layers (as phase 12b, whose whole
     train state takes a minute to write; at full depth it would be
     ~19 GB): 2 meshed steps, a save on the mesh (`CheckpointManager(
@@ -3844,7 +4125,8 @@ def mesh_train_phase(seed, ref):
         cfg = configs.get("internlm2-1.8b")
         model = Model(cfg)
         state = init_train_state(model, seed, "cuda", mesh=mesh)
-        step_fn = make_train_step(model, lr=TRAIN_LR, mesh=mesh)
+        step_fn = make_train_step(model, lr=TRAIN_LR, mesh=mesh,
+                                  donate=True)
         batches = train_batches(cfg.vocab, seed, MESH_TRAIN_STEPS)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -3873,7 +4155,9 @@ def mesh_train_phase(seed, ref):
             f"{same['grad_norms']} parameters {same['params']} (largest "
             f"|diff| {max(diffs):.3e}); "
             f"{[round(x * 1e3, 1) for x in times]} ms a step, peak memory "
-            f"{peak / 1e9:.2f} GB, launches {counts}")
+            f"{peak / 1e9:.2f} GB "
+            f"{beside_unfused('mesh train', sorted(times)[1], peak)}, "
+            f"launches {counts}")
         del state, m
         free_card()
         numbers = {"losses": losses, "grad_norms": gnorms, "step_s": times,
@@ -3884,10 +4168,12 @@ def mesh_train_phase(seed, ref):
             raise AssertionError(f"mesh train: the meshed steps differ "
                                  f"from phase 12's: {same}")
         if counts.get("flash_attention") != per_step or \
-                counts.get("flash_attention_bwd") != per_step // 2:
+                counts.get("flash_attention_bwd") != per_step // 2 or \
+                not fused_update(counts, MESH_TRAIN_STEPS):
             raise AssertionError(f"mesh train: launches {counts}, expected "
-                                 f"flash {per_step} and its backward "
-                                 f"{per_step // 2}")
+                                 f"flash {per_step}, its backward "
+                                 f"{per_step // 2} and the AdamW kernels "
+                                 f"{MESH_TRAIN_STEPS} each")
         return counts, numbers
 
 
@@ -3918,12 +4204,13 @@ def mesh_checkpoint_part(seed, mesh):
             losses.append(m["loss"])
         return state, losses
 
-    plain = make_train_step(model, lr=TRAIN_LR)
+    plain = make_train_step(model, lr=TRAIN_LR, donate=True)
     straight, l_straight = run(init_train_state(model, seed, "cuda"), plain,
                                range(3))
     meshed, l_resumed = run(init_train_state(model, seed, "cuda",
                                              mesh=mesh),
-                            make_train_step(model, lr=TRAIN_LR, mesh=mesh),
+                            make_train_step(model, lr=TRAIN_LR, mesh=mesh,
+                                            donate=True),
                             range(2))
     root = tempfile.mkdtemp(prefix="chip_smoke_mesh_ckpt_")
     try:
@@ -4383,25 +4670,30 @@ def moe_split_phase(seed):
     return counts, out
 
 
-#: phase 15c: granite-moe's training at full width; the unfused AdamW
-#: holds ~26 bytes a parameter at its update (bf16 weights, gradients
-#: and new weights, f32 m and v old and new, the f32 gradient), ~103 GB
-#: at granite-moe's 3.97 B parameters (its 48 padded experts), so the
-#: depth is cut to 16 of 32 layers (~54 GB)
-MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 16, 3
+#: phase 15c: granite-moe's training at full width and depth. Its 3.97
+#: B parameters (the 48 padded experts) take 12 bytes each in the
+#: donated step's update (bf16 weights and gradients, f32 m and v:
+#: 47.6 GB), where the unfused, pure update held ~26 (~103 GB) and
+#: phase 15c ran 16 of the 32 layers until the fused kernels
+MOE_TRAIN_STEPS = 3
+#: phase 15c's last run at 16 of the 32 layers, with the pure step and
+#: the plain PyTorch update (NVIDIA H100 80GB HBM3, 700.00 W): peak
+#: memory and ms a step (median), printed beside
+MOE_TRAIN_16_LAYERS = {"peak_gb": 62.62, "ms": 548.6}
 
 
 def moe_train_phase(seed):
-    """Phase 15c: granite-moe-3b-a800m at full width, depth cut to
-    MOE_TRAIN_LAYERS, B=8 x S=512 from `SyntheticCorpus` (8 routing
-    groups of 512 tokens, each one row), remat on, MOE_TRAIN_STEPS steps
-    at TRAIN_LR: unmeshed, then from `init_train_state(..., mesh=)` on a
-    world-size-1 NCCL mesh (`make_train_step(..., mesh=)`: every
-    collective of the meshed moe step, the experts' range and the
-    router's f). Losses, grad norms and parameters bitwise equal; ms per
-    step and peak memory of each. Returns the launches by path
-    ("moe_train", "mesh_moe_train") and the numbers."""
-    import dataclasses
+    """Phase 15c: granite-moe-3b-a800m at full width and all 32 layers,
+    B=8 x S=512 from `SyntheticCorpus` (8 routing groups of 512 tokens,
+    each one row), remat on, MOE_TRAIN_STEPS donated steps at TRAIN_LR:
+    unmeshed, then from `init_train_state(..., mesh=)` on a world-size-1
+    NCCL mesh (`make_train_step(..., mesh=)`: every collective of the
+    meshed moe step, the experts' range and the router's f). Losses,
+    grad norms and parameters bitwise equal; ms per step and peak
+    memory of each beside the last 16-layer run's (MOE_TRAIN_16_LAYERS).
+    A run that does not fit
+    the card fails with the bytes it reached. Returns the launches by
+    path ("moe_train", "mesh_moe_train") and the numbers."""
     import torch
     from repro_torch import configs
     from repro_torch.kernels.build import COUNTS
@@ -4410,43 +4702,56 @@ def moe_train_phase(seed):
         init_train_state, make_train_step)
     from repro_torch.tree import tree_leaves
     free_card()
-    cfg = dataclasses.replace(configs.get("granite-moe-3b-a800m"),
-                              num_layers=MOE_TRAIN_LAYERS)
+    cfg = configs.get("granite-moe-3b-a800m")
     model = Model(cfg)
     batches = train_batches(cfg.vocab, seed, MOE_TRAIN_STEPS)
 
-    def run(state, step_fn, what):
+    def run(make_state, step_fn, what):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         COUNTS.clear()                      # the main path's run only
         losses, gnorms, times = [], [], []
-        for tokens in batches:
-            t = time.time()
-            state, m = step_fn(state, {"tokens": tokens})
-            losses.append(float(m["loss"]))
-            gnorms.append(float(m["grad_norm"]))
-            times.append(time.time() - t)
+        try:
+            state = make_state()
+            for tokens in batches:
+                t = time.time()
+                state, m = step_fn(state, {"tokens": tokens})
+                losses.append(float(m["loss"]))
+                gnorms.append(float(m["grad_norm"]))
+                times.append(time.time() - t)
+        except torch.cuda.OutOfMemoryError as e:
+            raise AssertionError(
+                f"{what}: {cfg.name} at {cfg.num_layers} layers does not "
+                f"fit the card: {torch.cuda.max_memory_allocated()} bytes "
+                f"at the peak, {torch.cuda.memory_allocated()} allocated "
+                f"after {len(times)} steps ({e})") from None
         counts = dict(COUNTS)
         peak = torch.cuda.max_memory_allocated()
         n = sum(p.numel() for p in tree_leaves(state.params))
-        log(f"{what}: {cfg.name} at {cfg.num_layers} of 32 layers "
+        old = MOE_TRAIN_16_LAYERS
+        log(f"{what}: {cfg.name} at {cfg.num_layers} layers "
             f"({n / 1e9:.3f} B params), B={TRAIN_B} S={TRAIN_S}, lr "
-            f"{TRAIN_LR}, remat on: losses {losses} grad norms {gnorms}; "
-            f"{[round(x * 1e3, 1) for x in times]} ms a step, peak memory "
-            f"{peak / 1e9:.2f} GB, launches {counts}; card {card_line()}")
+            f"{TRAIN_LR}, remat on, the step donated: losses {losses} grad "
+            f"norms {gnorms}; {[round(x * 1e3, 1) for x in times]} ms a "
+            f"step (median {sorted(times)[1] * 1e3:.1f}), peak memory "
+            f"{peak / 1e9:.2f} GB (at 16 of 32 layers with the unfused "
+            f"update: {old['ms']} ms, {old['peak_gb']} GB), launches "
+            f"{counts}; card {card_line()}")
         return state, {"losses": losses, "grad_norms": gnorms,
                        "step_s": times, "peak_bytes": peak,
                        "counts": counts}
 
-    state, plain = run(init_train_state(model, seed, "cuda"),
-                       make_train_step(model, lr=TRAIN_LR), "moe train")
+    state, plain = run(lambda: init_train_state(model, seed, "cuda"),
+                       make_train_step(model, lr=TRAIN_LR, donate=True),
+                       "moe train")
     ref = [p.cpu() for p in tree_leaves(state.params)]
     del state
     free_card()
     with world_of_one("chip_smoke_moe_train_mesh_") as mesh:
-        state, meshed = run(init_train_state(model, seed, "cuda",
-                                             mesh=mesh),
-                            make_train_step(model, lr=TRAIN_LR, mesh=mesh),
+        state, meshed = run(lambda: init_train_state(model, seed, "cuda",
+                                                     mesh=mesh),
+                            make_train_step(model, lr=TRAIN_LR, mesh=mesh,
+                                            donate=True),
                             "mesh moe train")
         same = {"losses": meshed["losses"] == plain["losses"],
                 "grad_norms": meshed["grad_norms"] == plain["grad_norms"],
@@ -4464,10 +4769,12 @@ def moe_train_phase(seed):
     for what, c in (("moe train", plain["counts"]),
                     ("mesh moe train", meshed["counts"])):
         if c.get("flash_attention") != per_step or \
-                c.get("flash_attention_bwd") != per_step // 2:
+                c.get("flash_attention_bwd") != per_step // 2 or \
+                not fused_update(c, MOE_TRAIN_STEPS):
             raise AssertionError(f"{what}: launches {c}, expected flash "
-                                 f"{per_step} and its backward "
-                                 f"{per_step // 2}")
+                                 f"{per_step}, its backward "
+                                 f"{per_step // 2} and the AdamW kernels "
+                                 f"{MOE_TRAIN_STEPS} each")
     if not all(same.values()):
         raise AssertionError(f"mesh moe train: the meshed steps differ "
                              f"from the unmeshed ones: {same}")
@@ -4671,13 +4978,14 @@ def family_train_phase(seed):
     whisper-tiny (1500 frame embeddings), zamba2-1.2b and xlstm-125m at
     full width and depth (random bf16 weights from `seed`), B=8 x S=512
     tokens from `SyntheticCorpus` (and the family's extra, from `seed`),
-    remat on, FAMILY_TRAIN_STEPS steps at TRAIN_LR: unmeshed, then from
-    `init_train_state(..., mesh=)` on a world-size-1 NCCL mesh
+    remat on, FAMILY_TRAIN_STEPS donated steps at TRAIN_LR: unmeshed,
+    then from `init_train_state(..., mesh=)` on a world-size-1 NCCL mesh
     (`make_train_step(..., extra_keys=, mesh=)`: every collective of the
     family's meshed step, each an identity at size 1). Losses, grad
     norms and parameters bitwise equal; ms per step and peak memory of
-    each; flash 2 x and its backward 1 x `attention_calls` a step (none
-    for xlstm). Returns the launches by path ("family_train",
+    each beside the unfused update's; flash 2 x and its backward 1 x
+    `attention_calls` a step (none for xlstm), the AdamW kernels once
+    each a step. Returns the launches by path ("family_train",
     "mesh_family_train") and the numbers by model."""
     import torch
     from repro_torch import configs
@@ -4714,11 +5022,12 @@ def family_train_phase(seed):
                              for k, v in extra.items())
             log(f"{what}: {name} ({cfg.family}, {cfg.num_layers} layers, "
                 f"{n / 1e9:.3f} B params{shapes}), B={TRAIN_B} "
-                f"S={TRAIN_S}, lr {TRAIN_LR}, remat on: losses {losses} "
-                f"grad norms {gnorms}; "
+                f"S={TRAIN_S}, lr {TRAIN_LR}, remat on, the step donated: "
+                f"losses {losses} grad norms {gnorms}; "
                 f"{[round(x * 1e3, 1) for x in times]} ms a step, peak "
-                f"memory {peak / 1e9:.2f} GB, launches {c}; card "
-                f"{card_line()}")
+                f"memory {peak / 1e9:.2f} GB "
+                f"{beside_unfused(f'{what} {name}', sorted(times)[1], peak)}"
+                f", launches {c}; card {card_line()}")
             return state, {"losses": losses, "grad_norms": gnorms,
                            "step_s": times, "peak_bytes": peak, "counts": c,
                            "params": n}
@@ -4726,7 +5035,8 @@ def family_train_phase(seed):
         keys = tuple(extra)
         state, plain = run(init_train_state(model, seed, "cuda"),
                            make_train_step(model, lr=TRAIN_LR,
-                                           extra_keys=keys), "family train")
+                                           extra_keys=keys, donate=True),
+                           "family train")
         ref = [p.cpu() for p in tree_leaves(state.params)]
         del state
         free_card()
@@ -4734,7 +5044,7 @@ def family_train_phase(seed):
             state, meshed = run(
                 init_train_state(model, seed, "cuda", mesh=mesh),
                 make_train_step(model, lr=TRAIN_LR, extra_keys=keys,
-                                mesh=mesh), "mesh family train")
+                                mesh=mesh, donate=True), "mesh family train")
             same = {"losses": meshed["losses"] == plain["losses"],
                     "grad_norms": meshed["grad_norms"] ==
                     plain["grad_norms"],
@@ -4752,10 +5062,12 @@ def family_train_phase(seed):
                                                     meshed)):
             c = got["counts"]
             if c.get("flash_attention", 0) != 2 * calls or \
-                    c.get("flash_attention_bwd", 0) != calls:
+                    c.get("flash_attention_bwd", 0) != calls or \
+                    not fused_update(c, FAMILY_TRAIN_STEPS):
                 raise AssertionError(f"{what} {name}: launches {c}, "
-                                     f"expected flash {2 * calls} and its "
-                                     f"backward {calls}")
+                                     f"expected flash {2 * calls}, its "
+                                     f"backward {calls} and the AdamW "
+                                     f"kernels {FAMILY_TRAIN_STEPS} each")
             if not all(math.isfinite(x) for x in got["losses"]):
                 raise AssertionError(f"{what} {name}: losses "
                                      f"{got['losses']}")
@@ -5352,13 +5664,18 @@ def kv_train_step_phase(seed, device="cuda", get=None, rows=TRAIN_B,
     # the unmeshed steps
     state = TrainState(params=tree_map(torch.clone, params),
                        opt=adamw_init(params))
-    step_fn = make_train_step(whole, lr=KV_STEP_LR, logit_chunk=KV_STEP_CHUNK)
+    step_fn = make_train_step(whole, lr=KV_STEP_LR, logit_chunk=KV_STEP_CHUNK,
+                              donate=True)
     plain = {"losses": [], "grad_norms": [], "step_s": []}
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
     for tokens in batches:
         (state, m), dt = timed(lambda: step_fn(state, {"tokens": tokens}))
         plain["losses"].append(float(m["loss"]))
         plain["grad_norms"].append(float(m["grad_norm"]))
         plain["step_s"].append(dt)
+    plain["peak_bytes"] = torch.cuda.max_memory_allocated() \
+        if device.type == "cuda" else 0
     want = {"params": {path_name(p): t for p, t in
                        leaves_with_path(state.params)},
             "m": {path_name(p): t for p, t in leaves_with_path(state.opt.m)}}
@@ -5381,7 +5698,7 @@ def kv_train_step_phase(seed, device="cuda", get=None, rows=TRAIN_B,
         state = TrainState(params=mine, opt=adamw_init(mine))
         step = make_train_step(whole, lr=KV_STEP_LR, mesh=mesh,
                                comm=tm.collectives(c, device),
-                               logit_chunk=KV_STEP_CHUNK)
+                               logit_chunk=KV_STEP_CHUNK, donate=True)
         losses, gnorms = [], []
         with torch.autograd.set_multithreading_enabled(False):
             for tokens in batches:
@@ -5434,6 +5751,8 @@ def kv_train_step_phase(seed, device="cuda", get=None, rows=TRAIN_B,
                     for k in specs)
     n = sum(t.numel() for t in start.values())
     r0 = ranks[(0, 0)]
+    unfused = beside_unfused("kv train step", plain["step_s"][-1],
+                             plain["peak_bytes"])
     log(f"kv train step: {cfg.name} at full width, {layers} of "
         f"{get('internlm2-1.8b').num_layers} layers (depth cut), f32, "
         f"{n / 1e9:.3f} B params, B={rows} S={seq}, lr {KV_STEP_LR}: "
@@ -5444,9 +5763,11 @@ def kv_train_step_phase(seed, device="cuda", get=None, rows=TRAIN_B,
         f"rank 0 losses {r0['losses']} grad norms {r0['grad_norms']}; "
         f"errors {', '.join(f'{k} {v:.3e}' for k, v in err.items())} "
         f"(tolerance {KV_STEP_TOL}), largest parameter |diff| "
-        f"{max_param:.3e}; {dt:.1f} s for the threaded steps, unmeshed "
+        f"{max_param:.3e}; {dt:.1f} s for the threaded steps, peak memory "
+        f"{peak / 1e9:.2f} GB; unmeshed "
         f"{[round(x * 1e3, 1) for x in plain['step_s']]} ms a step, peak "
-        f"memory {peak / 1e9:.2f} GB, launches {counts}")
+        f"memory {plain['peak_bytes'] / 1e9:.2f} GB {unfused}, launches "
+        f"{counts}")
     bad = {k: v for k, v in err.items() if not v <= KV_STEP_TOL[k]}
     if bad:
         raise AssertionError(f"kv train step: the threaded steps differ "
@@ -5454,10 +5775,12 @@ def kv_train_step_phase(seed, device="cuda", get=None, rows=TRAIN_B,
     if device.type == "cuda":
         calls = layers * KV_STEP_STEPS * model
         if counts.get("flash_attention") != 2 * calls or \
-                counts.get("flash_attention_bwd") != calls:
+                counts.get("flash_attention_bwd") != calls or \
+                not fused_update(counts, KV_STEP_STEPS * model):
             raise AssertionError(f"kv train step: launches {counts}, "
-                                 f"expected flash {2 * calls} and its "
-                                 f"backward {calls}")
+                                 f"expected flash {2 * calls}, its "
+                                 f"backward {calls} and the AdamW kernels "
+                                 f"{KV_STEP_STEPS * model} each")
         free_card()
     return counts, {"plain": plain, "errors": err, "threads_s": dt,
                     "peak_bytes": peak, "max_param_diff": max_param,
@@ -6325,6 +6648,7 @@ def main(argv=None) -> int:
     flash = phase("flash", lambda: flash_phase(device))
     flash_bwd = phase("flash bwd", lambda: flash_bwd_phase(
         device, built["flash_attention_bwd"]))
+    sums, update = phase("adamw", lambda: adamw_phase(device, args.seed))
     phase("parity", lambda: parity_phase(args.seed))
     phase("overlap parity", lambda: parity_phase(args.seed, overlap=True))
     phase("faults", lambda: faulted_parity_phase(args.seed))
@@ -6536,12 +6860,30 @@ def main(argv=None) -> int:
         "launches_by_path": bwd_by_path,
         **flash_bwd,
     }
-    for entry in (flash_entry, bwd_entry):
+    train_paths = {"train": train, "train_resume": resume,
+                   "mesh_train": mesh_train, **moe_train, **family_train,
+                   "kv_train_step": kv_step, "example": example}
+    optimizer = []
+    for name, entry in (("grad_sumsq", sums), ("adamw_apply", update)):
+        by_path = {k: c.get(name, 0) for k, c in train_paths.items()}
+        optimizer.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/adamw.cu", "replaces": None,
+            "note": "not a TPU kernel: the reference's jitted, donated "
+                    "train step (src/repro/launch/train.py:60-65), whose "
+                    "adamw_update (src/repro/training/optimizer.py) XLA "
+                    "fuses; one launch covers every leaf of the tree; ms "
+                    "at internlm2-1.8b's 1.89 B bf16 parameters (the update "
+                    "in place); no PyTorch call computes either function "
+                    "(torch.optim.AdamW updates bf16 weights in bf16)",
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            **entry})
+    for entry in (flash_entry, bwd_entry, *optimizer):
         dead = [k for k, n in entry["launches_by_path"].items() if n == 0]
         if dead:
             raise AssertionError(f"{entry['name']} never launched on {dead}")
     print(json.dumps({"kernels": [paged, flash_entry, copy_entry,
-                                  bwd_entry]}), flush=True)
+                                  bwd_entry, *optimizer]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

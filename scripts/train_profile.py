@@ -6,9 +6,11 @@
     python3 scripts/train_profile.py [--steps 3] [--out DIR]
 
 Builds the kernels, makes the train state from seed 0 and warms up two
-steps. Then, per step, the host clock (each part ended by a
-synchronize) splits the step into the loss's forward + backward
-(`value_and_grad`) and the AdamW update; and one more step runs under
+steps, each donated as the train CLI's. Then, per step, the host clock
+(each part ended by a synchronize) splits the step into the loss's
+forward + backward (`value_and_grad`) and the AdamW update (the global
+norm's sums and the update in place, the two hand-written kernels of
+`csrc/adamw.cu`); and one more step runs under
 torch.profiler: the device's busy share and its kernel time by group
 and by kernel (`chip_smoke.breakdown`; the profiler's table goes to
 DIR, default build/train_profile). The profiled step's wall time
@@ -19,8 +21,8 @@ includes the profiler's cost.
 The price of the meshed step (phase 14a): on a world-size-1 NCCL mesh
 (a `file://` store in a temporary directory), after two warm-up steps
 of each, `make_train_step` unmeshed (P) and `make_train_step(...,
-mesh=)` (M) each take a step from the same state (its result dropped,
-so the card holds one train state) in the order P M M P, `--rounds`
+mesh=)` (M), both donated, each take a step on the one train state
+(written in place) in the order P M M P, `--rounds`
 times, each timed by the host clock up to a synchronize; then one step
 of each under torch.profiler, broken down as above (the tables go to
 DIR/plain and DIR/mesh).
@@ -56,9 +58,9 @@ def main() -> int:
     from repro_torch import configs
     from repro_torch.kernels import build
     from repro_torch.models.model import Model
-    from repro_torch.training.optimizer import adamw_update
+    from repro_torch.training.optimizer import adamw_update, global_norm
     from repro_torch.training.train_step import (
-        TrainState, init_train_state, make_train_step, value_and_grad)
+        init_train_state, make_train_step, value_and_grad)
     torch.backends.cuda.matmul.allow_tf32 = False
     build.build_all()
     print(cs.card_line())
@@ -68,7 +70,7 @@ def main() -> int:
     model = Model(cfg)
     state = init_train_state(model, 0, "cuda")
     batches = cs.train_batches(cfg.vocab, 0, 3 + args.steps)
-    step_fn = make_train_step(model, lr=cs.TRAIN_LR)
+    step_fn = make_train_step(model, lr=cs.TRAIN_LR, donate=True)
     for tokens in batches[:2]:
         state, _ = step_fn(state, {"tokens": tokens})
     torch.cuda.synchronize()
@@ -79,13 +81,12 @@ def main() -> int:
         torch.cuda.synchronize()
         fwd_bwd.append(time.time() - t)
         t = time.time()
-        params, opt = adamw_update(grads, state.opt, state.params,
-                                   lr=cs.TRAIN_LR)
+        _, state.opt = adamw_update(grads, state.opt, state.params,
+                                    lr=cs.TRAIN_LR, gnorm=global_norm(grads),
+                                    donate=True)
         torch.cuda.synchronize()
         update.append(time.time() - t)
         del grads
-        state = TrainState(params=params, opt=opt)
-        del params, opt
     print(f"train step split over {args.steps} steps (median): forward + "
           f"backward {statistics.median(fwd_bwd) * 1e3:.1f} ms, AdamW "
           f"update {statistics.median(update) * 1e3:.1f} ms")
@@ -122,8 +123,10 @@ def mesh_ab(args) -> int:
         mesh = make_test_mesh(1, 1)
         state = init_train_state(model, 0, "cuda")
         tokens = cs.train_batches(cfg.vocab, 0, 1)[0]
-        steps = {"plain": make_train_step(model, lr=cs.TRAIN_LR),
-                 "mesh": make_train_step(model, lr=cs.TRAIN_LR, mesh=mesh)}
+        steps = {"plain": make_train_step(model, lr=cs.TRAIN_LR,
+                                          donate=True),
+                 "mesh": make_train_step(model, lr=cs.TRAIN_LR, mesh=mesh,
+                                         donate=True)}
 
         def one(name):
             t = time.time()

@@ -2,8 +2,9 @@
 device (PyTorch's shape-only device), which the one-card dry run
 (`launch.dryrun`) runs the model on.
 
-`ops.tier_attention`, `ops.flash_attention` (and its gradient) and
-`ops.copy_rows` route a meta tensor here: each call is ONE operator in
+`ops.tier_attention`, `ops.flash_attention` (and its gradient),
+`ops.copy_rows`, `ops.grad_sumsq` and `ops.adamw_apply` route a meta
+tensor here: each call is ONE operator in
 the `repro_torch` namespace at the shapes the kernel would be launched
 with, so `launch.op_cost` sees one op per launch and prices it by the
 kernel's own formula instead of counting the plain version's ops. Each
@@ -13,7 +14,7 @@ output shapes, no data) and no other: called on real tensors it raises.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Tuple
 
 import torch
 
@@ -91,4 +92,31 @@ def page_copy(index: Tensor, pairs: int, row_bytes: int) -> None:
 
 @page_copy.register_fake
 def _(index, pairs, row_bytes):
+    return None
+
+
+@torch.library.custom_op("repro_torch::grad_sumsq", mutates_args=())
+def grad_sumsq(grads: List[Tensor]) -> Tensor:
+    """Each gradient's sum of squares, f32 [len(grads)]."""
+    _meta_only("grad_sumsq")
+
+
+@grad_sumsq.register_fake
+def _(grads):
+    return grads[0].new_empty((len(grads),), dtype=torch.float32)
+
+
+@torch.library.custom_op("repro_torch::adamw_apply",
+                         mutates_args=("params_out", "m_out", "v_out"))
+def adamw_apply(grads: List[Tensor], params: List[Tensor], m: List[Tensor],
+                v: List[Tensor], params_out: List[Tensor],
+                m_out: List[Tensor], v_out: List[Tensor]) -> None:
+    """The AdamW step of every leaf into the `*_out` tensors (the inputs
+    themselves for a donated state). The scalars are left out: a meta
+    tensor holds no values."""
+    _meta_only("adamw_apply")
+
+
+@adamw_apply.register_fake
+def _(grads, params, m, v, params_out, m_out, v_out):
     return None

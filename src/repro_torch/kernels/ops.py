@@ -1,5 +1,5 @@
-"""Public attention ops over the hand-written kernels (the port of the
-reference's `kernels/ops.py`).
+"""Public ops over the hand-written kernels (the port of the reference's
+`kernels/ops.py`, plus the optimizer's).
 
 Each op picks by device: a CUDA tensor launches the hand-written kernel
 — there is no fallback — a CPU tensor takes the plain version in
@@ -29,6 +29,12 @@ Each op picks by device: a CUDA tensor launches the hand-written kernel
                           two tiers), on the card or in pinned host
                           memory (`page_copy.page_copy`): every pool
                           write and gather of the port.
+  grad_sumsq              each gradient leaf's f32 sum of squares, one
+                          launch for the whole tree
+                          (`adamw.grad_sumsq`).
+  adamw_apply             the AdamW step of every leaf, one launch for
+                          the whole tree, in place for a donated state
+                          (`adamw.adamw_apply`).
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.kernels import adamw as _adamw
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import meta, ref
 from repro_torch.kernels.page_copy import Split, index_device, page_copy
@@ -186,3 +193,37 @@ def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
     if q.device.type == "meta":
         return meta.flash_attention(q, k, v, causal)
     raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+
+
+def grad_sumsq(grads) -> torch.Tensor:
+    """Each gradient's f32 sum of squares, [len(grads)] f32 on their
+    device: on the card one launch of the kernel for every leaf."""
+    dev = grads[0].device
+    if dev.type == "cuda":
+        return _adamw.grad_sumsq(grads)
+    if dev.type == "cpu":
+        return ref.grad_sumsq_ref(grads)
+    if dev.type == "meta":
+        return meta.grad_sumsq(list(grads))
+    raise ValueError(f"grad_sumsq runs on cuda or cpu, not {dev}")
+
+
+def adamw_apply(grads, params, m, v, params_out, m_out, v_out, **scalars
+                ) -> None:
+    """The AdamW step of every leaf (lists in tree order) into
+    `params_out`, `m_out`, `v_out` — the inputs themselves for a donated
+    state — given `scale`, `lr`, `bc1`, `bc2`, `b1`, `b2`, `eps`,
+    `weight_decay` (`ref.adamw_apply_ref`): on the card one launch of
+    the kernel for every leaf, bitwise the plain version's."""
+    dev = params[0].device
+    if dev.type == "cuda":
+        _adamw.adamw_apply(grads, params, m, v, params_out, m_out, v_out,
+                           **scalars)
+    elif dev.type == "cpu":
+        ref.adamw_apply_ref(grads, params, m, v, params_out, m_out, v_out,
+                            **scalars)
+    elif dev.type == "meta":
+        meta.adamw_apply(*(list(x) for x in (grads, params, m, v,
+                                             params_out, m_out, v_out)))
+    else:
+        raise ValueError(f"adamw_apply runs on cuda or cpu, not {dev}")

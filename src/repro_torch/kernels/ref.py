@@ -25,6 +25,8 @@ validity masking.
 
 `flash_attention_ref` defines the whole-sequence (prefill) attention
 of the flash kernel, `flash_attention_bwd_ref` its gradient.
+`grad_sumsq_ref` and `adamw_apply_ref` are the AdamW kernels' plain
+versions: the reference's `adamw_update` arithmetic, op for op.
 """
 
 from __future__ import annotations
@@ -257,3 +259,30 @@ def _ref_pools(side, index, ar):
     high[side.dim] = cols[side.dim] - side.split
     return [(side.a, cols, low & in_range(side.a, cols)),
             (side.b, high, ~low & in_range(side.b, high))]
+
+
+def grad_sumsq_ref(grads) -> torch.Tensor:
+    """Plain version of `adamw.grad_sumsq`: each leaf's f32 sum of
+    squares, stacked [n leaves]."""
+    return torch.stack([g.float().square().sum() for g in grads])
+
+
+def adamw_apply_ref(grads, params, m, v, params_out, m_out, v_out, *,
+                    scale, lr, bc1, bc2, b1, b2, eps, weight_decay) -> None:
+    """Plain version of `adamw.adamw_apply`: for every leaf the AdamW
+    step of the reference's `adamw_update` (the clip's `scale`, the
+    bias corrections `bc1`, `bc2` and `lr` given), in f32, the new
+    parameters cast back to their type, written into `params_out`,
+    `m_out`, `v_out` (which may be the inputs: each leaf's values are
+    computed before any is written)."""
+    for g, p, m_, v_, p_out, m_out_, v_out_ in zip(
+            grads, params, m, v, params_out, m_out, v_out):
+        g = g.float() * scale
+        m_new = b1 * m_ + (1 - b1) * g
+        v_new = b2 * v_ + (1 - b2) * g * g
+        u = (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps)
+        u = u + weight_decay * p.float()
+        p_new = (p.float() - lr * u).to(p.dtype)
+        m_out_.copy_(m_new)
+        v_out_.copy_(v_new)
+        p_out.copy_(p_new)

@@ -22,9 +22,12 @@ reports) is recorded as `skip` with its byte counts.
 (parameters, optimizer state or the cache's HBM tier and tables,
 inputs), in pinned host memory (the cache's host tier, where the
 overlap placement keeps it) and the step's activations (`OpCost.peak`:
-the most bytes of its results alive at once, new state included). The
-CUDA context and the allocator's rounding are not counted, so a cell
-within a few GB of the limit may still not fit.
+the most bytes of its results alive at once). The train step donates
+its state, as the train CLI's does, so the AdamW update
+(`repro_torch::adamw_apply`, one operator) writes into the arguments
+and adds nothing to the activations. The CUDA context and the
+allocator's rounding are not counted, so a cell within a few GB of the
+limit may still not fit.
 
 `multi` (the reference's twin-pod mesh, (`pod`, `data`, `model`) =
 (2, 16, 16), 512 cards: `launch.mesh.make_production_mesh`): one card's
@@ -196,7 +199,8 @@ def _count_step(model, kind, state, params, specs, batch, seq) -> OpCost:
     with OpCost() as cost:
         if kind == "train":
             step = make_train_step(
-                model, extra_keys=tuple(k for k in specs if k != "tokens"))
+                model, extra_keys=tuple(k for k in specs if k != "tokens"),
+                donate=True)
             step(state, specs)
         elif kind == "prefill":
             extra = {k: v for k, v in specs.items() if k != "tokens"} or None
@@ -352,7 +356,8 @@ def rank_step(cfg, kind: str, seq: int, batch: int, mesh):
         inputs = input_specs(cfg, seq, batch // sizes.get("pod", 1), kind)
         step = make_train_step(
             Model(cfg), mesh=tmesh, comm=rank.collectives(),
-            extra_keys=tuple(k for k in inputs if k != "tokens"))
+            extra_keys=tuple(k for k in inputs if k != "tokens"),
+            donate=True)
         with OpCost() as cost:
             step(state, inputs)
         if "pod" in sizes:

@@ -33,7 +33,12 @@ meta device costs no memory and no arithmetic.
                             FLOPs per visible (query, key) pair per head
            its backward     q, k, v, out, dout and the f32 LSE read, dq,
                             dk, dv written; 2.5x the forward's FLOPs
-           row copy         every row read once and written once.
+           row copy         every row read once and written once
+           grad sums        every gradient read once, the f32 sums
+                            written; 2 FLOPs (square, add) an element
+           AdamW update     g, p, m, v read once and p, m, v written
+                            once (22 bytes a bf16 parameter); the plain
+                            version's 17 f32 operations an element.
 
 The reference weighs a `lax.scan` body by its trip count; the port's
 layer loop is Python, so every op already counts once per layer.
@@ -125,12 +130,30 @@ def _page_copy(args, out):
     return 0, 2 * pairs * index.shape[0] * row_bytes
 
 
+def _grad_sumsq(args, out):
+    (grads,) = args
+    return 2 * sum(g.numel() for g in grads), _bytes(grads) + _bytes(out)
+
+
+#: f32 operations of one element's AdamW step (the clip's scale, m's 3,
+#: v's 4, the bias-corrected ratio's 5, the decay's 2, the step's 2)
+ADAMW_FLOPS = 17
+
+
+def _adamw_apply(args, out):
+    grads, params, m, v, params_out, m_out, v_out = args
+    return ADAMW_FLOPS * sum(p.numel() for p in params), \
+        _bytes((grads, params, m, v)) + _bytes((params_out, m_out, v_out))
+
+
 #: the hand-written kernels' operators (`kernels.meta`) and their prices
 KERNELS = {
     "repro_torch::paged_attention": _paged,
     "repro_torch::flash_attention": _flash,
     "repro_torch::flash_attention_bwd": _flash_bwd,
     "repro_torch::page_copy": _page_copy,
+    "repro_torch::grad_sumsq": _grad_sumsq,
+    "repro_torch::adamw_apply": _adamw_apply,
 }
 
 

@@ -22,9 +22,14 @@ a temporary directory:
 Each rank draws only its shards of the parameters and of AdamW's m and
 v, and takes its rows of each batch; rank 0 prints the step lines and,
 at the end, every rank's weight, optimizer-state and peak memory bytes.
-A checkpoint holds whole leaves whatever mesh wrote it, and
-auto-resume restores it onto the mesh the job has (or onto none). The
-exit status is the worst rank's. The CLI feeds tokens alone, as the
+Every step donates its state, as the reference's jitted step does
+(`make_train_step(..., donate=True)`): the new parameters, m and v are
+written into the state's own tensors, so training holds 12 bytes a
+bf16 parameter beside its activations. An async checkpoint still holds
+its own step's state: `CheckpointManager.save` copies it to host memory
+before it returns. A checkpoint holds whole leaves whatever mesh wrote
+it, and auto-resume restores it onto the mesh the job has (or onto
+none). The exit status is the worst rank's. The CLI feeds tokens alone, as the
 reference's: the vlm and encdec families, which need patch or frame
 embeddings beside them, train through `make_train_step(...,
 extra_keys=, mesh=)` (`scripts/mesh_family_step.py`).
@@ -100,7 +105,9 @@ def train(cfg, args, device, mesh=None) -> None:
     """`args.steps` steps from step 0 or the latest committed checkpoint
     of `args.ckpt_dir`, on `device`, across `mesh` when given."""
     model = Model(cfg)
-    step_fn = make_train_step(model, lr=args.lr, mesh=mesh)
+    # the step writes its new state into the state it is given, as the
+    # reference's jitted step donates it
+    step_fn = make_train_step(model, lr=args.lr, mesh=mesh, donate=True)
     corpus = SyntheticCorpus(DataConfig(
         vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch))
     lead = mesh is None or dist.get_rank() == 0
@@ -138,8 +145,9 @@ def train(cfg, args, device, mesh=None) -> None:
 
 def report_ranks(cfg, state, mesh, device) -> None:
     """Rank 0 prints each rank's bytes of weights and of AdamW's m and v
-    (its shards alone) and its peak device memory, beside the whole
-    model's weight bytes."""
+    (its shards alone, the tensors the donated steps updated in place)
+    and its peak device memory, beside the whole model's weight
+    bytes."""
     peak = torch.cuda.max_memory_allocated(device) \
         if device.type == "cuda" else 0
     mine = (mesh_coordinate(mesh),

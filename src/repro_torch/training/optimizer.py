@@ -5,9 +5,19 @@ The parameters stay in their own dtype (bf16 at full width), with no
 f32 master copy, as in the reference; m and v are f32, the global-norm
 clip and the update are taken in f32 and the result cast back per leaf
 (`(p.float() - lr * u).to(p.dtype)`). That is why this is not
-`torch.optim.AdamW`, which would update bf16 parameters in bf16. Every
-function is pure: it returns new tensors and leaves its arguments as
-they were.
+`torch.optim.AdamW`, which would update bf16 parameters in bf16.
+
+The arithmetic runs through `kernels.ops`: on the card the hand-written
+kernels (`csrc/adamw.cu`), one launch for the whole tree of each of the
+norm's sums (`grad_sumsq`) and the update (`adamw_apply`), the update
+bitwise the plain version's for the same scalars; on the CPU the plain
+versions (`kernels/ref.py`), the reference's arithmetic op for op.
+`adamw_update` is pure by default: it returns new tensors and leaves
+its arguments as they were. With `donate=True` — the counterpart of the
+reference CLI's `jax.jit(..., donate_argnums=(0,))` — it writes the new
+parameters, m and v into the given tensors and returns those, so the
+update holds p, g, m and v alone (12 bytes a parameter with bf16
+weights) where the pure one also holds their new copies.
 
 Across a mesh (`make_train_step(..., mesh=)`) the trees are a rank's
 shards, m and v held as the parameters are (ZeRO-style, as the
@@ -24,7 +34,8 @@ from typing import Any, Callable, Optional, Tuple
 
 import torch
 
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.kernels import ops
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
 @dataclasses.dataclass
@@ -58,25 +69,30 @@ def cosine_schedule(step, *, peak_lr=3e-4, warmup=100, total=10_000,
 
 
 def global_norm(grads, across: Optional[Callable] = None) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's f32 sum of squares, in
-    leaf order. `across` (a meshed step's): maps the vector of the
-    rank's per-leaf sums over its blocks to each leaf's sum over the
-    whole model, so every element counts once and every rank gets the
-    same norm."""
-    sums = [g.float().square().sum() for g in tree_leaves(grads)]
+    """sqrt of the sum over leaves of each leaf's f32 sum of squares
+    (`ops.grad_sumsq`), in leaf order. `across` (a meshed step's): maps
+    the vector of the rank's per-leaf sums over its blocks to each
+    leaf's sum over the whole model, so every element counts once and
+    every rank gets the same norm."""
+    sums = ops.grad_sumsq(tree_leaves(grads))
     if across is not None:
-        sums = across(torch.stack(sums)).unbind()
-    return torch.sqrt(sum(sums))
+        sums = across(sums)
+    return torch.sqrt(sum(sums.unbind()))
 
 
 def adamw_update(grads, state: AdamWState, params, *, lr=None,
                  b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
-                 grad_clip=1.0, across: Optional[Callable] = None
+                 grad_clip=1.0, across: Optional[Callable] = None,
+                 gnorm: Optional[torch.Tensor] = None, donate: bool = False
                  ) -> Tuple[Any, AdamWState]:
     """One AdamW step: (new params, new state). `lr` a float, a tensor
     or a function of the new step (e.g. a `cosine_schedule` with its
     own warm-up); None takes `cosine_schedule` of the new step.
-    `across`: `global_norm`'s, for a rank's shards."""
+    `across`: `global_norm`'s, for a rank's shards. `gnorm`: the
+    gradients' global norm where the caller has it already (it is then
+    not read again). `donate`: write the new parameters, m and v into
+    `params`, `state.m` and `state.v` and return those tensors (the
+    step count is a new tensor either way)."""
     step = state.step + 1
     if lr is None:
         lr = cosine_schedule(step)
@@ -84,20 +100,20 @@ def adamw_update(grads, state: AdamWState, params, *, lr=None,
         lr = lr(step)
 
     # global-norm clip
-    gnorm = global_norm(grads, across)
+    if gnorm is None:
+        gnorm = global_norm(grads, across)
     scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
-    grads = tree_map(lambda g: g.float() * scale, grads)
-
-    m = tree_map(lambda m_, g: b1 * m_ + (1 - b1) * g, state.m, grads)
-    v = tree_map(lambda v_, g: b2 * v_ + (1 - b2) * g * g, state.v, grads)
     stepf = step.float()
     bc1 = 1 - torch.pow(b1, stepf)
     bc2 = 1 - torch.pow(b2, stepf)
 
-    def upd(p, m_, v_):
-        u = (m_ / bc1) / (torch.sqrt(v_ / bc2) + eps)
-        u = u + weight_decay * p.float()
-        return (p.float() - lr * u).to(p.dtype)
-
-    new_params = tree_map(upd, params, m, v)
+    ins = [tree_leaves(t) for t in (params, state.m, state.v)]
+    outs = ins if donate else [
+        [torch.empty_like(t, memory_format=torch.contiguous_format)
+         for t in leaves] for leaves in ins]
+    ops.adamw_apply(tree_leaves(grads), *ins, *outs, scale=scale, lr=lr,
+                    bc1=bc1, bc2=bc2, b1=b1, b2=b2, eps=eps,
+                    weight_decay=weight_decay)
+    new_params, m, v = (tree_unflatten(tree, leaves) for tree, leaves in
+                        zip((params, state.m, state.v), outs))
     return new_params, AdamWState(step=step, m=m, v=v)

@@ -242,7 +242,8 @@ class TrainMesh:
 
 def make_train_step(model: Model, *, accum_steps: int = 1,
                     extra_keys: tuple = (), lr=None, mesh=None,
-                    comm=None, logit_chunk: int = 512) -> Callable:
+                    comm=None, logit_chunk: int = 512,
+                    donate: bool = False) -> Callable:
     """Returns train_step(state, batch) -> (state, metrics).
 
     batch: {"tokens": [B, S]} (+ modality extras, named by
@@ -250,7 +251,15 @@ def make_train_step(model: Model, *, accum_steps: int = 1,
     accum_steps > 1 the batch's leading dim is split into micro-batches
     and gradients are accumulated in f32 before one optimizer update.
     metrics: {"loss", "grad_norm", "step"}, tensors on the device (no
-    host sync inside the step). `logit_chunk`: `loss_fn`'s.
+    host sync inside the step). `logit_chunk`: `loss_fn`'s. The
+    gradients' global norm is taken once (`global_norm`) and serves the
+    clip and the metric.
+
+    `donate` (the reference CLI's `donate_argnums=(0,)`): the step
+    writes the new parameters, m and v into the given state's tensors
+    (`adamw_update(..., donate=True)`), and the state it returns holds
+    those tensors; the caller must not use the given state as the old
+    one afterwards.
 
     With `mesh` (a (`data`, `model`) `DeviceMesh` of any sizes; every
     family): every rank calls the step with its own state (`init_train_state(..., mesh=)`,
@@ -300,11 +309,11 @@ def make_train_step(model: Model, *, accum_steps: int = 1,
             grads = rank.reduce_grads(grads)
             loss = rank.comm.sum(loss.clone(), "data")
 
+        gnorm = global_norm(grads, across)
         params, opt = adamw_update(grads, state.opt, state.params, lr=lr,
-                                   across=across)
+                                   across=across, gnorm=gnorm, donate=donate)
         return TrainState(params=params, opt=opt), {
-            "loss": loss, "grad_norm": global_norm(grads, across),
-            "step": opt.step}
+            "loss": loss, "grad_norm": gnorm, "step": opt.step}
 
     return train_step
 

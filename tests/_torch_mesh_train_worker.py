@@ -15,6 +15,9 @@ checkpoint):
              straight, and the same fourth step after a restore on the
              same mesh (on the mesh that saved: bitwise)
   accum      three steps with accum_steps=2
+  donated    three steps of `make_train_step(..., mesh=, donate=True)`
+             from the same start: whether each step returned the
+             rank's own tensors, and the state after them
   replicated three steps of 3 rows, which no data axis here divides
   restored   the fourth step after restoring the checkpoint the
              `steps` case saved on `SAVED_ON`
@@ -78,6 +81,12 @@ def run_steps(state, step, batches):
     return state, metrics
 
 
+def shards(state):
+    """The rank's own parameters, m and v (numpy, in tree order)."""
+    return {k: numpy_tree(t) for k, t in (
+        ("params", state.params), ("m", state.opt.m), ("v", state.opt.v))}
+
+
 def whole(state, cfg, mesh):
     """The whole parameters, m and v (numpy, in tree order) of a
     rank's shards: every rank gathers, rank 0 keeps them."""
@@ -107,7 +116,8 @@ def case_steps(data, cfg, mesh, ckpt):
     state, metrics = run_steps(start_state(data, cfg, mesh), step,
                                data["batches"][:CKPT_STEP])
     out = {"metrics": metrics, "whole": whole(state, cfg, mesh),
-           "held": held(state)}
+           "held": held(state),
+           "shards": shards(state)}
     specs = bridge.train_state_specs(cfg, mesh)
     mgr = CheckpointManager(ckpt, mesh=mesh)
     mgr.save(CKPT_STEP, state, blocking=True, specs=specs)
@@ -128,6 +138,18 @@ def case_accum(data, cfg, mesh, ckpt):
     state, metrics = run_steps(start_state(data, cfg, mesh), step,
                                data["batches"][:CKPT_STEP])
     return {"metrics": metrics, "whole": whole(state, cfg, mesh)}
+
+
+def case_donated(data, cfg, mesh, ckpt):
+    step = make_train_step(Model(cfg), lr=LR, mesh=mesh, donate=True)
+    state = start_state(data, cfg, mesh)
+    given = [t.data_ptr() for t in tree_leaves(
+        (state.params, state.opt.m, state.opt.v))]
+    state, metrics = run_steps(state, step, data["batches"][:CKPT_STEP])
+    held_given = given == [t.data_ptr() for t in tree_leaves(
+        (state.params, state.opt.m, state.opt.v))]
+    return {"metrics": metrics, "in_place": held_given,
+            "shards": shards(state)}
 
 
 def case_replicated(data, cfg, mesh, ckpt):
@@ -187,7 +209,7 @@ def case_collectives(data, cfg, mesh, ckpt):
 
 
 #: name -> the function running it on a rank
-CASES = {"steps": case_steps, "accum": case_accum,
+CASES = {"steps": case_steps, "accum": case_accum, "donated": case_donated,
          "replicated": case_replicated, "restored": case_restored,
          "qk_norm": case_qk_norm, "collectives": case_collectives}
 

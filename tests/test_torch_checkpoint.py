@@ -13,7 +13,8 @@
 - Round-trip (into real and meta-device targets), a corrupt chunk
   raises, an uncommitted step is invisible and collected, keep-N,
   `restore_or_init`, an async save's error raises at `wait()`, and the
-  snapshot is taken at `save()`.
+  snapshot is taken at `save()` — also where a donated train step
+  writes the saved state's tensors in place right after it.
 """
 
 import json
@@ -35,7 +36,9 @@ from repro_torch import bridge  # noqa: E402
 from repro_torch.checkpoint import ckpt  # noqa: E402
 from repro_torch.checkpoint.manager import CheckpointManager  # noqa: E402
 from repro_torch.training.optimizer import adamw_init  # noqa: E402
-from repro_torch.training.train_step import TrainState  # noqa: E402
+from repro_torch.training.train_step import (  # noqa: E402
+    TrainState, init_train_state, make_train_step,
+)
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 from _torch_threads import one_torch_thread  # noqa: E402,F401
 
@@ -246,3 +249,35 @@ def test_save_snapshots_before_returning(tmp_path):
     mgr.wait()
     got = mgr.restore({"w": torch.zeros(1000)}, device="cpu")
     assert torch.equal(got["w"], torch.ones(1000))
+
+
+def test_async_save_then_a_donated_step_restores_the_saved_step(tmp_path):
+    """An async save of a TrainState, then a donated step that writes
+    the new state into the saved tensors before the write finishes:
+    the checkpoint restores the saved step's state bitwise, and a step
+    from it equals the donated step."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models.model import Model
+    cfg = dataclasses.replace(configs.get_smoke("internlm2-1.8b"),
+                              dtype=torch.float32, param_dtype=torch.float32)
+    model = Model(cfg)
+    step = make_train_step(model, lr=1e-3, donate=True)
+    rng = np.random.default_rng(6)
+    batches = [{"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (2, 17)).astype(np.int32))} for _ in range(2)]
+    state, _ = step(init_train_state(model, 0, "cpu"), batches[0])
+    saved = tree_map(torch.clone, state)
+    mgr = CheckpointManager(str(tmp_path / "r"))
+    mgr.save(1, state, blocking=False)
+    after, _ = step(state, batches[1])            # writes into `state`
+    assert not torch.equal(tree_leaves(after.params)[0],
+                           tree_leaves(saved.params)[0])
+    mgr.wait()
+    got = mgr.restore(tree_map(lambda x: x.to("meta"), saved), step=1,
+                      device="cpu")
+    for a, b in zip(tree_leaves(got), tree_leaves(saved), strict=True):
+        assert torch.equal(a, b)
+    again, _ = step(got, batches[1])
+    for a, b in zip(tree_leaves(again), tree_leaves(after), strict=True):
+        assert torch.equal(a, b)

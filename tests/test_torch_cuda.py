@@ -1,7 +1,7 @@
 """The hand-written CUDA kernels (paged decode attention, prefill
-flash attention and its backward, row copies between pools) against
-their plain versions, on the card, and training steps on the card
-against the CPU's.
+flash attention and its backward, row copies between pools, AdamW's
+sums and update) against their plain versions, on the card, and
+training steps on the card against the CPU's.
 
 Marked `cuda`: every test here needs an NVIDIA Hopper card and `nvcc`,
 and skips without them. On the card:
@@ -17,7 +17,10 @@ copies are exact. The overlap-mode serve on the card must give the
 CPU's tokens, statuses and step bytes exactly. The flash backward's
 dq, dk, dv agree within 1e-2 (bf16) / 1e-4 (f32) of each gradient's
 largest entry and are bitwise reproducible; train steps hold to
-`chip_smoke.TRAIN_TOL`.
+`chip_smoke.TRAIN_TOL`. AdamW's update is bitwise the plain version's,
+pure and in place, and its sums within 1e-6 relative (f32 squares
+added in f64 against the plain f32 sum), bitwise reproducible; donated
+train steps equal pure ones bitwise.
 """
 
 import dataclasses
@@ -1016,3 +1019,146 @@ def test_train_steps_on_the_card_match_the_cpu(device, name):
     errs, launches, _ = chip_smoke.train_card_vs_cpu(name, 5)
     assert all(errs[k] <= chip_smoke.TRAIN_TOL[k] for k in errs), errs
     assert launches > 0
+
+
+def adamw_leaves(device, shapes, p_dtype, g_dtype, seed, offset=0):
+    """(grads, params, m, v) on the card; `offset` elements into a
+    larger buffer, so no leaf starts 16-byte aligned where it is odd."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def draw(shape, std, dtype, square=False):
+        n = int(np.prod(shape))
+        x = torch.randn(n + offset, generator=gen, device=device)
+        x = (x.square() if square else x).mul(std).to(dtype)
+        return x[offset:].view(shape)
+    return ([draw(s, 1e-2, g_dtype) for s in shapes],
+            [draw(s, 1.0, p_dtype) for s in shapes],
+            [draw(s, 1e-2, torch.float32) for s in shapes],
+            [draw(s, 1e-4, torch.float32, square=True) for s in shapes])
+
+
+#: leaf shapes: ragged tails, an empty leaf, one element, a large one
+ADAMW_SHAPES = [(7,), (0,), (1,), (3, 5, 9), (2048, 129), (4, 8)]
+ADAMW_CASES = [(torch.bfloat16, torch.bfloat16, 0), (torch.float32,
+               torch.float32, 0), (torch.bfloat16, torch.float32, 0),
+               (torch.bfloat16, torch.bfloat16, 1), (torch.float32,
+               torch.float32, 3)]
+
+
+def adamw_scalars(device, step, clip, norm, lr):
+    stepf = torch.tensor(step, device=device).float()
+    return dict(scale=torch.clamp(clip / torch.clamp(norm, min=1e-12),
+                                  max=1.0),
+                lr=lr, bc1=1 - torch.pow(0.9, stepf),
+                bc2=1 - torch.pow(0.95, stepf), b1=0.9, b2=0.95, eps=1e-8,
+                weight_decay=0.1)
+
+
+@pytest.mark.parametrize("p_dtype,g_dtype,offset", ADAMW_CASES,
+                         ids=["bf16", "f32", "bf16-f32grad",
+                              "bf16-unaligned", "f32-unaligned"])
+def test_adamw_kernels_match_plain_versions(device, p_dtype, g_dtype,
+                                            offset):
+    """The sums within 1e-6 relative of the plain sums and bitwise the
+    same twice; the update pure and in place bitwise the plain
+    version's, lr a card scalar and a float, the clip active and idle;
+    one launch of each for the whole tree."""
+    from repro_torch.kernels import adamw
+    g, p, m, v = adamw_leaves(device, ADAMW_SHAPES, p_dtype, g_dtype, 7,
+                              offset)
+    before = dict(build.COUNTS)
+    sums = adamw.grad_sumsq(g)
+    assert torch.equal(sums, adamw.grad_sumsq(g))
+    want = ref.grad_sumsq_ref(g)
+    assert torch.allclose(sums, want, rtol=1e-6, atol=0)
+    norm = torch.sqrt(sums.sum())
+    for clip, lr in ((0.5 * float(norm), torch.tensor(3e-3, device=device)),
+                     (2.0 * float(norm), 1e-3)):
+        scalars = adamw_scalars(device, 4, clip, norm, lr)
+        outs = [[torch.empty_like(t) for t in ts] for ts in (p, m, v)]
+        adamw.adamw_apply(g, p, m, v, *outs, **scalars)
+        plain = [[torch.empty_like(t) for t in ts] for ts in (p, m, v)]
+        ref.adamw_apply_ref(g, p, m, v, *plain, **scalars)
+        copies = [[t.clone() for t in ts] for ts in (p, m, v)]
+        adamw.adamw_apply(g, *copies, *copies, **scalars)
+        for got, again, want in zip(outs, copies, plain):
+            for a, b, c in zip(got, again, want):
+                assert torch.equal(a, c) and torch.equal(b, c)
+    assert build.COUNTS["grad_sumsq"] == before.get("grad_sumsq", 0) + 2
+    assert build.COUNTS["adamw_apply"] == before.get("adamw_apply", 0) + 4
+
+
+def test_adamw_kernels_take_trees_longer_than_a_launch(device):
+    """A tree of more leaves than one launch carries goes in groups of
+    `MAX_LEAVES`, each a launch, and still equals the plain versions."""
+    from repro_torch.kernels import adamw
+    shapes = [(i % 5 + 1, 33) for i in range(adamw.MAX_LEAVES + 5)]
+    g, p, m, v = adamw_leaves(device, shapes, torch.bfloat16,
+                              torch.bfloat16, 8)
+    before = dict(build.COUNTS)
+    sums = adamw.grad_sumsq(g)
+    assert torch.allclose(sums, ref.grad_sumsq_ref(g), rtol=1e-6, atol=0)
+    scalars = adamw_scalars(device, 1, 1.0, torch.sqrt(sums.sum()), 1e-3)
+    outs = [[torch.empty_like(t) for t in ts] for ts in (p, m, v)]
+    adamw.adamw_apply(g, p, m, v, *outs, **scalars)
+    ref.adamw_apply_ref(g, p, m, v, p, m, v, **scalars)
+    for got, want in zip(outs, (p, m, v)):
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert build.COUNTS["grad_sumsq"] == before.get("grad_sumsq", 0) + 2
+    assert build.COUNTS["adamw_apply"] == before.get("adamw_apply", 0) + 2
+
+
+def test_adamw_wrappers_refuse_what_the_kernels_do_not_take(device):
+    from repro_torch.kernels import adamw
+    g, p, m, v = adamw_leaves(device, [(4, 8)], torch.bfloat16,
+                              torch.bfloat16, 9)
+    one = torch.ones((), device=device)
+    kw = dict(scale=one, lr=1e-3, bc1=one, bc2=one, b1=0.9, b2=0.95,
+              eps=1e-8, weight_decay=0.1)
+    with pytest.raises(ValueError, match="float32"):    # m in bf16
+        adamw.adamw_apply(g, p, [t.bfloat16() for t in m], v, p, m, v, **kw)
+    strided = p[0].t().contiguous().t()                 # (4, 8), not dense
+    with pytest.raises(ValueError, match="contiguous"):
+        adamw.adamw_apply(g, [strided], m, v, [strided], m, v, **kw)
+    whole = torch.zeros(33, dtype=torch.bfloat16, device=device)
+    with pytest.raises(ValueError, match="overlaps"):   # one element off
+        adamw.adamw_apply(g, [whole[:32].view(4, 8)], m, v,
+                          [whole[1:].view(4, 8)], m, v, **kw)
+    with pytest.raises(ValueError, match="scalar"):
+        adamw.adamw_apply(g, p, m, v, p, m, v,
+                          **dict(kw, scale=one.double()))
+
+
+@pytest.mark.parametrize("accum", [1, 2])
+def test_donated_train_steps_on_the_card_equal_pure_ones(device, accum):
+    """Three train steps of the bf16 smoke config on the card, donated
+    and pure from one init: bitwise equal, the donated state the given
+    tensors, each AdamW kernel launched once a step."""
+    from repro_torch import configs
+    from repro_torch.models.model import Model
+    from repro_torch.training.train_step import (
+        init_train_state, make_train_step)
+    from repro_torch.tree import tree_leaves
+    model = Model(configs.get_smoke("internlm2-1.8b"))
+    rng = np.random.default_rng(10)
+    batches = [torch.as_tensor(rng.integers(0, model.cfg.vocab, (4, 33)),
+                               dtype=torch.int32, device=device)
+               for _ in range(3)]
+    runs = {}
+    for donate in (False, True):
+        state = init_train_state(model, 0, device)
+        given = [t.data_ptr() for t in tree_leaves(
+            (state.params, state.opt.m, state.opt.v))]
+        before = dict(build.COUNTS)
+        step = make_train_step(model, lr=1e-3, accum_steps=accum,
+                               donate=donate)
+        for toks in batches:
+            state, _ = step(state, {"tokens": toks})
+        for name in ("grad_sumsq", "adamw_apply"):
+            assert build.COUNTS[name] == before.get(name, 0) + 3
+        held = [t.data_ptr() for t in tree_leaves(
+            (state.params, state.opt.m, state.opt.v))]
+        assert (held == given) == donate
+        runs[donate] = state
+    for a, b in zip(tree_leaves(runs[True]), tree_leaves(runs[False])):
+        assert torch.equal(a, b)

@@ -15,6 +15,7 @@ through the reference and the port unmeshed.
 Tolerances are `tests/test_torch_train.py`'s: loss and grad norm 1e-5
 relative, parameters 1e-4 (a tenth of lr = 1e-3), m and v 1e-6, on the
 whole leaves gathered by `bridge.unshard`. Beside them: accum_steps=2,
+the donated step on (2, 2) (bitwise the pure one's, in place),
 rows no data axis divides, each rank's stored bytes, a checkpoint saved
 on (2, 2) restored on (2, 2) (bitwise), (4, 1), (1, 2) and without a
 mesh, the differentiable collectives, per-head norm weights (qwen3's
@@ -62,7 +63,7 @@ from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: (data, model) -> the cases its ranks run, in order
-SHAPES = {(2, 2): ("steps", "accum", "qk_norm", "collectives"),
+SHAPES = {(2, 2): ("steps", "accum", "donated", "qk_norm", "collectives"),
           (4, 1): ("steps", "replicated", "restored"),
           (1, 2): ("steps", "restored")}
 #: the ranks spawned; a smaller mesh takes the first of them
@@ -221,6 +222,20 @@ def test_accumulation_on_a_2x2_mesh(runs):
     for res in runs[(2, 2)]:
         assert_metrics(res["accum"]["metrics"], ref_metrics)
     assert_state(runs[(2, 2)][0]["accum"]["whole"], ref_states[-1])
+
+
+def test_donated_steps_on_a_2x2_mesh(runs):
+    """Three donated meshed steps (`donate=True`, as the train CLI runs
+    them): each rank's state is its own tensors written in place, and
+    its shards, losses and grad norms are bitwise the pure steps'."""
+    for res in runs[(2, 2)]:
+        got, want = res["donated"], res["steps"]
+        assert got["in_place"]
+        assert got["metrics"] == want["metrics"]
+        for key in ("params", "m", "v"):
+            for a, b in zip(got["shards"][key], want["shards"][key],
+                            strict=True):
+                np.testing.assert_array_equal(a, b)
 
 
 def test_rows_the_data_axis_does_not_divide(runs):

@@ -10,13 +10,15 @@ float32 smoke configs with the same weights (bridge):
 - `forward_hidden` against the reference's for every family (2e-5, as
   `Model.forward` in test_torch_forward.py);
 - three `make_train_step` steps on internlm2's smoke config, both from
-  the reference's `init_train_state`: losses and grad norms within
+  the reference's `init_train_state`, the port's step pure and donated
+  (`donate=True`: in place): losses and grad norms within
   1e-5 relative, params within 1e-4 (a tenth of lr = 1e-3: AdamW's
   m / sqrt(v) turns f32 noise in near-zero gradients into differences
   of up to a few percent of one step), m and v within 1e-6; and
   `accum_steps=2` against the full batch;
-- `adamw_update` (with the clip active), `cosine_schedule` and the
-  global norm against the reference's on random trees;
+- `adamw_update` (with the clip active and idle, pure and donated),
+  `cosine_schedule` and the global norm against the reference's on
+  random trees;
 - `remat` on and off give equal losses and gradients.
 """
 
@@ -38,7 +40,7 @@ from repro_torch.training.train_step import (  # noqa: E402
     TrainState, loss_fn, make_train_step, value_and_grad,
 )
 from repro_torch.tree import (  # noqa: E402
-    leaves_with_path, tree_leaves, tree_unflatten,
+    leaves_with_path, tree_leaves, tree_map, tree_unflatten,
 )
 
 from _torch_serve_ref import smoke_pair  # noqa: E402
@@ -145,11 +147,14 @@ def max_err(jtree, ttree):
                for a, b in zip(jax.tree.leaves(jtree), tree_leaves(ttree)))
 
 
-@pytest.mark.parametrize("accum", [1, 2])
-def test_three_train_steps_match_reference(accum):
+@pytest.mark.parametrize("accum,donate", [
+    pytest.param(1, False, id="1"), pytest.param(2, False, id="2"),
+    pytest.param(1, True, id="1-donated"),
+    pytest.param(2, True, id="2-donated")])
+def test_three_train_steps_match_reference(accum, donate):
     jm, js, tm, ts = states()
     jstep = jax.jit(jmake(jm, lr=1e-3, accum_steps=accum))
-    tstep = make_train_step(tm, lr=1e-3, accum_steps=accum)
+    tstep = make_train_step(tm, lr=1e-3, accum_steps=accum, donate=donate)
     rng = np.random.default_rng(3)
     for i in range(3):
         toks = rng.integers(0, tm.cfg.vocab, (4, 33)).astype(np.int32)
@@ -186,8 +191,13 @@ def random_tree(rng, scale):
                 np.float32)}}
 
 
-@pytest.mark.parametrize("scale", [1e-3, 10.0])      # clip idle / active
-def test_adamw_update_matches_reference(scale):
+@pytest.mark.parametrize("scale,donate", [        # clip idle / active
+    pytest.param(1e-3, False, id="0.001"), pytest.param(10.0, False, id="10.0"),
+    pytest.param(1e-3, True, id="0.001-donated"),
+    pytest.param(10.0, True, id="10.0-donated")])
+def test_adamw_update_matches_reference(scale, donate):
+    """The pure update, and the donated one (in place on copies of the
+    state, which the step at lr None would otherwise have consumed)."""
     rng = np.random.default_rng(11)
     params = random_tree(rng, 1.0)
     jstate = jopt.adamw_init(jax.tree.map(jnp.asarray, params))
@@ -201,8 +211,15 @@ def test_adamw_update_matches_reference(scale):
                 continue
             jp2, jstate2 = jopt.adamw_update(jax.tree.map(jnp.asarray, g),
                                              jstate, jp, lr=lr)
+            given = (tstate, tp)
+            if donate:          # copies, which the update writes into
+                given = (topt.AdamWState(step=tstate.step,
+                                         m=tree_map(torch.clone, tstate.m),
+                                         v=tree_map(torch.clone, tstate.v)),
+                         tree_map(torch.clone, tp))
             tp2, tstate2 = topt.adamw_update(
-                jax.tree.map(torch.from_numpy, g), tstate, tp, lr=lr)
+                jax.tree.map(torch.from_numpy, g), *given, lr=lr,
+                donate=donate)
             assert max_err(jp2, tp2) <= 1e-6
             assert max_err(jstate2.m, tstate2.m) <= 1e-7
             assert max_err(jstate2.v, tstate2.v) <= 1e-7
